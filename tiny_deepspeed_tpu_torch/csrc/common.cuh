@@ -1,0 +1,86 @@
+// Copyright 2026 tiny-deepspeed-tpu authors
+// SPDX-License-Identifier: Apache-2.0
+//
+// Shared helpers for the port's hand-written kernels: dtype codes used by
+// the ctypes interface, float conversion, and vector row loads.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace tds {
+
+// dtype codes passed from Python (ops/_build.py callers)
+enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
+
+// masked score: finite, so an all-masked tile never turns the online
+// softmax stats into NaN; exp(-1e30 - m) underflows to 0 against any
+// live max
+constexpr float kMasked = -1e30f;
+
+template <typename T> __device__ __forceinline__ float to_f(T v);
+template <> __device__ __forceinline__ float to_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ float to_f<__nv_bfloat16>(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <> __device__ __forceinline__ float to_f<__half>(__half v) {
+  return __half2float(v);
+}
+
+template <typename T> __device__ __forceinline__ T from_f(float v);
+template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+template <> __device__ __forceinline__ __half from_f<__half>(float v) {
+  return __float2half(v);
+}
+
+// N contiguous elements at p (16-byte aligned) -> out[0..N) as float,
+// in 16-byte loads.
+template <int N>
+__device__ __forceinline__ void load_row(const float* p, float* out) {
+  static_assert(N % 4 == 0, "float rows load as float4");
+#pragma unroll
+  for (int i = 0; i < N; i += 4) {
+    float4 u = *reinterpret_cast<const float4*>(p + i);
+    out[i] = u.x; out[i + 1] = u.y; out[i + 2] = u.z; out[i + 3] = u.w;
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void load_row(const __nv_bfloat16* p, float* out) {
+  static_assert(N % 8 == 0, "bf16 rows load as 8-element uint4");
+#pragma unroll
+  for (int i = 0; i < N; i += 8) {
+    uint4 u = *reinterpret_cast<const uint4*>(p + i);
+    const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float2 f = __bfloat1622float2(h2[j]);
+      out[i + 2 * j] = f.x;
+      out[i + 2 * j + 1] = f.y;
+    }
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void load_row(const __half* p, float* out) {
+  static_assert(N % 8 == 0, "f16 rows load as 8-element uint4");
+#pragma unroll
+  for (int i = 0; i < N; i += 8) {
+    uint4 u = *reinterpret_cast<const uint4*>(p + i);
+    const __half2* h2 = reinterpret_cast<const __half2*>(&u);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      float2 f = __half22float2(h2[j]);
+      out[i + 2 * j] = f.x;
+      out[i + 2 * j + 1] = f.y;
+    }
+  }
+}
+
+}  // namespace tds
