@@ -6,9 +6,12 @@ versions (marker `cuda`; skipped without a CUDA device).
 
     python -m pytest tests/test_torch_cuda.py -q
 
-Covers what the serving path does not reach at gpt2-124m shapes: a ragged
-T, grouped K/V, f32 and f16 operands, block sizes other than 16, and a
-tiny-preset engine whose greedy tokens on the card match the CPU port's.
+Covers what the serving and training paths do not reach at gpt2-124m
+shapes: a ragged T or row count, grouped K/V, f32 and f16 operands, head
+dim 32, block sizes other than 16; bitwise repeatability of the backward
+kernels; refusal of operands a kernel cannot take; a tiny-preset engine
+whose greedy tokens on the card match the CPU port's, and a tiny-preset
+training step whose gradients on the card match the CPU port's.
 """
 
 import math
@@ -99,6 +102,142 @@ def test_paged_kernel(qdt, kdt, hq, kvh, d, bt):
         torch.testing.assert_close(o.float(), po.float(),
                                    **TOL[kdt if kdt != torch.float32
                                          else qdt])
+
+
+def _ln_bwd_inputs(dtype, rows, n, seed):
+    g = _g(seed)
+    x = (torch.randn(rows, n, generator=g, device="cuda") * 2 + 0.3
+         ).to(dtype)
+    w = torch.randn(n, generator=g, device="cuda").to(dtype)
+    gy = torch.randn(rows, n, generator=g, device="cuda").to(dtype)
+    _, mean, rstd = layernorm._ln_fwd_plain(x, w, w)
+    return gy, x, w, mean, rstd
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("rows,n", [(1, 64), (37, 768), (300, 1600),
+                                    (8192, 768)])
+def test_layernorm_backward_kernels(dtype, rows, n):
+    gy, x, w, mean, rstd = _ln_bwd_inputs(dtype, rows, n, rows + n)
+    before = (layernorm.layernorm_dx.launches,
+              layernorm.layernorm_dwdb.launches)
+    dx = layernorm.layernorm_dx(gy, x, w, mean, rstd)
+    dw, db = layernorm.layernorm_dwdb(gy, x, mean, rstd)
+    torch.cuda.synchronize()
+    assert (layernorm.layernorm_dx.launches,
+            layernorm.layernorm_dwdb.launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    assert dx.dtype == dw.dtype == db.dtype == dtype
+    torch.testing.assert_close(
+        dx.float(), layernorm._ln_dx_plain(gy, x, w, mean, rstd).float(),
+        **TOL[dtype])
+    pdw, pdb = layernorm._ln_dwdb_plain(gy, x, mean, rstd)
+    # sums over up to 8192 rows: the two reductions differ in order only,
+    # the tolerance scales with the sum's magnitude
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, ref in ((dw, pdw), (db, pdb)):
+        scale = float(ref.float().abs().max()) + 1.0
+        assert float((got.float() - ref.float()).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("b,h,kvh,t,d", [
+    (1, 2, 2, 64, 64), (2, 4, 2, 100, 64), (1, 2, 1, 33, 32),
+    (3, 2, 2, 1, 64), (1, 12, 12, 1000, 64)])
+def test_flash_backward_kernels(dtype, b, h, kvh, t, d):
+    g = _g(7 * t + h)
+    q = torch.randn(b, h, t, d, generator=g, device="cuda").to(dtype)
+    k = torch.randn(b, kvh, t, d, generator=g, device="cuda").to(dtype)
+    v = torch.randn(b, kvh, t, d, generator=g, device="cuda").to(dtype)
+    do = torch.randn(b, h, t, d, generator=g, device="cuda").to(dtype)
+    o, lse = flash_fa2._fa2_fwd_plain(q, k, v)
+    di = (do.float() * o.float()).sum(-1)
+    before = (flash_fa2.fa2_flash_attention_dq.launches,
+              flash_fa2.fa2_flash_attention_dkv.launches)
+    dq = flash_fa2.fa2_flash_attention_dq(q, k, v, do, lse, di)
+    dk, dv = flash_fa2.fa2_flash_attention_dkv(q, k, v, do, lse, di)
+    torch.cuda.synchronize()
+    assert (flash_fa2.fa2_flash_attention_dq.launches,
+            flash_fa2.fa2_flash_attention_dkv.launches) == (before[0] + 1,
+                                                            before[1] + 1)
+    assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+    refs = (flash_fa2._fa2_dq_plain(q, k, v, do, lse, di),
+            *flash_fa2._fa2_dkv_plain(q, k, v, do, lse, di))
+    for got, ref in zip((dq, dk, dv), refs):
+        assert got.dtype == dtype
+        # f32 accumulations over up to T keys in another order: the
+        # tolerance scales with the gradient's magnitude (at T=1 the
+        # gradients are rounding noise around 0: an absolute floor)
+        scale = float(ref.float().abs().max())
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        assert float((got.float() - ref.float()).abs().max()) <= \
+            tol * scale + 1e-5
+
+
+def test_backward_kernels_bitwise_repeatable():
+    gy, x, w, mean, rstd = _ln_bwd_inputs(torch.bfloat16, 8192, 768, 1)
+    g = _g(2)
+    q, k, v, do = (torch.randn(2, 4, 300, 64, generator=g, device="cuda"
+                               ).bfloat16() for _ in range(4))
+    o, lse = flash_fa2.fa2_flash_attention_fwd(q, k, v)
+    di = (do.float() * o.float()).sum(-1)
+
+    def ln():
+        return (layernorm.layernorm_dx(gy, x, w, mean, rstd),
+                *layernorm.layernorm_dwdb(gy, x, mean, rstd))
+
+    def fa():
+        return (flash_fa2.fa2_flash_attention_dq(q, k, v, do, lse, di),
+                *flash_fa2.fa2_flash_attention_dkv(q, k, v, do, lse, di))
+
+    for fn in (ln, fa):
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, w_) for u, w_ in zip(first, second))
+
+
+def test_backward_kernels_refuse_bad_operands():
+    z = torch.zeros(4, 768, device="cuda", dtype=torch.float64)
+    s = torch.zeros(4, device="cuda")
+    with pytest.raises(ValueError, match="f32/bf16/f16"):
+        layernorm.layernorm_dx(z, z, torch.ones(768, device="cuda"), s, s)
+    zf = z.float()
+    with pytest.raises(ValueError, match="mean/rstd"):
+        layernorm.layernorm_dwdb(zf, zf, s.double(), s)
+    q = torch.zeros(1, 2, 16, 48, device="cuda", dtype=torch.bfloat16)
+    st = torch.zeros(1, 2, 16, device="cuda")
+    with pytest.raises(ValueError, match="head dim"):
+        flash_fa2.fa2_flash_attention_dq(q, q, q, q, st, st)
+    q = torch.zeros(1, 2, 16, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="lse"):
+        flash_fa2.fa2_flash_attention_dkv(q, q, q, q, st.half(), st)
+    with pytest.raises(ValueError, match="do"):
+        flash_fa2.fa2_flash_attention_dq(q, q, q, q.float(), st, st)
+
+
+def test_tiny_training_grads_match_cpu():
+    """f32 tiny preset: one step's loss and gradients through every
+    training kernel on the card match the CPU port's plain path."""
+    import tiny_deepspeed_tpu_torch as T
+    cfg = T.GPT2_PRESETS["tiny"]
+    cpu = T.GPT2Model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    gpu = T.GPT2Model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    g = torch.Generator().manual_seed(1)
+    idx = torch.randint(0, cfg.vocab_size, (2, 100), generator=g)
+    tgt = torch.randint(0, cfg.vocab_size, (2, 100), generator=g)
+    out = []
+    for model in (cpu, gpu):
+        loss = model.apply(idx.to(model.device), tgt.to(model.device))
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out.append((float(loss), [gr.cpu() for gr in grads]))
+    assert abs(out[0][0] - out[1][0]) <= 1e-4
+    for (name, _), a, b in zip(cpu.named_parameters(), out[0][1],
+                               out[1][1]):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-3, msg=name)
 
 
 def test_tiny_engine_tokens_match_cpu():

@@ -7,7 +7,7 @@ The JAX package's `tiny` preset (f32) is initialised from a seed, its flat
 parameter dict crosses to the port through numpy (`params_from_numpy`),
 and the port's full forward must give the JAX `apply` logits within
 1e-4 (the two run the same f32 math in another summation order).  Also
-pinned: the refused training / ZeRO-3 knobs, the no-silent-CPU rule of
+pinned: the refused dropout / ZeRO-3 knobs, the no-silent-CPU rule of
 the entry points, the sampling core against JAX's greedy argmax, and that
 no file of the port imports jax or the JAX package.
 """
@@ -118,9 +118,8 @@ class TestInitAndConfig:
         assert a.num_params() == sum(x.numel() for x in p.values())
 
     @pytest.mark.parametrize("knob", [
-        dict(dropout=0.1), dict(remat=True), dict(gather_quant="fp8"),
-        dict(attn_impl="ring"),
-    ], ids=["dropout", "remat", "gather_quant", "attn_impl"])
+        dict(dropout=0.1), dict(gather_quant="fp8"), dict(attn_impl="ring"),
+    ], ids=["dropout", "gather_quant", "attn_impl"])
     def test_refused_knobs_raise(self, knob):
         cfg = dataclasses.replace(T.GPT2_PRESETS["tiny"], **knob)
         with pytest.raises(ValueError):
@@ -210,7 +209,8 @@ def _forbidden(mod):
 
 class TestPackaging:
     def test_port_never_imports_jax_or_the_jax_package(self):
-        files = [os.path.join(REPO, "chip_smoke.py")]
+        files = [os.path.join(REPO, f) for f in ("chip_smoke.py",
+                                                  "serve_ab.py")]
         pkg = os.path.join(REPO, "tiny_deepspeed_tpu_torch")
         files += [os.path.join(dp, f) for dp, _, fs in os.walk(pkg)
                   for f in fs if f.endswith(".py")]
@@ -222,7 +222,9 @@ class TestPackaging:
         code = ("import sys, tiny_deepspeed_tpu_torch as T, "
                 "tiny_deepspeed_tpu_torch.ops.layernorm, "
                 "tiny_deepspeed_tpu_torch.ops.flash_fa2, "
-                "tiny_deepspeed_tpu_torch.ops.paged_attn; "
+                "tiny_deepspeed_tpu_torch.ops.paged_attn, "
+                "tiny_deepspeed_tpu_torch.ops.softmax_xent, "
+                "tiny_deepspeed_tpu_torch.train; "
                 "print(sorted(m for m in sys.modules if m.split('.')[0] in "
                 "('jax', 'tiny_deepspeed_tpu', 'triton')))")
         out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
@@ -230,8 +232,21 @@ class TestPackaging:
         assert out.returncode == 0, out.stderr
         assert out.stdout.strip() == "[]"
 
+    @pytest.mark.skipif(torch.cuda.is_available(), reason="needs no card")
+    @pytest.mark.parametrize("argv", [["chip_smoke.py"],
+                                      ["serve_ab.py", "."]])
+    def test_card_scripts_refuse_without_a_card(self, argv):
+        """Without CUDA the on-card scripts exit non-zero, print no
+        result, and build nothing."""
+        out = subprocess.run([sys.executable] + argv, cwd=REPO,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode == 2, out.stderr
+        assert out.stdout == ""
+        assert "no CUDA device" in out.stderr
+
     def test_kernel_sources_ship_with_the_package(self):
         csrc = os.path.join(REPO, "tiny_deepspeed_tpu_torch", "csrc")
-        assert {"flash_fwd.cu", "paged_attn.cu"} <= set(os.listdir(csrc))
+        assert {"flash_fwd.cu", "flash_bwd.cu", "paged_attn.cu"} <= set(
+            os.listdir(csrc))
         with open(os.path.join(REPO, "pyproject.toml")) as f:
             assert "csrc/*.cu" in f.read()

@@ -7,7 +7,8 @@ The JAX package's parameters are a flat dict of dotted names with the L
 transformer blocks stacked on a leading axis ("h.attn.qkv.w": (L, d, 3d)),
 linear weights (in, out).  The port keeps exactly that name space and
 layout (`GPT2Model.named_parameters()`), so conversion is a dtype- and
-device-preserving copy — how the tests give both sides the same weights.
+device-preserving copy — how the tests give both sides the same weights
+(and, for the optimizers, the same moments).
 """
 
 from __future__ import annotations
@@ -44,3 +45,22 @@ def params_to_numpy(params) -> Dict[str, np.ndarray]:
             t = t.float()
         out[name] = t.numpy()
     return out
+
+
+def opt_state_to_numpy(opt_state) -> Dict:
+    """An optimizer state {"step", "state": {name: {slot: tensor}}} ->
+    the same tree with an int step and f32/int numpy slots — comparable
+    with the JAX optimizers' state (`np.asarray` of their leaves)."""
+    return {"step": int(opt_state["step"]),
+            "state": {n: params_to_numpy(slots)
+                      for n, slots in opt_state["state"].items()}}
+
+
+def opt_state_from_numpy(tree: Dict, device: Union[str, torch.device]
+                         ) -> Dict:
+    """The inverse: {"step", "state": {name: {slot: array}}} (the JAX
+    optimizers' state through numpy) -> the port's optimizer state on
+    `device`."""
+    return {"step": int(np.asarray(tree["step"])),
+            "state": {n: params_from_numpy(slots, device)
+                      for n, slots in tree["state"].items()}}

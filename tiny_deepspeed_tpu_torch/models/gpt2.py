@@ -1,32 +1,36 @@
 # Copyright 2026 tiny-deepspeed-tpu authors
 # SPDX-License-Identifier: Apache-2.0
 
-"""GPT-2 forward for serving, in PyTorch.
+"""GPT-2 in PyTorch: the training forward with its loss, and serving.
 
 Counterpart of `tiny_deepspeed_tpu/models/gpt2.py`: same configuration,
 same parameter names and layouts (a flat dotted name space with the L
 transformer blocks STACKED on a leading axis, linear weights (in, out)),
 same pre-LN block, f32 master parameters and a compute dtype (bf16 on
-gpt2-124m) cast once per serving engine.  Parameters are registered on
-nested submodules so `named_parameters()` yields exactly the JAX
-package's flat dict keys, and `load_state_dict(params_from_numpy(...))`
-takes the JAX package's weights.
+gpt2-124m).  Parameters are registered on nested submodules so
+`named_parameters()` yields exactly the JAX package's flat dict keys, and
+`load_state_dict(params_from_numpy(...))` takes the JAX package's weights.
 
-This slice is the serving forward: the training forward's `return_kv`
-prefill hook, the paged decode step and the inference head.  The loss
-head, dropout, remat and ZeRO-3's `gather_quant` belong to the training
-slices and are refused here rather than silently ignored.
+Training: `apply(idx, targets)` returns the mean cross-entropy loss and
+is differentiable (parameters require grad); each block runs under the
+configured remat policy (`torch.utils.checkpoint`, see `_block_fn`).
+Serving: the `return_kv` prefill hook, the paged decode step and the
+inference head, all without a graph.  Dropout, ZeRO-3's `gather_quant`
+and the fused xent head belong to later slices and are refused here
+rather than silently ignored.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Dict, Optional, Union
+import functools
+from typing import Any, Dict, List, Optional, Union
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from ..ops.attention import ATTENTION
 from ..ops.dispatch import resolve_device
@@ -34,12 +38,13 @@ from ..ops.embedding import embedding, renorm_weight
 from ..ops.layernorm import layernorm
 from ..ops.linear import linear
 from ..ops.paged_attn import decode_attention, paged_attention
+from ..ops.softmax_xent import softmax_cross_entropy
 
 
 @dataclasses.dataclass(frozen=True)
 class GPTConfig:
-    """Model hyperparameters (JAX models/gpt2.py:53).  `remat` defaults
-    to False here: there is no backward to rematerialize yet."""
+    """Model hyperparameters (JAX models/gpt2.py:53), with the JAX
+    defaults (`remat=True`, `remat_policy="dots_no_batch"`)."""
 
     block_size: int = 1024
     vocab_size: int = 50304
@@ -53,8 +58,11 @@ class GPTConfig:
     gather_quant: Optional[str] = None
     param_dtype: Any = torch.float32
     compute_dtype: Any = torch.bfloat16
-    remat: bool = False
+    remat: bool = True
+    # "nothing" | "dots" | "dots_no_batch" | "all" (see GPT2Model._block_fn)
+    remat_policy: str = "dots_no_batch"
     wte_max_norm: Optional[float] = None
+    fused_xent: bool = False  # refused: the fused xent head is slice 3
     cache_dtype: Any = None
 
     @property
@@ -96,6 +104,22 @@ GPT2_PRESETS: Dict[str, GPTConfig] = {
 
 Params = Dict[str, torch.Tensor]
 
+# remat policy -> the aten products whose outputs the checkpoint keeps
+# (None: recompute the whole block); "all" takes no checkpoint at all
+_REMAT_SAVE = {
+    "nothing": None,
+    "dots_no_batch": (torch.ops.aten.mm.default,),
+    "dots": (torch.ops.aten.mm.default, torch.ops.aten.bmm.default),
+    "all": None,
+}
+
+
+def _save_policy(ops):
+    def policy(ctx, op, *args, **kwargs):
+        return (ckpt.CheckpointPolicy.MUST_SAVE if op in ops
+                else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+    return policy
+
 
 class GPT2Model(nn.Module):
     """GPT-2 with its parameters on `device` (the card unless the caller
@@ -107,13 +131,19 @@ class GPT2Model(nn.Module):
     def __init__(self, config: GPTConfig,
                  device: Union[None, str, torch.device] = None):
         super().__init__()
-        refused = {"dropout": config.dropout != 0.0, "remat": config.remat,
-                   "gather_quant": config.gather_quant is not None}
+        refused = {"dropout": config.dropout != 0.0,
+                   "gather_quant": config.gather_quant is not None,
+                   "fused_xent": config.fused_xent}
         bad = [k for k, on in refused.items() if on]
         if bad:
             raise ValueError(
-                f"GPTConfig {bad}: training / ZeRO-3 features, not ported "
-                "yet (the port runs the serving forward only)")
+                f"GPTConfig {bad}: not ported yet — dropout (a Philox-seeded "
+                "mask) and the fused xent head come with slice 3 of the "
+                "port, gather_quant with the distributed engines "
+                "(ROADMAP.md)")
+        if config.remat_policy not in _REMAT_SAVE:
+            raise ValueError(f"remat_policy {config.remat_policy!r} not in "
+                             f"{sorted(_REMAT_SAVE)}")
         if config.attn_impl not in ATTENTION:
             raise ValueError(f"attn_impl {config.attn_impl!r} not in "
                              f"{sorted(ATTENTION)}")
@@ -128,10 +158,9 @@ class GPT2Model(nn.Module):
                 if not hasattr(mod, p):
                     mod.add_module(p, nn.Module())
                 mod = getattr(mod, p)
-            # frozen: the port has no backward yet
             mod.register_parameter(leaf, nn.Parameter(
                 torch.zeros(shape, dtype=config.param_dtype,
-                            device=self.device), requires_grad=False))
+                            device=self.device)))
 
     # -- parameters ---------------------------------------------------------
 
@@ -189,8 +218,8 @@ class GPT2Model(nn.Module):
     def stacked_compute_params(self, params: Optional[Params] = None
                                ) -> Params:
         """The "h.*" tensors, keys without the "h." prefix, cast to the
-        compute dtype ONCE (the engine keeps the result: params are
-        frozen while serving).  Layer l is `{k: v[l]}`."""
+        compute dtype ONCE per step (the serving engine keeps the result:
+        params are frozen while serving).  Layer l is `{k: v[l]}`."""
         p = self.param_dict() if params is None else params
         cd = self.config.compute_dtype
         return {k[2:]: v.to(cd) for k, v in p.items() if k.startswith("h.")}
@@ -207,6 +236,15 @@ class GPT2Model(nn.Module):
     @staticmethod
     def _layer(stacked: Params, l: int) -> Params:
         return {k: v[l] for k, v in stacked.items()}
+
+    @staticmethod
+    def _layers(stacked: Params) -> List[Params]:
+        """Every layer's dict at once: one `unbind` per stacked tensor, so
+        the backward stacks the L layer gradients once instead of
+        scattering each into a zeros-filled stacked tensor."""
+        cols = {k: v.unbind(0) for k, v in stacked.items()}
+        n = len(next(iter(cols.values())))
+        return [{k: c[l] for k, c in cols.items()} for l in range(n)]
 
     # -- forward ------------------------------------------------------------
 
@@ -266,23 +304,78 @@ class GPT2Model(nn.Module):
         return w.to(c.compute_dtype)
 
     def head(self, x, position: Optional[int] = None,
-             params: Optional[Params] = None):
-        """Final norm + lm_head at ONE position (default the last) ->
-        (B, 1, V) f32 logits.  The norm is per row, so selecting the row
-        first gives the JAX head's values at a fraction of the rows."""
+             params: Optional[Params] = None,
+             targets: Optional[torch.Tensor] = None):
+        """Final norm + lm_head.  With `targets` (B, T): the mean
+        cross-entropy loss over every position (JAX `head`, :953-971 —
+        logits in the compute dtype, the loss in f32).  Without: (B, 1, V)
+        f32 logits at ONE position (default the last); the norm is per
+        row, so selecting the row first gives the JAX head's values at a
+        fraction of the rows."""
+        if targets is not None:
+            x = self.final_norm(x, params)
+            logits = linear(x, self._lm_head_w(params), None)
+            return softmax_cross_entropy(logits, targets)
         x = x[:, -1:] if position is None else x[:, position:position + 1]
         x = self.final_norm(x, params)
         return linear(x, self._lm_head_w(params), None).float()
 
-    @torch.no_grad()
-    def apply(self, idx: torch.Tensor, position: Optional[int] = None):
-        """Full forward of (B, T) tokens -> (B, 1, V) f32 logits at
-        `position` (default the last) — JAX `apply` without targets."""
+    def _block_fn(self):
+        """(x, bp) -> x under the configured remat policy (JAX
+        `block_fn` / `remat_policy`, :893-928), as a non-reentrant
+        `torch.utils.checkpoint` per block:
+
+        - "nothing": keep only the block's input; the backward recomputes
+          the whole block;
+        - "dots" / "dots_no_batch": also keep the outputs of the matrix
+          products, through selective checkpointing — "dots_no_batch"
+          the 2-D products (`aten.mm`: every linear layer), "dots" the
+          batched ones too (`aten.bmm`).  The kernels' autograd Functions
+          (LayerNormFn, FA2Fn) are recomputed, as the JAX policies
+          recompute them;
+        - "all": no checkpoint, everything is kept.
+
+        The policy changes memory and recompute time, never the numbers:
+        a recomputed block runs the same deterministic kernels on the
+        same inputs."""
+        c = self.config
+        if not c.remat or c.remat_policy == "all":
+            return self._block
+        save = _REMAT_SAVE[c.remat_policy]
+        kw = {}
+        if save:
+            kw["context_fn"] = functools.partial(
+                ckpt.create_selective_checkpoint_contexts,
+                _save_policy(save))
+
+        def block(x, bp):
+            if not torch.is_grad_enabled():
+                return self._block(x, bp)
+            # no RNG inside a block (dropout is refused), so no RNG state
+            # needs restoring for the recompute
+            return ckpt.checkpoint(self._block, x, bp, use_reentrant=False,
+                                   preserve_rng_state=False, **kw)
+        return block
+
+    def apply(self, idx: torch.Tensor,
+              targets: Optional[torch.Tensor] = None,
+              position: Optional[int] = None):
+        """Full forward of (B, T) tokens.  With `targets` (B, T): the mean
+        loss, differentiable (JAX `apply(params, idx, targets)`).
+        Without: (B, 1, V) f32 logits at `position` (default the last),
+        computed without a graph."""
+        if targets is None:
+            with torch.no_grad():
+                x = self.embed(idx)
+                stacked = self.stacked_compute_params()
+                for l in range(self.config.n_layer):
+                    x = self._block(x, self._layer(stacked, l))
+                return self.head(x, position)
         x = self.embed(idx)
-        stacked = self.stacked_compute_params()
-        for l in range(self.config.n_layer):
-            x = self._block(x, self._layer(stacked, l))
-        return self.head(x, position)
+        block = self._block_fn()
+        for bp in self._layers(self.stacked_compute_params()):
+            x = block(x, bp)
+        return self.head(x, targets=targets)
 
     # -- paged KV-cache decode (the serving tier) ---------------------------
 
@@ -317,6 +410,7 @@ class GPT2Model(nn.Module):
         y = y.transpose(1, 2).reshape(s, 1, c.n_embd)
         return x + linear(y, bp["attn.proj.w"], bp.get("attn.proj.b"))
 
+    @torch.no_grad()
     def paged_decode(self, stacked: Params, x, view, page):
         """Layer loop for one paged decode token; the pool is written in
         place.  Returns (x, view)."""
@@ -326,6 +420,7 @@ class GPT2Model(nn.Module):
             x = x + self._mlp(x, bp)
         return x, view
 
+    @torch.no_grad()
     def paged_prefill(self, idx, last_pos: int, block_ids, view,
                       block_tokens: int, stacked: Optional[Params] = None,
                       head_params: Optional[Params] = None):

@@ -5,15 +5,17 @@
 
 Counterpart of `tiny_deepspeed_tpu/ops/attention.py`.  Both take
 (B, H, T, Dh) queries and (B, KVH, T, Dh) keys/values with KVH | H.
-`flash_attention` launches the FA2 kernel (ops/flash_fa2.py) on CUDA
-tensors and takes the plain version on CPU tensors; there is no SDPA
-fallback.  The JAX package's mesh-aware `sharded_attention` (ring,
-Ulysses, shard_map) has no counterpart yet: the port runs one device.
+`flash_attention` is `FA2Fn`: the FA2 forward and backward kernels
+(ops/flash_fa2.py) on CUDA tensors, their plain versions on CPU tensors;
+there is no SDPA fallback.  `standard_attention` stays plain PyTorch and
+autograd differentiates it, as XLA does in the JAX package.  The JAX
+package's mesh-aware `sharded_attention` (ring, Ulysses, shard_map) has
+no counterpart yet: the port runs one device.
 """
 
 from __future__ import annotations
 
-from .flash_fa2 import _fa2_fwd_plain, fa2_flash_attention_fwd
+from .flash_fa2 import FA2Fn, _fa2_fwd_plain
 
 
 def standard_attention(q, k, v):
@@ -22,8 +24,8 @@ def standard_attention(q, k, v):
 
 
 def flash_attention(q, k, v):
-    """Blockwise causal attention: the FA2 kernel on the card."""
-    return fa2_flash_attention_fwd(q, k, v)[0]
+    """Blockwise causal attention: the FA2 kernels on the card."""
+    return FA2Fn.apply(q, k, v)
 
 
 ATTENTION = {"standard_attention": standard_attention,

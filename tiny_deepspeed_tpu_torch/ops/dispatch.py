@@ -19,10 +19,12 @@ import torch
 
 def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
     """The device an entry point runs on: `device` when given, else the
-    card.  Without CUDA and without an explicit device this RAISES —
-    the port never drops to the CPU on its own."""
+    card.  Without CUDA, a CUDA device (given or implied) RAISES — the
+    port never drops to the CPU on its own."""
     if device is not None:
-        return torch.device(device)
+        device = torch.device(device)
+        if device.type != "cuda" or torch.cuda.is_available():
+            return device
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device available: pass device='cpu' explicitly to run "
@@ -37,6 +39,12 @@ def on_cuda(*tensors: Optional[torch.Tensor]) -> bool:
     if len(types) > 1:
         raise ValueError(f"operands on mixed devices: {sorted(types)}")
     return types == {"cuda"}
+
+
+def acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The plain versions' accumulation type: f32, or f64 for f64 inputs
+    (so `torch.autograd.gradcheck` can run them in double precision)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
 
 
 def require(cond: bool, msg: str) -> None:

@@ -3,20 +3,25 @@
 
 """Embedding gather and the `max_norm` row renorm.
 
-Counterpart of `tiny_deepspeed_tpu/ops/embedding.py` (forward only; the
-scatter-add weight gradient waits for the training slice).  Like the JAX
-package, `renorm_weight` is functional: it returns rescaled rows and never
-mutates the stored table.
+Counterpart of `tiny_deepspeed_tpu/ops/embedding.py`.  The gather is
+`F.embedding`, and PyTorch autograd through it is the backward: the JAX
+rule's scatter-add weight gradient (:30-36, f32 sums cast to the
+gradient's dtype — f32, since the gather reads the f32 master) is what
+`F.embedding`'s backward computes, so no `autograd.Function` is needed.
+Like the JAX package, `renorm_weight` is functional: it returns rescaled
+rows and never mutates the stored table; autograd differentiates the
+rescale.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 
 def embedding(idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """y[..., d] = w[idx]."""
-    return w[idx]
+    return F.embedding(idx, w)
 
 
 def renorm_weight(w: torch.Tensor, max_norm: float,

@@ -1,0 +1,138 @@
+# Copyright 2026 tiny-deepspeed-tpu authors
+# SPDX-License-Identifier: Apache-2.0
+
+"""Single-device GPT-2 training, the port's entry point.
+
+    python -m tiny_deepspeed_tpu_torch.train [--model gpt2-124m] [--iters N]
+    python -m tiny_deepspeed_tpu_torch.train --device cpu --model tiny
+
+Counterpart of `examples/single_device/train.py` with the harness of
+`examples/common.py` (`parse_args` / `run`): the same flags, with the
+same names and defaults, for what this slice supports, plus `--device`
+(default the card).  Seeded init, the JAX package's token stream
+(synthetic unless `--data`), `AdamW(lr, weight_decay, decay_exclude)`
+with an optional schedule, `SingleDevice` with optional grad clipping and
+loss scaling; it prints `iter N loss X` per step, optional
+`iter N val_loss X`, and `done: N iters in Xs (Y tokens/s)`.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import torch
+
+from .data import TokenLoader
+from .models.gpt2 import GPT2_PRESETS, GPT2Model
+from .optim import AdamW
+from .optim import schedule as schedules
+from .parallel import SingleDevice
+
+
+def _loss_scale(v):
+    if v == "dynamic":
+        return v
+    try:
+        return float(v)
+    except ValueError:
+        raise argparse.ArgumentTypeError(
+            f"{v!r} is not a number or 'dynamic'") from None
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser(
+        prog="python -m tiny_deepspeed_tpu_torch.train",
+        description=__doc__.split("\n\n")[0])
+    p.add_argument("--model", default="gpt2-124m",
+                   choices=sorted(GPT2_PRESETS))
+    p.add_argument("--iters", type=int, default=100)
+    p.add_argument("--batch-per-device", type=int, default=1)
+    p.add_argument("--seq-len", type=int, default=None,
+                   help="default min(1024, model block_size)")
+    p.add_argument("--lr", type=float, default=1e-5)
+    p.add_argument("--lr-schedule", default="constant",
+                   choices=("constant", "warmup_linear", "warmup_cosine",
+                            "inverse_sqrt"),
+                   help="learning-rate schedule over --iters with --lr as "
+                        "the peak")
+    p.add_argument("--warmup-steps", type=int, default=0)
+    p.add_argument("--weight-decay", type=float, default=0.1)
+    p.add_argument("--wd-exclude", default=None, metavar="PAT[,PAT]",
+                   help="comma-separated name substrings exempt from "
+                        "weight decay (e.g. '.b,ln_')")
+    p.add_argument("--grad-clip", type=float, default=0.0, metavar="NORM",
+                   help="clip gradients to this global L2 norm (0 = off)")
+    p.add_argument("--loss-scale", type=_loss_scale, default=None,
+                   metavar="S", help="a number (static) or 'dynamic'")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--data", default=None, metavar="TOKENS.bin",
+                   help="uint16 token corpus; default synthetic tokens")
+    p.add_argument("--eval-every", type=int, default=0, metavar="N")
+    p.add_argument("--eval-batches", type=int, default=8, metavar="K")
+    p.add_argument("--val-data", default=None, metavar="VAL.bin")
+    p.add_argument("--device", default="cuda",
+                   help="'cuda' (default) or 'cpu' (the plain PyTorch "
+                        "path, for small models)")
+    args = p.parse_args(argv)
+    if args.seq_len is None:
+        args.seq_len = min(1024, GPT2_PRESETS[args.model].block_size)
+    return args
+
+
+def _lr(args):
+    """--lr / --lr-schedule / --warmup-steps -> a float or a schedule,
+    as examples/common.py builds it."""
+    if args.lr_schedule == "constant" and not args.warmup_steps:
+        return args.lr
+    name, kw = args.lr_schedule, {"warmup_steps": args.warmup_steps}
+    if name == "constant":
+        name, kw = "warmup_linear", dict(kw, min_lr=args.lr)
+    elif name == "inverse_sqrt":
+        kw["warmup_steps"] = max(1, args.warmup_steps)
+    if name in ("warmup_linear", "warmup_cosine"):
+        kw["total_steps"] = args.iters
+    return schedules.SCHEDULES[name](args.lr, **kw)
+
+
+def run(args):
+    model = GPT2Model(GPT2_PRESETS[args.model], device=args.device)
+    opt = AdamW(lr=_lr(args), weight_decay=args.weight_decay,
+                decay_exclude=tuple(
+                    p for p in (args.wd_exclude or "").split(",") if p))
+    engine = SingleDevice(model, opt, device=args.device,
+                          grad_clip=args.grad_clip or None,
+                          loss_scale=args.loss_scale)
+    b = args.batch_per_device
+    print(engine.describe())
+    print(f"model={args.model} params={model.num_params() / 1e6:.1f}M "
+          f"global_batch={b} T={args.seq_len}")
+    state = engine.init(args.seed)
+    vocab = model.config.vocab_size
+    loader = TokenLoader(args.data, batch=b, seq=args.seq_len,
+                         vocab_size=vocab, seed=args.seed)
+    val_loader = (TokenLoader(args.val_data, batch=b, seq=args.seq_len,
+                              vocab_size=vocab, seed=args.seed + 1)
+                  if args.eval_every else None)
+    t0 = time.perf_counter()
+    for it in range(args.iters):
+        state, loss = engine.step(state, loader.next())
+        print(f"iter {it:3d} loss {float(loss):.4f}")  # syncs the step
+        if args.eval_every and (it + 1) % args.eval_every == 0:
+            vals = [float(engine.eval_loss(state, val_loader.next()))
+                    for _ in range(args.eval_batches)]
+            print(f"iter {it:3d} val_loss {sum(vals) / len(vals):.4f}")
+    if torch.device(args.device).type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    toks = args.iters * b * args.seq_len
+    print(f"done: {args.iters} iters in {dt:.1f}s ({toks / dt:.0f} tokens/s)")
+    return state
+
+
+def main(argv=None):
+    run(parse_args(argv))
+
+
+if __name__ == "__main__":
+    main()
