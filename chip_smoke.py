@@ -15,14 +15,16 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      compile;
   2. kernel parity: each hand-written kernel against its plain PyTorch
      version on the card at its main paths' shapes (the two forward
-     kernels at serving's and at training's), in bf16, with the
-     tolerance stated per kernel; the four backward kernels also run
-     twice and must agree bit for bit.  Its device time (profiler) stands
-     beside the plain version's, one library call's (timed here as a
-     yardstick only; the port never calls it) and the bound — the larger
-     of bytes / 3.35 TB/s and flops / the H100 SXM dense peak for the
-     inputs' type — and `call_ms` is its per-call time with host launch
-     overhead (CUDA events around back-to-back calls);
+     kernels at serving's and at training's; the fused xent kernels also
+     at a ragged vocab and at D = 1600; AdamW also at ragged leaves), in
+     bf16 (AdamW f32), with the tolerance stated per kernel; the seven
+     training kernels also run twice and must agree bit for bit.  Its
+     device time (profiler) stands beside the plain version's, one
+     library call's (timed here as a yardstick only; the port never calls
+     it) and the bound — the larger of bytes / 3.35 TB/s and flops / the
+     H100 SXM dense peak for the inputs' type — and `call_ms` is its
+     per-call time with host launch overhead (CUDA events around
+     back-to-back calls);
   3. serving: gpt2-124m (seeded random weights, bf16 compute) under
      ServingEngine(max_active=8, block_tokens=16) with a pool sized for
      the traffic — 16 greedy requests, seeded prompt lengths 16-512, 64
@@ -42,7 +44,15 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      bit-identical; 8 steps at lr=1e-3 on one batch lower its loss; one
      profiled step gives each kernel's device time and the device's busy
      and idle shares;
-  5. the `kernels` JSON line, then the result line
+  5. knobbed training: the same model and batch size with the fused
+     lm_head + loss kernels (fused_xent_impl="pallas"), AdamW(fused=True)
+     and dropout 0.1 — launch counts of the ten training kernels over 10
+     timed steps, step time, peak memory and one profiled step as in 4;
+     the fused and chunked heads against the default head, the kernel
+     path against the plain path, one fused AdamW update against
+     fused=False, dropout's determinism, remat invariance and eval, and
+     an 8-step fit;
+  6. the `kernels` JSON line, then the result line
      {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Imports nothing of JAX or of the JAX package.
@@ -57,6 +67,7 @@ import statistics
 import subprocess
 import sys
 import time
+import types
 
 # H100 SXM published peaks (dense), the bound's denominators
 HBM_BPS = 3.35e12
@@ -443,6 +454,192 @@ def flash_bwd_phase(torch, F, fa):
     return res
 
 
+def xent_phase(torch, F, fx):
+    """fused_xent_fwd, _dx and _dw at the knobbed training path's shape
+    (S = B*T = 8192, D = 768, V = 50304, bf16) and two ragged cases: S =
+    1000 with GPT-2's published V = 50257 (the padded 50304 = 128 x 393
+    never exercises the vocab tail), and gpt2-1.5b's D = 1600 at S = 512.
+    Tolerances: loss and lse max abs err <= 1e-3; dx and dW rel L2 err
+    <= 1e-2 against the plain versions, whose dz stays f32 (the kernels
+    round dz to bf16 before its product).  Each kernel runs twice and
+    must agree bit for bit."""
+    errs, main = {}, None
+    for s_, d, v in ((8192, 768, 50304), (1000, 768, 50257),
+                     (512, 1600, 50304)):
+        g = torch.Generator(device="cuda").manual_seed(s_ + d + v)
+        x = torch.randn(s_, d, generator=g, device="cuda").bfloat16()
+        w = (torch.randn(d, v, generator=g, device="cuda") * 0.05
+             ).bfloat16()
+        tg = torch.randint(0, v, (s_,), generator=g, device="cuda")
+        gs = torch.full((1,), 1.0 / s_, device="cuda")
+        loss, lse = fx.fused_xent_fwd(x, w, tg)
+        dx = fx.fused_xent_dx(x, w, tg, lse, gs)
+        dw = fx.fused_xent_dw(x, w, tg, lse, gs)
+        torch.cuda.synchronize()
+        ploss, plse = fx._xent_fwd_plain(x, w, tg)
+        pdx = fx._xent_dx_plain(x, w, tg, plse, gs)
+        pdw = fx._xent_dw_plain(x, w, tg, plse, gs)
+        e = {"fwd": max(max_err(loss, ploss), max_err(lse, plse)),
+             "dx": _rel_err(dx, pdx)[0], "dw": _rel_err(dw, pdw)[0],
+             "dx_rel": float((dx.float() - pdx.float()).norm()
+                             / pdx.float().norm()),
+             "dw_rel": float((dw - pdw).norm() / pdw.norm())}
+        errs[s_, d, v] = e
+        print(f"  fused xent S={s_} D={d} V={v} bf16: loss/lse max_abs_err "
+              f"{e['fwd']:.3g} (tol 1e-3); dx rel L2 {e['dx_rel']:.3g}, dW "
+              f"rel L2 {e['dw_rel']:.3g} (tol 1e-2)")
+        check(e["fwd"] <= 1e-3 and e["dx_rel"] <= 1e-2
+              and e["dw_rel"] <= 1e-2,
+              f"fused xent S={s_} D={d} V={v} disagrees with its plain "
+              "version")
+        _bitwise(torch, lambda: fx.fused_xent_fwd(x, w, tg),
+                 f"fused_xent_fwd S={s_}")
+        _bitwise(torch, lambda: [fx.fused_xent_dx(x, w, tg, lse, gs)],
+                 f"fused_xent_dx S={s_}")
+        _bitwise(torch, lambda: [fx.fused_xent_dw(x, w, tg, lse, gs)],
+                 f"fused_xent_dw S={s_}")
+        if main is None:
+            main = (x, w, tg, lse, gs)
+        del dx, dw, pdx, pdw
+    x, w, tg, lse, gs = main
+    s_, d = x.shape
+    v = w.shape[1]
+    wt = w.t()
+
+    def lib_fwd():
+        return F.cross_entropy(F.linear(x, wt).float(), tg, reduction="none")
+
+    # the yardstick for both backward passes: that pair's autograd backward
+    xr, wr = x.detach().requires_grad_(), wt.detach().requires_grad_()
+    lr_ = F.cross_entropy(F.linear(xr, wr).float(), tg)
+
+    def lib_bwd():
+        return torch.autograd.grad(lr_, (xr, wr), retain_graph=True)
+
+    lib_bwd_ms = device_ms(torch, lib_bwd, iters=5)
+    op = 2 * s_ * d * v
+    xb, wb = s_ * d * 2, d * v * 2
+    res = {}
+    for name, kernel, plain, lib, nbytes, flops, err in (
+            ("fused_xent_fwd", lambda: fx.fused_xent_fwd(x, w, tg),
+             lambda: fx._xent_fwd_plain(x, w, tg), lib_fwd,
+             xb + wb + s_ * 8 + 2 * s_ * 4, op,
+             max(e["fwd"] for e in errs.values())),
+            ("fused_xent_dx", lambda: fx.fused_xent_dx(x, w, tg, lse, gs),
+             lambda: fx._xent_dx_plain(x, w, tg, lse, gs), None,
+             xb + wb + s_ * 12 + 4 + xb, 2 * op,
+             max(e["dx"] for e in errs.values())),
+            ("fused_xent_dw", lambda: fx.fused_xent_dw(x, w, tg, lse, gs),
+             lambda: fx._xent_dw_plain(x, w, tg, lse, gs), None,
+             xb + wb + s_ * 12 + 4 + d * v * 4, 2 * op,
+             max(e["dw"] for e in errs.values()))):
+        bms, by = bound_ms(nbytes, flops, "bf16")
+        res[name] = dict(ms=device_ms(torch, kernel, iters=5),
+                         plain_ms=device_ms(torch, plain, iters=3),
+                         library_ms=(device_ms(torch, lib, iters=5) if lib
+                                     else lib_bwd_ms),
+                         call_ms=time_ms(torch, kernel, iters=5),
+                         bound_ms=bms, bound_by=by, max_abs_err=err,
+                         shape=f"S={s_} D={d} V={v} bf16")
+        print(f"kernel {name} S={s_} D={d} V={v} bf16: max_abs_err={err:.3g} "
+              "(all three shapes); library = F.linear + F.cross_entropy"
+              + (" backward, dx and dW" if lib is None else "") + "; "
+              + " ".join(f"{k}={v_:.5g}" for k, v_ in res[name].items()
+                         if k.endswith("ms")))
+    return res
+
+
+def adamw_phase(torch, af, leaf_shapes):
+    """adamw_update_fused at the lm_head leaf (768 x 50304) and at ragged
+    leaves (768 and 1,000,003 elements), L2-folded and decoupled decay,
+    with and without maximize.  Tolerance: max abs err <= 1e-6 x max |p|
+    for p, m and v against the plain version (same f32 formula; the
+    kernel's division and sqrt round otherwise).  Bitwise repeatable.
+    Times at the lm_head leaf and over the 17 leaves of gpt2-124m (one
+    step); the yardstick is torch.optim.Adam(fused=True,
+    weight_decay=0.1) — L2-folded decay, the same arithmetic."""
+    b1, b2, step = 0.9, 0.999, 3
+    base = dict(lr=1e-3, c1=1 - b1 ** step, c2=1 - b2 ** step, b1=b1, b2=b2,
+                eps=1e-8, wd=0.1)
+    worst, worst_abs = 0.0, 0.0
+    lm = leaf_shapes["lm_head.w"]
+    for n in (lm[0] * lm[1], 768, 1_000_003):
+        g = torch.Generator(device="cuda").manual_seed(n)
+        p, gr, m = (torch.randn(n, generator=g, device="cuda")
+                    for _ in range(3))
+        v = torch.rand(n, generator=g, device="cuda") * 1e-2
+        for dec, mx in ((False, False), (True, False), (False, True),
+                        (True, True)):
+            kw = dict(base, decoupled=dec, maximize=mx)
+            a = [t.clone() for t in (p, gr, m, v)]
+            b = [t.clone() for t in (p, gr, m, v)]
+            af.adamw_update_fused(*a, **kw)
+            af._adamw_update_plain(*b, **kw)
+            torch.cuda.synchronize()
+            scale = float(b[0].abs().max())
+            err = max(max_err(a[i], b[i]) for i in (0, 2, 3))
+            worst = max(worst, err / scale)
+            worst_abs = max(worst_abs, err)
+            check(err <= 1e-6 * scale, f"adamw n={n} decoupled={dec} "
+                  f"maximize={mx}: max abs err {err:.3g} > 1e-6 x {scale}")
+            c = [t.clone() for t in (p, gr, m, v)]
+            af.adamw_update_fused(*c, **kw)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a[i], c[i]) for i in (0, 2, 3)),
+                  f"adamw n={n}: two runs are not bit-identical")
+    print(f"  adamw_update_fused n in (38633472, 768, 1000003), decoupled "
+          f"x maximize: max abs err <= {worst:.3g} x max|p| (tol 1e-6); "
+          "bitwise repeatable")
+    # timing: the lm_head leaf, and one step over every leaf
+    g = torch.Generator(device="cuda").manual_seed(1)
+    leaves = {k: [torch.randn(sh, generator=g, device="cuda")
+                  for _ in range(3)]
+              + [torch.rand(sh, generator=g, device="cuda") * 1e-2]
+              for k, sh in leaf_shapes.items()}
+    kw = dict(base, decoupled=False, maximize=False)
+    lp, lg, lm_, lv = leaves["lm_head.w"]
+    one = lambda: af.adamw_update_fused(lp, lg, lm_, lv, **kw)  # noqa: E731
+
+    def step_all():
+        for q, gq, mq, vq in leaves.values():
+            af.adamw_update_fused(q, gq, mq, vq, **kw)
+
+    def plain_one():
+        af._adamw_update_plain(lp, lg, lm_, lv, **kw)
+
+    def torch_opt(params):
+        ps = [q.detach().clone().requires_grad_() for q in params]
+        for q, src in zip(ps, params):
+            q.grad = src.clone()
+        opt = torch.optim.Adam(ps, lr=1e-3, weight_decay=0.1, fused=True)
+        return opt.step
+
+    lib_one = torch_opt([lp])
+    lib_all = torch_opt([t[0] for t in leaves.values()])
+    n_all = sum(t[0].numel() for t in leaves.values())
+    bms, by = bound_ms(28 * lp.numel(), 15 * lp.numel(), "f32")
+    res = dict(ms=device_ms(torch, one), plain_ms=device_ms(torch, plain_one),
+               library_ms=device_ms(torch, lib_one),
+               call_ms=time_ms(torch, one), bound_ms=bms, bound_by=by,
+               max_abs_err=worst_abs, shape=f"{lp.numel()} f32 (lm_head leaf)")
+    step_b, _ = bound_ms(28 * n_all, 15 * n_all, "f32")
+    res["per_step"] = dict(ms=device_ms(torch, step_all, iters=5),
+                           library_ms=device_ms(torch, lib_all, iters=5),
+                           call_ms=time_ms(torch, step_all, iters=5),
+                           bound_ms=step_b, leaves=len(leaves),
+                           params=n_all)
+    print(f"kernel adamw_update_fused lm_head leaf f32: max_abs_err="
+          f"{worst_abs:.3g} ({worst:.3g} of max|p|); library = "
+          "torch.optim.Adam(fused=True); "
+          + " ".join(f"{k}={v_:.5g}" for k, v_ in res.items()
+                     if k.endswith("ms"))
+          + "; one step over all " + str(len(leaves)) + " leaves ("
+          + str(n_all) + " params): "
+          + " ".join(f"{k}={v_:.5g}" for k, v_ in res["per_step"].items()
+                     if k.endswith("ms")))
+    return res
+
+
 # -- phase 3: serving ------------------------------------------------------
 
 def serving_traffic(np):
@@ -557,6 +754,8 @@ def kernel_shares(torch, prof, patterns):
 TRAIN_KERNELS = ("layernorm_fwd", "layernorm_dx", "layernorm_dwdb",
                  "fa2_flash_attention_fwd", "fa2_flash_attention_dq",
                  "fa2_flash_attention_dkv")
+KNOB_KERNELS = ("fused_xent_fwd", "fused_xent_dx", "fused_xent_dw",
+                "adamw_update_fused")
 # profiler kernel-name fragments of each hand-written kernel
 PATTERNS = {"layernorm_fwd": "_ln_fwd_kernel",
             "layernorm_dx": "_ln_dx_kernel",
@@ -564,19 +763,27 @@ PATTERNS = {"layernorm_fwd": "_ln_fwd_kernel",
             "fa2_flash_attention_fwd": "flash_fwd_kernel",
             "fa2_flash_attention_dq": "flash_dq_kernel",
             "fa2_flash_attention_dkv": "flash_dkv_kernel",
-            "paged_attention": "paged_decode_kernel"}
+            "paged_attention": "paged_decode_kernel",
+            "fused_xent_fwd": "xent_fwd_kernel",
+            "fused_xent_dx": "xent_dx_kernel",
+            "fused_xent_dw": "xent_dw_kernel",
+            "adamw_update_fused": "_adamw_kernel"}
 
 
 @contextlib.contextmanager
-def plain_ops(ln, fa):
+def plain_ops(ln, fa, fx, af):
     """Every training kernel wrapper swapped for its plain version (the
-    autograd Functions look their wrappers up at call time)."""
+    autograd Functions and AdamW look their wrappers up at call time)."""
     names = ((ln, "layernorm_fwd", ln._ln_fwd_plain),
              (ln, "layernorm_dx", ln._ln_dx_plain),
              (ln, "layernorm_dwdb", ln._ln_dwdb_plain),
              (fa, "fa2_flash_attention_fwd", fa._fa2_fwd_plain),
              (fa, "fa2_flash_attention_dq", fa._fa2_dq_plain),
-             (fa, "fa2_flash_attention_dkv", fa._fa2_dkv_plain))
+             (fa, "fa2_flash_attention_dkv", fa._fa2_dkv_plain),
+             (fx, "fused_xent_fwd", fx._xent_fwd_plain),
+             (fx, "fused_xent_dx", fx._xent_dx_plain),
+             (fx, "fused_xent_dw", fx._xent_dw_plain),
+             (af, "adamw_update_fused", af._adamw_update_plain))
     saved = [(m, n, getattr(m, n)) for m, n, _ in names]
     try:
         for m, n, plain in names:
@@ -587,15 +794,48 @@ def plain_ops(ln, fa):
             setattr(m, n, fn)
 
 
-def loss_and_grads(torch, model, batch):
+def loss_and_grads(torch, model, batch, rng=None):
     idx, tgt = (torch.as_tensor(a, device="cuda").long() for a in batch)
-    loss = model.apply(idx, tgt)
+    loss = model.apply(idx, tgt, rng=rng)
     names = [n for n, _ in model.named_parameters()]
     grads = torch.autograd.grad(loss, list(model.parameters()))
     return float(loss.detach()), dict(zip(names, grads))
 
 
-def train_phase(torch, port, counters, ln, fa):
+def step_profile(torch, eng, state, batch, name, kernels, med):
+    """One profiled step: each kernel's device time, the cuBLAS GEMMs,
+    everything else (PyTorch's elementwise, reduce and copy kernels) and
+    the device's busy and idle shares of the median step wall."""
+    def one_step():
+        float(eng.step(state, batch)[1])
+
+    prof = profiled(torch, one_step, cpu=True)  # a retry steps again
+    check(prof is not None, "the profiler recorded no device time")
+    per, busy, rows = kernel_shares(torch, prof, PATTERNS)
+    # cuBLAS's kernels: "*gemm*" and, on Hopper, "nvjet_*"
+    gemm = sum(us for us, _, key in rows
+               if "gemm" in key.lower() or key.startswith("nvjet"))
+    with open(os.path.join(OUT_DIR, name), "w") as f:
+        for us, n, key in rows:
+            f.write(f"{us / 1e3:12.3f} ms {n:8d}  {key}\n")
+    check(busy > 0, "the profiler recorded no device time")
+    step_ms = {k: per.get(k, 0.0) / 1e3 for k in kernels}
+    other = busy - gemm - sum(per.values())
+    print(f"  one profiled step: device busy {busy / 1e3:.3f} ms = "
+          f"{busy / 1e3 / (med * 1e3):.4f} of the median step wall "
+          f"(idle share {1 - busy / 1e6 / med:.4f}); cuBLAS GEMMs "
+          f"{gemm / 1e3:.3f} ms ({gemm / busy:.4f} of busy); other "
+          f"(elementwise, reduce, copy) {other / 1e3:.3f} ms "
+          f"({other / busy:.4f})")
+    for k in kernels:
+        print(f"    {k}: {step_ms[k]:.4f} ms per step "
+              f"({per.get(k, 0.0) / busy:.4f} of busy)")
+    for us, n, key in rows[:12]:
+        print(f"    {us / 1e3:10.3f} ms x{n:<6d} {key[:90]}")
+    return step_ms, busy, gemm, other
+
+
+def train_phase(torch, port, counters, ln, fa, fx, af):
     b, t = 8, 1024
     cfg = port.GPT2_PRESETS["gpt2-124m"]
     torch.cuda.reset_peak_memory_stats()
@@ -636,37 +876,15 @@ def train_phase(torch, port, counters, ln, fa):
           f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}) -> "
           f"{b * t / med:.1f} tokens/s; peak memory {peak:.2f} GiB")
 
-    batch = loader.next()
-
-    def one_step():
-        float(eng.step(state, batch)[1])
-
-    prof = profiled(torch, one_step, cpu=True)  # a retry steps again
-    check(prof is not None, "the profiler recorded no device time")
-    per, busy, rows = kernel_shares(torch, prof, PATTERNS)
-    # cuBLAS's kernels: "*gemm*" and, on Hopper, "nvjet_*"
-    gemm = sum(us for us, _, key in rows
-               if "gemm" in key.lower() or key.startswith("nvjet"))
-    with open(os.path.join(OUT_DIR, "train_profile.txt"), "w") as f:
-        for us, n, key in rows:
-            f.write(f"{us / 1e3:12.3f} ms {n:8d}  {key}\n")
-    check(busy > 0, "the profiler recorded no device time")
-    step_ms = {k: per.get(k, 0.0) / 1e3 for k in TRAIN_KERNELS}
-    print(f"  one profiled step: device busy {busy / 1e3:.3f} ms = "
-          f"{busy / 1e3 / (med * 1e3):.4f} of the median step wall "
-          f"(idle share {1 - busy / 1e6 / med:.4f}); cuBLAS GEMMs "
-          f"{gemm / 1e3:.3f} ms ({gemm / busy:.4f} of busy)")
-    for k in TRAIN_KERNELS:
-        print(f"    {k}: {step_ms[k]:.4f} ms per step "
-              f"({per.get(k, 0.0) / busy:.4f} of busy)")
-    for us, n, key in rows[:12]:
-        print(f"    {us / 1e3:10.3f} ms x{n:<6d} {key[:90]}")
+    step_ms, busy, _, _ = step_profile(torch, eng, state, loader.next(),
+                                       "train_profile.txt", TRAIN_KERNELS,
+                                       med)
 
     # one step's gradients: kernel path vs plain path, remat on vs off
     batch = loader.next()
     kl, kg = loss_and_grads(torch, model, batch)
     before = {k: fn.launches for k, fn in counters.items()}
-    with plain_ops(ln, fa):
+    with plain_ops(ln, fa, fx, af):
         pl, pg = loss_and_grads(torch, model, batch)
     check({k: fn.launches for k, fn in counters.items()} == before,
           "the plain path launched a kernel")
@@ -713,6 +931,179 @@ def train_phase(torch, port, counters, ln, fa):
                 busy_ms=busy / 1e3, first_loss=losses[0])
 
 
+def _leaf_rel(torch, a, b):
+    """{leaf: rel L2 err of a's gradient against b's}."""
+    return {n: float((a[n].float() - b[n].float()).norm()
+                     / b[n].float().norm().clamp_min(1e-30)) for n in a}
+
+
+def knobbed_phase(torch, port, counters, ln, fa, fx, af):
+    """gpt2-124m at full width and depth with every knob of the slice: the
+    fused head (fused_xent_impl="pallas"), AdamW(fused=True) and GPT-2's
+    published dropout 0.1; f32 masters, bf16 compute, remat
+    "dots_no_batch"; B=8, T=1024 from TokenLoader(seed=0)."""
+    b, t = 8, 1024
+    cfg = dataclasses.replace(port.GPT2_PRESETS["gpt2-124m"],
+                              fused_xent=True, fused_xent_impl="pallas",
+                              dropout=0.1)
+    torch.cuda.reset_peak_memory_stats()
+    model = port.GPT2Model(cfg)
+    eng = port.SingleDevice(model, port.AdamW(lr=1e-5, weight_decay=0.1,
+                                              fused=True))
+    state = eng.init(0)
+    loader = port.TokenLoader(None, batch=b, seq=t,
+                              vocab_size=cfg.vocab_size, seed=0)
+    print(f"  {eng.describe()}; gpt2-124m, fused_xent_impl="
+          f"{cfg.fused_xent_impl} ({port.effective_xent_impl(cfg)}), "
+          f"dropout={cfg.dropout}, AdamW(fused=True), remat={cfg.remat} "
+          f"policy={cfg.remat_policy}, B={b} T={t}")
+    losses = []
+    for _ in range(3):
+        state, loss = eng.step(state, loader.next())
+        losses.append(float(loss))
+    for fn in counters.values():
+        fn.launches = 0
+    times = []
+    for _ in range(10):
+        batch = loader.next()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = eng.step(state, batch)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"  launches on the main path (10 steps): {launches}")
+    for k in TRAIN_KERNELS + KNOB_KERNELS:
+        check(launches[k] > 0, f"{k} was never launched on the knobbed path")
+    check(launches["paged_attention"] == 0, "training ran the decode kernel")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(10.5 <= losses[0] <= 11.2,
+          f"first loss {losses[0]} outside [10.5, 11.2] (ln 50304 = 10.83)")
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  losses {[round(x, 4) for x in losses]}")
+    print(f"  step time median {med * 1e3:.3f} ms (min "
+          f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}) -> "
+          f"{b * t / med:.1f} tokens/s; peak memory {peak:.2f} GiB")
+    step_ms, busy, gemm, other = step_profile(
+        torch, eng, state, loader.next(), "knobbed_profile.txt",
+        TRAIN_KERNELS + KNOB_KERNELS, med)
+
+    # fused head vs default and chunked heads: one batch, same weights, no
+    # dropout (no rng)
+    batch = loader.next()
+    kl, kg = loss_and_grads(torch, model, batch)
+    heads = {}
+    try:
+        for name, over in (("default", dict(fused_xent=False)),
+                           ("chunked", dict(fused_xent_impl="chunked"))):
+            model.config = dataclasses.replace(cfg, **over)
+            heads[name] = loss_and_grads(torch, model, batch)
+    finally:
+        model.config = cfg
+    dl, dg = heads["default"]
+    for name, (hl, hg) in (("pallas", (kl, kg)),
+                           ("chunked", heads["chunked"])):
+        rel = _leaf_rel(torch, hg, dg)
+        worst = max(rel, key=rel.get)
+        print(f"  {name} head vs default head: loss {hl:.6f} vs {dl:.6f} "
+              f"(tol 1e-2); worst leaf {worst} rel L2 err {rel[worst]:.4g} "
+              "(tol 5e-2)")
+        check(abs(hl - dl) <= 1e-2 and rel[worst] <= 5e-2,
+              f"the {name} head disagrees with the default head")
+    del heads, dg
+
+    # kernel path vs plain path
+    before = {k: fn.launches for k, fn in counters.items()}
+    with plain_ops(ln, fa, fx, af):
+        pl, pg = loss_and_grads(torch, model, batch)
+    check({k: fn.launches for k, fn in counters.items()} == before,
+          "the plain path launched a kernel")
+    rel = _leaf_rel(torch, kg, pg)
+    worst = max(rel, key=rel.get)
+    print(f"  kernel vs plain path: loss {kl:.6f} vs {pl:.6f} (tol 1e-2); "
+          f"worst leaf {worst} rel L2 err {rel[worst]:.4g} (tol 5e-2)")
+    check(abs(kl - pl) <= 1e-2 and rel[worst] <= 5e-2,
+          "the knobbed path disagrees with its plain path")
+    del pg
+
+    # one fused AdamW update vs fused=False from the same state
+    params = {n: p.detach() for n, p in model.named_parameters()}
+    outs = []
+    for fused in (True, False):
+        opt = port.AdamW(lr=1e-3, weight_decay=0.1, fused=fused)
+        ps = {n: p.clone() for n, p in params.items()}
+        st = opt.init(ps)
+        opt.update(ps, kg, st)
+        outs.append((ps, st))
+    torch.cuda.synchronize()
+    worst = 0.0
+    for n in params:
+        (fp, fs), (up, us) = outs[0], outs[1]
+        for got, ref in ((fp[n], up[n]), (fs["state"][n]["m"],
+                                          us["state"][n]["m"]),
+                         (fs["state"][n]["v"], us["state"][n]["v"])):
+            scale = max(float(ref.abs().max()), 1e-30)
+            worst = max(worst, max_err(got, ref) / scale)
+    print(f"  AdamW(fused=True) vs fused=False, one update of all leaves: "
+          f"max abs err {worst:.3g} x max|ref| of each p, m, v (tol 1e-6)")
+    check(worst <= 1e-6, "the fused AdamW update disagrees with fused=False")
+    del outs, kg
+
+    # dropout: the same seed gives the same losses; remat redraws the masks
+    runs = []
+    fixed = [loader.next() for _ in range(3)]
+    for _ in range(2):
+        st = eng.init(0)
+        runs.append([float(eng.step(st, bt)[1]) for bt in fixed])
+    print(f"  dropout: two engines from seed 0, 3 steps: {runs[0]} / "
+          f"{runs[1]}")
+    check(runs[0] == runs[1], "the same seed gave other losses")
+    key = 0xC0FFEE
+    rl, rg = loss_and_grads(torch, model, batch, rng=key)
+    model.config = dataclasses.replace(cfg, remat=False)
+    try:
+        ol, og = loss_and_grads(torch, model, batch, rng=key)
+    finally:
+        model.config = cfg
+    exact = [n for n in rg if n.startswith("h.")
+             or n in ("ln_f.w", "ln_f.b", "lm_head.w", "wpe")]
+    differ = [n for n in exact if not torch.equal(rg[n], og[n])]
+    wte_rel = float((rg["wte"] - og["wte"]).norm()
+                    / og["wte"].norm().clamp_min(1e-30))
+    print(f"  dropout remat on vs off: loss {rl!r} vs {ol!r}; {len(exact)} "
+          f"block/head/wpe leaves bit-identical: {not differ}; wte rel L2 "
+          f"{wte_rel:.3g}")
+    check(rl == ol and not differ, f"remat changed dropout grads: {differ}")
+    check(wte_rel <= 1e-5, "wte gradient differs by more than rounding")
+    del rg, og
+    ev = [float(eng.eval_loss(st, batch)) for _ in range(2)]
+    model.config = dataclasses.replace(cfg, dropout=0.0)
+    try:
+        ev.append(float(eng.eval_loss(st, batch)))
+    finally:
+        model.config = cfg
+    print(f"  eval_loss twice and with dropout=0: {ev}; the same batch's "
+          f"training loss with dropout {rl:.6f}")
+    check(ev[0] == ev[1] == ev[2], "eval_loss depends on dropout")
+    check(rl != ev[0], "dropout 0.1 left the loss unchanged")
+
+    # 8 steps at lr=1e-3 on one fixed batch must lower its loss
+    eng2 = port.SingleDevice(model, port.AdamW(lr=1e-3, weight_decay=0.1,
+                                               fused=True))
+    state2 = eng2.init(1)
+    fit = []
+    for _ in range(8):
+        state2, loss = eng2.step(state2, fixed[0])
+        fit.append(float(loss))
+    print(f"  8 steps at lr=1e-3 on one batch: {[round(x, 4) for x in fit]}")
+    check(all(math.isfinite(x) for x in fit) and fit[-1] < fit[0],
+          "loss did not fall on a fixed batch")
+    return dict(launches=launches, step_ms=med * 1e3,
+                tokens_per_s=b * t / med, kernel_ms_per_step=step_ms,
+                busy_ms=busy / 1e3, first_loss=losses[0], peak_gib=peak)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -726,8 +1117,10 @@ def main():
     import tiny_deepspeed_tpu_torch as port
     from tiny_deepspeed_tpu_torch.ops import _build
     from tiny_deepspeed_tpu_torch.ops import flash_fa2 as fa
+    from tiny_deepspeed_tpu_torch.ops import fused_xent as fx
     from tiny_deepspeed_tpu_torch.ops import layernorm as ln
     from tiny_deepspeed_tpu_torch.ops import paged_attn as pa
+    from tiny_deepspeed_tpu_torch.optim import adamw_fused as af
     from tiny_deepspeed_tpu_torch.serving import pool as pool_mod
 
     t_all = time.perf_counter()
@@ -766,9 +1159,14 @@ def main():
     pa_res, pa_err = paged_phase(torch, F, pa, pool_mod)
     bwd_res = ln_bwd_phase(torch, F, ln)
     bwd_res.update(flash_bwd_phase(torch, F, fa))
+    bwd_res.update(xent_phase(torch, F, fx))
+    torch.cuda.empty_cache()
+    cfg = port.GPT2_PRESETS["gpt2-124m"]
+    shapes = port.GPT2Model.param_shapes(types.SimpleNamespace(config=cfg))
+    bwd_res["adamw_update_fused"] = adamw_phase(torch, af, shapes)
+    torch.cuda.empty_cache()
 
     print("phase 3: serving gpt2-124m")
-    cfg = port.GPT2_PRESETS["gpt2-124m"]
     model = port.GPT2Model(cfg).init(
         torch.Generator(device="cuda").manual_seed(0))
     prompts, new = serving_traffic(np)
@@ -779,7 +1177,11 @@ def main():
                 "fa2_flash_attention_fwd": fa.fa2_flash_attention_fwd,
                 "fa2_flash_attention_dq": fa.fa2_flash_attention_dq,
                 "fa2_flash_attention_dkv": fa.fa2_flash_attention_dkv,
-                "paged_attention": pa.paged_attention}
+                "paged_attention": pa.paged_attention,
+                "fused_xent_fwd": fx.fused_xent_fwd,
+                "fused_xent_dx": fx.fused_xent_dx,
+                "fused_xent_dw": fx.fused_xent_dw,
+                "adamw_update_fused": af.adamw_update_fused}
     serve_kernels = ("layernorm_fwd", "fa2_flash_attention_fwd",
                      "paged_attention")
     for fn in counters.values():
@@ -856,7 +1258,13 @@ def main():
     torch.cuda.empty_cache()
 
     print("phase 4: training gpt2-124m (SingleDevice)")
-    train = train_phase(torch, port, counters, ln, fa)
+    train = train_phase(torch, port, counters, ln, fa, fx, af)
+    check(not any(train["launches"][k] for k in KNOB_KERNELS),
+          "the default training path ran a knob's kernel")
+    torch.cuda.empty_cache()
+    print("phase 5: knobbed training gpt2-124m (fused head, fused AdamW, "
+          "dropout)")
+    knob = knobbed_phase(torch, port, counters, ln, fa, fx, af)
 
     timed = ("shape", "ms", "plain_ms", "library_ms", "call_ms", "bound_ms",
              "bound_by")
@@ -867,7 +1275,8 @@ def main():
         `training_shape`.  `max_abs_err` is the worst of every checked
         shape."""
         by_path = {"serving": serve_launches[name],
-                   "training": train["launches"][name]}
+                   "training": train["launches"][name],
+                   "knobbed_training": knob["launches"][name]}
         row = {"name": name, "route": route, "source": source,
                "replaces": replaces, "launches": sum(by_path.values()),
                "launches_by_path": by_path,
@@ -906,8 +1315,25 @@ def main():
               "tiny_deepspeed_tpu_torch/csrc/flash_bwd.cu",
               "tiny_deepspeed_tpu/ops/flash_fa2.py:248",
               bwd_res["fa2_flash_attention_dkv"]),
+        entry("fused_xent_fwd", "cuda",
+              "tiny_deepspeed_tpu_torch/csrc/fused_xent.cu",
+              "tiny_deepspeed_tpu/ops/xent_pallas.py:267",
+              bwd_res["fused_xent_fwd"]),
+        entry("fused_xent_dx", "cuda",
+              "tiny_deepspeed_tpu_torch/csrc/fused_xent.cu",
+              "tiny_deepspeed_tpu/ops/xent_pallas.py:218",
+              bwd_res["fused_xent_dx"]),
+        entry("fused_xent_dw", "cuda",
+              "tiny_deepspeed_tpu_torch/csrc/fused_xent.cu",
+              "tiny_deepspeed_tpu/ops/xent_pallas.py:235",
+              bwd_res["fused_xent_dw"]),
+        entry("adamw_update_fused", "triton",
+              "tiny_deepspeed_tpu_torch/optim/adamw_fused.py",
+              "tiny_deepspeed_tpu/optim/adamw_pallas.py:69",
+              bwd_res["adamw_update_fused"]),
     ]
-    print(f"phase 5: total {time.perf_counter() - t_all:.2f}s")
+    kernels[-1]["per_step"] = bwd_res["adamw_update_fused"]["per_step"]
+    print(f"phase 6: total {time.perf_counter() - t_all:.2f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

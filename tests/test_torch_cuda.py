@@ -7,11 +7,14 @@ versions (marker `cuda`; skipped without a CUDA device).
     python -m pytest tests/test_torch_cuda.py -q
 
 Covers what the serving and training paths do not reach at gpt2-124m
-shapes: a ragged T or row count, grouped K/V, f32 and f16 operands, head
-dim 32, block sizes other than 16; bitwise repeatability of the backward
-kernels; refusal of operands a kernel cannot take; a tiny-preset engine
-whose greedy tokens on the card match the CPU port's, and a tiny-preset
-training step whose gradients on the card match the CPU port's.
+shapes: a ragged T, row count, token count, vocab or leaf size, grouped
+K/V, f32 and f16 operands, head dim 32, block sizes other than 16, the
+fused xent kernels at D = 64 and 1600 and on a transposed (`wte.t()`)
+weight; bitwise repeatability of the backward kernels and of the fused
+xent and AdamW kernels; refusal of operands a kernel cannot take; a
+tiny-preset engine whose greedy tokens on the card match the CPU port's,
+and tiny-preset training steps whose gradients on the card match the CPU
+port's, with the default and the fused heads.
 """
 
 import math
@@ -19,7 +22,9 @@ import math
 import pytest
 import torch
 
-from tiny_deepspeed_tpu_torch.ops import flash_fa2, layernorm, paged_attn
+from tiny_deepspeed_tpu_torch.ops import (flash_fa2, fused_xent, layernorm,
+                                          paged_attn)
+from tiny_deepspeed_tpu_torch.optim import adamw_fused
 from tiny_deepspeed_tpu_torch.serving import pool as pool_mod
 
 pytestmark = pytest.mark.cuda
@@ -217,11 +222,123 @@ def test_backward_kernels_refuse_bad_operands():
         flash_fa2.fa2_flash_attention_dq(q, q, q, q.float(), st, st)
 
 
-def test_tiny_training_grads_match_cpu():
+def _xent_inputs(dtype, s, d, v, seed, transposed=False):
+    g = _g(seed)
+    x = torch.randn(s, d, generator=g, device="cuda").to(dtype)
+    w = (torch.randn(d, v, generator=g, device="cuda") * 0.05).to(dtype)
+    if transposed:  # the tied head's wte.t(): a (D, V) view of (V, D)
+        w = w.t().contiguous().t()
+    tg = torch.randint(0, v, (s,), generator=g, device="cuda")
+    gs = torch.full((1,), 0.5 / s, device="cuda")
+    return x, w, tg, gs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("s,d,v,transposed", [
+    (257, 64, 1000, False), (1000, 768, 50257, False), (40, 1600, 3001, False),
+    (300, 768, 777, True)], ids=["d64", "d768_gpt2_vocab", "d1600", "wte_t"])
+def test_fused_xent_kernels(dtype, s, d, v, transposed):
+    x, w, tg, gs = _xent_inputs(dtype, s, d, v, s + d + v, transposed)
+    before = (fused_xent.fused_xent_fwd.launches,
+              fused_xent.fused_xent_dx.launches,
+              fused_xent.fused_xent_dw.launches)
+    loss, lse = fused_xent.fused_xent_fwd(x, w, tg)
+    dx = fused_xent.fused_xent_dx(x, w, tg, lse, gs)
+    dw = fused_xent.fused_xent_dw(x, w, tg, lse, gs)
+    torch.cuda.synchronize()
+    assert (fused_xent.fused_xent_fwd.launches,
+            fused_xent.fused_xent_dx.launches,
+            fused_xent.fused_xent_dw.launches) == tuple(n + 1 for n in before)
+    assert dx.dtype == dtype and dw.dtype == torch.float32
+    ploss, plse = fused_xent._xent_fwd_plain(x, w, tg)
+    # f32 sums over D in another order; f32 operands run as 3xTF32
+    torch.testing.assert_close(loss, ploss, atol=1e-3, rtol=0)
+    torch.testing.assert_close(lse, plse, atol=1e-3, rtol=0)
+    # the kernels round dz to the operand type before its product, the
+    # plain versions keep it f32: relative L2 error
+    for got, ref in ((dx, fused_xent._xent_dx_plain(x, w, tg, plse, gs)),
+                     (dw, fused_xent._xent_dw_plain(x, w, tg, plse, gs))):
+        rel = float((got.float() - ref.float()).norm() / ref.float().norm())
+        assert rel <= (1e-4 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("n", [1, 768, 4097, 1_000_003])
+@pytest.mark.parametrize("decoupled,maximize", [
+    (False, False), (True, False), (False, True), (True, True)])
+def test_adamw_fused_kernel(n, decoupled, maximize):
+    g = _g(n)
+    p, gr, m = (torch.randn(n, generator=g, device="cuda") for _ in range(3))
+    v = torch.rand(n, generator=g, device="cuda") * 1e-2
+    kw = dict(lr=1e-3, c1=1 - 0.9 ** 5, c2=1 - 0.999 ** 5, b1=0.9, b2=0.999,
+              eps=1e-8, wd=0.1, decoupled=decoupled, maximize=maximize)
+    a = [t.clone() for t in (p, gr, m, v)]
+    b = [t.clone() for t in (p, gr, m, v)]
+    before = adamw_fused.adamw_update_fused.launches
+    adamw_fused.adamw_update_fused(*a, **kw)
+    torch.cuda.synchronize()
+    assert adamw_fused.adamw_update_fused.launches == before + 1
+    adamw_fused._adamw_update_plain(*b, **kw)
+    scale = float(b[0].abs().max())
+    for i in (0, 2, 3):
+        assert float((a[i] - b[i]).abs().max()) <= 1e-6 * scale
+
+
+def test_fused_kernels_bitwise_repeatable():
+    x, w, tg, gs = _xent_inputs(torch.bfloat16, 1000, 768, 50257, 5)
+    p, gr, m = (torch.randn(1_000_003, generator=_g(6), device="cuda")
+                for _ in range(3))
+    v = torch.rand(1_000_003, generator=_g(7), device="cuda")
+
+    def xent():
+        loss, lse = fused_xent.fused_xent_fwd(x, w, tg)
+        return (loss, lse, fused_xent.fused_xent_dx(x, w, tg, lse, gs),
+                fused_xent.fused_xent_dw(x, w, tg, lse, gs))
+
+    def adamw():
+        out = [t.clone() for t in (p, gr, m, v)]
+        adamw_fused.adamw_update_fused(
+            *out, lr=1e-3, c1=0.1, c2=0.001, b1=0.9, b2=0.999, eps=1e-8,
+            wd=0.1)
+        return out
+
+    for fn in (xent, adamw):
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        assert all(torch.equal(u, w_) for u, w_ in zip(first, second))
+
+
+def test_fused_kernels_refuse_bad_operands():
+    x = torch.zeros(8, 48, device="cuda", dtype=torch.bfloat16)
+    w = torch.zeros(48, 100, device="cuda", dtype=torch.bfloat16)
+    tg = torch.zeros(8, dtype=torch.long, device="cuda")
+    with pytest.raises(ValueError, match="multiple of 32"):
+        fused_xent.fused_xent_fwd(x, w, tg)
+    with pytest.raises(ValueError, match="mixed devices"):
+        fused_xent.fused_xent_fwd(x[:, :32], w[:32], tg.cpu())
+    with pytest.raises(ValueError, match="one f32/bf16/f16"):
+        fused_xent.fused_xent_fwd(x[:, :32], w[:32].float(), tg)
+    z = torch.zeros(16, device="cuda")
+    kw = dict(lr=1e-3, c1=0.1, c2=0.001, b1=0.9, b2=0.999, eps=1e-8, wd=0.0)
+    with pytest.raises(ValueError, match="must be f32"):
+        adamw_fused.adamw_update_fused(z.bfloat16(), z, z.clone(),
+                                       z.clone(), **kw)
+    with pytest.raises(ValueError, match="mixed devices"):
+        adamw_fused.adamw_update_fused(z, z.cpu(), z.clone(), z.clone(),
+                                       **kw)
+
+
+@pytest.mark.parametrize("knobs", [
+    {}, dict(fused_xent=True, fused_xent_impl="pallas"),
+    dict(fused_xent=True, fused_xent_impl="pallas", tie_weights=True)],
+    ids=["default", "pallas_head", "pallas_head_tied"])
+def test_tiny_training_grads_match_cpu(knobs):
     """f32 tiny preset: one step's loss and gradients through every
     training kernel on the card match the CPU port's plain path."""
+    import dataclasses
+
     import tiny_deepspeed_tpu_torch as T
-    cfg = T.GPT2_PRESETS["tiny"]
+    cfg = dataclasses.replace(T.GPT2_PRESETS["tiny"], **knobs)
     cpu = T.GPT2Model(cfg, device="cpu").init(
         torch.Generator().manual_seed(0))
     gpu = T.GPT2Model(cfg, device="cuda")

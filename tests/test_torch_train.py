@@ -198,10 +198,6 @@ class TestOptimizers:
             np.testing.assert_allclose(
                 t(step), float(j(jnp.int32(step))), rtol=1e-6, atol=1e-12)
 
-    def test_fused_adamw_refused(self):
-        with pytest.raises(NotImplementedError, match="row 13"):
-            T.AdamW(fused=True)
-
 
 class TestTokenLoader:
     def _same(self, jl, tl, n=3):
@@ -350,9 +346,8 @@ class TestSingleDevice:
 
 class TestRefusalsAndEntryPoints:
     @pytest.mark.parametrize("knob", [
-        dict(dropout=0.1), dict(gather_quant="fp8"), dict(fused_xent=True),
-        dict(remat_policy="everything"),
-    ], ids=["dropout", "gather_quant", "fused_xent", "remat_policy"])
+        dict(gather_quant="fp8"), dict(remat_policy="everything"),
+    ], ids=["gather_quant", "remat_policy"])
     def test_refused_model_knobs_raise(self, knob):
         cfg = dataclasses.replace(T.GPT2_PRESETS["tiny"], **knob)
         with pytest.raises(ValueError):

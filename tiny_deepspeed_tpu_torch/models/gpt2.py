@@ -14,10 +14,15 @@ gpt2-124m).  Parameters are registered on nested submodules so
 Training: `apply(idx, targets)` returns the mean cross-entropy loss and
 is differentiable (parameters require grad); each block runs under the
 configured remat policy (`torch.utils.checkpoint`, see `_block_fn`).
+The loss head is one of three (`effective_xent_impl`): the materialized
+logits (default), the chunked `fused_linear_xent` or the fused-kernel
+`pallas_fused_xent` (`GPTConfig(fused_xent=True, fused_xent_impl=...)`).
+Dropout (`GPTConfig.dropout`) applies when `apply` is given an integer
+`rng` key, at the JAX package's three sites with its key tree.
 Serving: the `return_kv` prefill hook, the paged decode step and the
-inference head, all without a graph.  Dropout, ZeRO-3's `gather_quant`
-and the fused xent head belong to later slices and are refused here
-rather than silently ignored.
+inference head, all without a graph.  ZeRO-3's `gather_quant` belongs to
+the distributed engines and is refused here rather than silently
+ignored.
 """
 
 from __future__ import annotations
@@ -32,13 +37,15 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils import checkpoint as ckpt
 
+from .. import rng as prng
 from ..ops.attention import ATTENTION
 from ..ops.dispatch import resolve_device
 from ..ops.embedding import embedding, renorm_weight
+from ..ops.fused_xent import pallas_fused_xent
 from ..ops.layernorm import layernorm
 from ..ops.linear import linear
 from ..ops.paged_attn import decode_attention, paged_attention
-from ..ops.softmax_xent import softmax_cross_entropy
+from ..ops.softmax_xent import fused_linear_xent, softmax_cross_entropy
 
 
 @dataclasses.dataclass(frozen=True)
@@ -62,7 +69,11 @@ class GPTConfig:
     # "nothing" | "dots" | "dots_no_batch" | "all" (see GPT2Model._block_fn)
     remat_policy: str = "dots_no_batch"
     wte_max_norm: Optional[float] = None
-    fused_xent: bool = False  # refused: the fused xent head is slice 3
+    # fused lm_head + loss, never materializing the (B, T, V) logits:
+    # "chunked" (ops/softmax_xent.fused_linear_xent) or "pallas" (the
+    # fused kernels of ops/fused_xent.py)
+    fused_xent: bool = False
+    fused_xent_impl: str = "chunked"
     cache_dtype: Any = None
 
     @property
@@ -104,6 +115,35 @@ GPT2_PRESETS: Dict[str, GPTConfig] = {
 
 Params = Dict[str, torch.Tensor]
 
+_XENT_IMPLS = ("chunked", "pallas")
+
+
+def effective_xent_impl(cfg) -> str:
+    """The loss head a step with this config runs (JAX :205-225):
+    "unfused" (materialized logits), "chunked" or "pallas".  The JAX
+    predicate also sends "pallas" to the chunked path off a TPU, on a
+    multi-device mesh, and for a token count with no VMEM-sized token
+    block (its `multi_device`, `seq_sharded` and `tokens` arguments); the
+    port's kernels take any token count and the port is single-device,
+    so it has none of the three.  `GPT2Model` refuses any other
+    `fused_xent_impl`."""
+    return cfg.fused_xent_impl if cfg.fused_xent else "unfused"
+
+
+def _dropout_keep(key: int, shape, keep: float, device) -> torch.Tensor:
+    """Bernoulli(keep) mask drawn on `device` from a generator seeded with
+    `key` at the moment of use: a remat recompute redraws it exactly."""
+    g = torch.Generator(device=device).manual_seed(key)
+    return torch.rand(shape, generator=g, device=device) < keep
+
+
+def _dropout(x, key: int, rate: float):
+    """Inverted dropout (JAX :228-234): zero with probability `rate`,
+    survivors scaled 1/(1-rate)."""
+    keep = 1.0 - rate
+    mask = _dropout_keep(key, x.shape, keep, x.device)
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
 # remat policy -> the aten products whose outputs the checkpoint keeps
 # (None: recompute the whole block); "all" takes no checkpoint at all
 _REMAT_SAVE = {
@@ -131,16 +171,16 @@ class GPT2Model(nn.Module):
     def __init__(self, config: GPTConfig,
                  device: Union[None, str, torch.device] = None):
         super().__init__()
-        refused = {"dropout": config.dropout != 0.0,
-                   "gather_quant": config.gather_quant is not None,
-                   "fused_xent": config.fused_xent}
-        bad = [k for k, on in refused.items() if on]
-        if bad:
+        if config.gather_quant is not None:
             raise ValueError(
-                f"GPTConfig {bad}: not ported yet — dropout (a Philox-seeded "
-                "mask) and the fused xent head come with slice 3 of the "
-                "port, gather_quant with the distributed engines "
+                "GPTConfig gather_quant: not ported yet — the quantized "
+                "ZeRO-3 weight gather comes with the distributed engines "
                 "(ROADMAP.md)")
+        if config.fused_xent_impl not in _XENT_IMPLS:
+            raise ValueError(f"fused_xent_impl {config.fused_xent_impl!r} "
+                             f"not in {_XENT_IMPLS}")
+        if not 0.0 <= config.dropout < 1.0:
+            raise ValueError(f"dropout {config.dropout} not in [0, 1)")
         if config.remat_policy not in _REMAT_SAVE:
             raise ValueError(f"remat_policy {config.remat_policy!r} not in "
                              f"{sorted(_REMAT_SAVE)}")
@@ -265,10 +305,13 @@ class GPT2Model(nn.Module):
         tok = self.embed_tokens(idx)
         return tok + self.get_parameter("wpe")[:t].to(tok.dtype)[None]
 
-    def _block(self, x, bp: Params, return_kv: bool = False):
+    def _block(self, x, bp: Params, return_kv: bool = False,
+               dkey: Optional[int] = None):
         """One pre-LN block.  x (B, T, D) compute dtype; bp this layer's
         compute-dtype params.  return_kv also returns this layer's (k, v)
-        head tensors — the prefill hook."""
+        head tensors — the prefill hook.  dkey, this layer's dropout key,
+        drops after attn.proj (site 0) and after mlp.proj (site 1), JAX
+        :370-379."""
         c = self.config
         b, t, d = x.shape
         h = layernorm(x, bp["ln_1.w"], bp["ln_1.b"])
@@ -281,8 +324,14 @@ class GPT2Model(nn.Module):
         kh, vh = heads(k), heads(v)
         y = ATTENTION[c.attn_impl](heads(q), kh, vh)
         y = y.transpose(1, 2).reshape(b, t, d)
-        x = x + linear(y, bp["attn.proj.w"], bp.get("attn.proj.b"))
-        x = x + self._mlp(x, bp)
+        y = linear(y, bp["attn.proj.w"], bp.get("attn.proj.b"))
+        if dkey is not None:
+            y = _dropout(y, prng.fold_in(dkey, 0), c.dropout)
+        x = x + y
+        h = self._mlp(x, bp)
+        if dkey is not None:
+            h = _dropout(h, prng.fold_in(dkey, 1), c.dropout)
+        x = x + h
         return (x, (kh, vh)) if return_kv else x
 
     def _mlp(self, x, bp: Params):
@@ -314,8 +363,13 @@ class GPT2Model(nn.Module):
         fraction of the rows."""
         if targets is not None:
             x = self.final_norm(x, params)
-            logits = linear(x, self._lm_head_w(params), None)
-            return softmax_cross_entropy(logits, targets)
+            w = self._lm_head_w(params)
+            impl = effective_xent_impl(self.config)
+            if impl == "pallas":
+                return pallas_fused_xent(x, w, targets)
+            if impl == "chunked":
+                return fused_linear_xent(x, w, targets)
+            return softmax_cross_entropy(linear(x, w, None), targets)
         x = x[:, -1:] if position is None else x[:, position:position + 1]
         x = self.final_norm(x, params)
         return linear(x, self._lm_head_w(params), None).float()
@@ -337,10 +391,11 @@ class GPT2Model(nn.Module):
 
         The policy changes memory and recompute time, never the numbers:
         a recomputed block runs the same deterministic kernels on the
-        same inputs."""
+        same inputs, and redraws the same dropout masks (each from a
+        generator seeded with its key when it is drawn)."""
         c = self.config
         if not c.remat or c.remat_policy == "all":
-            return self._block
+            return lambda x, bp, dkey=None: self._block(x, bp, dkey=dkey)
         save = _REMAT_SAVE[c.remat_policy]
         kw = {}
         if save:
@@ -348,22 +403,26 @@ class GPT2Model(nn.Module):
                 ckpt.create_selective_checkpoint_contexts,
                 _save_policy(save))
 
-        def block(x, bp):
+        def block(x, bp, dkey=None):
             if not torch.is_grad_enabled():
-                return self._block(x, bp)
-            # no RNG inside a block (dropout is refused), so no RNG state
-            # needs restoring for the recompute
-            return ckpt.checkpoint(self._block, x, bp, use_reentrant=False,
+                return self._block(x, bp, dkey=dkey)
+            # the block draws no numbers from the global RNG state (its
+            # dropout masks come from generators seeded with dkey), so no
+            # RNG state needs restoring for the recompute
+            return ckpt.checkpoint(self._block, x, bp, dkey=dkey,
+                                   use_reentrant=False,
                                    preserve_rng_state=False, **kw)
         return block
 
     def apply(self, idx: torch.Tensor,
               targets: Optional[torch.Tensor] = None,
-              position: Optional[int] = None):
+              position: Optional[int] = None, rng: Optional[int] = None):
         """Full forward of (B, T) tokens.  With `targets` (B, T): the mean
         loss, differentiable (JAX `apply(params, idx, targets)`).
         Without: (B, 1, V) f32 logits at `position` (default the last),
-        computed without a graph."""
+        computed without a graph.  `rng` (an integer key, training only)
+        turns on dropout when config.dropout > 0: the embedding's, then
+        one key per layer (JAX `_dropout_setup`, :902-912)."""
         if targets is None:
             with torch.no_grad():
                 x = self.embed(idx)
@@ -372,9 +431,16 @@ class GPT2Model(nn.Module):
                     x = self._block(x, self._layer(stacked, l))
                 return self.head(x, position)
         x = self.embed(idx)
+        c = self.config
+        dkeys = [None] * c.n_layer
+        if rng is not None and c.dropout:
+            keys = prng.split(rng, c.n_layer + 1)
+            x = _dropout(x, keys[0], c.dropout)
+            dkeys = keys[1:]
         block = self._block_fn()
-        for bp in self._layers(self.stacked_compute_params()):
-            x = block(x, bp)
+        for bp, dkey in zip(self._layers(self.stacked_compute_params()),
+                            dkeys):
+            x = block(x, bp, dkey)
         return self.head(x, targets=targets)
 
     # -- paged KV-cache decode (the serving tier) ---------------------------

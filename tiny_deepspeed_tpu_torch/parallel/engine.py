@@ -20,6 +20,13 @@ step follows the JAX `_step_body` (:1142-1407) exactly:
    step (params, moments and the step counter stay), which halves the
    scale; `loss_scale_growth_interval` clean steps in a row double it.
 
+With dropout on (model.config.dropout > 0), step `n` draws its masks
+from the key `fold_in(state.dropout_base, n)` (n = the optimizer's step
+counter before the update) and microbatch `i` from `fold_in(that, i)`,
+as the JAX step does (:1153-1156, :1265); `eval_loss` drops nothing.  A
+skipped dynamic-scale step leaves the counter, so its retry redraws the
+same masks.
+
 The update is in place (optim/base.py): the TrainState's params ARE the
 model's parameters.  One difference from the JAX engine: the dynamic
 scaler's finiteness flag is read on the host (one sync per step) and the
@@ -37,6 +44,7 @@ from typing import Any, Dict, Optional, Union
 
 import torch
 
+from .. import rng as prng
 from ..ops.dispatch import resolve_device
 
 
@@ -47,6 +55,9 @@ class TrainState:
     # dynamic loss-scale state {"scale": float, "good": int} when the
     # engine runs with loss_scale="dynamic"; None otherwise
     scaler: Optional[Dict[str, Any]] = None
+    # the dropout mask stream's base key (derived from the init seed)
+    # when the model has dropout > 0; None otherwise (JAX :86-92)
+    dropout_base: Optional[int] = None
 
 
 # knobs of the JAX engine the port refuses, with their off values
@@ -96,7 +107,9 @@ class SingleDevice:
              ) -> TrainState:
         """Seeded GPT-2 init of the model's parameters (in place) and the
         optimizer's zero state.  An int seeds a generator on the engine's
-        device."""
+        device.  The dropout base key is `fold_in(seed, 0xD0)` (JAX
+        :1042-1049), the seed being the generator's initial seed when a
+        generator is given."""
         g = seed_or_generator
         if not isinstance(g, torch.Generator):
             g = torch.Generator(device=self.device).manual_seed(int(g))
@@ -104,17 +117,19 @@ class SingleDevice:
         params = self.model.param_dict()
         scaler = ({"scale": 2.0 ** 15, "good": 0}
                   if self.loss_scale == "dynamic" else None)
+        base = (prng.fold_in(g.initial_seed(), 0xD0)
+                if self.model.config.dropout else None)
         return TrainState(params=params,
                           opt_state=self.optimizer.init(params),
-                          scaler=scaler)
+                          scaler=scaler, dropout_base=base)
 
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device).long()
 
     # -- the train step ----------------------------------------------------
 
-    def _loss_and_grads(self, params, idx, targets, scale):
-        loss = self.model.apply(idx, targets)
+    def _loss_and_grads(self, params, idx, targets, scale, rng):
+        loss = self.model.apply(idx, targets, rng=rng)
         if scale is not None:
             loss = loss * scale
         grads = torch.autograd.grad(loss, list(params.values()))
@@ -129,9 +144,12 @@ class SingleDevice:
         dynamic = self.loss_scale == "dynamic"
         scale = (state.scaler["scale"] if dynamic
                  else (float(self.loss_scale) if self.loss_scale else None))
+        rng = (prng.fold_in(state.dropout_base, state.opt_state["step"])
+               if state.dropout_base is not None else None)
 
         if self.accum_steps == 1:
-            loss, grads = self._loss_and_grads(params, idx, targets, scale)
+            loss, grads = self._loss_and_grads(params, idx, targets, scale,
+                                               rng)
         else:
             if idx.dim() != 3 or idx.shape[0] != self.accum_steps:
                 raise ValueError(
@@ -141,7 +159,9 @@ class SingleDevice:
             acc = {n: torch.zeros_like(p, dtype=torch.float32)
                    for n, p in params.items()}
             for i in range(self.accum_steps):
-                l, g = self._loss_and_grads(params, idx[i], targets[i], scale)
+                l, g = self._loss_and_grads(
+                    params, idx[i], targets[i], scale,
+                    None if rng is None else prng.fold_in(rng, i))
                 loss = loss + l
                 for n in acc:
                     acc[n] += g[n].float()

@@ -8,17 +8,18 @@
 
 Counterpart of `examples/single_device/train.py` with the harness of
 `examples/common.py` (`parse_args` / `run`): the same flags, with the
-same names and defaults, for what this slice supports, plus `--device`
-(default the card).  Seeded init, the JAX package's token stream
-(synthetic unless `--data`), `AdamW(lr, weight_decay, decay_exclude)`
-with an optional schedule, `SingleDevice` with optional grad clipping and
-loss scaling; it prints `iter N loss X` per step, optional
+same names and defaults, for what the port supports (`--dropout` and
+`--fused-xent` among them), plus `--device` (default the card).  Seeded
+init, the JAX package's token stream (synthetic unless `--data`),
+`AdamW(lr, weight_decay, decay_exclude)` with an optional schedule,
+`SingleDevice` with optional grad clipping and loss scaling; it prints `iter N loss X` per step, optional
 `iter N val_loss X`, and `done: N iters in Xs (Y tokens/s)`.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -65,6 +66,14 @@ def parse_args(argv=None):
                    help="clip gradients to this global L2 norm (0 = off)")
     p.add_argument("--loss-scale", type=_loss_scale, default=None,
                    metavar="S", help="a number (static) or 'dynamic'")
+    p.add_argument("--dropout", type=float, default=0.0, metavar="P",
+                   help="residual/embedding dropout rate")
+    p.add_argument("--fused-xent", choices=("chunked", "pallas"),
+                   default=None,
+                   help="fused lm_head+cross-entropy head: 'chunked' "
+                        "(plain PyTorch over (B,chunk,V) slabs) or 'pallas' "
+                        "(the fused CUDA kernels; logit tiles never leave "
+                        "the SM).  Default: full-logits head")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--data", default=None, metavar="TOKENS.bin",
                    help="uint16 token corpus; default synthetic tokens")
@@ -95,8 +104,20 @@ def _lr(args):
     return schedules.SCHEDULES[name](args.lr, **kw)
 
 
+def _model_config(args):
+    """The preset with --dropout and --fused-xent applied, as
+    examples/common.py:419-429 does."""
+    cfg = GPT2_PRESETS[args.model]
+    if args.dropout:
+        cfg = dataclasses.replace(cfg, dropout=args.dropout)
+    if args.fused_xent:
+        cfg = dataclasses.replace(cfg, fused_xent=True,
+                                  fused_xent_impl=args.fused_xent)
+    return cfg
+
+
 def run(args):
-    model = GPT2Model(GPT2_PRESETS[args.model], device=args.device)
+    model = GPT2Model(_model_config(args), device=args.device)
     opt = AdamW(lr=_lr(args), weight_decay=args.weight_decay,
                 decay_exclude=tuple(
                     p for p in (args.wd_exclude or "").split(",") if p))
