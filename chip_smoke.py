@@ -3,7 +3,9 @@
 # SPDX-License-Identifier: Apache-2.0
 
 """On-card smoke of the PyTorch port: build, check and time its kernels,
-serve gpt2-124m through ServingEngine, then train it through SingleDevice.
+serve gpt2-124m through ServingEngine, train it through SingleDevice, then
+serve it again under speculative decoding, the prefix cache and int8/fp8
+pools.
 
     python3 chip_smoke.py
 
@@ -18,7 +20,12 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      kernels at serving's and at training's; the fused xent kernels also
      at a ragged vocab and at D = 1600; AdamW also at ragged leaves), in
      bf16 (AdamW f32), with the tolerance stated per kernel; the seven
-     training kernels also run twice and must agree bit for bit.  Its
+     training kernels also run twice and must agree bit for bit.  The
+     slice-4 rows: paged attention over int8 and fp8 pools at the decode
+     shape, its span-verify variant at the speculative shape (K1=5) and
+     the suffix-prefill shape (K1=256) over bf16 and int8 pools (atol =
+     rtol = 2e-2), and the blockwise quantizer at the KV append, prefill
+     and grad-comm shapes (codes and scales bit-identical).  Its
      device time (profiler) stands beside the plain version's, one
      library call's (timed here as a yardstick only; the port never calls
      it) and the bound — the larger of bytes / 3.35 TB/s and flops / the
@@ -52,8 +59,23 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      path against the plain path, one fused AdamW update against
      fused=False, dropout's determinism, remat invariance and eval, and
      an 8-step fit;
-  6. the `kernels` JSON line, then the result line
-     {"ok": true, "device": {"platform": "gpu", ...}}.
+  6. serving variants: gpt2-124m bf16 at full depth, phase 3's 16
+     requests under spec_draft="ngram" and "model:self" (spec_k=4) and
+     under quant="int8" and "fp8", and a shared-prefix mix (16 requests
+     of a 256-token prefix plus a 16-128-token private suffix, 64 new
+     tokens each) with the prefix cache on and off.  Every count zeroed
+     before each path and read after (a model drafter's launches kept
+     apart); every request `ok`; each path's kernels non-zero and no
+     other kernel launched; decode tok/s, TTFT p50, device busy and idle
+     (a second, profiled pass), acceptance, aliased blocks and prefill
+     tokens skipped, `kv_bytes()` beside a bf16 pool's.  One verify
+     tick's (S, K1, V) logits and an int8 / fp8 prefill and its first
+     decode step against the plain path (5e-2 x max|logit|).  In f32 the
+     greedy tokens of plain, spec-ngram and spec-model:self serving must
+     be identical, and those of the prefix cache on and off; in bf16 the
+     agreement is reported, not gated;
+  7. the `kernels` JSON line (14 kernels, launches by path), then the
+     result line {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -69,9 +91,10 @@ import sys
 import time
 import types
 
-# H100 SXM published peaks (dense), the bound's denominators
+# H100 SXM published peaks (dense) by operand type, the bound's
+# denominators
 HBM_BPS = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 
@@ -85,7 +108,9 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
-def bound_ms(nbytes, flops, kind="bf16"):
+def bound_ms(nbytes, flops, kind):
+    """The least time for the work: bytes over HBM, or operations over
+    the peak for the operands' type (`kind`), whichever is larger."""
     tb, tf = nbytes / HBM_BPS, flops / PEAK_FLOPS[kind]
     return max(tb, tf) * 1e3, ("bytes" if tb >= tf else "operations")
 
@@ -194,7 +219,7 @@ def layernorm_phase(torch, F, ln):
         *_, err = checked_ln_fwd(torch, ln, x, w, b)
         worst = max(worst, err)
         nbytes = rows * n * 2 * 2 + 2 * n * 2 + rows * 8
-        bms, by = bound_ms(nbytes, 8 * rows * n, "f32")
+        bms, by = bound_ms(nbytes, 8 * rows * n, "bfloat16")
         res[rows] = dict(
             **timings(torch, lambda: ln.layernorm_fwd(x, w, b),
                       lambda: ln._ln_fwd_plain(x, w, b),
@@ -234,7 +259,7 @@ def flash_phase(torch, F, fa):
         worst = max(worst, err)
         nbytes = b * (4 * h * t * d * 2 + h * t * 4)
         flops = b * 4 * h * d * t * (t + 1) / 2
-        bms, by = bound_ms(nbytes, flops, "bf16")
+        bms, by = bound_ms(nbytes, flops, "bfloat16")
         res[b, t] = dict(
             **timings(torch, lambda: fa.fa2_flash_attention_fwd(q, k, v),
                       lambda: fa._fa2_fwd_plain(q, k, v),
@@ -274,7 +299,7 @@ def paged_phase(torch, F, pa, pool_mod):
         worst = max(worst, max_err(o, po))
     live = int((pos.long() + 1).sum())
     nbytes = live * hq * d * 2 * 2 + 2 * s * hq * d * 2 + s * (w + 1) * 4
-    bms, by = bound_ms(nbytes, 4 * live * hq * d, "bf16")
+    bms, by = bound_ms(nbytes, 4 * live * hq * d, "bfloat16")
     # rotate the layer so each call reads other pool bytes (one layer's
     # live K/V is ~24 MB; 12 layers overflow the 50 MB L2 as decode does)
     it = {"l": 0}
@@ -302,6 +327,217 @@ def paged_phase(torch, F, pa, pool_mod):
           + " ".join(f"{k}={v:.5g}" for k, v in res.items()
                      if k.endswith("ms")))
     return res, worst
+
+
+def _decode_inputs(torch, pool_mod, quant_mode=None, seed=7):
+    """Phase 2's decode shape — S=8, Hq=12, Dh=64, bt=16, 12 layers, 64
+    table entries, pos up to 1000 — over a bf16 pool or, quantized
+    through the codec, an int8 / fp8 one."""
+    s, hq, d, bt, nl, w = 8, 12, 64, 16, 12, 64
+    pos = torch.tensor([1000, 3, 15, 16, 517, 999, 0, 250],
+                       dtype=torch.int32, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (s * w + 1, bt, nl, hq, d)
+    kv = [torch.randn(shape, generator=g, device="cuda").bfloat16()
+          for _ in range(2)]
+    if quant_mode is None:
+        view = pool_mod.KVPoolView(*kv)
+    else:
+        (qk, sk), (qv, sv) = (pool_mod._quant_vectors(a, quant_mode)
+                              for a in kv)
+        view = pool_mod.KVPoolView(qk, qv, sk, sv)
+    del kv
+    perm = torch.randperm(s * w, generator=g, device="cuda") + 1
+    tables = perm.reshape(s, w).to(torch.int32)
+    return view, tables, pos, g
+
+
+def _layer_cycle(nl):
+    """Rotate the layer so each timed call reads other pool bytes (one
+    layer's live K/V overflows nothing; 12 layers overflow the 50 MB L2
+    as serving does)."""
+    it = {"l": 0}
+
+    def nxt():
+        it["l"] = (it["l"] + 1) % nl
+        return it["l"]
+    return nxt
+
+
+def _vector_bytes(view):
+    """Bytes of one resting head vector per side, its scale included."""
+    d = view.k.shape[-1]
+    return d * view.k.element_size() + (4 if view.k_scale is not None
+                                        else 0)
+
+
+def paged_quant_phase(torch, F, pa, pool_mod):
+    """9b: decode over int8 and fp8 pools at the decode shape, bf16 q,
+    against the plain version (dequant to bf16, then attention): atol =
+    rtol = 2e-2.  Library: gather + dequant (`paged_panel`) + SDPA."""
+    res, worst = {}, 0.0
+    for mode in ("int8", "fp8"):
+        view, tables, pos, g = _decode_inputs(torch, pool_mod, mode)
+        s, hq, d, nl = 8, 12, 64, 12
+        page = pool_mod.page_ref(tables, pos, 16)
+        q = torch.randn(s, hq, 1, d, generator=g, device="cuda").bfloat16()
+        for layer in (0, 5, 11):
+            o = pa.paged_attention(q, view, page, layer)
+            torch.cuda.synchronize()
+            po = pa._paged_attention_plain(q, view, page, layer)
+            torch.testing.assert_close(o.float(), po.float(), atol=2e-2,
+                                       rtol=2e-2)
+            worst = max(worst, max_err(o, po))
+        live = int((pos.long() + 1).sum())
+        nbytes = (live * hq * _vector_bytes(view) * 2 + 2 * s * hq * d * 2
+                  + s * (tables.shape[1] + 1) * 4)
+        bms, by = bound_ms(nbytes, 4 * live * hq * d, "bfloat16")
+        nxt = _layer_cycle(nl)
+        mask = (torch.arange(tables.shape[1] * 16, device="cuda")[None, :]
+                <= pos[:, None].long())[:, None, None, :]
+
+        def library():
+            ck, cv = pool_mod.paged_panel(view, nxt(), page, torch.bfloat16)
+            return F.scaled_dot_product_attention(q, ck, cv, attn_mask=mask)
+
+        res[mode] = dict(
+            **timings(torch, lambda: pa.paged_attention(q, view, page,
+                                                         nxt()),
+                      lambda: pa._paged_attention_plain(q, view, page,
+                                                        nxt()),
+                      library),
+            bound_ms=bms, bound_by=by, max_abs_err=worst,
+            shape=f"S={s} Hq={hq} Dh={d} bt=16 pos<=1000 bf16 q, {mode} "
+                  "pool")
+        print(f"kernel paged_attention_quant {mode} pool S={s} Hq={hq} "
+              f"Dh={d} bt=16 pos={pos.tolist()} bf16 q: max_abs_err="
+              f"{worst:.3g} (tol atol=rtol=2e-2); library = paged_panel + "
+              "SDPA; " + " ".join(f"{k}={v:.5g}" for k, v in
+                                  res[mode].items() if k.endswith("ms")))
+        del view
+    return res, worst
+
+
+def paged_span_phase(torch, F, pa, pool_mod):
+    """9c: span verify at the speculative shape (S=8, K1=5, pos0 the
+    decode positions, one at 0) and the suffix-prefill shape (S=2,
+    K1=256, pos0 512 and 0), over bf16 and int8 pools, bf16 q: atol =
+    rtol = 2e-2 against the plain version.  Library: `paged_panel` +
+    SDPA with the span mask."""
+    res, worst = {}, 0.0
+    hq, d, nl = 12, 64, 12
+    for mode in (None, "int8"):
+        view, tables, pos, g = _decode_inputs(torch, pool_mod, mode,
+                                              seed=11)
+        for shape, k1, pos0 in (("spec", 5, pos),
+                                ("suffix", 256, torch.tensor(
+                                    [512, 0], dtype=torch.int32,
+                                    device="cuda"))):
+            s = pos0.shape[0]
+            tab = tables[:s]
+            page = pool_mod.page_ref(tab, pos0, 16)
+            q, sk, sv = (torch.randn(s, hq, k1, d, generator=g,
+                                     device="cuda").bfloat16()
+                         for _ in range(3))
+            for layer in (0, 11):
+                o = pa.paged_attention(q, view, page, layer,
+                                       span_kv=(sk, sv))
+                torch.cuda.synchronize()
+                po = pa._paged_attention_plain(q, view, page, layer,
+                                               (sk, sv))
+                torch.testing.assert_close(o.float(), po.float(),
+                                           atol=2e-2, rtol=2e-2)
+                check(bool(torch.isfinite(o).all()), "span output not "
+                      "finite")
+                worst = max(worst, max_err(o, po))
+            live = int(pos0.long().sum())
+            tri = s * k1 * (k1 + 1) // 2  # span (query, key) pairs
+            nbytes = (live * hq * _vector_bytes(view) * 2
+                      + 4 * s * hq * k1 * d * 2 + s * (tab.shape[1] + 1) * 4)
+            flops = 4 * hq * d * (k1 * live + tri)
+            bms, by = bound_ms(nbytes, flops, "bfloat16")
+            nxt = _layer_cycle(nl)
+            t = tab.shape[1] * 16
+            pmask = (torch.arange(t, device="cuda")[None, None, :]
+                     < pos0.long()[:, None, None]).expand(s, k1, t)
+            smask = torch.ones(k1, k1, dtype=torch.bool,
+                               device="cuda").tril()[None].expand(s, k1, k1)
+            mask = torch.cat([pmask, smask], dim=-1)[:, None]
+
+            def library():
+                ck, cv = pool_mod.paged_panel(view, nxt(), page,
+                                              torch.bfloat16)
+                return F.scaled_dot_product_attention(
+                    q, torch.cat([ck, sk], 2), torch.cat([cv, sv], 2),
+                    attn_mask=mask)
+
+            key = (mode or "bf16", shape)
+            res[key] = dict(
+                **timings(torch, lambda: pa.paged_attention(
+                    q, view, page, nxt(), span_kv=(sk, sv)),
+                    lambda: pa._paged_attention_plain(q, view, page, nxt(),
+                                                      (sk, sv)),
+                    library),
+                bound_ms=bms, bound_by=by, max_abs_err=worst,
+                shape=f"S={s} Hq={hq} K1={k1} Dh={d} pos0="
+                      f"{pos0.tolist()} bf16 q, {mode or 'bf16'} pool")
+            print(f"kernel paged_attention_span {shape} {res[key]['shape']}: "
+                  f"max_abs_err={worst:.3g} (tol atol=rtol=2e-2); library "
+                  "= paged_panel + SDPA with the span mask; "
+                  + " ".join(f"{k}={v:.5g}" for k, v in res[key].items()
+                             if k.endswith("ms")))
+        del view
+    return res, worst
+
+
+def quantize_phase(torch, qm):
+    """10: the blockwise quantizer at the KV append shape (96 head
+    vectors x 64, bf16: S=8 slots x 12 heads), the prefill shape
+    (512 x 12 x 12 vectors x 64, bf16) and the grad-comm shape (gpt2-124m's
+    38.6M-element lm_head leaf in f32, block 256, int8 with a uniform
+    dither).  Codes and scales must be bit-identical to the plain
+    version; no one PyTorch call computes the function (library null)."""
+    res = {}
+    for name, n, block, dtype, mode, dither in (
+            ("kv_append", 96 * 64, 64, torch.bfloat16, "int8", False),
+            ("kv_append_fp8", 96 * 64, 64, torch.bfloat16, "fp8", False),
+            ("prefill", 512 * 12 * 12 * 64, 64, torch.bfloat16, "int8",
+             False),
+            ("prefill_fp8", 512 * 12 * 12 * 64, 64, torch.bfloat16, "fp8",
+             False),
+            ("grad_comm", 768 * 50304, 256, torch.float32, "int8", True)):
+        g = torch.Generator(device="cuda").manual_seed(n + block)
+        x = torch.randn(n, generator=g, device="cuda").to(dtype)
+        d = ((torch.rand(n, generator=g, device="cuda") - 0.5) if dither
+             else None)
+        q, sc = qm.quantize_blockwise(x, mode, block, d)
+        torch.cuda.synchronize()
+        pq, psc = qm._quantize_plain(x, mode, block, d)
+        same = (torch.equal(q.view(torch.uint8), pq.view(torch.uint8))
+                and torch.equal(sc, psc))
+        ncode = int((q.view(torch.uint8) != pq.view(torch.uint8)).sum())
+        check(same, f"quantize_blockwise {name}: not bit-identical to the "
+              f"plain version ({ncode} codes differ, scales equal: "
+              f"{torch.equal(sc, psc)})")
+        nbytes = (n * x.element_size() + (4 * n if dither else 0) + n
+                  + 4 * (n // block))
+        bms, by = bound_ms(nbytes, 5 * n, str(dtype)[6:])
+        res[name] = dict(ms=device_ms(torch, lambda: qm.quantize_blockwise(
+                             x, mode, block, d)),
+                         plain_ms=device_ms(torch, lambda: qm._quantize_plain(
+                             x, mode, block, d)),
+                         library_ms=None,
+                         call_ms=time_ms(torch, lambda: qm.quantize_blockwise(
+                             x, mode, block, d)),
+                         bound_ms=bms, bound_by=by, max_abs_err=0.0,
+                         shape=f"{n // block}x{block} {str(dtype)[6:]} "
+                               f"{mode}{' dither' if dither else ''}")
+        print(f"kernel quantize_blockwise {name} {res[name]['shape']}: "
+              "codes and scales bit-identical to the plain version; "
+              + " ".join(f"{k}={v:.5g}" for k, v in res[name].items()
+                         if k.endswith("ms") and v is not None))
+        del x, d, q, pq
+    return res
 
 
 def _rel_err(a, b):
@@ -364,7 +600,7 @@ def ln_bwd_phase(torch, F, ln):
             ("layernorm_dwdb", lambda: ln.layernorm_dwdb(gy, x, mean, rstd),
              lambda: ln._ln_dwdb_plain(gy, x, mean, rstd), dwdb_bytes,
              5 * rows * n, dwdb_err, dwdb_rel)):
-        bms, by = bound_ms(nbytes, flops, "f32")
+        bms, by = bound_ms(nbytes, flops, "bfloat16")
         res[name] = dict(ms=device_ms(torch, kernel),
                          plain_ms=device_ms(torch, plain),
                          library_ms=lib_ms, call_ms=time_ms(torch, kernel),
@@ -437,7 +673,7 @@ def flash_bwd_phase(torch, F, fa):
              lambda: fa.fa2_flash_attention_dkv(q, k, v, do, lse, di),
              lambda: fa._fa2_dkv_plain(q, k, v, do, lse, di),
              6 * panel + stats, 8 * tri)):
-        bms, by = bound_ms(nbytes, flops, "bf16")
+        bms, by = bound_ms(nbytes, flops, "bfloat16")
         res[name] = dict(ms=device_ms(torch, kernel, iters=5),
                          plain_ms=device_ms(torch, plain, iters=5),
                          library_ms=lib_ms,
@@ -533,7 +769,7 @@ def xent_phase(torch, F, fx):
              lambda: fx._xent_dw_plain(x, w, tg, lse, gs), None,
              xb + wb + s_ * 12 + 4 + d * v * 4, 2 * op,
              max(e["dw"] for e in errs.values()))):
-        bms, by = bound_ms(nbytes, flops, "bf16")
+        bms, by = bound_ms(nbytes, flops, "bfloat16")
         res[name] = dict(ms=device_ms(torch, kernel, iters=5),
                          plain_ms=device_ms(torch, plain, iters=3),
                          library_ms=(device_ms(torch, lib, iters=5) if lib
@@ -617,12 +853,12 @@ def adamw_phase(torch, af, leaf_shapes):
     lib_one = torch_opt([lp])
     lib_all = torch_opt([t[0] for t in leaves.values()])
     n_all = sum(t[0].numel() for t in leaves.values())
-    bms, by = bound_ms(28 * lp.numel(), 15 * lp.numel(), "f32")
+    bms, by = bound_ms(28 * lp.numel(), 15 * lp.numel(), "float32")
     res = dict(ms=device_ms(torch, one), plain_ms=device_ms(torch, plain_one),
                library_ms=device_ms(torch, lib_one),
                call_ms=time_ms(torch, one), bound_ms=bms, bound_by=by,
                max_abs_err=worst_abs, shape=f"{lp.numel()} f32 (lm_head leaf)")
-    step_b, _ = bound_ms(28 * n_all, 15 * n_all, "f32")
+    step_b, _ = bound_ms(28 * n_all, 15 * n_all, "float32")
     res["per_step"] = dict(ms=device_ms(torch, step_all, iters=5),
                            library_ms=device_ms(torch, lib_all, iters=5),
                            call_ms=time_ms(torch, step_all, iters=5),
@@ -1104,6 +1340,405 @@ def knobbed_phase(torch, port, counters, ln, fa, fx, af):
                 busy_ms=busy / 1e3, first_loss=losses[0], peak_gib=peak)
 
 
+# -- phase 6: serving variants ------------------------------------------------
+
+# (path name, ServeConfig knobs) over phase 3's traffic
+SERVE_VARIANTS = (("spec_ngram", dict(spec_draft="ngram", spec_k=4)),
+                  ("spec_model_self", dict(spec_draft="model:self",
+                                           spec_k=4)),
+                  ("quant_int8", dict(quant="int8")),
+                  ("quant_fp8", dict(quant="fp8")))
+# the kernels each path must launch (the drafter's apart)
+VARIANT_KERNELS = {
+    "spec_ngram": ("layernorm_fwd", "fa2_flash_attention_fwd",
+                   "paged_attention_span"),
+    "spec_model_self": ("layernorm_fwd", "fa2_flash_attention_fwd",
+                        "paged_attention_span"),
+    "spec_model_self_drafter": ("layernorm_fwd", "fa2_flash_attention_fwd",
+                                "paged_attention"),
+    "quant_int8": ("layernorm_fwd", "fa2_flash_attention_fwd",
+                   "paged_attention_quant", "quantize_blockwise"),
+    "quant_fp8": ("layernorm_fwd", "fa2_flash_attention_fwd",
+                  "paged_attention_quant", "quantize_blockwise"),
+    "prefix_on": ("layernorm_fwd", "fa2_flash_attention_fwd",
+                  "paged_attention", "paged_attention_span"),
+    "prefix_off": ("layernorm_fwd", "fa2_flash_attention_fwd",
+                   "paged_attention"),
+}
+SERVE_PATTERNS = {"layernorm_fwd": "_ln_fwd_kernel",
+                  "fa2_flash_attention_fwd": "flash_fwd_kernel",
+                  "paged_attention": "paged_decode_kernel",
+                  "paged_attention_span": "paged_span_kernel",
+                  "quantize_blockwise": "_quant_kernel"}
+
+
+def prefix_traffic(np):
+    """16 requests, each a shared 256-token prefix (seed 1) plus a
+    private suffix of 16-128 tokens (seed 2), and the 64 new tokens each
+    asks for."""
+    shared = np.random.default_rng(1).integers(0, 50257, 256).tolist()
+    rng = np.random.default_rng(2)
+    lens = rng.integers(16, 129, size=16)
+    return [shared + rng.integers(0, 50257, int(n)).tolist()
+            for n in lens], 64
+
+
+def serve_variant(torch, model, prompts, new, counters, profile=False,
+                  **knobs):
+    """Phase 3's engine with `knobs`; every count zeroed just before the
+    drive and read just after.  Returns (engine, requests, wall, segment
+    times, launches, the drafter's share of them, profile)."""
+    from tiny_deepspeed_tpu_torch.serving import ServeConfig, ServingEngine
+    longest = max(len(p) for p in prompts) + new
+    per_req = -(-longest // 16) + 1
+    cfg = ServeConfig(max_active=8, block_tokens=16, num_blocks=8 * per_req,
+                      max_seq_tokens=longest, **knobs)
+    eng = ServingEngine(model, cfg)
+    seg = {"prefill_s": 0.0, "decode_s": 0.0, "decode_ticks": 0}
+    dname = "_decode_spec" if eng._spec is not None else "_decode_plain"
+    pre, dec = eng._prefill_step, getattr(eng, dname)
+
+    def timed_prefill(*a):
+        t = time.perf_counter()
+        try:
+            return pre(*a)  # ends in a host sync (the sampled token)
+        finally:
+            seg["prefill_s"] += time.perf_counter() - t
+
+    def timed_decode(*a):
+        t = time.perf_counter()
+        try:
+            return dec(*a)  # ends in a host sync (the token fetch)
+        finally:
+            seg["decode_s"] += time.perf_counter() - t
+            seg["decode_ticks"] += 1
+
+    eng._prefill_step = timed_prefill
+    setattr(eng, dname, timed_decode)
+    drafter = dict.fromkeys(counters, 0)
+    if eng._spec is not None:  # the drafter's launches, kept apart
+        d = eng._spec.drafter
+        for name in ("propose", "on_admit"):
+            def counted(*a, _f=getattr(d, name)):
+                before = {k: c.launches for k, c in counters.items()}
+                try:
+                    return _f(*a)
+                finally:
+                    for k, c in counters.items():
+                        drafter[k] += c.launches - before[k]
+            setattr(d, name, counted)
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reqs = [eng.submit(p, new) for p in prompts]
+    prof = None
+    if profile:
+        prof = profiled(torch, lambda: eng.drain(max_ticks=10_000), tries=1)
+    else:
+        eng.drain(max_ticks=10_000)
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches - drafter[k] for k, c in counters.items()}
+    return eng, reqs, wall, seg, launches, drafter, prof
+
+
+def plain_serving_ops(pa, pool_mod, qm):
+    """Every serving kernel wrapper the model and the pool call swapped for
+    its plain version: layernorm, FA2, paged attention, the quantizer."""
+    from tiny_deepspeed_tpu_torch.models import gpt2 as gpt2_mod
+    from tiny_deepspeed_tpu_torch.ops.flash_fa2 import _fa2_fwd_plain
+    from tiny_deepspeed_tpu_torch.ops.layernorm import _ln_fwd_plain
+
+    @contextlib.contextmanager
+    def ctx():
+        saved = (gpt2_mod.layernorm, gpt2_mod.ATTENTION,
+                 gpt2_mod.paged_attention, pool_mod.quantize_blockwise)
+        gpt2_mod.layernorm = lambda x, w, b, eps=1e-5: _ln_fwd_plain(
+            x, w, b, eps)[0]
+        gpt2_mod.ATTENTION = {k: (lambda q, k_, v: _fa2_fwd_plain(q, k_, v)[0])
+                              for k in saved[1]}
+        gpt2_mod.paged_attention = (
+            lambda q, view, page, l, span_kv=None:
+            pa._paged_attention_plain(q, view, page, l, span_kv))
+        pool_mod.quantize_blockwise = (
+            lambda x, mode, block=256, dither=None:
+            qm._quantize_plain(x.reshape(-1), mode, block, dither))
+        try:
+            yield
+        finally:
+            (gpt2_mod.layernorm, gpt2_mod.ATTENTION,
+             gpt2_mod.paged_attention, pool_mod.quantize_blockwise) = saved
+    return ctx()
+
+
+def verify_logits_check(torch, np, model, prompts, plain, counters):
+    """One verify tick's (S, K1, V) logits — 8 slots admitted, then the
+    span [head, 4 ngram drafts] scored over the committed pool — on the
+    kernel path and on the plain path (same pool, read-only; the plain
+    path must launch no kernel)."""
+    from tiny_deepspeed_tpu_torch.serving import ServeConfig, ServingEngine
+    from tiny_deepspeed_tpu_torch.serving.pool import page_ref
+    eng = ServingEngine(model, ServeConfig(
+        max_active=8, block_tokens=16, num_blocks=8 * 38, max_seq_tokens=600,
+        spec_draft="ngram", spec_k=4))
+    for p in prompts[:8]:
+        eng.submit(p, 64)
+    eng._admit()
+    active = [(i, s) for i, s in enumerate(eng._slots) if s is not None]
+    drafts = eng._spec.propose(eng._slots)
+    tokens, pos, *_, tables = eng._slot_arrays(active)
+    span = torch.from_numpy(np.concatenate(
+        [tokens[:, None], drafts[:, :4]], 1)).cuda()
+    pos_t, tables_t = (torch.from_numpy(a).cuda() for a in (pos, tables))
+    positions = (pos_t.long()[:, None]
+                 + torch.arange(5, device="cuda")[None, :]).clamp(max=1023)
+
+    @torch.no_grad()
+    def run():
+        x = model._embed_decode_span(span, positions)
+        page = page_ref(tables_t, pos_t, 16)
+        x, _, _ = model.paged_verify(eng._stacked, x, eng.pool.view, page)
+        return model.head_span(x, params=eng._head)
+
+    kern = run()
+    before = {k: c.launches for k, c in counters.items()}
+    with plain():
+        ref = run()
+    check({k: c.launches for k, c in counters.items()} == before,
+          "the plain path launched a kernel")
+    return kern, ref
+
+
+def quant_prefill_check(torch, model, prompt, mode, plain, counters):
+    """A prefill into an int8 / fp8 pool and the decode step after it
+    (the quantizer writes the pool, the quantized decode kernel reads
+    it), on the kernel path and on the plain path: (prefill logits,
+    decode logits) each."""
+    from tiny_deepspeed_tpu_torch.serving.pool import PagedKVPool, page_ref
+    c = model.config
+    p = len(prompt)
+    bucket = max(16, 1 << (p - 1).bit_length())
+    idx = torch.zeros(1, bucket, dtype=torch.long, device="cuda")
+    idx[0, :p] = torch.tensor(prompt, device="cuda")
+    nblk = bucket // 16 + 1
+    ids = torch.arange(1, bucket // 16 + 1, device="cuda")
+    tables = torch.arange(1, nblk + 1, dtype=torch.int32,
+                          device="cuda")[None]
+    pos = torch.tensor([p], dtype=torch.int32, device="cuda")
+
+    @torch.no_grad()
+    def run():
+        pool = PagedKVPool(n_layer=c.n_layer, kv_heads=c.n_head,
+                           head_dim=c.head_dim, num_blocks=nblk,
+                           block_tokens=16, dtype=torch.bfloat16,
+                           quant=mode, device="cuda")
+        lp, _ = model.paged_prefill(idx, p - 1, ids, pool.view, 16)
+        tok = lp.argmax(-1)
+        x = model._embed_decode(tok, pos)
+        x, _ = model.paged_decode(model.stacked_compute_params(), x,
+                                  pool.view, page_ref(tables, pos, 16))
+        return lp, model.head(x)[:, 0]
+
+    kern = run()
+    before = {k: c.launches for k, c in counters.items()}
+    with plain():
+        ref = run()
+    check({k: c.launches for k, c in counters.items()} == before,
+          "the plain path launched a kernel")
+    return kern, ref
+
+
+def _agree(a, b):
+    """Share of token positions on which two runs' streams agree."""
+    pairs = [(x, y) for ra, rb in zip(a, b) for x, y in zip(ra, rb)]
+    return sum(x == y for x, y in pairs) / max(1, len(pairs))
+
+
+def variants_phase(torch, np, model, counters, pa, pool_mod, qm,
+                   plain_tokens):
+    """Phase 6: gpt2-124m bf16 at full depth under speculative decoding
+    (ngram and model:self, spec_k=4), int8 and fp8 pools (phase 3's 16
+    requests) and the prefix cache on and off (a shared-prefix mix), then
+    the logits checks.  `plain_tokens`: phase 3's streams, for the bf16
+    token agreement (reported, not gated)."""
+    prompts, new = serving_traffic(np)
+    pprompts, pnew = prefix_traffic(np)
+    runs = [(name, prompts, new, knobs) for name, knobs in SERVE_VARIANTS]
+    runs += [("prefix_on", pprompts, pnew, dict(prefix_cache=True)),
+             ("prefix_off", pprompts, pnew, {})]
+    # warm every variant's shapes once (Triton compiles, cuBLAS heuristics)
+    for _, ps, _, knobs in runs:
+        serve_variant(torch, model, [ps[0][:24], ps[1][:300]], 4, counters,
+                      **knobs)
+    paths, tokens, results = {}, {}, {}
+    for name, ps, nw, knobs in runs:
+        eng, reqs, wall, seg, launches, drafter, _ = serve_variant(
+            torch, model, ps, nw, counters, **knobs)
+        paths[name] = launches
+        if knobs.get("spec_draft", "").startswith("model:"):
+            paths[name + "_drafter"] = drafter
+        if eng._spec is not None:
+            check(launches["paged_attention"] == 0,
+                  f"{name}: the target ran the plain decode kernel")
+        statuses = [r.status for r in reqs]
+        check(all(s == "ok" for s in statuses), f"{name}: statuses "
+              f"{statuses}")
+        check(all(len(r.tokens) == nw for r in reqs), f"{name}: short "
+              "token streams")
+        check(all(0 <= t < model.config.vocab_size for r in reqs
+                  for t in r.tokens), f"{name}: token ids out of range")
+        check(eng.restarts == 0, f"{name}: {eng.restarts} warm restart(s)")
+        held = len(set(eng._prefix.blocks())) if eng._prefix else 0
+        check(eng.pool.blocks_in_use == held, f"{name}: pool blocks leaked")
+        for path in (name, name + "_drafter"):
+            for k in VARIANT_KERNELS.get(path, ()):
+                check(paths[path][k] > 0,
+                      f"{k} was never launched on the {path} path")
+        quiet = [k for k in counters if k not in
+                 VARIANT_KERNELS[name] + VARIANT_KERNELS.get(
+                     name + "_drafter", ())]
+        check(not any(launches[k] or drafter[k] for k in quiet),
+              f"{name} ran kernels outside its path: "
+              f"{ {k: launches[k] + drafter[k] for k in quiet} }")
+        total = sum(len(r.tokens) for r in reqs)
+        dec_tok = total - len(reqs)
+        ttft = statistics.median(r.t_first - r.t_arrival for r in reqs)
+        out = dict(wall_s=wall, decode_tok_s=dec_tok / seg["decode_s"],
+                   ttft_p50_ms=ttft * 1e3, prefill_s=seg["prefill_s"],
+                   decode_s=seg["decode_s"], ticks=seg["decode_ticks"],
+                   launches=launches)
+        extra = ""
+        if eng._spec is not None:
+            st = dict(proposed=eng._spec_proposed,
+                      accepted=eng._spec_accepted,
+                      acceptance=eng._spec_accepted
+                      / max(1, eng._spec_proposed),
+                      ticks=eng._spec_ticks, tokens=eng._spec_tokens)
+            out.update(spec=st, drafter_launches=drafter)
+            extra = (f"; acceptance {st['accepted']}/{st['proposed']} = "
+                     f"{st['acceptance']:.4f}, {st['tokens']} tokens in "
+                     f"{st['ticks']} verify ticks; drafter launches "
+                     f"{ {k: v for k, v in drafter.items() if v} }")
+        if eng._prefix is not None:
+            st = eng.prefix_stats()
+            out.update(prefix=st)
+            extra = (f"; aliased blocks {st['blocks_aliased']}, prefill "
+                     f"tokens skipped {st['prefill_tokens_avoided']} of "
+                     f"{st['prompt_tokens']} (hit rate {st['hit_rate']})")
+        if knobs.get("quant"):
+            kb = eng.pool.kv_bytes()
+            bf16 = 2 * eng.pool.view.k.numel() * 2  # same geometry in bf16
+            out.update(kv_bytes=kb, kv_bytes_bf16=bf16)
+            extra = (f"; kv_bytes {kb['total_bytes']} ({kb['dtype']}, "
+                     f"scales {kb['scale_bytes']}) vs {bf16} for a bf16 "
+                     f"pool of the same geometry = "
+                     f"{kb['total_bytes'] / bf16:.4f}")
+        print(f"  {name}: 16 requests ok, {total} tokens in {wall:.4f}s; "
+              f"decode {dec_tok} tokens in {seg['decode_ticks']} ticks, "
+              f"{seg['decode_s']:.4f}s -> {out['decode_tok_s']:.2f} decode "
+              f"tok/s; prefill {seg['prefill_s']:.4f}s; TTFT p50 "
+              f"{ttft * 1e3:.2f} ms; launches "
+              f"{ {k: v for k, v in launches.items() if v} }{extra}")
+        tokens[name] = [r.tokens for r in reqs]
+        results[name] = out
+        del eng
+        torch.cuda.empty_cache()
+
+    # device busy / idle: a second, profiled pass of each path
+    for name, ps, nw, knobs in runs:
+        for _ in range(3):  # an empty CUPTI trace: serve the traffic again
+            *_, prof = serve_variant(torch, model, ps, nw, counters,
+                                     profile=True, **knobs)
+            if prof is not None:
+                break
+        check(prof is not None, f"{name}: the profiler recorded no device "
+              "time")
+        per, busy, rows = kernel_shares(torch, prof, SERVE_PATTERNS)
+        with open(os.path.join(OUT_DIR, f"{name}_profile.txt"), "w") as f:
+            for us, n, key in rows:
+                f.write(f"{us / 1e3:12.3f} ms {n:8d}  {key}\n")
+        wall = results[name]["wall_s"]
+        results[name].update(busy_s=busy / 1e6, idle_share=1 - busy / 1e6
+                             / wall, kernel_s={k: v / 1e6 for k, v in
+                                               per.items()})
+        print(f"  {name}: device busy {busy / 1e6:.4f}s of the main run's "
+              f"{wall:.4f}s wall (idle share {1 - busy / 1e6 / wall:.4f}); "
+              "kernel device s "
+              f"{ {k: round(v / 1e6, 5) for k, v in per.items()} }")
+
+    def plain():
+        return plain_serving_ops(pa, pool_mod, qm)
+
+    kern, ref = verify_logits_check(torch, np, model, prompts, plain,
+                                    counters)
+    err, scale = max_err(kern, ref), float(ref.abs().max())
+    print(f"  one verify tick's (S, K1, V) = {tuple(kern.shape)} logits vs "
+          f"the plain path on the card: max_abs_err={err:.4g}, max|logit|="
+          f"{scale:.4g} (tol 5e-2 x max|logit|)")
+    check(kern.shape == (8, 5, model.config.vocab_size)
+          and bool(torch.isfinite(kern).all()), "verify logits malformed")
+    check(err <= 5e-2 * scale, "verify logits disagree with the plain path")
+    for mode in ("int8", "fp8"):
+        (kp, kd), (rp, rd) = quant_prefill_check(torch, model, prompts[0],
+                                                 mode, plain, counters)
+        e = [max_err(kp, rp), max_err(kd, rd)]
+        sc = [float(rp.abs().max()), float(rd.abs().max())]
+        print(f"  {mode} pool: prefill logits max_abs_err={e[0]:.4g} "
+              f"(max|logit| {sc[0]:.4g}), first decode step over the "
+              f"quantized pool max_abs_err={e[1]:.4g} (max|logit| "
+              f"{sc[1]:.4g}) vs the plain path (tol 5e-2 x max|logit|)")
+        check(all(bool(torch.isfinite(t).all()) for t in (kp, kd)),
+              f"{mode} logits not finite")
+        check(e[0] <= 5e-2 * sc[0] and e[1] <= 5e-2 * sc[1],
+              f"{mode} prefill/decode logits disagree with the plain path")
+    # bf16 token agreement with plain serving (reported, not gated)
+    agree = {name: round(_agree(plain_tokens, tokens[name]), 4)
+             for name, *_ in runs[:len(SERVE_VARIANTS)]}
+    agree["prefix_on_vs_off"] = round(_agree(tokens["prefix_off"],
+                                             tokens["prefix_on"]), 4)
+    print(f"  bf16 token agreement with plain serving (not gated): {agree}")
+    return paths, results, agree
+
+
+def f32_identity(torch, np, port, model, counters):
+    """gpt2-124m in f32 (same weights): 8 of phase 3's requests and 8 of
+    the shared-prefix mix, 32 new tokens each.  The greedy tokens of
+    plain, spec-ngram and spec-model:self must be identical, and those
+    of the prefix cache on and off."""
+    cfg = dataclasses.replace(model.config, compute_dtype=torch.float32)
+    m32 = port.GPT2Model(cfg)
+    m32.load_state_dict(model.state_dict())
+    prompts, _ = serving_traffic(np)
+    pprompts, _ = prefix_traffic(np)
+    out = {}
+    for name, ps, knobs in (
+            ("plain", prompts[:8], {}),
+            ("spec_ngram", prompts[:8], dict(spec_draft="ngram", spec_k=4)),
+            ("spec_model_self", prompts[:8], dict(spec_draft="model:self",
+                                                  spec_k=4)),
+            ("prefix_off", pprompts[:8], {}),
+            ("prefix_on", pprompts[:8], dict(prefix_cache=True))):
+        eng, reqs, *_ = serve_variant(torch, m32, ps, 32, counters, **knobs)
+        check(all(r.status == "ok" for r in reqs), f"f32 {name} failed")
+        out[name] = [r.tokens for r in reqs]
+        if eng._prefix is not None:
+            out["prefix_aliased"] = eng.prefix_stats()["blocks_aliased"]
+    same_spec = out["plain"] == out["spec_ngram"] == out["spec_model_self"]
+    same_prefix = out["prefix_on"] == out["prefix_off"]
+    print(f"  f32 gpt2-124m, 8 requests x 32 tokens: plain == spec-ngram "
+          f"== spec-model:self: {same_spec}; prefix cache on == off: "
+          f"{same_prefix} ({out['prefix_aliased']} blocks aliased)")
+    check(same_spec, "f32 spec tokens differ from plain greedy: "
+          f"{[_agree(out['plain'], out[k]) for k in ('spec_ngram', 'spec_model_self')]}")
+    check(same_prefix, "f32 prefix-cache tokens differ from cache off: "
+          f"{_agree(out['prefix_off'], out['prefix_on'])}")
+    check(out["prefix_aliased"] > 0, "the f32 prefix run aliased nothing")
+    del m32
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1120,6 +1755,7 @@ def main():
     from tiny_deepspeed_tpu_torch.ops import fused_xent as fx
     from tiny_deepspeed_tpu_torch.ops import layernorm as ln
     from tiny_deepspeed_tpu_torch.ops import paged_attn as pa
+    from tiny_deepspeed_tpu_torch.ops import quant as qm
     from tiny_deepspeed_tpu_torch.optim import adamw_fused as af
     from tiny_deepspeed_tpu_torch.serving import pool as pool_mod
 
@@ -1157,6 +1793,10 @@ def main():
     ln_res, ln_err = layernorm_phase(torch, F, ln)
     fa_res, fa_err = flash_phase(torch, F, fa)
     pa_res, pa_err = paged_phase(torch, F, pa, pool_mod)
+    pq_res, pq_err = paged_quant_phase(torch, F, pa, pool_mod)
+    ps_res, ps_err = paged_span_phase(torch, F, pa, pool_mod)
+    qz_res = quantize_phase(torch, qm)
+    torch.cuda.empty_cache()
     bwd_res = ln_bwd_phase(torch, F, ln)
     bwd_res.update(flash_bwd_phase(torch, F, fa))
     bwd_res.update(xent_phase(torch, F, fx))
@@ -1181,7 +1821,10 @@ def main():
                 "fused_xent_fwd": fx.fused_xent_fwd,
                 "fused_xent_dx": fx.fused_xent_dx,
                 "fused_xent_dw": fx.fused_xent_dw,
-                "adamw_update_fused": af.adamw_update_fused}
+                "adamw_update_fused": af.adamw_update_fused,
+                "paged_attention_quant": pa.paged_attention_quant,
+                "paged_attention_span": pa.paged_attention_span,
+                "quantize_blockwise": qm.quantize_blockwise}
     serve_kernels = ("layernorm_fwd", "fa2_flash_attention_fwd",
                      "paged_attention")
     for fn in counters.values():
@@ -1254,6 +1897,7 @@ def main():
           f"{shares}")
     for us, n, key in rows[:10]:
         print(f"    {us / 1e3:10.3f} ms x{n:<6d} {key[:90]}")
+    plain_tokens = [r.tokens for r in reqs]
     del eng, model, prof
     torch.cuda.empty_cache()
 
@@ -1265,6 +1909,17 @@ def main():
     print("phase 5: knobbed training gpt2-124m (fused head, fused AdamW, "
           "dropout)")
     knob = knobbed_phase(torch, port, counters, ln, fa, fx, af)
+    torch.cuda.empty_cache()
+
+    print("phase 6: serving variants of gpt2-124m (speculative decoding, "
+          "prefix cache, int8/fp8 pools)")
+    model = port.GPT2Model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    var_paths, var_res, agree = variants_phase(
+        torch, np, model, counters, pa, pool_mod, qm, plain_tokens)
+    f32_identity(torch, np, port, model, counters)
+    del model
+    torch.cuda.empty_cache()
 
     timed = ("shape", "ms", "plain_ms", "library_ms", "call_ms", "bound_ms",
              "bound_by")
@@ -1276,7 +1931,8 @@ def main():
         shape."""
         by_path = {"serving": serve_launches[name],
                    "training": train["launches"][name],
-                   "knobbed_training": knob["launches"][name]}
+                   "knobbed_training": knob["launches"][name],
+                   **{p: v[name] for p, v in var_paths.items()}}
         row = {"name": name, "route": route, "source": source,
                "replaces": replaces, "launches": sum(by_path.values()),
                "launches_by_path": by_path,
@@ -1299,6 +1955,18 @@ def main():
               "tiny_deepspeed_tpu_torch/csrc/paged_attn.cu",
               "tiny_deepspeed_tpu/ops/paged_attn_pallas.py:228",
               pa_res, pa_err),
+        entry("paged_attention_quant", "cuda",
+              "tiny_deepspeed_tpu_torch/csrc/paged_attn.cu",
+              "tiny_deepspeed_tpu/ops/paged_attn_pallas.py:228",
+              pq_res["int8"], pq_err),
+        entry("paged_attention_span", "cuda",
+              "tiny_deepspeed_tpu_torch/csrc/paged_attn.cu",
+              "tiny_deepspeed_tpu/ops/paged_attn_pallas.py:228",
+              ps_res["bf16", "spec"], ps_err),
+        entry("quantize_blockwise", "triton",
+              "tiny_deepspeed_tpu_torch/ops/quant.py",
+              "tiny_deepspeed_tpu/ops/quant_pallas.py:59",
+              qz_res["kv_append"]),
         entry("layernorm_dx", "triton",
               "tiny_deepspeed_tpu_torch/ops/layernorm.py",
               "tiny_deepspeed_tpu/ops/layernorm_pallas.py:132",
@@ -1333,7 +2001,21 @@ def main():
               bwd_res["adamw_update_fused"]),
     ]
     kernels[-1]["per_step"] = bwd_res["adamw_update_fused"]["per_step"]
-    print(f"phase 6: total {time.perf_counter() - t_all:.2f}s")
+    extra = {"paged_attention_quant": {"fp8_pool": pq_res["fp8"]},
+             "paged_attention_span": {
+                 "suffix": ps_res["bf16", "suffix"],
+                 "int8_pool": ps_res["int8", "spec"],
+                 "int8_pool_suffix": ps_res["int8", "suffix"]},
+             "quantize_blockwise": {k: v for k, v in qz_res.items()
+                                    if k != "kv_append"}}
+    for row in kernels:
+        for k, v in extra.get(row["name"], {}).items():
+            row[k + "_shape"] = {f: v[f] for f in timed}
+    check(len(kernels) == 14, f"{len(kernels)} kernel rows")
+    with open(os.path.join(OUT_DIR, "variants.json"), "w") as f:
+        json.dump({"results": var_res, "agreement": agree}, f, indent=1,
+                  default=str)
+    print(f"phase 7: total {time.perf_counter() - t_all:.2f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -10,11 +10,16 @@ Covers what the serving and training paths do not reach at gpt2-124m
 shapes: a ragged T, row count, token count, vocab or leaf size, grouped
 K/V, f32 and f16 operands, head dim 32, block sizes other than 16, the
 fused xent kernels at D = 64 and 1600 and on a transposed (`wte.t()`)
-weight; bitwise repeatability of the backward kernels and of the fused
-xent and AdamW kernels; refusal of operands a kernel cannot take; a
-tiny-preset engine whose greedy tokens on the card match the CPU port's,
-and tiny-preset training steps whose gradients on the card match the CPU
-port's, with the default and the fused heads.
+weight; the paged attention's int8/fp8 decode and span-verify variants
+at ragged spans (K1 not a multiple of 16, pos0 = 0 and on a block
+boundary, grouped heads) and the blockwise quantizer (bit-identical
+codes and scales, bf16 and f32 input, with and without dither, blocks
+64, 256 and 100); bitwise repeatability of the backward kernels and of
+the fused xent and AdamW kernels; refusal of operands a kernel cannot
+take; tiny-preset engines (plain, speculative, prefix cache, int8 pool)
+whose greedy tokens on the card match the CPU port's, and tiny-preset
+training steps whose gradients on the card match the CPU port's, with
+the default and the fused heads.
 """
 
 import math
@@ -23,7 +28,7 @@ import pytest
 import torch
 
 from tiny_deepspeed_tpu_torch.ops import (flash_fa2, fused_xent, layernorm,
-                                          paged_attn)
+                                          paged_attn, quant)
 from tiny_deepspeed_tpu_torch.optim import adamw_fused
 from tiny_deepspeed_tpu_torch.serving import pool as pool_mod
 
@@ -378,3 +383,147 @@ def test_tiny_engine_tokens_match_cpu():
     assert outs[0] == outs[1]
     assert math.isfinite(float(gpu.apply(
         torch.zeros(1, 8, dtype=torch.long, device="cuda")).sum()))
+
+
+def _quant_pool(qdt, shape, g):
+    """A pool of random codes with positive f32 scales (int8 / e4m3), or a
+    plain pool in `qdt` (scales None)."""
+    k = torch.randn(shape, generator=g, device="cuda")
+    v = torch.randn(shape, generator=g, device="cuda")
+    if qdt in (torch.int8, torch.float8_e4m3fn):
+        mode = "int8" if qdt == torch.int8 else "fp8"
+        (qk, sk), (qv, sv) = (pool_mod._quant_vectors(a, mode) for a in (k, v))
+        return pool_mod.KVPoolView(qk, qv, sk.contiguous(), sv.contiguous())
+    return pool_mod.KVPoolView(k.to(qdt), v.to(qdt))
+
+
+@pytest.mark.parametrize("qdt,kdt", [
+    (torch.float32, torch.int8), (torch.bfloat16, torch.int8),
+    (torch.float32, torch.float8_e4m3fn),
+    (torch.bfloat16, torch.float8_e4m3fn)])
+@pytest.mark.parametrize("hq,kvh,d,bt", [(12, 12, 64, 16), (4, 2, 32, 8),
+                                         (2, 1, 128, 32)])
+def test_paged_quant_decode_kernel(qdt, kdt, hq, kvh, d, bt):
+    s, nl, w = 5, 3, 6
+    g = _g(hq * d + bt + 1)
+    view = _quant_pool(kdt, (s * w + 1, bt, nl, kvh, d), g)
+    tables = (torch.randperm(s * w, generator=g, device="cuda") + 1
+              ).reshape(s, w).to(torch.int32)
+    pos = torch.tensor([0, bt - 1, bt, 3 * bt + 2, w * bt - 1],
+                       dtype=torch.int32, device="cuda")
+    page = pool_mod.page_ref(tables, pos, bt)
+    q = torch.randn(s, hq, 1, d, generator=g, device="cuda").to(qdt)
+    before = (paged_attn.paged_attention.launches,
+              paged_attn.paged_attention_quant.launches)
+    for layer in range(nl):
+        o = paged_attn.paged_attention(q, view, page, layer)
+        torch.cuda.synchronize()
+        po = paged_attn._paged_attention_plain(q, view, page, layer)
+        assert o.dtype == qdt
+        torch.testing.assert_close(o.float(), po.float(), **TOL[qdt])
+    assert (paged_attn.paged_attention.launches,
+            paged_attn.paged_attention_quant.launches) == (before[0],
+                                                           before[1] + nl)
+
+
+@pytest.mark.parametrize("qdt,kdt", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.float16, torch.float16), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.int8), (torch.float32, torch.float8_e4m3fn)])
+@pytest.mark.parametrize("hq,kvh,d,bt,k1", [
+    (12, 12, 64, 16, 5), (4, 2, 32, 8, 17), (2, 1, 128, 32, 3),
+    (12, 12, 64, 16, 256)])
+def test_paged_span_kernel(qdt, kdt, hq, kvh, d, bt, k1):
+    """pos0 = 0, on a block boundary, mid-block and near the table's
+    end; K1 not a multiple of the 16-row tile; grouped heads."""
+    s, nl, w = 4, 2, 40
+    g = _g(hq * d + bt + k1)
+    view = _quant_pool(kdt, (s * w + 1, bt, nl, kvh, d), g)
+    tables = (torch.randperm(s * w, generator=g, device="cuda") + 1
+              ).reshape(s, w).to(torch.int32)
+    pos0 = torch.tensor([0, 2 * bt, 3 * bt + 5, w * bt - k1],
+                        dtype=torch.int32, device="cuda")
+    page = pool_mod.page_ref(tables, pos0, bt)
+    q = torch.randn(s, hq, k1, d, generator=g, device="cuda").to(qdt)
+    sk = torch.randn(s, kvh, k1, d, generator=g, device="cuda").to(qdt)
+    sv = torch.randn(s, kvh, k1, d, generator=g, device="cuda").to(qdt)
+    before = paged_attn.paged_attention_span.launches
+    for layer in range(nl):
+        o = paged_attn.paged_attention(q, view, page, layer,
+                                       span_kv=(sk, sv))
+        torch.cuda.synchronize()
+        po = paged_attn._paged_attention_plain(q, view, page, layer,
+                                               (sk, sv))
+        assert o.dtype == qdt and torch.isfinite(o).all()
+        tol = TOL[qdt if kdt in (torch.float32, torch.int8,
+                                 torch.float8_e4m3fn) else kdt]
+        torch.testing.assert_close(o.float(), po.float(), **tol)
+    assert paged_attn.paged_attention_span.launches == before + nl
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,block,dither", [
+    ("int8", 64, False), ("fp8", 64, False), ("int8", 256, True),
+    ("fp8", 256, False), ("int8", 100, False)])
+def test_quantize_kernel_bit_identical(dtype, mode, block, dither):
+    g = _g(block + int(dither))
+    n = block * 777
+    x = (torch.randn(n, generator=g, device="cuda")
+         * torch.logspace(-6, 6, n, device="cuda")).to(dtype)
+    x[:block] = 0.0  # an all-zero block
+    d = (torch.rand(n, generator=g, device="cuda") - 0.5) if dither else None
+    before = quant.quantize_blockwise.launches
+    q, sc = quant.quantize_blockwise(x, mode, block, d)
+    torch.cuda.synchronize()
+    assert quant.quantize_blockwise.launches == before + 1
+    pq, psc = quant._quantize_plain(x, mode, block, d)
+    assert q.dtype == pq.dtype and sc.shape == psc.shape == (n // block, 1)
+    assert torch.equal(sc, psc)
+    assert torch.equal(q.view(torch.uint8), pq.view(torch.uint8))
+
+
+def test_quant_and_span_refuse_bad_operands():
+    view = _quant_pool(torch.int8, (3, 8, 1, 2, 64), _g(0))
+    page = pool_mod.page_ref(torch.ones(1, 2, dtype=torch.int32,
+                                        device="cuda"),
+                             torch.zeros(1, dtype=torch.int32,
+                                         device="cuda"), 8)
+    q = torch.zeros(1, 2, 1, 64, device="cuda", dtype=torch.float16)
+    with pytest.raises(ValueError, match="not instantiated"):
+        paged_attn.paged_attention(q, view, page, 0)
+    with pytest.raises(ValueError, match="scales"):
+        paged_attn.paged_attention(q.float(), view._replace(k_scale=None),
+                                   page, 0)
+    sk = torch.zeros(1, 2, 1, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="q's dtype"):
+        paged_attn.paged_attention(q.float(), view, page, 0,
+                                   span_kv=(sk, sk))
+    with pytest.raises(ValueError, match="multiple"):
+        quant.quantize_blockwise(torch.zeros(65, device="cuda"), "int8", 64)
+
+
+@pytest.mark.parametrize("knobs", [
+    dict(spec_draft="ngram", spec_k=3), dict(spec_draft="model:self"),
+    dict(prefix_cache=True), dict(quant="int8")],
+    ids=["ngram", "model_self", "prefix", "int8"])
+def test_tiny_serving_variants_match_cpu(knobs):
+    """f32 tiny preset: each slice-4 engine on the card (span, quantized
+    and quantizer kernels) gives the CPU port's greedy tokens."""
+    import tiny_deepspeed_tpu_torch as T
+    cfg = T.GPT2_PRESETS["tiny"]
+    cpu = T.GPT2Model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    gpu = T.GPT2Model(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    shared = list(range(40, 56))
+    outs = []
+    for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        eng = T.ServingEngine(model, T.ServeConfig(
+            max_active=3, num_blocks=12, block_tokens=8, max_seq_tokens=64,
+            **knobs), device=dev)
+        hs = [eng.submit(shared + list(range(3 + i, 10 + 2 * i)), 12)
+              for i in range(4)]
+        eng.drain(max_ticks=500)
+        outs.append([h.tokens for h in hs])
+        assert all(h.status == "ok" for h in hs)
+    assert outs[0] == outs[1]

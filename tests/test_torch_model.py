@@ -224,6 +224,8 @@ class TestPackaging:
                 "tiny_deepspeed_tpu_torch.ops.layernorm, "
                 "tiny_deepspeed_tpu_torch.ops.flash_fa2, "
                 "tiny_deepspeed_tpu_torch.ops.paged_attn, "
+                "tiny_deepspeed_tpu_torch.ops.quant, "
+                "tiny_deepspeed_tpu_torch.serving.spec, "
                 "tiny_deepspeed_tpu_torch.ops.softmax_xent, "
                 "tiny_deepspeed_tpu_torch.train; "
                 "print(sorted(m for m in sys.modules if m.split('.')[0] in "

@@ -5,7 +5,9 @@
 kernels, on the CPU.
 
 Each module of the port that replaces a Pallas kernel (layernorm forward,
-FA2 causal forward, paged decode attention) is held here against that
+FA2 causal forward, paged decode attention; the span and quantized
+variants and the quantizer have test_torch_spec.py and
+test_torch_quant.py) is held here against that
 kernel run the way the JAX tests run it on the CPU — Pallas interpret
 mode — on the same numpy-seeded inputs, at atol = rtol = 1e-5 in f32
 (the two sides differ only in summation order).  On CPU tensors the
@@ -115,16 +117,21 @@ class TestPagedAttention:
             np.testing.assert_allclose(got.numpy(), np.asarray(ref), **TOL)
 
     def test_span_and_quant_variants_refused(self):
+        """The span and int8/fp8 variants are ported (their parity is in
+        test_torch_spec.py); what stays refused is a span whose K/V do
+        not match q, and a quantized pool without scales on the card."""
         view = tpool.KVPoolView(torch.zeros(2, 8, 1, 1, 16),
                                 torch.zeros(2, 8, 1, 1, 16))
         page = tpool.page_ref(torch.zeros(1, 1, dtype=torch.int32),
                               torch.zeros(1, dtype=torch.int32), 8)
-        q = torch.zeros(1, 1, 1, 16)
-        with pytest.raises(NotImplementedError, match="span"):
-            paged_attn.paged_attention(q, view, page, 0, span_kv=(q, q))
-        qview = view._replace(k_scale=torch.ones(2, 8, 1, 1))
-        with pytest.raises(NotImplementedError, match="int8/fp8"):
-            paged_attn.paged_attention(q, qview, page, 0)
+        q = torch.zeros(1, 1, 3, 16)
+        bad = torch.zeros(1, 1, 2, 16)
+        with pytest.raises(ValueError, match="span"):
+            paged_attn.paged_attention(q, view, page, 0, span_kv=(bad, bad))
+        qview = view._replace(k=view.k.to(torch.int8),
+                              v=view.v.to(torch.int8))
+        with pytest.raises(ValueError, match="scales"):
+            paged_attn._paged_attention_cuda(q[:, :, :1], qview, page, 0)
 
 
 class TestCudaPathChecks:

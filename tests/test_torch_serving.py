@@ -9,7 +9,9 @@ to force a preemption.  The port must reproduce every request's token
 stream exactly, preempt the same requests, and end with the same pool
 accounting (free list order and refcounts).  Also pinned: temperature>0
 resume determinism, quarantine and warm restart, deadline and watermark
-shedding, eos, the per-tick accounting invariant, and the refused knobs.
+shedding, eos, the per-tick accounting invariant, and the refused knobs
+(speculative decoding, the prefix cache and quantized pools have their
+own files: test_torch_spec.py, test_torch_prefix.py, test_torch_quant.py).
 """
 
 import jax
@@ -237,11 +239,17 @@ class TestPoolAccounting:
 
 
 class TestRefused:
+    # spec: a bad spec_k; prefix: the cache together with spec (JAX
+    # refuses it too); quant: a mode the pool has no codec for; drafter:
+    # an unknown drafter
     @pytest.mark.parametrize("knob", [
-        dict(spec_draft="ngram"), dict(prefix_cache=True),
-        dict(tenants={}), dict(quant="int8"), dict(flight_ticks=64),
+        dict(spec_draft="ngram", spec_k=0),
+        dict(prefix_cache=True, spec_draft="ngram"),
+        dict(tenants={}), dict(quant="int4"), dict(flight_ticks=64),
         dict(block_tokens=7), dict(max_active=0),
-    ], ids=["spec", "prefix", "tenants", "quant", "flight", "bt", "slots"])
+        dict(spec_draft="medusa"),
+    ], ids=["spec", "prefix", "tenants", "quant", "flight", "bt", "slots",
+            "drafter"])
     def test_config_refused(self, models, knob):
         with pytest.raises(ValueError):
             _port(models[2], **knob)
@@ -261,8 +269,9 @@ class TestRefused:
                 call()
 
     def test_pool_refuses_quant(self):
-        with pytest.raises(ValueError, match="int8/fp8"):
+        """A quant mode with no codec is refused (int8 and fp8 exist)."""
+        with pytest.raises(ValueError, match="quant must be one of"):
             T.serving.PagedKVPool(n_layer=1, kv_heads=1, head_dim=8,
                                   num_blocks=2, block_tokens=4,
-                                  dtype=torch.float32, quant="int8",
+                                  dtype=torch.float32, quant="int4",
                                   device="cpu")

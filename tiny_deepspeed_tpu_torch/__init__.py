@@ -14,14 +14,19 @@ easy to find.  Ported so far:
   loss with `AdamW` / `SGD` and the JAX package's `TokenLoader` stream
   (`python -m tiny_deepspeed_tpu_torch.train`);
 - slice 3, its knobs: the fused (`fused_xent_impl="pallas"`) and chunked
-  lm_head + loss heads, `AdamW(fused=True)` and dropout.
+  lm_head + loss heads, `AdamW(fused=True)` and dropout;
+- slice 4, serving features: speculative decoding (`spec_draft`,
+  `spec_k`), the shared-prefix cache (`prefix_cache`) and int8 / fp8 KV
+  pools (`quant`).
 
 Every Pallas kernel those paths run on a TPU is rewritten for Hopper:
 layernorm forward, dx and dw/db in Triton (ops/layernorm.py); the fused
-AdamW update in Triton (optim/adamw_fused.py); FA2 causal forward, dq
-and dk/dv (csrc/flash_fwd.cu, csrc/flash_bwd.cu), paged decode attention
-(csrc/paged_attn.cu) and the fused lm_head + cross-entropy forward, dx
-and dW (csrc/fused_xent.cu) in CUDA C++.
+AdamW update and the blockwise int8/fp8 quantizer in Triton
+(optim/adamw_fused.py, ops/quant.py); FA2 causal forward, dq and dk/dv
+(csrc/flash_fwd.cu, csrc/flash_bwd.cu), paged attention — decode and
+span verify, over bf16 or int8/fp8 pools — (csrc/paged_attn.cu) and the
+fused lm_head + cross-entropy forward, dx and dW (csrc/fused_xent.cu) in
+CUDA C++.
 
 Entry points run on the card unless the caller passes device="cpu";
 without CUDA and without a device they raise.
@@ -34,9 +39,11 @@ from .models.gpt2 import (GPT2_PRESETS, GPT2Model, GPTConfig,
                           effective_xent_impl)
 from .optim import SGD, AdamW
 from .parallel import SingleDevice, TrainState
+from .serving import PrefixCache, SpecDecoder
 from .serving.engine import ServeConfig, ServingEngine
 
-__all__ = ["AdamW", "GPTConfig", "GPT2_PRESETS", "GPT2Model", "SGD",
-           "ServeConfig", "ServingEngine", "SingleDevice", "TokenLoader",
+__all__ = ["AdamW", "GPTConfig", "GPT2_PRESETS", "GPT2Model", "PrefixCache",
+           "SGD", "ServeConfig", "ServingEngine", "SingleDevice",
+           "SpecDecoder", "TokenLoader",
            "TrainState", "effective_xent_impl", "opt_state_from_numpy", "opt_state_to_numpy",
            "params_from_numpy", "params_to_numpy"]

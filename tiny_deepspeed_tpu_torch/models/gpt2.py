@@ -19,8 +19,9 @@ logits (default), the chunked `fused_linear_xent` or the fused-kernel
 `pallas_fused_xent` (`GPTConfig(fused_xent=True, fused_xent_impl=...)`).
 Dropout (`GPTConfig.dropout`) applies when `apply` is given an integer
 `rng` key, at the JAX package's three sites with its key tree.
-Serving: the `return_kv` prefill hook, the paged decode step and the
-inference head, all without a graph.  ZeRO-3's `gather_quant` belongs to
+Serving: the `return_kv` prefill hook, the paged decode step, the
+speculative verify span (`paged_verify`, `head_span`; also the prefix
+cache's suffix prefill) and the inference head, all without a graph.  ZeRO-3's `gather_quant` belongs to
 the distributed engines and is refused here rather than silently
 ignored.
 """
@@ -451,13 +452,23 @@ class GPT2Model(nn.Module):
         wp = self.get_parameter("wpe")[pos.long()][:, None]
         return x + wp.to(x.dtype)
 
+    def _embed_decode_span(self, toks: torch.Tensor, positions):
+        """(S, K1) tokens at (S, K1) absolute positions -> (S, K1, D).
+        The caller clamps the positions to block_size - 1 (JAX's gather
+        clamps out-of-range rows; torch raises)."""
+        x = self.embed_tokens(toks)
+        wp = self.get_parameter("wpe")[positions.long()]
+        return x + wp.to(x.dtype)
+
     def _decode_attention(self, q, ck, cv, pos):
         return decode_attention(q, ck, cv, pos)
 
-    def _paged_attention(self, q, view, l: int, page):
-        """Pool-panel attention: the paged decode kernel on the card, the
-        plain gather + `_decode_attention` on the CPU."""
-        return paged_attention(q, view, page, l)
+    def _paged_attention(self, q, view, l: int, page, span_kv=None):
+        """Pool-panel attention (JAX :585): the paged kernels on the card,
+        the plain gather + `ops.paged_attn.decode_attention` or
+        `span_attention` on the CPU.  span_kv = (sk, sv) switches to the
+        span-verify mask."""
+        return paged_attention(q, view, page, l, span_kv=span_kv)
 
     def _paged_attn_decode(self, x, bp: Params, view, l: int, page):
         """Attention half of one paged decode step.  x (S, 1, D)."""
@@ -485,6 +496,46 @@ class GPT2Model(nn.Module):
             x = self._paged_attn_decode(x, bp, view, l, page)
             x = x + self._mlp(x, bp)
         return x, view
+
+    def _paged_verify_attn(self, x, bp: Params, view, l: int, page):
+        """Attention half of one verify step: x (S, K1, D).  The pool is
+        READ-ONLY here (the committed prefix through the block tables);
+        the span's K/V come back for the post-acceptance commit."""
+        c = self.config
+        s, k1, _ = x.shape
+        h = layernorm(x, bp["ln_1.w"], bp["ln_1.b"])
+        qkv = linear(h, bp["attn.qkv.w"], bp.get("attn.qkv.b"))
+        q, k, v = qkv.split(c.n_embd, dim=-1)
+
+        def heads(z):  # (S, K1, D) -> (S, H, K1, Dh)
+            return z.reshape(s, k1, c.n_head, c.head_dim).transpose(1, 2)
+
+        kh, vh = heads(k), heads(v)
+        y = self._paged_attention(heads(q), view, l, page, span_kv=(kh, vh))
+        y = y.transpose(1, 2).reshape(s, k1, c.n_embd)
+        x = x + linear(y, bp["attn.proj.w"], bp.get("attn.proj.b"))
+        return x, (kh, vh)
+
+    @torch.no_grad()
+    def paged_verify(self, stacked: Params, x, view, page):
+        """Layer loop for one speculative verify (JAX :740): x (S, K1, D)
+        span activations, pool never written.  Returns (x, sks, svs), the
+        span K/V stacked (L, S, KVH, K1, Dh) per side for
+        `paged_append_span` to commit the accepted prefix."""
+        sks, svs = [], []
+        for l in range(self.config.n_layer):
+            bp = self._layer(stacked, l)
+            x, (k, v) = self._paged_verify_attn(x, bp, view, l, page)
+            x = x + self._mlp(x, bp)
+            sks.append(k)
+            svs.append(v)
+        return x, torch.stack(sks), torch.stack(svs)
+
+    def head_span(self, x, params: Optional[Params] = None):
+        """Final norm + lm_head at EVERY position of x (S, K1, D) ->
+        (S, K1, V) f32 — the verify step scores every span position."""
+        x = self.final_norm(x, params)
+        return linear(x, self._lm_head_w(params), None).float()
 
     @torch.no_grad()
     def paged_prefill(self, idx, last_pos: int, block_ids, view,

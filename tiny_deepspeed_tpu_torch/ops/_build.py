@@ -37,6 +37,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # dtype codes of the C interface (csrc/common.cuh tds::DType)
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# ... and the KV pool's resting types, quantized ones included
+POOL_CODES = {**DTYPE_CODES, torch.int8: 3, torch.float8_e4m3fn: 4}
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}

@@ -3,27 +3,34 @@
 
 """Continuous batching over the paged KV pool, in PyTorch.
 
-Counterpart of `tiny_deepspeed_tpu/serving/engine.py`, restricted to the
-plain path.  A FIXED array of `max_active` slots decodes one token per
-active slot per tick; between ticks the scheduler admits queued requests
-(a bucket-padded prefill through the training forward's `return_kv` hook,
-K/V scattered into the request's pool blocks), evicts finished ones and
-returns their blocks to the free list.  Block exhaustion preempts the
-YOUNGEST active request, which re-queues at the front and later
-re-prefills prompt + tokens so far — an exact continuation.
+Counterpart of `tiny_deepspeed_tpu/serving/engine.py`.  A FIXED array
+of `max_active` slots decodes one token per active slot per tick (or,
+under speculative decoding, verifies a drafted span and commits 1 to
+spec_k + 1 tokens per slot); between ticks the scheduler admits queued
+requests (a bucket-padded prefill through the training forward's
+`return_kv` hook, K/V scattered into the request's pool blocks), evicts
+finished ones and returns their blocks to the free list.  Block
+exhaustion preempts the YOUNGEST active request, which re-queues at the
+front and later re-prefills prompt + tokens so far — an exact
+continuation.
 
 Kept from the JAX engine: submit / tick / drain, deadlines and shedding
 (`max_queue`, `shed_pool_util`, the measured per-token decode price), the
 decode-health guard with quarantine and warm restart, `max_seq_tokens`
-sizing, and the determinism guarantee (sampling streams keyed only by
-request seed and output position).  The JAX programs are jitted with the
+sizing, the determinism guarantee (sampling streams keyed only by
+request seed and output position), speculative decoding (`spec_draft`,
+`spec_k`; serving/spec.py), the shared-prefix cache (`prefix_cache`;
+serving/prefix.py: matched full blocks alias into the block table and
+only the unmatched suffix is prefilled, through the span-verify path)
+and int8 / fp8 pools (`quant`).  The JAX programs are jitted with the
 pool view DONATED; here the pool is updated in place by the prefill
-scatter and the decode appends.
+scatter, the decode appends and the span commits.
 
-Refused with a ValueError (queued in ROADMAP.md): speculative decoding,
-the prefix cache, tenants, quantized pools, the request journal and
-`recover`, the flight recorder, the live plane and SLO trackers,
-telemetry and the metrics logger, and KV handoff between engines.
+Refused with a ValueError: what the JAX engine refuses (the prefix cache
+together with speculative decoding), and what is queued in ROADMAP.md —
+tenants, the request journal and `recover`, the flight recorder, the
+live plane and SLO trackers, telemetry and the metrics logger, and KV
+handoff between engines.
 """
 
 from __future__ import annotations
@@ -38,10 +45,12 @@ import numpy as np
 import torch
 
 from ..models.gpt2 import resolved_cache_dtype
-from ..models.sampling import sample_logits_at, sample_logits_per_slot
+from ..models.sampling import (sample_logits_at, sample_logits_per_slot,
+                               spec_prefill_commit)
 from ..ops.dispatch import resolve_device
 from .guard import DecodeHealthGuard
-from .pool import SCRATCH_BLOCK, PagedKVPool, page_ref
+from .pool import SCRATCH_BLOCK, PagedKVPool, page_ref, paged_append_span
+from .prefix import PrefixCache
 
 # decode-wall samples needed before deadline shedding trusts its price
 _MIN_GAP_SAMPLES = 5
@@ -51,8 +60,11 @@ _MIN_GAP_SAMPLES = 5
 class ServeConfig:
     """Engine knobs (JAX serving/engine.py:149).  `num_blocks` *
     `block_tokens` is the pool's token capacity; `max_active` the decode
-    step's slot count.  The fields after `guard_k_restart` exist so a
-    configuration written for the JAX engine is refused loudly, not run
+    step's slot count; `quant` rests the pool at int8 / fp8; `spec_draft`
+    ("ngram", "model:self", "model:<preset>") and `spec_k` turn on
+    speculative decoding; `prefix_cache` the shared-prefix cache (not
+    together with spec_draft).  The fields after `prefix_cache` exist so
+    a configuration written for the JAX engine is refused loudly, not run
     without its feature."""
 
     max_active: int = 4
@@ -68,10 +80,11 @@ class ServeConfig:
     shed_pool_util: Optional[float] = None
     health_guard: bool = True
     guard_k_restart: int = 3
+    spec_draft: Optional[str] = None
+    spec_k: int = 4
+    prefix_cache: bool = False
     # -- not ported yet (refused when set) --
     flight_ticks: int = 0
-    spec_draft: Optional[str] = None
-    prefix_cache: bool = False
     tenants: Optional[dict] = None
 
 
@@ -102,6 +115,14 @@ class Request:
         self.status: Optional[str] = None
         self.finish_reason: Optional[str] = None
         self.preemptions = 0
+        # shared-prefix cache: blocks aliased from the radix tree and the
+        # prompt tokens whose prefill that avoided, over all admissions
+        self.prefix_blocks = 0
+        self.prefix_tokens = 0
+        # speculative decoding: drafts proposed for / accepted into this
+        # request's sequence
+        self.spec_proposed = 0
+        self.spec_accepted = 0
         self.t_arrival = time.monotonic()
         self.t_first: Optional[float] = None  # time to first token - arrival
         self.t_done: Optional[float] = None
@@ -138,16 +159,16 @@ class ServingEngine:
                           ("journal", journal)):
             if val is not None:
                 _refuse(f"{name}=")
-        if config.spec_draft is not None:
-            _refuse("speculative decoding (spec_draft)")
-        if config.prefix_cache:
-            _refuse("the shared-prefix cache (prefix_cache)")
         if config.tenants is not None:
             _refuse("multi-tenant admission (tenants)")
         if config.flight_ticks:
             _refuse("the serving flight recorder (flight_ticks)")
-        if config.quant is not None:
-            _refuse(f"the quantized KV pool (quant={config.quant!r})")
+        if config.prefix_cache and config.spec_draft is not None:
+            raise ValueError(
+                "prefix_cache does not compose with spec_draft: the suffix "
+                "prefill and the draft span both own the span path, and "
+                "the drafter's accept-or-residual commit is not wired "
+                "through the suffix path — run one or the other")
         if not getattr(model, "paged_decode_capable", False):
             raise ValueError(f"{type(model).__name__} does not support the "
                              "paged decode step")
@@ -173,7 +194,8 @@ class ServingEngine:
             n_layer=c.n_layer, kv_heads=getattr(c, "kv_heads", c.n_head),
             head_dim=c.head_dim, num_blocks=config.num_blocks,
             block_tokens=config.block_tokens,
-            dtype=resolved_cache_dtype(c), device=self.device)
+            dtype=resolved_cache_dtype(c), quant=config.quant,
+            device=self.device)
         self.pool = PagedKVPool(**self._pool_args)
         self.max_blocks_per_req = -(-self.max_seq // config.block_tokens)
         self._slots: List[Optional[_Slot]] = [None] * config.max_active
@@ -184,11 +206,32 @@ class ServingEngine:
         self._restarts_since_progress = 0
         self._gap_hist: Deque[float] = deque(maxlen=128)
         self._poison_pending: set = set()
+        # (S, V) f32 logits of the last PLAIN decode tick (a speculative
+        # engine's verify logits are consumed in the step: it leaves None)
         self.last_logits = None
+        self._ticks = 0
+        # shared-prefix radix tree (None = cache off; rebuilt empty with
+        # the pool on warm restart)
+        self._prefix = (PrefixCache(config.block_tokens)
+                        if config.prefix_cache else None)
+        # speculative-decoding accounting (engine lifetime)
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._spec_ticks = 0
+        self._spec_tokens = 0
         # compute-dtype weights cast ONCE — params are frozen while serving
         with torch.no_grad():
             self._stacked = model.stacked_compute_params()
             self._head = model.head_compute_params()
+        if config.spec_draft is not None:
+            from .spec import SpecDecoder
+            self._spec = SpecDecoder(model, config, max_seq=self.max_seq)
+            # the span horizon: growth and admission own blocks out to
+            # pos + spec_k, so accepted drafts' K/V always land in-table
+            self._span_k = config.spec_k
+        else:
+            self._spec = None
+            self._span_k = 0
 
     # -- public API ---------------------------------------------------------
 
@@ -222,7 +265,8 @@ class ServingEngine:
             return req
         if (cfg.shed_pool_util is not None and self._queue
                 and (self.pool.blocks_in_use / self.pool.num_usable
-                     >= cfg.shed_pool_util)):
+                     >= cfg.shed_pool_util)
+                and self._effective_pool_util() >= cfg.shed_pool_util):
             self._shed_req(req, "pool_watermark")
             return req
         self._queue.append(req)
@@ -241,6 +285,7 @@ class ServingEngine:
                 raise
             self._warm_restart(f"tick exception: {type(e).__name__}: {e}")
             produced = 0
+        self._ticks += 1  # the prefix tree's LRU clock
         if produced:
             self._restarts_since_progress = 0
         return produced
@@ -286,6 +331,35 @@ class ServingEngine:
     def restarts(self) -> int:
         return self._restarts
 
+    def prefix_stats(self) -> Optional[dict]:
+        """Shared-prefix cache outcomes (None with the cache off): hit
+        rate = prompt tokens aliased / prompt tokens admitted, the raw
+        counters and the pool bytes sharing saves right now (JAX
+        :1149)."""
+        if self._prefix is None:
+            return None
+        pc = self._prefix
+        return {
+            "hit_rate": round(pc.tokens_avoided / max(1, pc.prompt_tokens),
+                              4),
+            "hits": pc.hits, "misses": pc.misses,
+            "blocks_aliased": pc.blocks_aliased,
+            "prefill_tokens_avoided": pc.tokens_avoided,
+            "prompt_tokens": pc.prompt_tokens,
+            "cached_blocks": len(pc),
+            "tree_evictions": pc.evicted,
+            "pool_saved_bytes": self._prefix_saved_bytes(),
+        }
+
+    def _prefix_saved_bytes(self) -> int:
+        """Pool bytes aliasing saves right now, from the refcounts: every
+        holder beyond a block's first would need its own block."""
+        excess = sum(n - 1 for n in self.pool.ref_counts().values() if n > 1)
+        if not excess:
+            return 0
+        return int(excess * self.pool.kv_bytes()["total_bytes"]
+                   / (self.pool.num_usable + 1))
+
     def active_block_tables(self) -> dict:
         """{request id: physical block ids} for every active slot."""
         return {s.req.id: list(s.table)
@@ -307,7 +381,9 @@ class ServingEngine:
         self._grow()
         produced = self._admit()
         active = [(i, s) for i, s in enumerate(self._slots) if s is not None]
-        if active:
+        if active and self._spec is not None:
+            produced += self._decode_spec(active)
+        elif active:
             produced += self._decode_plain(active)
         else:
             self._poison_pending.clear()
@@ -382,6 +458,73 @@ class ServingEngine:
                                "consecutive poisoned decode ticks")
         return produced
 
+    def _decode_spec(self, active) -> int:
+        """Speculative tick (JAX :1297-1382): the drafter proposes K
+        tokens per slot, ONE verify pass scores all K+1 span positions,
+        and 1..K+1 tokens commit per surviving slot.  Only verified
+        tokens reach the request or the pool; quarantine, the watchdog
+        and the deadline price see the same per-slot surface as the
+        plain path."""
+        k = self._spec.k
+        produced = 0
+        t_draft = time.monotonic()
+        drafts = self._spec.propose(self._slots)  # (S, K+1)
+        tokens, pos, seeds, nprod, poison, tables = self._slot_arrays(active)
+        S = self.config.max_active
+        # [head, d_1..d_K, extra]: columns 0..K are the scored span, the
+        # trailing extra is the bonus position's proposal
+        span = np.zeros((S, k + 2), np.int64)
+        span[:, 0] = tokens
+        span[:, 1:] = drafts
+        # the last position whose K/V the request will ever need (total-2:
+        # the final token's K/V is never read); -1 parks empty slots at
+        # count 0 — every write lands in scratch
+        limit_kv = np.full((S,), -1, np.int64)
+        for i, s in active:
+            limit_kv[i] = len(s.req.prompt) + s.req.max_new_tokens - 2
+        acc, final, bad = self._spec.verify(
+            self._stacked, self._head, self.pool.view, span, pos, tables,
+            seeds, nprod, limit_kv, poison)
+        acc = acc.cpu().numpy()  # the one sync per tick
+        final = final.cpu().numpy()
+        bad = bad.cpu().numpy()
+        tnow = time.monotonic()
+        poisoned = (set(self._guard.observe(bad, [i for i, _ in active]))
+                    if self._guard is not None else set())
+        eos = self.config.eos_id
+        committed = 0
+        for i, s in active:
+            if i in poisoned:
+                self._quarantine(i, s)
+                continue
+            n_acc = int(acc[i])
+            toks = [int(t) for t in span[i, 1:1 + n_acc]]
+            toks.append(int(final[i]))
+            toks = toks[:s.req.max_new_tokens - len(s.req.tokens)]
+            if eos is not None and eos in toks:
+                toks = toks[:toks.index(eos) + 1]  # keep the eos itself
+            s.req.spec_proposed += k
+            s.req.spec_accepted += min(n_acc, len(toks))
+            self._spec_proposed += k
+            self._spec_accepted += min(n_acc, len(toks))
+            for t in toks:
+                self._append_token(s.req, t, tnow)
+            s.pos += len(toks)
+            s.last = toks[-1]
+            produced += len(toks)
+            committed += len(toks)
+            if self._finished(s.req):
+                self._finish(i, s)
+        # deadline price: this tick's wall per COMMITTED token
+        if committed:
+            self._gap_hist.append((tnow - t_draft) * len(active) / committed)
+            self._spec_ticks += 1
+            self._spec_tokens += committed
+        if self._guard is not None and self._guard.should_restart:
+            self._warm_restart(f"{self._guard.consecutive_poisoned} "
+                               "consecutive poisoned decode ticks")
+        return produced
+
     def _gap_p50(self) -> Optional[float]:
         """Median measured decode wall per token; None until warm."""
         if len(self._gap_hist) < _MIN_GAP_SAMPLES:
@@ -422,6 +565,14 @@ class ServingEngine:
             b *= 2
         return min(b * bt, self.model.config.block_size)
 
+    def _bucket_span(self, n: int) -> int:
+        """Suffix-prefill pad length: the smallest power of two >= n (the
+        span commits through `count`, so no block multiple is needed)."""
+        b = 1
+        while b < n:
+            b *= 2
+        return min(b, self.model.config.block_size)
+
     def _prefill_operands(self, prompt_now: List[int], ids: List[int]):
         """(padded prompt (1, bucket), block ids (bucket/bt,)) — the +1
         decode block may lie past the bucket and is reached through the
@@ -437,9 +588,18 @@ class ServingEngine:
         return padded, block_ids
 
     def _prefill_step(self, req: Request, prompt_now: List[int],
-                      ids: List[int]) -> int:
+                      ids: List[int], slot_i: int = 0,
+                      n_alias: int = 0) -> int:
         """The prefill program: prompt through the model, K/V into the
-        request's blocks, first token sampled at the true last position."""
+        request's blocks, first token sampled at the true last position.
+        With `n_alias` blocks aliased from the prefix tree only the
+        suffix runs (`_prefill_suffix`); a speculative engine commits
+        the first token through the accept-or-residual rule against the
+        drafter's proposal for that position."""
+        if n_alias:
+            return self._prefill_suffix(req, prompt_now, ids, n_alias)
+        prop = (self._spec.on_admit(slot_i, prompt_now)
+                if self._spec is not None else None)
         padded, block_ids = self._prefill_operands(prompt_now, ids)
         dev = self.device
         logits, _ = self.model.paged_prefill(
@@ -448,13 +608,78 @@ class ServingEngine:
             self.config.block_tokens, stacked=self._stacked,
             head_params=self._head)
         cfg = self.config
+        if prop is not None:
+            nxt = spec_prefill_commit(logits, prop, cfg.seed, req.seed,
+                                      len(req.tokens), cfg.temperature,
+                                      cfg.top_k)
+        else:
+            nxt = sample_logits_at(logits, cfg.seed, req.seed,
+                                   len(req.tokens), cfg.temperature,
+                                   cfg.top_k)
+        return int(nxt[0])
+
+    @torch.no_grad()
+    def _prefill_suffix(self, req: Request, prompt_now: List[int],
+                        ids: List[int], n_alias: int) -> int:
+        """The suffix-prefill program (JAX :597-617): the aliased blocks
+        already hold positions < p0; the unmatched suffix, padded to a
+        power-of-two bucket, embeds at its absolute positions, attends to
+        the aliased prefix through the block table plus itself under the
+        windowed causal mask (the span-verify path), samples the first
+        token at the true last prompt position, and commits its K/V
+        through `paged_append_span` (pad offsets land in scratch)."""
+        model, cfg, dev = self.model, self.config, self.device
+        bt = cfg.block_tokens
+        p0 = n_alias * bt
+        suffix = prompt_now[p0:]
+        k1 = self._bucket_span(len(suffix))
+        span = torch.zeros((1, k1), dtype=torch.long)
+        span[0, :len(suffix)] = torch.tensor(suffix)
+        tables = torch.full((1, self.max_blocks_per_req), SCRATCH_BLOCK,
+                            dtype=torch.int32)
+        tables[0, :len(ids)] = torch.tensor(ids, dtype=torch.int32)
+        span, tables = span.to(dev), tables.to(dev)
+        pos0 = torch.tensor([p0], dtype=torch.int32, device=dev)
+        positions = torch.clamp(
+            p0 + torch.arange(k1, device=dev)[None, :],
+            max=model.config.block_size - 1)
+        x = model._embed_decode_span(span, positions)
+        page = page_ref(tables, pos0, bt)
+        x, sks, svs = model.paged_verify(self._stacked, x, self.pool.view,
+                                         page)
+        logits = model.head(x, position=len(prompt_now) - 1 - p0,
+                            params=self._head)[:, 0]
         nxt = sample_logits_at(logits, cfg.seed, req.seed, len(req.tokens),
                                cfg.temperature, cfg.top_k)
+        paged_append_span(self.pool.view, sks, svs, tables, pos0,
+                          torch.tensor([len(suffix)], device=dev), bt)
         return int(nxt[0])
+
+    def _alloc(self, n: int) -> Optional[List[int]]:
+        """pool.alloc with prefix-tree reclaim (JAX :1480): under pressure
+        the tree yields its least recently hit unreferenced leaves BEFORE
+        the scheduler resorts to preemption."""
+        ids = self.pool.alloc(n)
+        if ids is None and self._prefix is not None:
+            if self._prefix.evict(self.pool, need=n - self.pool.blocks_free):
+                ids = self.pool.alloc(n)
+        return ids
+
+    def _effective_pool_util(self) -> float:
+        """Pool utilization for the shed watermark: allocated blocks minus
+        what the prefix tree could reclaim right now (warm cache is not
+        overload)."""
+        used = self.pool.blocks_in_use
+        if self._prefix is not None:
+            used -= self._prefix.reclaimable(self.pool)
+        return used / self.pool.num_usable
 
     def _admit(self) -> int:
         """FIFO admission while a slot is free and the pool can hold the
-        prompt plus its first decode write."""
+        prompt plus its first decode write (JAX :1503-1664).  With the
+        prefix cache on, admission first walks the radix tree: matched
+        full blocks alias into the block table (refcounted) and only the
+        unmatched suffix pays a prefill."""
         produced = 0
         bt = self.config.block_tokens
         while self._queue:
@@ -465,20 +690,44 @@ class ServingEngine:
             req = self._queue[0]
             prompt_now = req.prompt + req.tokens  # preemption continuation
             p = len(prompt_now)
-            # blocks for the prompt AND its first decode write (position p)
-            ids = self.pool.alloc(p // bt + 1)
-            if ids is None:
+            # alias at most (p-1)//bt full blocks: one prompt token always
+            # remains for the suffix prefill, and every block the request
+            # will WRITE stays private
+            alias: List[int] = []
+            if self._prefix is not None:
+                alias = self._prefix.match(prompt_now, limit=(p - 1) // bt,
+                                           tick=self._ticks)
+                if alias:
+                    # pin before allocating: the alloc may evict leaves
+                    self.pool.share(alias)
+            # blocks for the prompt AND its first decode write (position p;
+            # under speculation the whole first span, clamped)
+            ids_new = self._alloc(
+                self._write_horizon(req, p) // bt + 1 - len(alias))
+            if ids_new is None:
+                if alias:
+                    self.pool.free_blocks(alias)  # roll the pin back
                 break
+            ids = alias + ids_new
             self._queue.popleft()
             t_adm = time.monotonic()
             try:
-                tok = self._prefill_step(req, prompt_now, ids)
+                tok = self._prefill_step(req, prompt_now, ids, slot_i,
+                                         len(alias))
             except Exception:
                 # put the request back as it was, so the watchdog's
                 # restart (which re-queues occupied slots only) keeps it
                 self.pool.free_blocks(ids)
                 self._queue.appendleft(req)
                 raise
+            if self._prefix is not None:
+                # commit the prompt's full blocks to the tree: new nodes
+                # take their own refcount, which keeps them warm
+                self._prefix.insert(prompt_now, ids[:p // bt], self.pool,
+                                    tick=self._ticks)
+                self._prefix.note_admission(len(alias), p)
+                req.prefix_blocks += len(alias)
+                req.prefix_tokens += len(alias) * bt
             slot = _Slot(req, table=ids, pos=p, last_token=tok,
                          admitted_at=t_adm)
             self._slots[slot_i] = slot
@@ -489,17 +738,29 @@ class ServingEngine:
                 self._finish(slot_i, slot)
         return produced
 
+    def _write_horizon(self, req: Request, pos: int) -> int:
+        """The furthest position this slot's NEXT step may write (JAX
+        :1666): `pos` on the plain path, `pos + spec_k` under speculation,
+        clamped to the request's last writable position total-2 (the
+        final token's K/V is never written)."""
+        if not self._span_k:
+            return pos
+        total = len(req.prompt) + req.max_new_tokens
+        return min(pos + self._span_k, total - 2)
+
     def _grow(self) -> None:
-        """Allocate the next block for any slot whose next write crossed a
-        block boundary; on exhaustion preempt the youngest active request
-        until the grower fits (or is itself preempted)."""
+        """Allocate the next block for any slot whose write horizon
+        crossed a block boundary; on exhaustion (after the prefix tree
+        yields what it can) preempt the youngest active request until the
+        grower fits (or is itself preempted)."""
         bt = self.config.block_tokens
         for i, slot in enumerate(self._slots):
             if slot is None:
                 continue
             while (self._slots[i] is slot
-                   and len(slot.table) < slot.pos // bt + 1):
-                ids = self.pool.alloc(1)
+                   and len(slot.table)
+                   < self._write_horizon(slot.req, slot.pos) // bt + 1):
+                ids = self._alloc(1)
                 if ids is not None:
                     slot.table.extend(ids)
                     continue
@@ -543,6 +804,14 @@ class ServingEngine:
         self._slots = [None] * self.config.max_active
         self._poison_pending.clear()
         self.pool = PagedKVPool(**self._pool_args)
+        if self._prefix is not None:
+            # the tree indexed blocks of the pool that just died: it
+            # rebuilds empty alongside (lifetime stats carry on)
+            old = self._prefix
+            self._prefix = PrefixCache(self.config.block_tokens)
+            for attr in ("hits", "misses", "blocks_aliased",
+                         "tokens_avoided", "prompt_tokens", "evicted"):
+                setattr(self._prefix, attr, getattr(old, attr))
         if self._guard is not None:
             self._guard.reset()
 

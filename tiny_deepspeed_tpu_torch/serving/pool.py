@@ -13,9 +13,16 @@ masks by true position.
 
 The JAX functions return a new `KVPoolView` (the compiled steps donate
 the old one).  Here the writers update the pool tensors IN PLACE and
-return the same view — no copy of the pool per step.  Quantized blocks
-(`quant="int8" | "fp8"`) need the quantization kernel and wait for a
-later slice.
+return the same view — no copy of the pool per step.
+
+Quantized blocks (`quant="int8" | "fp8"`) rest the pool at 1 byte an
+element: the blockwise-absmax codec (ops/quant.py, on the card its
+Triton kernel) with the codec block = one (Dh,) head vector and one f32
+scale per (block, token, layer, head).  The codes are written, and
+gathered, through a uint8 view of the fp8 tensors (bit for bit; PyTorch
+indexes every byte type that way).  `paged_panel` dequantizes to the
+compute dtype (the JAX XLA path); the paged-attention kernels dequantize
+in registers instead.
 """
 
 from __future__ import annotations
@@ -26,15 +33,19 @@ from typing import Dict, List, NamedTuple, Optional, Union
 import torch
 
 from ..ops.dispatch import resolve_device
+from ..ops.quant import QDTYPE, quantize_blockwise
 
 # the never-allocated block absorbing invalid-slot / padding writes
 SCRATCH_BLOCK = 0
 
+KV_QUANT_MODES = (None, "int8", "fp8")
+
 
 class KVPoolView(NamedTuple):
     """The pool's device tensors.  k/v: (num_blocks, block_tokens, L, KVH,
-    Dh) in the resting dtype; k_scale/v_scale stay None (the quantized
-    pool is not ported yet)."""
+    Dh) in the resting dtype (the cache dtype, or int8 / float8_e4m3fn
+    when quantized); k_scale/v_scale: (num_blocks, block_tokens, L, KVH)
+    f32 per-head-vector scales, None on the unquantized pool."""
 
     k: torch.Tensor
     v: torch.Tensor
@@ -64,25 +75,97 @@ def page_ref(tables, pos, block_tokens: int) -> PageRef:
     return PageRef(tables, blk, (pos % block_tokens).long(), pos)
 
 
-def paged_append(view: KVPoolView, k, v, l: int, page: PageRef) -> KVPoolView:
-    """Write one token's K/V per slot — k/v (S, KVH, Dh) — at
-    (page.blk, page.off, l), in place.  Invalid slots point at scratch."""
-    view.k[page.blk, page.off, l] = k.to(view.k.dtype)
-    view.v[page.blk, page.off, l] = v.to(view.v.dtype)
+def quant_mode(view: KVPoolView) -> Optional[str]:
+    """The pool's quantization mode, read off its dtypes."""
+    if view.k_scale is None:
+        return None
+    return "int8" if view.k.dtype == torch.int8 else "fp8"
+
+
+def _raw(t):
+    """The tensor as its writers and gathers index it: fp8 through a
+    uint8 view (bit for bit), every other dtype as it is."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+def _quant_vectors(x, mode: str):
+    """(..., Dh) -> (codes same shape, scales (...,)) via the blockwise
+    codec with codec block = the Dh head vector, round-to-nearest (KV
+    vectors are read many times, so dither buys nothing).  On the card
+    the Triton kernel reads x in its own dtype."""
+    dh = x.shape[-1]
+    q, s = quantize_blockwise(x.reshape(-1), mode, block=dh)
+    return q.reshape(x.shape), s.reshape(x.shape[:-1])
+
+
+def _write(view: KVPoolView, idx, k, v) -> KVPoolView:
+    """view.k[idx] = k and view.v[idx] = v, in place — quantized through
+    the codec (codes and scales) on a quantized pool."""
+    mode = quant_mode(view)
+    if mode is None:
+        view.k[idx] = k.to(view.k.dtype)
+        view.v[idx] = v.to(view.v.dtype)
+        return view
+    for pool, scale, x in ((view.k, view.k_scale, k),
+                           (view.v, view.v_scale, v)):
+        q, sc = _quant_vectors(x, mode)
+        _raw(pool)[idx] = _raw(q)
+        scale[idx] = sc
     return view
 
 
-def paged_panel(view: KVPoolView, l: int, page: PageRef):
+def paged_append(view: KVPoolView, k, v, l: int, page: PageRef) -> KVPoolView:
+    """Write one token's K/V per slot — k/v (S, KVH, Dh) — at
+    (page.blk, page.off, l), in place.  Invalid slots point at scratch."""
+    return _write(view, (page.blk, page.off, l), k, v)
+
+
+def paged_panel(view: KVPoolView, l: int, page: PageRef, out_dtype=None):
     """Gather layer l's K/V panels through the block tables:
-    (S, KVH, W * block_tokens, Dh) per side, in the pool's resting dtype."""
+    (S, KVH, W * block_tokens, Dh) per side.  Unquantized panels stay in
+    the pool's resting dtype; quantized panels dequantize (f32 code x
+    scale) to `out_dtype` (JAX pool.py:130-150)."""
     tables = page.tables.long()
+    mode = quant_mode(view)
 
-    def panel(pool):
-        g = pool[:, :, l][tables]  # (S, W, bt, KVH, Dh)
+    def panel(pool, scale):
+        g = _raw(pool)[:, :, l][tables].view(pool.dtype)  # (S, W, bt, KVH, Dh)
         s, w, bt, kvh, dh = g.shape
-        return g.reshape(s, w * bt, kvh, dh).transpose(1, 2)
+        g = g.reshape(s, w * bt, kvh, dh).transpose(1, 2)
+        if mode is None:
+            return g
+        sg = scale[:, :, l][tables].reshape(s, w * bt, kvh).transpose(1, 2)
+        return (g.float() * sg[..., None]).to(out_dtype)
 
-    return panel(view.k), panel(view.v)
+    return panel(view.k, view.k_scale), panel(view.v, view.v_scale)
+
+
+def paged_append_span(view: KVPoolView, ks, vs, tables, pos0, count,
+                      block_tokens: int) -> KVPoolView:
+    """Commit a verified SPAN of K/V per slot, in place (JAX
+    pool.py:153-197).  ks/vs (L, S, KVH, K1, Dh): span offset j is the
+    token at position pos0[s] + j; tables (S, W); count (S,) in [0, K1]
+    — how many leading offsets commit.  Offsets >= count (rejected
+    drafts, inactive slots, positions past the request's K/V horizon)
+    land on (SCRATCH_BLOCK, 0); one scatter per side covers all layers."""
+    L, S, KVH, K1, Dh = ks.shape
+    j = torch.arange(K1, device=ks.device)[None, :]
+    wpos = pos0.long()[:, None] + j  # (S, K1) absolute write positions
+    valid = j < count.long()[:, None]
+    W = tables.shape[1]
+    # clamp the table lookup BEFORE masking: an invalid offset's position
+    # may lie past the table (torch raises where JAX would clamp)
+    bidx = torch.clamp(torch.div(wpos, block_tokens, rounding_mode="floor"),
+                       max=W - 1)
+    blk = torch.gather(tables.long(), 1, bidx)
+    blk = torch.where(valid, blk, SCRATCH_BLOCK)
+    off = torch.where(valid, wpos % block_tokens, 0)
+
+    def prep(a):  # (L, S, KVH, K1, Dh) -> (S*K1, L, KVH, Dh) slabs
+        return a.permute(1, 3, 0, 2, 4).reshape(S * K1, L, KVH, Dh)
+
+    return _write(view, (blk.reshape(-1), off.reshape(-1)), prep(ks),
+                  prep(vs))
 
 
 def paged_scatter(view: KVPoolView, ks, vs, block_ids,
@@ -90,16 +173,13 @@ def paged_scatter(view: KVPoolView, ks, vs, block_ids,
     """Scatter a prefill's K/V — ks/vs (L, 1, KVH, P, Dh) — into the pool
     blocks `block_ids` ((P / block_tokens,) physical ids; padding-tail
     entries point at scratch), in place."""
-    ids = block_ids.long()
 
     def prep(a):
         L, _, kvh, p, dh = a.shape  # one request per prefill
         a = a[:, 0].permute(2, 0, 1, 3)  # (P, L, KVH, Dh)
         return a.reshape(p // block_tokens, block_tokens, L, kvh, dh)
 
-    view.k[ids] = prep(ks).to(view.k.dtype)
-    view.v[ids] = prep(vs).to(view.v.dtype)
-    return view
+    return _write(view, block_ids.long(), prep(ks), prep(vs))
 
 
 class PagedKVPool:
@@ -107,28 +187,36 @@ class PagedKVPool:
     block accounting (JAX pool.py:313-440).  `num_blocks` is the USABLE
     count; one scratch block is allocated on top and never handed out.
     `alloc` hands blocks out at refcount 1 in ascending order from a LIFO
-    free list, `share` adds a holder, `free_blocks` drops one and returns
-    a block to the free list when its last holder lets go."""
+    free list, `share` adds a holder (a prefix-cache alias or the radix
+    tree itself), `free_blocks` drops one and returns a block to the free
+    list when its last holder lets go.  `quant` rests the blocks at int8
+    or e4m3 with separate f32 scale tensors per side."""
 
     def __init__(self, *, n_layer: int, kv_heads: int, head_dim: int,
                  num_blocks: int, block_tokens: int, dtype,
                  quant: Optional[str] = None,
                  device: Union[None, str, torch.device] = None):
-        if quant is not None:
-            raise ValueError(
-                f"KV-cache quant={quant!r}: int8/fp8 pool blocks need the "
-                "quantization kernel, not yet ported (ROADMAP.md); use "
-                "quant=None")
+        if quant not in KV_QUANT_MODES:
+            raise ValueError(f"KV-cache quant must be one of "
+                             f"{KV_QUANT_MODES}, got {quant!r}")
         if num_blocks < 1 or block_tokens < 1:
             raise ValueError("num_blocks and block_tokens must be >= 1")
         self.device = resolve_device(device)
         self.num_usable = int(num_blocks)
         self.block_tokens = int(block_tokens)
+        self.quant = quant
         total = self.num_usable + 1  # + scratch
         shape = (total, block_tokens, n_layer, kv_heads, head_dim)
+        rest = QDTYPE.get(quant, dtype)
+
+        def scale():
+            return (torch.zeros(shape[:-1], dtype=torch.float32,
+                                device=self.device) if quant else None)
+
         self.view = KVPoolView(
-            k=torch.zeros(shape, dtype=dtype, device=self.device),
-            v=torch.zeros(shape, dtype=dtype, device=self.device))
+            k=torch.zeros(shape, dtype=rest, device=self.device),
+            v=torch.zeros(shape, dtype=rest, device=self.device),
+            k_scale=scale(), v_scale=scale())
         # pop() hands out ascending ids from 1; frees push back LIFO
         self._free: List[int] = list(range(total - 1, 0, -1))
         self._ref: Dict[int, int] = {}
@@ -141,6 +229,10 @@ class PagedKVPool:
     def blocks_in_use(self) -> int:
         """DISTINCT allocated blocks."""
         return self.num_usable - len(self._free)
+
+    def refcount(self, b: int) -> int:
+        """Holder count of block `b` (0 = free)."""
+        return self._ref.get(int(b), 0)
 
     def ref_counts(self) -> Dict[int, int]:
         return dict(self._ref)
@@ -182,3 +274,16 @@ class PagedKVPool:
             if self._ref[b] == 0:
                 del self._ref[b]
                 self._free.append(b)
+
+    def kv_bytes(self) -> dict:
+        """The pool's resting device footprint, from the tensors' own
+        dtypes and shapes: K+V block bytes, scale bytes, the element
+        width (dtype names spelled as the JAX package spells them)."""
+        k = self.view.k
+        blocks = 2 * k.numel() * k.element_size()
+        ks = self.view.k_scale
+        scales = 2 * ks.numel() * ks.element_size() if ks is not None else 0
+        return {"kv_block_bytes": int(blocks), "scale_bytes": int(scales),
+                "total_bytes": int(blocks + scales),
+                "dtype": str(k.dtype).replace("torch.", ""),
+                "itemsize": int(k.element_size())}
