@@ -5,7 +5,8 @@
 """On-card smoke of the PyTorch port: build, check and time its kernels,
 serve gpt2-124m through ServingEngine, train it through SingleDevice, then
 serve it again under speculative decoding, the prefix cache and int8/fp8
-pools.
+pools, and run the distributed path: ring attention's chunk kernels, the
+ring itself and the DDP / ZeRO-1 / ZeRO-2 engines.
 
     python3 chip_smoke.py
 
@@ -74,8 +75,29 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      greedy tokens of plain, spec-ngram and spec-model:self serving must
      be identical, and those of the prefix cache on and off; in bf16 the
      agreement is reported, not gated;
-  7. the `kernels` JSON line (14 kernels, launches by path), then the
-     result line {"ok": true, "device": {"platform": "gpu", ...}}.
+  7. distributed, on the one card:
+     a. the unmasked FA2 chunk kernels (4c fwd, 6c dq, 5c dk/dv) at ring
+        attention's shape on gpt2-124m with T=1024 over 4 seq ranks (B=8
+        H=12 Tl=256 Dh=64 bf16) against their plain versions (atol = rtol
+        = 2e-2 forward; 2e-2 x max |plain| backward), each run twice and
+        bit-identical, timed beside the bound, the plain version and SDPA
+        with no mask (its backward for dq and dk/dv);
+     b. ring attention at full width over 4 virtual ranks: 4 threads
+        call ring_fwd / ring_bwd directly through a lockstep
+        communicator on gpt2-124m's layer-0 q/k/v; the concatenated o,
+        dq, dk, dv against the full-sequence causal kernels at T=1024
+        (2e-2), and the launches of one attention call equal to JAX's
+        schedule (causal fwd, dq, dk/dv 4 each; unmasked 6 each) — the
+        chunk kernels' main path (`ring4`);
+     c. DDP, Zero1 and Zero2 at world size 1 over NCCL (a file:// store
+        under build/chip_smoke/) train gpt2-124m with phase 4's config:
+        13 steps whose losses and params must equal phase 4's
+        SingleDevice bit for bit; step time, tokens/s and peak memory
+        beside phase 4's, one profiled step's NCCL time.  NCCL refuses
+        two ranks on one card, so the multi-rank engines are held to the
+        JAX engines on the CPU (tests/test_torch_dist*.py);
+  then the `kernels` JSON line (17 kernels, launches by path), then the
+  result line {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -891,7 +913,8 @@ def plain_prefill_logits(torch, port, model, prompt):
     version on the card (the module-level ops the model calls swapped
     for their plain versions), next to the kernel path's."""
     from tiny_deepspeed_tpu_torch.models import gpt2 as gpt2_mod
-    from tiny_deepspeed_tpu_torch.ops.flash_fa2 import _fa2_fwd_plain
+    from tiny_deepspeed_tpu_torch.ops.flash_fa2 import (
+        _fa2_fwd_plain, fa2_flash_attention_fwd)
     from tiny_deepspeed_tpu_torch.ops.layernorm import _ln_fwd_plain
     from tiny_deepspeed_tpu_torch.ops.paged_attn import paged_attention
     from tiny_deepspeed_tpu_torch.serving.pool import PagedKVPool
@@ -914,16 +937,19 @@ def plain_prefill_logits(torch, port, model, prompt):
 
     before = paged_attention.launches
     kern = run()
-    saved = gpt2_mod.layernorm, gpt2_mod.ATTENTION
+    saved = gpt2_mod.layernorm, gpt2_mod.sharded_attention
     gpt2_mod.layernorm = lambda x, w, b, eps=1e-5: _ln_fwd_plain(
         x, w, b, eps)[0]
-    gpt2_mod.ATTENTION = {k: (lambda q, k_, v: _fa2_fwd_plain(q, k_, v)[0])
-                          for k in saved[1]}
+    gpt2_mod.sharded_attention = (
+        lambda q, k_, v, impl, pctx=None: _fa2_fwd_plain(q, k_, v)[0])
+    fwd = fa2_flash_attention_fwd.launches
     try:
         plain = run()
     finally:
-        gpt2_mod.layernorm, gpt2_mod.ATTENTION = saved
+        gpt2_mod.layernorm, gpt2_mod.sharded_attention = saved
     check(paged_attention.launches == before, "prefill ran decode kernels")
+    check(fa2_flash_attention_fwd.launches == fwd,
+          "the plain prefill launched the FA2 kernel")
     return kern, plain
 
 
@@ -1098,6 +1124,8 @@ def train_phase(torch, port, counters, ln, fa, fx, af):
         losses.append(float(loss))  # the host sync that ends the step
         times.append(time.perf_counter() - t0)
     launches = {k: fn.launches for k, fn in counters.items()}
+    # phase 7's world-1 engines must reproduce these 13 steps bit for bit
+    after13 = {n: p.detach().clone() for n, p in state.params.items()}
     print(f"  launches on the main path (10 steps): {launches}")
     for k in TRAIN_KERNELS:
         check(launches[k] > 0, f"{k} was never launched on the main path")
@@ -1164,7 +1192,8 @@ def train_phase(torch, port, counters, ln, fa, fx, af):
           "loss did not fall on a fixed batch")
     return dict(launches=launches, step_ms=med * 1e3,
                 tokens_per_s=b * t / med, kernel_ms_per_step=step_ms,
-                busy_ms=busy / 1e3, first_loss=losses[0])
+                busy_ms=busy / 1e3, first_loss=losses[0], peak_gib=peak,
+                losses13=losses[:13], params13=after13)
 
 
 def _leaf_rel(torch, a, b):
@@ -1452,12 +1481,12 @@ def plain_serving_ops(pa, pool_mod, qm):
 
     @contextlib.contextmanager
     def ctx():
-        saved = (gpt2_mod.layernorm, gpt2_mod.ATTENTION,
+        saved = (gpt2_mod.layernorm, gpt2_mod.sharded_attention,
                  gpt2_mod.paged_attention, pool_mod.quantize_blockwise)
         gpt2_mod.layernorm = lambda x, w, b, eps=1e-5: _ln_fwd_plain(
             x, w, b, eps)[0]
-        gpt2_mod.ATTENTION = {k: (lambda q, k_, v: _fa2_fwd_plain(q, k_, v)[0])
-                              for k in saved[1]}
+        gpt2_mod.sharded_attention = (
+            lambda q, k_, v, impl, pctx=None: _fa2_fwd_plain(q, k_, v)[0])
         gpt2_mod.paged_attention = (
             lambda q, view, page, l, span_kv=None:
             pa._paged_attention_plain(q, view, page, l, span_kv))
@@ -1467,7 +1496,7 @@ def plain_serving_ops(pa, pool_mod, qm):
         try:
             yield
         finally:
-            (gpt2_mod.layernorm, gpt2_mod.ATTENTION,
+            (gpt2_mod.layernorm, gpt2_mod.sharded_attention,
              gpt2_mod.paged_attention, pool_mod.quantize_blockwise) = saved
     return ctx()
 
@@ -1739,6 +1768,250 @@ def f32_identity(torch, np, port, model, counters):
     return out
 
 
+# -- phase 7: distributed ---------------------------------------------------
+
+CHUNK_KERNELS = ("fa2_chunk_fwd", "fa2_chunk_dq", "fa2_chunk_dkv")
+# ring attention's shape on gpt2-124m at T=1024 split over 4 seq ranks
+RING_B, RING_H, RING_T, RING_D, RING_N = 8, 12, 1024, 64, 4
+RING_TL = RING_T // RING_N
+
+
+def chunk_phase(torch, F, fa):
+    """7a: the unmasked chunk kernels (4c, 5c, 6c) at the ring's shape,
+    B=8 H=12 Tl=256 Dh=64 bf16, against their plain versions (forward:
+    atol = rtol = 2e-2, lse 2e-3; backward: max abs err <= 2e-2 x
+    max |plain|), each run twice and bit-identical; times beside the
+    bound, the plain version and SDPA without a mask (its backward for dq
+    and dk/dv), timed only as a yardstick."""
+    b, h, t, d = RING_B, RING_H, RING_TL, RING_D
+    g = torch.Generator(device="cuda").manual_seed(77)
+    q, k, v, do = (torch.randn(b, h, t, d, generator=g, device="cuda"
+                               ).bfloat16() for _ in range(4))
+    o, lse = fa.fa2_chunk_fwd(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    po, plse = fa._fa2_fwd_plain(q, k, v, causal=False)
+    torch.testing.assert_close(o.float(), po.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse, plse, atol=2e-3, rtol=1e-4)
+    fwd_err = max_err(o, po)
+    # the backward takes the ring's GLOBAL stats: this chunk's lse merged
+    # with another chunk's
+    lse_g = torch.logaddexp(lse, lse - 0.5)
+    di = (do.float() * o.float()).sum(-1)
+    dq = fa.fa2_chunk_dq(q, k, v, do, lse_g, di, causal=False)
+    dk, dv = fa.fa2_chunk_dkv(q, k, v, do, lse_g, di, causal=False)
+    torch.cuda.synchronize()
+    pdq = fa._fa2_dq_plain(q, k, v, do, lse_g, di, causal=False)
+    pdk, pdv = fa._fa2_dkv_plain(q, k, v, do, lse_g, di, causal=False)
+    dq_err, dq_rel = _rel_err(dq, pdq)
+    kv = [_rel_err(dk, pdk), _rel_err(dv, pdv)]
+    dkv_err, dkv_rel = max(e for e, _ in kv), max(r for _, r in kv)
+    check(dq_rel <= 2e-2 and dkv_rel <= 2e-2,
+          f"chunk backward disagrees with its plain version: dq rel "
+          f"{dq_rel:.3g}, dk/dv rel {dkv_rel:.3g}")
+    _bitwise(torch, lambda: fa.fa2_chunk_fwd(q, k, v, causal=False),
+             "chunk fwd")
+    _bitwise(torch, lambda: [fa.fa2_chunk_dq(q, k, v, do, lse_g, di,
+                                             causal=False)], "chunk dq")
+    _bitwise(torch, lambda: fa.fa2_chunk_dkv(q, k, v, do, lse_g, di,
+                                             causal=False), "chunk dkv")
+
+    qr, kr, vr = (z.detach().requires_grad_() for z in (q, k, v))
+    outr = F.scaled_dot_product_attention(qr, kr, vr, is_causal=False)
+
+    def lib_bwd():
+        return torch.autograd.grad(outr, (qr, kr, vr), do, retain_graph=True)
+
+    lib_bwd_ms = device_ms(torch, lib_bwd)
+    panel = b * h * t * d * 2
+    stats = b * h * t * 4
+    sq = b * h * t * t * d
+    res = {}
+    for name, kernel, plain, lib_ms, nbytes, flops, err in (
+            ("fa2_chunk_fwd",
+             lambda: fa.fa2_chunk_fwd(q, k, v, causal=False),
+             lambda: fa._fa2_fwd_plain(q, k, v, causal=False),
+             device_ms(torch, lambda: F.scaled_dot_product_attention(
+                 q, k, v, is_causal=False)),
+             4 * panel + stats, 4 * sq, fwd_err),
+            ("fa2_chunk_dq",
+             lambda: fa.fa2_chunk_dq(q, k, v, do, lse_g, di, causal=False),
+             lambda: fa._fa2_dq_plain(q, k, v, do, lse_g, di, causal=False),
+             lib_bwd_ms, 5 * panel + 2 * stats, 6 * sq, dq_err),
+            ("fa2_chunk_dkv",
+             lambda: fa.fa2_chunk_dkv(q, k, v, do, lse_g, di, causal=False),
+             lambda: fa._fa2_dkv_plain(q, k, v, do, lse_g, di,
+                                       causal=False),
+             lib_bwd_ms, 6 * panel + 2 * stats, 8 * sq, dkv_err)):
+        bms, by = bound_ms(nbytes, flops, "bfloat16")
+        res[name] = dict(ms=device_ms(torch, kernel, iters=10),
+                         plain_ms=device_ms(torch, plain, iters=5),
+                         library_ms=lib_ms,
+                         call_ms=time_ms(torch, kernel, iters=10),
+                         bound_ms=bms, bound_by=by, max_abs_err=err,
+                         shape=f"B={b} H={h} Tl={t} Dh={d} bf16 unmasked")
+        print(f"kernel {name} B={b} H={h} Tl={t} Dh={d} bf16 unmasked: "
+              f"max_abs_err={err:.3g} (tol 2e-2; backward x max|plain|) "
+              f"bitwise repeatable; library = SDPA is_causal=False"
+              f"{' backward, both passes' if name != 'fa2_chunk_fwd' else ''}"
+              "; " + " ".join(f"{k}={v:.5g}" for k, v in res[name].items()
+                              if k.endswith("ms")))
+    return res
+
+
+def gpt2_qkv(torch, port, model, seed):
+    """Real gpt2-124m q/k/v: layer 0's qkv projection of a seeded batch,
+    (B, H, T, Dh) bf16 each."""
+    from tiny_deepspeed_tpu_torch.ops.layernorm import layernorm
+    from tiny_deepspeed_tpu_torch.ops.linear import linear
+    c = model.config
+    idx, _ = port.TokenLoader(None, batch=RING_B, seq=RING_T,
+                              vocab_size=c.vocab_size, seed=seed).next()
+    with torch.no_grad():
+        x = model.embed(torch.as_tensor(idx, device="cuda").long())
+        bp = model._layer(model.stacked_compute_params(), 0)
+        qkv = linear(layernorm(x, bp["ln_1.w"], bp["ln_1.b"]),
+                     bp["attn.qkv.w"], bp["attn.qkv.b"])
+    return [z.reshape(RING_B, RING_T, c.n_head, c.head_dim).transpose(1, 2)
+            .contiguous() for z in qkv.split(c.n_embd, dim=-1)]
+
+
+def ring_phase(torch, port, fa, counters, model):
+    """7b: ring attention at full width over 4 virtual ranks on the card:
+    four threads, one per rank, call ring_fwd / ring_bwd directly through
+    a lockstep communicator.  The concatenated o, dq, dk, dv must match
+    the full-sequence causal kernels at T=1024 (o atol = rtol = 2e-2;
+    grads max abs err <= 2e-2 x max |full|), and the launches per
+    attention call must be JAX's schedule: causal fwd/dq/dkv 4 each,
+    unmasked 6 each."""
+    from tiny_deepspeed_tpu_torch.parallel import ring_attention as ra
+    q, k, v = gpt2_qkv(torch, port, model, seed=5)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    do = torch.randn(q.shape, generator=g, device="cuda").bfloat16()
+    o, lse = fa.fa2_flash_attention_fwd(q, k, v)
+    di = (do.float() * o.float()).sum(-1)
+    full = (o, fa.fa2_flash_attention_dq(q, k, v, do, lse, di),
+            *fa.fa2_flash_attention_dkv(q, k, v, do, lse, di))
+    torch.cuda.synchronize()
+
+    def chunk(z, r):
+        return z[:, :, r * RING_TL:(r + 1) * RING_TL].contiguous()
+
+    def rank(r, comm):
+        args = [chunk(z, r) for z in (q, k, v)]
+        ro, rlse = ra.ring_fwd(*args, comm)
+        return (ro, *ra.ring_bwd((*args, ro, rlse), chunk(do, r), comm))
+
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = ra.run_lockstep(RING_N, rank)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    ring = [torch.cat([r[i] for r in out], dim=2) for i in range(4)]
+    torch.testing.assert_close(ring[0].float(), full[0].float(), atol=2e-2,
+                               rtol=2e-2)
+    errs = {n: _rel_err(a, b) for n, a, b in zip(("o", "dq", "dk", "dv"),
+                                                   ring, full)}
+    check(all(r <= 2e-2 for _, r in list(errs.values())[1:]),
+          f"ring gradients disagree with the full causal kernels: {errs}")
+    want = {"fa2_flash_attention_fwd": 4, "fa2_flash_attention_dq": 4,
+            "fa2_flash_attention_dkv": 4, "fa2_chunk_fwd": 6,
+            "fa2_chunk_dq": 6, "fa2_chunk_dkv": 6}
+    check({k: launches[k] for k in want} == want
+          and not any(v for k, v in launches.items() if k not in want),
+          f"ring launches {launches}, want {want}")
+    print(f"  ring attention, 4 virtual ranks on one card (B={RING_B} "
+          f"H={RING_H} T={RING_T} Tl={RING_TL} Dh={RING_D} bf16, gpt2-124m "
+          f"layer-0 q/k/v): vs the full-sequence causal kernels "
+          + ", ".join(f"{n} max_abs_err={e:.3g} ({r:.3g} of max|full|)"
+                      for n, (e, r) in errs.items())
+          + f" (tol 2e-2); forward+backward wall {wall * 1e3:.2f} ms "
+          f"(threads in lockstep, not a multi-card time)")
+    print(f"  launches per attention call (4 ranks): "
+          f"{ {k: launches[k] for k in want} } = JAX's schedule")
+    return launches
+
+
+def engines_phase(torch, port, counters, train):
+    """7c: DDP, Zero1 and Zero2 at world size 1 over NCCL train gpt2-124m
+    with phase 4's config: the 13 steps' losses and params must equal
+    SingleDevice's (phase 4) bit for bit; step time, tokens/s and peak
+    memory beside phase 4's; one profiled step's NCCL time."""
+    import torch.distributed as dist
+    b, t = 8, 1024
+    cfg = port.GPT2_PRESETS["gpt2-124m"]
+    store = os.path.join(OUT_DIR, "nccl_store")
+    if os.path.exists(store):
+        os.remove(store)
+    dist.init_process_group("nccl", init_method=f"file://{store}", rank=0,
+                            world_size=1)
+    print(f"  process group: nccl, world 1; torch.cuda.device_count() "
+          f"{torch.cuda.device_count()}; nccl {torch.cuda.nccl.version()}")
+    out = {}
+    try:
+        for name in ("DDP", "Zero1", "Zero2"):
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            model = port.GPT2Model(cfg)
+            eng = getattr(port, name)(model, port.AdamW(lr=1e-5,
+                                                        weight_decay=0.1))
+            state = eng.init(0)
+            loader = port.TokenLoader(None, batch=b, seq=t,
+                                      vocab_size=cfg.vocab_size, seed=0)
+            losses = []
+            for _ in range(3):
+                state, loss = eng.step(state, loader.next())
+                losses.append(float(loss))
+            for fn in counters.values():
+                fn.launches = 0
+            times = []
+            for _ in range(10):
+                batch = loader.next()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, loss = eng.step(state, batch)
+                losses.append(float(loss))
+                times.append(time.perf_counter() - t0)
+            launches = {k: fn.launches for k, fn in counters.items()}
+            for k in TRAIN_KERNELS:
+                check(launches[k] > 0, f"{name}: {k} never launched")
+            check(not any(launches[k] for k in CHUNK_KERNELS),
+                  f"{name} at seq 1 ran a chunk kernel")
+            same = losses == train["losses13"] and all(
+                torch.equal(p, train["params13"][n])
+                for n, p in state.params.items())
+            check(same, f"{name} at world 1 differs from SingleDevice: "
+                  f"losses {losses} vs {train['losses13']}")
+            med = statistics.median(times)
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+
+            def one_step():
+                float(eng.step(state, loader.next())[1])
+
+            prof = profiled(torch, one_step)
+            check(prof is not None, "the profiler recorded no device time")
+            # NCCL's kernels; at world 1 it may copy instead (memcpy)
+            per, busy, _ = kernel_shares(torch, prof, {"nccl": "nccl",
+                                                       "memcpy": "Memcpy"})
+            nccl_ms = per.get("nccl", 0.0) / 1e3
+            copy_ms = per.get("memcpy", 0.0) / 1e3
+            print(f"  {eng.describe()}: 13 steps bit-identical to "
+                  f"SingleDevice (losses and params); step time median "
+                  f"{med * 1e3:.3f} ms -> {b * t / med:.1f} tokens/s (phase "
+                  f"4: {train['step_ms']:.3f} ms, "
+                  f"{train['tokens_per_s']:.1f}); peak memory {peak:.2f} GiB "
+                  f"(phase 4: {train['peak_gib']:.2f}); one profiled step: "
+                  f"NCCL kernels {nccl_ms:.4f} ms, memcpy {copy_ms:.4f} ms, "
+                  f"of {busy / 1e3:.3f} ms device busy")
+            out[name.lower()] = dict(launches=launches, step_ms=med * 1e3,
+                                     nccl_ms=nccl_ms)
+            del eng, state, model, prof
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1824,7 +2097,10 @@ def main():
                 "adamw_update_fused": af.adamw_update_fused,
                 "paged_attention_quant": pa.paged_attention_quant,
                 "paged_attention_span": pa.paged_attention_span,
-                "quantize_blockwise": qm.quantize_blockwise}
+                "quantize_blockwise": qm.quantize_blockwise,
+                "fa2_chunk_fwd": fa.fa2_chunk_fwd,
+                "fa2_chunk_dq": fa.fa2_chunk_dq,
+                "fa2_chunk_dkv": fa.fa2_chunk_dkv}
     serve_kernels = ("layernorm_fwd", "fa2_flash_attention_fwd",
                      "paged_attention")
     for fn in counters.values():
@@ -1918,8 +2194,20 @@ def main():
     var_paths, var_res, agree = variants_phase(
         torch, np, model, counters, pa, pool_mod, qm, plain_tokens)
     f32_identity(torch, np, port, model, counters)
+    torch.cuda.empty_cache()
+
+    t7 = time.perf_counter()
+    print("phase 7: distributed — the unmasked FA2 chunk kernels, ring "
+          "attention over 4 virtual ranks, DDP / Zero1 / Zero2 at world 1 "
+          "over NCCL")
+    chunk_res = chunk_phase(torch, F, fa)
+    ring_launches = ring_phase(torch, port, fa, counters, model)
     del model
     torch.cuda.empty_cache()
+    dist_res = engines_phase(torch, port, counters, train)
+    del train["params13"]
+    torch.cuda.empty_cache()
+    print(f"phase 7: {time.perf_counter() - t7:.2f}s")
 
     timed = ("shape", "ms", "plain_ms", "library_ms", "call_ms", "bound_ms",
              "bound_by")
@@ -1932,7 +2220,9 @@ def main():
         by_path = {"serving": serve_launches[name],
                    "training": train["launches"][name],
                    "knobbed_training": knob["launches"][name],
-                   **{p: v[name] for p, v in var_paths.items()}}
+                   **{p: v[name] for p, v in var_paths.items()},
+                   "ring4": ring_launches[name],
+                   **{p: v["launches"][name] for p, v in dist_res.items()}}
         row = {"name": name, "route": route, "source": source,
                "replaces": replaces, "launches": sum(by_path.values()),
                "launches_by_path": by_path,
@@ -1999,8 +2289,20 @@ def main():
               "tiny_deepspeed_tpu_torch/optim/adamw_fused.py",
               "tiny_deepspeed_tpu/optim/adamw_pallas.py:69",
               bwd_res["adamw_update_fused"]),
+        entry("fa2_chunk_fwd", "cuda",
+              "tiny_deepspeed_tpu_torch/csrc/flash_fwd.cu",
+              "tiny_deepspeed_tpu/ops/flash_fa2.py:330",
+              chunk_res["fa2_chunk_fwd"]),
+        entry("fa2_chunk_dq", "cuda",
+              "tiny_deepspeed_tpu_torch/csrc/flash_bwd.cu",
+              "tiny_deepspeed_tpu/ops/flash_fa2.py:341",
+              chunk_res["fa2_chunk_dq"]),
+        entry("fa2_chunk_dkv", "cuda",
+              "tiny_deepspeed_tpu_torch/csrc/flash_bwd.cu",
+              "tiny_deepspeed_tpu/ops/flash_fa2.py:350",
+              chunk_res["fa2_chunk_dkv"]),
     ]
-    kernels[-1]["per_step"] = bwd_res["adamw_update_fused"]["per_step"]
+    kernels[13]["per_step"] = bwd_res["adamw_update_fused"]["per_step"]
     extra = {"paged_attention_quant": {"fp8_pool": pq_res["fp8"]},
              "paged_attention_span": {
                  "suffix": ps_res["bf16", "suffix"],
@@ -2011,11 +2313,14 @@ def main():
     for row in kernels:
         for k, v in extra.get(row["name"], {}).items():
             row[k + "_shape"] = {f: v[f] for f in timed}
-    check(len(kernels) == 14, f"{len(kernels)} kernel rows")
+    check(len(kernels) == 17, f"{len(kernels)} kernel rows")
+    for row in kernels[14:]:
+        check(row["launches_by_path"]["ring4"] > 0,
+              f"{row['name']} was never launched on the ring path")
     with open(os.path.join(OUT_DIR, "variants.json"), "w") as f:
         json.dump({"results": var_res, "agreement": agree}, f, indent=1,
                   default=str)
-    print(f"phase 7: total {time.perf_counter() - t_all:.2f}s")
+    print(f"total {time.perf_counter() - t_all:.2f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

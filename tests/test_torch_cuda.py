@@ -19,7 +19,12 @@ the fused xent and AdamW kernels; refusal of operands a kernel cannot
 take; tiny-preset engines (plain, speculative, prefix cache, int8 pool)
 whose greedy tokens on the card match the CPU port's, and tiny-preset
 training steps whose gradients on the card match the CPU port's, with
-the default and the fused heads.
+the default and the fused heads.  Slice 5: the unmasked FA2 chunk
+kernels at ragged Tl (64, 200, 256, 1000), MHA and grouped K/V, f32 and
+bf16, and the causal chunk entry bit for bit the causal kernel; the f32
+fused xent kernels against an f64 evaluation; ring attention over four
+lockstep threads on the card against the CPU port's; a distributed
+engine on the card refusing a gloo process group.
 """
 
 import math
@@ -186,6 +191,71 @@ def test_flash_backward_kernels(dtype, b, h, kvh, t, d):
             tol * scale + 1e-5
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("h,kvh", [(4, 4), (4, 2)], ids=["mha", "gqa2"])
+@pytest.mark.parametrize("t", [64, 200, 256, 1000])
+def test_flash_chunk_kernels(dtype, h, kvh, t):
+    """The unmasked chunk entries (ring attention's off-diagonal chunks)
+    against their plain versions: forward, dq and dk/dv from a global lse
+    and di, counted apart from the causal kernels."""
+    b, d = 2, 64
+    g = _g(11 * t + kvh)
+    q = torch.randn(b, h, t, d, generator=g, device="cuda").to(dtype)
+    k = torch.randn(b, kvh, t, d, generator=g, device="cuda").to(dtype)
+    v = torch.randn(b, kvh, t, d, generator=g, device="cuda").to(dtype)
+    do = torch.randn(b, h, t, d, generator=g, device="cuda").to(dtype)
+    causal = (flash_fa2.fa2_flash_attention_fwd.launches,
+              flash_fa2.fa2_flash_attention_dq.launches,
+              flash_fa2.fa2_flash_attention_dkv.launches)
+    chunk = (flash_fa2.fa2_chunk_fwd.launches,
+             flash_fa2.fa2_chunk_dq.launches,
+             flash_fa2.fa2_chunk_dkv.launches)
+    o, lse = flash_fa2.fa2_chunk_fwd(q, k, v, causal=False)
+    po, plse = flash_fa2._fa2_fwd_plain(q, k, v, causal=False)
+    # a global lse: this chunk's merged with another's, as the ring does
+    lse_g = torch.logaddexp(plse, plse - 0.5)
+    di = (do.float() * po.float()).sum(-1)
+    dq = flash_fa2.fa2_chunk_dq(q, k, v, do, lse_g, di, causal=False)
+    dk, dv = flash_fa2.fa2_chunk_dkv(q, k, v, do, lse_g, di, causal=False)
+    torch.cuda.synchronize()
+    assert (flash_fa2.fa2_chunk_fwd.launches, flash_fa2.fa2_chunk_dq.launches,
+            flash_fa2.fa2_chunk_dkv.launches) == tuple(n + 1 for n in chunk)
+    assert (flash_fa2.fa2_flash_attention_fwd.launches,
+            flash_fa2.fa2_flash_attention_dq.launches,
+            flash_fa2.fa2_flash_attention_dkv.launches) == causal
+    torch.testing.assert_close(o.float(), po.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, plse, atol=2e-3, rtol=1e-4)
+    refs = (flash_fa2._fa2_dq_plain(q, k, v, do, lse_g, di, causal=False),
+            *flash_fa2._fa2_dkv_plain(q, k, v, do, lse_g, di, causal=False))
+    for got, ref in zip((dq, dk, dv), refs):
+        assert got.dtype == dtype and got.shape == ref.shape
+        scale = float(ref.float().abs().max())
+        tol = 1e-4 if dtype == torch.float32 else 2e-2
+        assert float((got.float() - ref.float()).abs().max()) <= \
+            tol * scale + 1e-5
+
+
+def test_flash_chunk_causal_is_the_causal_kernel():
+    """The chunk entries with causal=True launch the causal kernels: bit
+    for bit the causal entries' results, counted with them."""
+    g = _g(3)
+    q, k, v, do = (torch.randn(2, 4, 300, 64, generator=g, device="cuda"
+                               ).bfloat16() for _ in range(4))
+    o, lse = flash_fa2.fa2_flash_attention_fwd(q, k, v)
+    di = (do.float() * o.float()).sum(-1)
+    ref = (o, lse, flash_fa2.fa2_flash_attention_dq(q, k, v, do, lse, di),
+           *flash_fa2.fa2_flash_attention_dkv(q, k, v, do, lse, di))
+    before = (flash_fa2.fa2_flash_attention_fwd.launches,
+              flash_fa2.fa2_chunk_fwd.launches)
+    got = (*flash_fa2.fa2_chunk_fwd(q, k, v, causal=True),
+           flash_fa2.fa2_chunk_dq(q, k, v, do, lse, di, causal=True),
+           *flash_fa2.fa2_chunk_dkv(q, k, v, do, lse, di, causal=True))
+    torch.cuda.synchronize()
+    assert (flash_fa2.fa2_flash_attention_fwd.launches,
+            flash_fa2.fa2_chunk_fwd.launches) == (before[0] + 1, before[1])
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
 def test_backward_kernels_bitwise_repeatable():
     gy, x, w, mean, rstd = _ln_bwd_inputs(torch.bfloat16, 8192, 768, 1)
     g = _g(2)
@@ -266,6 +336,36 @@ def test_fused_xent_kernels(dtype, s, d, v, transposed):
                      (dw, fused_xent._xent_dw_plain(x, w, tg, plse, gs))):
         rel = float((got.float() - ref.float()).norm() / ref.float().norm())
         assert rel <= (1e-4 if dtype == torch.float32 else 1e-2)
+
+
+@pytest.mark.parametrize("s,d,v,transposed", [
+    (257, 64, 1000, False), (1000, 768, 50257, False), (40, 1600, 3001, False),
+    (300, 768, 777, True)], ids=["d64", "d768_gpt2_vocab", "d1600", "wte_t"])
+def test_fused_xent_f32_against_f64(s, d, v, transposed):
+    """The f32 kernels and the f32 plain versions, each against an f64
+    evaluation of the same formulas: lse max abs err <= 1e-5, dx and dW
+    relative L2 err <= 1e-4 (printed with -s)."""
+    x, w, tg, gs = _xent_inputs(torch.float32, s, d, v, s + d + v,
+                                transposed)
+    _, lse64 = fused_xent._xent_fwd_plain(x.double(), w.double(), tg)
+    ref = (fused_xent._xent_dx_plain(x.double(), w.double(), tg, lse64,
+                                     gs.double()),
+           fused_xent._xent_dw_plain(x.double(), w.double(), tg, lse64,
+                                     gs.double()))
+    _, lse = fused_xent.fused_xent_fwd(x, w, tg)
+    _, plse = fused_xent._xent_fwd_plain(x, w, tg)
+    runs = {"kernel": (lse, fused_xent.fused_xent_dx(x, w, tg, lse, gs),
+                       fused_xent.fused_xent_dw(x, w, tg, lse, gs)),
+            "plain": (plse, fused_xent._xent_dx_plain(x, w, tg, plse, gs),
+                      fused_xent._xent_dw_plain(x, w, tg, plse, gs))}
+    for name, (l, dx, dw) in runs.items():
+        lse_err = float((l.double() - lse64).abs().max())
+        rel = [float((a.double() - b).norm() / b.norm())
+               for a, b in zip((dx, dw), ref)]
+        print(f"f32 {name} vs f64 S={s} D={d} V={v}: lse max abs err "
+              f"{lse_err:.3g}, dx rel L2 {rel[0]:.3g}, dW rel L2 "
+              f"{rel[1]:.3g}")
+        assert lse_err <= 1e-5 and max(rel) <= 1e-4, name
 
 
 @pytest.mark.parametrize("n", [1, 768, 4097, 1_000_003])
@@ -527,3 +627,46 @@ def test_tiny_serving_variants_match_cpu(knobs):
         outs.append([h.tokens for h in hs])
         assert all(h.status == "ok" for h in hs)
     assert outs[0] == outs[1]
+
+
+def test_ring_threads_on_card_match_cpu():
+    """Ring attention over four lockstep threads on one card (the chunk
+    kernels) against the same ring on the CPU (their plain versions),
+    grouped K/V, f32, a ragged Tl."""
+    from tiny_deepspeed_tpu_torch.parallel import ring_attention as ra
+    g = torch.Generator().manual_seed(9)
+    q, do = (torch.randn(2, 4, 4 * 50, 64, generator=g) for _ in range(2))
+    k, v = (torch.randn(2, 2, 4 * 50, 64, generator=g) for _ in range(2))
+
+    def ring(dev):
+        def rank(r, comm):
+            args = [z[:, :, r * 50:(r + 1) * 50].to(dev) for z in (q, k, v)]
+            o, lse = ra.ring_fwd(*args, comm)
+            return (o, *ra.ring_bwd((*args, o, lse),
+                                    do[:, :, r * 50:(r + 1) * 50].to(dev),
+                                    comm))
+        out = ra.run_lockstep(4, rank)
+        return [torch.cat([o[i] for o in out], dim=2).cpu()
+                for i in range(4)]
+
+    before = flash_fa2.fa2_chunk_fwd.launches
+    got = ring("cuda")
+    assert flash_fa2.fa2_chunk_fwd.launches == before + 6
+    for a, b in zip(got, ring("cpu")):
+        scale = float(b.abs().max())
+        assert float((a - b).abs().max()) <= 1e-4 * scale + 1e-5
+
+
+def test_engine_on_card_needs_nccl():
+    import torch.distributed as dist
+
+    import tiny_deepspeed_tpu_torch as T
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        model = T.GPT2Model(T.GPT2_PRESETS["tiny"])
+        with pytest.raises(ValueError, match="NCCL"):
+            T.DDP(model, T.AdamW())
+    finally:
+        dist.destroy_process_group()
+

@@ -17,13 +17,19 @@ easy to find.  Ported so far:
   lm_head + loss heads, `AdamW(fused=True)` and dropout;
 - slice 4, serving features: speculative decoding (`spec_draft`,
   `spec_k`), the shared-prefix cache (`prefix_cache`) and int8 / fp8 KV
-  pools (`quant`).
+  pools (`quant`);
+- slice 5, distributed training: `DDP`, `Zero1` and `Zero2` over
+  `torch.distributed` (`init_distributed`; NCCL on the card, gloo on the
+  CPU) with ring attention over a sequence split (`seq_parallel`), and
+  the `partition_tensors` rank map (`python -m torch.distributed.run
+  -m tiny_deepspeed_tpu_torch.train --engine zero2 ...`).
 
 Every Pallas kernel those paths run on a TPU is rewritten for Hopper:
 layernorm forward, dx and dw/db in Triton (ops/layernorm.py); the fused
 AdamW update and the blockwise int8/fp8 quantizer in Triton
-(optim/adamw_fused.py, ops/quant.py); FA2 causal forward, dq and dk/dv
-(csrc/flash_fwd.cu, csrc/flash_bwd.cu), paged attention — decode and
+(optim/adamw_fused.py, ops/quant.py); FA2 forward, dq and dk/dv, causal and
+unmasked for ring attention's chunks (csrc/flash_fwd.cu,
+csrc/flash_bwd.cu), paged attention — decode and
 span verify, over bf16 or int8/fp8 pools — (csrc/paged_attn.cu) and the
 fused lm_head + cross-entropy forward, dx and dW (csrc/fused_xent.cu) in
 CUDA C++.
@@ -38,12 +44,14 @@ from .data import TokenLoader
 from .models.gpt2 import (GPT2_PRESETS, GPT2Model, GPTConfig,
                           effective_xent_impl)
 from .optim import SGD, AdamW
-from .parallel import SingleDevice, TrainState
+from .parallel import (DDP, SingleDevice, TrainState, Zero1, Zero2,
+                       ZeroEngine, init_distributed, partition_tensors)
 from .serving import PrefixCache, SpecDecoder
 from .serving.engine import ServeConfig, ServingEngine
 
-__all__ = ["AdamW", "GPTConfig", "GPT2_PRESETS", "GPT2Model", "PrefixCache",
-           "SGD", "ServeConfig", "ServingEngine", "SingleDevice",
-           "SpecDecoder", "TokenLoader",
-           "TrainState", "effective_xent_impl", "opt_state_from_numpy", "opt_state_to_numpy",
-           "params_from_numpy", "params_to_numpy"]
+__all__ = ["AdamW", "DDP", "GPTConfig", "GPT2_PRESETS", "GPT2Model",
+           "PrefixCache", "SGD", "ServeConfig", "ServingEngine",
+           "SingleDevice", "SpecDecoder", "TokenLoader", "TrainState",
+           "Zero1", "Zero2", "ZeroEngine", "effective_xent_impl",
+           "init_distributed", "opt_state_from_numpy", "opt_state_to_numpy",
+           "params_from_numpy", "params_to_numpy", "partition_tensors"]

@@ -1,13 +1,17 @@
 // Copyright 2026 tiny-deepspeed-tpu authors
 // SPDX-License-Identifier: Apache-2.0
 //
-// Causal FlashAttention-2 backward for Hopper (sm_90a), plain-FMA version:
-// the dq pass and the dk/dv pass.
+// FlashAttention-2 backward for Hopper (sm_90a), plain-FMA version: the dq
+// pass and the dk/dv pass, causal or unmasked (a ring attention chunk).
 //
 // Replaces the TPU kernels tiny_deepspeed_tpu/ops/flash_fa2.py::_dq_call
 // (:281, pallas_call :285, kernel _bwd_dq_kernel :210) and ::_dkv_call
 // (:248, pallas_call :258, kernel _bwd_dkv_kernel :155), reached from
-// _fa2_bwd (:410) -> _bwd (:302).  Same contract: q/do (B*H, T, D),
+// _fa2_bwd (:410) -> _bwd (:302) and, with causal=False, from the chunk
+// entries fa2_chunk_dq (:341) and fa2_chunk_dkv (:350), which take the
+// ring's GLOBAL (merged) lse and di.  `causal` is a template flag chosen
+// at launch, so the causal instantiations are the code they were before
+// the flag.  Same contract: q/do (B*H, T, D),
 // k/v (B*KVH, T, D) with query head h reading kv head h / (H/KVH); lse
 // (the forward's fused m + log l) and di = rowsum(do*o), both f32
 // (B*H, T); p = exp(s*scale - lse) is recomputed, never stored; every
@@ -18,10 +22,12 @@
 // Design.  The JAX decomposition stays: two passes, no atomics, so both
 // are deterministic (fixed loop order, bit-repeatable run to run).
 //   * dq: one CTA owns BQ query rows of one (batch, head) and walks the
-//     key tiles up to the diagonal (causality by loop bound):
+//     key tiles up to the diagonal (causality by loop bound; unmasked, all
+//     of them):
 //     dq += ds K, ds = p (dp - di) scale, dp = do V^T.
 //   * dkv: one CTA owns BK keys of one (batch, kv head), loops over the
-//     group's query heads and over the q tiles from the diagonal to T:
+//     group's query heads and over the q tiles from the diagonal (unmasked,
+//     from 0) to T:
 //     dv += p^T do, dk += ds^T q.
 // The TPU kernels keep whole (T, D) panels resident in VMEM; a Hopper SM
 // has 227 KB of shared memory, so here every operand streams through
@@ -67,7 +73,7 @@ __device__ __forceinline__ void load_tile(float (*dst)[D + 1],
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
@@ -106,8 +112,9 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
 
-  // causal: no row of this CTA sees a key past its last row
-  const int kend = min(seqlen, q0 + BQ);
+  // causal: no row of this CTA sees a key past its last row; unmasked:
+  // every key of the chunk
+  const int kend = CAUSAL ? min(seqlen, q0 + BQ) : seqlen;
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();  // the previous tile is fully consumed
     load_tile<T, D>(ks, kp, k0, kend);
@@ -138,7 +145,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < KPT; ++j) {
         const int key = k0 + tx + TX * j;
-        const bool ok = row[i] < seqlen && key <= row[i];
+        const bool ok = row[i] < seqlen
+                        && (CAUSAL ? key <= row[i] : key < seqlen);
         const float p = ok ? expf(s[i][j] * scale - lse_r[i]) : 0.f;
         dss[2 * ty + i][tx + TX * j] = p * (dp[i][j] - di_r[i]) * scale;
       }
@@ -167,7 +175,7 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
@@ -201,8 +209,9 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int g = 0; g < group; ++g) {   // the query heads sharing this k/v
     const size_t qbase = (size_t)(b * H + kvh * group + g) * seqlen;
-    // causal: q tiles before the one holding key k0 see none of its keys
-    for (int q0 = (k0 / BQ) * BQ; q0 < seqlen; q0 += BQ) {
+    // causal: q tiles before the one holding key k0 see none of its keys;
+    // unmasked: every q tile sees them
+    for (int q0 = CAUSAL ? (k0 / BQ) * BQ : 0; q0 < seqlen; q0 += BQ) {
       __syncthreads();  // the previous tile is fully consumed
       load_tile<T, D>(qs, q + qbase * D, q0, seqlen);
       load_tile<T, D>(dos, dout + qbase * D, q0, seqlen);
@@ -238,7 +247,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < KPT; ++j) {
           const int key = k0 + tx + TX * j;
-          const bool ok = rowg < seqlen && key < seqlen && key <= rowg;
+          const bool ok = rowg < seqlen && key < seqlen
+                          && (!CAUSAL || key <= rowg);
           const float p = ok ? expf(s[i][j] * scale - lse_s[r]) : 0.f;
           ps[r][tx + TX * j] = p;
           dss[r][tx + TX * j] = p * (dp[i][j] - di_s[r]) * scale;
@@ -282,6 +292,7 @@ struct Args {
   const float *lse, *di;
   void *dq, *dk, *dv;
   int B, H, KVH, seqlen;
+  bool causal;
   float scale;
   cudaStream_t stream;
 };
@@ -294,12 +305,16 @@ cudaError_t launch(const Args& a, bool dkv) {
   const T* dout = static_cast<const T*>(a.dout);
   if (dkv) {
     dim3 grid((a.seqlen + BK - 1) / BK, a.B * a.KVH);
-    flash_dkv_kernel<T, D><<<grid, THREADS, 0, a.stream>>>(
+    auto kernel = a.causal ? flash_dkv_kernel<T, D, true>
+                           : flash_dkv_kernel<T, D, false>;
+    kernel<<<grid, THREADS, 0, a.stream>>>(
         q, k, v, dout, a.lse, a.di, static_cast<T*>(a.dk),
         static_cast<T*>(a.dv), a.seqlen, a.H, a.KVH, a.scale);
   } else {
     dim3 grid((a.seqlen + BQ - 1) / BQ, a.B * a.H);
-    flash_dq_kernel<T, D><<<grid, THREADS, 0, a.stream>>>(
+    auto kernel = a.causal ? flash_dq_kernel<T, D, true>
+                           : flash_dq_kernel<T, D, false>;
+    kernel<<<grid, THREADS, 0, a.stream>>>(
         q, k, v, dout, a.lse, a.di, static_cast<T*>(a.dq), a.seqlen, a.H,
         a.KVH, a.scale);
   }
@@ -329,15 +344,16 @@ cudaError_t dispatch(int dtype, int D, const Args& a, bool dkv) {
 }  // namespace
 
 // q/dout (B*H, T, D), k/v (B*KVH, T, D), lse/di (B*H, T) f32, dq like q;
-// all contiguous on the device; dtype: tds::DType.  Returns the launch's
-// cudaError_t (0 on success).
+// all contiguous on the device; dtype: tds::DType; causal 1 (a query sees
+// the keys at or before its position) or 0 (every key).  Returns the
+// launch's cudaError_t (0 on success).
 extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* di, void* dq, int B, int H,
                             int KVH, int seqlen, int D, int dtype,
-                            float scale, void* stream) {
+                            int causal, float scale, void* stream) {
   Args a{q, k, v, dout, lse, di, dq, nullptr, nullptr, B, H, KVH, seqlen,
-         scale, static_cast<cudaStream_t>(stream)};
+         causal != 0, scale, static_cast<cudaStream_t>(stream)};
   return dispatch(dtype, D, a, false);
 }
 
@@ -347,8 +363,8 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              const void* dout, const float* lse,
                              const float* di, void* dk, void* dv, int B,
                              int H, int KVH, int seqlen, int D, int dtype,
-                             float scale, void* stream) {
-  Args a{q, k, v, dout, lse, di, nullptr, dk, dv, B, H, KVH, seqlen, scale,
-         static_cast<cudaStream_t>(stream)};
+                             int causal, float scale, void* stream) {
+  Args a{q, k, v, dout, lse, di, nullptr, dk, dv, B, H, KVH, seqlen,
+         causal != 0, scale, static_cast<cudaStream_t>(stream)};
   return dispatch(dtype, D, a, true);
 }

@@ -1,10 +1,15 @@
 // Copyright 2026 tiny-deepspeed-tpu authors
 // SPDX-License-Identifier: Apache-2.0
 //
-// Causal FlashAttention-2 forward for Hopper (sm_90a), plain-FMA version.
+// FlashAttention-2 forward for Hopper (sm_90a), plain-FMA version: causal,
+// or unmasked for a ring attention chunk.
 //
 // Replaces the TPU kernel tiny_deepspeed_tpu/ops/flash_fa2.py::
-// fa2_flash_attention -> _fwd (:125, pallas_call :129) / _fwd_kernel (:68).
+// fa2_flash_attention -> _fwd (:125, pallas_call :129) / _fwd_kernel (:68),
+// and its chunk entry fa2_chunk_fwd (:330) with causal=False: every key of
+// the chunk is visible to every query (the kernel's nfull = ndiag = all
+// k-blocks, :103-108).  `causal` is a template flag chosen at launch, so
+// the causal instantiation is the code it was before the flag.
 // Same contract: q (B*H, T, D), k/v (B*KVH, T, D) with query head h
 // reading kv head h / (H/KVH); emits o in the input dtype and the fused
 // softmax statistic lse = m + log(l) in f32, which the training slice's
@@ -13,9 +18,11 @@
 // Design.  The TPU kernel keeps whole K/V panels resident in VMEM (up to
 // FA2_MAX_T); a Hopper SM has 227 KB of shared memory, so here K/V stream
 // through shared memory in BK-key tiles and any T works.  One CTA owns
-// BQ query rows of one (batch, head); the loop over key tiles stops at the
-// tile holding the CTA's last row (causality by loop bound), and a
-// per-key test masks the diagonal tile and the ragged tail.  Each query
+// BQ query rows of one (batch, head); causal, the loop over key tiles
+// stops at the tile holding the CTA's last row (causality by loop bound),
+// and a per-key test masks the diagonal tile and the ragged tail;
+// unmasked, the loop covers the whole chunk and the test masks only the
+// ragged tail.  Each query
 // row is split over SPLIT threads that take interleaved keys with their
 // own online-softmax state (m, l, acc in f32 registers); the SPLIT partial
 // states merge through warp shuffles at the end.
@@ -37,7 +44,7 @@ constexpr int SPLIT = 4;               // threads per query row
 constexpr int THREADS = BQ * SPLIT;    // 128
 constexpr int KPT = BK / SPLIT;        // keys per thread per tile
 
-template <typename T, int D>
+template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
@@ -71,8 +78,9 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   float m = tds::kMasked, l = 0.f;
 
-  // causal: no row of this CTA sees a key past its last row
-  const int kend = min(seqlen, q0 + BQ);
+  // causal: no row of this CTA sees a key past its last row; unmasked:
+  // every key of the chunk
+  const int kend = CAUSAL ? min(seqlen, q0 + BQ) : seqlen;
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();  // the previous tile is fully consumed
     for (int e = tid; e < BK * D; e += THREADS) {
@@ -96,7 +104,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       float dot = 0.f;
 #pragma unroll
       for (int d = 0; d < D; ++d) dot = fmaf(qr[d], ks[kr][d], dot);
-      const bool ok = valid && (k0 + kr) <= row;
+      const bool ok = valid && (CAUSAL ? (k0 + kr) <= row
+                                       : (k0 + kr) < seqlen);
       s[i] = ok ? dot : tds::kMasked;
       mt = fmaxf(mt, s[i]);
     }
@@ -108,7 +117,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < KPT; ++i) {
       const int kr = i * SPLIT + part;
-      const bool ok = valid && (k0 + kr) <= row;
+      const bool ok = valid && (CAUSAL ? (k0 + kr) <= row
+                                       : (k0 + kr) < seqlen);
       const float p = ok ? __expf(s[i] - mn) : 0.f;
       l += p;
 #pragma unroll
@@ -149,9 +159,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int H, int KVH, int seqlen,
-                   float scale, cudaStream_t stream) {
+                   bool causal, float scale, cudaStream_t stream) {
   dim3 grid((seqlen + BQ - 1) / BQ, B * H);
-  flash_fwd_kernel<T, D><<<grid, THREADS, 0, stream>>>(
+  auto kernel = causal ? flash_fwd_kernel<T, D, true>
+                       : flash_fwd_kernel<T, D, false>;
+  kernel<<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, seqlen, H, KVH,
       scale);
@@ -161,10 +173,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 template <typename T>
 cudaError_t by_dim(int D, const void* q, const void* k, const void* v,
                    void* o, float* lse, int B, int H, int KVH, int seqlen,
-                   float scale, cudaStream_t stream) {
+                   bool causal, float scale, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, lse, B, H, KVH, seqlen, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, B, H, KVH, seqlen, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, H, KVH, seqlen, causal, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, H, KVH, seqlen, causal, scale, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -172,21 +184,23 @@ cudaError_t by_dim(int D, const void* q, const void* k, const void* v,
 }  // namespace
 
 // q (B*H, T, D), k/v (B*KVH, T, D), o like q, lse (B*H, T) f32; all
-// contiguous on the device; dtype: tds::DType.  Returns the launch's
+// contiguous on the device; dtype: tds::DType; causal 1 (a query sees the
+// keys at or before its position) or 0 (every key).  Returns the launch's
 // cudaError_t (0 on success).
 extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* o, float* lse, int B, int H, int KVH,
-                         int seqlen, int D, int dtype, float scale,
-                         void* stream) {
+                         int seqlen, int D, int dtype, int causal,
+                         float scale, void* stream) {
   if (B <= 0 || seqlen <= 0 || KVH <= 0 || H % KVH) return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool c = causal != 0;
   switch (dtype) {
     case tds::kF32:
-      return by_dim<float>(D, q, k, v, o, lse, B, H, KVH, seqlen, scale, st);
+      return by_dim<float>(D, q, k, v, o, lse, B, H, KVH, seqlen, c, scale, st);
     case tds::kBF16:
-      return by_dim<__nv_bfloat16>(D, q, k, v, o, lse, B, H, KVH, seqlen, scale, st);
+      return by_dim<__nv_bfloat16>(D, q, k, v, o, lse, B, H, KVH, seqlen, c, scale, st);
     case tds::kF16:
-      return by_dim<__half>(D, q, k, v, o, lse, B, H, KVH, seqlen, scale, st);
+      return by_dim<__half>(D, q, k, v, o, lse, B, H, KVH, seqlen, c, scale, st);
     default:
       return cudaErrorInvalidValue;
   }

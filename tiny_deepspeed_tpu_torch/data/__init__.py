@@ -3,6 +3,6 @@
 
 """Token batches (counterpart of `tiny_deepspeed_tpu/data/`)."""
 
-from .loader import TokenLoader
+from .loader import TokenLoader, rank_block
 
-__all__ = ["TokenLoader"]
+__all__ = ["TokenLoader", "rank_block"]

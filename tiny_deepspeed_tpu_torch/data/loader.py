@@ -17,6 +17,9 @@ Two modes, both deterministic per seed:
 Batch i of the per-batch stream is drawn from `default_rng((seed, i))`;
 `indexed=True` draws sample g of the global stream from
 `default_rng((seed, _IDX_TAG, g))`, so any sample offset can be sought.
+
+Under the distributed engines every process draws the same GLOBAL batch
+and `rank_block` cuts its own block out of it.
 """
 
 from __future__ import annotations
@@ -109,3 +112,19 @@ class TokenLoader:
 
     def __next__(self):
         return self.next()
+
+
+def rank_block(batch, pctx):
+    """The block of a global (..., B, T) batch that rank (d, s) of the
+    (data, seq) layout trains on: rows [d*B/D, (d+1)*B/D) and columns
+    [s*Tl, (s+1)*Tl), Tl = T/S (the JAX engines' batch spec P("data",
+    "seq")).  `pctx` gives data_rank, data_size, seq_rank and seq_size;
+    B must divide by D and T by S.  Works on numpy arrays and tensors."""
+    b, t = batch.shape[-2], batch.shape[-1]
+    dp, sp = pctx.data_size, pctx.seq_size
+    if b % dp or t % sp:
+        raise ValueError(f"global batch (B={b}, T={t}) does not split over "
+                         f"data={dp} x seq={sp}")
+    bl, tl = b // dp, t // sp
+    d, s = pctx.data_rank, pctx.seq_rank
+    return batch[..., d * bl:(d + 1) * bl, s * tl:(s + 1) * tl]

@@ -19,6 +19,21 @@ logits (default), the chunked `fused_linear_xent` or the fused-kernel
 `pallas_fused_xent` (`GPTConfig(fused_xent=True, fused_xent_impl=...)`).
 Dropout (`GPTConfig.dropout`) applies when `apply` is given an integer
 `rng` key, at the JAX package's three sites with its key tree.
+
+Under the distributed engines `apply` takes the rank's
+`parallel.mesh.ParallelContext` (`pctx`).  With the sequence split over
+a seq group, the rank holds positions [s*Tl, (s+1)*Tl): it adds those
+rows of `wpe` (JAX slices the global `wpe[:T]` and shards it, :819-824),
+attention runs as ring attention (`ops.attention.sharded_attention`)
+and the loss is the mean over the rank's own tokens (the engine averages
+it).  The ring's autograd Function sits inside each block's
+`torch.utils.checkpoint`, so the backward's recompute re-runs the ring
+forward and its point-to-point rotations.  That is correct: every rank
+of the group recomputes the same layers in the same order, so the
+rotations pair up as they did in the forward.  Dropout on more than one
+rank raises: the port's masks are not JAX's (PERF.md), and keeping them
+invariant to the rank count is later work (ROADMAP.md).
+
 Serving: the `return_kv` prefill hook, the paged decode step, the
 speculative verify span (`paged_verify`, `head_span`; also the prefix
 cache's suffix prefill) and the inference head, all without a graph.  ZeRO-3's `gather_quant` belongs to
@@ -39,7 +54,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from .. import rng as prng
-from ..ops.attention import ATTENTION
+from ..ops.attention import ATTENTION, sharded_attention
 from ..ops.dispatch import resolve_device
 from ..ops.embedding import embedding, renorm_weight
 from ..ops.fused_xent import pallas_fused_xent
@@ -119,16 +134,21 @@ Params = Dict[str, torch.Tensor]
 _XENT_IMPLS = ("chunked", "pallas")
 
 
-def effective_xent_impl(cfg) -> str:
+def effective_xent_impl(cfg, multi_device: bool = False,
+                        seq_sharded: bool = False) -> str:
     """The loss head a step with this config runs (JAX :205-225):
-    "unfused" (materialized logits), "chunked" or "pallas".  The JAX
-    predicate also sends "pallas" to the chunked path off a TPU, on a
-    multi-device mesh, and for a token count with no VMEM-sized token
-    block (its `multi_device`, `seq_sharded` and `tokens` arguments); the
-    port's kernels take any token count and the port is single-device,
-    so it has none of the three.  `GPT2Model` refuses any other
-    `fused_xent_impl`."""
-    return cfg.fused_xent_impl if cfg.fused_xent else "unfused"
+    "unfused" (materialized logits), "chunked" or "pallas".  As in JAX,
+    a sequence split over ranks (`seq_sharded`) runs the unfused head and
+    more than one rank (`multi_device`) turns "pallas" into "chunked".
+    The JAX predicate also sends "pallas" to the chunked path off a TPU
+    and for a token count with no VMEM-sized token block; the port's
+    kernels take any token count, so it has neither.  `GPT2Model` refuses
+    any other `fused_xent_impl`."""
+    if not cfg.fused_xent or seq_sharded:
+        return "unfused"
+    if cfg.fused_xent_impl == "pallas" and multi_device:
+        return "chunked"
+    return cfg.fused_xent_impl
 
 
 def _dropout_keep(key: int, shape, keep: float, device) -> torch.Tensor:
@@ -300,19 +320,28 @@ class GPT2Model(nn.Module):
             tok = renorm_weight(tok, c.wte_max_norm)
         return tok.to(c.compute_dtype)
 
-    def embed(self, idx: torch.Tensor) -> torch.Tensor:
-        """Token + position embedding -> (B, T, D) in compute dtype."""
+    def embed(self, idx: torch.Tensor, pctx=None) -> torch.Tensor:
+        """Token + position embedding -> (B, T, D) in compute dtype.  On
+        seq rank s of a split sequence, idx holds positions [s*T, (s+1)*T)
+        and takes those rows of wpe."""
         t = idx.shape[1]
+        off = 0
+        if pctx is not None:
+            off = pctx.seq_rank * t
+            if t * pctx.seq_size > self.config.block_size:
+                raise ValueError(f"sequence length {t * pctx.seq_size} > "
+                                 f"block_size {self.config.block_size}")
         tok = self.embed_tokens(idx)
-        return tok + self.get_parameter("wpe")[:t].to(tok.dtype)[None]
+        return tok + self.get_parameter("wpe")[off:off + t].to(
+            tok.dtype)[None]
 
     def _block(self, x, bp: Params, return_kv: bool = False,
-               dkey: Optional[int] = None):
+               dkey: Optional[int] = None, pctx=None):
         """One pre-LN block.  x (B, T, D) compute dtype; bp this layer's
         compute-dtype params.  return_kv also returns this layer's (k, v)
         head tensors — the prefill hook.  dkey, this layer's dropout key,
         drops after attn.proj (site 0) and after mlp.proj (site 1), JAX
-        :370-379."""
+        :370-379.  pctx routes attention (`sharded_attention`)."""
         c = self.config
         b, t, d = x.shape
         h = layernorm(x, bp["ln_1.w"], bp["ln_1.b"])
@@ -323,7 +352,7 @@ class GPT2Model(nn.Module):
             return z.reshape(b, t, c.n_head, c.head_dim).transpose(1, 2)
 
         kh, vh = heads(k), heads(v)
-        y = ATTENTION[c.attn_impl](heads(q), kh, vh)
+        y = sharded_attention(heads(q), kh, vh, c.attn_impl, pctx)
         y = y.transpose(1, 2).reshape(b, t, d)
         y = linear(y, bp["attn.proj.w"], bp.get("attn.proj.b"))
         if dkey is not None:
@@ -355,17 +384,21 @@ class GPT2Model(nn.Module):
 
     def head(self, x, position: Optional[int] = None,
              params: Optional[Params] = None,
-             targets: Optional[torch.Tensor] = None):
+             targets: Optional[torch.Tensor] = None, pctx=None):
         """Final norm + lm_head.  With `targets` (B, T): the mean
         cross-entropy loss over every position (JAX `head`, :953-971 —
         logits in the compute dtype, the loss in f32).  Without: (B, 1, V)
         f32 logits at ONE position (default the last); the norm is per
         row, so selecting the row first gives the JAX head's values at a
-        fraction of the rows."""
+        fraction of the rows.  pctx (training) picks the loss head as
+        `effective_xent_impl` does."""
         if targets is not None:
             x = self.final_norm(x, params)
             w = self._lm_head_w(params)
-            impl = effective_xent_impl(self.config)
+            impl = effective_xent_impl(
+                self.config,
+                multi_device=pctx is not None and pctx.is_multi_device,
+                seq_sharded=pctx is not None and pctx.seq_size > 1)
             if impl == "pallas":
                 return pallas_fused_xent(x, w, targets)
             if impl == "chunked":
@@ -396,7 +429,8 @@ class GPT2Model(nn.Module):
         generator seeded with its key when it is drawn)."""
         c = self.config
         if not c.remat or c.remat_policy == "all":
-            return lambda x, bp, dkey=None: self._block(x, bp, dkey=dkey)
+            return lambda x, bp, dkey=None, pctx=None: self._block(
+                x, bp, dkey=dkey, pctx=pctx)
         save = _REMAT_SAVE[c.remat_policy]
         kw = {}
         if save:
@@ -404,26 +438,32 @@ class GPT2Model(nn.Module):
                 ckpt.create_selective_checkpoint_contexts,
                 _save_policy(save))
 
-        def block(x, bp, dkey=None):
+        def block(x, bp, dkey=None, pctx=None):
             if not torch.is_grad_enabled():
-                return self._block(x, bp, dkey=dkey)
+                return self._block(x, bp, dkey=dkey, pctx=pctx)
             # the block draws no numbers from the global RNG state (its
             # dropout masks come from generators seeded with dkey), so no
             # RNG state needs restoring for the recompute
-            return ckpt.checkpoint(self._block, x, bp, dkey=dkey,
+            return ckpt.checkpoint(self._block, x, bp, dkey=dkey, pctx=pctx,
                                    use_reentrant=False,
                                    preserve_rng_state=False, **kw)
         return block
 
     def apply(self, idx: torch.Tensor,
               targets: Optional[torch.Tensor] = None,
-              position: Optional[int] = None, rng: Optional[int] = None):
+              position: Optional[int] = None, rng: Optional[int] = None,
+              pctx=None):
         """Full forward of (B, T) tokens.  With `targets` (B, T): the mean
         loss, differentiable (JAX `apply(params, idx, targets)`).
         Without: (B, 1, V) f32 logits at `position` (default the last),
         computed without a graph.  `rng` (an integer key, training only)
         turns on dropout when config.dropout > 0: the embedding's, then
-        one key per layer (JAX `_dropout_setup`, :902-912)."""
+        one key per layer (JAX `_dropout_setup`, :902-912).  `pctx`, the
+        rank's ParallelContext (training only): (B, T) is then this rank's
+        block of the global batch and the loss its own tokens' mean."""
+        if pctx is not None and targets is None:
+            raise ValueError("apply(pctx=...) is the training forward: "
+                             "pass targets")
         if targets is None:
             with torch.no_grad():
                 x = self.embed(idx)
@@ -431,18 +471,22 @@ class GPT2Model(nn.Module):
                 for l in range(self.config.n_layer):
                     x = self._block(x, self._layer(stacked, l))
                 return self.head(x, position)
-        x = self.embed(idx)
+        x = self.embed(idx, pctx)
         c = self.config
         dkeys = [None] * c.n_layer
         if rng is not None and c.dropout:
+            if pctx is not None and pctx.is_multi_device:
+                raise ValueError(
+                    "dropout on more than one rank is not ported yet: the "
+                    "masks would change with the rank count (ROADMAP.md)")
             keys = prng.split(rng, c.n_layer + 1)
             x = _dropout(x, keys[0], c.dropout)
             dkeys = keys[1:]
         block = self._block_fn()
         for bp, dkey in zip(self._layers(self.stacked_compute_params()),
                             dkeys):
-            x = block(x, bp, dkey)
-        return self.head(x, targets=targets)
+            x = block(x, bp, dkey, pctx)
+        return self.head(x, targets=targets, pctx=pctx)
 
     # -- paged KV-cache decode (the serving tier) ---------------------------
 

@@ -1,8 +1,8 @@
 # Copyright 2026 tiny-deepspeed-tpu authors
 # SPDX-License-Identifier: Apache-2.0
 
-"""Causal FlashAttention-2, forward and backward: hand-written CUDA
-kernels on the card.
+"""FlashAttention-2, forward and backward: hand-written CUDA kernels on
+the card, causal or unmasked.
 
 Replaces the TPU kernels of `tiny_deepspeed_tpu/ops/flash_fa2.py`:
 
@@ -10,7 +10,18 @@ Replaces the TPU kernels of `tiny_deepspeed_tpu/ops/flash_fa2.py`:
   :129): `csrc/flash_fwd.cu`;
 - backward `_fa2_bwd` (:410) -> `_bwd` (:302) -> `_dkv_call` (:248,
   `pallas_call` :258) and `_dq_call` (:281, `pallas_call` :285):
-  `csrc/flash_bwd.cu`.
+  `csrc/flash_bwd.cu`;
+- the chunk entries ring attention calls, `fa2_chunk_fwd`, `fa2_chunk_dq`
+  and `fa2_chunk_dkv` (:330, :341, :350): the same kernels with a
+  `causal` flag.  The ring's diagonal chunk is causal; every other chunk
+  it computes lies wholly behind the local queries and runs unmasked.
+  The backward chunks take the ring's GLOBAL (merged) lse and di.
+
+Launch counts are per kernel variant: a causal launch, whichever entry
+made it, adds to `fa2_flash_attention_fwd` / `_dq` / `_dkv`, an unmasked
+one to `fa2_chunk_fwd` / `_dq` / `_dkv`.  The counts are kept under a
+lock, since ring attention's lockstep test harness launches from several
+threads at once.
 
 Design and bound of each kernel are in its source's header.  K/V (and in
 the backward Q/dO) stream through shared memory in tiles, so any T works
@@ -30,6 +41,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -49,51 +61,54 @@ def _causal(t, device):
     return torch.ones((t, t), dtype=torch.bool, device=device).tril()
 
 
-def _fa2_fwd_plain(q, k, v):
+def _fa2_fwd_plain(q, k, v, causal=True):
     """The plain PyTorch version: `standard_attention` (JAX
     ops/attention.py:35 — f32 logits, finfo.min causal mask, probs cast to
-    the input dtype before PV) plus its row logsumexp.  q (B, H, T, Dh);
-    k/v (B, KVH, T, Dh).  Returns (o like q, lse (B, H, T) f32)."""
+    the input dtype before PV) plus its row logsumexp; `causal=False`
+    masks nothing.  q (B, H, T, Dh); k/v (B, KVH, T, Dh).  Returns (o like
+    q, lse (B, H, T) f32)."""
     acc = acc_dtype(q.dtype)
     k, v = _expand_kv(q, k, v)
     t, dh = q.shape[-2], q.shape[-1]
     logits = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2))
     logits = logits * (1.0 / math.sqrt(dh))
-    logits = logits.masked_fill(~_causal(t, q.device),
-                                torch.finfo(torch.float32).min)
+    if causal:
+        logits = logits.masked_fill(~_causal(t, q.device),
+                                    torch.finfo(torch.float32).min)
     lse = torch.logsumexp(logits, dim=-1)
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
     return torch.matmul(probs, v), lse
 
 
-def _bwd_plain_terms(q, k, v, do, lse, di):
+def _bwd_plain_terms(q, k, v, do, lse, di, causal=True):
     """(p, ds, k, v) over the expanded heads, from the backward's explicit
     formulas in the accumulation type — the same math the kernels run
     (JAX `_bwd_dq_kernel` / `_bwd_dkv_kernel`, :155-245), NOT autograd of
-    the forward: s = q k^T scale, p = exp(s - lse) (0 above the diagonal),
-    ds = p (do v^T - di) scale."""
+    the forward: s = q k^T scale, p = exp(s - lse) (0 above the diagonal
+    when causal), ds = p (do v^T - di) scale."""
     acc = acc_dtype(q.dtype)
     k, v = _expand_kv(q, k, v)
     t, dh = q.shape[-2], q.shape[-1]
     scale = 1.0 / math.sqrt(dh)
     s = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
     p = torch.exp(s - lse.to(acc)[..., None])
-    p = p.masked_fill(~_causal(t, q.device), 0.0)
+    if causal:
+        p = p.masked_fill(~_causal(t, q.device), 0.0)
     dp = torch.matmul(do.to(acc), v.to(acc).transpose(-1, -2))
     ds = p * (dp - di.to(acc)[..., None]) * scale
     return p, ds, k.to(acc), v.to(acc)
 
 
-def _fa2_dq_plain(q, k, v, do, lse, di):
+def _fa2_dq_plain(q, k, v, do, lse, di, causal=True):
     """dq = ds k, in q's dtype."""
-    _, ds, kf, _ = _bwd_plain_terms(q, k, v, do, lse, di)
+    _, ds, kf, _ = _bwd_plain_terms(q, k, v, do, lse, di, causal)
     return torch.matmul(ds, kf).to(q.dtype)
 
 
-def _fa2_dkv_plain(q, k, v, do, lse, di):
+def _fa2_dkv_plain(q, k, v, do, lse, di, causal=True):
     """(dk, dv) = (ds^T q, p^T do) summed over each kv head's query-head
     group, in k's / v's dtype."""
-    p, ds, _, _ = _bwd_plain_terms(q, k, v, do, lse, di)
+    p, ds, _, _ = _bwd_plain_terms(q, k, v, do, lse, di, causal)
     acc = p.dtype
     dk = torch.matmul(ds.transpose(-1, -2), q.to(acc))
     dv = torch.matmul(p.transpose(-1, -2), do.to(acc))
@@ -107,12 +122,19 @@ def _fa2_dkv_plain(q, k, v, do, lse, di):
 
 # -- the CUDA kernels --------------------------------------------------------
 
-_FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_float,
+_FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                           ctypes.c_void_p]
-_DQ_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [ctypes.c_float,
+_DQ_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                          ctypes.c_void_p]
-_DKV_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_float,
+_DKV_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                           ctypes.c_void_p]
+_COUNT_LOCK = threading.Lock()
+
+
+def _count(causal_entry, chunk_entry, causal):
+    """One launch of the causal or the unmasked variant of a kernel."""
+    with _COUNT_LOCK:
+        (causal_entry if causal else chunk_entry).launches += 1
 
 
 def _check_qkv(what, q, k, v):
@@ -147,7 +169,7 @@ def _check_bwd(what, q, k, v, do, lse, di):
     return b, h, kvh, t, dh
 
 
-def _fa2_fwd_cuda(q, k, v):
+def _fa2_fwd_cuda(q, k, v, causal=True):
     b, h, kvh, t, dh = _check_qkv("flash_fwd", q, k, v)
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
@@ -157,9 +179,9 @@ def _fa2_fwd_cuda(q, k, v):
     fn = _build.entry("flash_fwd", "flash_fwd", _FWD_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              lse.data_ptr(), b, h, kvh, t, dh, _build.DTYPE_CODES[q.dtype],
-             1.0 / math.sqrt(dh), _build.stream_ptr(q))
+             int(causal), 1.0 / math.sqrt(dh), _build.stream_ptr(q))
     _build.check(err, "flash_fwd")
-    fa2_flash_attention_fwd.launches += 1
+    _count(fa2_flash_attention_fwd, fa2_chunk_fwd, causal)
     return o, lse
 
 
@@ -168,7 +190,7 @@ def _bwd_operands(q, k, v, do, lse, di):
             lse.contiguous(), di.contiguous())
 
 
-def _fa2_dq_cuda(q, k, v, do, lse, di):
+def _fa2_dq_cuda(q, k, v, do, lse, di, causal=True):
     b, h, kvh, t, dh = _check_bwd("flash_bwd_dq", q, k, v, do, lse, di)
     q, k, v, do, lse, di = _bwd_operands(q, k, v, do, lse, di)
     dq = torch.empty_like(q)
@@ -177,14 +199,14 @@ def _fa2_dq_cuda(q, k, v, do, lse, di):
     fn = _build.entry("flash_bwd", "flash_bwd_dq", _DQ_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), di.data_ptr(), dq.data_ptr(), b, h, kvh, t, dh,
-             _build.DTYPE_CODES[q.dtype], 1.0 / math.sqrt(dh),
+             _build.DTYPE_CODES[q.dtype], int(causal), 1.0 / math.sqrt(dh),
              _build.stream_ptr(q))
     _build.check(err, "flash_bwd_dq")
-    fa2_flash_attention_dq.launches += 1
+    _count(fa2_flash_attention_dq, fa2_chunk_dq, causal)
     return dq
 
 
-def _fa2_dkv_cuda(q, k, v, do, lse, di):
+def _fa2_dkv_cuda(q, k, v, do, lse, di, causal=True):
     b, h, kvh, t, dh = _check_bwd("flash_bwd_dkv", q, k, v, do, lse, di)
     q, k, v, do, lse, di = _bwd_operands(q, k, v, do, lse, di)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
@@ -193,10 +215,10 @@ def _fa2_dkv_cuda(q, k, v, do, lse, di):
     fn = _build.entry("flash_bwd", "flash_bwd_dkv", _DKV_ARGS)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             b, h, kvh, t, dh, _build.DTYPE_CODES[q.dtype],
+             b, h, kvh, t, dh, _build.DTYPE_CODES[q.dtype], int(causal),
              1.0 / math.sqrt(dh), _build.stream_ptr(q))
     _build.check(err, "flash_bwd_dkv")
-    fa2_flash_attention_dkv.launches += 1
+    _count(fa2_flash_attention_dkv, fa2_chunk_dkv, causal)
     return dk, dv
 
 
@@ -229,10 +251,43 @@ def fa2_flash_attention_dkv(q, k, v, do, lse, di):
     return _fa2_dkv_plain(q, k, v, do, lse, di)
 
 
-# kernel launches (CUDA path only)
+def fa2_chunk_fwd(q, k, v, *, causal: bool):
+    """One ring attention chunk (JAX :330): attention of the local queries
+    over one K/V chunk of the same length, causal (the diagonal chunk) or
+    unmasked (a chunk wholly behind the queries) -> (o normalized within
+    the chunk, lse (B, H, T) f32).  K/V stay at KVH heads, as the ring
+    rotates them.  CUDA tensors launch csrc/flash_fwd.cu (or raise); CPU
+    tensors take `_fa2_fwd_plain`."""
+    if on_cuda(q, k, v):
+        return _fa2_fwd_cuda(q, k, v, causal)
+    return _fa2_fwd_plain(q, k, v, causal)
+
+
+def fa2_chunk_dq(q, k, v, do, lse, di, *, causal: bool):
+    """dq of one chunk from the GLOBAL (merged) lse and di (JAX :341).
+    CUDA tensors launch csrc/flash_bwd.cu's dq pass (or raise); CPU
+    tensors take `_fa2_dq_plain`."""
+    if on_cuda(q, k, v, do, lse, di):
+        return _fa2_dq_cuda(q, k, v, do, lse, di, causal)
+    return _fa2_dq_plain(q, k, v, do, lse, di, causal)
+
+
+def fa2_chunk_dkv(q, k, v, do, lse, di, *, causal: bool):
+    """(dk, dv) of one chunk at KVH heads from the GLOBAL lse and di (JAX
+    :350).  CUDA tensors launch csrc/flash_bwd.cu's dk/dv pass (or
+    raise); CPU tensors take `_fa2_dkv_plain`."""
+    if on_cuda(q, k, v, do, lse, di):
+        return _fa2_dkv_cuda(q, k, v, do, lse, di, causal)
+    return _fa2_dkv_plain(q, k, v, do, lse, di, causal)
+
+
+# kernel launches (CUDA path only): causal variants, unmasked variants
 fa2_flash_attention_fwd.launches = 0
 fa2_flash_attention_dq.launches = 0
 fa2_flash_attention_dkv.launches = 0
+fa2_chunk_fwd.launches = 0
+fa2_chunk_dq.launches = 0
+fa2_chunk_dkv.launches = 0
 
 
 class FA2Fn(torch.autograd.Function):

@@ -1,19 +1,28 @@
 # Copyright 2026 tiny-deepspeed-tpu authors
 # SPDX-License-Identifier: Apache-2.0
 
-"""Single-device GPT-2 training, the port's entry point.
+"""GPT-2 training, the port's entry point: one device, DDP, ZeRO-1/2.
 
     python -m tiny_deepspeed_tpu_torch.train [--model gpt2-124m] [--iters N]
     python -m tiny_deepspeed_tpu_torch.train --device cpu --model tiny
+    torchrun --standalone --nproc-per-node N -m tiny_deepspeed_tpu_torch.train
+        --engine zero2 [--seq-parallel SP] [--device cpu]    (one line)
 
-Counterpart of `examples/single_device/train.py` with the harness of
-`examples/common.py` (`parse_args` / `run`): the same flags, with the
-same names and defaults, for what the port supports (`--dropout` and
-`--fused-xent` among them), plus `--device` (default the card).  Seeded
+Counterpart of `examples/{single_device,ddp,zero1,zero2}/train.py` with
+the harness of `examples/common.py` (`parse_args` / `run`): the same
+flags, with the same names and defaults, for what the port supports
+(`--dropout`, `--fused-xent`, `--seq-parallel` among them), plus
+`--device` (default the card) and `--engine` (default `single`).  Seeded
 init, the JAX package's token stream (synthetic unless `--data`),
-`AdamW(lr, weight_decay, decay_exclude)` with an optional schedule,
-`SingleDevice` with optional grad clipping and loss scaling; it prints `iter N loss X` per step, optional
-`iter N val_loss X`, and `done: N iters in Xs (Y tokens/s)`.
+`AdamW(lr, weight_decay, decay_exclude)` with an optional schedule, the
+engine with optional grad clipping and loss scaling.  A distributed
+engine runs one process per rank under torchrun (NCCL on the card, one
+card per rank; gloo with `--device cpu`); without torchrun it is a world
+of one.  Every rank draws the same global batch of `--batch-per-device`
+x world rows and trains on its block.  Rank 0 prints the engine's
+description, `model=... params=...M global_batch=B T=T`, `iter N loss X`
+per step, optional `iter N val_loss X`, and `done: N iters in Xs (Y
+tokens/s)`.
 """
 
 from __future__ import annotations
@@ -23,12 +32,16 @@ import dataclasses
 import time
 
 import torch
+import torch.distributed as dist
 
 from .data import TokenLoader
 from .models.gpt2 import GPT2_PRESETS, GPT2Model
 from .optim import AdamW
 from .optim import schedule as schedules
-from .parallel import SingleDevice
+from .parallel import DDP, SingleDevice, Zero1, Zero2, init_distributed
+
+ENGINES = {"single": SingleDevice, "ddp": DDP, "zero1": Zero1,
+           "zero2": Zero2}
 
 
 def _loss_scale(v):
@@ -83,6 +96,15 @@ def parse_args(argv=None):
     p.add_argument("--device", default="cuda",
                    help="'cuda' (default) or 'cpu' (the plain PyTorch "
                         "path, for small models)")
+    p.add_argument("--engine", default="single", choices=sorted(ENGINES),
+                   help="single device, or DDP / ZeRO-1 / ZeRO-2 over the "
+                        "torchrun world")
+    p.add_argument("--seq-parallel", type=int, default=1, metavar="SP",
+                   help="sequence/context parallelism over a 'seq' group "
+                        "(ring attention); divides the world size")
+    p.add_argument("--seq-impl", default="ring", choices=("ring", "ulysses"),
+                   help="sequence-parallel attention (only the ring is "
+                        "ported)")
     args = p.parse_args(argv)
     if args.seq_len is None:
         args.seq_len = min(1024, GPT2_PRESETS[args.model].block_size)
@@ -117,17 +139,26 @@ def _model_config(args):
 
 
 def run(args):
-    model = GPT2Model(_model_config(args), device=args.device)
+    kw = dict(grad_clip=args.grad_clip or None, loss_scale=args.loss_scale)
+    device = args.device
+    if args.engine == "single":
+        if args.seq_parallel != 1:
+            raise SystemExit("--seq-parallel needs a distributed --engine")
+    else:
+        device = init_distributed(args.device)
+        kw.update(seq_parallel=args.seq_parallel, seq_impl=args.seq_impl)
+    model = GPT2Model(_model_config(args), device=device)
     opt = AdamW(lr=_lr(args), weight_decay=args.weight_decay,
                 decay_exclude=tuple(
                     p for p in (args.wd_exclude or "").split(",") if p))
-    engine = SingleDevice(model, opt, device=args.device,
-                          grad_clip=args.grad_clip or None,
-                          loss_scale=args.loss_scale)
-    b = args.batch_per_device
-    print(engine.describe())
-    print(f"model={args.model} params={model.num_params() / 1e6:.1f}M "
-          f"global_batch={b} T={args.seq_len}")
+    engine = ENGINES[args.engine](model, opt, device=device, **kw)
+    world = dist.get_world_size() if args.engine != "single" else 1
+    lead = args.engine == "single" or dist.get_rank() == 0
+    say = print if lead else (lambda *a, **k: None)
+    b = args.batch_per_device * world
+    say(engine.describe())
+    say(f"model={args.model} params={model.num_params() / 1e6:.1f}M "
+        f"global_batch={b} T={args.seq_len}")
     state = engine.init(args.seed)
     vocab = model.config.vocab_size
     loader = TokenLoader(args.data, batch=b, seq=args.seq_len,
@@ -138,21 +169,27 @@ def run(args):
     t0 = time.perf_counter()
     for it in range(args.iters):
         state, loss = engine.step(state, loader.next())
-        print(f"iter {it:3d} loss {float(loss):.4f}")  # syncs the step
+        loss = float(loss)  # syncs the step
+        say(f"iter {it:3d} loss {loss:.4f}")
         if args.eval_every and (it + 1) % args.eval_every == 0:
             vals = [float(engine.eval_loss(state, val_loader.next()))
                     for _ in range(args.eval_batches)]
-            print(f"iter {it:3d} val_loss {sum(vals) / len(vals):.4f}")
+            say(f"iter {it:3d} val_loss {sum(vals) / len(vals):.4f}")
     if torch.device(args.device).type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     toks = args.iters * b * args.seq_len
-    print(f"done: {args.iters} iters in {dt:.1f}s ({toks / dt:.0f} tokens/s)")
+    say(f"done: {args.iters} iters in {dt:.1f}s ({toks / dt:.0f} tokens/s)")
     return state
 
 
 def main(argv=None):
-    run(parse_args(argv))
+    args = parse_args(argv)
+    try:
+        run(args)
+    finally:
+        if args.engine != "single" and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":
