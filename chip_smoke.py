@@ -5,8 +5,10 @@
 """On-card smoke of the PyTorch port: build, check and time its kernels,
 serve gpt2-124m through ServingEngine, train it through SingleDevice, then
 serve it again under speculative decoding, the prefix cache and int8/fp8
-pools, and run the distributed path: ring attention's chunk kernels, the
-ring itself and the DDP / ZeRO-1 / ZeRO-2 engines.
+pools, run the distributed path: ring attention's chunk kernels, the
+ring itself and the DDP / ZeRO-1 / ZeRO-2 engines, and ZeRO-3 with the
+fp8 weight gather (gpt2-124m and gpt2-1.5b) and the heads-last FA2
+kernels through their A/B.
 
     python3 chip_smoke.py
 
@@ -96,7 +98,27 @@ non-zero, printing no result, without one.  Phases, each on its own line:
         beside phase 4's, one profiled step's NCCL time.  NCCL refuses
         two ranks on one card, so the multi-rank engines are held to the
         JAX engines on the CPU (tests/test_torch_dist*.py);
-  then the `kernels` JSON line (17 kernels, launches by path), then the
+  8. ZeRO-3 and the last two TPU kernels (in 7c's NCCL group):
+     a. the heads-last FA2 kernels (#7 fwd, #8 dq and dk/dv) at the A/B's
+        shape (B=12 H=12 T=1024 Dh=64 bf16) and at B=8 against their
+        plain versions (2e-2, as the other FA2 rows), bit for bit #4 /
+        #6 / #5 on the transposed contiguous copies, repeatable; times
+        beside the bound, the plain version and SDPA causal on the
+        transposed views (forward; forward+backward);
+     b. the A/B (`python -m tiny_deepspeed_tpu_torch.fa2_bthd_ab`): both
+        arms' fb_ms — the heads-last kernels' main path (`ab`);
+     c. Zero3 at world 1 on gpt2-124m with phase 4's config: 13 steps
+        bit-identical to phase 4's SingleDevice; then gather_quant="fp8",
+        SingleDevice and Zero3 bit-identical to each other and within 5%
+        of the unquantized losses at every step; step time, peak memory,
+        NCCL / memcpy time;
+     d. Zero3 at world 1 on gpt2-1.5b (examples/zero3's default: 48
+        layers, 25 heads, n_embd 1600) at B=8 T=1024 (B=4 past 70 GB
+        peak): 3 warm-up and 5 timed steps, the first loss in [10.5,
+        11.2]; median step time, tokens/s, peak memory, one profiled
+        step's busy / idle and kernel classes, and the per-rank state at
+        data 4 and 8 from the shard layout (not measured);
+  then the `kernels` JSON line (20 kernels, launches by path), then the
   result line {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Imports nothing of JAX or of the JAX package.
@@ -1064,7 +1086,8 @@ def loss_and_grads(torch, model, batch, rng=None):
     return float(loss.detach()), dict(zip(names, grads))
 
 
-def step_profile(torch, eng, state, batch, name, kernels, med):
+def step_profile(torch, eng, state, batch, name, kernels, med,
+                 patterns=PATTERNS):
     """One profiled step: each kernel's device time, the cuBLAS GEMMs,
     everything else (PyTorch's elementwise, reduce and copy kernels) and
     the device's busy and idle shares of the median step wall."""
@@ -1073,7 +1096,7 @@ def step_profile(torch, eng, state, batch, name, kernels, med):
 
     prof = profiled(torch, one_step, cpu=True)  # a retry steps again
     check(prof is not None, "the profiler recorded no device time")
-    per, busy, rows = kernel_shares(torch, prof, PATTERNS)
+    per, busy, rows = kernel_shares(torch, prof, patterns)
     # cuBLAS's kernels: "*gemm*" and, on Hopper, "nvjet_*"
     gemm = sum(us for us, _, key in rows
                if "gemm" in key.lower() or key.startswith("nvjet"))
@@ -1933,14 +1956,11 @@ def ring_phase(torch, port, fa, counters, model):
     return launches
 
 
-def engines_phase(torch, port, counters, train):
-    """7c: DDP, Zero1 and Zero2 at world size 1 over NCCL train gpt2-124m
-    with phase 4's config: the 13 steps' losses and params must equal
-    SingleDevice's (phase 4) bit for bit; step time, tokens/s and peak
-    memory beside phase 4's; one profiled step's NCCL time."""
+@contextlib.contextmanager
+def nccl_world1(torch):
+    """A one-rank NCCL process group (a file:// store under OUT_DIR) for
+    phases 7c and 8c-8d; destroyed on the way out."""
     import torch.distributed as dist
-    b, t = 8, 1024
-    cfg = port.GPT2_PRESETS["gpt2-124m"]
     store = os.path.join(OUT_DIR, "nccl_store")
     if os.path.exists(store):
         os.remove(store)
@@ -1948,67 +1968,355 @@ def engines_phase(torch, port, counters, train):
                             world_size=1)
     print(f"  process group: nccl, world 1; torch.cuda.device_count() "
           f"{torch.cuda.device_count()}; nccl {torch.cuda.nccl.version()}")
-    out = {}
     try:
-        for name in ("DDP", "Zero1", "Zero2"):
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
-            model = port.GPT2Model(cfg)
-            eng = getattr(port, name)(model, port.AdamW(lr=1e-5,
-                                                        weight_decay=0.1))
-            state = eng.init(0)
-            loader = port.TokenLoader(None, batch=b, seq=t,
-                                      vocab_size=cfg.vocab_size, seed=0)
-            losses = []
-            for _ in range(3):
-                state, loss = eng.step(state, loader.next())
-                losses.append(float(loss))
-            for fn in counters.values():
-                fn.launches = 0
-            times = []
-            for _ in range(10):
-                batch = loader.next()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                state, loss = eng.step(state, batch)
-                losses.append(float(loss))
-                times.append(time.perf_counter() - t0)
-            launches = {k: fn.launches for k, fn in counters.items()}
-            for k in TRAIN_KERNELS:
-                check(launches[k] > 0, f"{name}: {k} never launched")
-            check(not any(launches[k] for k in CHUNK_KERNELS),
-                  f"{name} at seq 1 ran a chunk kernel")
-            same = losses == train["losses13"] and all(
-                torch.equal(p, train["params13"][n])
-                for n, p in state.params.items())
-            check(same, f"{name} at world 1 differs from SingleDevice: "
-                  f"losses {losses} vs {train['losses13']}")
-            med = statistics.median(times)
-            peak = torch.cuda.max_memory_allocated() / 2 ** 30
-
-            def one_step():
-                float(eng.step(state, loader.next())[1])
-
-            prof = profiled(torch, one_step)
-            check(prof is not None, "the profiler recorded no device time")
-            # NCCL's kernels; at world 1 it may copy instead (memcpy)
-            per, busy, _ = kernel_shares(torch, prof, {"nccl": "nccl",
-                                                       "memcpy": "Memcpy"})
-            nccl_ms = per.get("nccl", 0.0) / 1e3
-            copy_ms = per.get("memcpy", 0.0) / 1e3
-            print(f"  {eng.describe()}: 13 steps bit-identical to "
-                  f"SingleDevice (losses and params); step time median "
-                  f"{med * 1e3:.3f} ms -> {b * t / med:.1f} tokens/s (phase "
-                  f"4: {train['step_ms']:.3f} ms, "
-                  f"{train['tokens_per_s']:.1f}); peak memory {peak:.2f} GiB "
-                  f"(phase 4: {train['peak_gib']:.2f}); one profiled step: "
-                  f"NCCL kernels {nccl_ms:.4f} ms, memcpy {copy_ms:.4f} ms, "
-                  f"of {busy / 1e3:.3f} ms device busy")
-            out[name.lower()] = dict(launches=launches, step_ms=med * 1e3,
-                                     nccl_ms=nccl_ms)
-            del eng, state, model, prof
+        yield
     finally:
         dist.destroy_process_group()
+
+
+def engine_run(torch, port, counters, name, cfg, b=8, t=1024, warm=3,
+               timed=10, lr=1e-5, profile=True, whole=True):
+    """`name`'s engine on `cfg` with AdamW(lr, weight_decay=0.1) over the
+    synthetic stream (seed 0): `warm` steps, then `timed` steps with every
+    count zeroed just before and read just after; one profiled step's
+    NCCL and memcpy time.  Returns its numbers, the losses of every step
+    and, with `whole`, the whole params after them (`gather_params`)."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = port.GPT2Model(cfg)
+    eng = getattr(port, name)(model, port.AdamW(lr=lr, weight_decay=0.1))
+    state = eng.init(0)
+    loader = port.TokenLoader(None, batch=b, seq=t,
+                              vocab_size=cfg.vocab_size, seed=0)
+    losses = []
+    for _ in range(warm):
+        state, loss = eng.step(state, loader.next())
+        losses.append(float(loss))
+    for fn in counters.values():
+        fn.launches = 0
+    times = []
+    for _ in range(timed):
+        batch = loader.next()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = eng.step(state, batch)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for k in TRAIN_KERNELS:
+        check(launches[k] > 0, f"{name}: {k} never launched")
+    check(all(math.isfinite(x) for x in losses), f"{name}: losses {losses}")
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    params = eng.gather_params(state) if whole else None
+    out = dict(launches=launches, step_ms=med * 1e3, peak_gib=peak,
+               tokens_per_s=b * t / med, losses=losses, params=params,
+               describe=eng.describe(), engine=eng, state=state,
+               loader=loader, med=med)
+    if profile:
+        def one_step():
+            float(eng.step(state, loader.next())[1])
+
+        prof = profiled(torch, one_step)
+        check(prof is not None, "the profiler recorded no device time")
+        # NCCL's kernels; at world 1 it may copy instead (memcpy)
+        per, busy, _ = kernel_shares(torch, prof, {"nccl": "nccl",
+                                                   "memcpy": "Memcpy"})
+        out.update(nccl_ms=per.get("nccl", 0.0) / 1e3,
+                   copy_ms=per.get("memcpy", 0.0) / 1e3, busy_ms=busy / 1e3)
+    return out
+
+
+def _free(run):
+    for k in ("engine", "state", "params", "loader"):
+        run.pop(k, None)
+
+
+def engines_phase(torch, port, counters, train):
+    """7c: DDP, Zero1 and Zero2 at world size 1 over NCCL train gpt2-124m
+    with phase 4's config: the 13 steps' losses and params must equal
+    SingleDevice's (phase 4) bit for bit; step time, tokens/s and peak
+    memory beside phase 4's; one profiled step's NCCL time."""
+    cfg = port.GPT2_PRESETS["gpt2-124m"]
+    out = {}
+    for name in ("DDP", "Zero1", "Zero2"):
+        run = engine_run(torch, port, counters, name, cfg)
+        check(not any(run["launches"][k] for k in CHUNK_KERNELS),
+              f"{name} at seq 1 ran a chunk kernel")
+        same = run["losses"] == train["losses13"] and all(
+            torch.equal(p, train["params13"][n])
+            for n, p in run["params"].items())
+        check(same, f"{name} at world 1 differs from SingleDevice: "
+              f"losses {run['losses']} vs {train['losses13']}")
+        print(f"  {run['describe']}: 13 steps bit-identical to "
+              f"SingleDevice (losses and params); step time median "
+              f"{run['step_ms']:.3f} ms -> {run['tokens_per_s']:.1f} "
+              f"tokens/s (phase 4: {train['step_ms']:.3f} ms, "
+              f"{train['tokens_per_s']:.1f}); peak memory "
+              f"{run['peak_gib']:.2f} GiB (phase 4: {train['peak_gib']:.2f}); "
+              f"one profiled step: NCCL kernels {run['nccl_ms']:.4f} ms, "
+              f"memcpy {run['copy_ms']:.4f} ms, of {run['busy_ms']:.3f} ms "
+              f"device busy")
+        _free(run)
+        out[name.lower()] = run
+    return out
+
+
+# -- phase 8: ZeRO-3, the fp8 gather and heads-last FA2 ----------------------
+
+BTHD_KERNELS = ("fa2_flash_attention_bthd_fwd", "fa2_flash_attention_bthd_dq",
+                "fa2_flash_attention_bthd_dkv")
+# the A/B's shape (tiny_deepspeed_tpu_torch/fa2_bthd_ab.py), and phase 4's B
+BTHD_H, BTHD_T, BTHD_D = 12, 1024, 64
+
+
+def bthd_phase(torch, F, fa):
+    """8a: the heads-last kernels (#7 fwd, #8 dq and dk/dv) at the A/B's
+    shape (B=12 H=12 T=1024 Dh=64 bf16) and at phase 4's B=8: o, dq, dk,
+    dv against their plain versions (o atol = rtol = 2e-2, lse 2e-3;
+    grads max abs err <= 2e-2 x max |plain|), bit for bit #4 / #6 / #5 on
+    the transposed contiguous copies (the JAX package's own contract,
+    tests/test_flash_fa2.py:109-131), repeatable; device times beside the
+    bound, the plain version and SDPA causal on the `.transpose(1, 2)`
+    views (forward; forward+backward for the two backward rows)."""
+    res = {}
+    h, t, d = BTHD_H, BTHD_T, BTHD_D
+    for b in (12, 8):
+        g = torch.Generator(device="cuda").manual_seed(80 + b)
+        q, k, v, do = (torch.randn(b, t, h, d, generator=g, device="cuda"
+                                   ).bfloat16() for _ in range(4))
+        o, lse = fa.fa2_flash_attention_bthd_fwd(q, k, v)
+        di = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+        dq = fa.fa2_flash_attention_bthd_dq(q, k, v, do, lse, di)
+        dk, dv = fa.fa2_flash_attention_bthd_dkv(q, k, v, do, lse, di)
+        torch.cuda.synchronize()
+        po, plse = fa._fa2_bthd_fwd_plain(q, k, v)
+        torch.testing.assert_close(o.float(), po.float(), atol=2e-2,
+                                   rtol=2e-2)
+        torch.testing.assert_close(lse, plse, atol=2e-3, rtol=1e-4)
+        fwd_err = max_err(o, po)
+        del po, plse
+        pdq = fa._fa2_bthd_dq_plain(q, k, v, do, lse, di)
+        dq_err, dq_rel = _rel_err(dq, pdq)
+        del pdq
+        pdk, pdv = fa._fa2_bthd_dkv_plain(q, k, v, do, lse, di)
+        kv = [_rel_err(dk, pdk), _rel_err(dv, pdv)]
+        del pdk, pdv
+        dkv_err, dkv_rel = max(e for e, _ in kv), max(r for _, r in kv)
+        check(dq_rel <= 2e-2 and dkv_rel <= 2e-2,
+              f"bthd backward B={b} disagrees with its plain version: dq "
+              f"rel {dq_rel:.3g}, dk/dv rel {dkv_rel:.3g}")
+        # bit for bit the (B, H, T, Dh) kernels on transposed copies
+        tr = [z.transpose(1, 2).contiguous() for z in (q, k, v, do)]
+        ro, rlse = fa.fa2_flash_attention_fwd(*tr[:3])
+        rdq = fa.fa2_flash_attention_dq(*tr, rlse, di)
+        rdk, rdv = fa.fa2_flash_attention_dkv(*tr, rlse, di)
+        torch.cuda.synchronize()
+        same = torch.equal(lse, rlse) and all(
+            torch.equal(a, r.transpose(1, 2))
+            for a, r in zip((o, dq, dk, dv), (ro, rdq, rdk, rdv)))
+        check(same, f"bthd kernels B={b} are not bit-identical to #4-#6 on "
+              "the transposed copies")
+        del tr, ro, rlse, rdq, rdk, rdv
+        _bitwise(torch, lambda: fa.fa2_flash_attention_bthd_fwd(q, k, v),
+                 "bthd fwd")
+        _bitwise(torch, lambda: [fa.fa2_flash_attention_bthd_dq(
+            q, k, v, do, lse, di)], "bthd dq")
+        _bitwise(torch, lambda: fa.fa2_flash_attention_bthd_dkv(
+            q, k, v, do, lse, di), "bthd dkv")
+
+        # the yardsticks: SDPA causal on the (B, H, T, Dh) views
+        qv, kv_, vv = (z.transpose(1, 2) for z in (q, k, v))
+        lib_fwd = device_ms(torch, lambda: F.scaled_dot_product_attention(
+            qv, kv_, vv, is_causal=True))
+        qr, kr, vr = (z.detach().requires_grad_() for z in (q, k, v))
+
+        def lib_fb():
+            out = F.scaled_dot_product_attention(
+                qr.transpose(1, 2), kr.transpose(1, 2), vr.transpose(1, 2),
+                is_causal=True)
+            return torch.autograd.grad(out, (qr, kr, vr), do.transpose(1, 2))
+
+        lib_fb_ms = device_ms(torch, lib_fb, iters=10)
+        panel = b * h * t * d * 2
+        stats = b * h * t * 4
+        tri = d * t * (t + 1) / 2 * b * h
+        for name, kernel, plain, lib, nbytes, flops, err in (
+                ("fa2_flash_attention_bthd_fwd",
+                 lambda: fa.fa2_flash_attention_bthd_fwd(q, k, v),
+                 lambda: fa._fa2_bthd_fwd_plain(q, k, v), lib_fwd,
+                 4 * panel + stats, 4 * tri, fwd_err),
+                ("fa2_flash_attention_bthd_dq",
+                 lambda: fa.fa2_flash_attention_bthd_dq(q, k, v, do, lse, di),
+                 lambda: fa._fa2_bthd_dq_plain(q, k, v, do, lse, di),
+                 lib_fb_ms, 5 * panel + 2 * stats, 6 * tri, dq_err),
+                ("fa2_flash_attention_bthd_dkv",
+                 lambda: fa.fa2_flash_attention_bthd_dkv(q, k, v, do, lse,
+                                                         di),
+                 lambda: fa._fa2_bthd_dkv_plain(q, k, v, do, lse, di),
+                 lib_fb_ms, 6 * panel + 2 * stats, 8 * tri, dkv_err)):
+            bms, by = bound_ms(nbytes, flops, "bfloat16")
+            res[name, b] = dict(
+                ms=device_ms(torch, kernel, iters=5),
+                plain_ms=device_ms(torch, plain, iters=3),
+                library_ms=lib, call_ms=time_ms(torch, kernel, iters=5),
+                bound_ms=bms, bound_by=by, max_abs_err=err,
+                shape=f"B={b} T={t} H={h} Dh={d} bf16 heads-last")
+            print(f"kernel {name} B={b} T={t} H={h} Dh={d} bf16: "
+                  f"max_abs_err={err:.3g} (tol 2e-2; backward x max|plain|)"
+                  f" bit-identical to the (B, H, T, Dh) kernel on the "
+                  f"transposed copies, bitwise repeatable; library = SDPA "
+                  f"causal on the transposed views"
+                  f"{', forward+backward' if 'fwd' not in name else ''}; "
+                  + " ".join(f"{k}={v:.5g}" for k, v in res[name, b].items()
+                             if k.endswith("ms")))
+        del q, k, v, do, o, lse, di, dq, dk, dv, qr, kr, vr
+        torch.cuda.empty_cache()
+    return res
+
+
+def ab_phase(torch, counters):
+    """8b: the A/B entry point (`python -m tiny_deepspeed_tpu_torch.
+    fa2_bthd_ab`), both arms through the module at its shape: fb_ms, and
+    the launches of the run — the heads-last kernels' main path (`ab`)."""
+    from tiny_deepspeed_tpu_torch import fa2_bthd_ab
+    for fn in counters.values():
+        fn.launches = 0
+    rows = fa2_bthd_ab.run("cuda")
+    launches = {k: fn.launches for k, fn in counters.items()}
+    fb = {r["arm"]: r["fb_ms"] for r in rows}
+    print(f"  A/B (B=12 H=12 T=1024 Dh=64 bf16, f+b of sum(o^2), median of "
+          f"{rows[0]['iters']} calls, CUDA events): transpose+fa2 "
+          f"{fb['transpose+fa2']:.4f} ms, bthd_fa2 {fb['bthd_fa2']:.4f} ms "
+          f"(bthd / transpose {fb['bthd_fa2'] / fb['transpose+fa2']:.4f})")
+    print(f"  launches of the A/B run: "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    for k in BTHD_KERNELS + TRAIN_KERNELS[3:]:
+        check(launches[k] > 0, f"the A/B never launched {k}")
+    return dict(launches=launches, fb_ms=fb)
+
+
+def zero3_phase(torch, port, counters, train):
+    """8c: Zero3 at world 1 over NCCL on gpt2-124m with phase 4's config:
+    13 steps' losses and params bit-identical to phase 4's SingleDevice;
+    then the fp8 gather (gather_quant="fp8"), SingleDevice and Zero3 bit
+    for bit alike and within 5% of the unquantized losses at every step
+    (JAX's criterion, tests/test_fp8_gather.py); step time, tokens/s, peak
+    memory and one profiled step's NCCL / memcpy time of each."""
+    cfg = port.GPT2_PRESETS["gpt2-124m"]
+    out = {}
+    run = engine_run(torch, port, counters, "Zero3", cfg)
+    same = run["losses"] == train["losses13"] and all(
+        torch.equal(p, train["params13"][n])
+        for n, p in run["params"].items())
+    check(same, f"Zero3 at world 1 differs from SingleDevice: losses "
+          f"{run['losses']} vs {train['losses13']}")
+    check("params sharded=True" in run["describe"], run["describe"])
+    print(f"  {run['describe']}: 13 steps bit-identical to SingleDevice "
+          f"(losses and params); step time median {run['step_ms']:.3f} ms "
+          f"-> {run['tokens_per_s']:.1f} tokens/s (phase 4: "
+          f"{train['step_ms']:.3f} ms); peak memory {run['peak_gib']:.2f} "
+          f"GiB (phase 4: {train['peak_gib']:.2f}); one profiled step: NCCL "
+          f"kernels {run['nccl_ms']:.4f} ms, memcpy {run['copy_ms']:.4f} ms "
+          f"of {run['busy_ms']:.3f} ms device busy")
+    _free(run)
+    out["zero3"] = run
+    fp8 = dataclasses.replace(cfg, gather_quant="fp8")
+    single = engine_run(torch, port, counters, "SingleDevice", fp8,
+                        profile=False)
+    single_losses, single_params = single["losses"], single["params"]
+    single_ms = single["step_ms"]
+    _free(single)
+    run = engine_run(torch, port, counters, "Zero3", fp8)
+    same = run["losses"] == single_losses and all(
+        torch.equal(p, single_params[n]) for n, p in run["params"].items())
+    check(same, f"fp8 Zero3 at world 1 differs from fp8 SingleDevice: "
+          f"{run['losses']} vs {single_losses}")
+    rel = [abs(a - b) / a for a, b in zip(train["losses13"], run["losses"])]
+    check(max(rel) < 0.05, f"fp8 losses {max(rel):.4f} from bf16's")
+    print(f"  gather_quant=fp8: SingleDevice and Zero3 13 steps "
+          f"bit-identical (losses and params); losses within "
+          f"{max(rel):.3g} of the unquantized run's (tol 0.05); Zero3 step "
+          f"time median {run['step_ms']:.3f} ms -> "
+          f"{run['tokens_per_s']:.1f} tokens/s (SingleDevice fp8 "
+          f"{single_ms:.3f} ms); peak memory {run['peak_gib']:.2f} GiB; "
+          f"one profiled step: NCCL kernels {run['nccl_ms']:.4f} ms, memcpy "
+          f"{run['copy_ms']:.4f} ms of {run['busy_ms']:.3f} ms device busy")
+    del single_params
+    _free(run)
+    out["zero3_fp8"] = run
+    return out
+
+
+def _zero3_rank_gib(model, data, cd_bytes=2):
+    """What one rank holds of ZeRO-3's training state at `data` ranks,
+    from the shard layout (parallel/zero3.py), not measured: per leaf the
+    rank's shard of the f32 master, its gradient and AdamW's m and v (16
+    bytes an element) plus the step's compute-dtype cast of the block
+    shards; the non-block leaves gathered whole for the step (f32, and
+    their whole gradient before its reduce-scatter); one layer's block
+    weights gathered whole in the compute dtype (forward or recompute)
+    and their gradient."""
+    state = stacked = whole = layer = 0
+    for name, shape in model.param_shapes().items():
+        n = math.prod(shape[1:] if name.startswith("h.") else shape)
+        own = -(-n // data)
+        rows = shape[0] if name.startswith("h.") else 1
+        state += 16 * own * rows
+        if name.startswith("h."):
+            stacked += cd_bytes * own * rows
+            layer += 2 * cd_bytes * n
+        else:
+            whole += 8 * n
+    return (state + stacked + whole + layer) / 2 ** 30
+
+
+def zero3_xl_phase(torch, port, counters):
+    """8d: Zero3 trains gpt2-1.5b (examples/zero3's default model: 48
+    layers, 25 heads, n_embd 1600) at full width and depth, world 1 over
+    NCCL, B=8 T=1024 (B=4 if the peak passes 70 GB): 3 warm-up and 5
+    timed steps, the first loss in [10.5, 11.2]; median step time,
+    tokens/s, peak memory, one profiled step's busy / idle and kernel
+    classes, and what a rank would hold at data 4 and 8."""
+    cfg = port.GPT2_PRESETS["gpt2-1.5b"]
+    b, t = 8, 1024
+    run = engine_run(torch, port, counters, "Zero3", cfg, b=b, t=t, warm=3,
+                     timed=5, profile=False, whole=False)
+    if run["peak_gib"] * 2 ** 30 > 70e9:
+        print(f"  B=8 peaked at {run['peak_gib']:.2f} GiB > 70 GB: B=4")
+        _free(run)
+        b = 4
+        run = engine_run(torch, port, counters, "Zero3", cfg, b=b, t=t,
+                         warm=3, timed=5, profile=False, whole=False)
+    losses = run["losses"]
+    check(10.5 <= losses[0] <= 11.2,
+          f"gpt2-1.5b first loss {losses[0]} outside [10.5, 11.2]")
+    model = run["engine"].model
+    print(f"  {run['describe']}; gpt2-1.5b {model.num_params() / 1e6:.1f}M "
+          f"params, remat={cfg.remat} policy={cfg.remat_policy}, B={b} "
+          f"T={t}")
+    print(f"  losses {[round(x, 4) for x in losses]}")
+    print(f"  step time median {run['step_ms']:.3f} ms -> "
+          f"{run['tokens_per_s']:.1f} tokens/s; peak memory "
+          f"{run['peak_gib']:.2f} GiB")
+    pats = {**PATTERNS, "nccl": "nccl", "memcpy": "Memcpy"}
+    step_ms, busy, gemm, other = step_profile(
+        torch, run["engine"], run["state"], run["loader"].next(),
+        "zero3_1.5b_profile.txt", TRAIN_KERNELS + ("nccl", "memcpy"),
+        run["med"], patterns=pats)
+    per_rank = {d: _zero3_rank_gib(model, d) for d in (1, 4, 8)}
+    act = run["peak_gib"] - per_rank[1]
+    print(f"  per-rank ZeRO-3 state from the shard layout (not measured): "
+          + ", ".join(f"data {d}: {g:.2f} GiB" for d, g in per_rank.items())
+          + f"; the measured peak less the data-1 state, {act:.2f} GiB "
+          f"(activations, logits, workspace), stays per rank at B={b}: "
+          f"data 4 ~{per_rank[4] + act:.2f} GiB, data 8 "
+          f"~{per_rank[8] + act:.2f} GiB a rank")
+    out = dict(launches=run["launches"], step_ms=run["step_ms"],
+               tokens_per_s=run["tokens_per_s"], peak_gib=run["peak_gib"],
+               busy_ms=busy / 1e3, batch=b, kernel_ms_per_step=step_ms,
+               per_rank_gib=per_rank, first_loss=losses[0])
+    _free(run)
     return out
 
 
@@ -2100,7 +2408,8 @@ def main():
                 "quantize_blockwise": qm.quantize_blockwise,
                 "fa2_chunk_fwd": fa.fa2_chunk_fwd,
                 "fa2_chunk_dq": fa.fa2_chunk_dq,
-                "fa2_chunk_dkv": fa.fa2_chunk_dkv}
+                "fa2_chunk_dkv": fa.fa2_chunk_dkv,
+                **{k: getattr(fa, k) for k in BTHD_KERNELS}}
     serve_kernels = ("layernorm_fwd", "fa2_flash_attention_fwd",
                      "paged_attention")
     for fn in counters.values():
@@ -2204,10 +2513,24 @@ def main():
     ring_launches = ring_phase(torch, port, fa, counters, model)
     del model
     torch.cuda.empty_cache()
-    dist_res = engines_phase(torch, port, counters, train)
-    del train["params13"]
-    torch.cuda.empty_cache()
-    print(f"phase 7: {time.perf_counter() - t7:.2f}s")
+    with nccl_world1(torch):
+        dist_res = engines_phase(torch, port, counters, train)
+        torch.cuda.empty_cache()
+        print(f"phase 7: {time.perf_counter() - t7:.2f}s")
+
+        t8 = time.perf_counter()
+        print("phase 8: heads-last FA2 (#7, #8) and its A/B, ZeRO-3 with "
+              "the fp8 gather on gpt2-124m and gpt2-1.5b at world 1 over "
+              "NCCL")
+        bthd_res = bthd_phase(torch, F, fa)
+        ab = ab_phase(torch, counters)
+        torch.cuda.empty_cache()
+        z3_res = zero3_phase(torch, port, counters, train)
+        del train["params13"]
+        torch.cuda.empty_cache()
+        xl = zero3_xl_phase(torch, port, counters)
+        torch.cuda.empty_cache()
+        print(f"phase 8: {time.perf_counter() - t8:.2f}s")
 
     timed = ("shape", "ms", "plain_ms", "library_ms", "call_ms", "bound_ms",
              "bound_by")
@@ -2222,7 +2545,10 @@ def main():
                    "knobbed_training": knob["launches"][name],
                    **{p: v[name] for p, v in var_paths.items()},
                    "ring4": ring_launches[name],
-                   **{p: v["launches"][name] for p, v in dist_res.items()}}
+                   **{p: v["launches"][name] for p, v in dist_res.items()},
+                   "ab": ab["launches"][name],
+                   **{p: v["launches"][name] for p, v in z3_res.items()},
+                   "zero3_1.5b": xl["launches"][name]}
         row = {"name": name, "route": route, "source": source,
                "replaces": replaces, "launches": sum(by_path.values()),
                "launches_by_path": by_path,
@@ -2301,6 +2627,18 @@ def main():
               "tiny_deepspeed_tpu_torch/csrc/flash_bwd.cu",
               "tiny_deepspeed_tpu/ops/flash_fa2.py:350",
               chunk_res["fa2_chunk_dkv"]),
+        entry("fa2_flash_attention_bthd_fwd", "cuda",
+              "tiny_deepspeed_tpu_torch/csrc/flash_fwd.cu",
+              "tiny_deepspeed_tpu/ops/flash_fa2.py:630",
+              bthd_res["fa2_flash_attention_bthd_fwd", 12]),
+        entry("fa2_flash_attention_bthd_dkv", "cuda",
+              "tiny_deepspeed_tpu_torch/csrc/flash_bwd.cu",
+              "tiny_deepspeed_tpu/ops/flash_fa2.py:668",
+              bthd_res["fa2_flash_attention_bthd_dkv", 12]),
+        entry("fa2_flash_attention_bthd_dq", "cuda",
+              "tiny_deepspeed_tpu_torch/csrc/flash_bwd.cu",
+              "tiny_deepspeed_tpu/ops/flash_fa2.py:685",
+              bthd_res["fa2_flash_attention_bthd_dq", 12]),
     ]
     kernels[13]["per_step"] = bwd_res["adamw_update_fused"]["per_step"]
     extra = {"paged_attention_quant": {"fp8_pool": pq_res["fp8"]},
@@ -2309,14 +2647,18 @@ def main():
                  "int8_pool": ps_res["int8", "spec"],
                  "int8_pool_suffix": ps_res["int8", "suffix"]},
              "quantize_blockwise": {k: v for k, v in qz_res.items()
-                                    if k != "kv_append"}}
+                                    if k != "kv_append"},
+             **{k: {"b8": bthd_res[k, 8]} for k in BTHD_KERNELS}}
     for row in kernels:
         for k, v in extra.get(row["name"], {}).items():
             row[k + "_shape"] = {f: v[f] for f in timed}
-    check(len(kernels) == 17, f"{len(kernels)} kernel rows")
-    for row in kernels[14:]:
+    check(len(kernels) == 20, f"{len(kernels)} kernel rows")
+    for row in kernels[14:17]:
         check(row["launches_by_path"]["ring4"] > 0,
               f"{row['name']} was never launched on the ring path")
+    for row in kernels[17:]:
+        check(row["launches_by_path"]["ab"] > 0,
+              f"{row['name']} was never launched on the A/B path")
     with open(os.path.join(OUT_DIR, "variants.json"), "w") as f:
         json.dump({"results": var_res, "agreement": agree}, f, indent=1,
                   default=str)

@@ -24,7 +24,9 @@ kernels at ragged Tl (64, 200, 256, 1000), MHA and grouped K/V, f32 and
 bf16, and the causal chunk entry bit for bit the causal kernel; the f32
 fused xent kernels against an f64 evaluation; ring attention over four
 lockstep threads on the card against the CPU port's; a distributed
-engine on the card refusing a gloo process group.
+engine on the card refusing a gloo process group.  Slice 6: the
+heads-last FA2 kernels (#7, #8) bit for bit #4-#6 on transposed copies
+and within tolerance of their plain versions, grouped K/V refused.
 """
 
 import math
@@ -254,6 +256,61 @@ def test_flash_chunk_causal_is_the_causal_kernel():
     assert (flash_fa2.fa2_flash_attention_fwd.launches,
             flash_fa2.fa2_chunk_fwd.launches) == (before[0] + 1, before[1])
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("b,h,t,d", [(1, 2, 64, 64), (2, 12, 1000, 64),
+                                     (2, 4, 130, 32)])
+def test_flash_bthd_kernels(dtype, b, h, t, d):
+    """The heads-last kernels (#7 fwd, #8 dq and dk/dv): bit for bit the
+    (B, H, T, Dh) kernels' results on transposed contiguous copies (the
+    JAX package's contract), within tolerance of the plain versions, and
+    counted apart from #4-#6; FA2BthdFn's gradients likewise FA2Fn's."""
+    g = _g(t + h)
+    q, k, v, do = (torch.randn(b, t, h, d, generator=g, device="cuda"
+                               ).to(dtype) for _ in range(4))
+    tr = [x.transpose(1, 2).contiguous() for x in (q, k, v, do)]
+    before = {f: getattr(flash_fa2, f).launches for f in (
+        "fa2_flash_attention_fwd", "fa2_flash_attention_bthd_fwd",
+        "fa2_flash_attention_bthd_dq", "fa2_flash_attention_bthd_dkv")}
+    o, lse = flash_fa2.fa2_flash_attention_bthd_fwd(q, k, v)
+    di = (do.float() * o.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = flash_fa2.fa2_flash_attention_bthd_dq(q, k, v, do, lse, di)
+    dk, dv = flash_fa2.fa2_flash_attention_bthd_dkv(q, k, v, do, lse, di)
+    after = {f: getattr(flash_fa2, f).launches for f in before}
+    assert {f: after[f] - before[f] for f in before} == {
+        "fa2_flash_attention_fwd": 0, "fa2_flash_attention_bthd_fwd": 1,
+        "fa2_flash_attention_bthd_dq": 1, "fa2_flash_attention_bthd_dkv": 1}
+    ro, rlse = flash_fa2.fa2_flash_attention_fwd(*tr[:3])
+    rdq = flash_fa2.fa2_flash_attention_dq(*tr, rlse, di)
+    rdk, rdv = flash_fa2.fa2_flash_attention_dkv(*tr, rlse, di)
+    torch.cuda.synchronize()
+    assert torch.equal(lse, rlse)
+    for got, ref in zip((o, dq, dk, dv), (ro, rdq, rdk, rdv)):
+        assert torch.equal(got, ref.transpose(1, 2))
+    po, plse = flash_fa2._fa2_bthd_fwd_plain(q, k, v)
+    torch.testing.assert_close(o.float(), po.float(), **TOL[dtype])
+    refs = (flash_fa2._fa2_bthd_dq_plain(q, k, v, do, lse, di),
+            *flash_fa2._fa2_bthd_dkv_plain(q, k, v, do, lse, di))
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, ref in zip((dq, dk, dv), refs):
+        scale = float(ref.float().abs().max())
+        assert float((got.float() - ref.float()).abs().max()) <= \
+            tol * scale + 1e-5
+    args = [x.clone().requires_grad_() for x in (q, k, v)]
+    targs = [x.clone().requires_grad_() for x in tr[:3]]
+    grads = torch.autograd.grad(flash_fa2.FA2BthdFn.apply(*args), args, do)
+    tgrads = torch.autograd.grad(flash_fa2.FA2Fn.apply(*targs), targs, tr[3])
+    for a, ref in zip(grads, tgrads):
+        assert torch.equal(a, ref.transpose(1, 2))
+
+
+def test_flash_bthd_refuses_grouped_kv():
+    q = torch.zeros(1, 16, 4, 64, device="cuda", dtype=torch.bfloat16)
+    kv = torch.zeros(1, 16, 2, 64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="MHA"):
+        flash_fa2.fa2_flash_attention_bthd_fwd(q, kv, kv)
 
 
 def test_backward_kernels_bitwise_repeatable():

@@ -77,7 +77,7 @@ def _overflow(state, params):
 
 
 def _engine_worker(rank, world, store, out_dir, name, sp, kw, opt, accum,
-                   overflow):
+                   overflow, model_kw=None):
     """One gloo rank: `name` engine steps over the global batches; rank 0
     saves the losses, params, optimizer state and scaler."""
     import torch.distributed as dist
@@ -85,12 +85,14 @@ def _engine_worker(rank, world, store, out_dir, name, sp, kw, opt, accum,
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
     try:
-        model = T.GPT2Model(T.GPT2_PRESETS["tiny"], device="cpu")
+        model = T.GPT2Model(dataclasses.replace(T.GPT2_PRESETS["tiny"],
+                                                **(model_kw or {})),
+                            device="cpu")
         engine = getattr(T, name)(model, _optimizer(opt), device="cpu",
                                   seq_parallel=sp, accum_steps=accum, **kw)
         state = engine.init(0)
         ref = np.load(os.path.join(out_dir, "params.npz"))
-        model.load_state_dict(T.params_from_numpy(dict(ref), "cpu"))
+        engine.load_params(state, T.params_from_numpy(dict(ref), "cpu"))
         if overflow:
             _overflow(state, state.params)
         losses = []
@@ -109,7 +111,7 @@ def _engine_worker(rank, world, store, out_dir, name, sp, kw, opt, accum,
         dist.destroy_process_group()
 
 
-def _jax_run(name, dp, sp, kw, opt, accum, overflow):
+def _jax_run(name, dp, sp, kw, opt, accum, overflow, model_kw=None):
     """The JAX engine on a (data[, seq]) CPU mesh: (params at init,
     losses, final state, engine, eval loss, and under AdamW each
     element's least bias-corrected gradient RMS over the steps)."""
@@ -123,7 +125,8 @@ def _jax_run(name, dp, sp, kw, opt, accum, overflow):
     mesh = J.make_mesh(shape, names, devices=jax.devices()[:dp * sp])
     jopt = (J.SGD(lr=1e-2, momentum=0.9, weight_decay=0.1) if opt == "sgd"
             else J.AdamW(lr=LR, weight_decay=0.1))
-    jeng = getattr(J, name)(JGPT2(JP["tiny"]), jopt, mesh=mesh,
+    jcfg = dataclasses.replace(JP["tiny"], **(model_kw or {}))
+    jeng = getattr(J, name)(JGPT2(jcfg), jopt, mesh=mesh,
                             accum_steps=accum, **kw)
     state = jeng.init(jax.random.PRNGKey(0))
     init = {n: np.asarray(p) for n, p in state.params.items()}
@@ -148,16 +151,19 @@ def _jax_run(name, dp, sp, kw, opt, accum, overflow):
 
 
 def check_against_jax(tmp_path, name, dp, sp, kw=None, opt="adamw",
-                      accum=1, overflow=False):
+                      accum=1, overflow=False, model_kw=None, atol=1e-5):
     """Run `name` on the port over dp x sp gloo ranks and on JAX over a
-    CPU mesh of that layout; compare as the module docstring says."""
+    CPU mesh of that layout, the tiny preset with `model_kw` replaced in
+    both; compare as the module docstring says (params and optimizer
+    state to `atol`).  Returns (the port's result, JAX's state, engine,
+    losses and least gradient RMS per element)."""
     from tiny_deepspeed_tpu.parallel.partition import partition_tensors
     kw = kw or {}
     init, jl, jstate, jeng, jev, rms = _jax_run(name, dp, sp, kw, opt,
-                                                accum, overflow)
+                                                accum, overflow, model_kw)
     np.savez(tmp_path / "params.npz", **init)
     spawn(_engine_worker, dp * sp, tmp_path, name, sp, kw, opt, accum,
-          overflow, timeout=180)
+          overflow, model_kw, timeout=180)
     res = torch.load(tmp_path / "result.pt")
     tl = np.asarray(res["losses"])
     assert res["rank_map"] == jeng.rank_map == partition_tensors(
@@ -190,9 +196,10 @@ def check_against_jax(tmp_path, name, dp, sp, kw=None, opt="adamw",
         if opt == "adamw":
             pairs["v"] = tuple(np.sqrt(x / bc2) for x in pairs["v"])
         for k, (got, want) in pairs.items():
-            np.testing.assert_allclose(got[keep], want[keep], atol=1e-5,
+            np.testing.assert_allclose(got[keep], want[keep], atol=atol,
                                        err_msg=f"{n}.{k}")
     assert held >= 0.99 * sum(p.numel() for p in res["params"].values())
+    return res, jstate, jeng, jl, rms
 
 
 @pytest.mark.parametrize("name", ["DDP", "Zero1", "Zero2"])
@@ -275,8 +282,9 @@ def test_refused_engine_knobs_raise(knob):
 
 def test_refused_configurations_raise(world1):
     pm = T.GPT2Model(T.GPT2_PRESETS["tiny"], device="cpu")
-    with pytest.raises(ValueError, match="ZeRO-3.*ROADMAP.md"):
-        Zero3(pm, T.AdamW(), device="cpu")
+    for knob in (dict(gather_prefetch=2), dict(hpz=True)):
+        with pytest.raises(ValueError, match="slice 7.*ROADMAP.md"):
+            Zero3(pm, T.AdamW(), device="cpu", **knob)
     with pytest.raises(ValueError, match="Ulysses.*ROADMAP.md"):
         T.DDP(pm, T.AdamW(), device="cpu", seq_impl="ulysses")
     with pytest.raises(ValueError, match="divide"):

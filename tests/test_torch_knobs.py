@@ -24,7 +24,8 @@ Pinned here:
 - 20-step `SingleDevice` trajectories with the fused head and
   `AdamW(fused=True)` equal JAX's within 1e-4 relative, also with grad
   clipping, `accum_steps=2` and an lr schedule;
-- refusals, and the `--fused-xent` / `--dropout` CLI flags.
+- refusals, serving under the fp8 weight gather, and the `--fused-xent`
+  / `--dropout` CLI flags.
 """
 
 import dataclasses
@@ -455,7 +456,7 @@ def test_knobbed_engine_knobs_match_jax(kw, accum):
     (lambda: T.AdamW(fused=True).init({"w": torch.zeros(3).half()}),
      ValueError),
     (lambda: T.GPT2Model(dataclasses.replace(
-        T.GPT2_PRESETS["tiny"], gather_quant="fp8"), device="cpu"),
+        T.GPT2_PRESETS["tiny"], gather_quant="int8"), device="cpu"),
      ValueError),
     (lambda: T.GPT2Model(dataclasses.replace(
         T.GPT2_PRESETS["tiny"], fused_xent=True, fused_xent_impl="fp8"),
@@ -465,6 +466,29 @@ def test_knobbed_engine_knobs_match_jax(kw, accum):
 def test_refusals(make, exc):
     with pytest.raises(exc):
         make()
+
+
+@pytest.mark.parametrize("spec", [False, True], ids=["plain", "spec_ngram"])
+def test_gather_quant_fp8_serves(spec):
+    """The fp8 gather in serving: prefill, paged decode and (speculative)
+    verify all read block weights through `_bw`'s dequantize, so the
+    greedy tokens equal the no-cache greedy tokens of `apply` on the same
+    quantized model."""
+    cfg = dataclasses.replace(T.GPT2_PRESETS["tiny"], gather_quant="fp8")
+    model = T.GPT2Model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    prompt = list(np.random.default_rng(5).integers(0, 512, 12))
+    want, idx = [], torch.tensor([prompt])
+    for _ in range(8):
+        nxt = int(model.apply(idx)[0, -1].argmax())
+        want.append(nxt)
+        idx = torch.cat([idx, torch.tensor([[nxt]])], dim=1)
+    kw = dict(spec_draft="ngram", spec_k=4) if spec else {}
+    eng = T.ServingEngine(model, T.ServeConfig(
+        max_active=2, num_blocks=16, block_tokens=8, **kw), device="cpu")
+    req = eng.submit(prompt, 8)
+    eng.drain()
+    assert req.tokens == want
 
 
 @pytest.mark.parametrize("head", ["pallas", "chunked"])

@@ -6,8 +6,9 @@
 The JAX package's `tiny` preset (f32) is initialised from a seed, its flat
 parameter dict crosses to the port through numpy (`params_from_numpy`),
 and the port's full forward must give the JAX `apply` logits within
-1e-4 (the two run the same f32 math in another summation order).  Also
-pinned: the refused knobs (an out-of-range dropout, ZeRO-3), the
+1e-4 (the two run the same f32 math in another summation order), the
+config knobs too (fp8 weight gather included).  Also pinned: the refused
+knobs (an out-of-range dropout, a gather_quant other than "fp8"), the
 no-silent-CPU rule of the entry points, the sampling core against JAX's
 greedy argmax, and that no file of the port imports jax or the JAX
 package.
@@ -69,8 +70,8 @@ class TestForwardParity:
 
     @pytest.mark.parametrize("overrides", [
         dict(tie_weights=True), dict(bias=False), dict(wte_max_norm=0.5),
-        dict(attn_impl="standard_attention"),
-    ], ids=["tied", "no_bias", "max_norm", "standard_attn"])
+        dict(attn_impl="standard_attention"), dict(gather_quant="fp8"),
+    ], ids=["tied", "no_bias", "max_norm", "standard_attn", "gather_quant"])
     def test_config_knobs_match_jax(self, overrides):
         jm, jp, pm = _pair(**overrides)
         assert set(pm.param_dict()) == set(jp)
@@ -119,7 +120,7 @@ class TestInitAndConfig:
         assert a.num_params() == sum(x.numel() for x in p.values())
 
     @pytest.mark.parametrize("knob", [
-        dict(dropout=1.0), dict(gather_quant="fp8"), dict(attn_impl="ring"),
+        dict(dropout=1.0), dict(gather_quant="int8"), dict(attn_impl="ring"),
     ], ids=["dropout", "gather_quant", "attn_impl"])
     def test_refused_knobs_raise(self, knob):
         cfg = dataclasses.replace(T.GPT2_PRESETS["tiny"], **knob)

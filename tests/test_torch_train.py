@@ -346,7 +346,7 @@ class TestSingleDevice:
 
 class TestRefusalsAndEntryPoints:
     @pytest.mark.parametrize("knob", [
-        dict(gather_quant="fp8"), dict(remat_policy="everything"),
+        dict(gather_quant="fp16"), dict(remat_policy="everything"),
     ], ids=["gather_quant", "remat_policy"])
     def test_refused_model_knobs_raise(self, knob):
         cfg = dataclasses.replace(T.GPT2_PRESETS["tiny"], **knob)
@@ -389,3 +389,20 @@ class TestRefusalsAndEntryPoints:
         assert any("val_loss" in ln for ln in lines)
         assert lines[-1].startswith("done: 3 iters in ")
         assert "tokens/s" in lines[-1]
+
+    @pytest.mark.parametrize("engine", ["single", "zero3"])
+    def test_train_module_runs_gather_quant_fp8(self, engine):
+        """--gather-quant fp8 constructs and trains, on one device and
+        under ZeRO-3 (a world of one without torchrun)."""
+        out = subprocess.run(
+            [sys.executable, "-m", "tiny_deepspeed_tpu_torch.train",
+             "--device", "cpu", "--model", "tiny", "--iters", "3",
+             "--seq-len", "64", "--engine", engine, "--gather-quant",
+             "fp8"], cwd=REPO, capture_output=True, text=True, timeout=300)
+        assert out.returncode == 0, out.stderr
+        lines = out.stdout.splitlines()
+        losses = [float(ln.split()[-1]) for ln in lines if " loss " in ln]
+        assert len(losses) == 3 and all(np.isfinite(losses))
+        assert lines[-1].startswith("done: 3 iters in ")
+        if engine == "zero3":
+            assert "params sharded=True" in lines[0]

@@ -22,13 +22,18 @@ easy to find.  Ported so far:
   `torch.distributed` (`init_distributed`; NCCL on the card, gloo on the
   CPU) with ring attention over a sequence split (`seq_parallel`), and
   the `partition_tensors` rank map (`python -m torch.distributed.run
-  -m tiny_deepspeed_tpu_torch.train --engine zero2 ...`).
+  -m tiny_deepspeed_tpu_torch.train --engine zero2 ...`);
+- slice 6, ZeRO-3: `Zero3`, params sharded at rest and gathered per
+  layer, with the fp8 weight gather (`GPTConfig(gather_quant="fp8")`,
+  also under the other engines and in serving), and the heads-last FA2
+  entry `ops.flash_fa2.fa2_flash_attention_bthd` with its A/B
+  (`python -m tiny_deepspeed_tpu_torch.fa2_bthd_ab`).
 
 Every Pallas kernel those paths run on a TPU is rewritten for Hopper:
 layernorm forward, dx and dw/db in Triton (ops/layernorm.py); the fused
 AdamW update and the blockwise int8/fp8 quantizer in Triton
 (optim/adamw_fused.py, ops/quant.py); FA2 forward, dq and dk/dv, causal and
-unmasked for ring attention's chunks (csrc/flash_fwd.cu,
+unmasked for ring attention's chunks, and heads-last (csrc/flash_fwd.cu,
 csrc/flash_bwd.cu), paged attention — decode and
 span verify, over bf16 or int8/fp8 pools — (csrc/paged_attn.cu) and the
 fused lm_head + cross-entropy forward, dx and dW (csrc/fused_xent.cu) in
@@ -44,7 +49,7 @@ from .data import TokenLoader
 from .models.gpt2 import (GPT2_PRESETS, GPT2Model, GPTConfig,
                           effective_xent_impl)
 from .optim import SGD, AdamW
-from .parallel import (DDP, SingleDevice, TrainState, Zero1, Zero2,
+from .parallel import (DDP, SingleDevice, TrainState, Zero1, Zero2, Zero3,
                        ZeroEngine, init_distributed, partition_tensors)
 from .serving import PrefixCache, SpecDecoder
 from .serving.engine import ServeConfig, ServingEngine
@@ -52,6 +57,6 @@ from .serving.engine import ServeConfig, ServingEngine
 __all__ = ["AdamW", "DDP", "GPTConfig", "GPT2_PRESETS", "GPT2Model",
            "PrefixCache", "SGD", "ServeConfig", "ServingEngine",
            "SingleDevice", "SpecDecoder", "TokenLoader", "TrainState",
-           "Zero1", "Zero2", "ZeroEngine", "effective_xent_impl",
+           "Zero1", "Zero2", "Zero3", "ZeroEngine", "effective_xent_impl",
            "init_distributed", "opt_state_from_numpy", "opt_state_to_numpy",
            "params_from_numpy", "params_to_numpy", "partition_tensors"]

@@ -42,6 +42,21 @@ template <> __device__ __forceinline__ float to_f<__nv_fp8_e4m3>(__nv_fp8_e4m3 v
   return fp8_byte_to_f(v.__x);
 }
 
+// Offset of row 0 of head `hh`'s (T, D) panel in batch element `b` of a
+// tensor with `nh` heads, laid out (B, nh, T, D) (rows D apart) or
+// heads-last, (B, T, nh, D) (rows nh * D apart: `row_stride`).
+template <bool BTHD>
+__host__ __device__ __forceinline__ size_t panel_offset(int b, int hh, int nh,
+                                                        int seqlen, int D) {
+  return BTHD ? ((size_t)b * seqlen * nh + hh) * D
+              : ((size_t)b * nh + hh) * seqlen * D;
+}
+
+template <bool BTHD>
+__host__ __device__ __forceinline__ int row_stride(int nh, int D) {
+  return BTHD ? nh * D : D;
+}
+
 template <typename T> __device__ __forceinline__ T from_f(float v);
 template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {

@@ -19,6 +19,16 @@
 // dk/dv are summed over the kv head's query-head group in one f32
 // accumulator and come back at KVH heads.
 //
+// Heads-last (`flash_bwd_dq_bthd`, `flash_bwd_dkv_bthd`): also replace the
+// TPU kernels of _fa2_bthd_bwd (:649) — dk/dv (pallas_call :668, kernel
+// _bwd_dkv_kernel_ah :496) and dq (pallas_call :685, kernel
+// _bwd_dq_kernel_ah :547) — causal, on q/k/v/do/dq/dk/dv (B, T, H, D)
+// with lse and di still f32 (B*H, T).  As in flash_fwd.cu the layout is
+// a stride (the `BTHD` template flag: row r of head h at
+// ((b*T + r)*H + h)*D), not the TPU's whole-panel head loop, and the
+// operations are those of the (B, H, T, D) kernels in the same order:
+// bit for bit their results on the transposed copies.
+//
 // Design.  The JAX decomposition stays: two passes, no atomics, so both
 // are deterministic (fixed loop order, bit-repeatable run to run).
 //   * dq: one CTA owns BQ query rows of one (batch, head) and walks the
@@ -60,20 +70,20 @@ constexpr int THREADS = TX * TY;        // 128
 constexpr int KPT = BK / TX;            // phase-A columns per thread (4)
 static_assert(BQ == 2 * TY && BK == 2 * TY, "each thread owns two rows");
 
-// rows [r0, r0 + 32) of a contiguous (T, D) panel -> f32 shared tile;
-// rows at or past `limit` read as 0
+// rows [r0, r0 + 32) of a (T, D) panel whose rows lie `ld` elements
+// apart -> f32 shared tile; rows at or past `limit` read as 0
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(float (*dst)[D + 1],
                                           const T* __restrict__ src, int r0,
-                                          int limit) {
+                                          int limit, int ld) {
   for (int e = threadIdx.x; e < 32 * D; e += THREADS) {
     const int r = e / D, c = e % D;
     const int g = r0 + r;
-    dst[r][c] = g < limit ? tds::to_f(src[(size_t)g * D + c]) : 0.f;
+    dst[r][c] = g < limit ? tds::to_f(src[(size_t)g * ld + c]) : 0.f;
   }
 }
 
-template <typename T, int D, bool CAUSAL>
+template <typename T, int D, bool CAUSAL, bool BTHD>
 __global__ void __launch_bounds__(THREADS)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ dout,
@@ -88,15 +98,19 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int bh = blockIdx.y;                       // b * H + h
   const int b = bh / H, h = bh % H;
-  const int kvbh = b * KVH + h / (H / KVH);
   const int q0 = blockIdx.x * BQ;
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const size_t qbase = (size_t)bh * seqlen;
-  const T* kp = k + (size_t)kvbh * seqlen * D;
-  const T* vp = v + (size_t)kvbh * seqlen * D;
+  const size_t qbase = (size_t)bh * seqlen;        // lse / di rows
+  const size_t qoff = tds::panel_offset<BTHD>(b, h, H, seqlen, D);
+  const size_t kvoff = tds::panel_offset<BTHD>(b, h / (H / KVH), KVH,
+                                               seqlen, D);
+  const int qld = tds::row_stride<BTHD>(H, D);
+  const int kvld = tds::row_stride<BTHD>(KVH, D);
+  const T* kp = k + kvoff;
+  const T* vp = v + kvoff;
 
-  load_tile<T, D>(qs, q + qbase * D, q0, seqlen);
-  load_tile<T, D>(dos, dout + qbase * D, q0, seqlen);
+  load_tile<T, D>(qs, q + qoff, q0, seqlen, qld);
+  load_tile<T, D>(dos, dout + qoff, q0, seqlen, qld);
   int row[2];
   float lse_r[2], di_r[2];
 #pragma unroll
@@ -117,8 +131,8 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kend = CAUSAL ? min(seqlen, q0 + BQ) : seqlen;
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();  // the previous tile is fully consumed
-    load_tile<T, D>(ks, kp, k0, kend);
-    load_tile<T, D>(vs, vp, k0, kend);
+    load_tile<T, D>(ks, kp, k0, kend, kvld);
+    load_tile<T, D>(vs, vp, k0, kend, kvld);
     __syncthreads();
 
     // phase A: s = q k^T, dp = do v^T for a 2 x KPT micro-tile
@@ -168,14 +182,14 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     if (row[i] >= seqlen) continue;
-    T* out = dq + (qbase + row[i]) * D;
+    T* out = dq + qoff + (size_t)row[i] * qld;
 #pragma unroll
     for (int c = 0; c < CPT; ++c)
       out[tx + TX * c] = tds::from_f<T>(acc[i][c]);
   }
 }
 
-template <typename T, int D, bool CAUSAL>
+template <typename T, int D, bool CAUSAL, bool BTHD>
 __global__ void __launch_bounds__(THREADS)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const T* __restrict__ dout,
@@ -197,10 +211,12 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int group = H / KVH;
   const int k0 = blockIdx.x * BK;
   const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  const size_t kvbase = (size_t)kvbh * seqlen;
+  const size_t kvoff = tds::panel_offset<BTHD>(b, kvh, KVH, seqlen, D);
+  const int qld = tds::row_stride<BTHD>(H, D);
+  const int kvld = tds::row_stride<BTHD>(KVH, D);
 
-  load_tile<T, D>(ks, k + kvbase * D, k0, seqlen);
-  load_tile<T, D>(vs, v + kvbase * D, k0, seqlen);
+  load_tile<T, D>(ks, k + kvoff, k0, seqlen, kvld);
+  load_tile<T, D>(vs, v + kvoff, k0, seqlen, kvld);
   float acc_k[2][CPT], acc_v[2][CPT];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
@@ -208,13 +224,15 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < CPT; ++c) acc_k[i][c] = acc_v[i][c] = 0.f;
 
   for (int g = 0; g < group; ++g) {   // the query heads sharing this k/v
-    const size_t qbase = (size_t)(b * H + kvh * group + g) * seqlen;
+    const int hq = kvh * group + g;
+    const size_t qbase = (size_t)(b * H + hq) * seqlen;  // lse / di rows
+    const size_t qoff = tds::panel_offset<BTHD>(b, hq, H, seqlen, D);
     // causal: q tiles before the one holding key k0 see none of its keys;
     // unmasked: every q tile sees them
     for (int q0 = CAUSAL ? (k0 / BQ) * BQ : 0; q0 < seqlen; q0 += BQ) {
       __syncthreads();  // the previous tile is fully consumed
-      load_tile<T, D>(qs, q + qbase * D, q0, seqlen);
-      load_tile<T, D>(dos, dout + qbase * D, q0, seqlen);
+      load_tile<T, D>(qs, q + qoff, q0, seqlen, qld);
+      load_tile<T, D>(dos, dout + qoff, q0, seqlen, qld);
       for (int e = threadIdx.x; e < BQ; e += THREADS) {
         const bool ok = q0 + e < seqlen;
         lse_s[e] = ok ? lse[qbase + q0 + e] : 0.f;
@@ -277,8 +295,8 @@ flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = 0; i < 2; ++i) {
     const int key = k0 + 2 * ty + i;
     if (key >= seqlen) continue;
-    T* dkrow = dk + (kvbase + key) * D;
-    T* dvrow = dv + (kvbase + key) * D;
+    T* dkrow = dk + kvoff + (size_t)key * kvld;
+    T* dvrow = dv + kvoff + (size_t)key * kvld;
 #pragma unroll
     for (int c = 0; c < CPT; ++c) {
       dkrow[tx + TX * c] = tds::from_f<T>(acc_k[i][c]);
@@ -293,6 +311,7 @@ struct Args {
   void *dq, *dk, *dv;
   int B, H, KVH, seqlen;
   bool causal;
+  bool bthd;  // heads-last (B, T, H, D); causal only
   float scale;
   cudaStream_t stream;
 };
@@ -305,15 +324,17 @@ cudaError_t launch(const Args& a, bool dkv) {
   const T* dout = static_cast<const T*>(a.dout);
   if (dkv) {
     dim3 grid((a.seqlen + BK - 1) / BK, a.B * a.KVH);
-    auto kernel = a.causal ? flash_dkv_kernel<T, D, true>
-                           : flash_dkv_kernel<T, D, false>;
+    auto kernel = a.bthd ? flash_dkv_kernel<T, D, true, true>
+                  : a.causal ? flash_dkv_kernel<T, D, true, false>
+                             : flash_dkv_kernel<T, D, false, false>;
     kernel<<<grid, THREADS, 0, a.stream>>>(
         q, k, v, dout, a.lse, a.di, static_cast<T*>(a.dk),
         static_cast<T*>(a.dv), a.seqlen, a.H, a.KVH, a.scale);
   } else {
     dim3 grid((a.seqlen + BQ - 1) / BQ, a.B * a.H);
-    auto kernel = a.causal ? flash_dq_kernel<T, D, true>
-                           : flash_dq_kernel<T, D, false>;
+    auto kernel = a.bthd ? flash_dq_kernel<T, D, true, true>
+                  : a.causal ? flash_dq_kernel<T, D, true, false>
+                             : flash_dq_kernel<T, D, false, false>;
     kernel<<<grid, THREADS, 0, a.stream>>>(
         q, k, v, dout, a.lse, a.di, static_cast<T*>(a.dq), a.seqlen, a.H,
         a.KVH, a.scale);
@@ -353,7 +374,7 @@ extern "C" int flash_bwd_dq(const void* q, const void* k, const void* v,
                             int KVH, int seqlen, int D, int dtype,
                             int causal, float scale, void* stream) {
   Args a{q, k, v, dout, lse, di, dq, nullptr, nullptr, B, H, KVH, seqlen,
-         causal != 0, scale, static_cast<cudaStream_t>(stream)};
+         causal != 0, false, scale, static_cast<cudaStream_t>(stream)};
   return dispatch(dtype, D, a, false);
 }
 
@@ -365,6 +386,29 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
                              int H, int KVH, int seqlen, int D, int dtype,
                              int causal, float scale, void* stream) {
   Args a{q, k, v, dout, lse, di, nullptr, dk, dv, B, H, KVH, seqlen,
-         causal != 0, scale, static_cast<cudaStream_t>(stream)};
+         causal != 0, false, scale, static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, D, a, true);
+}
+
+// Heads-last, causal: q/dout/dq (B, T, H, D), k/v/dk/dv (B, T, KVH, D),
+// lse/di (B*H, T) f32; otherwise as flash_bwd_dq / flash_bwd_dkv.
+extern "C" int flash_bwd_dq_bthd(const void* q, const void* k,
+                                 const void* v, const void* dout,
+                                 const float* lse, const float* di, void* dq,
+                                 int B, int H, int KVH, int seqlen, int D,
+                                 int dtype, float scale, void* stream) {
+  Args a{q, k, v, dout, lse, di, dq, nullptr, nullptr, B, H, KVH, seqlen,
+         true, true, scale, static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, D, a, false);
+}
+
+extern "C" int flash_bwd_dkv_bthd(const void* q, const void* k,
+                                  const void* v, const void* dout,
+                                  const float* lse, const float* di,
+                                  void* dk, void* dv, int B, int H, int KVH,
+                                  int seqlen, int D, int dtype, float scale,
+                                  void* stream) {
+  Args a{q, k, v, dout, lse, di, nullptr, dk, dv, B, H, KVH, seqlen,
+         true, true, scale, static_cast<cudaStream_t>(stream)};
   return dispatch(dtype, D, a, true);
 }

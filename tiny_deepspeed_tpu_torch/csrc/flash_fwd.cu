@@ -15,6 +15,19 @@
 // softmax statistic lse = m + log(l) in f32, which the training slice's
 // backward consumes.
 //
+// Heads-last (`flash_fwd_bthd`): also replaces the TPU kernel of
+// fa2_flash_attention_bthd (:596) -> _fa2_bthd_fwd (:616, pallas_call
+// :630, kernel _fwd_kernel_ah :453), causal, on q/k/v/o (B, T, H, D) with
+// lse still f32 (B*H, T).  The TPU kernel reads each batch element's
+// whole (T, H*D) panel and loops the heads inside one program (Mosaic's
+// tiling rule forbids a one-head block; VMEM bounds the panel).  Here the
+// layout is only a stride: the `BTHD` template flag addresses row r of
+// head h at ((b*T + r)*H + h)*D, rows H*D apart, and everything else is
+// the same kernel — the same operations in the same order, so its
+// results are bit for bit those of the (B, H, T, D) kernel on the
+// transposed copies.  Each row is still D contiguous elements (128 B at
+// bf16, D = 64).
+//
 // Design.  The TPU kernel keeps whole K/V panels resident in VMEM (up to
 // FA2_MAX_T); a Hopper SM has 227 KB of shared memory, so here K/V stream
 // through shared memory in BK-key tiles and any T works.  One CTA owns
@@ -44,7 +57,7 @@ constexpr int SPLIT = 4;               // threads per query row
 constexpr int THREADS = BQ * SPLIT;    // 128
 constexpr int KPT = BK / SPLIT;        // keys per thread per tile
 
-template <typename T, int D, bool CAUSAL>
+template <typename T, int D, bool CAUSAL, bool BTHD>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, T* __restrict__ o,
@@ -57,19 +70,23 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int bh = blockIdx.y;                       // b * H + h
   const int b = bh / H, h = bh % H;
-  const int kvbh = b * KVH + h / (H / KVH);
+  const size_t qoff = tds::panel_offset<BTHD>(b, h, H, seqlen, D);
+  const size_t kvoff = tds::panel_offset<BTHD>(b, h / (H / KVH), KVH,
+                                               seqlen, D);
+  const int qld = tds::row_stride<BTHD>(H, D);
+  const int kvld = tds::row_stride<BTHD>(KVH, D);
   const int q0 = blockIdx.x * BQ;
   const int tid = threadIdx.x;
   const int part = tid % SPLIT;                    // key residue mod SPLIT
   const int row = q0 + tid / SPLIT;
   const bool valid = row < seqlen;
 
-  const T* kp = k + (size_t)kvbh * seqlen * D;
-  const T* vp = v + (size_t)kvbh * seqlen * D;
+  const T* kp = k + kvoff;
+  const T* vp = v + kvoff;
 
   float qr[D], acc[D];
   {
-    const T* qp = q + ((size_t)bh * seqlen + (valid ? row : 0)) * D;
+    const T* qp = q + qoff + (size_t)(valid ? row : 0) * qld;
 #pragma unroll
     for (int d = 0; d < D; ++d) {
       qr[d] = valid ? tds::to_f(qp[d]) * scale : 0.f;
@@ -88,8 +105,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int key = k0 + kr;
       float kv = 0.f, vv = 0.f;
       if (key < kend) {
-        kv = tds::to_f(kp[(size_t)key * D + c]);
-        vv = tds::to_f(vp[(size_t)key * D + c]);
+        kv = tds::to_f(kp[(size_t)key * kvld + c]);
+        vv = tds::to_f(vp[(size_t)key * kvld + c]);
       }
       ks[kr][c] = kv;
       vs[kr][c] = vv;
@@ -147,7 +164,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
   if (!valid) return;
   const float inv = 1.f / l;
-  T* op = o + ((size_t)bh * seqlen + row) * D;
+  T* op = o + qoff + (size_t)row * qld;
   constexpr int DPT = D / SPLIT;  // columns each thread of the row stores
 #pragma unroll
   for (int d = 0; d < D; ++d) {
@@ -159,10 +176,12 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    float* lse, int B, int H, int KVH, int seqlen,
-                   bool causal, float scale, cudaStream_t stream) {
+                   bool causal, bool bthd, float scale, cudaStream_t stream) {
   dim3 grid((seqlen + BQ - 1) / BQ, B * H);
-  auto kernel = causal ? flash_fwd_kernel<T, D, true>
-                       : flash_fwd_kernel<T, D, false>;
+  // heads-last is causal only (its one entry, fa2_flash_attention_bthd)
+  auto kernel = bthd ? flash_fwd_kernel<T, D, true, true>
+                : causal ? flash_fwd_kernel<T, D, true, false>
+                         : flash_fwd_kernel<T, D, false, false>;
   kernel<<<grid, THREADS, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), lse, seqlen, H, KVH,
@@ -173,11 +192,28 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 template <typename T>
 cudaError_t by_dim(int D, const void* q, const void* k, const void* v,
                    void* o, float* lse, int B, int H, int KVH, int seqlen,
-                   bool causal, float scale, cudaStream_t stream) {
+                   bool causal, bool bthd, float scale, cudaStream_t stream) {
   switch (D) {
-    case 32: return launch<T, 32>(q, k, v, o, lse, B, H, KVH, seqlen, causal, scale, stream);
-    case 64: return launch<T, 64>(q, k, v, o, lse, B, H, KVH, seqlen, causal, scale, stream);
+    case 32: return launch<T, 32>(q, k, v, o, lse, B, H, KVH, seqlen, causal, bthd, scale, stream);
+    case 64: return launch<T, 64>(q, k, v, o, lse, B, H, KVH, seqlen, causal, bthd, scale, stream);
     default: return cudaErrorInvalidValue;
+  }
+}
+
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int B, int H, int KVH, int seqlen, int D,
+             int dtype, bool causal, bool bthd, float scale, void* stream) {
+  if (B <= 0 || seqlen <= 0 || KVH <= 0 || H % KVH) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case tds::kF32:
+      return by_dim<float>(D, q, k, v, o, lse, B, H, KVH, seqlen, causal, bthd, scale, st);
+    case tds::kBF16:
+      return by_dim<__nv_bfloat16>(D, q, k, v, o, lse, B, H, KVH, seqlen, causal, bthd, scale, st);
+    case tds::kF16:
+      return by_dim<__half>(D, q, k, v, o, lse, B, H, KVH, seqlen, causal, bthd, scale, st);
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
@@ -191,17 +227,16 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v,
                          void* o, float* lse, int B, int H, int KVH,
                          int seqlen, int D, int dtype, int causal,
                          float scale, void* stream) {
-  if (B <= 0 || seqlen <= 0 || KVH <= 0 || H % KVH) return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const bool c = causal != 0;
-  switch (dtype) {
-    case tds::kF32:
-      return by_dim<float>(D, q, k, v, o, lse, B, H, KVH, seqlen, c, scale, st);
-    case tds::kBF16:
-      return by_dim<__nv_bfloat16>(D, q, k, v, o, lse, B, H, KVH, seqlen, c, scale, st);
-    case tds::kF16:
-      return by_dim<__half>(D, q, k, v, o, lse, B, H, KVH, seqlen, c, scale, st);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return dispatch(q, k, v, o, lse, B, H, KVH, seqlen, D, dtype, causal != 0,
+                  false, scale, stream);
+}
+
+// Heads-last, causal: q/o (B, T, H, D), k/v (B, T, KVH, D), lse (B*H, T)
+// f32; otherwise as flash_fwd.
+extern "C" int flash_fwd_bthd(const void* q, const void* k, const void* v,
+                              void* o, float* lse, int B, int H, int KVH,
+                              int seqlen, int D, int dtype, float scale,
+                              void* stream) {
+  return dispatch(q, k, v, o, lse, B, H, KVH, seqlen, D, dtype, true, true,
+                  scale, stream);
 }

@@ -36,9 +36,20 @@ invariant to the rank count is later work (ROADMAP.md).
 
 Serving: the `return_kv` prefill hook, the paged decode step, the
 speculative verify span (`paged_verify`, `head_span`; also the prefix
-cache's suffix prefill) and the inference head, all without a graph.  ZeRO-3's `gather_quant` belongs to
-the distributed engines and is refused here rather than silently
-ignored.
+cache's suffix prefill) and the inference head, all without a graph.
+
+`GPTConfig(gather_quant="fp8")` (JAX :84-104, :826-900): the block
+matmul weights stack once per step as float8_e4m3 codes plus a
+per-(layer, out-channel) f32 scale, and every path that reads a block
+weight dequantizes it through `_bw` — training, prefill, decode and
+verify alike.  Under ZeRO-3 the per-layer gathers then move the 1-byte
+codes (parallel/zero3.py); on one device it is the same arithmetic.
+
+Under ZeRO-3 (`pctx.gather` set, parallel/zero3.py) `apply` takes the
+rank's shards as `params`: the engine's gather returns the non-block
+leaves whole and the block leaves stacked at rest, and each block
+gathers its own layer's weights inside its checkpoint, so the backward's
+recompute gathers them again.
 """
 
 from __future__ import annotations
@@ -132,6 +143,53 @@ GPT2_PRESETS: Dict[str, GPTConfig] = {
 Params = Dict[str, torch.Tensor]
 
 _XENT_IMPLS = ("chunked", "pallas")
+_GATHER_QUANTS = (None, "fp8")
+
+
+def fp8_scale(absmax: torch.Tensor) -> torch.Tensor:
+    """The fp8 gather's f32 scale from a channel's f32 absmax: it maps the
+    absmax onto e4m3's largest finite value, 448 (JAX :855-858)."""
+    return absmax / 448.0 + 1e-12
+
+
+def e4m3_round(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to float8_e4m3fn as XLA converts (to nearest, ties to
+    even; past the largest finite value, NaN: e4m3fn has no infinity, and
+    |x| > 464 — halfway to the next step, 480 — rounds past it), returned
+    in f32.  torch's cast saturates to +-448 there instead, so the NaN is
+    put back by hand.  Casts only: the CPU has no float8 arithmetic."""
+    r = x.to(torch.float8_e4m3fn).float()
+    return torch.where(x.float().abs() > 464.0, float("nan"), r)
+
+
+def fp8_cotangent(g: torch.Tensor, scale: torch.Tensor, cd) -> torch.Tensor:
+    """The cotangent JAX's autodiff hands a quantized weight's f32 master
+    for w = e4m3(master / scale) in cd times scale in cd (JAX :861, :900):
+    the codes' cotangent g * scale in the compute dtype, rounded to e4m3
+    (the "per-layer dW cotangent crosses the same edge in e4m3", JAX
+    :92-95), then divided by the stop-gradiented scale in f32.  `scale`
+    broadcasts against g."""
+    return e4m3_round(g * scale.to(cd)) / scale
+
+
+class Fp8WeightFn(torch.autograd.Function):
+    """A block weight of the fp8 gather, on one device: codes (e4m3, the
+    layer's slice of the stacked codes) times scale in the compute dtype.
+    `master` (the layer's f32 master) is not read; it takes the gradient,
+    `fp8_cotangent`, which autograd's default for `.to()` would not give
+    (it would round to e4m3 by saturating, and move f8 tensors through
+    ops the CPU does not have)."""
+
+    @staticmethod
+    def forward(ctx, master, codes, scale, cd):
+        ctx.save_for_backward(scale)
+        ctx.cd = cd
+        return codes.to(cd) * scale.to(cd)
+
+    @staticmethod
+    def backward(ctx, g):
+        (scale,) = ctx.saved_tensors
+        return fp8_cotangent(g, scale, ctx.cd), None, None, None
 
 
 def effective_xent_impl(cfg, multi_device: bool = False,
@@ -192,11 +250,9 @@ class GPT2Model(nn.Module):
     def __init__(self, config: GPTConfig,
                  device: Union[None, str, torch.device] = None):
         super().__init__()
-        if config.gather_quant is not None:
-            raise ValueError(
-                "GPTConfig gather_quant: not ported yet — the quantized "
-                "ZeRO-3 weight gather comes with the distributed engines "
-                "(ROADMAP.md)")
+        if config.gather_quant not in _GATHER_QUANTS:
+            raise ValueError(f"gather_quant {config.gather_quant!r} not in "
+                             f"{_GATHER_QUANTS}")
         if config.fused_xent_impl not in _XENT_IMPLS:
             raise ValueError(f"fused_xent_impl {config.fused_xent_impl!r} "
                              f"not in {_XENT_IMPLS}")
@@ -276,14 +332,49 @@ class GPT2Model(nn.Module):
                 p.copy_(r.to(p.dtype))
         return self
 
+    def _quant_eligible(self, name: str, shape) -> bool:
+        """Which stacked leaves the fp8 gather quantizes: the block matmul
+        weights (ndim >= 3 rules out layernorm w/b and every bias)."""
+        return (self.config.gather_quant == "fp8"
+                and name.endswith(".w") and len(shape) >= 3)
+
     def stacked_compute_params(self, params: Optional[Params] = None
                                ) -> Params:
         """The "h.*" tensors, keys without the "h." prefix, cast to the
         compute dtype ONCE per step (the serving engine keeps the result:
-        params are frozen while serving).  Layer l is `{k: v[l]}`."""
+        params are frozen while serving).  Layer l is `{k: v[l]}`.
+
+        With gather_quant="fp8" each eligible weight becomes e4m3 codes
+        under its name, its f32 scale (absmax over IN per layer and
+        out-channel / 448 + 1e-12, stop-gradiented) under name + "#scale"
+        as in JAX, and — the port's own key — its f32 master under
+        name + "#master", which `_bw`'s Function hands the gradient."""
         p = self.param_dict() if params is None else params
         cd = self.config.compute_dtype
-        return {k[2:]: v.to(cd) for k, v in p.items() if k.startswith("h.")}
+        out = {}
+        for k, v in p.items():
+            if not k.startswith("h."):
+                continue
+            name = k[2:]
+            if self._quant_eligible(name, v.shape):
+                vd = v.detach().float()
+                s = fp8_scale(vd.abs().amax(dim=tuple(range(1, v.dim() - 1)),
+                                            keepdim=True))
+                out[name] = (vd / s).to(torch.float8_e4m3fn)
+                out[name + "#scale"] = s
+                out[name + "#master"] = v
+            else:
+                out[name] = v.to(cd)
+        return out
+
+    def _bw(self, bp: Params, name: str):
+        """A block weight of this layer's dict, dequantized when the fp8
+        gather stacked it as (codes, scale) (JAX :867-900)."""
+        s = bp.get(name + "#scale")
+        if s is None:
+            return bp[name]
+        return Fp8WeightFn.apply(bp[name + "#master"], bp[name], s,
+                                 self.config.compute_dtype)
 
     def head_compute_params(self, params: Optional[Params] = None) -> Params:
         """The head's tensors (final norm + lm_head) in the compute dtype,
@@ -309,18 +400,21 @@ class GPT2Model(nn.Module):
 
     # -- forward ------------------------------------------------------------
 
-    def embed_tokens(self, idx: torch.Tensor) -> torch.Tensor:
+    def embed_tokens(self, idx: torch.Tensor,
+                     params: Optional[Params] = None) -> torch.Tensor:
         """wte gather (+ optional row-norm cap) -> (B, T, D) compute dtype."""
         c = self.config
         if idx.shape[1] > c.block_size:
             raise ValueError(
                 f"sequence length {idx.shape[1]} > block_size {c.block_size}")
-        tok = embedding(idx, self.get_parameter("wte"))
+        wte = self.get_parameter("wte") if params is None else params["wte"]
+        tok = embedding(idx, wte)
         if c.wte_max_norm is not None:
             tok = renorm_weight(tok, c.wte_max_norm)
         return tok.to(c.compute_dtype)
 
-    def embed(self, idx: torch.Tensor, pctx=None) -> torch.Tensor:
+    def embed(self, idx: torch.Tensor, pctx=None,
+              params: Optional[Params] = None) -> torch.Tensor:
         """Token + position embedding -> (B, T, D) in compute dtype.  On
         seq rank s of a split sequence, idx holds positions [s*T, (s+1)*T)
         and takes those rows of wpe."""
@@ -331,9 +425,9 @@ class GPT2Model(nn.Module):
             if t * pctx.seq_size > self.config.block_size:
                 raise ValueError(f"sequence length {t * pctx.seq_size} > "
                                  f"block_size {self.config.block_size}")
-        tok = self.embed_tokens(idx)
-        return tok + self.get_parameter("wpe")[off:off + t].to(
-            tok.dtype)[None]
+        tok = self.embed_tokens(idx, params)
+        wpe = self.get_parameter("wpe") if params is None else params["wpe"]
+        return tok + wpe[off:off + t].to(tok.dtype)[None]
 
     def _block(self, x, bp: Params, return_kv: bool = False,
                dkey: Optional[int] = None, pctx=None):
@@ -341,11 +435,15 @@ class GPT2Model(nn.Module):
         compute-dtype params.  return_kv also returns this layer's (k, v)
         head tensors — the prefill hook.  dkey, this layer's dropout key,
         drops after attn.proj (site 0) and after mlp.proj (site 1), JAX
-        :370-379.  pctx routes attention (`sharded_attention`)."""
+        :370-379.  pctx routes attention (`sharded_attention`); under
+        ZeRO-3 its gather first fetches this layer's weights (bp holds
+        the rank's shards)."""
         c = self.config
         b, t, d = x.shape
+        if pctx is not None and pctx.gather is not None:
+            bp = pctx.gather.layer(bp)
         h = layernorm(x, bp["ln_1.w"], bp["ln_1.b"])
-        qkv = linear(h, bp["attn.qkv.w"], bp.get("attn.qkv.b"))
+        qkv = linear(h, self._bw(bp, "attn.qkv.w"), bp.get("attn.qkv.b"))
         q, k, v = qkv.split(d, dim=-1)
 
         def heads(z):  # (B, T, D) -> (B, H, T, Dh)
@@ -354,7 +452,7 @@ class GPT2Model(nn.Module):
         kh, vh = heads(k), heads(v)
         y = sharded_attention(heads(q), kh, vh, c.attn_impl, pctx)
         y = y.transpose(1, 2).reshape(b, t, d)
-        y = linear(y, bp["attn.proj.w"], bp.get("attn.proj.b"))
+        y = linear(y, self._bw(bp, "attn.proj.w"), bp.get("attn.proj.b"))
         if dkey is not None:
             y = _dropout(y, prng.fold_in(dkey, 0), c.dropout)
         x = x + y
@@ -366,9 +464,9 @@ class GPT2Model(nn.Module):
 
     def _mlp(self, x, bp: Params):
         h = layernorm(x, bp["ln_2.w"], bp["ln_2.b"])
-        h = linear(h, bp["mlp.fc.w"], bp.get("mlp.fc.b"))
+        h = linear(h, self._bw(bp, "mlp.fc.w"), bp.get("mlp.fc.b"))
         h = F.gelu(h, approximate="tanh")  # jax.nn.gelu(approximate=True)
-        return linear(h, bp["mlp.proj.w"], bp.get("mlp.proj.b"))
+        return linear(h, self._bw(bp, "mlp.proj.w"), bp.get("mlp.proj.b"))
 
     def final_norm(self, x, params: Optional[Params] = None):
         cd = self.config.compute_dtype
@@ -452,7 +550,7 @@ class GPT2Model(nn.Module):
     def apply(self, idx: torch.Tensor,
               targets: Optional[torch.Tensor] = None,
               position: Optional[int] = None, rng: Optional[int] = None,
-              pctx=None):
+              pctx=None, params: Optional[Params] = None):
         """Full forward of (B, T) tokens.  With `targets` (B, T): the mean
         loss, differentiable (JAX `apply(params, idx, targets)`).
         Without: (B, 1, V) f32 logits at `position` (default the last),
@@ -460,7 +558,11 @@ class GPT2Model(nn.Module):
         turns on dropout when config.dropout > 0: the embedding's, then
         one key per layer (JAX `_dropout_setup`, :902-912).  `pctx`, the
         rank's ParallelContext (training only): (B, T) is then this rank's
-        block of the global batch and the loss its own tokens' mean."""
+        block of the global batch and the loss its own tokens' mean.
+        `params` (training only; default the model's own): the flat dict
+        the forward reads — under ZeRO-3 (`pctx.gather`) the rank's
+        shards, which the gather turns into whole non-block leaves and
+        per-layer block weights."""
         if pctx is not None and targets is None:
             raise ValueError("apply(pctx=...) is the training forward: "
                              "pass targets")
@@ -471,7 +573,13 @@ class GPT2Model(nn.Module):
                 for l in range(self.config.n_layer):
                     x = self._block(x, self._layer(stacked, l))
                 return self.head(x, position)
-        x = self.embed(idx, pctx)
+        if params is None:
+            params = self.param_dict()
+        if pctx is not None and pctx.gather is not None:
+            params, stacked = pctx.gather.prepare(params)
+        else:
+            stacked = self.stacked_compute_params(params)
+        x = self.embed(idx, pctx, params)
         c = self.config
         dkeys = [None] * c.n_layer
         if rng is not None and c.dropout:
@@ -483,10 +591,9 @@ class GPT2Model(nn.Module):
             x = _dropout(x, keys[0], c.dropout)
             dkeys = keys[1:]
         block = self._block_fn()
-        for bp, dkey in zip(self._layers(self.stacked_compute_params()),
-                            dkeys):
+        for bp, dkey in zip(self._layers(stacked), dkeys):
             x = block(x, bp, dkey, pctx)
-        return self.head(x, targets=targets, pctx=pctx)
+        return self.head(x, params=params, targets=targets, pctx=pctx)
 
     # -- paged KV-cache decode (the serving tier) ---------------------------
 
@@ -520,7 +627,7 @@ class GPT2Model(nn.Module):
         c = self.config
         s = x.shape[0]
         h = layernorm(x, bp["ln_1.w"], bp["ln_1.b"])
-        qkv = linear(h, bp["attn.qkv.w"], bp.get("attn.qkv.b"))
+        qkv = linear(h, self._bw(bp, "attn.qkv.w"), bp.get("attn.qkv.b"))
         q, k, v = qkv.split(c.n_embd, dim=-1)
 
         def heads1(z):  # (S, 1, D) -> (S, H, 1, Dh)
@@ -529,7 +636,8 @@ class GPT2Model(nn.Module):
         paged_append(view, heads1(k)[:, :, 0], heads1(v)[:, :, 0], l, page)
         y = self._paged_attention(heads1(q), view, l, page)
         y = y.transpose(1, 2).reshape(s, 1, c.n_embd)
-        return x + linear(y, bp["attn.proj.w"], bp.get("attn.proj.b"))
+        return x + linear(y, self._bw(bp, "attn.proj.w"),
+                          bp.get("attn.proj.b"))
 
     @torch.no_grad()
     def paged_decode(self, stacked: Params, x, view, page):
@@ -548,7 +656,7 @@ class GPT2Model(nn.Module):
         c = self.config
         s, k1, _ = x.shape
         h = layernorm(x, bp["ln_1.w"], bp["ln_1.b"])
-        qkv = linear(h, bp["attn.qkv.w"], bp.get("attn.qkv.b"))
+        qkv = linear(h, self._bw(bp, "attn.qkv.w"), bp.get("attn.qkv.b"))
         q, k, v = qkv.split(c.n_embd, dim=-1)
 
         def heads(z):  # (S, K1, D) -> (S, H, K1, Dh)
@@ -557,7 +665,7 @@ class GPT2Model(nn.Module):
         kh, vh = heads(k), heads(v)
         y = self._paged_attention(heads(q), view, l, page, span_kv=(kh, vh))
         y = y.transpose(1, 2).reshape(s, k1, c.n_embd)
-        x = x + linear(y, bp["attn.proj.w"], bp.get("attn.proj.b"))
+        x = x + linear(y, self._bw(bp, "attn.proj.w"), bp.get("attn.proj.b"))
         return x, (kh, vh)
 
     @torch.no_grad()

@@ -15,11 +15,24 @@ Replaces the TPU kernels of `tiny_deepspeed_tpu/ops/flash_fa2.py`:
   and `fa2_chunk_dkv` (:330, :341, :350): the same kernels with a
   `causal` flag.  The ring's diagonal chunk is causal; every other chunk
   it computes lies wholly behind the local queries and runs unmasked.
-  The backward chunks take the ring's GLOBAL (merged) lse and di.
+  The backward chunks take the ring's GLOBAL (merged) lse and di;
+- the heads-last entry `fa2_flash_attention_bthd` (:596) on (B, T, H, Dh)
+  tensors: its forward (`_fa2_bthd_fwd` :616, `pallas_call` :630) and
+  backward (`_fa2_bthd_bwd` :649, `pallas_call`s :668 dk/dv and :685 dq)
+  are the same kernels again with a layout flag (`flash_fwd_bthd`,
+  `flash_bwd_dq_bthd`, `flash_bwd_dkv_bthd`): rows H*Dh apart instead of
+  Dh, same operations in the same order, so bit for bit the
+  (B, H, T, Dh) kernels' results on transposed copies.  Causal and MHA
+  only, as the JAX entry.  No model path calls it (the JAX model
+  transposes and calls `fa2_flash_attention`); its one caller is the A/B
+  (`python -m tiny_deepspeed_tpu_torch.fa2_bthd_ab`).  The TPU entry's
+  transpose fallback past `_AH_MAX_T_HD` exists for VMEM only and has no
+  counterpart: one path serves every size.
 
 Launch counts are per kernel variant: a causal launch, whichever entry
 made it, adds to `fa2_flash_attention_fwd` / `_dq` / `_dkv`, an unmasked
-one to `fa2_chunk_fwd` / `_dq` / `_dkv`.  The counts are kept under a
+one to `fa2_chunk_fwd` / `_dq` / `_dkv`, a heads-last one to
+`fa2_flash_attention_bthd_fwd` / `_dq` / `_dkv`.  The counts are kept under a
 lock, since ring attention's lockstep test harness launches from several
 threads at once.
 
@@ -120,6 +133,29 @@ def _fa2_dkv_plain(q, k, v, do, lse, di, causal=True):
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def _bhtd(*ts):
+    """(B, T, H, Dh) tensors -> (B, H, T, Dh) views (and back)."""
+    return [t.transpose(1, 2) for t in ts]
+
+
+def _fa2_bthd_fwd_plain(q, k, v):
+    """Heads-last causal forward, plain: transpose, `_fa2_fwd_plain`,
+    transpose o back.  Returns (o (B, T, H, Dh), lse (B, H, T) f32)."""
+    o, lse = _fa2_fwd_plain(*_bhtd(q, k, v))
+    return o.transpose(1, 2), lse
+
+
+def _fa2_bthd_dq_plain(q, k, v, do, lse, di):
+    """Heads-last dq, plain: `_fa2_dq_plain` on the transposes."""
+    return _fa2_dq_plain(*_bhtd(q, k, v, do), lse, di).transpose(1, 2)
+
+
+def _fa2_bthd_dkv_plain(q, k, v, do, lse, di):
+    """Heads-last (dk, dv), plain: `_fa2_dkv_plain` on the transposes."""
+    dk, dv = _fa2_dkv_plain(*_bhtd(q, k, v, do), lse, di)
+    return dk.transpose(1, 2), dv.transpose(1, 2)
+
+
 # -- the CUDA kernels --------------------------------------------------------
 
 _FWD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_float,
@@ -128,13 +164,19 @@ _DQ_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                          ctypes.c_void_p]
 _DKV_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_float,
                                                           ctypes.c_void_p]
+_FWD_BTHD_ARGS = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_void_p]
+_DQ_BTHD_ARGS = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_void_p]
+_DKV_BTHD_ARGS = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [
+    ctypes.c_float, ctypes.c_void_p]
 _COUNT_LOCK = threading.Lock()
 
 
-def _count(causal_entry, chunk_entry, causal):
-    """One launch of the causal or the unmasked variant of a kernel."""
+def _count(entry):
+    """One launch of the kernel variant whose wrapper is `entry`."""
     with _COUNT_LOCK:
-        (causal_entry if causal else chunk_entry).launches += 1
+        entry.launches += 1
 
 
 def _check_qkv(what, q, k, v):
@@ -181,7 +223,7 @@ def _fa2_fwd_cuda(q, k, v, causal=True):
              lse.data_ptr(), b, h, kvh, t, dh, _build.DTYPE_CODES[q.dtype],
              int(causal), 1.0 / math.sqrt(dh), _build.stream_ptr(q))
     _build.check(err, "flash_fwd")
-    _count(fa2_flash_attention_fwd, fa2_chunk_fwd, causal)
+    _count(fa2_flash_attention_fwd if causal else fa2_chunk_fwd)
     return o, lse
 
 
@@ -202,7 +244,7 @@ def _fa2_dq_cuda(q, k, v, do, lse, di, causal=True):
              _build.DTYPE_CODES[q.dtype], int(causal), 1.0 / math.sqrt(dh),
              _build.stream_ptr(q))
     _build.check(err, "flash_bwd_dq")
-    _count(fa2_flash_attention_dq, fa2_chunk_dq, causal)
+    _count(fa2_flash_attention_dq if causal else fa2_chunk_dq)
     return dq
 
 
@@ -218,7 +260,79 @@ def _fa2_dkv_cuda(q, k, v, do, lse, di, causal=True):
              b, h, kvh, t, dh, _build.DTYPE_CODES[q.dtype], int(causal),
              1.0 / math.sqrt(dh), _build.stream_ptr(q))
     _build.check(err, "flash_bwd_dkv")
-    _count(fa2_flash_attention_dkv, fa2_chunk_dkv, causal)
+    _count(fa2_flash_attention_dkv if causal else fa2_chunk_dkv)
+    return dk, dv
+
+
+def _check_mha(what, q, k, v):
+    """Heads-last q/k/v must share one (B, T, H, Dh) shape: MHA only, as
+    the JAX entry (its kernels index k/v with q's head)."""
+    require(q.dim() == 4 and k.shape == q.shape and v.shape == q.shape,
+            f"{what}: q/k/v (B, T, H, Dh) of one shape (MHA), got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+
+
+def _check_bthd(what, q, k, v, do=None, lse=None, di=None):
+    """Validate heads-last operands for a kernel; returns (b, h, t, dh)."""
+    _check_mha(what, q, k, v)
+    b, t, h, dh = q.shape
+    _check_qkv(what, *_bhtd(q, k, v))
+    if do is not None:
+        require(do.shape == q.shape and do.dtype == q.dtype,
+                f"{what}: do {tuple(do.shape)} {do.dtype} must match q")
+        for name, s in (("lse", lse), ("di", di)):
+            require(tuple(s.shape) == (b, h, t)
+                    and s.dtype == torch.float32,
+                    f"{what}: {name} must be f32 (B, H, T) = {(b, h, t)}, "
+                    f"got {tuple(s.shape)} {s.dtype}")
+    return b, h, t, dh
+
+
+def _fa2_bthd_fwd_cuda(q, k, v):
+    b, h, t, dh = _check_bthd("flash_fwd_bthd", q, k, v)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    o = torch.empty_like(q)
+    lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
+    if t == 0 or b == 0:
+        return o, lse
+    fn = _build.entry("flash_fwd", "flash_fwd_bthd", _FWD_BTHD_ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             lse.data_ptr(), b, h, h, t, dh, _build.DTYPE_CODES[q.dtype],
+             1.0 / math.sqrt(dh), _build.stream_ptr(q))
+    _build.check(err, "flash_fwd_bthd")
+    _count(fa2_flash_attention_bthd_fwd)
+    return o, lse
+
+
+def _fa2_bthd_dq_cuda(q, k, v, do, lse, di):
+    b, h, t, dh = _check_bthd("flash_bwd_dq_bthd", q, k, v, do, lse, di)
+    q, k, v, do, lse, di = _bwd_operands(q, k, v, do, lse, di)
+    dq = torch.empty_like(q)
+    if t == 0 or b == 0:
+        return dq
+    fn = _build.entry("flash_bwd", "flash_bwd_dq_bthd", _DQ_BTHD_ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), di.data_ptr(), dq.data_ptr(), b, h, h, t, dh,
+             _build.DTYPE_CODES[q.dtype], 1.0 / math.sqrt(dh),
+             _build.stream_ptr(q))
+    _build.check(err, "flash_bwd_dq_bthd")
+    _count(fa2_flash_attention_bthd_dq)
+    return dq
+
+
+def _fa2_bthd_dkv_cuda(q, k, v, do, lse, di):
+    b, h, t, dh = _check_bthd("flash_bwd_dkv_bthd", q, k, v, do, lse, di)
+    q, k, v, do, lse, di = _bwd_operands(q, k, v, do, lse, di)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if t == 0 or b == 0:
+        return dk, dv
+    fn = _build.entry("flash_bwd", "flash_bwd_dkv_bthd", _DKV_BTHD_ARGS)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+             lse.data_ptr(), di.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+             b, h, h, t, dh, _build.DTYPE_CODES[q.dtype],
+             1.0 / math.sqrt(dh), _build.stream_ptr(q))
+    _build.check(err, "flash_bwd_dkv_bthd")
+    _count(fa2_flash_attention_bthd_dkv)
     return dk, dv
 
 
@@ -281,7 +395,42 @@ def fa2_chunk_dkv(q, k, v, do, lse, di, *, causal: bool):
     return _fa2_dkv_plain(q, k, v, do, lse, di, causal)
 
 
-# kernel launches (CUDA path only): causal variants, unmasked variants
+def fa2_flash_attention_bthd_fwd(q, k, v):
+    """Causal FA2 forward on heads-last (B, T, H, Dh) q/k/v (MHA) -> (o
+    (B, T, H, Dh), lse (B, H, T) f32).  CUDA tensors launch
+    csrc/flash_fwd.cu's `flash_fwd_bthd` (or raise); CPU tensors take
+    `_fa2_bthd_fwd_plain`."""
+    if on_cuda(q, k, v):
+        return _fa2_bthd_fwd_cuda(q, k, v)
+    _check_mha("flash_fwd_bthd", q, k, v)
+    return _fa2_bthd_fwd_plain(q, k, v)
+
+
+def fa2_flash_attention_bthd_dq(q, k, v, do, lse, di):
+    """Heads-last dq from the forward's lse and di (f32 (B, H, T)).  CUDA
+    tensors launch `flash_bwd_dq_bthd` (or raise); CPU tensors take
+    `_fa2_bthd_dq_plain`."""
+    if on_cuda(q, k, v, do, lse, di):
+        return _fa2_bthd_dq_cuda(q, k, v, do, lse, di)
+    _check_mha("flash_bwd_dq_bthd", q, k, v)
+    return _fa2_bthd_dq_plain(q, k, v, do, lse, di)
+
+
+def fa2_flash_attention_bthd_dkv(q, k, v, do, lse, di):
+    """Heads-last (dk, dv), as `fa2_flash_attention_bthd_dq`.  CUDA
+    tensors launch `flash_bwd_dkv_bthd` (or raise); CPU tensors take
+    `_fa2_bthd_dkv_plain`."""
+    if on_cuda(q, k, v, do, lse, di):
+        return _fa2_bthd_dkv_cuda(q, k, v, do, lse, di)
+    _check_mha("flash_bwd_dkv_bthd", q, k, v)
+    return _fa2_bthd_dkv_plain(q, k, v, do, lse, di)
+
+
+# kernel launches (CUDA path only): causal variants, unmasked variants,
+# heads-last variants
+fa2_flash_attention_bthd_fwd.launches = 0
+fa2_flash_attention_bthd_dq.launches = 0
+fa2_flash_attention_bthd_dkv.launches = 0
 fa2_flash_attention_fwd.launches = 0
 fa2_flash_attention_dq.launches = 0
 fa2_flash_attention_dkv.launches = 0
@@ -310,3 +459,38 @@ class FA2Fn(torch.autograd.Function):
         dq = fa2_flash_attention_dq(q, k, v, do, lse, di)
         dk, dv = fa2_flash_attention_dkv(q, k, v, do, lse, di)
         return dq, dk, dv
+
+
+class FA2BthdFn(torch.autograd.Function):
+    """Causal attention on heads-last (B, T, H, Dh) tensors with the JAX
+    entry's vjp (`_fa2_bthd_fwd` / `_fa2_bthd_bwd`, :616-699): the forward
+    saves (q, k, v, o, lse); the backward computes di = rowsum(do * o) in
+    f32 as a tensor expression, (B, T, H) -> (B, H, T) (JAX :664-665),
+    then the dk/dv and dq passes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        o, lse = fa2_flash_attention_bthd_fwd(q, k, v)
+        ctx.save_for_backward(q, k, v, o, lse)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        do = do.contiguous()
+        di = (do.to(lse.dtype) * o.to(lse.dtype)).sum(dim=-1).transpose(
+            1, 2).contiguous()
+        dk, dv = fa2_flash_attention_bthd_dkv(q, k, v, do, lse, di)
+        dq = fa2_flash_attention_bthd_dq(q, k, v, do, lse, di)
+        return dq, dk, dv
+
+
+def fa2_flash_attention_bthd(q, k, v, block_q: int = 512,
+                             block_k: int = 512):
+    """Causal FA2 on heads-last (B, T, H, Dh) q/k/v (MHA), differentiable
+    — the JAX entry's signature (:596).  `block_q` / `block_k` are the
+    TPU kernel's VMEM tiling hints; the Hopper kernels tile with their own
+    constants (csrc/flash_fwd.cu, csrc/flash_bwd.cu), so they are
+    accepted and ignored.  Returns o (B, T, H, Dh)."""
+    del block_q, block_k
+    return FA2BthdFn.apply(q, k, v)

@@ -2,8 +2,8 @@
 # SPDX-License-Identifier: Apache-2.0
 
 """Training engines and their process groups (counterpart of
-`tiny_deepspeed_tpu/parallel/`): single device, DDP, ZeRO-1 and ZeRO-2,
-with ring attention over a sequence split."""
+`tiny_deepspeed_tpu/parallel/`): single device, DDP, ZeRO-1, ZeRO-2 and
+ZeRO-3, with ring attention over a sequence split."""
 
 from .engine import (DDP, SingleDevice, TrainState, Zero1, Zero2, Zero3,
                      ZeroEngine)

@@ -1,7 +1,7 @@
 # Copyright 2026 tiny-deepspeed-tpu authors
 # SPDX-License-Identifier: Apache-2.0
 
-"""Training engines: single device, DDP, ZeRO-1 and ZeRO-2.
+"""Training engines: single device, DDP, ZeRO-1, ZeRO-2 and ZeRO-3.
 
 Counterpart of `tiny_deepspeed_tpu/parallel/engine.py` (`ZeroEngine` and
 its stage subclasses, :199-1530), the plain lowering only.  One engine
@@ -55,17 +55,22 @@ of a `torch.distributed` group laid out as the JAX mesh (data, seq)
   leaf and its optimizer state, and all-gathers the params.  Zero2
   reduce-scatters into the shard instead, so the full gradient does not
   outlive the collective, then updates and all-gathers the same way.
+  Zero3 keeps the params sharded at rest too (parallel/zero3.py): the
+  forward gathers them — the non-block leaves once per step, each
+  layer's block weights inside its checkpoint — the backward
+  reduce-scatters their gradients straight into the shards, and the
+  update writes the shards with no all-gather.
   With `accum_steps` > 1, Zero1 and DDP sum the microbatches locally and
-  reduce once; Zero2 reduce-scatters every microbatch into an f32 shard
-  accumulator (JAX :1276-1293);
+  reduce once; Zero2 and Zero3 reduce-scatter every microbatch into an
+  f32 shard accumulator (JAX :1276-1293);
 - the shard layout is flat, padded and per leaf (DeepSpeed's): leaf of
   n elements, data size D, shard size S = ceil(n / D); data rank d owns
   elements [d*S, min((d+1)*S, n)).  JAX shards each leaf along an axis
   (`_leaf_spec`, :106-150); AdamW and SGD are elementwise, so the numbers
   are the same.  `gather_opt_state` returns whole leaves to compare;
 - `grad_clip`: the global norm's square is the sum of the leaves'
-  squares — under Zero2 the shards', all-reduced with SUM over the data
-  group;
+  squares — under Zero2 and Zero3 the shards', all-reduced with SUM over
+  the data group;
 - `loss_scale="dynamic"`: the finite flag is all-reduced with MIN over
   the world, so every rank skips together;
 - init: every rank seeds alike, and rank 0's params are broadcast once
@@ -79,9 +84,9 @@ of a `torch.distributed` group laid out as the JAX mesh (data, seq)
 params ARE the model's parameters.  One difference from the JAX engine:
 the dynamic scaler's finiteness flag is read on the host (one sync per
 step) and the skip is a host branch, where the JAX engine selects on
-device.  ZeRO-3 and the JAX engine's telemetry, offload, grad-comm
-codecs, buckets, prefetch, hpZ and tensor, expert and pipeline
-parallelism are refused with a ValueError (ROADMAP.md).
+device.  The JAX engine's telemetry, offload, grad-comm codecs,
+buckets, ZeRO-3's prefetch, gather groups and hpZ, and tensor, expert
+and pipeline parallelism are refused with a ValueError (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -98,6 +103,7 @@ from ..data.loader import rank_block
 from ..ops.dispatch import resolve_device
 from .mesh import make_context
 from .partition import partition_tensors
+from .zero3 import Zero3Gather, gather_flat, scatter_flat
 
 
 @dataclasses.dataclass
@@ -115,8 +121,8 @@ class TrainState:
 # knobs of the JAX engine the port refuses, with their off values
 _REFUSED = {"telemetry": None, "offload_opt_state": False,
             "grad_comm": "fp32", "grad_buckets": 1, "gather_prefetch": 0,
-            "hpz": False, "tensor_parallel": 1, "expert_parallel": 1,
-            "pipeline_parallel": 1}
+            "gather_groups": None, "hpz": False, "tensor_parallel": 1,
+            "expert_parallel": 1, "pipeline_parallel": 1}
 _AVG, _SUM, _MIN = dist.ReduceOp.AVG, dist.ReduceOp.SUM, dist.ReduceOp.MIN
 
 
@@ -143,13 +149,10 @@ class ZeroEngine:
                  loss_scale=None, loss_scale_growth_interval: int = 2000,
                  seq_parallel: int = 1, seq_impl: str = "ring",
                  pctx=None, **knobs):
-        if self.stage >= 3:
-            raise ValueError(
-                "ZeRO-3 (params sharded at rest, gathered per layer) is not "
-                "ported yet: a later slice of the port (ROADMAP.md)")
         _refuse(type(self).__name__, _REFUSED, knobs,
-                "telemetry, offload, grad-comm codecs and buckets, "
-                "prefetch, hpZ and tensor/expert/pipeline parallelism are")
+                "telemetry, offload, grad-comm codecs and buckets, ZeRO-3's "
+                "prefetch, gather groups and hpZ (slice 7) and "
+                "tensor/expert/pipeline parallelism are")
         self._setup(model, optimizer, device, accum_steps, grad_clip,
                     loss_scale, loss_scale_growth_interval)
         self.pctx = pctx or make_context(seq_parallel, seq_impl)
@@ -215,7 +218,11 @@ class ZeroEngine:
                 for p in params.values():
                     dist.broadcast(p.data, src=0,
                                    group=self.pctx.world_group)
-        if self.stage >= 1:
+        if self.stage >= 3:
+            params = self._shard_model(params)
+            opt_state = self.optimizer.init(
+                {n: p.detach() for n, p in params.items()})
+        elif self.stage >= 1:
             opt_state = self.optimizer.init(
                 {n: self._own(n, p.detach()) for n, p in params.items()})
         else:
@@ -234,15 +241,8 @@ class ZeroEngine:
 
     def _gather(self, name: str, shard: torch.Tensor) -> torch.Tensor:
         """Every data rank's shard of `name` -> the whole flat leaf."""
-        n, s, lo, hi = self._shards[name]
-        buf = shard
-        if hi - lo != s:  # the padded tail shard (or an empty one)
-            buf = shard.new_zeros(s)
-            buf[:hi - lo] = shard
-        out = shard.new_empty(s * self.n_shard)
-        dist.all_gather_into_tensor(out, buf.contiguous(),
-                                    group=self.pctx.data_group)
-        return out[:n]
+        n, s, _, _ = self._shards[name]
+        return gather_flat(shard, n, s, self.pctx.data_group, self.n_shard)
 
     def _local(self, a) -> torch.Tensor:
         """The rank's block of a global (B, T) or (accum, B, T) batch, as
@@ -253,7 +253,8 @@ class ZeroEngine:
     # -- the train step ----------------------------------------------------
 
     def _loss_and_grads(self, params, idx, targets, scale, rng):
-        loss = self.model.apply(idx, targets, rng=rng, pctx=self.pctx)
+        loss = self.model.apply(idx, targets, rng=rng, pctx=self.pctx,
+                                params=params)
         if scale is not None:
             loss = loss * scale
         # the rank's share of the global mean (see the module docstring)
@@ -265,9 +266,9 @@ class ZeroEngine:
         """The stage's gradient collective over the ranks' shares: SUM
         over the seq group, then over the data group — all-reduced
         (stages 0-1) or reduce-scattered into the rank's flat shard
-        (stage 2)."""
+        (stage 2).  Stage 3's backward already reduce-scattered them."""
         pctx = self.pctx
-        if pctx is None:
+        if pctx is None or self.stage >= 3:
             return grads
         out = {}
         for n, g in grads.items():
@@ -279,14 +280,8 @@ class ZeroEngine:
                 out[n] = g
                 continue
             numel, s, lo, hi = self._shards[n]
-            flat = g.reshape(-1)
-            if numel != s * self.n_shard:
-                flat = torch.nn.functional.pad(flat,
-                                               (0, s * self.n_shard - numel))
-            shard = g.new_empty(s)
-            dist.reduce_scatter_tensor(shard, flat, op=_SUM,
-                                       group=pctx.data_group)
-            out[n] = shard[:hi - lo]
+            out[n] = scatter_flat(g, numel, s, hi - lo, pctx.data_group,
+                                  self.n_shard)
         return out
 
     def step(self, state: TrainState, batch):
@@ -379,16 +374,21 @@ class ZeroEngine:
     def _update_shards(self, params, grads, opt_state):
         """ZeRO-1/2: each rank updates its flat shard of every leaf and
         the shard's optimizer state (the optimizer's per-leaf
-        `update_one`, in place), then all-gathers the leaf."""
+        `update_one`, in place), then all-gathers the leaf.  ZeRO-3: the
+        params ARE the shards; nothing is gathered."""
         step = opt_state["step"] + 1
         for n, p in params.items():
-            flat = p.detach().reshape(-1)
-            own = self._own(n, flat)
+            if self.stage >= 3:
+                own, flat = p.detach(), None
+            else:
+                flat = p.detach().reshape(-1)
+                own = self._own(n, flat)
             g = grads[n] if self.stage >= 2 else self._own(n, grads[n])
             if own.numel():
                 self.optimizer.update_one(n, own, g,
                                           opt_state["state"][n], step)
-            flat.copy_(self._gather(n, own))
+            if flat is not None:
+                flat.copy_(self._gather(n, own))
         opt_state["step"] = step
 
     @torch.no_grad()
@@ -396,7 +396,8 @@ class ZeroEngine:
         """Mean loss on one global (B, T) batch — forward only, no state
         change."""
         idx, targets = (self._local(a) for a in batch)
-        loss = self.model.apply(idx, targets, pctx=self.pctx)
+        loss = self.model.apply(idx, targets, pctx=self.pctx,
+                                params=state.params)
         if self.pctx is not None:
             dist.all_reduce(loss, op=_AVG, group=self.pctx.world_group)
         return loss
@@ -406,6 +407,16 @@ class ZeroEngine:
     def gather_params(self, state: TrainState) -> Dict[str, torch.Tensor]:
         """A copy of the whole params (replicated in stages 0-2)."""
         return {n: p.detach().clone() for n, p in state.params.items()}
+
+    @torch.no_grad()
+    def load_params(self, state: TrainState,
+                    params: Dict[str, torch.Tensor]) -> TrainState:
+        """Overwrite the state's params with whole leaves (a checkpoint's,
+        or the JAX package's through `convert.params_from_numpy`), in
+        place; ZeRO-3 keeps each rank's shards of them."""
+        for n, p in state.params.items():
+            p.copy_(params[n])
+        return state
 
     @torch.no_grad()
     def gather_opt_state(self, state: TrainState) -> Dict[str, Any]:
@@ -430,8 +441,9 @@ class ZeroEngine:
             extras += f", loss_scale={self.loss_scale}"
         return (f"{type(self).__name__}(stage={self.stage}, "
                 f"devices={self.n_dev}, accum={self.accum_steps}, params "
-                f"sharded=False, grads sharded={self.stage >= 2}, opt state "
-                f"sharded={self.stage >= 1}{extras})")
+                f"sharded={self.stage >= 3}, grads sharded="
+                f"{self.stage >= 2}, opt state sharded={self.stage >= 1}"
+                f"{extras})")
 
 
 class SingleDevice(ZeroEngine):
@@ -474,5 +486,45 @@ class Zero2(ZeroEngine):
 
 
 class Zero3(ZeroEngine):
-    """+ params sharded at rest: not ported yet, raises (ROADMAP.md)."""
+    """+ params sharded at rest, gathered per layer on demand
+    (parallel/zero3.py): the state's params are the rank's f32 shards —
+    a flat shard per non-block leaf, an (L, own) per-layer shard per
+    block leaf — and the model's own parameters are released at init.
+    `gather_params` and `gather_opt_state` return whole leaves."""
     stage = 3
+
+    def __init__(self, model, optimizer, *args, **kw):
+        super().__init__(model, optimizer, *args, **kw)
+        self._z3 = Zero3Gather(model, self.pctx)
+        self.pctx = dataclasses.replace(self.pctx, gather=self._z3)
+
+    @torch.no_grad()
+    def _shard_model(self, params):
+        """The rank's shards of the freshly initialised whole params, as
+        new leaves that require grad; the model's whole parameters are
+        released (a forward takes the shards: `apply(params=...)`)."""
+        shards = {n: self._z3.shard(n, p.detach()).clone().requires_grad_()
+                  for n, p in params.items()}
+        for p in params.values():
+            p.data = p.data.new_empty(0)
+        return shards
+
+    def gather_params(self, state: TrainState) -> Dict[str, torch.Tensor]:
+        """The whole params, all-gathered from the data ranks' shards."""
+        return {n: self._z3.whole(n, p.detach())
+                for n, p in state.params.items()}
+
+    @torch.no_grad()
+    def gather_opt_state(self, state: TrainState) -> Dict[str, Any]:
+        opt = state.opt_state
+        return {"step": opt["step"],
+                "state": {n: {k: self._z3.whole(n, t)
+                              for k, t in slots.items()}
+                          for n, slots in opt["state"].items()}}
+
+    @torch.no_grad()
+    def load_params(self, state: TrainState,
+                    params: Dict[str, torch.Tensor]) -> TrainState:
+        for n, p in state.params.items():
+            p.copy_(self._z3.shard(n, params[n].to(p)))
+        return state

@@ -97,7 +97,9 @@ class ParallelContext:
 
     `data_group` runs the ZeRO stage's collective, `seq_group` the
     ring (None when seq_size == 1), `world_group` the loss and the
-    init broadcast.  `seq_comm` is the seq group's `GroupRing`."""
+    init broadcast.  `seq_comm` is the seq group's `GroupRing`.
+    `gather` is ZeRO-3's weight gather (parallel/zero3.py), which the
+    model's forward calls; None under the other engines."""
 
     world: int
     rank: int
@@ -109,6 +111,7 @@ class ParallelContext:
     seq_group: Any = None
     world_group: Any = None
     seq_comm: Any = None
+    gather: Any = None
 
     @property
     def is_multi_device(self) -> bool:

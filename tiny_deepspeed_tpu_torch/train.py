@@ -1,21 +1,25 @@
 # Copyright 2026 tiny-deepspeed-tpu authors
 # SPDX-License-Identifier: Apache-2.0
 
-"""GPT-2 training, the port's entry point: one device, DDP, ZeRO-1/2.
+"""GPT-2 training, the port's entry point: one device, DDP, ZeRO-1/2/3.
 
     python -m tiny_deepspeed_tpu_torch.train [--model gpt2-124m] [--iters N]
     python -m tiny_deepspeed_tpu_torch.train --device cpu --model tiny
     torchrun --standalone --nproc-per-node N -m tiny_deepspeed_tpu_torch.train
         --engine zero2 [--seq-parallel SP] [--device cpu]    (one line)
+    torchrun ... -m tiny_deepspeed_tpu_torch.train --engine zero3
+        --model gpt2-1.5b [--gather-quant fp8]                (one line)
 
-Counterpart of `examples/{single_device,ddp,zero1,zero2}/train.py` with
-the harness of `examples/common.py` (`parse_args` / `run`): the same
+Counterpart of `examples/{single_device,ddp,zero1,zero2,zero3}/train.py`
+with the harness of `examples/common.py` (`parse_args` / `run`): the same
 flags, with the same names and defaults, for what the port supports
-(`--dropout`, `--fused-xent`, `--seq-parallel` among them), plus
-`--device` (default the card) and `--engine` (default `single`).  Seeded
-init, the JAX package's token stream (synthetic unless `--data`),
-`AdamW(lr, weight_decay, decay_exclude)` with an optional schedule, the
-engine with optional grad clipping and loss scaling.  A distributed
+(`--dropout`, `--fused-xent`, `--seq-parallel`, `--gather-quant` among
+them), plus `--device` (default the card) and `--engine` (default
+`single`; `examples/zero3/train.py` defaults to gpt2-1.5b, here `--model`
+says so).  Seeded init, the JAX package's token stream (synthetic
+unless `--data`), `AdamW(lr, weight_decay, decay_exclude)` with an
+optional schedule, the engine with optional grad clipping and loss
+scaling.  A distributed
 engine runs one process per rank under torchrun (NCCL on the card, one
 card per rank; gloo with `--device cpu`); without torchrun it is a world
 of one.  Every rank draws the same global batch of `--batch-per-device`
@@ -38,10 +42,11 @@ from .data import TokenLoader
 from .models.gpt2 import GPT2_PRESETS, GPT2Model
 from .optim import AdamW
 from .optim import schedule as schedules
-from .parallel import DDP, SingleDevice, Zero1, Zero2, init_distributed
+from .parallel import (DDP, SingleDevice, Zero1, Zero2, Zero3,
+                       init_distributed)
 
 ENGINES = {"single": SingleDevice, "ddp": DDP, "zero1": Zero1,
-           "zero2": Zero2}
+           "zero2": Zero2, "zero3": Zero3}
 
 
 def _loss_scale(v):
@@ -87,6 +92,11 @@ def parse_args(argv=None):
                         "(plain PyTorch over (B,chunk,V) slabs) or 'pallas' "
                         "(the fused CUDA kernels; logit tiles never leave "
                         "the SM).  Default: full-logits head")
+    p.add_argument("--gather-quant", choices=("fp8",), default=None,
+                   help="ZeRO++-style quantized weight gather: block "
+                        "weights stack as float8_e4m3 codes + per-channel "
+                        "scales, so ZeRO-3's per-layer gathers move 1-byte "
+                        "codes (lossy; also valid under the other engines)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--data", default=None, metavar="TOKENS.bin",
                    help="uint16 token corpus; default synthetic tokens")
@@ -97,8 +107,8 @@ def parse_args(argv=None):
                    help="'cuda' (default) or 'cpu' (the plain PyTorch "
                         "path, for small models)")
     p.add_argument("--engine", default="single", choices=sorted(ENGINES),
-                   help="single device, or DDP / ZeRO-1 / ZeRO-2 over the "
-                        "torchrun world")
+                   help="single device, or DDP / ZeRO-1 / ZeRO-2 / ZeRO-3 "
+                        "over the torchrun world")
     p.add_argument("--seq-parallel", type=int, default=1, metavar="SP",
                    help="sequence/context parallelism over a 'seq' group "
                         "(ring attention); divides the world size")
@@ -127,14 +137,16 @@ def _lr(args):
 
 
 def _model_config(args):
-    """The preset with --dropout and --fused-xent applied, as
-    examples/common.py:419-429 does."""
+    """The preset with --dropout, --fused-xent and --gather-quant applied,
+    as examples/common.py:419-429 does."""
     cfg = GPT2_PRESETS[args.model]
     if args.dropout:
         cfg = dataclasses.replace(cfg, dropout=args.dropout)
     if args.fused_xent:
         cfg = dataclasses.replace(cfg, fused_xent=True,
                                   fused_xent_impl=args.fused_xent)
+    if args.gather_quant:
+        cfg = dataclasses.replace(cfg, gather_quant=args.gather_quant)
     return cfg
 
 
