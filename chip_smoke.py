@@ -17,7 +17,10 @@ non-zero, printing no result, without one.  Phases, each on its own line:
 
   1. the card (`nvidia-smi` name and power limit) and the kernel build —
      nvcc for csrc/*.cu (in parallel) plus the Triton layernorm's first
-     compile;
+     compile; each CUDA kernel's registers, spill bytes and shared memory
+     (ptxas; the tensor-core FA2 kernels' dynamic shared memory beside
+     it), and `cuobjdump -sass` proof that every bf16/f16 instantiation of
+     the tensor-core FA2 forward and dk/dv kernels issues HGMMA (wgmma);
   2. kernel parity: each hand-written kernel against its plain PyTorch
      version on the card at its main paths' shapes (the two forward
      kernels at serving's and at training's; the fused xent kernels also
@@ -34,7 +37,11 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      it) and the bound — the larger of bytes / 3.35 TB/s and flops / the
      H100 SXM dense peak for the inputs' type — and `call_ms` is its
      per-call time with host launch overhead (CUDA events around
-     back-to-back calls);
+     back-to-back calls).  The FA2 rows (4, 4c, 5, 5c, 6, 6c, 7, 8) are
+     also timed in turns with their SDPA yardstick (kernel, library,
+     library, kernel; 5 repeats of 20 back-to-back calls queued behind a
+     sleep, CUDA events): median, min-max spread and kernel / library
+     ratio, the number that compares across calls;
   3. serving: gpt2-124m (seeded random weights, bf16 compute) under
      ServingEngine(max_active=8, block_tokens=16) with a pool sized for
      the traffic — 16 greedy requests, seeded prompt lengths 16-512, 64
@@ -125,10 +132,12 @@ Imports nothing of JAX or of the JAX package.
 """
 
 import contextlib
+import ctypes
 import dataclasses
 import json
 import math
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -192,12 +201,33 @@ def profiled(torch, fn, cpu=False, tries=3):
     return None
 
 
+class Ms(float):
+    """A time in ms that carries the clock it was read on: "profiler"
+    (CUPTI kernel records) or "events" (CUDA events behind a sleep)."""
+
+    def __new__(cls, value, source):
+        ms = super().__new__(cls, value)
+        ms.source = source
+        return ms
+
+
+def _device_records(torch, prof):
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e for e in prof.key_averages()
+            if getattr(e, "device_type", None) == cuda]
+
+
 def device_ms(torch, fn, iters=20, warmup=3):
     """Mean DEVICE time per call: every kernel the call launches, summed
     from the profiler's CUDA activity over `iters` calls.  Unlike
     `time_ms` it excludes host launch overhead, which dominates at decode
-    shapes.  Fails if the profiler stays empty: no other clock stands in
-    for it."""
+    shapes.  The CUPTI trace now and then comes back empty or drops
+    kernel records (a sum 2.5-5x too low, PERF.md §6): the device
+    records of one clean call are counted first (the most of two one-call
+    traces), a trace of `iters` calls with fewer than `iters` times that
+    is taken again, and after three such traces CUDA events around the
+    calls queued behind a sleep kernel stand in.  The result is an `Ms`
+    that names its clock."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -206,13 +236,31 @@ def device_ms(torch, fn, iters=20, warmup=3):
         for _ in range(iters):
             fn()
 
-    prof = profiled(torch, run, tries=5)
-    check(prof is not None, "the profiler recorded no device time in 5 "
-          "tries")
-    cuda = torch.autograd.DeviceType.CUDA
-    us = sum(_self_device_us(e) for e in prof.key_averages()
-             if getattr(e, "device_type", None) == cuda)
-    return us / 1e3 / iters
+    per = 0
+    for _ in range(2):
+        prof = profiled(torch, fn, tries=2)
+        if prof is not None:
+            per = max(per, sum(e.count for e in _device_records(torch, prof)))
+    for _ in range(3 if per else 0):
+        prof = profiled(torch, run, tries=5)
+        if prof is None:
+            break
+        evs = _device_records(torch, prof)
+        if sum(e.count for e in evs) >= iters * per:
+            return Ms(sum(_self_device_us(e) for e in evs) / 1e3 / iters,
+                      "profiler")
+    ms = _queued_ms(torch, fn, iters)
+    print(f"  (the profiler's trace was empty or short of the "
+          f"{iters} x {per} device records: {ms:.5g} ms from CUDA events "
+          "behind a sleep)")
+    return Ms(ms, "events")
+
+
+def clock_of(res):
+    """{timed key: the clock its `Ms` was read on} of a result row."""
+    return {k: getattr(res[k], "source", None)
+            for k in ("ms", "plain_ms", "library_ms")
+            if res.get(k) is not None}
 
 
 def _self_device_us(e):
@@ -229,8 +277,156 @@ def timings(torch, kernel, plain, library):
                 call_ms=time_ms(torch, kernel))
 
 
+def _queued_ms(torch, fn, n):
+    """Device time per call of n back-to-back calls queued behind a
+    sleep kernel, so the host's launch cost stays off the clock."""
+    torch.cuda._sleep(20_000_000)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def turns(torch, kernel, library, reps=5, n=20):
+    """Kernel and library timed in turns (kernel, library, library,
+    kernel) over `reps` repeats: medians, min-max spreads and the ratio,
+    which cancels what the card's clock does between calls."""
+    for _ in range(3):
+        kernel()
+        library()
+    ks, ls = [], []
+    for _ in range(reps):
+        ks.append(_queued_ms(torch, kernel, n))
+        ls.append(_queued_ms(torch, library, n))
+        ls.append(_queued_ms(torch, library, n))
+        ks.append(_queued_ms(torch, kernel, n))
+    km, lm = statistics.median(ks), statistics.median(ls)
+    return dict(turns_ms=km, turns_spread_ms=[min(ks), max(ks)],
+                library_turns_ms=lm, library_turns_spread_ms=[min(ls), max(ls)],
+                ratio=km / lm)
+
+
+TIMED_MS = ("ms", "plain_ms", "library_ms", "call_ms", "bound_ms")
+TURN_KEYS = ("turns_ms", "turns_spread_ms", "library_turns_ms",
+             "library_turns_spread_ms", "ratio")
+
+
+def turns_text(res):
+    return (f"turns: kernel {res['turns_ms']:.5g} ms "
+            f"[{res['turns_spread_ms'][0]:.5g}, {res['turns_spread_ms'][1]:.5g}]"
+            f", library {res['library_turns_ms']:.5g} "
+            f"[{res['library_turns_spread_ms'][0]:.5g}, "
+            f"{res['library_turns_spread_ms'][1]:.5g}], ratio "
+            f"{res['ratio']:.4g}")
+
+
 def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
+
+
+# -- phase 1: the build ---------------------------------------------------
+
+# the tensor-core FA2 kernels, and the query of the dynamic shared memory
+# each launches with: {kernel: (library, C query)}
+TC_KERNELS = {"flash_fwd_wgmma": ("flash_fwd", "flash_fwd_smem_bytes"),
+              "flash_dkv_wgmma": ("flash_bwd", "flash_dkv_smem_bytes")}
+
+
+def _demangle(names):
+    try:
+        out = subprocess.run(["c++filt"], input="\n".join(names),
+                             capture_output=True, text=True, timeout=60)
+        got = out.stdout.splitlines()
+        if out.returncode == 0 and len(got) == len(names):
+            return got
+    except OSError:
+        pass
+    return list(names)
+
+
+def kernel_resources(logs):
+    """ptxas' per-kernel report (-Xptxas=-v) -> [(source, kernel,
+    registers, spill stores, spill loads, static smem)]."""
+    rows = []
+    for src, log in logs.items():
+        cur = None
+        for line in log.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                cur = [src, m.group(1), 0, 0, 0, 0]
+                continue
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m and cur:
+                cur[3], cur[4] = int(m.group(1)), int(m.group(2))
+                continue
+            m = re.search(r"Used (\d+) registers", line)
+            if m and cur:
+                cur[2] = int(m.group(1))
+                sm = re.search(r"(\d+) bytes smem", line)
+                cur[5] = int(sm.group(1)) if sm else 0
+                rows.append(tuple(cur))
+                cur = None
+    names = _demangle([r[1] for r in rows])
+    return [(r[0], n, *r[2:]) for r, n in zip(rows, names)]
+
+
+def hgmma_counts(lib_paths):
+    """{demangled kernel: HGMMA instructions in its SASS} of the given
+    libraries (`cuobjdump -sass`)."""
+    from tiny_deepspeed_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
+    counts = {}
+    for path in lib_paths:
+        out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                             text=True, timeout=300)
+        check(out.returncode == 0, f"cuobjdump -sass {path} failed: "
+              f"{out.stderr[-500:]}")
+        fn = None
+        for line in out.stdout.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+                counts[fn] = 0
+            elif fn and "HGMMA" in line:
+                counts[fn] += 1
+    names = list(counts)
+    return dict(zip(_demangle(names), (counts[n] for n in names)))
+
+
+def build_report(_build):
+    """Print each CUDA kernel's registers, spills and shared memory, and
+    fail unless every bf16/f16 tensor-core FA2 instantiation issues
+    HGMMA and no f32 one does (f32 keeps the FMA kernels)."""
+    for src, name, regs, sst, sld, smem in kernel_resources(
+            _build.build_logs):
+        print(f"  ptxas {src}: {name}: {regs} registers, spill stores "
+              f"{sst} B / loads {sld} B, smem {smem} B static")
+    for kname, (lib, query) in TC_KERNELS.items():
+        fn = _build.entry(lib, query, [ctypes.c_int])
+        print(f"  {kname}: dynamic smem " + ", ".join(
+            f"D={d} {fn(d)} B" for d in (32, 64)) + f" ({lib}.cu {query})")
+    counts = hgmma_counts([_build._lib_path(_build.CSRC / f"{n}.cu")
+                                  for n in ("flash_fwd", "flash_bwd")])
+    tc = {n: c for n, c in counts.items()
+          if any(k in n for k in TC_KERNELS)}
+    check(len(tc) == 24, f"{len(tc)} tensor-core FA2 instantiations, "
+          "expected 24 (fwd and dk/dv x bf16/f16 x D 32/64 x 3 variants)")
+    for n, c in sorted(tc.items()):
+        check(c > 0, f"{n} issues no HGMMA")
+        check("bfloat16" in n or "__half" in n,
+              f"{n}: not a bf16/f16 tensor-core instantiation")
+    fma = {n: c for n, c in counts.items() if "flash_" in n and n not in tc}
+    check(all(c == 0 for c in fma.values()),
+          "an FMA FA2 kernel issues HGMMA")
+    print(f"  sass: HGMMA in all {len(tc)} bf16/f16 tensor-core FA2 "
+          f"instantiations ({min(tc.values())}-{max(tc.values())} each); "
+          f"{len(fma)} FMA FA2 kernels (f32 fwd and dk/dv, every dq) "
+          "issue none")
 
 
 # -- phase 2: kernel parity -------------------------------------------------
@@ -279,9 +475,10 @@ def layernorm_phase(torch, F, ln):
 
 def checked_fa2_fwd(torch, fa, q, k, v):
     """fa2_flash_attention_fwd on the card against its plain version:
-    (o, lse) and o's max abs err.  The plain version rounds probabilities
-    to bf16 before PV; the kernel keeps them f32: outputs agree to a few
-    bf16 ulps (atol = rtol = 2e-2; lse atol 2e-3, rtol 1e-4)."""
+    (o, lse) and o's max abs err.  Both round probabilities to bf16
+    before PV, the plain version after normalising, the kernel before
+    (o = sum(p v) / l): outputs agree to a few bf16 ulps (atol = rtol =
+    2e-2; lse atol 2e-3, rtol 1e-4)."""
     o, lse = fa.fa2_flash_attention_fwd(q, k, v)
     torch.cuda.synchronize()
     po, plse = fa._fa2_fwd_plain(q, k, v)
@@ -304,17 +501,21 @@ def flash_phase(torch, F, fa):
         nbytes = b * (4 * h * t * d * 2 + h * t * 4)
         flops = b * 4 * h * d * t * (t + 1) / 2
         bms, by = bound_ms(nbytes, flops, "bfloat16")
+        kernel = lambda: fa.fa2_flash_attention_fwd(q, k, v)  # noqa: E731
+        library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+            q, k, v, is_causal=True)
         res[b, t] = dict(
-            **timings(torch, lambda: fa.fa2_flash_attention_fwd(q, k, v),
-                      lambda: fa._fa2_fwd_plain(q, k, v),
-                      lambda: F.scaled_dot_product_attention(
-                          q, k, v, is_causal=True)),
+            **timings(torch, kernel, lambda: fa._fa2_fwd_plain(q, k, v),
+                      library),
             bound_ms=bms, bound_by=by, max_abs_err=err,
             shape=f"B={b} H={h} T={t} Dh={d} bf16")
+        if t == 1024:
+            res[b, t].update(turns(torch, kernel, library))
         print(f"kernel fa2_flash_attention_fwd B={b} H={h} T={t} Dh={d} "
               f"bf16: max_abs_err={err:.3g} (tol atol=rtol=2e-2; lse 2e-3) "
               + " ".join(f"{k}={v:.5g}" for k, v in res[b, t].items()
-                         if k.endswith("ms")))
+                         if k.endswith("ms") and k in TIMED_MS)
+              + ("; " + turns_text(res[b, t]) if t == 1024 else ""))
     return {"serving": res[1, 1024], "training": res[8, 1024]}, worst
 
 
@@ -725,13 +926,86 @@ def flash_bwd_phase(torch, F, fa):
                          bound_ms=bms, bound_by=by,
                          max_abs_err=max(errs[1024][key][0],
                                          errs[1000][key][0]),
-                         shape=f"B={b} H={h} T={t} Dh={d} bf16")
+                         shape=f"B={b} H={h} T={t} Dh={d} bf16",
+                         **turns(torch, kernel, library))
         print(f"kernel {name} B={b} H={h} T={t} Dh={d} bf16: max_abs_err="
               f"{res[name]['max_abs_err']:.3g} (T=1024 and T=1000; tol 2e-2 "
               "x max|plain|); library = SDPA causal backward, both passes; "
               + " ".join(f"{k}={v:.5g}" for k, v in res[name].items()
-                         if k.endswith("ms")))
+                         if k in TIMED_MS) + "; " + turns_text(res[name]))
     return res
+
+
+def _profile_names(torch, fn, want):
+    """Device kernel names of one profiled call of fn, retaken (up to five
+    traces) until one holds a name containing `want`."""
+    names = set()
+    for _ in range(5):
+        prof = profiled(torch, fn, tries=2)
+        if prof is not None:
+            names = {e.key for e in _device_records(torch, prof)}
+            if any(want in n for n in names):
+                break
+    return names
+
+
+def flash_f32_phase(torch, fa):
+    """f32 reaches the FP32-FMA forward and dk/dv kernels, not the wgmma
+    ones: each against its plain version at the card tests' f32
+    tolerance (forward atol = rtol = 1e-4, lse 2e-3 / 1e-4; dk/dv max abs
+    err <= 1e-4 x max |plain|) at the shapes the f32 serving path
+    (phase 6) and training give them — forward B=1 T=1024 and a ragged
+    prompt, T=300; dk/dv B=8 T=1024 — and a profiled call of each names
+    the FMA kernel and no wgmma one (build_report: those issue no
+    HGMMA)."""
+    h, d = 12, 64
+    res = {}
+    for b, t in ((1, 1024), (1, 300), (8, 1024)):
+        g = torch.Generator(device="cuda").manual_seed(3 * t + b)
+        q, k, v, do = (torch.randn(b, h, t, d, generator=g, device="cuda")
+                       for _ in range(4))
+        o, lse = fa.fa2_flash_attention_fwd(q, k, v)
+        torch.cuda.synchronize()
+        po, plse = fa._fa2_fwd_plain(q, k, v)
+        torch.testing.assert_close(o, po, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(lse, plse, atol=2e-3, rtol=1e-4)
+        names = _profile_names(
+            torch, lambda: fa.fa2_flash_attention_fwd(q, k, v),
+            "fp32::flash_fwd_kernel<float")
+        check(any("fp32::flash_fwd_kernel<float" in n for n in names)
+              and not any("wgmma" in n for n in names),
+              f"the f32 forward B={b} T={t} did not run the FMA kernel: "
+              f"{sorted(names)}")
+        res["fwd", b, t] = max_err(o, po)
+        msg = (f"  flash f32 B={b} H={h} T={t} Dh={d}: forward (FMA kernel) "
+               f"max_abs_err={res['fwd', b, t]:.3g} (tol atol=rtol=1e-4)")
+        if b == 8:
+            di = (do * o).sum(-1)
+            dk, dv = fa.fa2_flash_attention_dkv(q, k, v, do, lse, di)
+            torch.cuda.synchronize()
+            pdk, pdv = fa._fa2_dkv_plain(q, k, v, do, lse, di)
+            e_kv = [_rel_err(dk, pdk), _rel_err(dv, pdv)]
+            rel = max(r for _, r in e_kv)
+            check(rel <= 1e-4, f"f32 dk/dv B={b} T={t} disagrees with its "
+                  f"plain version: rel {rel:.3g}")
+            names = _profile_names(
+                torch, lambda: fa.fa2_flash_attention_dkv(q, k, v, do, lse,
+                                                          di),
+                "flash_dkv_kernel<float")
+            check(any("flash_dkv_kernel<float" in n for n in names)
+                  and not any("wgmma" in n for n in names),
+                  f"the f32 dk/dv B={b} T={t} did not run the FMA kernel: "
+                  f"{sorted(names)}")
+            res["dkv", b, t] = max(e for e, _ in e_kv)
+            msg += (f"; dk/dv (FMA kernel) max_abs_err="
+                    f"{res['dkv', b, t]:.3g} ({rel:.3g} of max|plain|; tol "
+                    "1e-4)")
+        print(msg)
+        del q, k, v, do
+    torch.cuda.empty_cache()
+    return {"fa2_flash_attention_fwd": max(
+                v for k, v in res.items() if k[0] == "fwd"),
+            "fa2_flash_attention_dkv": res["dkv", 8, 1024]}
 
 
 def xent_phase(torch, F, fx):
@@ -1044,9 +1318,9 @@ KNOB_KERNELS = ("fused_xent_fwd", "fused_xent_dx", "fused_xent_dw",
 PATTERNS = {"layernorm_fwd": "_ln_fwd_kernel",
             "layernorm_dx": "_ln_dx_kernel",
             "layernorm_dwdb": "_ln_dwdb_",
-            "fa2_flash_attention_fwd": "flash_fwd_kernel",
+            "fa2_flash_attention_fwd": "flash_fwd_",
             "fa2_flash_attention_dq": "flash_dq_kernel",
-            "fa2_flash_attention_dkv": "flash_dkv_kernel",
+            "fa2_flash_attention_dkv": "flash_dkv_",
             "paged_attention": "paged_decode_kernel",
             "fused_xent_fwd": "xent_fwd_kernel",
             "fused_xent_dx": "xent_dx_kernel",
@@ -1418,7 +1692,7 @@ VARIANT_KERNELS = {
                    "paged_attention"),
 }
 SERVE_PATTERNS = {"layernorm_fwd": "_ln_fwd_kernel",
-                  "fa2_flash_attention_fwd": "flash_fwd_kernel",
+                  "fa2_flash_attention_fwd": "flash_fwd_",
                   "paged_attention": "paged_decode_kernel",
                   "paged_attention_span": "paged_span_kernel",
                   "quantize_blockwise": "_quant_kernel"}
@@ -1845,39 +2119,42 @@ def chunk_phase(torch, F, fa):
         return torch.autograd.grad(outr, (qr, kr, vr), do, retain_graph=True)
 
     lib_bwd_ms = device_ms(torch, lib_bwd)
+
+    def lib_fwd():
+        return F.scaled_dot_product_attention(q, k, v, is_causal=False)
+
     panel = b * h * t * d * 2
     stats = b * h * t * 4
     sq = b * h * t * t * d
     res = {}
-    for name, kernel, plain, lib_ms, nbytes, flops, err in (
+    for name, kernel, plain, library, lib_ms, nbytes, flops, err in (
             ("fa2_chunk_fwd",
              lambda: fa.fa2_chunk_fwd(q, k, v, causal=False),
-             lambda: fa._fa2_fwd_plain(q, k, v, causal=False),
-             device_ms(torch, lambda: F.scaled_dot_product_attention(
-                 q, k, v, is_causal=False)),
-             4 * panel + stats, 4 * sq, fwd_err),
+             lambda: fa._fa2_fwd_plain(q, k, v, causal=False), lib_fwd,
+             device_ms(torch, lib_fwd), 4 * panel + stats, 4 * sq, fwd_err),
             ("fa2_chunk_dq",
              lambda: fa.fa2_chunk_dq(q, k, v, do, lse_g, di, causal=False),
              lambda: fa._fa2_dq_plain(q, k, v, do, lse_g, di, causal=False),
-             lib_bwd_ms, 5 * panel + 2 * stats, 6 * sq, dq_err),
+             lib_bwd, lib_bwd_ms, 5 * panel + 2 * stats, 6 * sq, dq_err),
             ("fa2_chunk_dkv",
              lambda: fa.fa2_chunk_dkv(q, k, v, do, lse_g, di, causal=False),
              lambda: fa._fa2_dkv_plain(q, k, v, do, lse_g, di,
                                        causal=False),
-             lib_bwd_ms, 6 * panel + 2 * stats, 8 * sq, dkv_err)):
+             lib_bwd, lib_bwd_ms, 6 * panel + 2 * stats, 8 * sq, dkv_err)):
         bms, by = bound_ms(nbytes, flops, "bfloat16")
         res[name] = dict(ms=device_ms(torch, kernel, iters=10),
                          plain_ms=device_ms(torch, plain, iters=5),
                          library_ms=lib_ms,
                          call_ms=time_ms(torch, kernel, iters=10),
                          bound_ms=bms, bound_by=by, max_abs_err=err,
-                         shape=f"B={b} H={h} Tl={t} Dh={d} bf16 unmasked")
+                         shape=f"B={b} H={h} Tl={t} Dh={d} bf16 unmasked",
+                         **turns(torch, kernel, library))
         print(f"kernel {name} B={b} H={h} Tl={t} Dh={d} bf16 unmasked: "
               f"max_abs_err={err:.3g} (tol 2e-2; backward x max|plain|) "
               f"bitwise repeatable; library = SDPA is_causal=False"
               f"{' backward, both passes' if name != 'fa2_chunk_fwd' else ''}"
               "; " + " ".join(f"{k}={v:.5g}" for k, v in res[name].items()
-                              if k.endswith("ms")))
+                              if k in TIMED_MS) + "; " + turns_text(res[name]))
     return res
 
 
@@ -2127,8 +2404,10 @@ def bthd_phase(torch, F, fa):
 
         # the yardsticks: SDPA causal on the (B, H, T, Dh) views
         qv, kv_, vv = (z.transpose(1, 2) for z in (q, k, v))
-        lib_fwd = device_ms(torch, lambda: F.scaled_dot_product_attention(
-            qv, kv_, vv, is_causal=True))
+        def lib_fwd_fn():
+            return F.scaled_dot_product_attention(qv, kv_, vv, is_causal=True)
+
+        lib_fwd = device_ms(torch, lib_fwd_fn)
         qr, kr, vr = (z.detach().requires_grad_() for z in (q, k, v))
 
         def lib_fb():
@@ -2141,27 +2420,29 @@ def bthd_phase(torch, F, fa):
         panel = b * h * t * d * 2
         stats = b * h * t * 4
         tri = d * t * (t + 1) / 2 * b * h
-        for name, kernel, plain, lib, nbytes, flops, err in (
+        for name, kernel, plain, library, lib, nbytes, flops, err in (
                 ("fa2_flash_attention_bthd_fwd",
                  lambda: fa.fa2_flash_attention_bthd_fwd(q, k, v),
-                 lambda: fa._fa2_bthd_fwd_plain(q, k, v), lib_fwd,
-                 4 * panel + stats, 4 * tri, fwd_err),
+                 lambda: fa._fa2_bthd_fwd_plain(q, k, v), lib_fwd_fn,
+                 lib_fwd, 4 * panel + stats, 4 * tri, fwd_err),
                 ("fa2_flash_attention_bthd_dq",
                  lambda: fa.fa2_flash_attention_bthd_dq(q, k, v, do, lse, di),
                  lambda: fa._fa2_bthd_dq_plain(q, k, v, do, lse, di),
-                 lib_fb_ms, 5 * panel + 2 * stats, 6 * tri, dq_err),
+                 lib_fb, lib_fb_ms, 5 * panel + 2 * stats, 6 * tri, dq_err),
                 ("fa2_flash_attention_bthd_dkv",
                  lambda: fa.fa2_flash_attention_bthd_dkv(q, k, v, do, lse,
                                                          di),
                  lambda: fa._fa2_bthd_dkv_plain(q, k, v, do, lse, di),
-                 lib_fb_ms, 6 * panel + 2 * stats, 8 * tri, dkv_err)):
+                 lib_fb, lib_fb_ms, 6 * panel + 2 * stats, 8 * tri,
+                 dkv_err)):
             bms, by = bound_ms(nbytes, flops, "bfloat16")
             res[name, b] = dict(
                 ms=device_ms(torch, kernel, iters=5),
                 plain_ms=device_ms(torch, plain, iters=3),
                 library_ms=lib, call_ms=time_ms(torch, kernel, iters=5),
                 bound_ms=bms, bound_by=by, max_abs_err=err,
-                shape=f"B={b} T={t} H={h} Dh={d} bf16 heads-last")
+                shape=f"B={b} T={t} H={h} Dh={d} bf16 heads-last",
+                **turns(torch, kernel, library, n=10))
             print(f"kernel {name} B={b} T={t} H={h} Dh={d} bf16: "
                   f"max_abs_err={err:.3g} (tol 2e-2; backward x max|plain|)"
                   f" bit-identical to the (B, H, T, Dh) kernel on the "
@@ -2169,7 +2450,8 @@ def bthd_phase(torch, F, fa):
                   f"causal on the transposed views"
                   f"{', forward+backward' if 'fwd' not in name else ''}; "
                   + " ".join(f"{k}={v:.5g}" for k, v in res[name, b].items()
-                             if k.endswith("ms")))
+                             if k in TIMED_MS) + "; "
+                  + turns_text(res[name, b]))
         del q, k, v, do, o, lse, di, dq, dk, dv, qr, kr, vr
         torch.cuda.empty_cache()
     return res
@@ -2357,10 +2639,7 @@ def main():
     with open(os.path.join(OUT_DIR, "nvcc.log"), "w") as f:
         for name, log in _build.build_logs.items():
             f.write(f"== {name}\n{log}\n")
-    for name, log in _build.build_logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  ptxas {name}: {line.strip()}")
+    build_report(_build)
     t = time.perf_counter()
     x = torch.randn(4, 768, device="cuda", dtype=torch.bfloat16)
     ln.layernorm_fwd(x, torch.ones(768, device="cuda", dtype=torch.bfloat16),
@@ -2380,6 +2659,7 @@ def main():
     torch.cuda.empty_cache()
     bwd_res = ln_bwd_phase(torch, F, ln)
     bwd_res.update(flash_bwd_phase(torch, F, fa))
+    f32_err = flash_f32_phase(torch, fa)
     bwd_res.update(xent_phase(torch, F, fx))
     torch.cuda.empty_cache()
     cfg = port.GPT2_PRESETS["gpt2-124m"]
@@ -2553,9 +2833,14 @@ def main():
                "replaces": replaces, "launches": sum(by_path.values()),
                "launches_by_path": by_path,
                "max_abs_err": res["max_abs_err"] if err is None else err,
-               **{k: res[k] for k in timed}}
+               **{k: res[k] for k in timed}, "ms_source": clock_of(res),
+               **{k: res[k] for k in TURN_KEYS if k in res}}
+        if name in f32_err:  # the f32 dispatch: the FMA kernel
+            row["f32_max_abs_err"] = f32_err[name]
         if training is not None:
-            row["training_shape"] = {k: training[k] for k in timed}
+            row["training_shape"] = {k: training[k] for k in timed + TURN_KEYS
+                                     if k in training}
+            row["training_shape"]["ms_source"] = clock_of(training)
         return row
 
     kernels = [
@@ -2651,7 +2936,18 @@ def main():
              **{k: {"b8": bthd_res[k, 8]} for k in BTHD_KERNELS}}
     for row in kernels:
         for k, v in extra.get(row["name"], {}).items():
-            row[k + "_shape"] = {f: v[f] for f in timed}
+            row[k + "_shape"] = {f: v[f] for f in timed + TURN_KEYS
+                                 if f in v}
+            row[k + "_shape"]["ms_source"] = clock_of(v)
+    clocks = [(row["name"] + ("." + k if k != "row" else ""), key, src)
+              for row in kernels
+              for k, part in [("row", row)] + [
+                  (k, v) for k, v in row.items() if k.endswith("_shape")]
+              for key, src in part["ms_source"].items()]
+    events = [f"{n}:{key}" for n, key, src in clocks if src != "profiler"]
+    print(f"clocks: {len(clocks) - len(events)} of {len(clocks)} device "
+          f"times from the profiler, {len(events)} from CUDA events"
+          + (f" ({', '.join(events)})" if events else ""))
     check(len(kernels) == 20, f"{len(kernels)} kernel rows")
     for row in kernels[14:17]:
         check(row["launches_by_path"]["ring4"] > 0,

@@ -27,6 +27,10 @@ lockstep threads on the card against the CPU port's; a distributed
 engine on the card refusing a gloo process group.  Slice 6: the
 heads-last FA2 kernels (#7, #8) bit for bit #4-#6 on transposed copies
 and within tolerance of their plain versions, grouped K/V refused.
+Slice 7 (the tensor-core FA2 forward and dk/dv for bf16/f16): T = 2048
+and 4096, T not a multiple of the 64-row tile (1, 33, 100, 130, 200,
+1000), grouped K/V at head dim 32, scores of magnitude ~30, and two
+calls giving the same bits.
 """
 
 import math
@@ -78,7 +82,8 @@ def test_layernorm_kernel(dtype, rows, n):
                                    torch.float16])
 @pytest.mark.parametrize("b,h,kvh,t,d", [
     (1, 12, 12, 1024, 64), (2, 4, 2, 100, 64), (1, 2, 1, 33, 32),
-    (3, 2, 2, 1, 64)])
+    (3, 2, 2, 1, 64), (1, 2, 2, 2048, 64), (1, 2, 1, 4096, 64),
+    (2, 4, 2, 130, 64), (1, 6, 2, 200, 32)])
 def test_flash_kernel(dtype, b, h, kvh, t, d):
     g = _g(t + h)
     q = torch.randn(b, h, t, d, generator=g, device="cuda").to(dtype)
@@ -162,7 +167,8 @@ def test_layernorm_backward_kernels(dtype, rows, n):
                                    torch.float16])
 @pytest.mark.parametrize("b,h,kvh,t,d", [
     (1, 2, 2, 64, 64), (2, 4, 2, 100, 64), (1, 2, 1, 33, 32),
-    (3, 2, 2, 1, 64), (1, 12, 12, 1000, 64)])
+    (3, 2, 2, 1, 64), (1, 12, 12, 1000, 64), (1, 2, 2, 2048, 64),
+    (1, 2, 1, 4096, 64), (2, 4, 2, 130, 64), (1, 6, 2, 200, 32)])
 def test_flash_backward_kernels(dtype, b, h, kvh, t, d):
     g = _g(7 * t + h)
     q = torch.randn(b, h, t, d, generator=g, device="cuda").to(dtype)
@@ -235,6 +241,86 @@ def test_flash_chunk_kernels(dtype, h, kvh, t):
         tol = 1e-4 if dtype == torch.float32 else 2e-2
         assert float((got.float() - ref.float()).abs().max()) <= \
             tol * scale + 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "unmasked"])
+@pytest.mark.parametrize("h,kvh,t,d", [(4, 4, 130, 64), (4, 2, 1000, 32)])
+def test_flash_kernels_large_scores(dtype, causal, h, kvh, t, d):
+    """Scores of magnitude ~30 (q, k ~ N(0, 30): q.k / sqrt(Dh) has
+    standard deviation 30), so the running row max moves by far more than
+    exp's range from one key tile to the next and the online softmax's
+    rescale decides the result: forward and dk/dv against their plain
+    versions at the usual tolerances."""
+    b = 2
+    g = _g(5 * t + kvh)
+    amp = math.sqrt(30.0)
+    q = (torch.randn(b, h, t, d, generator=g, device="cuda") * amp).to(dtype)
+    k = (torch.randn(b, kvh, t, d, generator=g, device="cuda") * amp
+         ).to(dtype)
+    v = torch.randn(b, kvh, t, d, generator=g, device="cuda").to(dtype)
+    do = torch.randn(b, h, t, d, generator=g, device="cuda").to(dtype)
+    o, lse = flash_fa2.fa2_chunk_fwd(q, k, v, causal=causal)
+    po, plse = flash_fa2._fa2_fwd_plain(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert float(plse.max() - plse.min()) > 30.0  # the scores are large
+    torch.testing.assert_close(o.float(), po.float(), **TOL[dtype])
+    torch.testing.assert_close(lse, plse, atol=2e-3, rtol=1e-4)
+    di = (do.float() * po.float()).sum(-1)
+    dk, dv = flash_fa2.fa2_chunk_dkv(q, k, v, do, plse, di, causal=causal)
+    refs = flash_fa2._fa2_dkv_plain(q, k, v, do, plse, di, causal=causal)
+    tol = 1e-4 if dtype == torch.float32 else 2e-2
+    for got, ref in zip((dk, dv), refs):
+        scale = float(ref.float().abs().max())
+        assert float((got.float() - ref.float()).abs().max()) <= \
+            tol * scale + 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "unmasked"])
+def test_flash_kernels_bitwise_repeatable(dtype, causal):
+    """Two calls on the same inputs give the same bits: the forward (o
+    and lse) and dk/dv, grouped K/V at a ragged T (no atomics; each CTA
+    accumulates in a fixed order)."""
+    g = _g(17)
+    q, do = (torch.randn(2, 4, 1000, 64, generator=g, device="cuda"
+                         ).to(dtype) for _ in range(2))
+    k, v = (torch.randn(2, 2, 1000, 64, generator=g, device="cuda"
+                        ).to(dtype) for _ in range(2))
+    first = flash_fa2.fa2_chunk_fwd(q, k, v, causal=causal)
+    second = flash_fa2.fa2_chunk_fwd(q, k, v, causal=causal)
+    di = (do.float() * first[0].float()).sum(-1)
+    first += flash_fa2.fa2_chunk_dkv(q, k, v, do, first[1], di,
+                                     causal=causal)
+    second += flash_fa2.fa2_chunk_dkv(q, k, v, do, first[1], di,
+                                      causal=causal)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_flash_kernels_take_misaligned_views(dtype):
+    """Operands that are contiguous views 2 bytes off a 16-byte boundary
+    (a storage offset of one element) give the bits of aligned copies:
+    forward, dq and dk/dv."""
+    g = _g(23)
+    shape = (2, 4, 200, 64)
+    n = math.prod(shape)
+    q, k, v, do = (torch.randn(n + 1, generator=g, device="cuda").to(dtype)
+                   [1:].view(shape) for _ in range(4))
+    assert all(x.data_ptr() % 16 for x in (q, k, v, do))
+    ref = [x.clone() for x in (q, k, v, do)]
+
+    def run(q, k, v, do):
+        o, lse = flash_fa2.fa2_flash_attention_fwd(q, k, v)
+        di = (do.float() * o.float()).sum(-1)
+        return (o, lse, flash_fa2.fa2_flash_attention_dq(q, k, v, do, lse, di),
+                *flash_fa2.fa2_flash_attention_dkv(q, k, v, do, lse, di))
+
+    got, want = run(q, k, v, do), run(*ref)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 def test_flash_chunk_causal_is_the_causal_kernel():

@@ -150,6 +150,18 @@ class TestCudaPathChecks:
             z = torch.zeros(1, 2, 16, 64)
             flash_fa2._fa2_fwd_cuda(z, z.double(), z)
 
+    def test_flash_operands_land_on_16_bytes(self):
+        """The tensor-core FA2 kernels copy 16-byte chunks: a contiguous
+        view whose storage offset breaks the alignment is copied, an
+        aligned operand is passed as it is."""
+        buf = torch.arange(65, dtype=torch.bfloat16)
+        view = buf[1:].view(1, 1, 1, 64)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        got = flash_fa2._aligned(view)
+        assert got.data_ptr() % 16 == 0 and torch.equal(got, view)
+        ok = torch.zeros(1, 1, 1, 64, dtype=torch.bfloat16)
+        assert flash_fa2._aligned(ok) is ok
+
     def test_paged_rejects_bad_operands(self):
         view = tpool.KVPoolView(torch.zeros(2, 8, 1, 2, 64),
                                 torch.zeros(2, 8, 1, 2, 64))

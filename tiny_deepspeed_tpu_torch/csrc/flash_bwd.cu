@@ -1,8 +1,10 @@
 // Copyright 2026 tiny-deepspeed-tpu authors
 // SPDX-License-Identifier: Apache-2.0
 //
-// FlashAttention-2 backward for Hopper (sm_90a), plain-FMA version: the dq
-// pass and the dk/dv pass, causal or unmasked (a ring attention chunk).
+// FlashAttention-2 backward for Hopper (sm_90a): the dq pass and the dk/dv
+// pass, causal or unmasked (a ring attention chunk).  dk/dv runs on the
+// tensor cores (wgmma) for bf16/f16; dq, and dk/dv for f32, are FP32-FMA
+// kernels.
 //
 // Replaces the TPU kernels tiny_deepspeed_tpu/ops/flash_fa2.py::_dq_call
 // (:281, pallas_call :285, kernel _bwd_dq_kernel :210) and ::_dkv_call
@@ -10,8 +12,7 @@
 // _fa2_bwd (:410) -> _bwd (:302) and, with causal=False, from the chunk
 // entries fa2_chunk_dq (:341) and fa2_chunk_dkv (:350), which take the
 // ring's GLOBAL (merged) lse and di.  `causal` is a template flag chosen
-// at launch, so the causal instantiations are the code they were before
-// the flag.  Same contract: q/do (B*H, T, D),
+// at launch.  Same contract: q/do (B*H, T, D),
 // k/v (B*KVH, T, D) with query head h reading kv head h / (H/KVH); lse
 // (the forward's fused m + log l) and di = rowsum(do*o), both f32
 // (B*H, T); p = exp(s*scale - lse) is recomputed, never stored; every
@@ -35,31 +36,61 @@
 //     key tiles up to the diagonal (causality by loop bound; unmasked, all
 //     of them):
 //     dq += ds K, ds = p (dp - di) scale, dp = do V^T.
-//   * dkv: one CTA owns BK keys of one (batch, kv head), loops over the
-//     group's query heads and over the q tiles from the diagonal (unmasked,
-//     from 0) to T:
+//   * dkv: one CTA owns the keys of one key block of one (batch, kv
+//     head), loops over the group's query heads and over the q tiles from
+//     the diagonal (unmasked, from 0) to T:
 //     dv += p^T do, dk += ds^T q.
 // The TPU kernels keep whole (T, D) panels resident in VMEM; a Hopper SM
-// has 227 KB of shared memory, so here every operand streams through
-// shared memory in 32-row f32 tiles (padded to D+1 columns: the threads of
-// a warp read different rows at one column without bank conflicts) and
-// any T works; a per-element test masks the diagonal tile and the ragged
-// tail.  Each step is two small shared-memory GEMMs: phase A builds the
-// (BQ, BK) score-gradient tile (each thread a 2 x 4 micro-tile), phase B
-// folds it into the thread's 2 x D/8 micro-tile of the output
-// accumulators.  Registers: at D = 64 a dkv thread holds 2 x 8 dk and
-// 2 x 8 dv accumulators (32 floats) plus 16 phase-A sums — the whole key
-// row is split over 8 threads, never held by one.
+// has 227 KB of shared memory, so here the streamed operands pass through
+// shared memory in tiles and any T works.
+//
+// dk/dv, bf16/f16 (`tc::flash_dkv_wgmma`).  One CTA is one warpgroup (128
+// threads) owning BKV = 64 keys; its K and V tiles stay in shared memory.
+// The Q and dO tiles (BQ = 64 rows) with their lse and di slices come
+// through a ring of STAGES = 2, copied with cp.async (16 bytes a thread
+// for the tiles, 4 for the statistics, zero-filled past T) one tile
+// ahead of the compute; the ring runs across the group's query heads.
+// Tiles are bf16/f16 rows in the 128-byte (D = 64) or 64-byte (D = 32)
+// swizzle (hopper.cuh).  Per q tile, in f32 registers:
+//   S^T = K Q^T and dP^T = V dO^T: wgmma m64n64k16, both operands
+//     K-major in shared memory, D/16 k-steps each (32 f32 a thread each);
+//   P^T = exp2(S^T scale log2(e) - lse log2(e)), masked only on the
+//     diagonal tile (causal) and the ragged q tail;
+//     dS^T = P^T (dP^T - di) scale, the scale where the plain version
+//     applies it;
+//   dV += P^T dO and dK += dS^T Q: P^T and dS^T rounded to the input
+//     dtype in registers are the A operands (wgmma m64nDk16, A from
+//     registers), dO and Q the B operands in shared memory, MN-major
+//     (transpose bit): 4 k-steps of 16 query rows each.
+// dK and dV (32 f32 each at D = 64) live in registers for the whole
+// loop and are stored once.  ptxas: 194 registers at D = 64 causal (168
+// unmasked, 196 heads-last), 146 at D = 32, no spills; 51200 bytes of
+// dynamic shared memory at D = 64 (26624 at D = 32; flash_dkv_smem_bytes
+// reports it), granted with cudaFuncSetAttribute at each launch: 2 CTAs
+// an SM.
+//
+// dq, and dk/dv for f32 (`flash_dq_kernel`, `flash_dkv_kernel`).  Every
+// operand streams through shared memory in 32-row f32 tiles (padded to
+// D+1 columns: the threads of a warp read different rows at one column
+// without bank conflicts); a per-element test masks the diagonal tile and
+// the ragged tail.  Each step is two small shared-memory GEMMs: phase A
+// builds the (BQ, BK) score-gradient tile (each thread a 2 x 4
+// micro-tile), phase B folds it into the thread's 2 x D/8 micro-tile of
+// the output accumulators.  f32 attention stays f32 (the tests hold it to
+// 1e-4; TF32 keeps about three digits): the dispatch by dtype picks one
+// of two hand-written dk/dv kernels, neither a fallback for the other.
 //
 // Bound.  At gpt2-124m training shapes (T = 1024, D = 64) dq does
 // 6*D*T(T+1)/2 flops per head and dkv 8*D*T(T+1)/2 against ~6*T*D*2
-// bytes: ~500 flop/byte, compute-bound on the tensor cores' scale
-// (989 TFLOP/s bf16).  This version computes with FP32 FMAs out of
-// shared memory (67 TFLOP/s peak, and about one shared-memory load per
-// 1.5 FMAs), so it sits far above that bound; moving both GEMM phases
-// onto mma/wgmma is the next step, after this one is right.
+// bytes: ~500 flop/byte, compute-bound on the tensor cores (989 TFLOP/s
+// bf16).  The wgmma dk/dv kernel's limits are its serial chain per tile
+// (two products, the elementwise pass, two more) in one warpgroup, with
+// nothing to overlap it but the other resident CTA.  The FMA kernels
+// compute out of shared memory at the FP32 FMA rate (67 TFLOP/s peak,
+// about one shared-memory load per 1.5 FMAs): far above the bound.
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -316,6 +347,195 @@ struct Args {
   cudaStream_t stream;
 };
 
+// -- dk/dv, bf16 / f16: tensor cores ---------------------------------------
+
+namespace tc {
+
+using namespace tds::sm90;
+
+constexpr int BKV = 64;                // keys per CTA (one warpgroup)
+constexpr int BQ = 64;                 // query rows per tile
+constexpr int STAGES = 2;              // Q / dO / lse / di ring depth
+constexpr int THREADS = 128;
+static_assert(BKV == BQ, "causal: the diagonal is one whole q tile");
+
+template <int D>
+__host__ __device__ constexpr int tile_bytes() { return 64 * D * 2; }
+
+// K, V, then Q and dO of each stage, then each stage's lse and di (64 f32
+// each); +1024 to align the base
+template <int D>
+__host__ __device__ constexpr int smem_bytes() {
+  return (2 + 2 * STAGES) * tile_bytes<D>() + STAGES * 2 * BQ * 4 + 1024;
+}
+
+template <typename T, int D, bool CAUSAL, bool BTHD>
+__global__ void __launch_bounds__(THREADS)
+flash_dkv_wgmma(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ di,
+                T* __restrict__ dk, T* __restrict__ dv, int seqlen, int H,
+                int KVH, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  constexpr uint32_t TB = tile_bytes<D>();
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t ks = (raw + 1023) & ~1023u;
+  const uint32_t vs = ks + TB;
+  auto qs = [&](int st) { return ks + TB * (2 + 2 * st); };
+  auto dos = [&](int st) { return ks + TB * (3 + 2 * st); };
+  // each stage's lse (64 f32) then di (64 f32)
+  const uint32_t stats = ks + TB * (2 + 2 * STAGES);
+  const float* stats_p =
+      reinterpret_cast<const float*>(smem_raw + (stats - raw));
+
+  const int kvbh = blockIdx.y;                     // b * KVH + kv head
+  const int b = kvbh / KVH, kvh = kvbh % KVH;
+  const int group = H / KVH;
+  const int k0 = blockIdx.x * BKV;
+  const size_t kvoff = tds::panel_offset<BTHD>(b, kvh, KVH, seqlen, D);
+  const int qld = tds::row_stride<BTHD>(H, D);
+  const int kvld = tds::row_stride<BTHD>(KVH, D);
+  // causal: q tiles before the one holding key k0 see none of its keys;
+  // unmasked: every q tile sees them.  The CTA walks (query head of the
+  // group, q tile) in one sequence, so the ring runs across heads.
+  const int qt0 = CAUSAL ? blockIdx.x : 0;
+  const int per = (seqlen + BQ - 1) / BQ - qt0;
+  const int ntiles = group * per;
+
+  auto load_q = [&](int it, int st) {
+    const int hq = kvh * group + it / per;
+    const int q0 = (qt0 + it % per) * BQ;
+    const size_t qoff = tds::panel_offset<BTHD>(b, hq, H, seqlen, D);
+    load_tile64<T, D, THREADS>(qs(st), q + qoff, q0, seqlen, qld);
+    load_tile64<T, D, THREADS>(dos(st), dout + qoff, q0, seqlen, qld);
+    // one f32 a thread: threads 0-63 lse, 64-127 di; 0 past T
+    const int r = threadIdx.x % BQ;
+    const bool ok = q0 + r < seqlen;
+    const float* src = (threadIdx.x < BQ ? lse : di)
+                       + (size_t)(b * H + hq) * seqlen + (ok ? q0 + r : 0);
+    cp_async4(stats + (st * 2 * BQ + threadIdx.x) * 4, src, ok);
+  };
+
+  load_tile64<T, D, THREADS>(ks, k + kvoff, k0, seqlen, kvld);
+  load_tile64<T, D, THREADS>(vs, v + kvoff, k0, seqlen, kvld);
+  load_q(0, 0);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int key0 = k0 + 16 * warp + lane / 4;      // keys key0, key0 + 8
+  const int col0 = 2 * (lane % 4);                 // + 8j + e in a q tile
+  const float sl2 = scale * kLog2e;
+  float acc_k[D / 2], acc_v[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = it % STAGES;
+    if (it + 1 < ntiles) load_q(it + 1, (it + 1) % STAGES);
+    cp_async_commit();
+    cp_async_wait<1>();  // tile it (and K/V) landed
+    fence_proxy_async();
+    __syncthreads();
+
+    // S^T = K Q^T and dP^T = V dO^T
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64<T>(s, desc_k<D>(ks, kk), desc_k<D>(qs(st), kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64<T>(dp, desc_k<D>(vs, kk), desc_k<D>(dos(st), kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P^T = exp(S^T scale - lse), dS^T = P^T (dP^T - di) scale
+    const int q0 = (qt0 + it % per) * BQ;
+    const bool edge = (CAUSAL && q0 == k0) || q0 + BQ > seqlen;
+    const float* lse_s = stats_p + st * 2 * BQ;
+    const float* di_s = lse_s + BQ;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int c = 8 * (i / 4) + col0 + i % 2;
+      float p = exp2f(fmaf(s[i], sl2, -lse_s[c] * kLog2e));
+      if (edge) {
+        const int key = key0 + 8 * ((i / 2) % 2);
+        const bool ok = q0 + c < seqlen && (!CAUSAL || key <= q0 + c);
+        p = ok ? p : 0.f;
+      }
+      s[i] = p;
+      dp[i] = p * (dp[i] - di_s[c]) * scale;
+    }
+
+    // dV += P^T dO, dK += dS^T Q: A from registers in the input dtype,
+    // dO and Q MN-major (transpose bit)
+    uint32_t pa[4][4], da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      acc_to_a<T>(s, kk, pa[kk]);
+      acc_to_a<T>(dp, kk, da[kk]);
+    }
+    fence_regs(acc_v);
+    fence_regs(acc_k);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<T, D>(acc_v, pa[kk], desc_mn<D>(dos(st), kk), 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<T, D>(acc_k, da[kk], desc_mn<D>(qs(st), kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc_v);
+    fence_regs(acc_k);
+    __syncthreads();  // stage st is free for the copy two tiles ahead
+  }
+
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int key = key0 + 8 * ((i / 2) % 2);
+    if (key < seqlen) {
+      const size_t off = kvoff + (size_t)key * kvld + 8 * (i / 4) + col0;
+      *reinterpret_cast<uint32_t*>(dk + off) =
+          pack2<T>(acc_k[i], acc_k[i + 1]);
+      *reinterpret_cast<uint32_t*>(dv + off) =
+          pack2<T>(acc_v[i], acc_v[i + 1]);
+    }
+  }
+}
+
+template <typename T, int D, bool CAUSAL, bool BTHD>
+cudaError_t launch_one(const Args& a) {
+  auto kernel = flash_dkv_wgmma<T, D, CAUSAL, BTHD>;
+  constexpr int smem = smem_bytes<D>();
+  // above 48 KB dynamic shared memory must be granted on the current
+  // device: granted at every launch, so no state outlives the call
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
+  }
+  dim3 grid((a.seqlen + BKV - 1) / BKV, a.B * a.KVH);
+  kernel<<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
+      a.di, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.seqlen, a.H,
+      a.KVH, a.scale);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch(const Args& a) {
+  // heads-last is causal only (its one entry, fa2_flash_attention_bthd)
+  return a.bthd ? launch_one<T, D, true, true>(a)
+         : a.causal ? launch_one<T, D, true, false>(a)
+                    : launch_one<T, D, false, false>(a);
+}
+
+}  // namespace tc
+
 template <typename T, int D>
 cudaError_t launch(const Args& a, bool dkv) {
   const T* q = static_cast<const T*>(a.q);
@@ -323,13 +543,18 @@ cudaError_t launch(const Args& a, bool dkv) {
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
   if (dkv) {
-    dim3 grid((a.seqlen + BK - 1) / BK, a.B * a.KVH);
-    auto kernel = a.bthd ? flash_dkv_kernel<T, D, true, true>
-                  : a.causal ? flash_dkv_kernel<T, D, true, false>
-                             : flash_dkv_kernel<T, D, false, false>;
-    kernel<<<grid, THREADS, 0, a.stream>>>(
-        q, k, v, dout, a.lse, a.di, static_cast<T*>(a.dk),
-        static_cast<T*>(a.dv), a.seqlen, a.H, a.KVH, a.scale);
+    // f32 -> the FMA kernel, bf16/f16 -> the tensor-core kernel
+    if constexpr (!std::is_same<T, float>::value) {
+      return tc::launch<T, D>(a);
+    } else {
+      dim3 grid((a.seqlen + BK - 1) / BK, a.B * a.KVH);
+      auto kernel = a.bthd ? flash_dkv_kernel<T, D, true, true>
+                    : a.causal ? flash_dkv_kernel<T, D, true, false>
+                               : flash_dkv_kernel<T, D, false, false>;
+      kernel<<<grid, THREADS, 0, a.stream>>>(
+          q, k, v, dout, a.lse, a.di, static_cast<T*>(a.dk),
+          static_cast<T*>(a.dv), a.seqlen, a.H, a.KVH, a.scale);
+    }
   } else {
     dim3 grid((a.seqlen + BQ - 1) / BQ, a.B * a.H);
     auto kernel = a.bthd ? flash_dq_kernel<T, D, true, true>
@@ -411,4 +636,10 @@ extern "C" int flash_bwd_dkv_bthd(const void* q, const void* k,
   Args a{q, k, v, dout, lse, di, nullptr, dk, dv, B, H, KVH, seqlen,
          true, true, scale, static_cast<cudaStream_t>(stream)};
   return dispatch(dtype, D, a, true);
+}
+
+// Dynamic shared memory (bytes) the bf16/f16 dk/dv kernel launches with
+// at head dim D (32 or 64), or -1.
+extern "C" int flash_dkv_smem_bytes(int D) {
+  return D == 32 ? tc::smem_bytes<32>() : D == 64 ? tc::smem_bytes<64>() : -1;
 }

@@ -36,7 +36,9 @@ one to `fa2_chunk_fwd` / `_dq` / `_dkv`, a heads-last one to
 lock, since ring attention's lockstep test harness launches from several
 threads at once.
 
-Design and bound of each kernel are in its source's header.  K/V (and in
+Design and bound of each kernel are in its source's header.  bf16 and
+f16 operands reach the tensor-core (wgmma) forward and dk/dv kernels;
+f32 operands, and every dq pass, reach FP32-FMA kernels.  K/V (and in
 the backward Q/dO) stream through shared memory in tiles, so any T works
 and the TPU package's `FA2_MAX_T` VMEM bound has no counterpart.  Grouped
 K/V (KVH | H, query head h reads kv head h // group) run natively, as in
@@ -211,9 +213,18 @@ def _check_bwd(what, q, k, v, do, lse, di):
     return b, h, kvh, t, dh
 
 
+def _aligned(t):
+    """t contiguous with its data on a 16-byte boundary: the tensor-core
+    kernels copy rows into shared memory 16 bytes at a time, and a view's
+    storage offset can leave a contiguous tensor off that boundary (then
+    it is copied)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _fa2_fwd_cuda(q, k, v, causal=True):
     b, h, kvh, t, dh = _check_qkv("flash_fwd", q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if t == 0 or b == 0:
@@ -228,7 +239,7 @@ def _fa2_fwd_cuda(q, k, v, causal=True):
 
 
 def _bwd_operands(q, k, v, do, lse, di):
-    return (q.contiguous(), k.contiguous(), v.contiguous(), do.contiguous(),
+    return (_aligned(q), _aligned(k), _aligned(v), _aligned(do),
             lse.contiguous(), di.contiguous())
 
 
@@ -290,7 +301,7 @@ def _check_bthd(what, q, k, v, do=None, lse=None, di=None):
 
 def _fa2_bthd_fwd_cuda(q, k, v):
     b, h, t, dh = _check_bthd("flash_fwd_bthd", q, k, v)
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _aligned(q), _aligned(k), _aligned(v)
     o = torch.empty_like(q)
     lse = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     if t == 0 or b == 0:
