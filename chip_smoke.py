@@ -20,7 +20,8 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      compile; each CUDA kernel's registers, spill bytes and shared memory
      (ptxas; the tensor-core FA2 kernels' dynamic shared memory beside
      it), and `cuobjdump -sass` proof that every bf16/f16 instantiation of
-     the tensor-core FA2 forward and dk/dv kernels issues HGMMA (wgmma);
+     the tensor-core FA2 forward, dq and dk/dv kernels and of the fused
+     head's dW kernel issues HGMMA (wgmma), and no f32 one does;
   2. kernel parity: each hand-written kernel against its plain PyTorch
      version on the card at its main paths' shapes (the two forward
      kernels at serving's and at training's; the fused xent kernels also
@@ -41,7 +42,10 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      also timed in turns with their SDPA yardstick (kernel, library,
      library, kernel; 5 repeats of 20 back-to-back calls queued behind a
      sleep, CUDA events): median, min-max spread and kernel / library
-     ratio, the number that compares across calls;
+     ratio, the number that compares across calls; the fused head's rows
+     (11, 12 dx, 12 dW) likewise with F.linear + F.cross_entropy (its
+     forward; its backward).  f32 takes the FMA FA2 kernels (forward, dq,
+     dk/dv) and the 3xTF32 dW kernel, each held to its plain version;
   3. serving: gpt2-124m (seeded random weights, bf16 compute) under
      ServingEngine(max_active=8, block_tokens=16) with a pool sized for
      the traffic — 16 greedy requests, seeded prompt lengths 16-512, 64
@@ -333,7 +337,8 @@ def max_err(a, b):
 # the tensor-core FA2 kernels, and the query of the dynamic shared memory
 # each launches with: {kernel: (library, C query)}
 TC_KERNELS = {"flash_fwd_wgmma": ("flash_fwd", "flash_fwd_smem_bytes"),
-              "flash_dkv_wgmma": ("flash_bwd", "flash_dkv_smem_bytes")}
+              "flash_dkv_wgmma": ("flash_bwd", "flash_dkv_smem_bytes"),
+              "flash_dq_wgmma": ("flash_bwd", "flash_dq_smem_bytes")}
 
 
 def _demangle(names):
@@ -400,8 +405,9 @@ def hgmma_counts(lib_paths):
 
 def build_report(_build):
     """Print each CUDA kernel's registers, spills and shared memory, and
-    fail unless every bf16/f16 tensor-core FA2 instantiation issues
-    HGMMA and no f32 one does (f32 keeps the FMA kernels)."""
+    fail unless every bf16/f16 tensor-core FA2 instantiation and every
+    bf16/f16 dW instantiation of the fused head issues HGMMA and no f32
+    one does (f32 keeps the FMA FA2 kernels and the 3xTF32 wmma dW)."""
     for src, name, regs, sst, sld, smem in kernel_resources(
             _build.build_logs):
         print(f"  ptxas {src}: {name}: {regs} registers, spill stores "
@@ -410,23 +416,42 @@ def build_report(_build):
         fn = _build.entry(lib, query, [ctypes.c_int])
         print(f"  {kname}: dynamic smem " + ", ".join(
             f"D={d} {fn(d)} B" for d in (32, 64)) + f" ({lib}.cu {query})")
+    fn = _build.entry("fused_xent", "fused_xent_dw_smem_bytes",
+                      [ctypes.c_int])
+    print("  xent_dw_wgmma: dynamic smem " + ", ".join(
+        f"D={d} {fn(d)} B" for d in (768, 1600))
+        + " (fused_xent.cu fused_xent_dw_smem_bytes)")
     counts = hgmma_counts([_build._lib_path(_build.CSRC / f"{n}.cu")
-                                  for n in ("flash_fwd", "flash_bwd")])
+                           for n in ("flash_fwd", "flash_bwd",
+                                     "fused_xent")])
     tc = {n: c for n, c in counts.items()
           if any(k in n for k in TC_KERNELS)}
-    check(len(tc) == 24, f"{len(tc)} tensor-core FA2 instantiations, "
-          "expected 24 (fwd and dk/dv x bf16/f16 x D 32/64 x 3 variants)")
-    for n, c in sorted(tc.items()):
+    check(len(tc) == 36, f"{len(tc)} tensor-core FA2 instantiations, "
+          "expected 36 (fwd, dq and dk/dv x bf16/f16 x D 32/64 x 3 "
+          "variants)")
+    check(sum("flash_dq_wgmma" in n for n in tc) == 12,
+          "expected 12 tensor-core dq instantiations")
+    dw = {n: c for n, c in counts.items() if "xent_dw_" in n}
+    dw_tc = {n: c for n, c in dw.items() if "xent_dw_wgmma" in n}
+    for n, c in sorted({**tc, **dw_tc}.items()):
         check(c > 0, f"{n} issues no HGMMA")
         check("bfloat16" in n or "__half" in n,
               f"{n}: not a bf16/f16 tensor-core instantiation")
+    check(len(dw_tc) == 4, f"{len(dw_tc)} tensor-core dW instantiations, "
+          "expected 4 (bf16/f16 x w resident or streamed)")
     fma = {n: c for n, c in counts.items() if "flash_" in n and n not in tc}
-    check(all(c == 0 for c in fma.values()),
-          "an FMA FA2 kernel issues HGMMA")
+    dw_f32 = {n: c for n, c in dw.items() if n not in dw_tc}
+    check(fma and all("float" in n for n in fma),
+          f"FMA FA2 kernels other than f32: {sorted(fma)}")
+    check(list(dw_f32) and all("xent_dw_kernel<float" in n for n in dw_f32),
+          f"wmma dW kernels other than f32: {sorted(dw_f32)}")
+    check(all(c == 0 for c in {**fma, **dw_f32}.values()),
+          "an f32 FA2 or dW kernel issues HGMMA")
     print(f"  sass: HGMMA in all {len(tc)} bf16/f16 tensor-core FA2 "
-          f"instantiations ({min(tc.values())}-{max(tc.values())} each); "
-          f"{len(fma)} FMA FA2 kernels (f32 fwd and dk/dv, every dq) "
-          "issue none")
+          f"instantiations ({min(tc.values())}-{max(tc.values())} each) and "
+          f"all {len(dw_tc)} bf16/f16 dW ones ({min(dw_tc.values())}-"
+          f"{max(dw_tc.values())}); {len(fma)} FMA FA2 kernels (f32 fwd, "
+          f"dq and dk/dv) and {len(dw_f32)} 3xTF32 dW kernel issue none")
 
 
 # -- phase 2: kernel parity -------------------------------------------------
@@ -950,14 +975,14 @@ def _profile_names(torch, fn, want):
 
 
 def flash_f32_phase(torch, fa):
-    """f32 reaches the FP32-FMA forward and dk/dv kernels, not the wgmma
-    ones: each against its plain version at the card tests' f32
-    tolerance (forward atol = rtol = 1e-4, lse 2e-3 / 1e-4; dk/dv max abs
-    err <= 1e-4 x max |plain|) at the shapes the f32 serving path
+    """f32 reaches the FP32-FMA forward, dq and dk/dv kernels, not the
+    wgmma ones: each against its plain version at the card tests' f32
+    tolerance (forward atol = rtol = 1e-4, lse 2e-3 / 1e-4; dq and dk/dv
+    max abs err <= 1e-4 x max |plain|) at the shapes the f32 serving path
     (phase 6) and training give them — forward B=1 T=1024 and a ragged
-    prompt, T=300; dk/dv B=8 T=1024 — and a profiled call of each names
-    the FMA kernel and no wgmma one (build_report: those issue no
-    HGMMA)."""
+    prompt, T=300; dk/dv B=8 T=1024; dq B=8 T=1024 and the ragged T=300
+    — and a profiled call of each names the FMA kernel and no wgmma one
+    (build_report: those issue no HGMMA)."""
     h, d = 12, 64
     res = {}
     for b, t in ((1, 1024), (1, 300), (8, 1024)):
@@ -979,8 +1004,25 @@ def flash_f32_phase(torch, fa):
         res["fwd", b, t] = max_err(o, po)
         msg = (f"  flash f32 B={b} H={h} T={t} Dh={d}: forward (FMA kernel) "
                f"max_abs_err={res['fwd', b, t]:.3g} (tol atol=rtol=1e-4)")
+        di = (do * o).sum(-1)
+        if b == 8 or t == 300:
+            dq = fa.fa2_flash_attention_dq(q, k, v, do, lse, di)
+            torch.cuda.synchronize()
+            err, rel = _rel_err(dq, fa._fa2_dq_plain(q, k, v, do, lse, di))
+            check(rel <= 1e-4, f"f32 dq B={b} T={t} disagrees with its "
+                  f"plain version: rel {rel:.3g}")
+            names = _profile_names(
+                torch, lambda: fa.fa2_flash_attention_dq(q, k, v, do, lse,
+                                                         di),
+                "flash_dq_kernel<float")
+            check(any("flash_dq_kernel<float" in n for n in names)
+                  and not any("wgmma" in n for n in names),
+                  f"the f32 dq B={b} T={t} did not run the FMA kernel: "
+                  f"{sorted(names)}")
+            res["dq", b, t] = err
+            msg += (f"; dq (FMA kernel) max_abs_err={err:.3g} ({rel:.3g} "
+                    "of max|plain|; tol 1e-4)")
         if b == 8:
-            di = (do * o).sum(-1)
             dk, dv = fa.fa2_flash_attention_dkv(q, k, v, do, lse, di)
             torch.cuda.synchronize()
             pdk, pdv = fa._fa2_dkv_plain(q, k, v, do, lse, di)
@@ -1005,6 +1047,8 @@ def flash_f32_phase(torch, fa):
     torch.cuda.empty_cache()
     return {"fa2_flash_attention_fwd": max(
                 v for k, v in res.items() if k[0] == "fwd"),
+            "fa2_flash_attention_dq": max(
+                v for k, v in res.items() if k[0] == "dq"),
             "fa2_flash_attention_dkv": res["dkv", 8, 1024]}
 
 
@@ -1016,7 +1060,10 @@ def xent_phase(torch, F, fx):
     Tolerances: loss and lse max abs err <= 1e-3; dx and dW rel L2 err
     <= 1e-2 against the plain versions, whose dz stays f32 (the kernels
     round dz to bf16 before its product).  Each kernel runs twice and
-    must agree bit for bit."""
+    must agree bit for bit.  f32 dW takes the 3xTF32 wmma kernel (a
+    profiled call names it), held to its plain version at rel L2 1e-4 at
+    S = 1000, V = 50257.  Each row is also timed in turns with its
+    library yardstick (`turns`)."""
     errs, main = {}, None
     for s_, d, v in ((8192, 768, 50304), (1000, 768, 50257),
                      (512, 1600, 50304)):
@@ -1055,6 +1102,7 @@ def xent_phase(torch, F, fx):
         if main is None:
             main = (x, w, tg, lse, gs)
         del dx, dw, pdx, pdw
+    _xent_dw_f32_check(torch, fx)
     x, w, tg, lse, gs = main
     s_, d = x.shape
     v = w.shape[1]
@@ -1094,13 +1142,37 @@ def xent_phase(torch, F, fx):
                                      else lib_bwd_ms),
                          call_ms=time_ms(torch, kernel, iters=5),
                          bound_ms=bms, bound_by=by, max_abs_err=err,
-                         shape=f"S={s_} D={d} V={v} bf16")
+                         shape=f"S={s_} D={d} V={v} bf16",
+                         **turns(torch, kernel, lib or lib_bwd, n=5))
         print(f"kernel {name} S={s_} D={d} V={v} bf16: max_abs_err={err:.3g} "
               "(all three shapes); library = F.linear + F.cross_entropy"
               + (" backward, dx and dW" if lib is None else "") + "; "
               + " ".join(f"{k}={v_:.5g}" for k, v_ in res[name].items()
-                         if k.endswith("ms")))
+                         if k in TIMED_MS) + "; " + turns_text(res[name]))
     return res
+
+
+def _xent_dw_f32_check(torch, fx):
+    """f32 dW on the 3xTF32 wmma kernel (a profiled call names it) against
+    its plain version: rel L2 <= 1e-4, as the card tests hold it."""
+    s_, d, v = 1000, 768, 50257
+    g = torch.Generator(device="cuda").manual_seed(s_ + d + v)
+    x = torch.randn(s_, d, generator=g, device="cuda")
+    w = torch.randn(d, v, generator=g, device="cuda") * 0.05
+    tg = torch.randint(0, v, (s_,), generator=g, device="cuda")
+    gs = torch.full((1,), 1.0 / s_, device="cuda")
+    _, lse = fx.fused_xent_fwd(x, w, tg)
+    dw = fx.fused_xent_dw(x, w, tg, lse, gs)
+    pdw = fx._xent_dw_plain(x, w, tg, lse, gs)
+    rel = float((dw - pdw).norm() / pdw.norm())
+    names = _profile_names(torch, lambda: fx.fused_xent_dw(x, w, tg, lse, gs),
+                           "xent_dw_kernel<float")
+    check(any("xent_dw_kernel<float" in n for n in names)
+          and not any("wgmma" in n for n in names),
+          f"f32 dW did not run the 3xTF32 kernel: {sorted(names)}")
+    print(f"  fused xent f32 dW S={s_} D={d} V={v} (3xTF32 wmma kernel): "
+          f"rel L2 {rel:.3g} (tol 1e-4)")
+    check(rel <= 1e-4, "f32 dW disagrees with its plain version")
 
 
 def adamw_phase(torch, af, leaf_shapes):
@@ -1319,12 +1391,12 @@ PATTERNS = {"layernorm_fwd": "_ln_fwd_kernel",
             "layernorm_dx": "_ln_dx_kernel",
             "layernorm_dwdb": "_ln_dwdb_",
             "fa2_flash_attention_fwd": "flash_fwd_",
-            "fa2_flash_attention_dq": "flash_dq_kernel",
+            "fa2_flash_attention_dq": "flash_dq_",
             "fa2_flash_attention_dkv": "flash_dkv_",
             "paged_attention": "paged_decode_kernel",
             "fused_xent_fwd": "xent_fwd_kernel",
             "fused_xent_dx": "xent_dx_kernel",
-            "fused_xent_dw": "xent_dw_kernel",
+            "fused_xent_dw": "xent_dw_",
             "adamw_update_fused": "_adamw_kernel"}
 
 

@@ -168,7 +168,11 @@ def test_layernorm_backward_kernels(dtype, rows, n):
 @pytest.mark.parametrize("b,h,kvh,t,d", [
     (1, 2, 2, 64, 64), (2, 4, 2, 100, 64), (1, 2, 1, 33, 32),
     (3, 2, 2, 1, 64), (1, 12, 12, 1000, 64), (1, 2, 2, 2048, 64),
-    (1, 2, 1, 4096, 64), (2, 4, 2, 130, 64), (1, 6, 2, 200, 32)])
+    (1, 2, 1, 4096, 64), (2, 4, 2, 130, 64), (1, 6, 2, 200, 32),
+    # the tensor-core kernels' 64-row tiles: just short of, at and just
+    # past one and two tiles; a query-head group of 4
+    (2, 2, 2, 63, 64), (1, 2, 2, 64, 64), (2, 2, 1, 65, 64),
+    (1, 2, 2, 127, 32), (1, 8, 2, 300, 64)])
 def test_flash_backward_kernels(dtype, b, h, kvh, t, d):
     g = _g(7 * t + h)
     q = torch.randn(b, h, t, d, generator=g, device="cuda").to(dtype)
@@ -347,7 +351,7 @@ def test_flash_chunk_causal_is_the_causal_kernel():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("b,h,t,d", [(1, 2, 64, 64), (2, 12, 1000, 64),
-                                     (2, 4, 130, 32)])
+                                     (2, 4, 130, 32), (1, 4, 65, 64)])
 def test_flash_bthd_kernels(dtype, b, h, t, d):
     """The heads-last kernels (#7 fwd, #8 dq and dk/dv): bit for bit the
     (B, H, T, Dh) kernels' results on transposed contiguous copies (the
@@ -455,7 +459,10 @@ def _xent_inputs(dtype, s, d, v, seed, transposed=False):
                                    torch.float16])
 @pytest.mark.parametrize("s,d,v,transposed", [
     (257, 64, 1000, False), (1000, 768, 50257, False), (40, 1600, 3001, False),
-    (300, 768, 777, True)], ids=["d64", "d768_gpt2_vocab", "d1600", "wte_t"])
+    (300, 768, 777, True), (40, 96, 777, False), (257, 768, 1000, False),
+    (33, 768, 50304, True)],
+    ids=["d64", "d768_gpt2_vocab", "d1600", "wte_t", "d96_s40",
+         "s257_v1000", "s33_wte_t"])
 def test_fused_xent_kernels(dtype, s, d, v, transposed):
     x, w, tg, gs = _xent_inputs(dtype, s, d, v, s + d + v, transposed)
     before = (fused_xent.fused_xent_fwd.launches,

@@ -102,6 +102,9 @@ XENT_CASES = {
     "vocab_tail": (64, 64, 704, np.float32),   # 704 = 5.5 x the 128 tile
     "odd_s": (40, 32, 256, np.float32),        # no 8-aligned token block
     "bf16": (64, 64, 512, "bf16"),
+    # D ending in half a 64-wide chunk, and a vocab no tile divides
+    "d96": (40, 96, 256, np.float32),
+    "v1000": (64, 64, 1000, np.float32),
 }
 
 

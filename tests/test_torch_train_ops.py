@@ -120,6 +120,46 @@ def _jax_flat(a):
     return jnp.asarray(a.reshape(b * h, t, d))
 
 
+def _check_bwd_plain_vs_pallas(b, h, kvh, t, blk, d=32, causal=True):
+    """The plain dq and dk/dv against the Pallas `_dq_call` / `_dkv_call`
+    in interpret mode on the same inputs; causal=False goes through the
+    chunk entries (`fa2_chunk_dq` / `fa2_chunk_dkv`) on both sides."""
+    rng = np.random.default_rng(t + h + kvh + d)
+    q, do = _rand(rng, b, h, t, d), _rand(rng, b, h, t, d)
+    k, v = _rand(rng, b, kvh, t, d), _rand(rng, b, kvh, t, d)
+    scale = 1.0 / np.sqrt(d)
+    group = h // kvh
+    jq, jk, jv, jdo = (_jax_flat(a) for a in (q, k, v, do))
+    jo, jlse = JFA._fwd(jq, jk, jv, scale=scale, bq=blk, bk=blk,
+                        causal=causal, group=group)
+    jdi = jnp.sum(jdo * jo, axis=-1)[:, None, :]
+    if causal:
+        jdq = JFA._dq_call(jq, jk, jv, jdo, jlse, jdi, scale=scale, bq=blk,
+                           bk=blk, group=group)
+        jdk, jdv = JFA._dkv_call(jq, jk, jv, jdo, jlse, jdi, scale=scale,
+                                 bq=blk, bk=blk, group=group)
+    else:
+        jdq = JFA.fa2_chunk_dq(jq, jk, jv, jdo, jlse, jdi, causal=False,
+                               block=blk, group=group)
+        jdk, jdv = JFA.fa2_chunk_dkv(jq, jk, jv, jdo, jlse, jdi,
+                                     causal=False, block=blk, group=group)
+    lse = _t(np.asarray(jlse).reshape(b, h, t))
+    di = _t(np.asarray(jdi).reshape(b, h, t))
+    tq, tk, tv, tdo = (_t(a) for a in (q, k, v, do))
+    if causal:
+        tdq = flash_fa2.fa2_flash_attention_dq(tq, tk, tv, tdo, lse, di)
+        tdk, tdv = flash_fa2.fa2_flash_attention_dkv(tq, tk, tv, tdo, lse,
+                                                     di)
+    else:
+        tdq = flash_fa2.fa2_chunk_dq(tq, tk, tv, tdo, lse, di, causal=False)
+        tdk, tdv = flash_fa2.fa2_chunk_dkv(tq, tk, tv, tdo, lse, di,
+                                           causal=False)
+    assert tdk.shape == tdv.shape == (b, kvh, t, d)
+    for got, ref in ((tdq, jdq), (tdk, jdk), (tdv, jdv)):
+        np.testing.assert_allclose(
+            got.numpy(), np.asarray(ref).reshape(got.shape), **TOL)
+
+
 class TestFlashBackward:
     @pytest.mark.parametrize("b,h,kvh,t,blk", [
         (1, 2, 2, 64, 64),      # one block
@@ -127,30 +167,20 @@ class TestFlashBackward:
         (1, 4, 2, 256, 128),    # grouped K/V (GQA), several blocks
     ])
     def test_plain_matches_pallas(self, b, h, kvh, t, blk):
-        rng = np.random.default_rng(t + h + kvh)
-        d = 32
-        q, do = _rand(rng, b, h, t, d), _rand(rng, b, h, t, d)
-        k, v = _rand(rng, b, kvh, t, d), _rand(rng, b, kvh, t, d)
-        scale = 1.0 / np.sqrt(d)
-        group = h // kvh
-        jq, jk, jv, jdo = (_jax_flat(a) for a in (q, k, v, do))
-        jo, jlse = JFA._fwd(jq, jk, jv, scale=scale, bq=blk, bk=blk,
-                            group=group)
-        jdi = jnp.sum(jdo * jo, axis=-1)[:, None, :]
-        jdq = JFA._dq_call(jq, jk, jv, jdo, jlse, jdi, scale=scale, bq=blk,
-                           bk=blk, group=group)
-        jdk, jdv = JFA._dkv_call(jq, jk, jv, jdo, jlse, jdi, scale=scale,
-                                 bq=blk, bk=blk, group=group)
-        lse = _t(np.asarray(jlse).reshape(b, h, t))
-        di = _t(np.asarray(jdi).reshape(b, h, t))
-        tq, tk, tv, tdo = (_t(a) for a in (q, k, v, do))
-        tdq = flash_fa2.fa2_flash_attention_dq(tq, tk, tv, tdo, lse, di)
-        tdk, tdv = flash_fa2.fa2_flash_attention_dkv(tq, tk, tv, tdo, lse,
-                                                     di)
-        assert tdk.shape == tdv.shape == (b, kvh, t, d)
-        for got, ref in ((tdq, jdq), (tdk, jdk), (tdv, jdv)):
-            np.testing.assert_allclose(
-                got.numpy(), np.asarray(ref).reshape(got.shape), **TOL)
+        _check_bwd_plain_vs_pallas(b, h, kvh, t, blk)
+
+    # the card's dq and dk/dv tiles are 64 rows: three of them, the
+    # diagonal inside each; the head dim of GPT-2; a query-head group of
+    # 4; the ring's unmasked chunk
+    @pytest.mark.parametrize("b,h,kvh,t,blk,d,causal", [
+        (1, 2, 2, 192, 64, 32, True),
+        (1, 2, 2, 128, 64, 64, True),
+        (1, 8, 2, 128, 64, 32, True),
+        (2, 2, 2, 192, 64, 32, False),
+    ], ids=["t192_three_tiles", "d64", "gqa4", "chunk_unmasked"])
+    def test_plain_matches_pallas_at_tile_edges(self, b, h, kvh, t, blk, d,
+                                                causal):
+        _check_bwd_plain_vs_pallas(b, h, kvh, t, blk, d, causal)
 
     @pytest.mark.parametrize("kvh", [2, 1])
     def test_function_grads_match_jax(self, kvh):

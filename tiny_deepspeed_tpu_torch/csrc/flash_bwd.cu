@@ -2,9 +2,8 @@
 // SPDX-License-Identifier: Apache-2.0
 //
 // FlashAttention-2 backward for Hopper (sm_90a): the dq pass and the dk/dv
-// pass, causal or unmasked (a ring attention chunk).  dk/dv runs on the
-// tensor cores (wgmma) for bf16/f16; dq, and dk/dv for f32, are FP32-FMA
-// kernels.
+// pass, causal or unmasked (a ring attention chunk).  bf16/f16 run both
+// passes on the tensor cores (wgmma); f32 keeps the FP32-FMA kernels.
 //
 // Replaces the TPU kernels tiny_deepspeed_tpu/ops/flash_fa2.py::_dq_call
 // (:281, pallas_call :285, kernel _bwd_dq_kernel :210) and ::_dkv_call
@@ -32,9 +31,9 @@
 //
 // Design.  The JAX decomposition stays: two passes, no atomics, so both
 // are deterministic (fixed loop order, bit-repeatable run to run).
-//   * dq: one CTA owns BQ query rows of one (batch, head) and walks the
-//     key tiles up to the diagonal (causality by loop bound; unmasked, all
-//     of them):
+//   * dq: one CTA owns the query rows of one query block of one (batch,
+//     head) and walks the key tiles up to the diagonal (causality by loop
+//     bound; unmasked, all of them):
 //     dq += ds K, ds = p (dp - di) scale, dp = do V^T.
 //   * dkv: one CTA owns the keys of one key block of one (batch, kv
 //     head), loops over the group's query heads and over the q tiles from
@@ -42,52 +41,73 @@
 //     dv += p^T do, dk += ds^T q.
 // The TPU kernels keep whole (T, D) panels resident in VMEM; a Hopper SM
 // has 227 KB of shared memory, so here the streamed operands pass through
-// shared memory in tiles and any T works.
+// shared memory in tiles and any T works.  Tiles are bf16/f16 rows in the
+// 128-byte (D = 64) or 64-byte (D = 32) swizzle (hopper.cuh), copied with
+// cp.async (16 bytes a thread, zero-filled past T) one tile ahead of the
+// compute through a ring of STAGES = 2.  One CTA is one warpgroup (128
+// threads); every product is wgmma with f32 accumulators in registers.
 //
-// dk/dv, bf16/f16 (`tc::flash_dkv_wgmma`).  One CTA is one warpgroup (128
-// threads) owning BKV = 64 keys; its K and V tiles stay in shared memory.
-// The Q and dO tiles (BQ = 64 rows) with their lse and di slices come
-// through a ring of STAGES = 2, copied with cp.async (16 bytes a thread
-// for the tiles, 4 for the statistics, zero-filled past T) one tile
-// ahead of the compute; the ring runs across the group's query heads.
-// Tiles are bf16/f16 rows in the 128-byte (D = 64) or 64-byte (D = 32)
-// swizzle (hopper.cuh).  Per q tile, in f32 registers:
+// dq, bf16/f16 (`tc::flash_dq_wgmma`).  The CTA owns BQ = 64 query rows;
+// its Q and dO tiles stay in shared memory, and the lse and di of the
+// thread's own two accumulator rows (16w + l/4 + 8h, hopper.cuh) sit in
+// registers (0 past T).  K and V stream through the ring in BKV = 64-key
+// tiles; causal CTAs are launched heaviest (last row block) first, as
+// the forward's.  Per key tile:
+//   S = Q K^T and dP = dO V^T: wgmma m64n64k16, both operands K-major in
+//     shared memory, D/16 k-steps each (32 f32 a thread each);
+//   P = exp2(S scale log2(e) - lse log2(e)), masked only on the diagonal
+//     tile (causal) and past T; dS = P (dP - di) scale, the scale where
+//     the plain version applies it;
+//   dQ += dS K: dS rounded to the input dtype in registers is the A
+//     operand (wgmma m64nDk16, A from registers), K the B operand,
+//     MN-major (transpose bit): 4 k-steps of 16 keys — the forward's
+//     O += P V with K for V.
+// dQ (32 f32 at D = 64) lives in registers for the whole walk and is
+// stored once.  ptxas: 128-131 registers at D = 64 (the three variants),
+// 107-110 at D = 32, no spills; 50176 bytes of dynamic
+// shared memory at D = 64 (Q, dO and two stages of K and V + alignment;
+// 25600 at D = 32; flash_dq_smem_bytes reports it), granted with
+// cudaFuncSetAttribute at each launch.
+//
+// dk/dv, bf16/f16 (`tc::flash_dkv_wgmma`).  The CTA owns BKV = 64 keys;
+// its K and V tiles stay in shared memory.  The Q and dO tiles (BQ = 64
+// rows) with their lse and di slices (4-byte cp.async) come through the
+// ring, which runs across the group's query heads.  Per q tile, in f32
+// registers:
 //   S^T = K Q^T and dP^T = V dO^T: wgmma m64n64k16, both operands
-//     K-major in shared memory, D/16 k-steps each (32 f32 a thread each);
+//     K-major in shared memory, D/16 k-steps each;
 //   P^T = exp2(S^T scale log2(e) - lse log2(e)), masked only on the
 //     diagonal tile (causal) and the ragged q tail;
-//     dS^T = P^T (dP^T - di) scale, the scale where the plain version
-//     applies it;
+//     dS^T = P^T (dP^T - di) scale;
 //   dV += P^T dO and dK += dS^T Q: P^T and dS^T rounded to the input
-//     dtype in registers are the A operands (wgmma m64nDk16, A from
-//     registers), dO and Q the B operands in shared memory, MN-major
-//     (transpose bit): 4 k-steps of 16 query rows each.
+//     dtype in registers are the A operands, dO and Q the B operands in
+//     shared memory, MN-major (transpose bit): 4 k-steps of 16 query rows.
 // dK and dV (32 f32 each at D = 64) live in registers for the whole
-// loop and are stored once.  ptxas: 194 registers at D = 64 causal (168
-// unmasked, 196 heads-last), 146 at D = 32, no spills; 51200 bytes of
-// dynamic shared memory at D = 64 (26624 at D = 32; flash_dkv_smem_bytes
-// reports it), granted with cudaFuncSetAttribute at each launch: 2 CTAs
-// an SM.
+// loop and are stored once.  ptxas: 194 registers at D = 64
+// causal (168 unmasked, 196 heads-last), 146 at D = 32, no spills; 51200
+// bytes of dynamic shared memory at D = 64 (26624 at D = 32;
+// flash_dkv_smem_bytes reports it): 2 CTAs an SM.
 //
-// dq, and dk/dv for f32 (`flash_dq_kernel`, `flash_dkv_kernel`).  Every
-// operand streams through shared memory in 32-row f32 tiles (padded to
-// D+1 columns: the threads of a warp read different rows at one column
-// without bank conflicts); a per-element test masks the diagonal tile and
-// the ragged tail.  Each step is two small shared-memory GEMMs: phase A
-// builds the (BQ, BK) score-gradient tile (each thread a 2 x 4
-// micro-tile), phase B folds it into the thread's 2 x D/8 micro-tile of
-// the output accumulators.  f32 attention stays f32 (the tests hold it to
-// 1e-4; TF32 keeps about three digits): the dispatch by dtype picks one
-// of two hand-written dk/dv kernels, neither a fallback for the other.
+// f32 (`flash_dq_kernel`, `flash_dkv_kernel`).  f32 attention stays f32
+// (the tests hold it to 1e-4; TF32 keeps about three digits): the
+// dispatch by dtype picks these FMA kernels, neither a fallback for the
+// tensor-core ones.  Every operand streams through shared memory in
+// 32-row f32 tiles (padded to D+1 columns: the threads of a warp read
+// different rows at one column without bank conflicts); a per-element
+// test masks the diagonal tile and the ragged tail.  Each step is two
+// small shared-memory GEMMs: phase A builds the (BQ, BK) score-gradient
+// tile (each thread a 2 x 4 micro-tile), phase B folds it into the
+// thread's 2 x D/8 micro-tile of the output accumulators.
 //
 // Bound.  At gpt2-124m training shapes (T = 1024, D = 64) dq does
 // 6*D*T(T+1)/2 flops per head and dkv 8*D*T(T+1)/2 against ~6*T*D*2
 // bytes: ~500 flop/byte, compute-bound on the tensor cores (989 TFLOP/s
-// bf16).  The wgmma dk/dv kernel's limits are its serial chain per tile
-// (two products, the elementwise pass, two more) in one warpgroup, with
-// nothing to overlap it but the other resident CTA.  The FMA kernels
-// compute out of shared memory at the FP32 FMA rate (67 TFLOP/s peak,
-// about one shared-memory load per 1.5 FMAs): far above the bound.
+// bf16).  The wgmma kernels' limit is their serial chain per tile (the
+// first products, the elementwise pass, the last ones) in one
+// warpgroup, with nothing to overlap it but the other resident CTAs.
+// The FMA kernels compute out of shared memory at the FP32 FMA rate (67
+// TFLOP/s peak, about one shared-memory load per 1.5 FMAs): far above
+// the bound.
 
 #include "common.cuh"
 #include "hopper.cuh"
@@ -347,15 +367,15 @@ struct Args {
   cudaStream_t stream;
 };
 
-// -- dk/dv, bf16 / f16: tensor cores ---------------------------------------
+// -- dq and dk/dv, bf16 / f16: tensor cores -------------------------------
 
 namespace tc {
 
 using namespace tds::sm90;
 
-constexpr int BKV = 64;                // keys per CTA (one warpgroup)
-constexpr int BQ = 64;                 // query rows per tile
-constexpr int STAGES = 2;              // Q / dO / lse / di ring depth
+constexpr int BKV = 64;                // keys: dk/dv's CTA, dq's K/V tile
+constexpr int BQ = 64;                 // query rows: dq's CTA, dk/dv's tile
+constexpr int STAGES = 2;              // ring depth of the streamed tiles
 constexpr int THREADS = 128;
 static_assert(BKV == BQ, "causal: the diagonal is one whole q tile");
 
@@ -506,47 +526,190 @@ flash_dkv_wgmma(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// Q and dO, then K and V of each stage; +1024 to align the base
+template <int D>
+__host__ __device__ constexpr int dq_smem_bytes() {
+  return (2 + 2 * STAGES) * tile_bytes<D>() + 1024;
+}
+
 template <typename T, int D, bool CAUSAL, bool BTHD>
-cudaError_t launch_one(const Args& a) {
-  auto kernel = flash_dkv_wgmma<T, D, CAUSAL, BTHD>;
-  constexpr int smem = smem_bytes<D>();
-  // above 48 KB dynamic shared memory must be granted on the current
-  // device: granted at every launch, so no state outlives the call
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return err;
+__global__ void __launch_bounds__(THREADS)
+flash_dq_wgmma(const T* __restrict__ q, const T* __restrict__ k,
+               const T* __restrict__ v, const T* __restrict__ dout,
+               const float* __restrict__ lse, const float* __restrict__ di,
+               T* __restrict__ dq, int seqlen, int H, int KVH, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  constexpr uint32_t TB = tile_bytes<D>();
+  const uint32_t qs = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t dos = qs + TB;
+  auto ks = [&](int st) { return qs + TB * (2 + 2 * st); };
+  auto vs = [&](int st) { return qs + TB * (3 + 2 * st); };
+
+  const int bh = blockIdx.y;                       // b * H + h
+  const int b = bh / H, h = bh % H;
+  // causal: the row blocks with the most key tiles start first
+  const int q0 = (CAUSAL ? gridDim.x - 1 - blockIdx.x : blockIdx.x) * BQ;
+  const size_t qoff = tds::panel_offset<BTHD>(b, h, H, seqlen, D);
+  const size_t kvoff = tds::panel_offset<BTHD>(b, h / (H / KVH), KVH,
+                                               seqlen, D);
+  const int qld = tds::row_stride<BTHD>(H, D);
+  const int kvld = tds::row_stride<BTHD>(KVH, D);
+  const T* kp = k + kvoff;
+  const T* vp = v + kvoff;
+  // causal: no row of this CTA sees a key past its last row; unmasked:
+  // every key of the chunk
+  const int kend = CAUSAL ? min(seqlen, q0 + BQ) : seqlen;
+  const int ntiles = (kend + BKV - 1) / BKV;
+
+  load_tile64<T, D, THREADS>(qs, q + qoff, q0, seqlen, qld);
+  load_tile64<T, D, THREADS>(dos, dout + qoff, q0, seqlen, qld);
+  load_tile64<T, D, THREADS>(ks(0), kp, 0, seqlen, kvld);
+  load_tile64<T, D, THREADS>(vs(0), vp, 0, seqlen, kvld);
+  cp_async_commit();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int row0 = q0 + 16 * warp + lane / 4;      // rows row0, row0 + 8
+  const int col0 = 2 * (lane % 4);                 // + 8j + e in a k tile
+  const float sl2 = scale * kLog2e;
+  // this thread's two rows' statistics (0 past T: those rows' Q and dO
+  // are zero-filled, so their dS is 0 and they are never stored)
+  float lse2[2], di_r[2];
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    const int row = row0 + 8 * hh;
+    const bool ok = row < seqlen;
+    lse2[hh] = ok ? lse[(size_t)bh * seqlen + row] * kLog2e : 0.f;
+    di_r[hh] = ok ? di[(size_t)bh * seqlen + row] : 0.f;
   }
-  dim3 grid((a.seqlen + BKV - 1) / BKV, a.B * a.KVH);
-  kernel<<<grid, THREADS, smem, a.stream>>>(
-      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
-      static_cast<const T*>(a.v), static_cast<const T*>(a.dout), a.lse,
-      a.di, static_cast<T*>(a.dk), static_cast<T*>(a.dv), a.seqlen, a.H,
-      a.KVH, a.scale);
-  return cudaGetLastError();
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  for (int kt = 0; kt < ntiles; ++kt) {
+    const int st = kt % STAGES;
+    if (kt + 1 < ntiles) {  // the next tile's copy overlaps this one
+      const int nst = (kt + 1) % STAGES;
+      load_tile64<T, D, THREADS>(ks(nst), kp, (kt + 1) * BKV, seqlen, kvld);
+      load_tile64<T, D, THREADS>(vs(nst), vp, (kt + 1) * BKV, seqlen, kvld);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();  // tile kt (and Q, dO) landed
+    fence_proxy_async();
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T
+    float s[32], dp[32];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64<T>(s, desc_k<D>(qs, kk), desc_k<D>(ks(st), kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64<T>(dp, desc_k<D>(dos, kk), desc_k<D>(vs(st), kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // P = exp(S scale - lse), dS = P (dP - di) scale
+    const int k0 = kt * BKV;
+    const bool edge = (CAUSAL && k0 + BKV > q0 + 1) || k0 + BKV > seqlen;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int hh = (i / 2) % 2;
+      float p = exp2f(fmaf(s[i], sl2, -lse2[hh]));
+      if (edge) {
+        const int key = k0 + 8 * (i / 4) + col0 + i % 2;
+        const bool ok = key < seqlen && (!CAUSAL || key <= row0 + 8 * hh);
+        p = ok ? p : 0.f;
+      }
+      s[i] = p * (dp[i] - di_r[hh]) * scale;
+    }
+
+    // dQ += dS K: dS from registers in the input dtype, K MN-major
+    // (transpose bit)
+    uint32_t da[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) acc_to_a<T>(s, kk, da[kk]);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_rs<T, D>(acc, da[kk], desc_mn<D>(ks(st), kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    __syncthreads();  // stage st is free for the copy two tiles ahead
+  }
+
+#pragma unroll
+  for (int i = 0; i < D / 2; i += 2) {
+    const int row = row0 + 8 * ((i / 2) % 2);
+    if (row < seqlen) {
+      T* op = dq + qoff + (size_t)row * qld + 8 * (i / 4) + col0;
+      *reinterpret_cast<uint32_t*>(op) = pack2<T>(acc[i], acc[i + 1]);
+    }
+  }
 }
 
-template <typename T, int D>
-cudaError_t launch(const Args& a) {
-  // heads-last is causal only (its one entry, fa2_flash_attention_bthd)
-  return a.bthd ? launch_one<T, D, true, true>(a)
-         : a.causal ? launch_one<T, D, true, false>(a)
-                    : launch_one<T, D, false, false>(a);
+// above 48 KB dynamic shared memory must be granted on the current
+// device: granted at every launch, so no state outlives the call
+template <typename K>
+cudaError_t grant_smem(K kernel, int smem) {
+  return smem > 48 * 1024
+             ? cudaFuncSetAttribute(
+                   kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)
+             : cudaSuccess;
 }
 
-}  // namespace tc
-
-template <typename T, int D>
-cudaError_t launch(const Args& a, bool dkv) {
+template <typename T, int D, bool CAUSAL, bool BTHD>
+cudaError_t launch_one(const Args& a, bool dkv) {
   const T* q = static_cast<const T*>(a.q);
   const T* k = static_cast<const T*>(a.k);
   const T* v = static_cast<const T*>(a.v);
   const T* dout = static_cast<const T*>(a.dout);
+  cudaError_t err;
   if (dkv) {
-    // f32 -> the FMA kernel, bf16/f16 -> the tensor-core kernel
-    if constexpr (!std::is_same<T, float>::value) {
-      return tc::launch<T, D>(a);
-    } else {
+    auto kernel = flash_dkv_wgmma<T, D, CAUSAL, BTHD>;
+    constexpr int smem = smem_bytes<D>();
+    if ((err = grant_smem(kernel, smem)) != cudaSuccess) return err;
+    dim3 grid((a.seqlen + BKV - 1) / BKV, a.B * a.KVH);
+    kernel<<<grid, THREADS, smem, a.stream>>>(
+        q, k, v, dout, a.lse, a.di, static_cast<T*>(a.dk),
+        static_cast<T*>(a.dv), a.seqlen, a.H, a.KVH, a.scale);
+  } else {
+    auto kernel = flash_dq_wgmma<T, D, CAUSAL, BTHD>;
+    constexpr int smem = dq_smem_bytes<D>();
+    if ((err = grant_smem(kernel, smem)) != cudaSuccess) return err;
+    dim3 grid((a.seqlen + BQ - 1) / BQ, a.B * a.H);
+    kernel<<<grid, THREADS, smem, a.stream>>>(
+        q, k, v, dout, a.lse, a.di, static_cast<T*>(a.dq), a.seqlen, a.H,
+        a.KVH, a.scale);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch(const Args& a, bool dkv) {
+  // heads-last is causal only (its one entry, fa2_flash_attention_bthd)
+  return a.bthd ? launch_one<T, D, true, true>(a, dkv)
+         : a.causal ? launch_one<T, D, true, false>(a, dkv)
+                    : launch_one<T, D, false, false>(a, dkv);
+}
+
+}  // namespace tc
+
+// f32 -> the FMA kernels, bf16/f16 -> the tensor-core kernels
+template <typename T, int D>
+cudaError_t launch(const Args& a, bool dkv) {
+  if constexpr (!std::is_same<T, float>::value) {
+    return tc::launch<T, D>(a, dkv);
+  } else {
+    const T* q = static_cast<const T*>(a.q);
+    const T* k = static_cast<const T*>(a.k);
+    const T* v = static_cast<const T*>(a.v);
+    const T* dout = static_cast<const T*>(a.dout);
+    if (dkv) {
       dim3 grid((a.seqlen + BK - 1) / BK, a.B * a.KVH);
       auto kernel = a.bthd ? flash_dkv_kernel<T, D, true, true>
                     : a.causal ? flash_dkv_kernel<T, D, true, false>
@@ -554,17 +717,17 @@ cudaError_t launch(const Args& a, bool dkv) {
       kernel<<<grid, THREADS, 0, a.stream>>>(
           q, k, v, dout, a.lse, a.di, static_cast<T*>(a.dk),
           static_cast<T*>(a.dv), a.seqlen, a.H, a.KVH, a.scale);
+    } else {
+      dim3 grid((a.seqlen + BQ - 1) / BQ, a.B * a.H);
+      auto kernel = a.bthd ? flash_dq_kernel<T, D, true, true>
+                    : a.causal ? flash_dq_kernel<T, D, true, false>
+                               : flash_dq_kernel<T, D, false, false>;
+      kernel<<<grid, THREADS, 0, a.stream>>>(
+          q, k, v, dout, a.lse, a.di, static_cast<T*>(a.dq), a.seqlen,
+          a.H, a.KVH, a.scale);
     }
-  } else {
-    dim3 grid((a.seqlen + BQ - 1) / BQ, a.B * a.H);
-    auto kernel = a.bthd ? flash_dq_kernel<T, D, true, true>
-                  : a.causal ? flash_dq_kernel<T, D, true, false>
-                             : flash_dq_kernel<T, D, false, false>;
-    kernel<<<grid, THREADS, 0, a.stream>>>(
-        q, k, v, dout, a.lse, a.di, static_cast<T*>(a.dq), a.seqlen, a.H,
-        a.KVH, a.scale);
+    return cudaGetLastError();
   }
-  return cudaGetLastError();
 }
 
 template <typename T>
@@ -642,4 +805,11 @@ extern "C" int flash_bwd_dkv_bthd(const void* q, const void* k,
 // at head dim D (32 or 64), or -1.
 extern "C" int flash_dkv_smem_bytes(int D) {
   return D == 32 ? tc::smem_bytes<32>() : D == 64 ? tc::smem_bytes<64>() : -1;
+}
+
+// Dynamic shared memory (bytes) the bf16/f16 dq kernel launches with at
+// head dim D (32 or 64), or -1.
+extern "C" int flash_dq_smem_bytes(int D) {
+  return D == 32 ? tc::dq_smem_bytes<32>()
+         : D == 64 ? tc::dq_smem_bytes<64>() : -1;
 }

@@ -3,6 +3,7 @@
 //
 // Fused lm_head + softmax cross-entropy for Hopper (sm_90a): the forward
 // (per-token loss and logsumexp) and the two backward passes (dx, dW).
+// dW runs on wgmma for bf16/f16; the forward, dx and f32 dW on wmma.
 //
 // Replaces the TPU kernels tiny_deepspeed_tpu/ops/xent_pallas.py::
 // pallas_fused_xent (:267; _fwd :115, pallas_call :120, kernel
@@ -32,43 +33,84 @@
 //     the vocab in RBN = 64-column tiles.  Forward: online max / sum-exp
 //     and the gold pick per row.  dx: dz of the tile, then
 //     dx += dz w_tile^T;
-//   * dW kernel: one CTA owns CBN = 32 vocab columns and walks the tokens
-//     in CBT = 64-row tiles: dz of the tile, then dW += x_tile^T dz.
-// Every product is nvcuda::wmma on 16x16 fragments with f32 accumulators:
-// bf16 / f16 operands at 16x16x16; f32 operands as 3xTF32 (16x16x8, each
-// operand split into a TF32 high part and a TF32 remainder; three
-// products keep ~f32 accuracy).  The tensor core's f32 accumulator does
-// not round to nearest: adding into a running sum it drops the low bits,
-// always toward zero, so over a long walk the error grows with the number
-// of adds (measured on an H100: dx 2.7e-4 relative L2 from an f64
-// reference over V = 50257, lse 5e-5 at D = 1600).  So each f32 k-step's
-// three products go into a fresh fragment, which is then added to the
-// running sum with ordinary round-to-nearest f32 adds.  The bf16 / f16
-// products accumulate in place: their dz is rounded to 8 or 11 bits
-// anyway.  Operands are staged into shared memory
-// in KC = 128-deep chunks along D (16-byte loads where aligned and in
-// range, element loads on the ragged edges).
+//   * dW kernel: one CTA owns a block of vocab columns and walks the
+//     tokens in tiles: dz of the tile, then dW += x_tile^T dz.
+// dz is rounded to the operand type before its product, as the JAX
+// chunked path does (softmax_xent.py:142).
 //
-// The accumulator trap.  dx's (tokens, D) and dW's (D, vocab) f32
-// accumulators do not fit one CTA's registers at a wide tile: 32 x 768 or
-// 768 x 32 f32 is 96 KB.  Each of the 8 warps keeps 12 accumulator
+// dW, bf16/f16 (`tc::xent_dw_wgmma`, wgmma).  A CTA owns BV = 64 vocab
+// columns (wgmma's M) and walks the tokens in TT = 32-token tiles; D is
+// cut into 64-wide chunks, each a swizzled 128-byte-row tile
+// (hopper.cuh).  Per token tile:
+//   Z^T = w_blk^T x_tile^T (64 vocab x 32 tokens): wgmma m64n32k16, the
+//     w chunk the A operand MN-major in shared memory (transpose bit: w is
+//     (D, V) row-major), the x chunk the B operand K-major;
+//   dZ^T = (exp(Z^T - lse) - onehot) g/S in registers, 0 past V and S;
+//   dW^T[:, chunk] += dZ^T x_chunk: dZ^T rounded to T in registers is the
+//     A operand (wgmma m64n64k16, A from registers), the x chunk the B
+//     operand MN-major (transpose bit): 2 k-steps of 16 tokens.
+// dZ never passes through shared memory.  The x tiles (all of D) with
+// their lse and target slices come through a cp.async ring of two stages,
+// one tile ahead of the compute; the w block (D x 64) stays resident for
+// the whole walk when it fits with them (D <= 832: 214528 bytes of
+// dynamic shared memory at D = 768), else it streams chunk by chunk
+// through two slots behind a single x stage (136448 bytes at D = 1600;
+// fused_xent_dw_smem_bytes reports either).  w rows that are not 16-byte
+// aligned (V % 8 != 0) are copied element by element instead.
+//
+// The accumulator trap.  dW^T for 64 vocab columns x D = 768 is 384 f32
+// a thread of one warpgroup, more than its registers.  So the CTA runs
+// two warpgroups, each accumulating half of the CTA's chunks (at most
+// CPW = 6, 192 f32 a thread), and they share one recompute per tile: each
+// takes k-steps 2g, 2g+1 of every chunk, the two f32 partial logit tiles
+// meet in shared memory (8 KB each) and both warpgroups form the same
+// z = own + other (addition commutes, so the dZ they round agree bit for
+// bit).  ptxas: 248-254 registers, no spills; one CTA an SM.  D > 768
+// (more than 2 x CPW chunks) is cut into slices across CTAs
+// (blockIdx.y), each recomputing the logits over all of D: at D = 1600,
+// three slices do 3 recomputes + 1 product = 4 x 2SDV against the
+// bound's 2 x 2SDV, so that width runs at most at half its bound.  L2
+// reads a call: every CTA reads all of x once, ceil(V/64) x S x D x 2
+// bytes = 786 x 12.6 MB = 9.9 GB at gpt2-124m (the f32 kernel's
+// 32-column blocks read twice that), plus the w block once.
+//
+// Forward, dx, and dW for f32 (`xent_fwd_kernel`, `xent_dx_kernel`,
+// `xent_dw_kernel`: nvcuda::wmma on 16x16 fragments with f32
+// accumulators).  bf16 / f16 operands at 16x16x16; f32 operands as
+// 3xTF32 (16x16x8, each operand split into a TF32 high part and a TF32
+// remainder; three products keep ~f32 accuracy).  The tensor core's f32
+// accumulator does not round to nearest: adding into a running sum it
+// drops the low bits, always toward zero, so over a long walk the error
+// grows with the number of adds (measured on an H100: dx 2.7e-4 relative
+// L2 from an f64 reference over V = 50257, lse 5e-5 at D = 1600).  So
+// each f32 k-step's three products go into a fresh fragment, which is
+// then added to the running sum with ordinary round-to-nearest f32 adds.
+// The bf16 / f16 products accumulate in place: their dz is rounded to 8
+// or 11 bits anyway.  Operands are staged into shared memory in KC =
+// 128-deep chunks along D (16-byte loads where aligned and in range,
+// element loads on the ragged edges).  The f32 dW kernel owns CBN = 32
+// vocab columns and walks the tokens in CBT = 64-row tiles.
+//
+// The wmma kernels' accumulators: dx's (tokens, D) and dW's (D, vocab)
+// f32 accumulators do not fit one CTA's registers at a wide tile: 32 x
+// 768 or 768 x 32 f32 is 96 KB.  Each of the 8 warps keeps 12 accumulator
 // fragments (96 registers a thread), which covers 768 columns of dx (or
 // rows of dW) for the CTA's 32 tokens (vocab columns).  Wider D splits
 // across CTAs (blockIdx.y): gpt2-124m's D = 768 is one split; D = 1600
-// takes three, each recomputing the logits.  dz is rounded to the operand
-// type before its product, as the JAX chunked path does
-// (softmax_xent.py:142).
+// takes three, each recomputing the logits.
 //
-// Residency.  A CTA keeps the operand it reuses in shared memory when it
-// fits in 227 KB: the rows kernel keeps its x rows for the whole vocab
-// walk and, for dx, the tile's w panel for both the recompute and the
-// product; the dW kernel keeps its w columns and each token tile's x
-// panel.  Otherwise the chunks stream through one slot and the product
-// reloads them.  wgmma, TMA and a pipelined ring of tiles are later work.
+// Residency (wmma kernels).  A CTA keeps the operand it reuses in shared
+// memory when it fits in 227 KB: the rows kernel keeps its x rows for the
+// whole vocab walk and, for dx, the tile's w panel for both the
+// recompute and the product; the f32 dW kernel keeps its w columns and
+// each token tile's x panel.  Otherwise the chunks stream through one
+// slot and the product reloads them.  Moving the forward and dx to wgmma
+// is later work.
 
 #include <mma.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 using namespace nvcuda;
 
@@ -593,6 +635,260 @@ xent_dw_kernel(const T* __restrict__ x, const T* __restrict__ w,
   }
 }
 
+// -- dW, bf16 / f16: tensor cores -------------------------------------------
+
+namespace tc {
+
+using namespace tds::sm90;
+
+constexpr int WGS = 2;                 // warpgroups a CTA
+constexpr int THREADS = 128 * WGS;
+constexpr int BV = 64;                 // vocab columns a CTA (wgmma M)
+constexpr int TT = 32;                 // tokens a tile
+constexpr int CW = 64;                 // a chunk of D: one 128-byte tile row
+constexpr int CPW = 6;                 // most chunks a warpgroup accumulates
+constexpr int WTILE = CW * BV * 2;     // w chunk: 64 rows of D x 64 vocab
+constexpr int XTILE = TT * CW * 2;     // x chunk: 32 tokens x 64 of D
+constexpr int XCH = 16 * 128 * 4;      // a warpgroup's partial logits
+constexpr int WSLOTS = 2;              // the w ring when the block streams
+
+struct DwSmem {
+  int x, xch, stats, total, xstages;
+  bool wres;
+};
+
+// byte offsets from the 1024-aligned base, where the w block or slots
+// start (+1024 in `total` to align it): the whole w block resident and x
+// in two stages when that fits, else w streaming through WSLOTS slots
+// and x in one stage
+__host__ __device__ inline DwSmem dw_smem(int nch) {
+  DwSmem s{};
+  for (int wres = 1; wres >= 0; --wres) {
+    s.wres = wres;
+    s.xstages = wres ? 2 : 1;
+    s.x = (wres ? nch : WSLOTS) * WTILE;
+    s.xch = s.x + s.xstages * nch * XTILE;
+    s.stats = s.xch + WGS * XCH;
+    s.total = s.stats + s.xstages * TT * 8 + 1024;
+    if (s.total <= SMEM_MAX) break;
+  }
+  return s;
+}
+
+// the w chunk load_tile_rc would copy, element by element through
+// registers: for a V whose rows are not 16-byte aligned
+template <typename T>
+__device__ __forceinline__ void load_w_scalar(unsigned char* dst,
+                                              const T* __restrict__ w,
+                                              int r0, int D, int j0, int V) {
+  for (int e = threadIdx.x; e < CW * BV; e += THREADS) {
+    const int r = e / BV, c = e % BV;
+    const bool ok = r0 + r < D && j0 + c < V;
+    *reinterpret_cast<T*>(dst + swz<64>(r, c)) =
+        ok ? w[(size_t)(r0 + r) * V + j0 + c] : tds::from_f<T>(0.f);
+  }
+}
+
+template <typename T, bool WRES>
+__global__ void __launch_bounds__(THREADS, 1)
+xent_dw_wgmma(const T* __restrict__ x, const T* __restrict__ w,
+              const int* __restrict__ tgt, const float* __restrict__ lse_in,
+              const float* __restrict__ gscale, float* __restrict__ dw,
+              int S, int D, int V) {
+  extern __shared__ unsigned char smem_raw[];
+  const int nch = (D + CW - 1) / CW;
+  const DwSmem L = dw_smem(nch);
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* base_p = smem_raw + (base - raw);
+  auto wt = [&](int slot) { return base + slot * WTILE; };
+  auto xt = [&](int st, int c) {
+    return base + L.x + (st * nch + c) * XTILE;
+  };
+  float* xch = reinterpret_cast<float*>(base_p + L.xch);
+
+  const int j0 = blockIdx.x * BV;
+  // this CTA's slice of D: chunks [cs0, cs1); warpgroup g accumulates
+  // [my0, my1), at most CPW of them
+  const int cs0 = blockIdx.y * nch / gridDim.y;
+  const int cs1 = (blockIdx.y + 1) * nch / gridDim.y;
+  const int half = (cs1 - cs0 + 1) / 2;
+  const int g = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int my0 = g ? cs0 + half : cs0, my1 = g ? cs1 : cs0 + half;
+  const int ntiles = (S + TT - 1) / TT;
+  const bool wvec = V % 8 == 0;
+
+  // w rows [64c, 64c + 64) x vocab [j0, j0 + 64) -> slot
+  auto load_w = [&](int c, int slot) {
+    if (wvec)
+      load_tile_rc<T, CW, THREADS>(wt(slot), w, c * CW, D, j0, V, V);
+    else
+      load_w_scalar<T>(base_p + slot * WTILE, w, c * CW, D, j0, V);
+  };
+  // tile it's tokens, all of D, and their lse and targets -> stage st
+  auto load_x = [&](int it, int st) {
+    const int t0 = it * TT;
+    for (int c = 0; c < nch; ++c)
+      load_tile_rc<T, TT, THREADS>(xt(st, c), x, t0, S, c * CW, D, D);
+    if (threadIdx.x < 2 * TT) {
+      const int r = threadIdx.x % TT;
+      const bool ok = t0 + r < S;
+      const void* src = threadIdx.x < TT
+                            ? (const void*)(lse_in + (ok ? t0 + r : 0))
+                            : (const void*)(tgt + (ok ? t0 + r : 0));
+      cp_async4(base + L.stats + (st * 2 * TT + threadIdx.x) * 4, src, ok);
+    }
+  };
+
+  if (WRES) {
+    for (int c = 0; c < nch; ++c) load_w(c, c);
+  } else {
+    load_w(0, 0);
+  }
+  load_x(0, 0);
+  cp_async_commit();
+
+  const float gs = *gscale;
+  const int warp = tid / 32, lane = tid % 32;
+  const int vrow = j0 + 16 * warp + lane / 4;      // vocab vrow, vrow + 8
+  const int col0 = 2 * (lane % 4);                 // + 8j + e: token or D
+  float acc[CPW][32];
+#pragma unroll
+  for (int i = 0; i < CPW; ++i)
+#pragma unroll
+    for (int n = 0; n < 32; ++n) acc[i][n] = 0.f;
+
+  int q = 0;  // streamed w: chunks consumed so far (slot q % WSLOTS)
+  for (int it = 0; it < ntiles; ++it) {
+    const int st = WRES ? it % 2 : 0;
+    if (WRES) {
+      if (it + 1 < ntiles) load_x(it + 1, st ^ 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // tile it (and the w block) landed
+      fence_proxy_async();
+      __syncthreads();
+    } else if (it > 0) {
+      load_x(it, 0);  // the barrier ending tile it - 1 freed the stage
+      cp_async_commit();
+    }
+
+    // Z^T (BV vocab x TT tokens) = w_blk^T x_tile^T, this warpgroup's
+    // share: k-steps 2g and 2g + 1 of every chunk
+    float z[16];
+    if (WRES) {
+      wgmma_fence();
+      for (int c = 0; c < nch; ++c) {
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+          wgmma_ss_n32_ta<T>(z, desc_mn<CW>(wt(c), 2 * g + kk),
+                             desc_k<CW>(xt(st, c), 2 * g + kk), c + kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(z);
+    } else {
+      for (int c = 0; c < nch; ++c, ++q) {
+        if (c + 1 < nch || it + 1 < ntiles)
+          load_w(c + 1 < nch ? c + 1 : 0, (q + 1) % WSLOTS);
+        cp_async_commit();
+        cp_async_wait<1>();  // chunk c (and the x tile) landed
+        fence_proxy_async();
+        __syncthreads();
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+          wgmma_ss_n32_ta<T>(z, desc_mn<CW>(wt(q % WSLOTS), 2 * g + kk),
+                             desc_k<CW>(xt(0, c), 2 * g + kk), c + kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(z);
+        __syncthreads();  // the slot is free for the copy two chunks ahead
+      }
+    }
+
+    // the two halves of the contraction: z = own + other's, the same sum
+    // in both warpgroups (f32 addition commutes)
+    float* mine = xch + g * (16 * 128);
+    const float* other = xch + (1 - g) * (16 * 128);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) mine[i * 128 + tid] = z[i];
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < 16; ++i) z[i] += other[i * 128 + tid];
+
+    // dZ^T = (exp(Z^T - lse) - onehot) g/S, 0 past V and S
+    const int t0 = it * TT;
+    const float* lse_s =
+        reinterpret_cast<const float*>(base_p + L.stats) + st * 2 * TT;
+    const int* tgt_s = reinterpret_cast<const int*>(lse_s + TT);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int tok = 8 * (i / 4) + col0 + i % 2;
+      const int v = vrow + 8 * ((i / 2) % 2);
+      float p = expf(z[i] - lse_s[tok]);
+      if (v == tgt_s[tok]) p -= 1.f;
+      z[i] = v < V && t0 + tok < S ? p * gs : 0.f;
+    }
+
+    // dW^T[:, my chunks] += dZ^T x_tile: dZ^T rounded to T in registers is
+    // the A operand, the x chunks MN-major B operands (transpose bit)
+    uint32_t a[2][4];
+    acc_to_a<T>(z, 0, a[0]);
+    acc_to_a<T>(z, 1, a[1]);
+#pragma unroll
+    for (int i = 0; i < CPW; ++i) fence_regs(acc[i]);
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < CPW; ++i) {
+      if (my0 + i < my1) {
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+          wgmma_rs<T, CW>(acc[i], a[kk], desc_mn<CW>(xt(st, my0 + i), kk),
+                          1);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < CPW; ++i) fence_regs(acc[i]);
+    __syncthreads();  // stage st and the exchange buffers are free
+  }
+
+#pragma unroll
+  for (int i = 0; i < CPW; ++i) {
+    const int c = my0 + i;
+    if (c < my1) {
+#pragma unroll
+      for (int n = 0; n < 32; ++n) {
+        const int d = c * CW + 8 * (n / 4) + col0 + n % 2;
+        const int v = vrow + 8 * ((n / 2) % 2);
+        if (d < D && v < V) dw[(size_t)d * V + v] = acc[i][n];
+      }
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch_dw(const void* x, const void* w, const int* tgt,
+                      const float* lse, const float* gscale, float* dw,
+                      int S, int D, int V, cudaStream_t stream) {
+  const int nch = (D + CW - 1) / CW;
+  const DwSmem L = dw_smem(nch);
+  if (L.total > SMEM_MAX) return cudaErrorInvalidValue;
+  auto kernel = L.wres ? xent_dw_wgmma<T, true> : xent_dw_wgmma<T, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+  if (err != cudaSuccess) return err;
+  // slices of at most 2 * CPW chunks: one at D <= 768
+  dim3 grid((V + BV - 1) / BV, (nch + 2 * CPW - 1) / (2 * CPW));
+  kernel<<<grid, THREADS, L.total, stream>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), tgt, lse, gscale,
+      dw, S, D, V);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
 // -- launch -----------------------------------------------------------------
 
 struct Args {
@@ -615,6 +911,12 @@ cudaError_t allow_smem(K kernel, int smem) {
 
 template <typename T>
 cudaError_t launch(Pass pass, const Args& a) {
+  // dW: bf16/f16 -> the tensor-core kernel, f32 -> the 3xTF32 wmma one
+  if constexpr (!std::is_same<T, float>::value) {
+    if (pass == kDw)
+      return tc::launch_dw<T>(a.x, a.w, a.tgt, a.lse_in, a.gscale, a.dw,
+                              a.S, a.D, a.V, a.stream);
+  }
   const int nch = (a.D + KC - 1) / KC;
   const int nsplit = (nch + CPS - 1) / CPS;
   const T* x = static_cast<const T*>(a.x);
@@ -629,11 +931,14 @@ cudaError_t launch(Pass pass, const Args& a) {
     if (smem > SMEM_MAX) continue;
     cudaError_t err;
     if (pass == kDw) {
-      err = allow_smem(xent_dw_kernel<T>, smem);
-      if (err != cudaSuccess) return err;
-      dim3 grid((a.V + CBN - 1) / CBN, nsplit);
-      xent_dw_kernel<T><<<grid, THREADS, smem, a.stream>>>(
-          x, w, a.tgt, a.lse_in, a.gscale, a.dw, a.S, a.D, a.V, xres, wres);
+      if constexpr (std::is_same<T, float>::value) {  // only f32 gets here
+        err = allow_smem(xent_dw_kernel<T>, smem);
+        if (err != cudaSuccess) return err;
+        dim3 grid((a.V + CBN - 1) / CBN, nsplit);
+        xent_dw_kernel<T><<<grid, THREADS, smem, a.stream>>>(
+            x, w, a.tgt, a.lse_in, a.gscale, a.dw, a.S, a.D, a.V, xres,
+            wres);
+      }
     } else if (pass == kDx) {
       err = allow_smem(xent_dx_kernel<T>, smem);
       if (err != cudaSuccess) return err;
@@ -693,4 +998,12 @@ extern "C" int fused_xent_dw(const void* x, const void* w, const int* tgt,
   Args a{x, w, tgt, lse, gscale, nullptr, nullptr, dw, nullptr, S, D, V,
          static_cast<cudaStream_t>(stream)};
   return dispatch(dtype, kDw, a);
+}
+
+// Dynamic shared memory (bytes) the bf16/f16 dW kernel launches with at
+// width D, or -1 where no layout fits.
+extern "C" int fused_xent_dw_smem_bytes(int D) {
+  if (D <= 0 || D % 32) return -1;
+  const tc::DwSmem L = tc::dw_smem((D + tc::CW - 1) / tc::CW);
+  return L.total <= SMEM_MAX ? L.total : -1;
 }

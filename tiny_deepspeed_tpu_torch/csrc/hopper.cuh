@@ -1,10 +1,10 @@
 // Copyright 2026 tiny-deepspeed-tpu authors
 // SPDX-License-Identifier: Apache-2.0
 //
-// Hopper (sm_90a) building blocks for the tensor-core FA2 kernels
-// (flash_fwd.cu, flash_bwd.cu): asynchronous 16-byte copies into
-// shared memory, swizzled shared-memory tiles, wgmma descriptors and the
-// warpgroup matrix products they feed.
+// Hopper (sm_90a) building blocks for the tensor-core kernels (FA2 in
+// flash_fwd.cu and flash_bwd.cu, the fused head's dW in fused_xent.cu):
+// asynchronous 16-byte copies into shared memory, swizzled shared-memory
+// tiles, wgmma descriptors and the warpgroup matrix products they feed.
 //
 // Tiles.  A tile is R rows of D bf16/f16 elements (D = 32 or 64), each
 // row D*2 contiguous bytes (64 or 128), its base aligned to 1024 bytes.
@@ -17,7 +17,13 @@
 //     elements 32 bytes further along the row;
 //   * MN-major (the contraction runs along the rows, N along D): the B
 //     operand of P V, with wgmma's transpose bit; eight-row groups SBO
-//     apart again, each k-step of 16 rows 16*D*2 bytes further.
+//     apart again, each k-step of 16 rows 16*D*2 bytes further.  With
+//     D = 64 the same descriptor serves an MN-major A operand (M = 64
+//     along the row, the A transpose bit): dW's w chunk, (D, V) row-major
+//     in device memory, read as w^T.
+// A wider row-major matrix (x (S, D), w (D, V)) is cut into 64-column
+// chunks, each its own tile (`load_tile_rc`, zero past the row and
+// column limits).
 //
 // Fragments (PTX ISA, wgmma .m64nNk16): warp w of the warpgroup owns rows
 // 16w..16w+15; lane l holds, of an f32 accumulator, d[4j + 2h + e] = row
@@ -149,6 +155,27 @@ __device__ __forceinline__ void load_tile64(uint32_t dst, const T* src,
   }
 }
 
+// rows [r0, r0 + R) x columns [c0, c0 + 64) of a row-major matrix whose
+// rows lie `ld` elements apart -> the swizzled R x 64 tile (128-byte
+// rows) at shared address `dst`, asynchronously, 16 bytes a thread of a
+// THREADS-thread CTA; 16-byte pieces at or past row `rlim` or column
+// `clim` are zero-filled (ld, c0 and clim multiples of 8)
+template <typename T, int R, int THREADS>
+__device__ __forceinline__ void load_tile_rc(uint32_t dst, const T* src,
+                                             int r0, int rlim, int c0,
+                                             int clim, size_t ld) {
+  static_assert(R * 8 % THREADS == 0, "whole chunks a thread");
+#pragma unroll
+  for (int i = 0; i < R * 8 / THREADS; ++i) {
+    const int e = threadIdx.x + i * THREADS;
+    const int r = e / 8, c = e % 8;
+    const int gr = r0 + r, gc = c0 + 8 * c;
+    const bool ok = gr < rlim && gc < clim;
+    cp_async16(dst + swz<64>(r, 8 * c),
+               src + (ok ? (size_t)gr * ld + gc : 0), ok);
+  }
+}
+
 // two f32 -> one register of packed 16-bit values (lo in the low half)
 template <typename T>
 __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
@@ -190,6 +217,26 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TDS_D32
         ", %32, %33, p, 1, 1, 0, 0;\n}\n"
         : TDS_O32(d) : "l"(da), "l"(db), "r"(scale_d));
+  }
+}
+
+// d (64 x 32, f32) (+)= A (64 x 16, shared, MN-major: the transpose
+// bit) . B (32 x 16, shared, K-major)^T; scale_d 0 overwrites d
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_n32_ta(float (&d)[16], uint64_t da,
+                                                uint64_t db, int scale_d) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 " TDS_D16
+        ", %16, %17, p, 1, 1, 1, 0;\n}\n"
+        : TDS_O16(d) : "l"(da), "l"(db), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " TDS_D16
+        ", %16, %17, p, 1, 1, 1, 0;\n}\n"
+        : TDS_O16(d) : "l"(da), "l"(db), "r"(scale_d));
   }
 }
 

@@ -37,9 +37,9 @@ lock, since ring attention's lockstep test harness launches from several
 threads at once.
 
 Design and bound of each kernel are in its source's header.  bf16 and
-f16 operands reach the tensor-core (wgmma) forward and dk/dv kernels;
-f32 operands, and every dq pass, reach FP32-FMA kernels.  K/V (and in
-the backward Q/dO) stream through shared memory in tiles, so any T works
+f16 operands reach the tensor-core (wgmma) forward, dq and dk/dv
+kernels; f32 operands reach FP32-FMA kernels.  K/V (and in the dk/dv
+pass Q/dO) stream through shared memory in tiles, so any T works
 and the TPU package's `FA2_MAX_T` VMEM bound has no counterpart.  Grouped
 K/V (KVH | H, query head h reads kv head h // group) run natively, as in
 the JAX kernels; dk/dv are summed over each kv head's query-head group and

@@ -20,6 +20,14 @@ show how much time each part costs:
 - no_mma_no_prod: both — what is left is staging the operands through
   shared memory, the barriers and the epilogues.
 
+Those four cuts touch the forward, dx and the f32 dW kernel.  bf16 dW
+runs the tensor-core kernel (`tc::xent_dw_wgmma`), which has its own:
+
+- no_rec: dW skips the logit recompute (Z^T = 0);
+- no_dwprod: dW skips its product (dW^T += dZ^T x);
+- no_rec_no_dwprod: both — what is left is the x ring, the partial-logit
+  exchange, the epilogue, the barriers and the store.
+
 The cuts are made by text edits of the current source, so an edit of the
 kernel that moves those lines makes this script fail loudly.
 """
@@ -40,13 +48,24 @@ _PROD = ("    // dx[:, chunk c] += dz w[chunk c, tile]^T: warp owns 16 "
 _MMA = ("        M::template mma<wmma::row_major, wmma::row_major>(\n"
         "            zf[(k / M::K) & 1], xc + zr * LDX + k, LDX, wc + k * LDW "
         "+ zc,\n            LDW);", 2, "#ifndef NO_MMA\n{}\n#else\n;\n#endif")
+_REC = ("          wgmma_ss_n32_ta<T>(z, desc_mn<CW>(wt(c), 2 * g + kk),\n"
+        "                             desc_k<CW>(xt(st, c), 2 * g + kk), "
+        "c + kk > 0);", 1, "#ifndef NO_REC\n{}\n#else\n;\n#endif")
+_Z = ("    float z[16];\n", 1,
+      "{}#ifdef NO_REC\n    for (int i = 0; i < 16; ++i) z[i] = 0.f;\n"
+      "#endif\n")
+_DWPROD = ("          wgmma_rs<T, CW>(acc[i], a[kk], desc_mn<CW>(xt(st, my0 + "
+           "i), kk),\n                          1);", 1,
+           "#ifndef NO_DWPROD\n{}\n#else\n;\n#endif")
 VARIANTS = {"base": [], "no_epi": ["-DNO_EPI"], "no_prod": ["-DNO_PROD"],
             "no_mma": ["-DNO_MMA"], "no_mma_no_prod": ["-DNO_MMA",
-                                                       "-DNO_PROD"]}
+                                                       "-DNO_PROD"],
+            "no_rec": ["-DNO_REC"], "no_dwprod": ["-DNO_DWPROD"],
+            "no_rec_no_dwprod": ["-DNO_REC", "-DNO_DWPROD"]}
 
 
 def ablatable_source(src):
-    for marker, count, wrap in (_EPI, _PROD, _MMA):
+    for marker, count, wrap in (_EPI, _PROD, _MMA, _REC, _Z, _DWPROD):
         if src.count(marker) != count:
             raise SystemExit(f"xent_ablate: marker not found {count}x in "
                              f"fused_xent.cu: {marker.splitlines()[0]!r}")
@@ -67,9 +86,9 @@ def main():
                                              "fused_xent.cu")).read())
     cu = os.path.join(OUT, "fused_xent_ablate.cu")
     with open(cu, "w") as f:
-        f.write(f'#include "{_build.CSRC}/common.cuh"\n'
-                + src.replace('#include "common.cuh"\n', ""))
+        f.write(src)
     flags = [f for f in _build.NVCC_FLAGS if f != "-Xptxas=-v"]
+    flags += ["-I", str(_build.CSRC)]
     procs = {name: subprocess.Popen(
         [_build._nvcc(), *flags, *defs, "-o",
          os.path.join(OUT, f"{name}.so"), cu],
