@@ -21,7 +21,8 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      (ptxas; the tensor-core FA2 kernels' dynamic shared memory beside
      it), and `cuobjdump -sass` proof that every bf16/f16 instantiation of
      the tensor-core FA2 forward, dq and dk/dv kernels and of the fused
-     head's dW kernel issues HGMMA (wgmma), and no f32 one does;
+     head's forward, dx and dW kernels issues HGMMA (wgmma), and no f32
+     one does (and that the fused head's forward and dx do not spill);
   2. kernel parity: each hand-written kernel against its plain PyTorch
      version on the card at its main paths' shapes (the two forward
      kernels at serving's and at training's; the fused xent kernels also
@@ -45,7 +46,8 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      ratio, the number that compares across calls; the fused head's rows
      (11, 12 dx, 12 dW) likewise with F.linear + F.cross_entropy (its
      forward; its backward).  f32 takes the FMA FA2 kernels (forward, dq,
-     dk/dv) and the 3xTF32 dW kernel, each held to its plain version;
+     dk/dv) and the 3xTF32 fused-head forward, dx and dW, each held to
+     its plain version;
   3. serving: gpt2-124m (seeded random weights, bf16 compute) under
      ServingEngine(max_active=8, block_tokens=16) with a pool sized for
      the traffic — 16 greedy requests, seeded prompt lengths 16-512, 64
@@ -406,21 +408,27 @@ def hgmma_counts(lib_paths):
 def build_report(_build):
     """Print each CUDA kernel's registers, spills and shared memory, and
     fail unless every bf16/f16 tensor-core FA2 instantiation and every
-    bf16/f16 dW instantiation of the fused head issues HGMMA and no f32
-    one does (f32 keeps the FMA FA2 kernels and the 3xTF32 wmma dW)."""
-    for src, name, regs, sst, sld, smem in kernel_resources(
-            _build.build_logs):
+    bf16/f16 forward, dx and dW instantiation of the fused head issues
+    HGMMA and no f32 one does (f32 keeps the FMA FA2 kernels and the
+    3xTF32 wmma forward, dx and dW)."""
+    resources = kernel_resources(_build.build_logs)
+    for src, name, regs, sst, sld, smem in resources:
         print(f"  ptxas {src}: {name}: {regs} registers, spill stores "
               f"{sst} B / loads {sld} B, smem {smem} B static")
     for kname, (lib, query) in TC_KERNELS.items():
         fn = _build.entry(lib, query, [ctypes.c_int])
         print(f"  {kname}: dynamic smem " + ", ".join(
             f"D={d} {fn(d)} B" for d in (32, 64)) + f" ({lib}.cu {query})")
-    fn = _build.entry("fused_xent", "fused_xent_dw_smem_bytes",
-                      [ctypes.c_int])
-    print("  xent_dw_wgmma: dynamic smem " + ", ".join(
-        f"D={d} {fn(d)} B" for d in (768, 1600))
-        + " (fused_xent.cu fused_xent_dw_smem_bytes)")
+    for kname, query in (("xent_fwd_wgmma", "fused_xent_fwd_smem_bytes"),
+                         ("xent_dx_wgmma", "fused_xent_dx_smem_bytes"),
+                         ("xent_dw_wgmma", "fused_xent_dw_smem_bytes")):
+        fn = _build.entry("fused_xent", query, [ctypes.c_int])
+        print(f"  {kname}: dynamic smem " + ", ".join(
+            f"D={d} {fn(d)} B" for d in (768, 1600))
+            + f" (fused_xent.cu {query})")
+    for src, name, regs, sst, sld, _ in resources:
+        if "xent_fwd_wgmma" in name or "xent_dx_wgmma" in name:
+            print(f"  {name}: {regs} registers, spills {sst} B / {sld} B")
     counts = hgmma_counts([_build._lib_path(_build.CSRC / f"{n}.cu")
                            for n in ("flash_fwd", "flash_bwd",
                                      "fused_xent")])
@@ -431,27 +439,37 @@ def build_report(_build):
           "variants)")
     check(sum("flash_dq_wgmma" in n for n in tc) == 12,
           "expected 12 tensor-core dq instantiations")
-    dw = {n: c for n, c in counts.items() if "xent_dw_" in n}
-    dw_tc = {n: c for n, c in dw.items() if "xent_dw_wgmma" in n}
-    for n, c in sorted({**tc, **dw_tc}.items()):
+    xent = {n: c for n, c in counts.items()
+            if any(f"xent_{p}_" in n for p in ("fwd", "dx", "dw"))}
+    xent_tc = {n: c for n, c in xent.items() if "_wgmma" in n}
+    for n, c in sorted({**tc, **xent_tc}.items()):
         check(c > 0, f"{n} issues no HGMMA")
         check("bfloat16" in n or "__half" in n,
               f"{n}: not a bf16/f16 tensor-core instantiation")
-    check(len(dw_tc) == 4, f"{len(dw_tc)} tensor-core dW instantiations, "
-          "expected 4 (bf16/f16 x w resident or streamed)")
+    for p in ("fwd", "dx", "dw"):
+        k = sum(f"xent_{p}_wgmma" in n for n in xent_tc)
+        check(k == 4, f"{k} tensor-core xent {p} instantiations, expected "
+              "4 (bf16/f16 x operand resident or streamed)")
     fma = {n: c for n, c in counts.items() if "flash_" in n and n not in tc}
-    dw_f32 = {n: c for n, c in dw.items() if n not in dw_tc}
+    xent_f32 = {n: c for n, c in xent.items() if n not in xent_tc}
     check(fma and all("float" in n for n in fma),
           f"FMA FA2 kernels other than f32: {sorted(fma)}")
-    check(list(dw_f32) and all("xent_dw_kernel<float" in n for n in dw_f32),
-          f"wmma dW kernels other than f32: {sorted(dw_f32)}")
-    check(all(c == 0 for c in {**fma, **dw_f32}.values()),
-          "an f32 FA2 or dW kernel issues HGMMA")
+    check(len(xent_f32) == 3 and all(
+        any(f"xent_{p}_kernel<float>" in n for n in xent_f32)
+        for p in ("fwd", "dx", "dw")),
+          f"wmma xent kernels other than f32's three: {sorted(xent_f32)}")
+    check(all(c == 0 for c in {**fma, **xent_f32}.values()),
+          "an f32 FA2 or fused-head kernel issues HGMMA")
+    spills = [(n, sst, sld) for _, n, _, sst, sld, _ in resources
+              if ("xent_fwd_wgmma" in n or "xent_dx_wgmma" in n)
+              and (sst or sld)]
+    check(not spills, f"the tensor-core forward / dx spill: {spills}")
     print(f"  sass: HGMMA in all {len(tc)} bf16/f16 tensor-core FA2 "
           f"instantiations ({min(tc.values())}-{max(tc.values())} each) and "
-          f"all {len(dw_tc)} bf16/f16 dW ones ({min(dw_tc.values())}-"
-          f"{max(dw_tc.values())}); {len(fma)} FMA FA2 kernels (f32 fwd, "
-          f"dq and dk/dv) and {len(dw_f32)} 3xTF32 dW kernel issue none")
+          f"all {len(xent_tc)} bf16/f16 fused-head forward, dx and dW ones "
+          f"({min(xent_tc.values())}-{max(xent_tc.values())}); {len(fma)} "
+          f"FMA FA2 kernels (f32 fwd, dq and dk/dv) and {len(xent_f32)} "
+          "3xTF32 fused-head kernels (f32 fwd, dx, dW) issue none")
 
 
 # -- phase 2: kernel parity -------------------------------------------------
@@ -1060,10 +1078,13 @@ def xent_phase(torch, F, fx):
     Tolerances: loss and lse max abs err <= 1e-3; dx and dW rel L2 err
     <= 1e-2 against the plain versions, whose dz stays f32 (the kernels
     round dz to bf16 before its product).  Each kernel runs twice and
-    must agree bit for bit.  f32 dW takes the 3xTF32 wmma kernel (a
-    profiled call names it), held to its plain version at rel L2 1e-4 at
-    S = 1000, V = 50257.  Each row is also timed in turns with its
-    library yardstick (`turns`)."""
+    must agree bit for bit.  f32 takes the 3xTF32 wmma forward, dx and dW
+    (profiled calls name them), held to their plain versions at lse 1e-5
+    and rel L2 1e-4 at S = 1000, V = 50257 (`_xent_f32_check`).  Each row
+    is also timed in turns (`turns`) with the one PyTorch call for the
+    same function: `F.linear` + `F.cross_entropy` for the forward, that
+    pair's autograd backward for dx alone and for dW alone; and the whole
+    head (forward, dx, dW) against the pair's forward and backward."""
     errs, main = {}, None
     for s_, d, v in ((8192, 768, 50304), (1000, 768, 50257),
                      (512, 1600, 50304)):
@@ -1102,59 +1123,91 @@ def xent_phase(torch, F, fx):
         if main is None:
             main = (x, w, tg, lse, gs)
         del dx, dw, pdx, pdw
-    _xent_dw_f32_check(torch, fx)
+    _xent_f32_check(torch, fx)
     x, w, tg, lse, gs = main
     s_, d = x.shape
     v = w.shape[1]
     wt = w.t()
+    # The bf16 forward and dx read w^T (V, D).  w here is (D, V), an
+    # untied head's layout: the forward's row is timed with the w^T copy
+    # in its call (the wrapper makes it, as FusedXentFn does once a
+    # step), dx handed the copy as FusedXentFn hands it.
+    wk = wt.contiguous().t()
+    wt_copy_ms = device_ms(torch, wt.contiguous, iters=5)
+    print(f"  fused xent: w^T copy (untied head, once a step, in the "
+          f"forward's row) {float(wt_copy_ms):.5g} ms")
 
     def lib_fwd():
         return F.cross_entropy(F.linear(x, wt).float(), tg, reduction="none")
 
-    # the yardstick for both backward passes: that pair's autograd backward
+    # the backward yardsticks: that pair's autograd backward for dx alone
+    # and for dW alone (each the softmax backward and one product)
     xr, wr = x.detach().requires_grad_(), wt.detach().requires_grad_()
     lr_ = F.cross_entropy(F.linear(xr, wr).float(), tg)
 
-    def lib_bwd():
-        return torch.autograd.grad(lr_, (xr, wr), retain_graph=True)
+    def lib_dx():
+        return torch.autograd.grad(lr_, xr, retain_graph=True)
 
-    lib_bwd_ms = device_ms(torch, lib_bwd, iters=5)
+    def lib_dw():
+        return torch.autograd.grad(lr_, wr, retain_graph=True)
+
     op = 2 * s_ * d * v
     xb, wb = s_ * d * 2, d * v * 2
     res = {}
-    for name, kernel, plain, lib, nbytes, flops, err in (
+    for name, kernel, plain, lib, what, nbytes, flops, err in (
             ("fused_xent_fwd", lambda: fx.fused_xent_fwd(x, w, tg),
              lambda: fx._xent_fwd_plain(x, w, tg), lib_fwd,
+             "F.linear + F.cross_entropy; kernel + the w^T copy",
              xb + wb + s_ * 8 + 2 * s_ * 4, op,
              max(e["fwd"] for e in errs.values())),
-            ("fused_xent_dx", lambda: fx.fused_xent_dx(x, w, tg, lse, gs),
-             lambda: fx._xent_dx_plain(x, w, tg, lse, gs), None,
+            ("fused_xent_dx", lambda: fx.fused_xent_dx(x, wk, tg, lse, gs),
+             lambda: fx._xent_dx_plain(x, w, tg, lse, gs), lib_dx,
+             "that pair's backward for dx alone",
              xb + wb + s_ * 12 + 4 + xb, 2 * op,
              max(e["dx"] for e in errs.values())),
             ("fused_xent_dw", lambda: fx.fused_xent_dw(x, w, tg, lse, gs),
-             lambda: fx._xent_dw_plain(x, w, tg, lse, gs), None,
+             lambda: fx._xent_dw_plain(x, w, tg, lse, gs), lib_dw,
+             "that pair's backward for dW alone",
              xb + wb + s_ * 12 + 4 + d * v * 4, 2 * op,
              max(e["dw"] for e in errs.values()))):
         bms, by = bound_ms(nbytes, flops, "bfloat16")
         res[name] = dict(ms=device_ms(torch, kernel, iters=5),
                          plain_ms=device_ms(torch, plain, iters=3),
-                         library_ms=(device_ms(torch, lib, iters=5) if lib
-                                     else lib_bwd_ms),
+                         library_ms=device_ms(torch, lib, iters=5),
                          call_ms=time_ms(torch, kernel, iters=5),
                          bound_ms=bms, bound_by=by, max_abs_err=err,
                          shape=f"S={s_} D={d} V={v} bf16",
-                         **turns(torch, kernel, lib or lib_bwd, n=5))
+                         **turns(torch, kernel, lib, n=5))
         print(f"kernel {name} S={s_} D={d} V={v} bf16: max_abs_err={err:.3g} "
-              "(all three shapes); library = F.linear + F.cross_entropy"
-              + (" backward, dx and dW" if lib is None else "") + "; "
+              f"(all three shapes); library = {what}; "
               + " ".join(f"{k}={v_:.5g}" for k, v_ in res[name].items()
                          if k in TIMED_MS) + "; " + turns_text(res[name]))
+    alone = turns(torch, lambda: fx.fused_xent_fwd(x, wk, tg), lib_fwd, n=5)
+    print("  fused_xent_fwd handed w^T (the kernel alone, as for a tied "
+          "head): " + turns_text(alone))
+    # the whole head, forward and backward, against the pair's
+    xh, wh = x.detach().requires_grad_(), w.detach().requires_grad_()
+
+    def head_fused():
+        return torch.autograd.grad(fx.pallas_fused_xent(xh, wh, tg),
+                                   (xh, wh))
+
+    def head_lib():
+        return torch.autograd.grad(
+            F.cross_entropy(F.linear(xr, wr).float(), tg), (xr, wr))
+
+    head = turns(torch, head_fused, head_lib, n=5)
+    print(f"  fused head forward + dx + dW (FusedXentFn, untied w) vs "
+          f"F.linear + F.cross_entropy forward + backward: "
+          + turns_text(head))
     return res
 
 
-def _xent_dw_f32_check(torch, fx):
-    """f32 dW on the 3xTF32 wmma kernel (a profiled call names it) against
-    its plain version: rel L2 <= 1e-4, as the card tests hold it."""
+def _xent_f32_check(torch, fx):
+    """f32 forward, dx and dW on the 3xTF32 wmma kernels (a profiled call
+    of each names its wmma kernel and no wgmma one) against their plain
+    versions: lse max abs err <= 1e-5, dx and dW rel L2 <= 1e-4, as the
+    card tests hold them."""
     s_, d, v = 1000, 768, 50257
     g = torch.Generator(device="cuda").manual_seed(s_ + d + v)
     x = torch.randn(s_, d, generator=g, device="cuda")
@@ -1162,17 +1215,28 @@ def _xent_dw_f32_check(torch, fx):
     tg = torch.randint(0, v, (s_,), generator=g, device="cuda")
     gs = torch.full((1,), 1.0 / s_, device="cuda")
     _, lse = fx.fused_xent_fwd(x, w, tg)
-    dw = fx.fused_xent_dw(x, w, tg, lse, gs)
-    pdw = fx._xent_dw_plain(x, w, tg, lse, gs)
-    rel = float((dw - pdw).norm() / pdw.norm())
-    names = _profile_names(torch, lambda: fx.fused_xent_dw(x, w, tg, lse, gs),
-                           "xent_dw_kernel<float")
-    check(any("xent_dw_kernel<float" in n for n in names)
-          and not any("wgmma" in n for n in names),
-          f"f32 dW did not run the 3xTF32 kernel: {sorted(names)}")
-    print(f"  fused xent f32 dW S={s_} D={d} V={v} (3xTF32 wmma kernel): "
-          f"rel L2 {rel:.3g} (tol 1e-4)")
-    check(rel <= 1e-4, "f32 dW disagrees with its plain version")
+    _, plse = fx._xent_fwd_plain(x, w, tg)
+    lse_err = max_err(lse, plse)
+    rel = {}
+    for name, kernel, plain in (
+            ("dx", fx.fused_xent_dx, fx._xent_dx_plain),
+            ("dw", fx.fused_xent_dw, fx._xent_dw_plain)):
+        got, ref = kernel(x, w, tg, lse, gs), plain(x, w, tg, lse, gs)
+        rel[name] = float((got - ref).norm() / ref.norm())
+    for name, fn in (
+            ("fwd", lambda: fx.fused_xent_fwd(x, w, tg)),
+            ("dx", lambda: fx.fused_xent_dx(x, w, tg, lse, gs)),
+            ("dw", lambda: fx.fused_xent_dw(x, w, tg, lse, gs))):
+        want = f"xent_{name}_kernel<float"
+        names = _profile_names(torch, fn, want)
+        check(any(want in n for n in names)
+              and not any("wgmma" in n for n in names),
+              f"f32 {name} did not run the 3xTF32 kernel: {sorted(names)}")
+    print(f"  fused xent f32 S={s_} D={d} V={v} (3xTF32 wmma kernels): lse "
+          f"max_abs_err {lse_err:.3g} (tol 1e-5); dx rel L2 {rel['dx']:.3g}, "
+          f"dW rel L2 {rel['dw']:.3g} (tol 1e-4)")
+    check(lse_err <= 1e-5 and max(rel.values()) <= 1e-4,
+          "the f32 fused head disagrees with its plain version")
 
 
 def adamw_phase(torch, af, leaf_shapes):
@@ -1394,8 +1458,8 @@ PATTERNS = {"layernorm_fwd": "_ln_fwd_kernel",
             "fa2_flash_attention_dq": "flash_dq_",
             "fa2_flash_attention_dkv": "flash_dkv_",
             "paged_attention": "paged_decode_kernel",
-            "fused_xent_fwd": "xent_fwd_kernel",
-            "fused_xent_dx": "xent_dx_kernel",
+            "fused_xent_fwd": "xent_fwd_",
+            "fused_xent_dx": "xent_dx_",
             "fused_xent_dw": "xent_dw_",
             "adamw_update_fused": "_adamw_kernel"}
 

@@ -30,7 +30,10 @@ and within tolerance of their plain versions, grouped K/V refused.
 Slice 7 (the tensor-core FA2 forward and dk/dv for bf16/f16): T = 2048
 and 4096, T not a multiple of the 64-row tile (1, 33, 100, 130, 200,
 1000), grouped K/V at head dim 32, scores of magnitude ~30, and two
-calls giving the same bits.
+calls giving the same bits.  Slice 9 (the fused head's forward and dx on
+the tensor cores for bf16/f16): S around the 64-token tile (63, 64, 65,
+129), D past one slice (832, 896), V = 50257 at S = 129, and the forward
+and dx bit for bit on a repeat.
 """
 
 import math
@@ -38,8 +41,8 @@ import math
 import pytest
 import torch
 
-from tiny_deepspeed_tpu_torch.ops import (flash_fa2, fused_xent, layernorm,
-                                          paged_attn, quant)
+from tiny_deepspeed_tpu_torch.ops import (_build, flash_fa2, fused_xent,
+                                          layernorm, paged_attn, quant)
 from tiny_deepspeed_tpu_torch.optim import adamw_fused
 from tiny_deepspeed_tpu_torch.serving import pool as pool_mod
 
@@ -460,10 +463,17 @@ def _xent_inputs(dtype, s, d, v, seed, transposed=False):
 @pytest.mark.parametrize("s,d,v,transposed", [
     (257, 64, 1000, False), (1000, 768, 50257, False), (40, 1600, 3001, False),
     (300, 768, 777, True), (40, 96, 777, False), (257, 768, 1000, False),
-    (33, 768, 50304, True)],
+    (33, 768, 50304, True), (63, 768, 1000, False), (64, 768, 1000, False),
+    (65, 768, 1000, False), (129, 768, 50257, False), (40, 832, 3001, False),
+    (129, 896, 3001, False)],
     ids=["d64", "d768_gpt2_vocab", "d1600", "wte_t", "d96_s40",
-         "s257_v1000", "s33_wte_t"])
+         "s257_v1000", "s33_wte_t", "s63", "s64", "s65",
+         "s129_gpt2_vocab", "d832_two_slices", "d896_s129"])
 def test_fused_xent_kernels(dtype, s, d, v, transposed):
+    """Around the tensor-core kernels' tiles: 64 tokens a CTA (S = 63, 64,
+    65, 129), 64-wide chunks of D with a second slice past 768 (832, 896)
+    and a 32-column vocab tile (V not a multiple of 8 or of 32); the
+    forward and dx repeat bit for bit."""
     x, w, tg, gs = _xent_inputs(dtype, s, d, v, s + d + v, transposed)
     before = (fused_xent.fused_xent_fwd.launches,
               fused_xent.fused_xent_dx.launches,
@@ -486,6 +496,14 @@ def test_fused_xent_kernels(dtype, s, d, v, transposed):
                      (dw, fused_xent._xent_dw_plain(x, w, tg, plse, gs))):
         rel = float((got.float() - ref.float()).norm() / ref.float().norm())
         assert rel <= (1e-4 if dtype == torch.float32 else 1e-2)
+    # a repeat, handed w as FusedXentFn hands the forward and dx: bf16 and
+    # f16 the transposed view of a contiguous w^T, which they read
+    wk = w if dtype == torch.float32 else w.t().contiguous().t()
+    loss2, lse2 = fused_xent.fused_xent_fwd(x, wk, tg)
+    dx2 = fused_xent.fused_xent_dx(x, wk, tg, lse, gs)
+    torch.cuda.synchronize()
+    assert torch.equal(loss2, loss) and torch.equal(lse2, lse)
+    assert torch.equal(dx2, dx)
 
 
 @pytest.mark.parametrize("s,d,v,transposed", [
@@ -573,6 +591,17 @@ def test_fused_kernels_refuse_bad_operands():
         fused_xent.fused_xent_fwd(x[:, :32], w[:32], tg.cpu())
     with pytest.raises(ValueError, match="one f32/bf16/f16"):
         fused_xent.fused_xent_fwd(x[:, :32], w[:32].float(), tg)
+    # each C entry reads one layout of w: fused_xent_fwd / _dx w (D, V),
+    # f32 only; fused_xent_fwd_wt / _dx_wt w^T (V, D), bf16/f16 only
+    xs, wts = x[:, :32].contiguous(), w[:32].t().contiguous()
+    tg32, st = tg.int(), torch.zeros(2, 8, device="cuda")
+    ptrs = (xs.data_ptr(), wts.data_ptr(), tg32.data_ptr(), st[0].data_ptr(),
+            st[1].data_ptr())
+    for name, dtype in (("fused_xent_fwd", torch.bfloat16),
+                        ("fused_xent_fwd_wt", torch.float32)):
+        fn = _build.entry("fused_xent", name, fused_xent._FWD_ARGS)
+        assert fn(*ptrs, 8, 32, 100, _build.DTYPE_CODES[dtype],
+                  _build.stream_ptr(xs)) != 0, name
     z = torch.zeros(16, device="cuda")
     kw = dict(lr=1e-3, c1=0.1, c2=0.001, b1=0.9, b2=0.999, eps=1e-8, wd=0.0)
     with pytest.raises(ValueError, match="must be f32"):

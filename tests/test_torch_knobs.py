@@ -105,6 +105,11 @@ XENT_CASES = {
     # D ending in half a 64-wide chunk, and a vocab no tile divides
     "d96": (40, 96, 256, np.float32),
     "v1000": (64, 64, 1000, np.float32),
+    # the card kernels' tile edges: one token past a 64-token tile, two
+    # tiles and a bit at D = 96, and a D past one slice of 768
+    "s65": (65, 64, 256, np.float32),
+    "d96_s129": (129, 96, 256, np.float32),
+    "d832": (40, 832, 256, np.float32),
 }
 
 

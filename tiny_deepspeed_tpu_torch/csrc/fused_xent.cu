@@ -3,7 +3,8 @@
 //
 // Fused lm_head + softmax cross-entropy for Hopper (sm_90a): the forward
 // (per-token loss and logsumexp) and the two backward passes (dx, dW).
-// dW runs on wgmma for bf16/f16; the forward, dx and f32 dW on wmma.
+// bf16/f16 run all three on the tensor cores (wgmma); f32 keeps wmma
+// (3xTF32) for all three.
 //
 // Replaces the TPU kernels tiny_deepspeed_tpu/ops/xent_pallas.py::
 // pallas_fused_xent (:267; _fwd :115, pallas_call :120, kernel
@@ -17,7 +18,9 @@
 // and dW = x^T dz in f32.  Columns >= V are masked to -1e30 before any
 // reduction, and the tiles of x and w are zero-filled past S, D and V
 // when staged, so the vocab tail never reads past the end of w (the TPU
-// kernel's 0 * NaN trap, :155-159, cannot occur).
+// kernel's 0 * NaN trap, :155-159, cannot occur).  The bf16/f16 forward
+// and dx take w as its transpose w^T (V, D) row-major, through entries
+// of their own (below); f32 and dW take w (D, V).
 //
 // Bound.  At gpt2-124m training shapes (S = 8192, D = 768, V = 50304,
 // bf16) each product is 2 S D V = 0.633 TFLOP against ~90 MB of operands:
@@ -29,14 +32,60 @@
 // scratch across grid steps; Hopper CTAs run in parallel and in no order.
 // So each CTA owns its outputs outright and walks the reduction dimension
 // in a loop (no float atomics: every output is bit-repeatable run to run):
-//   * rows kernel, forward and dx: one CTA owns RBM = 32 tokens and walks
-//     the vocab in RBN = 64-column tiles.  Forward: online max / sum-exp
-//     and the gold pick per row.  dx: dz of the tile, then
-//     dx += dz w_tile^T;
-//   * dW kernel: one CTA owns a block of vocab columns and walks the
-//     tokens in tiles: dz of the tile, then dW += x_tile^T dz.
+//   * forward and dx: one CTA owns a block of tokens and walks the vocab.
+//     Forward: online max / sum-exp and the gold pick per row.  dx: dz of
+//     the tile, then dx += dz w_tile^T;
+//   * dW: one CTA owns a block of vocab columns and walks the tokens in
+//     tiles: dz of the tile, then dW += x_tile^T dz.
 // dz is rounded to the operand type before its product, as the JAX
 // chunked path does (softmax_xent.py:142).
+//
+// Forward and dx, bf16/f16 (`tc::xent_fwd_wgmma`, `tc::xent_dx_wgmma`:
+// one device function, `xent_rows_tc`).  A CTA of two warpgroups owns TM =
+// 64 tokens (wgmma's M) and walks the vocab in BN = 32-row tiles of w^T;
+// D is cut into 64-wide chunks, each a swizzled 128-byte-row tile
+// (hopper.cuh).  Why w^T: w's own rows put a 32-column tile's D rows
+// 100 KB apart, 64 bytes each: half a 128-byte line a request.  A w^T
+// tile's 32 rows are D contiguous elements: whole lines, half the
+// requests for the same bytes of the one operand that streams (a first
+// version that read w was slower in both passes, PERF.md).
+// Their entries are fused_xent_fwd_wt and fused_xent_dx_wt (the f32
+// entries fused_xent_fwd / _dx and every dtype's fused_xent_dw read w);
+// FusedXentFn makes w^T once a step for both passes (ops/fused_xent.py):
+// a copy for an untied head, a free view of a tied one's wte.  Per tile:
+//   Z = x w_tile (64 tokens x 32 vocab): wgmma m64n32k16, the x chunk A
+//     and the w^T chunk B, both K-major in shared memory; warpgroup g
+//     takes k-steps 2g, 2g+1 of every chunk, and the two f32 partial tiles
+//     meet in shared memory (8 KB each): z = own + other in both, the same
+//     bits (addition commutes);
+//   dx: dZ = (exp(Z - lse) - onehot) g/S in registers, 0 past V and S,
+//     rounded to T is the A operand of dx[:, chunk] += dZ w^T_chunk
+//     (wgmma m64n64k16, A from registers), the w^T chunk the B operand
+//     MN-major (transpose bit: the 32 vocab rows are the contraction), 2
+//     k-steps; dZ never passes through shared memory;
+//   forward: warpgroup g reduces the tile's columns 16g..16g+15 (half its
+//     fragment, so the exchange swaps only halves): max over the row's
+//     quad (two shuffles), sum-exp per thread, the gold logit by column
+//     match; the two warpgroups' (max, sum-exp, gold) per row meet once
+//     at the end, in a fixed order.
+// Each thread keeps its two rows' lse and target in registers for the
+// whole walk.  The accumulator trap: dx for 64 tokens x D = 768 in f32 is
+// 384 a thread of one warpgroup, so warpgroup g accumulates half the
+// CTA's chunks (at most CPW = 6: 192 f32, 252 registers, no spills).
+// Shared memory: x resident (64 x 768: 96 KB), the w^T tile (32 x 768:
+// 48 KB) in two cp.async stages, the exchange (16 KB): 214016 bytes at D
+// = 768, one CTA an SM; resident up to D = 832.  Wider, x streams chunk
+// by chunk through two slots behind one w^T stage (136192 bytes at D =
+// 1600; fused_xent_fwd_smem_bytes / fused_xent_dx_smem_bytes report
+// either) and a warpgroup accumulates at most 4 chunks (at 6 ptxas
+// spilled in that loop); dx cuts D into slices across CTAs (blockIdx.y),
+// each recomputing the logits over all of D (D = 1600: 4 slices).  The
+// copy of tile j+1 is issued right behind tile j's recompute wgmmas, so
+// it lands during that recompute, the exchange, the epilogue and dx's
+// product.  L2 reads a call: every CTA reads all of w^T once, ceil(S/64)
+// x D V 2 bytes = 128 x 77.3 MB = 9.9 GB at gpt2-124m, in whole lines;
+// 128 CTAs fill 128 of the 132 SMs.  PERF.md has the times and
+// xent_ablate.py the split of each kernel's.
 //
 // dW, bf16/f16 (`tc::xent_dw_wgmma`, wgmma).  A CTA owns BV = 64 vocab
 // columns (wgmma's M) and walks the tokens in TT = 32-token tiles; D is
@@ -58,15 +107,12 @@
 // fused_xent_dw_smem_bytes reports either).  w rows that are not 16-byte
 // aligned (V % 8 != 0) are copied element by element instead.
 //
-// The accumulator trap.  dW^T for 64 vocab columns x D = 768 is 384 f32
-// a thread of one warpgroup, more than its registers.  So the CTA runs
-// two warpgroups, each accumulating half of the CTA's chunks (at most
-// CPW = 6, 192 f32 a thread), and they share one recompute per tile: each
-// takes k-steps 2g, 2g+1 of every chunk, the two f32 partial logit tiles
-// meet in shared memory (8 KB each) and both warpgroups form the same
-// z = own + other (addition commutes, so the dZ they round agree bit for
-// bit).  ptxas: 248-254 registers, no spills; one CTA an SM.  D > 768
-// (more than 2 x CPW chunks) is cut into slices across CTAs
+// The accumulator trap, dW's: dW^T for 64 vocab columns x D = 768 is 384
+// f32 a thread of one warpgroup, more than its registers.  So the CTA
+// runs two warpgroups, each accumulating half of the CTA's chunks (at most
+// CPW = 6, 192 f32 a thread), and they share one recompute per tile as
+// the forward and dx do.  ptxas: 248-254 registers, no spills; one CTA an
+// SM.  D > 768 (more than 2 x CPW chunks) is cut into slices across CTAs
 // (blockIdx.y), each recomputing the logits over all of D: at D = 1600,
 // three slices do 3 recomputes + 1 product = 4 x 2SDV against the
 // bound's 2 x 2SDV, so that width runs at most at half its bound.  L2
@@ -75,20 +121,19 @@
 // 32-column blocks read twice that), plus the w block once.
 //
 // Forward, dx, and dW for f32 (`xent_fwd_kernel`, `xent_dx_kernel`,
-// `xent_dw_kernel`: nvcuda::wmma on 16x16 fragments with f32
-// accumulators).  bf16 / f16 operands at 16x16x16; f32 operands as
-// 3xTF32 (16x16x8, each operand split into a TF32 high part and a TF32
-// remainder; three products keep ~f32 accuracy).  The tensor core's f32
-// accumulator does not round to nearest: adding into a running sum it
-// drops the low bits, always toward zero, so over a long walk the error
-// grows with the number of adds (measured on an H100: dx 2.7e-4 relative
-// L2 from an f64 reference over V = 50257, lse 5e-5 at D = 1600).  So
-// each f32 k-step's three products go into a fresh fragment, which is
-// then added to the running sum with ordinary round-to-nearest f32 adds.
-// The bf16 / f16 products accumulate in place: their dz is rounded to 8
-// or 11 bits anyway.  Operands are staged into shared memory in KC =
-// 128-deep chunks along D (16-byte loads where aligned and in range,
-// element loads on the ragged edges).  The f32 dW kernel owns CBN = 32
+// `xent_dw_kernel`: nvcuda::wmma on 16x16x8 fragments with f32
+// accumulators): f32 operands as 3xTF32 (each operand split into a TF32
+// high part and a TF32 remainder; three products keep ~f32 accuracy).
+// The tensor core's f32 accumulator does not round to nearest: adding
+// into a running sum it drops the low bits, always toward zero, so over a
+// long walk the error grows with the number of adds (measured on an H100:
+// dx 2.7e-4 relative L2 from an f64 reference over V = 50257, lse 5e-5 at
+// D = 1600).  So each k-step's three products go into a fresh fragment,
+// which is then added to the running sum with ordinary round-to-nearest
+// f32 adds.  Operands are staged into shared memory in KC = 128-deep
+// chunks along D (16-byte loads where aligned and in range, element loads
+// on the ragged edges).  The forward and dx ("rows kernel") own RBM = 32
+// tokens and walk the vocab in RBN = 64-column tiles; dW owns CBN = 32
 // vocab columns and walks the tokens in CBT = 64-row tiles.
 //
 // The wmma kernels' accumulators: dx's (tokens, D) and dW's (D, vocab)
@@ -104,8 +149,7 @@
 // whole vocab walk and, for dx, the tile's w panel for both the
 // recompute and the product; the f32 dW kernel keeps its w columns and
 // each token tile's x panel.  Otherwise the chunks stream through one
-// slot and the product reloads them.  Moving the forward and dx to wgmma
-// is later work.
+// slot and the product reloads them.
 
 #include <mma.h>
 
@@ -127,23 +171,7 @@ constexpr int SMEM_MAX = 232448;    // a CTA's dynamic shared memory cap
 
 // -- per-dtype tensor-core step ----------------------------------------------
 
-template <typename T> struct Mma;
-
-template <typename T> struct Mma16 {   // bf16 / f16: one 16x16x16 product
-  static constexpr int K = 16;
-  using C = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-  template <typename LA, typename LB>
-  static __device__ __forceinline__ void mma(C& c, const T* a, int lda,
-                                             const T* b, int ldb) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, T, LA> fa;
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, T, LB> fb;
-    wmma::load_matrix_sync(fa, a, lda);
-    wmma::load_matrix_sync(fb, b, ldb);
-    wmma::mma_sync(c, fa, fb, c);
-  }
-};
-template <> struct Mma<__nv_bfloat16> : Mma16<__nv_bfloat16> {};
-template <> struct Mma<__half> : Mma16<__half> {};
+template <typename T> struct Mma;      // f32 only: bf16/f16 run on wgmma
 
 template <> struct Mma<float> {        // f32: 3xTF32 at 16x16x8
   static constexpr int K = 8;
@@ -887,6 +915,372 @@ cudaError_t launch_dw(const void* x, const void* w, const int* tgt,
   return cudaGetLastError();
 }
 
+// -- forward and dx, bf16 / f16: tensor cores -------------------------------
+
+constexpr int TM = 64;                 // tokens a CTA (wgmma M)
+constexpr int BN = 32;                 // vocab rows of w^T a tile
+constexpr int RXT = TM * CW * 2;       // x chunk: 64 tokens x 64 of D
+constexpr int RWT = BN * CW * 2;       // w^T chunk: 32 vocab x 64 of D
+constexpr int ZCH = 16 * 128 * 4;      // a warpgroup's partial logits
+constexpr int CPW_STREAM = 4;          // CPW when x streams (D > 832)
+
+// chunks a warpgroup accumulates: CPW with x resident; fewer when x
+// streams, whose loop holds more registers (at 6, ptxas spilled)
+__host__ __device__ constexpr int rows_cpw(bool xres) {
+  return xres ? CPW : CPW_STREAM;
+}
+
+struct RowsTcSmem {
+  int x, xch, total;
+  bool xres;
+};
+
+// byte offsets from the 1024-aligned base, where the w tiles start (+1024
+// in `total` to align it): x resident and the w tile (all of D x BN) in
+// two stages when that fits (D <= 832), else one w stage and x streaming
+// chunk by chunk through two slots
+__host__ __device__ inline RowsTcSmem rows_tc_smem(int nch) {
+  RowsTcSmem s{};
+  for (int xres = 1; xres >= 0; --xres) {
+    s.xres = xres;
+    s.x = (xres ? 2 : 1) * nch * RWT;
+    s.xch = s.x + (xres ? nch : 2) * RXT;
+    s.total = s.xch + WGS * ZCH + 1024;
+    if (s.total <= SMEM_MAX) break;
+  }
+  return s;
+}
+
+// The forward's running statistics of a thread's two rows (row0, row0 +
+// 8) over its warpgroup's half of every tile's columns (fragment columns
+// 16g..16g+15: z[8g..8g+7]): max, sum-exp and the gold logit
+struct FwdStats {
+  float m[2] = {tds::kMasked, tds::kMasked}, l[2] = {0.f, 0.f};
+  float gold[2] = {0.f, 0.f};
+
+  // one tile: z, this warpgroup's partial logits of vocab columns j0 +
+  // 8j + col0 + e, meets the other warpgroup's through `xch` (each swaps
+  // only the half the other reduces), then the online logsumexp along
+  // the rows (max over the row's quad) and the gold pick
+  __device__ __forceinline__ void tile(const float (&z)[16], float* xch,
+                                       int g, int tid, int j0, int col0,
+                                       int V, const int (&tg)[2]) {
+    float* mine = xch + g * (16 * 128);
+    const float* other = xch + (1 - g) * (16 * 128);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)  // the other's columns
+      mine[i * 128 + tid] = g ? z[i] : z[8 + i];
+    __syncthreads();
+    float zz[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = j0 + 8 * (i / 4 + 2 * g) + col0 + i % 2;
+      const float own = g ? z[8 + i] : z[i];
+      zz[i] = col < V ? own + other[i * 128 + tid] : tds::kMasked;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float mt = fmaxf(fmaxf(zz[2 * h], zz[2 * h + 1]),
+                       fmaxf(zz[4 + 2 * h], zz[5 + 2 * h]));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+      const float mn = fmaxf(m[h], mt);
+      float s = l[h] * exp2f((m[h] - mn) * kLog2e);
+#pragma unroll
+      for (int q = 0; q < 2; ++q)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * q + 2 * h + e;
+          s += exp2f((zz[i] - mn) * kLog2e);
+          if (j0 + 8 * (q + 2 * g) + col0 + e == tg[h]) gold[h] += zz[i];
+        }
+      l[h] = s;
+      m[h] = mn;
+    }
+  }
+
+  // after the walk: each warpgroup's (max, sum-exp, gold) per row over
+  // its columns; warpgroup 1's meet warpgroup 0's in shared memory and
+  // are merged in that order; loss and lse of rows < S
+  __device__ __forceinline__ void finish(float* xch, int g, int lane,
+                                         int row0, int t0, int S,
+                                         float* __restrict__ loss,
+                                         float* __restrict__ lse_out) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int o = 1; o < 4; o <<= 1) {
+        l[h] += __shfl_xor_sync(0xffffffffu, l[h], o);
+        gold[h] += __shfl_xor_sync(0xffffffffu, gold[h], o);
+      }
+    }
+    __syncthreads();  // the exchange buffers are free
+    if (g == 1 && lane % 4 == 0) {  // 64 rows x (m, l, gold)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float* o = xch + 3 * (row0 - t0 + 8 * h);
+        o[0] = m[h];
+        o[1] = l[h];
+        o[2] = gold[h];
+      }
+    }
+    __syncthreads();
+    if (g == 0 && lane % 4 == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = row0 + 8 * h;
+        const float* o = xch + 3 * (r - t0);
+        const float mm = fmaxf(m[h], o[0]);
+        const float ll = l[h] * expf(m[h] - mm) + o[1] * expf(o[0] - mm);
+        if (r < S) {
+          const float lse = mm + logf(ll);
+          lse_out[r] = lse;
+          loss[r] = lse - (gold[h] + o[2]);
+        }
+      }
+    }
+  }
+};
+
+// the forward (DX = false: loss and lse) or dx (DX = true) of one CTA's 64
+// tokens, walking the vocab in BN-row tiles of wt = w^T (V, D); XRES: x
+// resident (else streamed), as rows_tc_smem decides
+template <typename T, bool DX, bool XRES>
+__device__ __forceinline__ void xent_rows_tc(
+    const T* __restrict__ x, const T* __restrict__ wt,
+    const int* __restrict__ tgt, const float* __restrict__ lse_in,
+    const float* __restrict__ gscale, float* __restrict__ loss,
+    float* __restrict__ lse_out, T* __restrict__ dx, int S, int D, int V) {
+  extern __shared__ unsigned char smem_raw[];
+  const int nch = (D + CW - 1) / CW;
+  const RowsTcSmem L = rows_tc_smem(nch);
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* base_p = smem_raw + (base - raw);
+  auto ws = [&](int st, int c) { return base + (st * nch + c) * RWT; };
+  auto xs = [&](int c) { return base + L.x + c * RXT; };
+  float* xch = reinterpret_cast<float*>(base_p + L.xch);
+
+  const int t0 = blockIdx.x * TM;
+  // dx: this CTA's slice of D, chunks [cs0, cs1); warpgroup g accumulates
+  // [my0, my1), at most rows_cpw(XRES) of them
+  const int cs0 = blockIdx.y * nch / gridDim.y;
+  const int cs1 = (blockIdx.y + 1) * nch / gridDim.y;
+  const int half = (cs1 - cs0 + 1) / 2;
+  const int g = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int my0 = g ? cs0 + half : cs0, my1 = g ? cs1 : cs0 + half;
+  const int ntiles = (V + BN - 1) / BN;
+
+  // w^T rows (vocab) [j0, j0 + BN), every 64-wide chunk of D -> stage st:
+  // whole 128-byte lines of device memory, rows always 16-byte aligned
+  auto load_w = [&](int jt, int st) {
+    for (int c = 0; c < nch; ++c)
+      load_tile_rc<T, BN, THREADS>(ws(st, c), wt, jt * BN, V, c * CW, D, D);
+  };
+  auto load_x = [&](int c, uint32_t dst) {
+    load_tile_rc<T, TM, THREADS>(dst, x, t0, S, c * CW, D, D);
+  };
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int row0 = t0 + 16 * warp + lane / 4;      // token rows row0, +8
+  const int col0 = 2 * (lane % 4);                 // + 8j + e: vocab or D
+  int tg[2];
+  float lse_r[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = row0 + 8 * h;
+    const int t = r < S ? tgt[r] : -1;
+    tg[h] = t < V ? t : -1;  // a target outside [0, V) matches no column
+    lse_r[h] = DX && r < S ? lse_in[r] : 0.f;
+  }
+  const float gs = DX ? *gscale : 0.f;
+  constexpr int NA = DX ? rows_cpw(XRES) : 1;
+  float acc[NA][32];
+  if constexpr (DX) {
+#pragma unroll
+    for (int i = 0; i < NA; ++i)
+#pragma unroll
+      for (int n = 0; n < 32; ++n) acc[i][n] = 0.f;
+  }
+  FwdStats fs;  // the forward's
+
+  if (XRES) {
+    for (int c = 0; c < nch; ++c) load_x(c, xs(c));
+    load_w(0, 0);
+    cp_async_commit();
+  }
+
+  for (int jt = 0; jt < ntiles; ++jt) {
+    const int st = XRES ? jt % 2 : 0;
+    float z[16];
+    if (XRES) {
+      cp_async_wait<0>();  // tile jt (and x) landed
+      fence_proxy_async();
+      __syncthreads();     // ... for everyone; stage st ^ 1 is free
+      // Z (64 tokens x BN vocab) = x w_tile, this warpgroup's share:
+      // k-steps 2g and 2g + 1 of every chunk
+      wgmma_fence();
+      for (int c = 0; c < nch; ++c) {
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+          wgmma_ss_n32<T>(z, desc_k<CW>(xs(c), 2 * g + kk),
+                          desc_k<CW>(ws(st, c), 2 * g + kk), c + kk > 0);
+      }
+      wgmma_commit();
+      // the next tile's copy, issued behind the products it overlaps
+      if (jt + 1 < ntiles) load_w(jt + 1, st ^ 1);
+      cp_async_commit();
+      wgmma_wait<0>();
+      fence_regs(z);
+    } else {
+      __syncthreads();  // the w stage and the x slots are free
+      load_w(jt, 0);
+      load_x(0, xs(0));
+      cp_async_commit();
+      for (int c = 0; c < nch; ++c) {
+        if (c + 1 < nch) {
+          load_x(c + 1, xs((c + 1) % 2));
+          cp_async_commit();
+          cp_async_wait<1>();  // chunk c (and the w tile) landed
+        } else {
+          cp_async_wait<0>();
+        }
+        fence_proxy_async();
+        __syncthreads();
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk)
+          wgmma_ss_n32<T>(z, desc_k<CW>(xs(c % 2), 2 * g + kk),
+                          desc_k<CW>(ws(0, c), 2 * g + kk), c + kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(z);
+        __syncthreads();  // slot c % 2 is free for chunk c + 2
+      }
+    }
+
+    // the two halves of the contraction meet: z = own + other's, the same
+    // sum in both warpgroups (f32 addition commutes)
+    const int j0 = jt * BN;
+    if constexpr (DX) {
+      float* mine = xch + g * (16 * 128);
+      const float* other = xch + (1 - g) * (16 * 128);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) mine[i * 128 + tid] = z[i];
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < 16; ++i) z[i] += other[i * 128 + tid];
+
+      // dZ = (exp(Z - lse) - onehot) g/S, 0 past V and S
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int h = (i / 2) % 2;
+        const int col = j0 + 8 * (i / 4) + col0 + i % 2;
+        float p = exp2f((z[i] - lse_r[h]) * kLog2e);
+        if (col == tg[h]) p -= 1.f;
+        z[i] = col < V && row0 + 8 * h < S ? p * gs : 0.f;
+      }
+
+      // dx[:, my chunks] += dZ w^T_tile: dZ rounded to T in registers is
+      // the A operand, the w^T chunks MN-major B operands (transpose bit:
+      // the vocab rows are the contraction)
+      uint32_t a[2][4];
+      acc_to_a<T>(z, 0, a[0]);
+      acc_to_a<T>(z, 1, a[1]);
+#pragma unroll
+      for (int i = 0; i < NA; ++i) fence_regs(acc[i]);
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < NA; ++i) {
+        if (my0 + i < my1) {
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk)
+            wgmma_rs<T, CW>(acc[i], a[kk], desc_mn<CW>(ws(st, my0 + i), kk),
+                            1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+#pragma unroll
+      for (int i = 0; i < NA; ++i) fence_regs(acc[i]);
+    } else {
+      fs.tile(z, xch, g, tid, j0, col0, V, tg);
+    }
+  }
+
+  if constexpr (DX) {
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const int c = my0 + i;
+      if (c < my1) {
+#pragma unroll
+        for (int n = 0; n < 32; n += 2) {
+          const int r = row0 + 8 * ((n / 2) % 2);
+          const int d = c * CW + 8 * (n / 4) + col0;
+          if (r < S && d < D)
+            *reinterpret_cast<uint32_t*>(dx + (size_t)r * D + d) =
+                pack2<T>(acc[i][n], acc[i][n + 1]);
+        }
+      }
+    }
+  } else {
+    fs.finish(xch, g, lane, row0, t0, S, loss, lse_out);
+  }
+}
+
+template <typename T, bool XRES>
+__global__ void __launch_bounds__(THREADS, 1)
+xent_fwd_wgmma(const T* __restrict__ x, const T* __restrict__ wt,
+               const int* __restrict__ tgt, float* __restrict__ loss,
+               float* __restrict__ lse, int S, int D, int V) {
+  xent_rows_tc<T, false, XRES>(x, wt, tgt, nullptr, nullptr, loss, lse,
+                               nullptr, S, D, V);
+}
+
+template <typename T, bool XRES>
+__global__ void __launch_bounds__(THREADS, 1)
+xent_dx_wgmma(const T* __restrict__ x, const T* __restrict__ wt,
+              const int* __restrict__ tgt, const float* __restrict__ lse,
+              const float* __restrict__ gscale, T* __restrict__ dx, int S,
+              int D, int V) {
+  xent_rows_tc<T, true, XRES>(x, wt, tgt, lse, gscale, nullptr, nullptr, dx,
+                              S, D, V);
+}
+
+// the forward (!is_dx) or dx of x (S, D) and wt = w^T (V, D)
+template <typename T>
+cudaError_t launch_rows(bool is_dx, const void* x, const void* wt,
+                        const int* tgt, const float* lse_in,
+                        const float* gscale, float* loss, float* lse_out,
+                        void* dx, int S, int D, int V, cudaStream_t stream) {
+  const int nch = (D + CW - 1) / CW;
+  const RowsTcSmem L = rows_tc_smem(nch);
+  if (L.total > SMEM_MAX) return cudaErrorInvalidValue;
+  const T* xp = static_cast<const T*>(x);
+  const T* wp = static_cast<const T*>(wt);
+  const int mblocks = (S + TM - 1) / TM;
+  cudaError_t err;
+  if (!is_dx) {
+    auto kernel = L.xres ? xent_fwd_wgmma<T, true> : xent_fwd_wgmma<T, false>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+    if (err != cudaSuccess) return err;
+    kernel<<<mblocks, THREADS, L.total, stream>>>(xp, wp, tgt, loss, lse_out,
+                                                  S, D, V);
+  } else {
+    auto kernel = L.xres ? xent_dx_wgmma<T, true> : xent_dx_wgmma<T, false>;
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L.total);
+    if (err != cudaSuccess) return err;
+    // slices of at most 2 * rows_cpw chunks: one at D <= 768
+    const int per = 2 * rows_cpw(L.xres);
+    dim3 grid(mblocks, (nch + per - 1) / per);
+    kernel<<<grid, THREADS, L.total, stream>>>(
+        xp, wp, tgt, lse_in, gscale, static_cast<T*>(dx), S, D, V);
+  }
+  return cudaGetLastError();
+}
+
 }  // namespace tc
 
 // -- launch -----------------------------------------------------------------
@@ -911,56 +1305,63 @@ cudaError_t allow_smem(K kernel, int smem) {
 
 template <typename T>
 cudaError_t launch(Pass pass, const Args& a) {
-  // dW: bf16/f16 -> the tensor-core kernel, f32 -> the 3xTF32 wmma one
   if constexpr (!std::is_same<T, float>::value) {
+    // bf16/f16: the tensor-core kernels
     if (pass == kDw)
       return tc::launch_dw<T>(a.x, a.w, a.tgt, a.lse_in, a.gscale, a.dw,
                               a.S, a.D, a.V, a.stream);
-  }
-  const int nch = (a.D + KC - 1) / KC;
-  const int nsplit = (nch + CPS - 1) / CPS;
-  const T* x = static_cast<const T*>(a.x);
-  const T* w = static_cast<const T*>(a.w);
-  // residency, most reuse first: {x resident, w resident}
-  const int prefs[4][2] = {{1, 1}, {1, 0}, {0, 1}, {0, 0}};
-  for (const auto& pr : prefs) {
-    const int xres = pr[0], wres = pr[1];
-    if (pass == kFwd && wres) continue;  // no product reuses w
-    const int smem = pass == kDw ? cols_smem<T>(nch, xres, wres).total
-                                 : rows_smem<T>(nch, xres, wres).total;
-    if (smem > SMEM_MAX) continue;
-    cudaError_t err;
-    if (pass == kDw) {
-      if constexpr (std::is_same<T, float>::value) {  // only f32 gets here
+    return tc::launch_rows<T>(pass == kDx, a.x, a.w, a.tgt, a.lse_in,
+                              a.gscale, a.loss, a.lse_out, a.dx, a.S, a.D,
+                              a.V, a.stream);
+  } else {
+    // f32: the 3xTF32 wmma kernels
+    const int nch = (a.D + KC - 1) / KC;
+    const int nsplit = (nch + CPS - 1) / CPS;
+    const T* x = static_cast<const T*>(a.x);
+    const T* w = static_cast<const T*>(a.w);
+    // residency, most reuse first: {x resident, w resident}
+    const int prefs[4][2] = {{1, 1}, {1, 0}, {0, 1}, {0, 0}};
+    for (const auto& pr : prefs) {
+      const int xres = pr[0], wres = pr[1];
+      if (pass == kFwd && wres) continue;  // no product reuses w
+      const int smem = pass == kDw ? cols_smem<T>(nch, xres, wres).total
+                                   : rows_smem<T>(nch, xres, wres).total;
+      if (smem > SMEM_MAX) continue;
+      cudaError_t err;
+      if (pass == kDw) {
         err = allow_smem(xent_dw_kernel<T>, smem);
         if (err != cudaSuccess) return err;
         dim3 grid((a.V + CBN - 1) / CBN, nsplit);
         xent_dw_kernel<T><<<grid, THREADS, smem, a.stream>>>(
             x, w, a.tgt, a.lse_in, a.gscale, a.dw, a.S, a.D, a.V, xres,
             wres);
+      } else if (pass == kDx) {
+        err = allow_smem(xent_dx_kernel<T>, smem);
+        if (err != cudaSuccess) return err;
+        dim3 grid((a.S + RBM - 1) / RBM, nsplit);
+        xent_dx_kernel<T><<<grid, THREADS, smem, a.stream>>>(
+            x, w, a.tgt, a.lse_in, a.gscale, static_cast<T*>(a.dx), a.S,
+            a.D, a.V, xres, wres);
+      } else {
+        err = allow_smem(xent_fwd_kernel<T>, smem);
+        if (err != cudaSuccess) return err;
+        dim3 grid((a.S + RBM - 1) / RBM, 1);
+        xent_fwd_kernel<T><<<grid, THREADS, smem, a.stream>>>(
+            x, w, a.tgt, a.loss, a.lse_out, a.S, a.D, a.V, xres);
       }
-    } else if (pass == kDx) {
-      err = allow_smem(xent_dx_kernel<T>, smem);
-      if (err != cudaSuccess) return err;
-      dim3 grid((a.S + RBM - 1) / RBM, nsplit);
-      xent_dx_kernel<T><<<grid, THREADS, smem, a.stream>>>(
-          x, w, a.tgt, a.lse_in, a.gscale, static_cast<T*>(a.dx), a.S, a.D,
-          a.V, xres, wres);
-    } else {
-      err = allow_smem(xent_fwd_kernel<T>, smem);
-      if (err != cudaSuccess) return err;
-      dim3 grid((a.S + RBM - 1) / RBM, 1);
-      xent_fwd_kernel<T><<<grid, THREADS, smem, a.stream>>>(
-          x, w, a.tgt, a.loss, a.lse_out, a.S, a.D, a.V, xres);
+      return cudaGetLastError();
     }
-    return cudaGetLastError();
+    return cudaErrorInvalidValue;  // not even the streaming layout fits
   }
-  return cudaErrorInvalidValue;  // not even the streaming layout fits
 }
 
-cudaError_t dispatch(int dtype, Pass pass, const Args& a) {
+// `wt`: whether a.w is w^T (V, D), which only the bf16/f16 forward and dx
+// read (entries *_wt); every other pass reads w (D, V).  A call whose
+// layout is not its kernel's is refused.
+cudaError_t dispatch(int dtype, Pass pass, bool wt, const Args& a) {
   if (a.S <= 0 || a.V <= 0 || a.D <= 0 || a.D % 32)
     return cudaErrorInvalidValue;
+  if (wt != (dtype != tds::kF32 && pass != kDw)) return cudaErrorInvalidValue;
   switch (dtype) {
     case tds::kF32: return launch<float>(pass, a);
     case tds::kBF16: return launch<__nv_bfloat16>(pass, a);
@@ -971,33 +1372,55 @@ cudaError_t dispatch(int dtype, Pass pass, const Args& a) {
 
 }  // namespace
 
-// x (S, D) and w (D, V) contiguous, one dtype (tds::DType); targets (S,)
-// int32; loss and lse (S,) f32.  Returns the launch's cudaError_t.
+// x (S, D) and w (D, V) contiguous f32 (tds::kF32; the 3xTF32 kernel),
+// targets (S,) int32; loss and lse (S,) f32.  Returns the launch's
+// cudaError_t; bf16/f16 take fused_xent_fwd_wt.
 extern "C" int fused_xent_fwd(const void* x, const void* w, const int* tgt,
                               float* loss, float* lse, int S, int D, int V,
                               int dtype, void* stream) {
   Args a{x, w, tgt, nullptr, nullptr, loss, lse, nullptr, nullptr, S, D, V,
          static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, kFwd, a);
+  return dispatch(dtype, kFwd, false, a);
 }
 
-// as fused_xent_fwd, with the forward's lse (S,) f32 and gscale (one f32,
-// the upstream gradient over S); dx (S, D) in x's dtype.
+// as fused_xent_fwd for bf16/f16 (the tensor-core kernel), reading wt =
+// w^T (V, D) contiguous.
+extern "C" int fused_xent_fwd_wt(const void* x, const void* wt,
+                                 const int* tgt, float* loss, float* lse,
+                                 int S, int D, int V, int dtype,
+                                 void* stream) {
+  Args a{x, wt, tgt, nullptr, nullptr, loss, lse, nullptr, nullptr, S, D, V,
+         static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, kFwd, true, a);
+}
+
+// as fused_xent_fwd (f32, w (D, V)), with the forward's lse (S,) f32 and
+// gscale (one f32, the upstream gradient over S); dx (S, D) f32.
 extern "C" int fused_xent_dx(const void* x, const void* w, const int* tgt,
                              const float* lse, const float* gscale, void* dx,
                              int S, int D, int V, int dtype, void* stream) {
   Args a{x, w, tgt, lse, gscale, nullptr, nullptr, nullptr, dx, S, D, V,
          static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, kDx, a);
+  return dispatch(dtype, kDx, false, a);
 }
 
-// as fused_xent_dx; dw (D, V) f32.
+// as fused_xent_dx for bf16/f16, reading wt = w^T (V, D); dx in x's dtype.
+extern "C" int fused_xent_dx_wt(const void* x, const void* wt,
+                                const int* tgt, const float* lse,
+                                const float* gscale, void* dx, int S, int D,
+                                int V, int dtype, void* stream) {
+  Args a{x, wt, tgt, lse, gscale, nullptr, nullptr, nullptr, dx, S, D, V,
+         static_cast<cudaStream_t>(stream)};
+  return dispatch(dtype, kDx, true, a);
+}
+
+// as fused_xent_dx, but w (D, V) for every dtype; dw (D, V) f32.
 extern "C" int fused_xent_dw(const void* x, const void* w, const int* tgt,
                              const float* lse, const float* gscale, float* dw,
                              int S, int D, int V, int dtype, void* stream) {
   Args a{x, w, tgt, lse, gscale, nullptr, nullptr, dw, nullptr, S, D, V,
          static_cast<cudaStream_t>(stream)};
-  return dispatch(dtype, kDw, a);
+  return dispatch(dtype, kDw, false, a);
 }
 
 // Dynamic shared memory (bytes) the bf16/f16 dW kernel launches with at
@@ -1006,4 +1429,19 @@ extern "C" int fused_xent_dw_smem_bytes(int D) {
   if (D <= 0 || D % 32) return -1;
   const tc::DwSmem L = tc::dw_smem((D + tc::CW - 1) / tc::CW);
   return L.total <= SMEM_MAX ? L.total : -1;
+}
+
+// ... the bf16/f16 forward and dx kernels (one layout serves both).
+static int rows_smem_bytes(int D) {
+  if (D <= 0 || D % 32) return -1;
+  const tc::RowsTcSmem L = tc::rows_tc_smem((D + tc::CW - 1) / tc::CW);
+  return L.total <= SMEM_MAX ? L.total : -1;
+}
+
+extern "C" int fused_xent_fwd_smem_bytes(int D) {
+  return rows_smem_bytes(D);
+}
+
+extern "C" int fused_xent_dx_smem_bytes(int D) {
+  return rows_smem_bytes(D);
 }

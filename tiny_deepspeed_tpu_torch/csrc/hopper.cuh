@@ -2,7 +2,8 @@
 // SPDX-License-Identifier: Apache-2.0
 //
 // Hopper (sm_90a) building blocks for the tensor-core kernels (FA2 in
-// flash_fwd.cu and flash_bwd.cu, the fused head's dW in fused_xent.cu):
+// flash_fwd.cu and flash_bwd.cu, the fused head's forward, dx and dW in
+// fused_xent.cu):
 // asynchronous 16-byte copies into shared memory, swizzled shared-memory
 // tiles, wgmma descriptors and the warpgroup matrix products they feed.
 //
@@ -12,11 +13,13 @@
 // the 128-byte swizzle for D = 64 (mask 7) and the 64-byte swizzle for
 // D = 32 (mask 3), the layouts wgmma's descriptors name B128 and B64.
 // One tile serves both ways round:
-//   * K-major (the contraction runs along D): A or B of S = Q K^T;
+//   * K-major (the contraction runs along D): A or B of S = Q K^T, and of
+//     the fused head's logits x w (x and w^T chunks, both (rows, D));
 //     eight-row groups SBO = 8*D*2 bytes apart, each k-step of 16
 //     elements 32 bytes further along the row;
 //   * MN-major (the contraction runs along the rows, N along D): the B
-//     operand of P V, with wgmma's transpose bit; eight-row groups SBO
+//     operand of P V (and of dx = dZ w, the w^T chunk's rows the vocab
+//     contracted over), with wgmma's transpose bit; eight-row groups SBO
 //     apart again, each k-step of 16 rows 16*D*2 bytes further.  With
 //     D = 64 the same descriptor serves an MN-major A operand (M = 64
 //     along the row, the A transpose bit): dW's w chunk, (D, V) row-major
@@ -217,6 +220,27 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " TDS_D32
         ", %32, %33, p, 1, 1, 0, 0;\n}\n"
         : TDS_O32(d) : "l"(da), "l"(db), "r"(scale_d));
+  }
+}
+
+// d (64 x 32, f32) (+)= A (64 x 16, shared, K-major) . B (32 x 16,
+// shared, K-major)^T; scale_d 0 overwrites d.  The fused head's logits
+// x w_tile with w^T's 32 vocab rows as B
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 " TDS_D16
+        ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : TDS_O16(d) : "l"(da), "l"(db), "r"(scale_d));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 " TDS_D16
+        ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+        : TDS_O16(d) : "l"(da), "l"(db), "r"(scale_d));
   }
 }
 

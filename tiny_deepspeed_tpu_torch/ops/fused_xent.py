@@ -24,9 +24,13 @@ mask ragged token and vocab tiles, so they take any S and V: the port
 has neither the gate nor the fallback.
 
 Operands: D a multiple of 32; x and w one of f32 / bf16 / f16.  The
-kernels read w as a contiguous (D, V) row-major matrix: a transposed
-view (`wte.t()` under `tie_weights`) is copied to that layout by the
-wrapper, once per call.
+f32 kernels and dW read w as a contiguous (D, V) row-major matrix; the
+bf16/f16 forward and dx read its transpose w^T (V, D) row-major, whose
+vocab rows are D contiguous elements (whole lines of device memory),
+through entries of their own (`*_wt`).  `_operands` alone picks the
+entry and makes its layout from w: free for w^T when w is the transposed
+view of a contiguous (V, D) tensor (a tied head's `wte.t()`), else a
+copy, which `FusedXentFn` makes once a step for the forward and dx.
 """
 
 from __future__ import annotations
@@ -120,9 +124,18 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
+def _reads_wt(x):
+    """Whether the forward and dx kernels for x's dtype read w^T (V, D):
+    the tensor-core ones (bf16 / f16) do, the f32 ones read w (D, V)."""
+    return x.dtype != torch.float32
+
+
 def _operands(what, x, w, targets, lse=None, gscale=None):
-    """Validate for a kernel; returns (x, w, targets int32, lse, gscale)
-    as the kernels read them."""
+    """Validate for the pass `what` (an entry of csrc/fused_xent.cu);
+    returns (entry, x, w, targets int32, lse, gscale) as that entry reads
+    them: w (D, V) row-major, or for the `*_wt` entries w^T (V, D)
+    row-major (no copy when w is the transposed view of a contiguous
+    (V, D) tensor)."""
     require(x.dim() == 2 and w.dim() == 2 and x.shape[1] == w.shape[0],
             f"{what}: x (S, D), w (D, V); got {tuple(x.shape)}, "
             f"{tuple(w.shape)}")
@@ -142,47 +155,51 @@ def _operands(what, x, w, targets, lse=None, gscale=None):
                 f"{what}: gscale must be one f32, got "
                 f"{tuple(gscale.shape)} {gscale.dtype}")
         lse, gscale = _aligned(lse), _aligned(gscale.reshape(1))
-    return (_aligned(x), _aligned(w), targets.to(torch.int32).contiguous(),
-            lse, gscale)
+    if what != "fused_xent_dw" and _reads_wt(x):
+        what, w = what + "_wt", w.t()
+    return (what, _aligned(x), _aligned(w),
+            targets.to(torch.int32).contiguous(), lse, gscale)
 
 
 def _fwd_cuda(x, w, targets):
-    x, w, tg, _, _ = _operands("fused_xent_fwd", x, w, targets)
-    (s, d), v = x.shape, w.shape[1]
+    v = w.shape[-1]  # before _operands, which may hand back w^T
+    entry, x, w, tg, _, _ = _operands("fused_xent_fwd", x, w, targets)
+    s, d = x.shape
     loss = torch.empty(s, dtype=torch.float32, device=x.device)
     lse = torch.empty(s, dtype=torch.float32, device=x.device)
     if s == 0 or v == 0:
         return loss, lse
-    fn = _build.entry("fused_xent", "fused_xent_fwd", _FWD_ARGS)
+    fn = _build.entry("fused_xent", entry, _FWD_ARGS)
     err = fn(x.data_ptr(), w.data_ptr(), tg.data_ptr(), loss.data_ptr(),
              lse.data_ptr(), s, d, v, _build.DTYPE_CODES[x.dtype],
              _build.stream_ptr(x))
-    _build.check(err, "fused_xent_fwd")
+    _build.check(err, entry)
     fused_xent_fwd.launches += 1
     return loss, lse
 
 
 def _dx_cuda(x, w, targets, lse, gscale):
-    x, w, tg, lse, gs = _operands("fused_xent_dx", x, w, targets, lse,
-                                  gscale)
-    (s, d), v = x.shape, w.shape[1]
+    v = w.shape[-1]  # before _operands, which may hand back w^T
+    entry, x, w, tg, lse, gs = _operands("fused_xent_dx", x, w, targets,
+                                         lse, gscale)
+    s, d = x.shape
     dx = torch.empty_like(x)
     if s == 0:
         return dx
     if v == 0:
         return dx.zero_()
-    fn = _build.entry("fused_xent", "fused_xent_dx", _BWD_ARGS)
+    fn = _build.entry("fused_xent", entry, _BWD_ARGS)
     err = fn(x.data_ptr(), w.data_ptr(), tg.data_ptr(), lse.data_ptr(),
              gs.data_ptr(), dx.data_ptr(), s, d, v,
              _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x))
-    _build.check(err, "fused_xent_dx")
+    _build.check(err, entry)
     fused_xent_dx.launches += 1
     return dx
 
 
 def _dw_cuda(x, w, targets, lse, gscale):
-    x, w, tg, lse, gs = _operands("fused_xent_dw", x, w, targets, lse,
-                                  gscale)
+    _, x, w, tg, lse, gs = _operands("fused_xent_dw", x, w, targets, lse,
+                                     gscale)
     (s, d), v = x.shape, w.shape[1]
     dw = torch.empty((d, v), dtype=torch.float32, device=x.device)
     if v == 0:
@@ -240,19 +257,24 @@ class FusedXentFn(torch.autograd.Function):
     def forward(ctx, x, w, targets):
         d = x.shape[-1]
         xf, tf = x.reshape(-1, d), targets.reshape(-1)
-        loss_vec, lse = fused_xent_fwd(xf, w, tf)
-        ctx.save_for_backward(x, w, targets, lse)
+        # the bf16/f16 forward and dx read w^T (V, D): one copy for both
+        # (none for a tied head's wte.t()); dW reads w itself
+        wk = w
+        if on_cuda(xf, w) and _reads_wt(xf):
+            wk = w.t().contiguous().t()
+        loss_vec, lse = fused_xent_fwd(xf, wk, tf)
+        ctx.save_for_backward(x, w, targets, lse, wk)
         return loss_vec.sum() / xf.shape[0]
 
     @staticmethod
     def backward(ctx, g):
-        x, w, targets, lse = ctx.saved_tensors
+        x, w, targets, lse, wk = ctx.saved_tensors
         d = x.shape[-1]
         xf, tf = x.reshape(-1, d), targets.reshape(-1)
         gscale = (g / xf.shape[0]).to(lse.dtype)
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = fused_xent_dx(xf, w, tf, lse, gscale).reshape(x.shape)
+            dx = fused_xent_dx(xf, wk, tf, lse, gscale).reshape(x.shape)
         if ctx.needs_input_grad[1]:
             dw = fused_xent_dw(xf, w, tf, lse, gscale).to(w.dtype)
         return dx, dw, None
