@@ -20,9 +20,11 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      compile; each CUDA kernel's registers, spill bytes and shared memory
      (ptxas; the tensor-core FA2 kernels' dynamic shared memory beside
      it), and `cuobjdump -sass` proof that every bf16/f16 instantiation of
-     the tensor-core FA2 forward, dq and dk/dv kernels and of the fused
-     head's forward, dx and dW kernels issues HGMMA (wgmma), and no f32
-     one does (and that the fused head's forward and dx do not spill);
+     the tensor-core FA2 forward, dq and dk/dv kernels, of the fused
+     head's forward, dx and dW kernels and of the tensor-core span-verify
+     kernel issues HGMMA (wgmma), and no f32 one does (and that the fused
+     head's forward and dx and the paged attention kernels do not
+     spill);
   2. kernel parity: each hand-written kernel against its plain PyTorch
      version on the card at its main paths' shapes (the two forward
      kernels at serving's and at training's; the fused xent kernels also
@@ -32,7 +34,8 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      slice-4 rows: paged attention over int8 and fp8 pools at the decode
      shape, its span-verify variant at the speculative shape (K1=5) and
      the suffix-prefill shape (K1=256) over bf16 and int8 pools (atol =
-     rtol = 2e-2), and the blockwise quantizer at the KV append, prefill
+     rtol = 2e-2), decode also at a long context (pos to 4000, W = 256),
+     and the blockwise quantizer at the KV append, prefill
      and grad-comm shapes (codes and scales bit-identical).  Its
      device time (profiler) stands beside the plain version's, one
      library call's (timed here as a yardstick only; the port never calls
@@ -45,7 +48,8 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      sleep, CUDA events): median, min-max spread and kernel / library
      ratio, the number that compares across calls; the fused head's rows
      (11, 12 dx, 12 dW) likewise with F.linear + F.cross_entropy (its
-     forward; its backward).  f32 takes the FMA FA2 kernels (forward, dq,
+     forward; its backward), and the paged rows (9a-9c) with their
+     gather + SDPA call, both rotating the layer.  f32 takes the FMA FA2 kernels (forward, dq,
      dk/dv) and the 3xTF32 fused-head forward, dx and dW, each held to
      its plain version;
   3. serving: gpt2-124m (seeded random weights, bf16 compute) under
@@ -431,7 +435,7 @@ def build_report(_build):
             print(f"  {name}: {regs} registers, spills {sst} B / {sld} B")
     counts = hgmma_counts([_build._lib_path(_build.CSRC / f"{n}.cu")
                            for n in ("flash_fwd", "flash_bwd",
-                                     "fused_xent")])
+                                     "fused_xent", "paged_attn")])
     tc = {n: c for n, c in counts.items()
           if any(k in n for k in TC_KERNELS)}
     check(len(tc) == 36, f"{len(tc)} tensor-core FA2 instantiations, "
@@ -464,6 +468,27 @@ def build_report(_build):
               if ("xent_fwd_wgmma" in n or "xent_dx_wgmma" in n)
               and (sst or sld)]
     check(not spills, f"the tensor-core forward / dx spill: {spills}")
+    paged = {n: c for n, c in counts.items() if "paged_" in n}
+    paged_tc = {n: c for n, c in paged.items() if "paged_span_wgmma" in n}
+    check(len(paged_tc) == 8, f"{len(paged_tc)} tensor-core span "
+          "instantiations, expected 8 (bf16 q over bf16, int8 and e4m3 "
+          "pools, f16 over f16, x D 32/64)")
+    for n, c in sorted(paged_tc.items()):
+        check(c > 0, f"{n} issues no HGMMA")
+        check("bfloat16" in n or "__half" in n,
+              f"{n}: not a bf16/f16 tensor-core instantiation")
+    paged_fma = {n: c for n, c in paged.items() if n not in paged_tc}
+    check(paged_fma and all(c == 0 for c in paged_fma.values()),
+          "a paged decode or FMA span kernel issues HGMMA")
+    paged_spills = [(n, sst, sld) for _, n, _, sst, sld, _ in resources
+                    if "paged_" in n and (sst or sld)]
+    check(not paged_spills, f"paged attention kernels spill: "
+          f"{paged_spills}")
+    print(f"  sass: HGMMA in all {len(paged_tc)} bf16/f16 tensor-core span "
+          f"instantiations ({min(paged_tc.values())}-"
+          f"{max(paged_tc.values())} each); none in the {len(paged_fma)} "
+          "decode and FMA span ones (f32 among them); no paged kernel "
+          "spills")
     print(f"  sass: HGMMA in all {len(tc)} bf16/f16 tensor-core FA2 "
           f"instantiations ({min(tc.values())}-{max(tc.values())} each) and "
           f"all {len(xent_tc)} bf16/f16 fused-head forward, dx and dW ones "
@@ -562,16 +587,18 @@ def flash_phase(torch, F, fa):
     return {"serving": res[1, 1024], "training": res[8, 1024]}, worst
 
 
-def paged_phase(torch, F, pa, pool_mod):
-    s, hq, d, bt, nl, w = 8, 12, 64, 16, 12, 64
-    pos = torch.tensor([1000, 3, 15, 16, 517, 999, 0, 250],
-                       dtype=torch.int32, device="cuda")
+def _decode_case(torch, F, pa, pool_mod, pos, w, seed):
+    """9a over a bf16 pool: S=8, Hq=12, Dh=64, bt=16, 12 layers, `w`
+    table entries, positions `pos` — parity against the plain version at
+    three layers (atol = rtol = 2e-2), times beside the bound, the plain
+    version and gather + SDPA, and the kernel timed in turns with that
+    library call, both rotating the layer."""
+    s, hq, d, bt, nl = 8, 12, 64, 16, 12
+    pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
     nb = s * w
-    g = torch.Generator(device="cuda").manual_seed(7)
-    kp = torch.randn(nb + 1, bt, nl, hq, d, generator=g, device="cuda"
-                     ).bfloat16()
-    vp = torch.randn(nb + 1, bt, nl, hq, d, generator=g, device="cuda"
-                     ).bfloat16()
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    kp, vp = (torch.randn(nb + 1, bt, nl, hq, d, generator=g,
+                          device="cuda").bfloat16() for _ in range(2))
     perm = torch.randperm(nb, generator=g, device="cuda") + 1
     tables = perm.reshape(s, w).to(torch.int32)
     q = torch.randn(s, hq, 1, d, generator=g, device="cuda").bfloat16()
@@ -589,32 +616,47 @@ def paged_phase(torch, F, pa, pool_mod):
     nbytes = live * hq * d * 2 * 2 + 2 * s * hq * d * 2 + s * (w + 1) * 4
     bms, by = bound_ms(nbytes, 4 * live * hq * d, "bfloat16")
     # rotate the layer so each call reads other pool bytes (one layer's
-    # live K/V is ~24 MB; 12 layers overflow the 50 MB L2 as decode does)
-    it = {"l": 0}
-
-    def nxt():
-        it["l"] = (it["l"] + 1) % nl
-        return it["l"]
-
+    # live K/V is ~24 MB at pos <= 1000; 12 layers overflow the 50 MB L2
+    # as decode does)
+    nxt = _layer_cycle(nl)
     mask = (torch.arange(w * bt, device="cuda")[None, :]
             <= pos[:, None].long())[:, None, None, :]
+
+    def kernel():
+        return pa.paged_attention(q, view, page, nxt())
 
     def library():
         ck, cv = pool_mod.paged_panel(view, nxt(), page)
         return F.scaled_dot_product_attention(q, ck, cv, attn_mask=mask)
 
     res = dict(
-        **timings(torch, lambda: pa.paged_attention(q, view, page, nxt()),
+        **timings(torch, kernel,
                   lambda: pa._paged_attention_plain(q, view, page, nxt()),
                   library),
         bound_ms=bms, bound_by=by, max_abs_err=worst,
-        shape=f"S={s} Hq={hq} Dh={d} bt={bt} pos<=1000 bf16")
-    print(f"kernel paged_attention S={s} Hq={hq} Dh={d} bt={bt} "
+        shape=f"S={s} Hq={hq} Dh={d} bt={bt} W={w} "
+              f"pos<={int(pos.max())} bf16")
+    res.update(turns(torch, kernel, library))
+    print(f"kernel paged_attention S={s} Hq={hq} Dh={d} bt={bt} W={w} "
           f"pos={pos.tolist()} bf16: max_abs_err={worst:.3g} "
-          "(tol atol=rtol=2e-2) "
+          "(tol atol=rtol=2e-2); library = paged_panel + SDPA; "
           + " ".join(f"{k}={v:.5g}" for k, v in res.items()
-                     if k.endswith("ms")))
+                     if k in TIMED_MS) + "; " + turns_text(res))
     return res, worst
+
+
+def paged_phase(torch, F, pa, pool_mod):
+    """9a at the decode shape (pos up to 1000, W = 64) and at a long
+    context (pos up to 4000, W = 256: a ~1.2 GB pool), where the serial
+    walk over the table was worst."""
+    res, worst = _decode_case(torch, F, pa, pool_mod,
+                              [1000, 3, 15, 16, 517, 999, 0, 250], 64, 7)
+    long_res, long_worst = _decode_case(
+        torch, F, pa, pool_mod, [4000, 3, 1023, 1024, 2047, 3999, 0, 2500],
+        256, 8)
+    torch.cuda.empty_cache()
+    return {"decode": res, "long_context": long_res}, max(worst,
+                                                          long_worst)
 
 
 def _decode_inputs(torch, pool_mod, quant_mode=None, seed=7):
@@ -688,20 +730,24 @@ def paged_quant_phase(torch, F, pa, pool_mod):
             ck, cv = pool_mod.paged_panel(view, nxt(), page, torch.bfloat16)
             return F.scaled_dot_product_attention(q, ck, cv, attn_mask=mask)
 
+        def kernel():
+            return pa.paged_attention(q, view, page, nxt())
+
         res[mode] = dict(
-            **timings(torch, lambda: pa.paged_attention(q, view, page,
-                                                         nxt()),
+            **timings(torch, kernel,
                       lambda: pa._paged_attention_plain(q, view, page,
                                                         nxt()),
                       library),
             bound_ms=bms, bound_by=by, max_abs_err=worst,
             shape=f"S={s} Hq={hq} Dh={d} bt=16 pos<=1000 bf16 q, {mode} "
                   "pool")
+        res[mode].update(turns(torch, kernel, library))
         print(f"kernel paged_attention_quant {mode} pool S={s} Hq={hq} "
               f"Dh={d} bt=16 pos={pos.tolist()} bf16 q: max_abs_err="
               f"{worst:.3g} (tol atol=rtol=2e-2); library = paged_panel + "
               "SDPA; " + " ".join(f"{k}={v:.5g}" for k, v in
-                                  res[mode].items() if k.endswith("ms")))
+                                  res[mode].items() if k in TIMED_MS)
+              + "; " + turns_text(res[mode]))
         del view
     return res, worst
 
@@ -759,21 +805,25 @@ def paged_span_phase(torch, F, pa, pool_mod):
                     q, torch.cat([ck, sk], 2), torch.cat([cv, sv], 2),
                     attn_mask=mask)
 
+            def kernel():
+                return pa.paged_attention(q, view, page, nxt(),
+                                          span_kv=(sk, sv))
+
             key = (mode or "bf16", shape)
             res[key] = dict(
-                **timings(torch, lambda: pa.paged_attention(
-                    q, view, page, nxt(), span_kv=(sk, sv)),
-                    lambda: pa._paged_attention_plain(q, view, page, nxt(),
-                                                      (sk, sv)),
-                    library),
+                **timings(torch, kernel,
+                          lambda: pa._paged_attention_plain(
+                              q, view, page, nxt(), (sk, sv)),
+                          library),
                 bound_ms=bms, bound_by=by, max_abs_err=worst,
                 shape=f"S={s} Hq={hq} K1={k1} Dh={d} pos0="
                       f"{pos0.tolist()} bf16 q, {mode or 'bf16'} pool")
+            res[key].update(turns(torch, kernel, library))
             print(f"kernel paged_attention_span {shape} {res[key]['shape']}: "
                   f"max_abs_err={worst:.3g} (tol atol=rtol=2e-2); library "
                   "= paged_panel + SDPA with the span mask; "
                   + " ".join(f"{k}={v:.5g}" for k, v in res[key].items()
-                             if k.endswith("ms")))
+                             if k in TIMED_MS) + "; " + turns_text(res[key]))
         del view
     return res, worst
 
@@ -2991,7 +3041,7 @@ def main():
         entry("paged_attention", "cuda",
               "tiny_deepspeed_tpu_torch/csrc/paged_attn.cu",
               "tiny_deepspeed_tpu/ops/paged_attn_pallas.py:228",
-              pa_res, pa_err),
+              pa_res["decode"], pa_err),
         entry("paged_attention_quant", "cuda",
               "tiny_deepspeed_tpu_torch/csrc/paged_attn.cu",
               "tiny_deepspeed_tpu/ops/paged_attn_pallas.py:228",
@@ -3062,7 +3112,8 @@ def main():
               bthd_res["fa2_flash_attention_bthd_dq", 12]),
     ]
     kernels[13]["per_step"] = bwd_res["adamw_update_fused"]["per_step"]
-    extra = {"paged_attention_quant": {"fp8_pool": pq_res["fp8"]},
+    extra = {"paged_attention": {"long_context": pa_res["long_context"]},
+             "paged_attention_quant": {"fp8_pool": pq_res["fp8"]},
              "paged_attention_span": {
                  "suffix": ps_res["bf16", "suffix"],
                  "int8_pool": ps_res["int8", "spec"],

@@ -33,7 +33,12 @@ and 4096, T not a multiple of the 64-row tile (1, 33, 100, 130, 200,
 calls giving the same bits.  Slice 9 (the fused head's forward and dx on
 the tensor cores for bf16/f16): S around the 64-token tile (63, 64, 65,
 129), D past one slice (832, 896), V = 50257 at S = 129, and the forward
-and dx bit for bit on a repeat.
+and dx bit for bit on a repeat.  Slice 10 (paged attention's split walk,
+the tensor-core span kernel): W = 256 with positions up to 4095, pos 0,
+live ranges ending on a split boundary, grouped heads 4/2 and 2/1, K1
+in {5, 16, 17, 64, 256} (16 and 17 straddle the few-rows / many-rows
+switch), bit-identical repeats of decode and span over bf16 and int8
+pools, and profiled calls naming the one kernel each call launches.
 """
 
 import math
@@ -101,13 +106,27 @@ def test_flash_kernel(dtype, b, h, kvh, t, d):
     torch.testing.assert_close(lse, plse, atol=2e-3, rtol=1e-4)
 
 
+def _decode_case(case, bt):
+    """(W, positions) of a decode test: "short" stays within one split;
+    "long" (W >= 256, at least 4096 positions) spans many — pos 0, a
+    live range ending exactly on a split boundary (512 and 1024 keys at
+    eight splits of 64-key tiles), one key into the second tile, and pos
+    4095."""
+    if case == "short":
+        w = 6
+        return w, [0, bt - 1, bt, 3 * bt + 2, w * bt - 1]
+    return max(256, 4096 // bt), [0, 4095, 511, 1023, 64]
+
+
+@pytest.mark.parametrize("case", ["short", "long"])
 @pytest.mark.parametrize("qdt,kdt", [
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
     (torch.float16, torch.float16), (torch.float32, torch.bfloat16)])
 @pytest.mark.parametrize("hq,kvh,d,bt", [(12, 12, 64, 16), (4, 2, 32, 8),
-                                         (2, 1, 128, 32)])
-def test_paged_kernel(qdt, kdt, hq, kvh, d, bt):
-    s, nl, w = 5, 3, 6
+                                         (2, 1, 128, 32), (4, 2, 64, 16)])
+def test_paged_kernel(qdt, kdt, hq, kvh, d, bt, case):
+    s, nl = 5, 3
+    w, pos = _decode_case(case, bt)
     g = _g(hq * d + bt)
     shape = (s * w + 1, bt, nl, kvh, d)
     view = pool_mod.KVPoolView(
@@ -115,8 +134,7 @@ def test_paged_kernel(qdt, kdt, hq, kvh, d, bt):
         torch.randn(shape, generator=g, device="cuda").to(kdt))
     tables = (torch.randperm(s * w, generator=g, device="cuda") + 1
               ).reshape(s, w).to(torch.int32)
-    pos = torch.tensor([0, bt - 1, bt, 3 * bt + 2, w * bt - 1],
-                       dtype=torch.int32, device="cuda")
+    pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
     page = pool_mod.page_ref(tables, pos, bt)
     q = torch.randn(s, hq, 1, d, generator=g, device="cuda").to(qdt)
     for layer in range(nl):
@@ -676,20 +694,21 @@ def _quant_pool(qdt, shape, g):
     return pool_mod.KVPoolView(k.to(qdt), v.to(qdt))
 
 
+@pytest.mark.parametrize("case", ["short", "long"])
 @pytest.mark.parametrize("qdt,kdt", [
     (torch.float32, torch.int8), (torch.bfloat16, torch.int8),
     (torch.float32, torch.float8_e4m3fn),
     (torch.bfloat16, torch.float8_e4m3fn)])
 @pytest.mark.parametrize("hq,kvh,d,bt", [(12, 12, 64, 16), (4, 2, 32, 8),
                                          (2, 1, 128, 32)])
-def test_paged_quant_decode_kernel(qdt, kdt, hq, kvh, d, bt):
-    s, nl, w = 5, 3, 6
+def test_paged_quant_decode_kernel(qdt, kdt, hq, kvh, d, bt, case):
+    s, nl = 5, 3
+    w, pos = _decode_case(case, bt)
     g = _g(hq * d + bt + 1)
     view = _quant_pool(kdt, (s * w + 1, bt, nl, kvh, d), g)
     tables = (torch.randperm(s * w, generator=g, device="cuda") + 1
               ).reshape(s, w).to(torch.int32)
-    pos = torch.tensor([0, bt - 1, bt, 3 * bt + 2, w * bt - 1],
-                       dtype=torch.int32, device="cuda")
+    pos = torch.tensor(pos, dtype=torch.int32, device="cuda")
     page = pool_mod.page_ref(tables, pos, bt)
     q = torch.randn(s, hq, 1, d, generator=g, device="cuda").to(qdt)
     before = (paged_attn.paged_attention.launches,
@@ -711,17 +730,24 @@ def test_paged_quant_decode_kernel(qdt, kdt, hq, kvh, d, bt):
     (torch.bfloat16, torch.int8), (torch.float32, torch.float8_e4m3fn)])
 @pytest.mark.parametrize("hq,kvh,d,bt,k1", [
     (12, 12, 64, 16, 5), (4, 2, 32, 8, 17), (2, 1, 128, 32, 3),
-    (12, 12, 64, 16, 256)])
-def test_paged_span_kernel(qdt, kdt, hq, kvh, d, bt, k1):
+    (12, 12, 64, 16, 256), (12, 12, 64, 16, 16), (12, 12, 64, 16, 17),
+    (4, 2, 64, 16, 64), (2, 1, 32, 16, 5)])
+@pytest.mark.parametrize("case", ["short", "long"])
+def test_paged_span_kernel(qdt, kdt, hq, kvh, d, bt, k1, case):
     """pos0 = 0, on a block boundary, mid-block and near the table's
-    end; K1 not a multiple of the 16-row tile; grouped heads."""
-    s, nl, w = 4, 2, 40
+    end; K1 not a multiple of the 16-row tile, and 16 / 17 on either
+    side of the few-rows / many-rows switch; grouped heads.  "long"
+    (W = 256): pos0 past several splits, one ending a split exactly
+    (512 pool keys), and up to the table's end (4096 - K1 at bt 16)."""
+    s, nl = 4, 2
+    w = 40 if case == "short" else 256
     g = _g(hq * d + bt + k1)
     view = _quant_pool(kdt, (s * w + 1, bt, nl, kvh, d), g)
     tables = (torch.randperm(s * w, generator=g, device="cuda") + 1
               ).reshape(s, w).to(torch.int32)
-    pos0 = torch.tensor([0, 2 * bt, 3 * bt + 5, w * bt - k1],
-                        dtype=torch.int32, device="cuda")
+    pos0 = ([0, 2 * bt, 3 * bt + 5, w * bt - k1] if case == "short"
+            else [0, 512, 1000 + k1, w * bt - k1])
+    pos0 = torch.tensor(pos0, dtype=torch.int32, device="cuda")
     page = pool_mod.page_ref(tables, pos0, bt)
     q = torch.randn(s, hq, k1, d, generator=g, device="cuda").to(qdt)
     sk = torch.randn(s, kvh, k1, d, generator=g, device="cuda").to(qdt)
@@ -738,6 +764,69 @@ def test_paged_span_kernel(qdt, kdt, hq, kvh, d, bt, k1):
                                  torch.float8_e4m3fn) else kdt]
         torch.testing.assert_close(o.float(), po.float(), **tol)
     assert paged_attn.paged_attention_span.launches == before + nl
+
+
+def _span_inputs(qdt, kdt, k1, seed, w=64, hq=12, kvh=12, d=64, bt=16):
+    s, nl = 4, 2
+    g = _g(seed)
+    view = _quant_pool(kdt, (s * w + 1, bt, nl, kvh, d), g)
+    tables = (torch.randperm(s * w, generator=g, device="cuda") + 1
+              ).reshape(s, w).to(torch.int32)
+    pos0 = torch.tensor([1000, 0, 517, 64], dtype=torch.int32,
+                        device="cuda")
+    page = pool_mod.page_ref(tables, pos0, bt)
+    q = torch.randn(s, hq, k1, d, generator=g, device="cuda").to(qdt)
+    sk = torch.randn(s, kvh, k1, d, generator=g, device="cuda").to(qdt)
+    sv = torch.randn(s, kvh, k1, d, generator=g, device="cuda").to(qdt)
+    return q, view, page, (sk, sv)
+
+
+@pytest.mark.parametrize("kdt", [torch.bfloat16, torch.int8])
+@pytest.mark.parametrize("k1", [1, 5, 256])
+def test_paged_repeat_bitwise(kdt, k1):
+    """The split walk merges its partials in a fixed order: two calls
+    give the same bits (decode at K1 = 1, the FMA span at 5, the
+    tensor-core span at 256), over bf16 and int8 pools."""
+    q, view, page, span = _span_inputs(torch.bfloat16, kdt, k1, k1)
+    if k1 == 1:
+        page = pool_mod.page_ref(page.tables, page.pos + 3, 16)
+        span = None
+    outs = [paged_attn.paged_attention(q, view, page, 1, span_kv=span)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("qdt,kdt,k1,want", [
+    (torch.bfloat16, torch.bfloat16, 256, "paged_span_wgmma"),
+    (torch.bfloat16, torch.int8, 256, "paged_span_wgmma"),
+    (torch.float32, torch.float32, 256, "paged_span_fma"),
+    (torch.bfloat16, torch.bfloat16, 5, "paged_span_fma"),
+    (torch.bfloat16, torch.bfloat16, 1, "paged_decode_kernel")])
+def test_paged_launches_one_kernel(qdt, kdt, k1, want):
+    """A profiled call: a bf16 span of 256 rows runs the tensor-core
+    kernel, an f32 one (and a 5-row bf16 one) the FMA kernel, decode its
+    own — each call exactly one kernel on the device, and one count."""
+    from torch.profiler import ProfilerActivity, profile
+    q, view, page, span = _span_inputs(qdt, kdt, k1, 3)
+    if k1 == 1:
+        span = None
+    paged_attn.paged_attention(q, view, page, 0, span_kv=span)  # built
+    torch.cuda.synchronize()
+    counters = (paged_attn.paged_attention, paged_attn.paged_attention_quant,
+                paged_attn.paged_attention_span)
+    names = []
+    for _ in range(3):  # an empty CUPTI trace now and then: take another
+        before = sum(c.launches for c in counters)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            paged_attn.paged_attention(q, view, page, 0, span_kv=span)
+            torch.cuda.synchronize()
+        assert sum(c.launches for c in counters) == before + 1
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    assert len(names) == 1 and want in names[0], names
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

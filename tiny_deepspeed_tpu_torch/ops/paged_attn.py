@@ -8,20 +8,40 @@ paged_attention` (:228, `pallas_call` :311) in all its variants; the
 kernels are `csrc/paged_attn.cu` (design and bound in its header):
 
 - decode (`span_kv=None`): one query position per slot attends to pool
-  positions <= pos.  Each CTA walks one slot's block-table row itself —
-  on the TPU that row arrives through scalar prefetch — and reads each
-  (bt, Dh) block of layer `l` straight from the pool with the pool's
-  strides, so no (S, KVH, W*bt, Dh) panel is ever gathered into device
-  memory;
+  positions <= pos;
 - span verify (`span_kv=(sk, sv)`): K1 query positions per slot attend
   to pool positions < pos plus the span's own K/V under the windowed
   causal mask — the speculative verify step and the prefix cache's
   suffix prefill;
 - int8 / fp8 pool (`view.k_scale` set), either variant: each resting
-  element is dequantized in registers against its per-vector f32 scale.
+  element is dequantized against its per-vector f32 scale.
 
-Each variant counts its own launches, so a run can tell them apart:
-`paged_attention.launches` decode over a bf16/f16/f32 pool,
+Every kernel reads the block table and the pool itself, with the pool's
+strides, so no (S, KVH, W*bt, Dh) panel is gathered into device memory.
+
+The split walk (decode design and span design).  The TPU kernel walks a
+slot's table entries on a sequential grid, its softmax statistics carried
+in VMEM; Hopper's blocks carry nothing from one to the next.  So the
+slot's live keys are cut into tiles and the tiles split, contiguously
+and evenly, across the `splits` CTAs of a thread-block cluster; each CTA
+reads pos on the device, folds its share into a partial (m, l, acc), and
+the cluster merges the partials through distributed shared memory in the
+fixed rank order 0..N-1 — one launch, no workspace, no atomics, outputs
+bit-identical run to run.  `split_plan` (below) is the host's part:
+splits from W and bt (each split keeps at least two tiles on average)
+and from the CTA count (the grid within the kernel's CTAs an SM over the
+card), and the few-rows / many-rows switch.  Every kernel streams its
+tiles through a two-stage `cp.async` ring in the pool's resting dtype
+(decode: each warp its own slice of a tile).  A span of more than 16 rows
+(G*K1, the suffix prefill) with bf16/f16 q and Dh 32 or 64 runs on the
+tensor cores (`wgmma`, FA2's forward over a paged source; an int8 / e4m3
+tile is dequantized to bf16 before its product, as `paged_panel` does);
+few rows (the speculative verify step), f32 and Dh = 128 stay on FP32
+FMAs.  `split_range` is the device's split arithmetic and
+`merge_partials` a plain reference of its merge (tests only).
+
+Each variant counts its own launches, one per call, so a run can tell
+them apart: `paged_attention.launches` decode over a bf16/f16/f32 pool,
 `paged_attention_quant.launches` decode over an int8/e4m3 pool and
 `paged_attention_span.launches` span verify over any pool.
 
@@ -34,8 +54,10 @@ The plain versions are the JAX package's XLA path: `paged_panel`
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import types
+from typing import NamedTuple
 
 import torch
 
@@ -98,10 +120,117 @@ def _paged_attention_plain(q, view, page, l, span_kv=None):
     return span_attention(q, ck, cv, *span_kv, page.pos)
 
 
+SMS = 132          # the H100 SXM's streaming multiprocessors
+MAX_SPLITS = 8     # the portable cluster size (csrc MAX_SPLITS)
+FEW_ROWS = 16      # span rows G*K1 at or below this stay on FMA
+# (keys a tile, query rows a CTA, CTAs an SM the plan aims at) per
+# kernel: csrc decode::TK; sfma::TK, ::ROWS; tc::BK, ::BQ
+_GEOMETRY = {"decode": (64, None, 6), "span_fma": (32, 16, 6),
+             "span_wgmma": (64, 64, 3)}
+
+
+class SplitPlan(NamedTuple):
+    """How one paged-attention call is cut: `kernel` ("decode",
+    "span_fma" or "span_wgmma"), `splits` CTAs of a cluster sharing each
+    walk, `tile` keys a tile, `rows` query rows a CTA holds (the G group
+    heads at decode), `row_tiles` CTAs' worth of rows per (slot, kv
+    head), `grid` (row_tiles * splits, KVH, S), and `k1` the span."""
+
+    kernel: str
+    splits: int
+    tile: int
+    rows: int
+    row_tiles: int
+    grid: tuple
+    k1: int
+
+
+@functools.lru_cache(maxsize=256)  # once per shape: serving is host-bound
+def split_plan(*, s: int, hq: int, kvh: int, k1: int, dh: int, w: int,
+               bt: int, q_dtype, span: bool) -> SplitPlan:
+    """The host's part of the split walk, from shapes alone (no device
+    value is read).  A span of more than FEW_ROWS rows G*K1 with bf16/f16
+    q and Dh 32 or 64 takes the tensor cores; other spans the FMA kernel.
+    Splits double, up to MAX_SPLITS, while each split keeps at least two
+    tiles of the longest walk (W*bt pool keys, plus the span's) and the
+    grid stays within the kernel's CTAs per SM over the card."""
+    g = hq // kvh
+    if not span:
+        kernel = "decode"
+    elif (g * k1 > FEW_ROWS and dh in (32, 64)
+          and q_dtype in (torch.bfloat16, torch.float16)):
+        kernel = "span_wgmma"
+    else:
+        kernel = "span_fma"
+    tile, rows, per_sm = _GEOMETRY[kernel]
+    rows = rows or g
+    row_tiles = -(-g * k1 // rows) if span else 1
+    ntiles = -(-w * bt // tile) + (-(-k1 // tile) if span else 0)
+    base = s * kvh * row_tiles
+    splits = 1
+    while (splits < MAX_SPLITS and 4 * splits <= ntiles
+           and 2 * splits * base <= per_sm * SMS):
+        splits *= 2
+    return SplitPlan(kernel, splits, tile, rows, row_tiles,
+                     (row_tiles * splits, kvh, s), k1)
+
+
+def split_range(n: int, splits: int, rank: int):
+    """Tiles [lo, hi) of `n` that split `rank` walks: contiguous,
+    ceil(n / splits) each, the last ones short or empty — the kernels'
+    `split_range`, which each CTA evaluates on the device with n from
+    pos."""
+    per = -(-n // splits)
+    lo = min(rank * per, n)
+    return lo, min(lo + per, n)
+
+
+def split_keys(plan: SplitPlan, rank: int, n: int, row_tile: int = 0,
+               r_total: int = 1):
+    """The keys split `rank` of `plan` folds for one (slot, kv head, row
+    tile), as the kernels compute them: decode, live positions [lo, hi)
+    of n = min(pos + 1, W*bt); span (n = min(pos0, W*bt) pool positions,
+    r_total = G*K1 rows), pool positions [lo, hi) and span offsets
+    [jlo, jhi) — the span's tiles follow the pool's in the split."""
+    t = plan.tile
+    if plan.kernel == "decode":
+        lo, hi = split_range(-(-n // t), plan.splits, rank)
+        return min(lo * t, n), min(hi * t, n)
+    r0 = row_tile * plan.rows
+    rend = min(r0 + plan.rows, r_total)
+    k1 = plan.k1
+    jmax = (k1 - 1 if rend - r0 >= k1 or r0 // k1 != (rend - 1) // k1
+            else (rend - 1) % k1)
+    npt = -(-n // t)
+    lo, hi = split_range(npt + jmax // t + 1, plan.splits, rank)
+    pool = (min(lo * t, n), min(min(hi, npt) * t, n))
+    span = (min(max(lo - npt, 0) * t, k1), min(max(hi - npt, 0) * t, k1))
+    return pool, span
+
+
+def merge_partials(parts):
+    """Plain reference of the kernels' cluster merge: `parts` the splits'
+    partial states in rank order, each (m (R,), l (R,), acc (R, D)) — m
+    the running max of scores in log2 units, l the sum of exp2(score -
+    m), acc the unnormalised output; an empty split is (-1e30, 0, 0).
+    Returns the merged output (R, D) in f32, sum_k acc_k exp2(m_k - M)
+    / L with M = max_k m_k and L = sum_k l_k exp2(m_k - M), folded in rank
+    order as the kernels fold it.  Used by tests only."""
+    m = torch.stack([p[0] for p in parts]).float()
+    big = m.max(dim=0).values
+    c = torch.exp2(m - big)
+    el = sum(p[1].float() * c[k] for k, p in enumerate(parts))
+    out = torch.zeros_like(parts[0][2], dtype=torch.float32)
+    for k, p in enumerate(parts):
+        out = out + p[2].float() * (c[k] / el)[:, None]
+    return out
+
+
 _DECODE_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
-                + [ctypes.c_float, ctypes.c_void_p])
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _SPAN_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
-              + [ctypes.c_float, ctypes.c_void_p])
+              + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                 ctypes.c_void_p])
 _QUANT_Q = (torch.float32, torch.bfloat16)  # q types over int8 / e4m3
 
 
@@ -155,6 +284,8 @@ def _paged_attention_cuda(q, view, page, l: int, span_kv=None):
     o = torch.empty_like(qc)
     ks_ptr = view.k_scale.data_ptr() if quant else None
     vs_ptr = view.v_scale.data_ptr() if quant else None
+    plan = split_plan(s=s, hq=hq, kvh=kvh, k1=k1, dh=dh, w=w, bt=bt,
+                      q_dtype=q.dtype, span=span)
     if not span:
         require(_aligned(view.k, view.v, qc, *scales),
                 "paged attention: operands must be 16-byte aligned")
@@ -162,7 +293,7 @@ def _paged_attention_cuda(q, view, page, l: int, span_kv=None):
         err = fn(qc.data_ptr(), view.k.data_ptr(), view.v.data_ptr(),
                  ks_ptr, vs_ptr, tables.data_ptr(), pos.data_ptr(),
                  o.data_ptr(), s, hq, kvh, dh, bt, nl, int(l), w, qd, kd,
-                 1.0 / math.sqrt(dh), _build.stream_ptr(q))
+                 1.0 / math.sqrt(dh), plan.splits, _build.stream_ptr(q))
         _build.check(err, "paged_decode")
         if quant:
             paged_attention_quant.launches += 1
@@ -180,7 +311,8 @@ def _paged_attention_cuda(q, view, page, l: int, span_kv=None):
     err = fn(qc.data_ptr(), view.k.data_ptr(), view.v.data_ptr(), ks_ptr,
              vs_ptr, skc.data_ptr(), svc.data_ptr(), tables.data_ptr(),
              pos.data_ptr(), o.data_ptr(), s, hq, kvh, k1, dh, bt, nl,
-             int(l), w, qd, kd, 1.0 / math.sqrt(dh), _build.stream_ptr(q))
+             int(l), w, qd, kd, 1.0 / math.sqrt(dh), plan.splits,
+             int(plan.kernel == "span_wgmma"), _build.stream_ptr(q))
     _build.check(err, "paged_span")
     paged_attention_span.launches += 1
     return o
