@@ -36,7 +36,16 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      the suffix-prefill shape (K1=256) over bf16 and int8 pools (atol =
      rtol = 2e-2), decode also at a long context (pos to 4000, W = 256),
      and the blockwise quantizer at the KV append, prefill
-     and grad-comm shapes (codes and scales bit-identical).  Its
+     and grad-comm shapes (codes and scales bit-identical).  The slice-11
+     rows: the KV-pool write (10kv, csrc/kv_write.cu) at the decode,
+     span-commit and prefill writers' shapes over bf16, f32, int8 and
+     e4m3 pools — pool bytes and scales on blocks 1.. bit-identical to
+     the unfused writers (the quantizer kernel and index writes), one
+     launch a call — and the residual add + LayerNorm (1r) at 8, 40, 512
+     and 8192 rows of 768 in bf16 and f32 — s, y, mean, rstd and the
+     gradients bit-identical to `x + r` then the forward kernel; both
+     also timed against that unfused sequence (device time, in turns,
+     and host `call_ms`).  Its
      device time (profiler) stands beside the plain version's, one
      library call's (timed here as a yardstick only; the port never calls
      it) and the bound — the larger of bytes / 3.35 TB/s and flops / the
@@ -60,7 +69,9 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      request's prefill logits are checked against the plain path on the
      card.  A second, profiled pass of the same traffic gives each
      kernel's device time, reported as a share of the (unprofiled) main
-     run's wall;
+     run's wall.  Then the decode tick alone (8 requests decoding): host
+     ms, launches, device kernels and busy ms a tick, with the fused
+     kernels and with the unfused sequence swapped in;
   4. training: gpt2-124m at full width and depth (f32 masters, bf16
      compute, remat "dots_no_batch"), SingleDevice + AdamW(lr=1e-5,
      weight_decay=0.1) on the JAX package's synthetic stream, B=8,
@@ -70,7 +81,9 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      kernel path against the plain path on the card; remat on and off
      bit-identical; 8 steps at lr=1e-3 on one batch lower its loss; one
      profiled step gives each kernel's device time and the device's busy
-     and idle shares;
+     and idle shares; the 13 steps again with `add_layernorm` swapped
+     for `x + r` then LayerNormFn must give the same losses and params
+     bit for bit;
   5. knobbed training: the same model and batch size with the fused
      lm_head + loss kernels (fused_xent_impl="pallas"), AdamW(fused=True)
      and dropout 0.1 — launch counts of the ten training kernels over 10
@@ -93,7 +106,8 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      decode step against the plain path (5e-2 x max|logit|).  In f32 the
      greedy tokens of plain, spec-ngram and spec-model:self serving must
      be identical, and those of the prefix cache on and off; in bf16 the
-     agreement is reported, not gated;
+     agreement is reported, not gated.  The int8 and fp8 decode ticks
+     alone as in phase 3, fused and unfused;
   7. distributed, on the one card:
      a. the unmasked FA2 chunk kernels (4c fwd, 6c dq, 5c dk/dv) at ring
         attention's shape on gpt2-124m with T=1024 over 4 seq ranks (B=8
@@ -135,7 +149,7 @@ non-zero, printing no result, without one.  Phases, each on its own line:
         11.2]; median step time, tokens/s, peak memory, one profiled
         step's busy / idle and kernel classes, and the per-rank state at
         data 4 and 8 from the shard layout (not measured);
-  then the `kernels` JSON line (20 kernels, launches by path), then the
+  then the `kernels` JSON line (22 kernels, launches by path), then the
   result line {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Imports nothing of JAX or of the JAX package.
@@ -320,9 +334,31 @@ def turns(torch, kernel, library, reps=5, n=20):
                 ratio=km / lm)
 
 
+def call_turns(torch, kernel, unfused, reps=5, n=50):
+    """Host-bound time per call (`time_ms` of n back-to-back calls: at
+    decode shapes the host's enqueue sets it) of the kernel and of the
+    unfused sequence in turns (kernel, unfused, unfused, kernel) x reps:
+    medians and spreads, as the host drifts over a call."""
+    ks, us = [], []
+    for _ in range(reps):
+        ks.append(time_ms(torch, kernel, n, 2))
+        us.append(time_ms(torch, unfused, n, 2))
+        us.append(time_ms(torch, unfused, n, 2))
+        ks.append(time_ms(torch, kernel, n, 2))
+    return dict(call_ms=statistics.median(ks),
+                call_spread_ms=[min(ks), max(ks)],
+                unfused_call_ms=statistics.median(us),
+                unfused_call_spread_ms=[min(us), max(us)])
+
+
 TIMED_MS = ("ms", "plain_ms", "library_ms", "call_ms", "bound_ms")
 TURN_KEYS = ("turns_ms", "turns_spread_ms", "library_turns_ms",
              "library_turns_spread_ms", "ratio")
+# rows 10kv and 1r: the unfused launch sequence each replaces, timed
+# (device, and host per call) and in turns with the kernel
+UNFUSED_KEYS = ("unfused_ms", "unfused_call_ms", "unfused_turns_ms",
+                "unfused_turns_spread_ms", "call_spread_ms",
+                "unfused_call_spread_ms")
 
 
 def turns_text(res):
@@ -336,6 +372,19 @@ def turns_text(res):
 
 def max_err(a, b):
     return float((a.float() - b.float()).abs().max())
+
+
+@contextlib.contextmanager
+def swapped(*changes):
+    """Each (module, name, value) set for the block, restored after."""
+    saved = [(m, n, getattr(m, n)) for m, n, _ in changes]
+    try:
+        for m, n, v in changes:
+            setattr(m, n, v)
+        yield
+    finally:
+        for m, n, v in saved:
+            setattr(m, n, v)
 
 
 # -- phase 1: the build ---------------------------------------------------
@@ -435,7 +484,8 @@ def build_report(_build):
             print(f"  {name}: {regs} registers, spills {sst} B / {sld} B")
     counts = hgmma_counts([_build._lib_path(_build.CSRC / f"{n}.cu")
                            for n in ("flash_fwd", "flash_bwd",
-                                     "fused_xent", "paged_attn")])
+                                     "fused_xent", "paged_attn",
+                                     "kv_write")])
     tc = {n: c for n, c in counts.items()
           if any(k in n for k in TC_KERNELS)}
     check(len(tc) == 36, f"{len(tc)} tensor-core FA2 instantiations, "
@@ -484,6 +534,17 @@ def build_report(_build):
                     if "paged_" in n and (sst or sld)]
     check(not paged_spills, f"paged attention kernels spill: "
           f"{paged_spills}")
+    kvw = [n for n in counts if "kv_write_kernel" in n]
+    check(len(kvw) == 15, f"{len(kvw)} kv_write instantiations, expected "
+          "15 (f32/bf16/f16 sources x f32/bf16/f16/int8/e4m3 pools)")
+    kv_res = [(n, regs, sst + sld) for _, n, regs, sst, sld, _ in resources
+              if "kv_write_kernel" in n]
+    check(not any(s for *_, s in kv_res), f"kv_write kernels spill: "
+          f"{kv_res}")
+    regs = sorted(r for _, r, _ in kv_res)
+    print(f"  kv_write: {len(kvw)} instantiations (sass), "
+          + (f"{regs[0]}-{regs[-1]} registers, no spills" if regs else
+             "ptxas report not in this process's build (cached)"))
     print(f"  sass: HGMMA in all {len(paged_tc)} bf16/f16 tensor-core span "
           f"instantiations ({min(paged_tc.values())}-"
           f"{max(paged_tc.values())} each); none in the {len(paged_fma)} "
@@ -853,6 +914,7 @@ def quantize_phase(torch, qm):
         pq, psc = qm._quantize_plain(x, mode, block, d)
         same = (torch.equal(q.view(torch.uint8), pq.view(torch.uint8))
                 and torch.equal(sc, psc))
+        err = max(max_err(q, pq), max_err(sc, psc))
         ncode = int((q.view(torch.uint8) != pq.view(torch.uint8)).sum())
         check(same, f"quantize_blockwise {name}: not bit-identical to the "
               f"plain version ({ncode} codes differ, scales equal: "
@@ -867,15 +929,322 @@ def quantize_phase(torch, qm):
                          library_ms=None,
                          call_ms=time_ms(torch, lambda: qm.quantize_blockwise(
                              x, mode, block, d)),
-                         bound_ms=bms, bound_by=by, max_abs_err=0.0,
+                         bound_ms=bms, bound_by=by, max_abs_err=err,
                          shape=f"{n // block}x{block} {str(dtype)[6:]} "
                                f"{mode}{' dither' if dither else ''}")
         print(f"kernel quantize_blockwise {name} {res[name]['shape']}: "
-              "codes and scales bit-identical to the plain version; "
+              f"codes and scales bit-identical to the plain version "
+              f"(max_abs_err={err:.3g}); "
               + " ".join(f"{k}={v:.5g}" for k, v in res[name].items()
                          if k.endswith("ms") and v is not None))
         del x, d, q, pq
     return res
+
+
+# the pool geometry of phase 3's engine (gpt2-124m, block_tokens 16, 38
+# blocks a request for 8 requests) and its writers' shapes: a decode
+# append of 8 slots, a verify commit of 8 x K1=5, a 512-token prefill
+KV_NB, KV_BT, KV_L, KV_H, KV_D = 8 * 38 + 1, 16, 12, 12, 64
+
+
+def _kv_case(torch, pool_mod, writer, pool_dtype, mode, src_dtype, seed):
+    """(view, kv_write args) at `writer`'s main-path shape; the view a
+    fresh noisy pool.  Rows on scratch (invalid slots, rejected drafts,
+    the padding tail) as the engine makes them; every other destination
+    its own."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    view = pool_mod.PagedKVPool(
+        n_layer=KV_L, kv_heads=KV_H, head_dim=KV_D, num_blocks=KV_NB - 1,
+        block_tokens=KV_BT, dtype=pool_dtype, quant=mode,
+        device="cuda").view
+    for t in view:
+        if t is not None:
+            pool_mod._raw(t).copy_(torch.randint(0, 100, t.shape, generator=g,
+                                                 device="cuda"))
+    perm = torch.randperm(KV_NB - 1, generator=g, device="cuda") + 1
+    d = KV_H * KV_D
+    if writer == "decode":  # the column slices of the (S, 1, 3D) product
+        s = 8
+        qkv = (torch.randn(s, 1, 3 * d, generator=g, device="cuda")
+               * 3).to(src_dtype)
+
+        def heads1(z):
+            return z.reshape(s, 1, KV_H, KV_D).transpose(1, 2)[:, :, 0]
+
+        k, v = heads1(qkv[..., d:2 * d]), heads1(qkv[..., 2 * d:])
+        tables = perm[:s * 38].reshape(s, 38).to(torch.int32)
+        tables[5] = 0  # an empty slot
+        pos = torch.randint(0, 600, (s,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        page = pool_mod.page_ref(tables, pos, KV_BT)
+        return view, (k[None, :, None], v[None, :, None], page.blk,
+                      page.off, 7)
+    if writer == "span":  # the verify commit's (L, S, KVH, K1, Dh) stacks
+        s, k1 = 8, 5
+        ks, vs = ((torch.randn(KV_L, s, KV_H, k1, KV_D, generator=g,
+                               device="cuda") * 2).to(src_dtype)
+                  for _ in range(2))
+        tables = perm[:s * 38].reshape(s, 38).to(torch.int32)
+        pos0 = torch.randint(0, 595, (s,), generator=g, device="cuda",
+                             dtype=torch.int32)
+        count = torch.randint(0, k1 + 1, (s,), generator=g, device="cuda")
+        j = torch.arange(k1, device="cuda")[None, :]
+        wpos = pos0.long()[:, None] + j
+        blk = torch.gather(tables.long(), 1, torch.div(
+            wpos, KV_BT, rounding_mode="floor"))
+        blk = torch.where(j < count[:, None], blk, 0).reshape(-1)
+        off = torch.where(j < count[:, None], wpos % KV_BT, 0).reshape(-1)
+        return view, (ks.transpose(2, 3), vs.transpose(2, 3), blk, off, 0)
+    p = 512  # a prefill's (L, 1, KVH, P, Dh) stacks, 32 whole blocks
+    ks, vs = ((torch.randn(KV_L, 1, KV_H, p, KV_D, generator=g,
+                           device="cuda") * 2).to(src_dtype)
+              for _ in range(2))
+    ids = perm[:p // KV_BT].clone()
+    ids[-3:] = 0  # the padding tail
+    return view, (ks.transpose(2, 3), vs.transpose(2, 3), ids, None, 0)
+
+
+def _plain_quantizer(pool_mod, qm):
+    """The pool's codec as its plain PyTorch version (the card's
+    reference for the Triton kernel)."""
+    return swapped((pool_mod, "quantize_blockwise",
+                    lambda x, mode, block=256, dither=None:
+                    qm._quantize_plain(x.reshape(-1), mode, block, dither)))
+
+
+def _kv_check(torch, pool_mod, qm, view, args, what):
+    """kv_write on `view` (one launch) against the same write on copies
+    of it by the unfused writer on the card (`_kv_write_plain`: the
+    Triton quantizer and index writes) and by the plain version (those
+    index writes through the plain codec, `_quantize_plain`): pool bytes
+    and scales on blocks 1.. bit for bit both.  Returns the max abs err
+    against the plain version over k, v and the scales, as values."""
+    ref, plain = (pool_mod.KVPoolView(*(None if t is None else t.clone()
+                                        for t in view)) for _ in range(2))
+    before = pool_mod.kv_write.launches
+    pool_mod.kv_write(view, *args)
+    torch.cuda.synchronize()
+    check(pool_mod.kv_write.launches == before + 1,
+          f"kv_write {what}: not one launch")
+    pool_mod._kv_write_plain(ref, *args)
+    with _plain_quantizer(pool_mod, qm):
+        pool_mod._kv_write_plain(plain, *args)
+    torch.cuda.synchronize()
+    err = 0.0
+    for against, other in (("unfused writer's", ref),
+                           ("plain version's", plain)):
+        bad = [i for i, (a, b) in enumerate(zip(view, other))
+               if a is not None and not torch.equal(
+                   pool_mod._raw(a)[1:], pool_mod._raw(b)[1:])]
+        check(not bad, f"kv_write {what}: pool tensors {bad} (k, v, "
+              f"k_scale, v_scale) differ from the {against} on blocks 1..")
+    for a, b in zip(view, plain):
+        if a is not None:
+            err = max(err, max_err(a[1:], b[1:]))
+    return err
+
+
+def kv_write_phase(torch, pool_mod, qm):
+    """10kv: the pool write (csrc/kv_write.cu) at the three writers'
+    main-path shapes (decode: 8 slots x 12 heads x 64 of one layer, read
+    from the qkv product's column slice; span commit: 8 x K1=5 rows x 12
+    layers; prefill: 512 rows x 12 layers), over bf16, f32, int8 and e4m3
+    pools.  Pool bytes and scales on blocks 1.. must be bit-identical to
+    the unfused writers on the card and to the plain version
+    (`_kv_check`), one launch a call.  Times at the decode
+    shape over a bf16 pool (phase 3's row) and over int8 (phase 6's), and
+    the prefill over int8: the kernel, the plain version (plain codec),
+    the unfused launch sequence (device time, in turns with the kernel,
+    and host call_ms), and the library: the two `index_put_` calls that
+    store the cast rows (bf16 pool only: no PyTorch call quantizes)."""
+    pools = (("bf16", torch.bfloat16, None, torch.bfloat16),
+             ("f32", torch.float32, None, torch.float32),
+             ("int8", torch.bfloat16, "int8", torch.bfloat16),
+             ("fp8", torch.bfloat16, "fp8", torch.bfloat16))
+    ok, worst = [], 0.0
+    for writer in ("decode", "span", "prefill"):
+        for name, pdt, mode, sdt in pools:
+            view, args = _kv_case(torch, pool_mod, writer, pdt, mode, sdt,
+                                  seed=len(writer) + len(name))
+            worst = max(worst, _kv_check(torch, pool_mod, qm, view, args,
+                                         f"{writer} over a {name} pool"))
+            ok.append(f"{writer}/{name}")
+            del view, args
+    print(f"kernel kv_write: pool bytes and scales bit-identical to the "
+          f"unfused writers and to the plain version on blocks 1.. for "
+          f"{', '.join(ok)} (max_abs_err={worst:.3g}); one launch a call")
+    res = {}
+    for key, writer, pdt, mode in (("decode_bf16", "decode", torch.bfloat16,
+                                    None),
+                                   ("decode_int8", "decode", torch.bfloat16,
+                                    "int8"),
+                                   ("prefill_int8", "prefill",
+                                    torch.bfloat16, "int8")):
+        view, args = _kv_case(torch, pool_mod, writer, pdt, mode,
+                              torch.bfloat16, seed=3)
+        err = _kv_check(torch, pool_mod, qm, view, args, key)
+        worst = max(worst, err)
+        ks, vs, blk, off, l0 = args
+        lc, r1, r2, kvh, dh = ks.shape
+        vec = 2 * lc * r1 * r2 * kvh
+        nbytes = (vec * dh * 2 + vec * dh * (1 if mode else 2)
+                  + (vec * 4 if mode else 0) + blk.numel() * 8
+                  + (0 if off is None else off.numel() * 8))
+        bms, by = bound_ms(nbytes, (5 if mode else 1) * vec * dh,
+                           "bfloat16")
+
+        def kernel():
+            pool_mod.kv_write(view, *args)
+
+        def unfused():
+            pool_mod._kv_write_plain(view, *args)
+
+        def plain():
+            with _plain_quantizer(pool_mod, qm):
+                pool_mod._kv_write_plain(view, *args)
+
+        library = None
+        if mode is None:
+            kl, vl = view.k[:, :, l0], view.v[:, :, l0]
+            k2, v2 = ks[0, :, 0], vs[0, :, 0]
+
+            def library():
+                kl.index_put_((blk, off), k2)
+                vl.index_put_((blk, off), v2)
+
+        tr = turns(torch, kernel, unfused)
+        res[key] = dict(
+            ms=device_ms(torch, kernel), plain_ms=device_ms(torch, plain),
+            library_ms=None if library is None else device_ms(torch,
+                                                              library),
+            unfused_ms=device_ms(torch, unfused),
+            **call_turns(torch, kernel, unfused),
+            **{k.replace("library", "unfused"): v for k, v in tr.items()},
+            bound_ms=bms, bound_by=by, max_abs_err=err,
+            shape=f"{writer} {r1 * r2} rows x {lc} layers x {kvh}x{dh} "
+                  f"bf16 -> {mode or 'bf16'} pool")
+        print(f"kernel kv_write {res[key]['shape']}: "
+              + " ".join(f"{k}={v:.5g}" for k, v in res[key].items()
+                         if k.endswith("ms") and isinstance(v, float))
+              + f"; in turns with the unfused sequence: kernel "
+              f"{res[key]['turns_ms']:.5g} ms, unfused "
+              f"{res[key]['unfused_turns_ms']:.5g}, ratio "
+              f"{res[key]['ratio']:.4g}")
+        del view, args
+    return res, worst
+
+
+def checked_add_ln_fwd(torch, ln, x, r, w, b):
+    """add_layernorm_fwd on the card against its plain version
+    (`_add_ln_fwd_plain`: `x + r`, then the plain LayerNorm): s bit for
+    bit, y, mean and rstd at `checked_ln_fwd`'s tolerances.  Returns
+    (s, y, mean, rstd) and y's max abs err."""
+    got = ln.add_layernorm_fwd(x, r, w, b)
+    torch.cuda.synchronize()
+    ps, py, pmean, prstd = ln._add_ln_fwd_plain(x, r, w, b)
+    check(torch.equal(got[0], ps), "add_layernorm_fwd: s is not x + r")
+    torch.testing.assert_close(got[1].float(), py.float(), atol=2e-2,
+                               rtol=1.6e-2)
+    torch.testing.assert_close(got[2], pmean, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(got[3], prstd, atol=1e-5, rtol=1e-4)
+    return got, max_err(got[1], py)
+
+
+def add_ln_phase(torch, F, ln):
+    """1r: the residual add + LayerNorm forward at serving's decode (8
+    rows), verify (40), prefill (512) and training's (8192) row counts of
+    768, bf16 and f32: s, y, mean, rstd against the plain version
+    (`checked_add_ln_fwd`) and bit for bit `x + r` then `layernorm_fwd`,
+    and AddLayerNormFn's x, r, w, b gradients bit for bit autograd's
+    through that composition.  Times at 8 rows (the
+    decode tick's, the row), 512 and 8192 (bf16): the kernel, the plain
+    version, the unfused sequence (`x + r`, then the forward kernel:
+    device time, in turns with the kernel, and host call_ms) and the
+    library pair (`x + r`, then `F.layer_norm`)."""
+    n, ok, res, worst = 768, [], {}, 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for rows in (8, 40, 512, 8192):
+            g = torch.Generator(device="cuda").manual_seed(rows)
+            x, r, gs, gy = ((torch.randn(rows, n, generator=g,
+                                         device="cuda") * 2 + 0.3).to(dtype)
+                            for _ in range(4))
+            w, b = (torch.randn(n, generator=g, device="cuda").to(dtype)
+                    for _ in range(2))
+            before = ln.add_layernorm_fwd.launches
+            got, err = checked_add_ln_fwd(torch, ln, x, r, w, b)
+            worst = max(worst, err)
+            s = x + r
+            want = (s, *ln.layernorm_fwd(s, w, b))
+            torch.cuda.synchronize()
+            check(ln.add_layernorm_fwd.launches == before + 1,
+                  "add_layernorm_fwd: not one launch")
+            check(all(torch.equal(a, c) for a, c in zip(got, want)),
+                  f"add_layernorm {rows}x{n} {dtype}: (s, y, mean, rstd) "
+                  "not bit-identical to x + r then layernorm_fwd")
+            outs = []
+            for fused in (True, False):
+                leaves = [t.clone().requires_grad_() for t in (x, r, w, b)]
+                if fused:
+                    fs, fy = ln.add_layernorm(*leaves)
+                else:
+                    fs = leaves[0] + leaves[1]
+                    fy = ln.layernorm(fs, leaves[2], leaves[3])
+                outs.append(torch.autograd.grad((fs, fy), leaves, (gs, gy)))
+            check(all(torch.equal(a, c) for a, c in zip(*outs)),
+                  f"add_layernorm {rows}x{n} {dtype}: gradients not "
+                  "bit-identical to the composition's")
+            ok.append(f"{rows}x{n} {str(dtype)[6:]}")
+    print(f"kernel add_layernorm_fwd: y max_abs_err={worst:.3g} against "
+          f"the plain version (tol atol=2e-2 rtol=1.6e-2; s equal); s, y, "
+          f"mean, rstd and the x, r, w, b gradients bit-identical to x + r "
+          f"then layernorm_fwd at {', '.join(ok)}")
+    for rows in (8, 512, 8192):
+        g = torch.Generator(device="cuda").manual_seed(rows + 1)
+        x, r = ((torch.randn(rows, n, generator=g, device="cuda") * 2
+                 + 0.3).bfloat16() for _ in range(2))
+        w, b = (torch.randn(n, generator=g, device="cuda").bfloat16()
+                for _ in range(2))
+        nbytes = 4 * rows * n * 2 + 2 * n * 2 + rows * 8
+        bms, by = bound_ms(nbytes, 10 * rows * n, "bfloat16")
+        _, err = checked_add_ln_fwd(torch, ln, x, r, w, b)
+        worst = max(worst, err)
+
+        def kernel():
+            return ln.add_layernorm_fwd(x, r, w, b)
+
+        def unfused():
+            return ln.layernorm_fwd(x + r, w, b)
+
+        tr = turns(torch, kernel, unfused)
+        res[rows] = dict(
+            ms=device_ms(torch, kernel),
+            plain_ms=device_ms(torch, lambda: ln._add_ln_fwd_plain(x, r, w,
+                                                                   b)),
+            library_ms=device_ms(torch, lambda: F.layer_norm(x + r, (n,), w,
+                                                             b)),
+            unfused_ms=device_ms(torch, unfused),
+            **call_turns(torch, kernel, unfused),
+            **{k.replace("library", "unfused"): v for k, v in tr.items()},
+            bound_ms=bms, bound_by=by, max_abs_err=err,
+            shape=f"{rows}x{n} bf16")
+        print(f"kernel add_layernorm_fwd rows={rows} N={n} bf16: "
+              f"max_abs_err={err:.3g} "
+              + " ".join(f"{k}={v:.5g}" for k, v in res[rows].items()
+                         if k.endswith("ms") and isinstance(v, float))
+              + f"; in turns with x + r then layernorm_fwd: kernel "
+              f"{res[rows]['turns_ms']:.5g} ms, unfused "
+              f"{res[rows]['unfused_turns_ms']:.5g}, ratio "
+              f"{res[rows]['ratio']:.4g}")
+    # the forward wrappers' operand checks alone (three `require`s, their
+    # messages formatted eagerly, and the row view) at the decode shape
+    x8, w8, b8 = x[:8], w, b
+    t0 = time.perf_counter()
+    for _ in range(10000):
+        ln._fwd_rows(x8, w8, b8)
+    print(f"  the forward wrappers' operand checks (_fwd_rows): "
+          f"{(time.perf_counter() - t0) / 10000 * 1e6:.3f} us a call on the "
+          "host")
+    return res, worst
 
 
 def _rel_err(a, b):
@@ -1030,15 +1399,18 @@ def flash_bwd_phase(torch, F, fa):
 
 
 def _profile_names(torch, fn, want):
-    """Device kernel names of one profiled call of fn, retaken (up to five
-    traces) until one holds a name containing `want`."""
+    """Device kernel names of one profiled call of fn, retaken (up to ten
+    traces, a short sleep after each that misses) until one holds a name
+    containing `want`: CUPTI sometimes returns empty traces for a while,
+    then recovers."""
     names = set()
-    for _ in range(5):
+    for _ in range(10):
         prof = profiled(torch, fn, tries=2)
         if prof is not None:
             names = {e.key for e in _device_records(torch, prof)}
             if any(want in n for n in names):
                 break
+        time.sleep(0.5)
     return names
 
 
@@ -1397,8 +1769,10 @@ def plain_prefill_logits(torch, port, model, prompt):
     from tiny_deepspeed_tpu_torch.models import gpt2 as gpt2_mod
     from tiny_deepspeed_tpu_torch.ops.flash_fa2 import (
         _fa2_fwd_plain, fa2_flash_attention_fwd)
-    from tiny_deepspeed_tpu_torch.ops.layernorm import _ln_fwd_plain
+    from tiny_deepspeed_tpu_torch.ops.layernorm import (_add_ln_fwd_plain,
+                                                        _ln_fwd_plain)
     from tiny_deepspeed_tpu_torch.ops.paged_attn import paged_attention
+    from tiny_deepspeed_tpu_torch.serving import pool as pool_mod
     from tiny_deepspeed_tpu_torch.serving.pool import PagedKVPool
 
     bt = 16
@@ -1419,16 +1793,16 @@ def plain_prefill_logits(torch, port, model, prompt):
 
     before = paged_attention.launches
     kern = run()
-    saved = gpt2_mod.layernorm, gpt2_mod.sharded_attention
-    gpt2_mod.layernorm = lambda x, w, b, eps=1e-5: _ln_fwd_plain(
-        x, w, b, eps)[0]
-    gpt2_mod.sharded_attention = (
-        lambda q, k_, v, impl, pctx=None: _fa2_fwd_plain(q, k_, v)[0])
     fwd = fa2_flash_attention_fwd.launches
-    try:
+    with swapped(
+            (gpt2_mod, "layernorm", lambda x, w, b, eps=1e-5:
+             _ln_fwd_plain(x, w, b, eps)[0]),
+            (gpt2_mod, "add_layernorm", lambda x, r, w, b, eps=1e-5:
+             _add_ln_fwd_plain(x, r, w, b, eps)[:2]),
+            (gpt2_mod, "sharded_attention", lambda q, k_, v, impl, pctx=None:
+             _fa2_fwd_plain(q, k_, v)[0]),
+            (pool_mod, "kv_write", pool_mod._kv_write_plain)):
         plain = run()
-    finally:
-        gpt2_mod.layernorm, gpt2_mod.sharded_attention = saved
     check(paged_attention.launches == before, "prefill ran decode kernels")
     check(fa2_flash_attention_fwd.launches == fwd,
           "the plain prefill launched the FA2 kernel")
@@ -1486,22 +1860,179 @@ def kernel_shares(torch, prof, patterns):
         us = _self_device_us(e)
         busy += us
         rows.append((us, e.count, e.key))
-        for name, pat in patterns.items():
-            if pat in e.key:
-                per[name] = per.get(name, 0.0) + us
+        # the longest matching fragment: "_add_ln_fwd_kernel" also holds
+        # "_ln_fwd_kernel"
+        hits = [(len(pat), name) for name, pat in patterns.items()
+                if pat in e.key]
+        if hits:
+            name = max(hits)[1]
+            per[name] = per.get(name, 0.0) + us
     rows.sort(reverse=True)
     return per, busy, rows
+
+
+def _add_then_norm(x, r, w, b, eps=1e-5):
+    """`add_layernorm`'s composition: `x + r`, then the forward kernel
+    (LayerNormFn) on the sum."""
+    from tiny_deepspeed_tpu_torch.ops.layernorm import layernorm
+    s = x + r
+    return s, layernorm(s, w, b, eps)
+
+
+def unfused_serving(pool_mod):
+    """The serving tick's unfused launch sequence: the model's residual
+    adds as `x + r` before the forward kernel, the pool writes as the
+    quantizer kernel and index writes (`_kv_write_plain`)."""
+    from tiny_deepspeed_tpu_torch.models import gpt2 as gpt2_mod
+    return swapped((gpt2_mod, "add_layernorm", _add_then_norm),
+                   (pool_mod, "kv_write", pool_mod._kv_write_plain))
+
+
+# the tick's call sites that the fused kernels change, timed on the host
+TICK_SITES = (("gpt2", "add_layernorm"), ("gpt2", "layernorm"),
+              ("pool", "kv_write"))
+
+
+@contextlib.contextmanager
+def site_timers(pool_mod):
+    """Each of TICK_SITES (whatever it is bound to: the fused wrapper or
+    the unfused sequence) wrapped in a perf_counter pair; yields
+    {name: [calls, seconds]}.  The wrapper's own cost (two clock reads
+    and a call) falls inside each site's time."""
+    from tiny_deepspeed_tpu_torch.models import gpt2 as gpt2_mod
+    mods = {"gpt2": gpt2_mod, "pool": pool_mod}
+    acc = {name: [0, 0.0] for _, name in TICK_SITES}
+
+    class Timed:
+        """fn, timed; its launch counter stays fn's (a wrapper counts
+        through its module's name, `kv_write.launches += 1`)."""
+
+        def __init__(self, name, fn):
+            self.name, self.fn = name, fn
+
+        def __call__(self, *a, **kw):
+            t0 = time.perf_counter()
+            out = self.fn(*a, **kw)
+            acc[self.name][1] += time.perf_counter() - t0
+            acc[self.name][0] += 1
+            return out
+
+        @property
+        def launches(self):
+            return self.fn.launches
+
+        @launches.setter
+        def launches(self, n):
+            self.fn.launches = n
+
+    with swapped(*((mods[m], name, Timed(name, getattr(mods[m], name)))
+                   for m, name in TICK_SITES)):
+        yield acc
+
+
+def tick_profile(torch, model, prompts, counters, pool_mod, ticks=8,
+                 profile=True, **knobs):
+    """The decode tick alone: 8 of `prompts` admitted and prefilled (phase
+    3's engine), two warm ticks, then `ticks` ticks on the host clock
+    (each ends in the tick's token fetch) with every count zeroed before,
+    then `ticks` ticks with TICK_SITES timed (`site_timers`), then
+    (`profile`) `ticks` profiled ticks.  Returns per tick: host ms, each
+    site's calls and host ms, launches by counter, device kernels
+    (profiler records) and device busy ms."""
+    from tiny_deepspeed_tpu_torch.serving import ServeConfig, ServingEngine
+    longest = max(len(p) for p in prompts[:8]) + 64
+    cfg = ServeConfig(max_active=8, block_tokens=16,
+                      num_blocks=8 * (-(-longest // 16) + 1),
+                      max_seq_tokens=longest, **knobs)
+    eng = ServingEngine(model, cfg)
+    for p in prompts[:8]:
+        eng.submit(p, 64)
+    for _ in range(3):  # admission + prefill, then two warm decode ticks
+        eng.tick()
+    check(eng.n_active == 8 and eng.queue_depth == 0,
+          "tick_profile: the 8 requests are not all decoding")
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(ticks):
+        eng.tick()
+    host = (time.perf_counter() - t0) / ticks * 1e3
+    out = dict(host_ms=host, launches={k: c.launches / ticks
+                                       for k, c in counters.items()
+                                       if c.launches})
+    torch.cuda.synchronize()
+    with site_timers(pool_mod) as acc:
+        t0 = time.perf_counter()
+        for _ in range(ticks):
+            eng.tick()
+        sites_tick = (time.perf_counter() - t0) / ticks * 1e3
+    out["sites"] = {k: (n / ticks, sec / ticks * 1e3)
+                    for k, (n, sec) in acc.items()}
+    out["sites_tick_ms"] = sites_tick
+    if profile:
+        prof = profiled(torch, lambda: [eng.tick() for _ in range(ticks)])
+        check(prof is not None, "tick_profile: no device time recorded")
+        evs = _device_records(torch, prof)
+        out.update(kernels=sum(e.count for e in evs) / ticks,
+                   busy_ms=sum(_self_device_us(e) for e in evs) / 1e3
+                   / ticks)
+    check(eng.n_active == 8, "tick_profile: a request ended mid-profile")
+    del eng
+    return out
+
+
+def tick_report(torch, model, prompts, counters, pool_mod, name, **knobs):
+    """`tick_profile` with the fused kernels and with the unfused
+    sequence, in turns (fused, unfused, unfused, fused, four times: the
+    host clock drifts over a call), the first of each profiled; printed
+    side by side with the host ms a tick as the median of the eight."""
+    runs = {"fused": [], "unfused": []}
+    for k in ("fused", "unfused", "unfused", "fused") * 4:
+        with (unfused_serving(pool_mod) if k == "unfused"
+              else contextlib.nullcontext()):
+            runs[k].append(tick_profile(torch, model, prompts, counters,
+                                        pool_mod, profile=not runs[k],
+                                        **knobs))
+    fused, unfused = (dict(runs[k][0], host_ms=statistics.median(
+        r["host_ms"] for r in runs[k]), host_runs_ms=[
+        r["host_ms"] for r in runs[k]]) for k in ("fused", "unfused"))
+    for k, v in (("fused", fused), ("unfused", unfused)):
+        print(f"  {name} decode tick, {k}: {v['kernels']:.2f} device kernels "
+              f"a tick, device busy {v['busy_ms']:.4f} ms, host "
+              f"{v['host_ms']:.4f} ms (median of "
+              f"{[round(x, 4) for x in v['host_runs_ms']]}); launches a "
+              f"tick {v['launches']}")
+    print(f"  {name}: {unfused['kernels'] - fused['kernels']:.2f} fewer "
+          f"device kernels a tick with the fused kernels")
+    # host ms a tick at each call site, median over the eight runs of
+    # each (interleaved as above): what the fused wrappers cost the host
+    for k in ("fused", "unfused"):
+        sites = {s: (runs[k][0]["sites"][s][0], statistics.median(
+            r["sites"][s][1] for r in runs[k])) for s in runs[k][0]["sites"]}
+        tick = statistics.median(r["sites_tick_ms"] for r in runs[k])
+        in_sites = sum(v for _, v in sites.values())
+        (fused if k == "fused" else unfused).update(
+            sites=sites, sites_tick_ms=tick)
+        print(f"  {name} host a tick at the call sites, {k}: "
+              + ", ".join(f"{s} {n:g} calls {ms:.4f} ms ({ms / n * 1e3:.2f} "
+                          f"us a call)" for s, (n, ms) in sites.items() if n)
+              + f"; {in_sites:.4f} ms of a {tick:.4f} ms tick (medians of "
+              f"{len(runs[k])})")
+    return dict(fused=fused, unfused=unfused)
 
 
 # -- phase 4: training -------------------------------------------------------
 
 TRAIN_KERNELS = ("layernorm_fwd", "layernorm_dx", "layernorm_dwdb",
                  "fa2_flash_attention_fwd", "fa2_flash_attention_dq",
-                 "fa2_flash_attention_dkv")
+                 "fa2_flash_attention_dkv", "add_layernorm_fwd")
 KNOB_KERNELS = ("fused_xent_fwd", "fused_xent_dx", "fused_xent_dw",
                 "adamw_update_fused")
 # profiler kernel-name fragments of each hand-written kernel
 PATTERNS = {"layernorm_fwd": "_ln_fwd_kernel",
+            "add_layernorm_fwd": "_add_ln_fwd_kernel",
+            "kv_write": "kv_write_kernel",
             "layernorm_dx": "_ln_dx_kernel",
             "layernorm_dwdb": "_ln_dwdb_",
             "fa2_flash_attention_fwd": "flash_fwd_",
@@ -1514,28 +2045,20 @@ PATTERNS = {"layernorm_fwd": "_ln_fwd_kernel",
             "adamw_update_fused": "_adamw_kernel"}
 
 
-@contextlib.contextmanager
 def plain_ops(ln, fa, fx, af):
     """Every training kernel wrapper swapped for its plain version (the
     autograd Functions and AdamW look their wrappers up at call time)."""
-    names = ((ln, "layernorm_fwd", ln._ln_fwd_plain),
-             (ln, "layernorm_dx", ln._ln_dx_plain),
-             (ln, "layernorm_dwdb", ln._ln_dwdb_plain),
-             (fa, "fa2_flash_attention_fwd", fa._fa2_fwd_plain),
-             (fa, "fa2_flash_attention_dq", fa._fa2_dq_plain),
-             (fa, "fa2_flash_attention_dkv", fa._fa2_dkv_plain),
-             (fx, "fused_xent_fwd", fx._xent_fwd_plain),
-             (fx, "fused_xent_dx", fx._xent_dx_plain),
-             (fx, "fused_xent_dw", fx._xent_dw_plain),
-             (af, "adamw_update_fused", af._adamw_update_plain))
-    saved = [(m, n, getattr(m, n)) for m, n, _ in names]
-    try:
-        for m, n, plain in names:
-            setattr(m, n, plain)
-        yield
-    finally:
-        for m, n, fn in saved:
-            setattr(m, n, fn)
+    return swapped((ln, "layernorm_fwd", ln._ln_fwd_plain),
+                   (ln, "add_layernorm_fwd", ln._add_ln_fwd_plain),
+                   (ln, "layernorm_dx", ln._ln_dx_plain),
+                   (ln, "layernorm_dwdb", ln._ln_dwdb_plain),
+                   (fa, "fa2_flash_attention_fwd", fa._fa2_fwd_plain),
+                   (fa, "fa2_flash_attention_dq", fa._fa2_dq_plain),
+                   (fa, "fa2_flash_attention_dkv", fa._fa2_dkv_plain),
+                   (fx, "fused_xent_fwd", fx._xent_fwd_plain),
+                   (fx, "fused_xent_dx", fx._xent_dx_plain),
+                   (fx, "fused_xent_dw", fx._xent_dw_plain),
+                   (af, "adamw_update_fused", af._adamw_update_plain))
 
 
 def loss_and_grads(torch, model, batch, rng=None):
@@ -1677,6 +2200,33 @@ def train_phase(torch, port, counters, ln, fa, fx, af):
                 tokens_per_s=b * t / med, kernel_ms_per_step=step_ms,
                 busy_ms=busy / 1e3, first_loss=losses[0], peak_gib=peak,
                 losses13=losses[:13], params13=after13)
+
+
+def unfused_training_check(torch, port, counters, train):
+    """Phase 4's 13 steps again with the model's `add_layernorm` swapped
+    for its composition (`x + r`, then LayerNormFn): the losses and the
+    params after them must equal phase 4's bit for bit."""
+    from tiny_deepspeed_tpu_torch.models import gpt2 as gpt2_mod
+    with swapped((gpt2_mod, "add_layernorm", _add_then_norm)):
+        run = engine_run(torch, port, counters, "SingleDevice",
+                         port.GPT2_PRESETS["gpt2-124m"], profile=False,
+                         need=TRAIN_KERNELS[:6])
+    check(run["launches"]["add_layernorm_fwd"] == 0,
+          "the composition launched the fused kernel")
+    same = run["losses"] == train["losses13"] and all(
+        torch.equal(p, train["params13"][n])
+        for n, p in run["params"].items())
+    print(f"  13 steps with x + r then LayerNormFn in place of "
+          f"add_layernorm: losses and params bit-identical to the fused "
+          f"run: {same}; launches over the 10 timed steps: layernorm_fwd "
+          f"{run['launches']['layernorm_fwd']} (fused run: "
+          f"{train['launches']['layernorm_fwd']} + add_layernorm_fwd "
+          f"{train['launches']['add_layernorm_fwd']}); step time median "
+          f"{run['step_ms']:.3f} ms (fused run {train['step_ms']:.3f})")
+    check(same, f"the composition's 13 steps differ from the fused run's: "
+          f"losses {run['losses']} vs {train['losses13']}")
+    _free(run)
+    return run
 
 
 def _leaf_rel(torch, a, b):
@@ -1861,26 +2411,23 @@ SERVE_VARIANTS = (("spec_ngram", dict(spec_draft="ngram", spec_k=4)),
                   ("quant_int8", dict(quant="int8")),
                   ("quant_fp8", dict(quant="fp8")))
 # the kernels each path must launch (the drafter's apart)
+SERVE_BASE = ("layernorm_fwd", "add_layernorm_fwd",
+              "fa2_flash_attention_fwd", "kv_write")
 VARIANT_KERNELS = {
-    "spec_ngram": ("layernorm_fwd", "fa2_flash_attention_fwd",
-                   "paged_attention_span"),
-    "spec_model_self": ("layernorm_fwd", "fa2_flash_attention_fwd",
-                        "paged_attention_span"),
-    "spec_model_self_drafter": ("layernorm_fwd", "fa2_flash_attention_fwd",
-                                "paged_attention"),
-    "quant_int8": ("layernorm_fwd", "fa2_flash_attention_fwd",
-                   "paged_attention_quant", "quantize_blockwise"),
-    "quant_fp8": ("layernorm_fwd", "fa2_flash_attention_fwd",
-                  "paged_attention_quant", "quantize_blockwise"),
-    "prefix_on": ("layernorm_fwd", "fa2_flash_attention_fwd",
-                  "paged_attention", "paged_attention_span"),
-    "prefix_off": ("layernorm_fwd", "fa2_flash_attention_fwd",
-                   "paged_attention"),
+    "spec_ngram": SERVE_BASE + ("paged_attention_span",),
+    "spec_model_self": SERVE_BASE + ("paged_attention_span",),
+    "spec_model_self_drafter": SERVE_BASE + ("paged_attention",),
+    "quant_int8": SERVE_BASE + ("paged_attention_quant",),
+    "quant_fp8": SERVE_BASE + ("paged_attention_quant",),
+    "prefix_on": SERVE_BASE + ("paged_attention", "paged_attention_span"),
+    "prefix_off": SERVE_BASE + ("paged_attention",),
 }
 SERVE_PATTERNS = {"layernorm_fwd": "_ln_fwd_kernel",
+                  "add_layernorm_fwd": "_add_ln_fwd_kernel",
+                  "kv_write": "kv_write_kernel",
                   "fa2_flash_attention_fwd": "flash_fwd_",
                   "paged_attention": "paged_decode_kernel",
-                  "paged_attention_span": "paged_span_kernel",
+                  "paged_attention_span": "paged_span_",
                   "quantize_blockwise": "_quant_kernel"}
 
 
@@ -1957,31 +2504,26 @@ def serve_variant(torch, model, prompts, new, counters, profile=False,
 
 def plain_serving_ops(pa, pool_mod, qm):
     """Every serving kernel wrapper the model and the pool call swapped for
-    its plain version: layernorm, FA2, paged attention, the quantizer."""
+    its plain version: layernorm (with and without the residual add), FA2,
+    paged attention, the pool write and its quantizer."""
     from tiny_deepspeed_tpu_torch.models import gpt2 as gpt2_mod
     from tiny_deepspeed_tpu_torch.ops.flash_fa2 import _fa2_fwd_plain
-    from tiny_deepspeed_tpu_torch.ops.layernorm import _ln_fwd_plain
+    from tiny_deepspeed_tpu_torch.ops.layernorm import (_add_ln_fwd_plain,
+                                                        _ln_fwd_plain)
 
-    @contextlib.contextmanager
-    def ctx():
-        saved = (gpt2_mod.layernorm, gpt2_mod.sharded_attention,
-                 gpt2_mod.paged_attention, pool_mod.quantize_blockwise)
-        gpt2_mod.layernorm = lambda x, w, b, eps=1e-5: _ln_fwd_plain(
-            x, w, b, eps)[0]
-        gpt2_mod.sharded_attention = (
-            lambda q, k_, v, impl, pctx=None: _fa2_fwd_plain(q, k_, v)[0])
-        gpt2_mod.paged_attention = (
-            lambda q, view, page, l, span_kv=None:
-            pa._paged_attention_plain(q, view, page, l, span_kv))
-        pool_mod.quantize_blockwise = (
-            lambda x, mode, block=256, dither=None:
-            qm._quantize_plain(x.reshape(-1), mode, block, dither))
-        try:
-            yield
-        finally:
-            (gpt2_mod.layernorm, gpt2_mod.sharded_attention,
-             gpt2_mod.paged_attention, pool_mod.quantize_blockwise) = saved
-    return ctx()
+    return swapped(
+        (gpt2_mod, "layernorm", lambda x, w, b, eps=1e-5:
+         _ln_fwd_plain(x, w, b, eps)[0]),
+        (gpt2_mod, "add_layernorm", lambda x, r, w, b, eps=1e-5:
+         _add_ln_fwd_plain(x, r, w, b, eps)[:2]),
+        (gpt2_mod, "sharded_attention", lambda q, k_, v, impl, pctx=None:
+         _fa2_fwd_plain(q, k_, v)[0]),
+        (gpt2_mod, "paged_attention", lambda q, view, page, l, span_kv=None:
+         pa._paged_attention_plain(q, view, page, l, span_kv)),
+        (pool_mod, "kv_write", pool_mod._kv_write_plain),
+        (pool_mod, "quantize_blockwise",
+         lambda x, mode, block=256, dither=None:
+         qm._quantize_plain(x.reshape(-1), mode, block, dither)))
 
 
 def verify_logits_check(torch, np, model, prompts, plain, counters):
@@ -2438,7 +2980,8 @@ def nccl_world1(torch):
 
 
 def engine_run(torch, port, counters, name, cfg, b=8, t=1024, warm=3,
-               timed=10, lr=1e-5, profile=True, whole=True):
+               timed=10, lr=1e-5, profile=True, whole=True,
+               need=TRAIN_KERNELS):
     """`name`'s engine on `cfg` with AdamW(lr, weight_decay=0.1) over the
     synthetic stream (seed 0): `warm` steps, then `timed` steps with every
     count zeroed just before and read just after; one profiled step's
@@ -2466,7 +3009,7 @@ def engine_run(torch, port, counters, name, cfg, b=8, t=1024, warm=3,
         losses.append(float(loss))
         times.append(time.perf_counter() - t0)
     launches = {k: fn.launches for k, fn in counters.items()}
-    for k in TRAIN_KERNELS:
+    for k in need:
         check(launches[k] > 0, f"{name}: {k} never launched")
     check(all(math.isfinite(x) for x in losses), f"{name}: losses {losses}")
     med = statistics.median(times)
@@ -2659,7 +3202,7 @@ def ab_phase(torch, counters):
           f"(bthd / transpose {fb['bthd_fa2'] / fb['transpose+fa2']:.4f})")
     print(f"  launches of the A/B run: "
           f"{ {k: v for k, v in launches.items() if v} }")
-    for k in BTHD_KERNELS + TRAIN_KERNELS[3:]:
+    for k in BTHD_KERNELS + TRAIN_KERNELS[3:6]:
         check(launches[k] > 0, f"the A/B never launched {k}")
     return dict(launches=launches, fb_ms=fb)
 
@@ -2842,6 +3385,8 @@ def main():
     pq_res, pq_err = paged_quant_phase(torch, F, pa, pool_mod)
     ps_res, ps_err = paged_span_phase(torch, F, pa, pool_mod)
     qz_res = quantize_phase(torch, qm)
+    kv_res, kv_err = kv_write_phase(torch, pool_mod, qm)
+    aln_res, aln_err = add_ln_phase(torch, F, ln)
     torch.cuda.empty_cache()
     bwd_res = ln_bwd_phase(torch, F, ln)
     bwd_res.update(flash_bwd_phase(torch, F, fa))
@@ -2859,6 +3404,8 @@ def main():
     prompts, new = serving_traffic(np)
     serve(torch, port, model, [prompts[0][:24], prompts[1][:40]], 4)  # warm
     counters = {"layernorm_fwd": ln.layernorm_fwd,
+                "add_layernorm_fwd": ln.add_layernorm_fwd,
+                "kv_write": pool_mod.kv_write,
                 "layernorm_dx": ln.layernorm_dx,
                 "layernorm_dwdb": ln.layernorm_dwdb,
                 "fa2_flash_attention_fwd": fa.fa2_flash_attention_fwd,
@@ -2876,8 +3423,7 @@ def main():
                 "fa2_chunk_dq": fa.fa2_chunk_dq,
                 "fa2_chunk_dkv": fa.fa2_chunk_dkv,
                 **{k: getattr(fa, k) for k in BTHD_KERNELS}}
-    serve_kernels = ("layernorm_fwd", "fa2_flash_attention_fwd",
-                     "paged_attention")
+    serve_kernels = SERVE_BASE + ("paged_attention",)
     for fn in counters.values():
         fn.launches = 0
     eng, reqs, wall, seg, _ = serve(torch, port, model, prompts, new)
@@ -2887,7 +3433,9 @@ def main():
         check(serve_launches[k] > 0, f"{k} was never launched on the main "
               "path")
     check(not any(serve_launches[k] for k in counters
-                  if k not in serve_kernels), "serving ran a backward kernel")
+                  if k not in serve_kernels),
+          "serving ran a kernel outside its path (a backward kernel, or the "
+          "quantizer that kv_write replaces)")
     statuses = [r.status for r in reqs]
     check(all(s == "ok" for s in statuses), f"statuses {statuses}")
     check(all(len(r.tokens) == new for r in reqs), "short token streams")
@@ -2948,6 +3496,8 @@ def main():
           f"{shares}")
     for us, n, key in rows[:10]:
         print(f"    {us / 1e3:10.3f} ms x{n:<6d} {key[:90]}")
+    ticks = {"plain": tick_report(torch, model, prompts, counters, pool_mod,
+                                  "phase 3 (bf16 pool)")}
     plain_tokens = [r.tokens for r in reqs]
     del eng, model, prof
     torch.cuda.empty_cache()
@@ -2956,6 +3506,7 @@ def main():
     train = train_phase(torch, port, counters, ln, fa, fx, af)
     check(not any(train["launches"][k] for k in KNOB_KERNELS),
           "the default training path ran a knob's kernel")
+    unfused_training_check(torch, port, counters, train)
     torch.cuda.empty_cache()
     print("phase 5: knobbed training gpt2-124m (fused head, fused AdamW, "
           "dropout)")
@@ -2969,6 +3520,9 @@ def main():
     var_paths, var_res, agree = variants_phase(
         torch, np, model, counters, pa, pool_mod, qm, plain_tokens)
     f32_identity(torch, np, port, model, counters)
+    for mode in ("int8", "fp8"):
+        ticks[mode] = tick_report(torch, model, prompts, counters, pool_mod,
+                                  f"phase 6 ({mode} pool)", quant=mode)
     torch.cuda.empty_cache()
 
     t7 = time.perf_counter()
@@ -3000,6 +3554,7 @@ def main():
 
     timed = ("shape", "ms", "plain_ms", "library_ms", "call_ms", "bound_ms",
              "bound_by")
+    extra_keys = TURN_KEYS + UNFUSED_KEYS
 
     def entry(name, route, source, replaces, res, err=None, training=None):
         """One row: its times at `res["shape"]`; a forward kernel that
@@ -3020,11 +3575,12 @@ def main():
                "launches_by_path": by_path,
                "max_abs_err": res["max_abs_err"] if err is None else err,
                **{k: res[k] for k in timed}, "ms_source": clock_of(res),
-               **{k: res[k] for k in TURN_KEYS if k in res}}
+               **{k: res[k] for k in extra_keys if k in res}}
         if name in f32_err:  # the f32 dispatch: the FMA kernel
             row["f32_max_abs_err"] = f32_err[name]
         if training is not None:
-            row["training_shape"] = {k: training[k] for k in timed + TURN_KEYS
+            row["training_shape"] = {k: training[k]
+                                     for k in timed + extra_keys
                                      if k in training}
             row["training_shape"]["ms_source"] = clock_of(training)
         return row
@@ -3110,6 +3666,14 @@ def main():
               "tiny_deepspeed_tpu_torch/csrc/flash_bwd.cu",
               "tiny_deepspeed_tpu/ops/flash_fa2.py:685",
               bthd_res["fa2_flash_attention_bthd_dq", 12]),
+        entry("kv_write", "cuda",
+              "tiny_deepspeed_tpu_torch/csrc/kv_write.cu",
+              "tiny_deepspeed_tpu/ops/quant_pallas.py:59",
+              kv_res["decode_bf16"], err=kv_err),
+        entry("add_layernorm_fwd", "triton",
+              "tiny_deepspeed_tpu_torch/ops/layernorm.py",
+              "tiny_deepspeed_tpu/ops/layernorm_pallas.py:78",
+              aln_res[8], err=aln_err, training=aln_res[8192]),
     ]
     kernels[13]["per_step"] = bwd_res["adamw_update_fused"]["per_step"]
     extra = {"paged_attention": {"long_context": pa_res["long_context"]},
@@ -3120,10 +3684,13 @@ def main():
                  "int8_pool_suffix": ps_res["int8", "suffix"]},
              "quantize_blockwise": {k: v for k, v in qz_res.items()
                                     if k != "kv_append"},
-             **{k: {"b8": bthd_res[k, 8]} for k in BTHD_KERNELS}}
+             **{k: {"b8": bthd_res[k, 8]} for k in BTHD_KERNELS},
+             "kv_write": {"decode_int8": kv_res["decode_int8"],
+                          "prefill_int8": kv_res["prefill_int8"]},
+             "add_layernorm_fwd": {"prefill": aln_res[512]}}
     for row in kernels:
         for k, v in extra.get(row["name"], {}).items():
-            row[k + "_shape"] = {f: v[f] for f in timed + TURN_KEYS
+            row[k + "_shape"] = {f: v[f] for f in timed + extra_keys
                                  if f in v}
             row[k + "_shape"]["ms_source"] = clock_of(v)
     clocks = [(row["name"] + ("." + k if k != "row" else ""), key, src)
@@ -3135,16 +3702,19 @@ def main():
     print(f"clocks: {len(clocks) - len(events)} of {len(clocks)} device "
           f"times from the profiler, {len(events)} from CUDA events"
           + (f" ({', '.join(events)})" if events else ""))
-    check(len(kernels) == 20, f"{len(kernels)} kernel rows")
+    check(len(kernels) == 22, f"{len(kernels)} kernel rows")
     for row in kernels[14:17]:
         check(row["launches_by_path"]["ring4"] > 0,
               f"{row['name']} was never launched on the ring path")
-    for row in kernels[17:]:
+    for row in kernels[17:20]:
         check(row["launches_by_path"]["ab"] > 0,
               f"{row['name']} was never launched on the A/B path")
+    for row in kernels[20:]:
+        check(row["launches_by_path"]["serving"] > 0,
+              f"{row['name']} was never launched on the serving path")
     with open(os.path.join(OUT_DIR, "variants.json"), "w") as f:
-        json.dump({"results": var_res, "agreement": agree}, f, indent=1,
-                  default=str)
+        json.dump({"results": var_res, "agreement": agree,
+                   "ticks": ticks}, f, indent=1, default=str)
     print(f"total {time.perf_counter() - t_all:.2f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

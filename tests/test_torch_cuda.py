@@ -39,6 +39,14 @@ live ranges ending on a split boundary, grouped heads 4/2 and 2/1, K1
 in {5, 16, 17, 64, 256} (16 and 17 straddle the few-rows / many-rows
 switch), bit-identical repeats of decode and span over bf16 and int8
 pools, and profiled calls naming the one kernel each call launches.
+Slice 11 (fewer launches on the serving tick): the KV-pool write
+(`serving/pool.kv_write`, csrc/kv_write.cu) bit for bit the unfused
+writers (quantizer + index writes) at the decode, span-commit and
+prefill shapes, over f32, bf16, f16, int8 and e4m3 pools, head dims 32,
+64 and 128, with one launch a call; the fused residual add + LayerNorm
+(`ops/layernorm.add_layernorm`) bit for bit `x + r` then the forward
+kernel — s, y, mean, rstd and every gradient — at 8, 40, 512 and 8192
+rows of 768 in bf16 and f32.
 """
 
 import math
@@ -895,6 +903,170 @@ def test_tiny_serving_variants_match_cpu(knobs):
         outs.append([h.tokens for h in hs])
         assert all(h.status == "ok" for h in hs)
     assert outs[0] == outs[1]
+
+
+def _kv_pool(dtype, quant_mode, kvh, dh, g, nl=3, nb=25, bt=8):
+    """A pool of `dtype` (quantized when quant_mode) filled with noise,
+    so that a write to the wrong place shows."""
+    view = pool_mod.PagedKVPool(
+        n_layer=nl, kv_heads=kvh, head_dim=dh, num_blocks=nb - 1,
+        block_tokens=bt, dtype=dtype, quant=quant_mode, device="cuda").view
+    for t in view:
+        if t is not None:
+            pool_mod._raw(t).copy_(torch.randint(
+                0, 100, t.shape, generator=g, device="cuda"))
+    return view
+
+
+def _kv_writer_call(writer, view, src_dtype, g):
+    """(write(view) -> view) for one writer at its main path's layout:
+    decode reads a column slice of a qkv product, span and prefill their
+    (L, S, KVH, K1|P, Dh) stacks; invalid slots, rejected drafts and the
+    padding tail point at scratch block 0; every other row has a
+    destination of its own (two rows on one pool row would race)."""
+    nb, bt, nl, kvh, dh = view.k.shape
+
+    def tables(s, w):  # distinct blocks: no slot shares another's
+        ids = torch.randperm(nb - 1, generator=g, device="cuda")[:s * w]
+        return (ids + 1).to(torch.int32).reshape(s, w)
+
+    if writer == "decode":
+        s = 6
+        qkv = torch.randn(s, 1, 3 * kvh * dh, generator=g, device="cuda")
+        qkv = (qkv * 3).to(src_dtype)
+
+        def heads1(z):
+            return z.reshape(s, 1, kvh, dh).transpose(1, 2)[:, :, 0]
+
+        k = heads1(qkv[..., kvh * dh:2 * kvh * dh])
+        v = heads1(qkv[..., 2 * kvh * dh:])
+        tab = tables(s, 3)
+        tab[4] = 0  # an invalid slot
+        pos = torch.randint(0, 3 * bt, (s,), generator=g, device="cuda",
+                            dtype=torch.int32)
+        page = pool_mod.page_ref(tab, pos, bt)
+        return lambda vw: pool_mod.paged_append(vw, k, v, nl - 1, page)
+    if writer == "span":
+        s, k1 = 4, 5
+        ks, vs = ((torch.randn(nl, s, kvh, k1, dh, generator=g,
+                               device="cuda") * 2).to(src_dtype)
+                  for _ in range(2))
+        tab = tables(s, 4)
+        pos0 = torch.tensor([0, 3, 7, 9], dtype=torch.int32, device="cuda")
+        count = torch.tensor([5, 2, 0, 4], device="cuda")
+        return lambda vw: pool_mod.paged_append_span(vw, ks, vs, tab, pos0,
+                                                     count, bt)
+    p = 4 * bt
+    ks, vs = ((torch.randn(nl, 1, kvh, p, dh, generator=g, device="cuda")
+               * 2).to(src_dtype) for _ in range(2))
+    ids = torch.tensor([3, 1, 7, 0], device="cuda")  # the tail is padding
+    return lambda vw: pool_mod.paged_scatter(vw, ks, vs, ids, bt)
+
+
+@pytest.mark.parametrize("kvh,dh", [(12, 64), (2, 128), (2, 32)])
+@pytest.mark.parametrize("src,pool,mode", [
+    (torch.bfloat16, torch.bfloat16, None),
+    (torch.float32, torch.float32, None),
+    (torch.float32, torch.bfloat16, None),
+    (torch.float16, torch.float16, None),
+    (torch.bfloat16, torch.bfloat16, "int8"),
+    (torch.bfloat16, torch.bfloat16, "fp8"),
+    (torch.float32, torch.float32, "int8"),
+    (torch.float16, torch.float16, "fp8")],
+    ids=["bf16", "f32", "f32_into_bf16", "f16", "bf16_int8", "bf16_fp8",
+         "f32_int8", "f16_fp8"])
+@pytest.mark.parametrize("writer", ["decode", "span", "prefill"])
+def test_kv_write_kernel_matches_unfused_writers(writer, src, pool, mode,
+                                                  kvh, dh, monkeypatch):
+    """One kv_write launch a writer call; the pool's bytes and scales on
+    blocks 1.. equal the unfused writers' (the quantizer kernel and index
+    writes: `_kv_write_plain` on the card) bit for bit, and those of the
+    same index writes through the plain codec (`_quantize_plain`).
+    Scratch block 0 holds whichever duplicate landed, in each."""
+    g = _g(kvh * dh)
+    fused = _kv_pool(pool, mode, kvh, dh, g)
+    ref, plain = (pool_mod.KVPoolView(*(None if t is None else t.clone()
+                                        for t in fused)) for _ in range(2))
+    write = _kv_writer_call(writer, fused, src, g)
+    before = pool_mod.kv_write.launches
+    write(fused)
+    torch.cuda.synchronize()
+    assert pool_mod.kv_write.launches == before + 1
+    qb = quant.quantize_blockwise.launches
+    monkeypatch.setattr(pool_mod, "kv_write", pool_mod._kv_write_plain)
+    write(ref)
+    torch.cuda.synchronize()
+    assert quant.quantize_blockwise.launches == qb + (2 if mode else 0)
+    monkeypatch.setattr(pool_mod, "quantize_blockwise",
+                        lambda x, mode, block=256, dither=None:
+                        quant._quantize_plain(x, mode, block, dither))
+    write(plain)
+    torch.cuda.synchronize()
+    assert quant.quantize_blockwise.launches == qb + (2 if mode else 0)
+    for a, b, c in zip(fused, ref, plain):
+        if a is not None:
+            assert torch.equal(pool_mod._raw(a)[1:], pool_mod._raw(b)[1:])
+            assert torch.equal(pool_mod._raw(a)[1:], pool_mod._raw(c)[1:])
+
+
+def test_kv_write_refuses_bad_operands():
+    view = _kv_pool(torch.bfloat16, "int8", 2, 64, _g(0))
+    page = pool_mod.page_ref(torch.ones(2, 2, dtype=torch.int32,
+                                        device="cuda"),
+                             torch.zeros(2, dtype=torch.int32,
+                                         device="cuda"), 8)
+    k = torch.zeros(2, 2, 64, device="cuda", dtype=torch.bfloat16)
+    strided = torch.zeros(2, 64, 2, device="cuda",
+                          dtype=torch.bfloat16).transpose(1, 2)
+    before = pool_mod.kv_write.launches
+    with pytest.raises(ValueError, match="stride 1"):
+        pool_mod.paged_append(view, strided, k, 0, page)
+    with pytest.raises(ValueError, match="dtypes"):
+        pool_mod.paged_append(view, k, k.float(), 0, page)
+    with pytest.raises(ValueError, match="scales"):
+        pool_mod.paged_append(view._replace(k_scale=None), k, k, 0, page)
+    with pytest.raises(ValueError, match="layers"):
+        pool_mod.paged_append(view, k, k, 3, page)
+    with pytest.raises(ValueError, match="mixed devices"):
+        pool_mod.paged_append(view, k, k, 0, page._replace(
+            blk=page.blk.cpu()))
+    with pytest.raises(ValueError, match="mixed devices"):
+        pool_mod.paged_append(view._replace(v_scale=view.v_scale.cpu()),
+                              k, k, 0, page)
+    assert pool_mod.kv_write.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [8, 40, 512, 8192])
+def test_add_layernorm_kernel_matches_composition(dtype, rows):
+    """s, y, mean, rstd bit for bit `x + r` then the forward kernel, and
+    the gradients of x, r, w and b bit for bit autograd's through that
+    composition (LayerNormFn), for given g_s and g_y."""
+    n = 768
+    g = _g(rows)
+    x, r, gs, gy = ((torch.randn(rows, n, generator=g, device="cuda") * 2
+                     + 0.3).to(dtype) for _ in range(4))
+    w, b = (torch.randn(n, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    before = layernorm.add_layernorm_fwd.launches
+    got = layernorm.add_layernorm_fwd(x, r, w, b)
+    assert layernorm.add_layernorm_fwd.launches == before + 1
+    s = x + r
+    want = (s, *layernorm.layernorm_fwd(s, w, b))
+    torch.cuda.synchronize()
+    for a, c in zip(got, want):
+        assert a.dtype == c.dtype and torch.equal(a, c)
+
+    leaves = [t.clone().requires_grad_() for t in (x, r, w, b)]
+    fs, fy = layernorm.add_layernorm(*leaves)
+    fused = torch.autograd.grad((fs, fy), leaves, (gs, gy))
+    leaves = [t.clone().requires_grad_() for t in (x, r, w, b)]
+    cs = leaves[0] + leaves[1]
+    cy = layernorm.layernorm(cs, leaves[2], leaves[3])
+    comp = torch.autograd.grad((cs, cy), leaves, (gs, gy))
+    assert torch.equal(fs, cs) and torch.equal(fy, cy)
+    for a, c in zip(fused, comp):
+        assert a.dtype == c.dtype and torch.equal(a, c)
 
 
 def test_ring_threads_on_card_match_cpu():

@@ -69,7 +69,7 @@ from ..ops.attention import ATTENTION, sharded_attention
 from ..ops.dispatch import resolve_device
 from ..ops.embedding import embedding, renorm_weight
 from ..ops.fused_xent import pallas_fused_xent
-from ..ops.layernorm import layernorm
+from ..ops.layernorm import add_layernorm, layernorm
 from ..ops.linear import linear
 from ..ops.paged_attn import decode_attention, paged_attention
 from ..ops.softmax_xent import fused_linear_xent, softmax_cross_entropy
@@ -455,15 +455,19 @@ class GPT2Model(nn.Module):
         y = linear(y, self._bw(bp, "attn.proj.w"), bp.get("attn.proj.b"))
         if dkey is not None:
             y = _dropout(y, prng.fold_in(dkey, 0), c.dropout)
-        x = x + y
-        h = self._mlp(x, bp)
+        # the attention residual and ln_2 in one launch.  ln_1 stays
+        # unfused: its residual is the previous block's output, across
+        # the checkpoint boundary (fusing it would make each checkpoint
+        # keep x and h instead of their sum)
+        x, h = add_layernorm(x, y, bp["ln_2.w"], bp["ln_2.b"])
+        h = self._mlp(h, bp)
         if dkey is not None:
             h = _dropout(h, prng.fold_in(dkey, 1), c.dropout)
         x = x + h
         return (x, (kh, vh)) if return_kv else x
 
-    def _mlp(self, x, bp: Params):
-        h = layernorm(x, bp["ln_2.w"], bp["ln_2.b"])
+    def _mlp(self, h, bp: Params):
+        """The MLP on ln_2's output h."""
         h = linear(h, self._bw(bp, "mlp.fc.w"), bp.get("mlp.fc.b"))
         h = F.gelu(h, approximate="tanh")  # jax.nn.gelu(approximate=True)
         return linear(h, self._bw(bp, "mlp.proj.w"), bp.get("mlp.proj.b"))
@@ -621,12 +625,12 @@ class GPT2Model(nn.Module):
         span-verify mask."""
         return paged_attention(q, view, page, l, span_kv=span_kv)
 
-    def _paged_attn_decode(self, x, bp: Params, view, l: int, page):
-        """Attention half of one paged decode step.  x (S, 1, D)."""
+    def _paged_attn_decode(self, h, bp: Params, view, l: int, page):
+        """Attention half of one paged decode step on ln_1's output h
+        (S, 1, D): the projected attention output, before its residual."""
         from ..serving.pool import paged_append
         c = self.config
-        s = x.shape[0]
-        h = layernorm(x, bp["ln_1.w"], bp["ln_1.b"])
+        s = h.shape[0]
         qkv = linear(h, self._bw(bp, "attn.qkv.w"), bp.get("attn.qkv.b"))
         q, k, v = qkv.split(c.n_embd, dim=-1)
 
@@ -636,26 +640,44 @@ class GPT2Model(nn.Module):
         paged_append(view, heads1(k)[:, :, 0], heads1(v)[:, :, 0], l, page)
         y = self._paged_attention(heads1(q), view, l, page)
         y = y.transpose(1, 2).reshape(s, 1, c.n_embd)
-        return x + linear(y, self._bw(bp, "attn.proj.w"),
-                          bp.get("attn.proj.b"))
+        return linear(y, self._bw(bp, "attn.proj.w"), bp.get("attn.proj.b"))
+
+    def _serve_layers(self, stacked: Params, x, attn):
+        """The serving layer loop: `attn(h, bp, l)` on ln_1's output gives
+        layer l's attention output (and anything to collect).  Each
+        residual add is fused into the norm after it — the attention's
+        into ln_2, the MLP's into the next layer's ln_1 — so only the
+        first ln_1 (reading the embedding) and the last MLP add (before
+        `head`'s final norm) stay apart.  Returns (x, collected)."""
+        pending, got = None, []
+        for l in range(self.config.n_layer):
+            bp = self._layer(stacked, l)
+            if pending is None:
+                h = layernorm(x, bp["ln_1.w"], bp["ln_1.b"])
+            else:
+                x, h = add_layernorm(x, pending, bp["ln_1.w"], bp["ln_1.b"])
+            y, extra = attn(h, bp, l)
+            got.append(extra)
+            x, h = add_layernorm(x, y, bp["ln_2.w"], bp["ln_2.b"])
+            pending = self._mlp(h, bp)
+        return x + pending, got
 
     @torch.no_grad()
     def paged_decode(self, stacked: Params, x, view, page):
         """Layer loop for one paged decode token; the pool is written in
         place.  Returns (x, view)."""
-        for l in range(self.config.n_layer):
-            bp = self._layer(stacked, l)
-            x = self._paged_attn_decode(x, bp, view, l, page)
-            x = x + self._mlp(x, bp)
+        x, _ = self._serve_layers(stacked, x, lambda h, bp, l: (
+            self._paged_attn_decode(h, bp, view, l, page), None))
         return x, view
 
-    def _paged_verify_attn(self, x, bp: Params, view, l: int, page):
-        """Attention half of one verify step: x (S, K1, D).  The pool is
-        READ-ONLY here (the committed prefix through the block tables);
-        the span's K/V come back for the post-acceptance commit."""
+    def _paged_verify_attn(self, h, bp: Params, view, l: int, page):
+        """Attention half of one verify step on ln_1's output h (S, K1,
+        D): the projected attention output, before its residual.  The
+        pool is READ-ONLY here (the committed prefix through the block
+        tables); the span's K/V come back for the post-acceptance
+        commit."""
         c = self.config
-        s, k1, _ = x.shape
-        h = layernorm(x, bp["ln_1.w"], bp["ln_1.b"])
+        s, k1, _ = h.shape
         qkv = linear(h, self._bw(bp, "attn.qkv.w"), bp.get("attn.qkv.b"))
         q, k, v = qkv.split(c.n_embd, dim=-1)
 
@@ -665,8 +687,8 @@ class GPT2Model(nn.Module):
         kh, vh = heads(k), heads(v)
         y = self._paged_attention(heads(q), view, l, page, span_kv=(kh, vh))
         y = y.transpose(1, 2).reshape(s, k1, c.n_embd)
-        x = x + linear(y, self._bw(bp, "attn.proj.w"), bp.get("attn.proj.b"))
-        return x, (kh, vh)
+        return (linear(y, self._bw(bp, "attn.proj.w"), bp.get("attn.proj.b")),
+                (kh, vh))
 
     @torch.no_grad()
     def paged_verify(self, stacked: Params, x, view, page):
@@ -674,14 +696,10 @@ class GPT2Model(nn.Module):
         span activations, pool never written.  Returns (x, sks, svs), the
         span K/V stacked (L, S, KVH, K1, Dh) per side for
         `paged_append_span` to commit the accepted prefix."""
-        sks, svs = [], []
-        for l in range(self.config.n_layer):
-            bp = self._layer(stacked, l)
-            x, (k, v) = self._paged_verify_attn(x, bp, view, l, page)
-            x = x + self._mlp(x, bp)
-            sks.append(k)
-            svs.append(v)
-        return x, torch.stack(sks), torch.stack(svs)
+        x, kv = self._serve_layers(stacked, x, lambda h, bp, l: (
+            self._paged_verify_attn(h, bp, view, l, page)))
+        return (x, torch.stack([k for k, _ in kv]),
+                torch.stack([v for _, v in kv]))
 
     def head_span(self, x, params: Optional[Params] = None):
         """Final norm + lm_head at EVERY position of x (S, K1, D) ->

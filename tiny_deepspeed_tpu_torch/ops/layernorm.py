@@ -7,6 +7,8 @@ Counterpart of `tiny_deepspeed_tpu/ops/layernorm.py` (the `custom_vjp` at
 :147-167) and of its three Pallas kernels in `ops/layernorm_pallas.py`:
 
 - forward `ln_fwd_pallas` (:78, `pallas_call` :87) -> (y, mean, rstd);
+  also with the residual add before it fused in (`add_layernorm_fwd`,
+  below: the JAX package adds, then norms);
 - `ln_dx_pallas` (:132, `pallas_call` :139): per-row input gradient
   dx = rstd * (gy*w - mean(gy*w) - xhat * mean(gy*w*xhat));
 - `ln_dwdb_pallas` (:185, `pallas_call` :191): dw = sum_rows gy*xhat,
@@ -21,6 +23,14 @@ nothing, and no divisibility fallback exists here:
   once.  Both are bound by those bytes (a few flops per element against
   the card's ~300 flop/byte balance point); the kernels move nothing else
   but the 8-byte (mean, rstd) per row.
+- add + fwd: every pre-LN norm but the first reads a residual sum made
+  one launch earlier (`x + r`).  At serving's few rows both launches sit
+  at a launch's own floor, so the sum is made inside the forward's
+  program: it loads a row of x and of r, adds in f32, rounds once to x's
+  dtype (RTNE, as PyTorch's eager `x + r` rounds), stores that sum s and
+  runs the forward's body on it.  s, y, mean and rstd are bit for bit
+  `x + r` followed by the forward kernel (same body, same block, same
+  warps: the same reduction order).
 - dwdb: the TPU grid runs in order and carries the sums with `+=` across
   grid steps (:168-182); Hopper runs blocks in parallel and in no order.
   So it is two kernels, the reference's own decomposition
@@ -62,6 +72,11 @@ def _ln_fwd_plain(x, w, b, eps: float = 1e-5):
     y = (xf - mean[..., None]) * rstd[..., None]
     y = y * w.to(acc) + b.to(acc)
     return y.to(x.dtype), mean, rstd
+
+
+def _add_ln_fwd_plain(x, r, w, b, eps: float = 1e-5):
+    s = x + r
+    return (s, *_ln_fwd_plain(s, w, b, eps))
 
 
 def _ln_dx_plain(gy, x, w, mean, rstd):
@@ -115,6 +130,31 @@ def _triton_kernels():
         y = (x - mean) * rstd * w + b
         tl.store(Y + row * stride_y + cols, y.to(Y.dtype.element_ty),
                  mask=m)
+        tl.store(Mean + row, mean)
+        tl.store(Rstd + row, rstd)
+
+    @triton.jit
+    def _add_ln_fwd_kernel(X, R, W, B, S, Y, Mean, Rstd, N, eps,
+                           BLOCK_N: tl.constexpr):
+        # rows are contiguous: the row stride is N (no stride arguments:
+        # each one costs Triton's launcher host time on the serving tick)
+        row = tl.program_id(0).to(tl.int64)
+        cols = tl.arange(0, BLOCK_N)
+        m = cols < N
+        x = tl.load(X + row * N + cols, mask=m, other=0.0)
+        r = tl.load(R + row * N + cols, mask=m, other=0.0)
+        # the sum rounded once to the tensors' dtype, as `x + r` rounds it
+        s = (x.to(tl.float32) + r.to(tl.float32)).to(S.dtype.element_ty)
+        tl.store(S + row * N + cols, s, mask=m)
+        x = s.to(tl.float32)
+        # from here on `_ln_fwd_kernel`'s body, verbatim
+        mean = tl.sum(x, axis=0) / N
+        var = tl.sum(x * x, axis=0) / N - mean * mean
+        rstd = 1.0 / tl.sqrt(var + eps)
+        w = tl.load(W + cols, mask=m, other=0.0).to(tl.float32)
+        b = tl.load(B + cols, mask=m, other=0.0).to(tl.float32)
+        y = (x - mean) * rstd * w + b
+        tl.store(Y + row * N + cols, y.to(Y.dtype.element_ty), mask=m)
         tl.store(Mean + row, mean)
         tl.store(Rstd + row, rstd)
 
@@ -183,7 +223,7 @@ def _triton_kernels():
                  mask=cm)
 
     _KERNELS = types.SimpleNamespace(
-        fwd=_ln_fwd_kernel, dx=_ln_dx_kernel,
+        fwd=_ln_fwd_kernel, add_fwd=_add_ln_fwd_kernel, dx=_ln_dx_kernel,
         dwdb_partial=_ln_dwdb_partial_kernel,
         dwdb_final=_ln_dwdb_final_kernel)
     return _KERNELS
@@ -213,7 +253,9 @@ def _stats_of(x, mean, rstd, what: str):
     return mean.reshape(-1).contiguous(), rstd.reshape(-1).contiguous()
 
 
-def _ln_fwd_triton(x, w, b, eps: float):
+def _fwd_rows(x, w, b):
+    """The forward kernels' checks; x (..., N) as a (rows, N) view with
+    unit column stride."""
     n = x.shape[-1]
     require(w.shape == (n,) and b.shape == (n,),
             f"layernorm weight/bias must be ({n},), got {tuple(w.shape)}, "
@@ -223,21 +265,54 @@ def _ln_fwd_triton(x, w, b, eps: float):
     require(n <= _MAX_N, f"layernorm kernel holds one row per program; "
             f"N={n} > {_MAX_N}")
     x2 = x.reshape(-1, n)
-    if x2.stride(-1) != 1:
-        x2 = x2.contiguous()
+    return x2 if x2.stride(-1) == 1 else x2.contiguous()
+
+
+def _fwd_outputs(x2):
+    """Empty (y, mean, rstd) for the forward of x2's (rows, N)."""
     rows = x2.shape[0]
-    y = torch.empty((rows, n), dtype=x.dtype, device=x.device)
-    mean = torch.empty((rows,), dtype=torch.float32, device=x.device)
-    rstd = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    return (torch.empty(x2.shape, dtype=x2.dtype, device=x2.device),
+            torch.empty((rows,), dtype=torch.float32, device=x2.device),
+            torch.empty((rows,), dtype=torch.float32, device=x2.device))
+
+
+def _fwd_warps(block: int) -> int:
+    return 4 if block <= 2048 else 8
+
+
+def _ln_fwd_triton(x, w, b, eps: float):
+    x2 = _fwd_rows(x, w, b)
+    rows, n = x2.shape
+    y, mean, rstd = _fwd_outputs(x2)
     if rows:
         block = _block(n)
         _triton_kernels().fwd[(rows,)](
             x2, w.contiguous(), b.contiguous(), y, mean, rstd,
             x2.stride(0), y.stride(0), n, eps,
-            BLOCK_N=block, num_warps=4 if block <= 2048 else 8)
+            BLOCK_N=block, num_warps=_fwd_warps(block))
         layernorm_fwd.launches += 1
     lead = x.shape[:-1]
     return y.reshape(x.shape), mean.reshape(lead), rstd.reshape(lead)
+
+
+def _add_ln_fwd_triton(x, r, w, b, eps: float):
+    require(r.shape == x.shape and r.dtype == x.dtype,
+            f"add_layernorm: r {tuple(r.shape)} {r.dtype} must "
+            f"match x {tuple(x.shape)} {x.dtype}")
+    x2 = _fwd_rows(x, w, b).contiguous()
+    r2 = r.reshape(x2.shape).contiguous()
+    rows, n = x2.shape
+    s = torch.empty(x2.shape, dtype=x2.dtype, device=x2.device)
+    y, mean, rstd = _fwd_outputs(x2)
+    if rows:
+        block = _block(n)
+        _triton_kernels().add_fwd[(rows,)](
+            x2, r2, w.contiguous(), b.contiguous(), s, y, mean, rstd, n,
+            eps, BLOCK_N=block, num_warps=_fwd_warps(block))
+        add_layernorm_fwd.launches += 1
+    lead = x.shape[:-1]
+    return (s.reshape(x.shape), y.reshape(x.shape), mean.reshape(lead),
+            rstd.reshape(lead))
 
 
 def _ln_dx_triton(gy, x, w, mean, rstd):
@@ -299,6 +374,15 @@ def layernorm_fwd(x, w, b, eps: float = 1e-5):
     return _ln_fwd_plain(x, w, b, eps)
 
 
+def add_layernorm_fwd(x, r, w, b, eps: float = 1e-5):
+    """s = x + r (rounded to x's dtype) and its (y, mean, rstd), as
+    `layernorm_fwd(x + r, ...)` gives them.  CUDA tensors launch the
+    fused Triton kernel (or raise); CPU tensors take `_add_ln_fwd_plain`."""
+    if on_cuda(x, r, w, b):
+        return _add_ln_fwd_triton(x, r, w, b, eps)
+    return _add_ln_fwd_plain(x, r, w, b, eps)
+
+
 def layernorm_dx(gy, x, w, mean, rstd):
     """dx for y = xhat*w + b from the saved row stats, in x's dtype.
     CUDA tensors launch the Triton kernel (or raise); CPU tensors take
@@ -319,6 +403,7 @@ def layernorm_dwdb(gy, x, mean, rstd):
 
 # kernel launches (CUDA path only)
 layernorm_fwd.launches = 0
+add_layernorm_fwd.launches = 0
 layernorm_dx.launches = 0
 layernorm_dwdb.launches = 0
 
@@ -348,3 +433,32 @@ def layernorm(x, w, b, eps: float = 1e-5):
     """y only — the call the model makes, differentiable through
     `LayerNormFn`."""
     return LayerNormFn.apply(x, w, b, eps)
+
+
+class AddLayerNormFn(torch.autograd.Function):
+    """(s, y) = (x + r, layernorm(x + r) * w + b) in one forward launch.
+    Saves what `LayerNormFn` saves for its input s — (s, w, mean, rstd),
+    no more.  The backward is the composition's: s's gradient is the
+    upstream g_s plus the norm's dx (autograd's accumulation, in the
+    compute dtype), and it flows unchanged to both x and r; dw, db as
+    `LayerNormFn` returns them."""
+
+    @staticmethod
+    def forward(ctx, x, r, w, b, eps):
+        s, y, mean, rstd = add_layernorm_fwd(x, r, w, b, eps)
+        ctx.save_for_backward(s, w, mean, rstd)
+        ctx.b_dtype = b.dtype
+        return s, y
+
+    @staticmethod
+    def backward(ctx, gs, gy):
+        s, w, mean, rstd = ctx.saved_tensors
+        d = gs + layernorm_dx(gy, s, w, mean, rstd)
+        dw, db = layernorm_dwdb(gy, s, mean, rstd)
+        return d, d, dw.to(w.dtype), db.to(ctx.b_dtype), None
+
+
+def add_layernorm(x, r, w, b, eps: float = 1e-5):
+    """(x + r, layernorm(x + r)) — the residual add and the next pre-LN
+    norm in one call, differentiable through `AddLayerNormFn`."""
+    return AddLayerNormFn.apply(x, r, w, b, eps)

@@ -16,23 +16,30 @@ the old one).  Here the writers update the pool tensors IN PLACE and
 return the same view — no copy of the pool per step.
 
 Quantized blocks (`quant="int8" | "fp8"`) rest the pool at 1 byte an
-element: the blockwise-absmax codec (ops/quant.py, on the card its
-Triton kernel) with the codec block = one (Dh,) head vector and one f32
-scale per (block, token, layer, head).  The codes are written, and
-gathered, through a uint8 view of the fp8 tensors (bit for bit; PyTorch
-indexes every byte type that way).  `paged_panel` dequantizes to the
-compute dtype (the JAX XLA path); the paged-attention kernels dequantize
-in registers instead.
+element: the blockwise-absmax codec (ops/quant.py) with the codec block =
+one (Dh,) head vector and one f32 scale per (block, token, layer, head).
+The codes are written, and gathered, through a uint8 view of the fp8
+tensors (bit for bit; PyTorch indexes every byte type that way).
+`paged_panel` dequantizes to the compute dtype (the JAX XLA path); the
+paged-attention kernels dequantize in registers instead.
+
+Every writer goes through `kv_write`: on the card ONE launch of
+csrc/kv_write.cu per call writes both sides — the codec and the scatter
+of codes and scales, or the cast rows on a bf16/f16/f32 pool — reading
+the source vectors where they lie; on the CPU its plain version, the
+codec and index writes of `_write`.
 """
 
 from __future__ import annotations
 
+import ctypes
 from collections import Counter
 from typing import Dict, List, NamedTuple, Optional, Union
 
 import torch
 
-from ..ops.dispatch import resolve_device
+from ..ops import _build
+from ..ops.dispatch import on_cuda, require, resolve_device
 from ..ops.quant import QDTYPE, quantize_blockwise
 
 # the never-allocated block absorbing invalid-slot / padding writes
@@ -114,10 +121,107 @@ def _write(view: KVPoolView, idx, k, v) -> KVPoolView:
     return view
 
 
+def _kv_write_plain(view: KVPoolView, ks, vs, blk, off, l0: int):
+    """`kv_write` as index writes: the rows gathered into (rows, lc, KVH,
+    Dh) slabs (whole (blocks, bt, ...) slabs when off is None) and
+    written by `_write` — on a quantized pool through `quantize_blockwise`
+    and four index writes."""
+    lc, r1, r2, kvh, dh = ks.shape
+    lay = slice(l0, l0 + lc)
+
+    def rows(a):
+        a = a.permute(1, 2, 0, 3, 4).reshape(r1 * r2, lc, kvh, dh)
+        return a if off is not None else a.reshape(
+            -1, view.k.shape[1], lc, kvh, dh)
+
+    idx = (blk, off, lay) if off is not None else (blk, slice(None), lay)
+    return _write(view, idx, rows(ks), rows(vs))
+
+
+_KV_WRITE_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 8
+                  + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+_SRC_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def _kv_write_cuda(view: KVPoolView, ks, vs, blk, off, l0: int):
+    lc, r1, r2, kvh, dh = ks.shape
+    nb, bt, nl, pkvh, pdh = view.k.shape
+    quant = view.k_scale is not None
+    require(all(t is None or t.device == ks.device
+                for t in (vs, *view, blk, off)),
+            f"kv_write: every operand must lie on {ks.device}")
+    require(vs.shape == ks.shape and (kvh, dh) == (pkvh, pdh)
+            and view.v.shape == view.k.shape,
+            f"kv_write: source {tuple(ks.shape)} / "
+            f"{tuple(vs.shape)} vs pool {tuple(view.k.shape)}")
+    require(ks.dtype == vs.dtype and ks.dtype in _SRC_DTYPES,
+            f"kv_write: source dtypes {ks.dtype}/{vs.dtype} (f32, "
+            "bf16 or f16, equal)")
+    require(ks.stride(-1) == 1 and vs.stride(-1) == 1,
+            "kv_write: a head vector must be contiguous (stride 1)")
+    require(view.k.dtype == view.v.dtype and view.k.is_contiguous()
+            and view.v.is_contiguous(),
+            "kv_write: the k/v pools must be contiguous, of one dtype")
+    require(quant == (view.k.dtype in (torch.int8, torch.float8_e4m3fn))
+            and (view.v_scale is not None) == quant,
+            f"kv_write: a {view.k.dtype} pool needs scales iff it "
+            "is int8/e4m3")
+    if quant:
+        require(view.k_scale.shape == view.k.shape[:-1]
+                and view.v_scale.shape == view.k.shape[:-1]
+                and view.k_scale.dtype == view.v_scale.dtype == torch.float32
+                and view.k_scale.is_contiguous()
+                and view.v_scale.is_contiguous(),
+                "kv_write: scales must be contiguous f32 (NB, bt, L, KVH)")
+    rows = r1 * r2
+    div = 1 if off is not None else bt
+    require(blk.dtype == torch.int64 and blk.is_contiguous()
+            and blk.numel() * div == rows
+            and (off is None or (off.dtype == torch.int64
+                                 and off.is_contiguous()
+                                 and off.numel() == rows)),
+            f"kv_write: blk/off must be contiguous int64 for {rows} "
+            "rows")
+    require(0 <= l0 and l0 + lc <= nl and dh <= 128,
+            f"kv_write: layers [{l0}, {l0 + lc}) of {nl}, Dh {dh} "
+            "<= 128")
+    fn = _build.entry("kv_write", "kv_write", _KV_WRITE_ARGS)
+    sk, sv = ks.stride(), vs.stride()
+    err = fn(ks.data_ptr(), vs.data_ptr(), view.k.data_ptr(),
+             view.v.data_ptr(),
+             view.k_scale.data_ptr() if quant else None,
+             view.v_scale.data_ptr() if quant else None, blk.data_ptr(),
+             None if off is None else off.data_ptr(),
+             sk[0], sk[1], sk[2], sk[3], sv[0], sv[1], sv[2], sv[3],
+             rows, r2, lc, kvh, dh, div, bt, nb, nl, int(l0),
+             _build.DTYPE_CODES[ks.dtype], _build.POOL_CODES[view.k.dtype],
+             _build.stream_ptr(ks))
+    _build.check(err, "kv_write")
+    kv_write.launches += 1
+    return view
+
+
+def kv_write(view: KVPoolView, ks, vs, blk, off, l0: int) -> KVPoolView:
+    """Store K/V head vectors in the pool, in place, both sides at once.
+    ks/vs (lc, R1, R2, KVH, Dh), any strides with the head vector
+    contiguous: row r = (r // R2, r % R2) of layer l goes to (blk[r],
+    off[r], l0 + l), or with off None to (blk[r // bt], r % bt, l0 + l)
+    — whole blocks.  Quantized (codes and scales) on an int8/fp8 pool,
+    cast to the pool's dtype otherwise.  CUDA tensors launch
+    csrc/kv_write.cu (or raise); CPU tensors take `_kv_write_plain`."""
+    if on_cuda(ks, vs, *view, blk, off):
+        return _kv_write_cuda(view, ks, vs, blk, off, l0)
+    return _kv_write_plain(view, ks, vs, blk, off, l0)
+
+
+kv_write.launches = 0  # kernel launches (CUDA path only)
+
+
 def paged_append(view: KVPoolView, k, v, l: int, page: PageRef) -> KVPoolView:
     """Write one token's K/V per slot — k/v (S, KVH, Dh) — at
     (page.blk, page.off, l), in place.  Invalid slots point at scratch."""
-    return _write(view, (page.blk, page.off, l), k, v)
+    return kv_write(view, k[None, :, None], v[None, :, None], page.blk,
+                    page.off, l)
 
 
 def paged_panel(view: KVPoolView, l: int, page: PageRef, out_dtype=None):
@@ -147,8 +251,9 @@ def paged_append_span(view: KVPoolView, ks, vs, tables, pos0, count,
     token at position pos0[s] + j; tables (S, W); count (S,) in [0, K1]
     — how many leading offsets commit.  Offsets >= count (rejected
     drafts, inactive slots, positions past the request's K/V horizon)
-    land on (SCRATCH_BLOCK, 0); one scatter per side covers all layers."""
-    L, S, KVH, K1, Dh = ks.shape
+    land on (SCRATCH_BLOCK, 0); one `kv_write` covers both sides and all
+    layers."""
+    K1 = ks.shape[3]
     j = torch.arange(K1, device=ks.device)[None, :]
     wpos = pos0.long()[:, None] + j  # (S, K1) absolute write positions
     valid = j < count.long()[:, None]
@@ -160,12 +265,9 @@ def paged_append_span(view: KVPoolView, ks, vs, tables, pos0, count,
     blk = torch.gather(tables.long(), 1, bidx)
     blk = torch.where(valid, blk, SCRATCH_BLOCK)
     off = torch.where(valid, wpos % block_tokens, 0)
-
-    def prep(a):  # (L, S, KVH, K1, Dh) -> (S*K1, L, KVH, Dh) slabs
-        return a.permute(1, 3, 0, 2, 4).reshape(S * K1, L, KVH, Dh)
-
-    return _write(view, (blk.reshape(-1), off.reshape(-1)), prep(ks),
-                  prep(vs))
+    # row s * K1 + j of every layer: (L, S, K1, KVH, Dh) views
+    return kv_write(view, ks.transpose(2, 3), vs.transpose(2, 3),
+                    blk.reshape(-1), off.reshape(-1), 0)
 
 
 def paged_scatter(view: KVPoolView, ks, vs, block_ids,
@@ -173,13 +275,13 @@ def paged_scatter(view: KVPoolView, ks, vs, block_ids,
     """Scatter a prefill's K/V — ks/vs (L, 1, KVH, P, Dh) — into the pool
     blocks `block_ids` ((P / block_tokens,) physical ids; padding-tail
     entries point at scratch), in place."""
-
-    def prep(a):
-        L, _, kvh, p, dh = a.shape  # one request per prefill
-        a = a[:, 0].permute(2, 0, 1, 3)  # (P, L, KVH, Dh)
-        return a.reshape(p // block_tokens, block_tokens, L, kvh, dh)
-
-    return _write(view, block_ids.long(), prep(ks), prep(vs))
+    require(ks.shape[1] == 1 and ks.shape[3] % block_tokens == 0
+            and block_tokens == view.k.shape[1],
+            f"paged_scatter: one request of whole {view.k.shape[1]}-token "
+            f"blocks, got {tuple(ks.shape)} at block_tokens {block_tokens}")
+    # prompt position p of every layer: (L, 1, P, KVH, Dh) views
+    return kv_write(view, ks.transpose(2, 3), vs.transpose(2, 3),
+                    block_ids.long(), None, 0)
 
 
 class PagedKVPool:
