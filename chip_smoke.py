@@ -45,7 +45,16 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      and 8192 rows of 768 in bf16 and f32 — s, y, mean, rstd and the
      gradients bit-identical to `x + r` then the forward kernel; both
      also timed against that unfused sequence (device time, in turns,
-     and host `call_ms`).  Its
+     and host `call_ms`).  The slice-12 row 2+3: LayerNorm's backward in
+     one pass (`layernorm_bwd`, csrc/ln_bwd.cu) at 8192 rows of 768 and
+     1600 bf16 and of 768 f32 and f16, with and without gs, against
+     `_ln_bwd_plain` (2e-2 x max |plain| per output), repeatable, the gs
+     variant bit for bit `gs + dx`; the Triton pair it replaced (the
+     public `layernorm_dx` / `layernorm_dwdb`) held to its plain
+     version; then in turns (kernel, parent, library x 5) at 768 and
+     1600 with and without gs against the parent's sequence (the pair,
+     the eager `gs + dx`) and F.layer_norm's autograd backward: device
+     ms, ratios, host ms per call.  Its
      device time (profiler) stands beside the plain version's, one
      library call's (timed here as a yardstick only; the port never calls
      it) and the bound — the larger of bytes / 3.35 TB/s and flops / the
@@ -83,7 +92,13 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      profiled step gives each kernel's device time and the device's busy
      and idle shares; the 13 steps again with `add_layernorm` swapped
      for `x + r` then LayerNormFn must give the same losses and params
-     bit for bit;
+     bit for bit.  `layernorm_bwd` must launch 25 times a step (12 with
+     gs) here and in phases 5, 7c, 8c (8d: 97 a step), the Triton pair
+     never, and no profiled step may hold a record of it; then the step
+     with `layernorm_bwd` and with the parent's sequence swapped in, two
+     engines from one init in turns (6 runs of 10 steps a side): step
+     medians, one profiled step a side (busy, idle, the LN backward's
+     kernels), losses within 1e-2;
   5. knobbed training: the same model and batch size with the fused
      lm_head + loss kernels (fused_xent_impl="pallas"), AdamW(fused=True)
      and dropout 0.1 — launch counts of the ten training kernels over 10
@@ -183,6 +198,17 @@ class SmokeFailure(Exception):
 def check(cond, msg):
     if not cond:
         raise SmokeFailure(msg)
+
+
+_LAP = [time.perf_counter()]
+
+
+def lap(what):
+    """Print the seconds since the previous lap: where the script's time
+    goes."""
+    now = time.perf_counter()
+    print(f"  [{what}: {now - _LAP[0]:.2f}s]")
+    _LAP[0] = now
 
 
 def bound_ms(nbytes, flops, kind):
@@ -315,23 +341,30 @@ def _queued_ms(torch, fn, n):
     return start.elapsed_time(end) / n
 
 
+def sides_in_turns(torch, fns, reps=5, n=20):
+    """Device ms per call of each of `fns` (name -> fn) in turns: the
+    names in order, then reversed (kernel, parent, library, library,
+    parent, kernel) x reps, each n calls queued behind a sleep (CUDA
+    events): {name: (median, min, max)}."""
+    for _ in range(3):
+        for fn in fns.values():
+            fn()
+    order, got = list(fns), {k: [] for k in fns}
+    for _ in range(reps):
+        for k in order + order[::-1]:
+            got[k].append(_queued_ms(torch, fns[k], n))
+    return {k: (statistics.median(v), min(v), max(v)) for k, v in got.items()}
+
+
 def turns(torch, kernel, library, reps=5, n=20):
     """Kernel and library timed in turns (kernel, library, library,
     kernel) over `reps` repeats: medians, min-max spreads and the ratio,
     which cancels what the card's clock does between calls."""
-    for _ in range(3):
-        kernel()
-        library()
-    ks, ls = [], []
-    for _ in range(reps):
-        ks.append(_queued_ms(torch, kernel, n))
-        ls.append(_queued_ms(torch, library, n))
-        ls.append(_queued_ms(torch, library, n))
-        ks.append(_queued_ms(torch, kernel, n))
-    km, lm = statistics.median(ks), statistics.median(ls)
-    return dict(turns_ms=km, turns_spread_ms=[min(ks), max(ks)],
-                library_turns_ms=lm, library_turns_spread_ms=[min(ls), max(ls)],
-                ratio=km / lm)
+    t = sides_in_turns(torch, {"kernel": kernel, "library": library}, reps,
+                       n)
+    (km, *ks), (lm, *ls) = t["kernel"], t["library"]
+    return dict(turns_ms=km, turns_spread_ms=ks, library_turns_ms=lm,
+                library_turns_spread_ms=ls, ratio=km / lm)
 
 
 def call_turns(torch, kernel, unfused, reps=5, n=50):
@@ -441,13 +474,17 @@ def hgmma_counts(lib_paths):
     from tiny_deepspeed_tpu_torch.ops import _build
     tool = os.path.join(os.path.dirname(_build._nvcc()), "cuobjdump")
     counts = {}
-    for path in lib_paths:
-        out = subprocess.run([tool, "-sass", str(path)], capture_output=True,
-                             text=True, timeout=300)
-        check(out.returncode == 0, f"cuobjdump -sass {path} failed: "
-              f"{out.stderr[-500:]}")
+    # one cuobjdump per library, all started together
+    procs = [(path, subprocess.Popen([tool, "-sass", str(path)],
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True))
+             for path in lib_paths]
+    for path, proc in procs:
+        stdout, stderr = proc.communicate(timeout=300)
+        check(proc.returncode == 0, f"cuobjdump -sass {path} failed: "
+              f"{stderr[-500:]}")
         fn = None
-        for line in out.stdout.splitlines():
+        for line in stdout.splitlines():
             m = re.search(r"Function : (\S+)", line)
             if m:
                 fn = m.group(1)
@@ -466,6 +503,8 @@ def build_report(_build):
     3xTF32 wmma forward, dx and dW)."""
     resources = kernel_resources(_build.build_logs)
     for src, name, regs, sst, sld, smem in resources:
+        if "ln_bwd_" in name:  # 85 instantiations: summed up below
+            continue
         print(f"  ptxas {src}: {name}: {regs} registers, spill stores "
               f"{sst} B / loads {sld} B, smem {smem} B static")
     for kname, (lib, query) in TC_KERNELS.items():
@@ -534,6 +573,17 @@ def build_report(_build):
                     if "paged_" in n and (sst or sld)]
     check(not paged_spills, f"paged attention kernels spill: "
           f"{paged_spills}")
+    lnb = [(n, regs, sst + sld) for _, n, regs, sst, sld, _ in resources
+           if "ln_bwd_" in n]
+    check(not any(s for *_, s in lnb), f"ln_bwd kernels spill: "
+          f"{[(n, s) for n, _, s in lnb if s]}")
+    path = [f"{n}: {r} registers" for n, r, _ in lnb
+            if "__nv_bfloat16, 8, 3," in n or "__nv_bfloat16, 8, 7," in n
+            or "cols_kernel" in n]
+    print(f"  ln_bwd: {len(lnb)} kernels, no spills"
+          + (f"; the training paths' (N 768 and 1600 bf16, with and "
+             f"without gs, the column fold): {'; '.join(path)}" if lnb else
+             " (ptxas report not in this process's build: cached)"))
     kvw = [n for n in counts if "kv_write_kernel" in n]
     check(len(kvw) == 15, f"{len(kvw)} kv_write instantiations, expected "
           "15 (f32/bf16/f16 sources x f32/bf16/f16/int8/e4m3 pools)")
@@ -1260,64 +1310,200 @@ def _bitwise(torch, fn, what):
           f"{what}: two runs are not bit-identical")
 
 
-def ln_bwd_phase(torch, F, ln):
-    """ln_dx and ln_dwdb at the training path's shape: rows = B*T = 8192,
-    N = 768, bf16.  Tolerance: max abs err <= 2e-2 x max |plain|."""
-    rows, n = 8192, 768
-    g = torch.Generator(device="cuda").manual_seed(11)
+def _ln_bwd_inputs(torch, ln, rows, n, dtype, seed):
+    """x, w, b, gy, gs and the forward kernel's (held) row stats."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
     x = (torch.randn(rows, n, generator=g, device="cuda") * 2 + 0.3
-         ).bfloat16()
-    w = torch.randn(n, generator=g, device="cuda").bfloat16()
-    b = torch.randn(n, generator=g, device="cuda").bfloat16()
-    gy = torch.randn(rows, n, generator=g, device="cuda").bfloat16()
-    # the forward's stats feed both backward versions: held to theirs first
+         ).to(dtype)
+    w, b = (torch.randn(n, generator=g, device="cuda").to(dtype)
+            for _ in range(2))
+    gy, gs = (torch.randn(rows, n, generator=g, device="cuda").to(dtype)
+              for _ in range(2))
+    # the forward's stats feed every backward version: held to theirs first
     _, mean, rstd, _ = checked_ln_fwd(torch, ln, x, w, b)
+    return x, w, b, gy, gs, mean, rstd
+
+
+def parent_ln_bwd(ln):
+    """The parent's LayerNorm backward, as `layernorm_bwd`'s signature
+    takes it: the Triton pair (`layernorm_dx`, then `layernorm_dwdb`),
+    the eager `gs + dx` of AddLayerNormFn, and the casts."""
+    def bwd(gy, x, w, mean, rstd, gs=None, w_dtype=None, b_dtype=None):
+        dx = ln.layernorm_dx(gy, x, w, mean, rstd)
+        if gs is not None:
+            dx = gs + dx
+        dw, db = ln.layernorm_dwdb(gy, x, mean, rstd)
+        w_dtype = w.dtype if w_dtype is None else w_dtype
+        return (dx, dw.to(w_dtype),
+                db.to(w_dtype if b_dtype is None else b_dtype))
+    return bwd
+
+
+def host_in_turns(torch, fns, reps=5, n=50):
+    """Host ms per call of each of `fns`, in turns as `sides_in_turns`:
+    the wall time of enqueueing n calls after a sync (the launch queue
+    never fills at these counts, so the card does not set it)."""
+    order, got = list(fns), {k: [] for k in fns}
+    for _ in range(reps):
+        for k in order + order[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fns[k]()
+            got[k].append((time.perf_counter() - t0) / n * 1e3)
+    torch.cuda.synchronize()
+    return {k: (statistics.median(v), min(v), max(v)) for k, v in got.items()}
+
+
+# row 2+3's keys beyond `timed`: the three sides in turns, host per call
+PARENT_KEYS = ("turns_ms", "turns_spread_ms", "parent_turns_ms",
+               "parent_turns_spread_ms", "library_turns_ms",
+               "library_turns_spread_ms", "ratio_parent", "ratio_library",
+               "host_ms", "host_spread_ms", "parent_host_ms",
+               "parent_host_spread_ms", "library_host_ms")
+
+
+def ln_bwd_phase(torch, F, ln):
+    """Rows 2+3: LayerNorm's backward, `layernorm_bwd` (csrc/ln_bwd.cu),
+    at the training path's shape: rows = B*T = 8192, N = 768 (gpt2-124m)
+    and 1600 (gpt2-1.5b, phase 8d), bf16, also f32 and f16 at 768; with
+    and without gs (AddLayerNormFn).  Tolerance per output: max abs err
+    <= 2e-2 x max |plain| against `_ln_bwd_plain`; two calls bit for
+    bit; the gs variant's dx bit for bit `gs +` the plain call's.  Then
+    the Triton pair it replaced (the public `layernorm_dx` /
+    `layernorm_dwdb`, off the training paths) at 768 bf16, same
+    tolerance, repeatable.  Timed in turns (kernel, parent, library x 5)
+    at 768 and 1600 bf16 with and without gs: the parent's sequence
+    (`parent_ln_bwd`) and F.layer_norm's autograd backward (plus
+    `gs + dx` for the add variant), device and host ms per call."""
+    rows, worst = 8192, {}
+    for dtype, n in ((torch.bfloat16, 768), (torch.bfloat16, 1600),
+                     (torch.float32, 768), (torch.float16, 768)):
+        x, w, _, gy, gs, mean, rstd = _ln_bwd_inputs(torch, ln, rows, n,
+                                                     dtype, n)
+        name = f"{rows}x{n} {str(dtype)[6:]}"
+        for g in (None, gs):
+            what = f"layernorm_bwd {name}" + (" +gs" if g is not None else "")
+            before = ln.layernorm_bwd.launches
+            got = ln.layernorm_bwd(gy, x, w, mean, rstd, g)
+            torch.cuda.synchronize()
+            check(ln.layernorm_bwd.launches == before + 1,
+                  f"{what}: not one launch")
+            ref = ln._ln_bwd_plain(gy, x, w, mean, rstd, g)
+            check(all(a.dtype == r.dtype and a.shape == r.shape
+                      for a, r in zip(got, ref)), f"{what}: dtypes/shapes")
+            errs = [_rel_err(a, r) for a, r in zip(got, ref)]
+            check(max(r for _, r in errs) <= 2e-2,
+                  f"{what} disagrees with _ln_bwd_plain: (abs, rel) of dx, "
+                  f"dw, db {errs}")
+            _bitwise(torch, lambda: ln.layernorm_bwd(gy, x, w, mean, rstd, g),
+                     what)
+            worst[what] = errs
+        plain_dx = ln.layernorm_bwd(gy, x, w, mean, rstd)[0]
+        check(torch.equal(ln.layernorm_bwd(gy, x, w, mean, rstd, gs)[0],
+                          gs + plain_dx),
+              f"layernorm_bwd {name}: the gs variant is not gs + dx")
+    print("kernel layernorm_bwd (rows 2+3) against _ln_bwd_plain, max abs "
+          "err (and / max|plain|) of dx, dw, db; tol 2e-2 x max|plain|; "
+          "bitwise repeatable; gs variant == gs + dx bit for bit:")
+    for what, errs in worst.items():
+        print(f"  {what}: " + ", ".join(f"{e:.3g} ({r:.3g})" for e, r in errs))
+
+    # the Triton pair, the parent's arm below
+    x, w, b, gy, gs, mean, rstd = _ln_bwd_inputs(torch, ln, rows, 768,
+                                                 torch.bfloat16, 11)
     dx = ln.layernorm_dx(gy, x, w, mean, rstd)
     dw, db = ln.layernorm_dwdb(gy, x, mean, rstd)
     torch.cuda.synchronize()
     pdx = ln._ln_dx_plain(gy, x, w, mean, rstd)
     pdw, pdb = ln._ln_dwdb_plain(gy, x, mean, rstd)
-    dx_err, dx_rel = _rel_err(dx, pdx)
-    dwdb = [_rel_err(dw, pdw), _rel_err(db, pdb)]
-    dwdb_err = max(e for e, _ in dwdb)
-    dwdb_rel = max(r for _, r in dwdb)
+    dx_rel = _rel_err(dx, pdx)[1]
+    dwdb_rel = max(_rel_err(dw, pdw)[1], _rel_err(db, pdb)[1])
     check(dx_rel <= 2e-2 and dwdb_rel <= 2e-2,
-          f"ln backward disagrees with its plain version: dx rel "
+          f"the Triton pair disagrees with its plain version: dx rel "
           f"{dx_rel:.3g}, dw/db rel {dwdb_rel:.3g}")
     _bitwise(torch, lambda: [ln.layernorm_dx(gy, x, w, mean, rstd)],
              "ln_dx")
     _bitwise(torch, lambda: ln.layernorm_dwdb(gy, x, mean, rstd), "ln_dwdb")
+    print(f"  the Triton pair (layernorm_dx + layernorm_dwdb, the parent's "
+          f"arm): dx rel {dx_rel:.3g}, dw/db rel {dwdb_rel:.3g} of "
+          f"max|plain| (tol 2e-2), bitwise repeatable")
 
-    # the yardstick for both passes: the autograd backward of F.layer_norm
-    xr, wr, br = (t.detach().requires_grad_() for t in (x, w, b))
-    yr = F.layer_norm(xr, (n,), wr, br)
+    parent, res = parent_ln_bwd(ln), {}
+    for n in (768, 1600):
+        x, w, b, gy, gs, mean, rstd = _ln_bwd_inputs(torch, ln, rows, n,
+                                                     torch.bfloat16, n + 1)
+        xr, wr, br = (t.detach().requires_grad_() for t in (x, w, b))
+        yr = F.layer_norm(xr, (n,), wr, br)
 
-    def library():
-        return torch.autograd.grad(yr, (xr, wr, br), gy, retain_graph=True)
+        def library():
+            return torch.autograd.grad(yr, (xr, wr, br), gy,
+                                       retain_graph=True)
 
-    lib_ms = device_ms(torch, library)
-    # bytes: each input read once, each output written once
-    dx_bytes = 3 * rows * n * 2 + n * 2 + rows * 8
-    dwdb_bytes = 2 * rows * n * 2 + rows * 8 + 2 * n * 2
-    res = {}
-    for name, kernel, plain, nbytes, flops, err, rel in (
-            ("layernorm_dx", lambda: ln.layernorm_dx(gy, x, w, mean, rstd),
-             lambda: ln._ln_dx_plain(gy, x, w, mean, rstd), dx_bytes,
-             11 * rows * n, dx_err, dx_rel),
-            ("layernorm_dwdb", lambda: ln.layernorm_dwdb(gy, x, mean, rstd),
-             lambda: ln._ln_dwdb_plain(gy, x, mean, rstd), dwdb_bytes,
-             5 * rows * n, dwdb_err, dwdb_rel)):
-        bms, by = bound_ms(nbytes, flops, "bfloat16")
-        res[name] = dict(ms=device_ms(torch, kernel),
-                         plain_ms=device_ms(torch, plain),
-                         library_ms=lib_ms, call_ms=time_ms(torch, kernel),
-                         bound_ms=bms, bound_by=by, max_abs_err=err,
-                         shape=f"{rows}x{n} bf16")
-        print(f"kernel {name} rows={rows} N={n} bf16: max_abs_err="
-              f"{err:.3g} ({rel:.3g} of max|plain|; tol 2e-2) bitwise "
-              "repeatable; library = F.layer_norm backward, both passes; "
-              + " ".join(f"{k}={v:.5g}" for k, v in res[name].items()
-                         if k.endswith("ms")))
+        for add in (False, True):
+            g = gs if add else None
+
+            def kernel():
+                return ln.layernorm_bwd(gy, x, w, mean, rstd, g)
+
+            def par():
+                return parent(gy, x, w, mean, rstd, g)
+
+            def lib():
+                d = library()
+                return (g + d[0], *d[1:]) if add else d
+
+            sides = {"kernel": kernel, "parent": par, "library": lib}
+            dev = sides_in_turns(torch, sides)
+            host = host_in_turns(torch, sides)
+            got, want = kernel(), ln._ln_bwd_plain(gy, x, w, mean, rstd, g)
+            err = max(max_err(a, r) for a, r in zip(got, want))
+            # bytes: gy, x (and gs) read once, dx written once, w, the
+            # row stats, dw and db; ~10 operations an element
+            nbytes = (4 if add else 3) * rows * n * 2 + n * 2 + rows * 8 \
+                + 2 * n * 2
+            bms, by = bound_ms(nbytes, (11 if add else 10) * rows * n,
+                               "bfloat16")
+            r = dict(
+                ms=device_ms(torch, kernel),
+                plain_ms=device_ms(torch, lambda: ln._ln_bwd_plain(
+                    gy, x, w, mean, rstd, g)),
+                library_ms=device_ms(torch, lib),
+                call_ms=time_ms(torch, kernel),
+                turns_ms=dev["kernel"][0],
+                turns_spread_ms=list(dev["kernel"][1:]),
+                parent_turns_ms=dev["parent"][0],
+                parent_turns_spread_ms=list(dev["parent"][1:]),
+                library_turns_ms=dev["library"][0],
+                library_turns_spread_ms=list(dev["library"][1:]),
+                ratio_parent=dev["kernel"][0] / dev["parent"][0],
+                ratio_library=dev["kernel"][0] / dev["library"][0],
+                host_ms=host["kernel"][0],
+                host_spread_ms=list(host["kernel"][1:]),
+                parent_host_ms=host["parent"][0],
+                parent_host_spread_ms=list(host["parent"][1:]),
+                library_host_ms=host["library"][0],
+                bound_ms=bms, bound_by=by, max_abs_err=err,
+                shape=f"{rows}x{n} bf16" + (" +gs" if add else ""))
+            res[n, add] = r
+            print(f"kernel layernorm_bwd rows={rows} N={n} bf16"
+                  + (" +gs" if add else "") + ": "
+                  + " ".join(f"{k}={r[k]:.5g}" for k in
+                             ("ms", "plain_ms", "library_ms", "call_ms",
+                              "bound_ms"))
+                  + f"; in turns kernel {r['turns_ms']:.5g} "
+                  f"[{r['turns_spread_ms'][0]:.5g}, "
+                  f"{r['turns_spread_ms'][1]:.5g}], parent "
+                  f"{r['parent_turns_ms']:.5g} [{r['parent_turns_spread_ms'][0]:.5g}, "
+                  f"{r['parent_turns_spread_ms'][1]:.5g}], library "
+                  f"{r['library_turns_ms']:.5g}: x{r['ratio_parent']:.4g} the "
+                  f"parent, x{r['ratio_library']:.4g} the library; host per "
+                  f"call in turns {r['host_ms']:.5g} (parent "
+                  f"{r['parent_host_ms']:.5g}, library "
+                  f"{r['library_host_ms']:.5g}) ms")
+    # the one pass must beat the sequence it replaced
+    check(res[768, False]["ratio_parent"] < 1.0,
+          "layernorm_bwd is not faster than the parent's pair at 8192x768")
     return res
 
 
@@ -1838,9 +2024,8 @@ def serve(torch, port, model, prompts, new, profile=False):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     reqs = [eng.submit(p, new) for p in prompts]
-    if profile:
-        prof = profiled(torch, lambda: eng.drain(max_ticks=10_000),
-                        cpu=True, tries=1)
+    if profile:  # device records only: kernel_shares reads nothing else
+        prof = profiled(torch, lambda: eng.drain(max_ticks=10_000), tries=1)
     else:
         prof = None
         eng.drain(max_ticks=10_000)
@@ -1984,11 +2169,11 @@ def tick_profile(torch, model, prompts, counters, pool_mod, ticks=8,
 
 def tick_report(torch, model, prompts, counters, pool_mod, name, **knobs):
     """`tick_profile` with the fused kernels and with the unfused
-    sequence, in turns (fused, unfused, unfused, fused, four times: the
-    host clock drifts over a call), the first of each profiled; printed
-    side by side with the host ms a tick as the median of the eight."""
+    sequence, in turns (fused, unfused, unfused, fused, twice: the host
+    clock drifts over a call), the first of each profiled; printed side
+    by side with the host ms a tick as the median of the four."""
     runs = {"fused": [], "unfused": []}
-    for k in ("fused", "unfused", "unfused", "fused") * 4:
+    for k in ("fused", "unfused", "unfused", "fused") * 2:
         with (unfused_serving(pool_mod) if k == "unfused"
               else contextlib.nullcontext()):
             runs[k].append(tick_profile(torch, model, prompts, counters,
@@ -2005,7 +2190,7 @@ def tick_report(torch, model, prompts, counters, pool_mod, name, **knobs):
               f"tick {v['launches']}")
     print(f"  {name}: {unfused['kernels'] - fused['kernels']:.2f} fewer "
           f"device kernels a tick with the fused kernels")
-    # host ms a tick at each call site, median over the eight runs of
+    # host ms a tick at each call site, median over the four runs of
     # each (interleaved as above): what the fused wrappers cost the host
     for k in ("fused", "unfused"):
         sites = {s: (runs[k][0]["sites"][s][0], statistics.median(
@@ -2024,9 +2209,12 @@ def tick_report(torch, model, prompts, counters, pool_mod, name, **knobs):
 
 # -- phase 4: training -------------------------------------------------------
 
-TRAIN_KERNELS = ("layernorm_fwd", "layernorm_dx", "layernorm_dwdb",
+TRAIN_KERNELS = ("layernorm_fwd", "layernorm_bwd",
                  "fa2_flash_attention_fwd", "fa2_flash_attention_dq",
                  "fa2_flash_attention_dkv", "add_layernorm_fwd")
+FA2_TRAIN = TRAIN_KERNELS[2:5]
+# the Triton pair row 2+3 replaced: launched by no training path
+LN_PAIR = ("layernorm_dx", "layernorm_dwdb")
 KNOB_KERNELS = ("fused_xent_fwd", "fused_xent_dx", "fused_xent_dw",
                 "adamw_update_fused")
 # profiler kernel-name fragments of each hand-written kernel
@@ -2035,6 +2223,7 @@ PATTERNS = {"layernorm_fwd": "_ln_fwd_kernel",
             "kv_write": "kv_write_kernel",
             "layernorm_dx": "_ln_dx_kernel",
             "layernorm_dwdb": "_ln_dwdb_",
+            "layernorm_bwd": "ln_bwd_",
             "fa2_flash_attention_fwd": "flash_fwd_",
             "fa2_flash_attention_dq": "flash_dq_",
             "fa2_flash_attention_dkv": "flash_dkv_",
@@ -2052,6 +2241,7 @@ def plain_ops(ln, fa, fx, af):
                    (ln, "add_layernorm_fwd", ln._add_ln_fwd_plain),
                    (ln, "layernorm_dx", ln._ln_dx_plain),
                    (ln, "layernorm_dwdb", ln._ln_dwdb_plain),
+                   (ln, "layernorm_bwd", ln._ln_bwd_plain),
                    (fa, "fa2_flash_attention_fwd", fa._fa2_fwd_plain),
                    (fa, "fa2_flash_attention_dq", fa._fa2_dq_plain),
                    (fa, "fa2_flash_attention_dkv", fa._fa2_dkv_plain),
@@ -2059,6 +2249,26 @@ def plain_ops(ln, fa, fx, af):
                    (fx, "fused_xent_dx", fx._xent_dx_plain),
                    (fx, "fused_xent_dw", fx._xent_dw_plain),
                    (af, "adamw_update_fused", af._adamw_update_plain))
+
+
+def check_ln_bwd_launches(launches, cfg, steps, where):
+    """Every LayerNorm backward of a training run is one `layernorm_bwd`
+    launch (2 norms a block and ln_f, each step) and the Triton pair it
+    replaced never runs."""
+    want = (2 * cfg.n_layer + 1) * steps
+    check(launches["layernorm_bwd"] == want,
+          f"{where}: layernorm_bwd launched {launches['layernorm_bwd']} "
+          f"times, not {want}")
+    check(not any(launches[k] for k in LN_PAIR),
+          f"{where}: the Triton pair {LN_PAIR} ran")
+
+
+def check_no_pair_records(rows, where):
+    """No profiled kernel record of the Triton pair (`_ln_dx_kernel`,
+    `_ln_dwdb_*`)."""
+    bad = [key for _, _, key in rows
+           if "_ln_dx_kernel" in key or "_ln_dwdb_" in key]
+    check(not bad, f"{where}: the profiler recorded {bad}")
 
 
 def loss_and_grads(torch, model, batch, rng=None):
@@ -2080,6 +2290,7 @@ def step_profile(torch, eng, state, batch, name, kernels, med,
     prof = profiled(torch, one_step, cpu=True)  # a retry steps again
     check(prof is not None, "the profiler recorded no device time")
     per, busy, rows = kernel_shares(torch, prof, patterns)
+    check_no_pair_records(rows, name)
     # cuBLAS's kernels: "*gemm*" and, on Hopper, "nvjet_*"
     gemm = sum(us for us, _, key in rows
                if "gemm" in key.lower() or key.startswith("nvjet"))
@@ -2121,6 +2332,7 @@ def train_phase(torch, port, counters, ln, fa, fx, af):
         losses.append(float(loss))
     for fn in counters.values():
         fn.launches = 0
+    ln.layernorm_bwd.launches_gs = 0
     times = []
     for _ in range(10):
         batch = loader.next()
@@ -2130,11 +2342,20 @@ def train_phase(torch, port, counters, ln, fa, fx, af):
         losses.append(float(loss))  # the host sync that ends the step
         times.append(time.perf_counter() - t0)
     launches = {k: fn.launches for k, fn in counters.items()}
+    with_gs = ln.layernorm_bwd.launches_gs
     # phase 7's world-1 engines must reproduce these 13 steps bit for bit
     after13 = {n: p.detach().clone() for n, p in state.params.items()}
     print(f"  launches on the main path (10 steps): {launches}")
     for k in TRAIN_KERNELS:
         check(launches[k] > 0, f"{k} was never launched on the main path")
+    check_ln_bwd_launches(launches, cfg, 10, "phase 4")
+    # AddLayerNormFn's backward (ln_2 of each block) adds gs; LayerNormFn's
+    # (ln_1 of each block, ln_f) does not
+    check(with_gs == cfg.n_layer * 10,
+          f"layernorm_bwd with gs: {with_gs}, not {cfg.n_layer * 10}")
+    print(f"  layernorm_bwd: {launches['layernorm_bwd'] - with_gs} launches "
+          f"without gs (LayerNormFn), {with_gs} with (AddLayerNormFn); the "
+          f"Triton pair 0")
     check(launches["paged_attention"] == 0, "training ran the decode kernel")
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     check(10.5 <= losses[0] <= 11.2,
@@ -2210,7 +2431,7 @@ def unfused_training_check(torch, port, counters, train):
     with swapped((gpt2_mod, "add_layernorm", _add_then_norm)):
         run = engine_run(torch, port, counters, "SingleDevice",
                          port.GPT2_PRESETS["gpt2-124m"], profile=False,
-                         need=TRAIN_KERNELS[:6])
+                         need=TRAIN_KERNELS[:5])
     check(run["launches"]["add_layernorm_fwd"] == 0,
           "the composition launched the fused kernel")
     same = run["losses"] == train["losses13"] and all(
@@ -2227,6 +2448,96 @@ def unfused_training_check(torch, port, counters, train):
           f"losses {run['losses']} vs {train['losses13']}")
     _free(run)
     return run
+
+
+def ln_bwd_step_ab(torch, port, ln, runs=6, steps=10):
+    """Phase 4's step with row 2+3 (`layernorm_bwd`) and with the
+    parent's sequence swapped in (`parent_ln_bwd`: the Triton pair and
+    the eager `gs + dx`), in turns in one process: two SingleDevice
+    engines from the same init step the same batches, `runs` runs of
+    `steps` steps a side, alternating (fused, parent, parent, fused, ...).
+    Host-clock step medians, both arms' losses (within phase 4's kernel-
+    vs-plain tolerance, 1e-2), and one profiled step a side: busy, idle
+    and the LN backward's kernels (device ms and records a step)."""
+    cfg = port.GPT2_PRESETS["gpt2-124m"]
+    b, t = 8, 1024
+    loader = port.TokenLoader(None, batch=b, seq=t,
+                              vocab_size=cfg.vocab_size, seed=0)
+    batches = [loader.next() for _ in range(3 + runs * steps + 1)]
+    arms = {}
+    for name in ("fused", "parent"):
+        model = port.GPT2Model(cfg)
+        eng = port.SingleDevice(model, port.AdamW(lr=1e-5,
+                                                  weight_decay=0.1))
+        arms[name] = dict(eng=eng, state=eng.init(0), losses=[], times=[])
+    parent = parent_ln_bwd(ln)
+
+    def run(name, chunk, timed):
+        arm = arms[name]
+        ctx = (swapped((ln, "layernorm_bwd", parent)) if name == "parent"
+               else contextlib.nullcontext())
+        with ctx:
+            for batch in chunk:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                arm["state"], loss = arm["eng"].step(arm["state"], batch)
+                arm["losses"].append(float(loss))
+                if timed:
+                    arm["times"].append(time.perf_counter() - t0)
+
+    for name in arms:
+        run(name, batches[:3], False)  # warm-up (the Triton compiles too)
+    for k in range(runs):
+        chunk = batches[3 + k * steps:3 + (k + 1) * steps]
+        for name in (("fused", "parent") if k % 2 == 0
+                     else ("parent", "fused")):
+            run(name, chunk, True)
+    diff = max(abs(a - c) for a, c in zip(arms["fused"]["losses"],
+                                          arms["parent"]["losses"]))
+    check(diff <= 1e-2, f"the LN backward A/B: losses differ by {diff}")
+    pats = {"ln_bwd": "ln_bwd_", "ln_dx": "_ln_dx_kernel",
+            "ln_dwdb": "_ln_dwdb_"}
+    out = {}
+    for name, arm in arms.items():
+        med = statistics.median(arm["times"])
+        ctx = (swapped((ln, "layernorm_bwd", parent)) if name == "parent"
+               else contextlib.nullcontext())
+        with ctx:
+            prof = profiled(torch, lambda: float(arm["eng"].step(
+                arm["state"], batches[-1])[1]), cpu=True)
+        check(prof is not None, "the profiler recorded no device time")
+        cuda = torch.autograd.DeviceType.CUDA
+        per, busy, rec = {}, 0.0, {}
+        for e in prof.key_averages():
+            if getattr(e, "device_type", None) != cuda:
+                continue
+            us = _self_device_us(e)
+            busy += us
+            for k, pat in pats.items():
+                if pat in e.key:
+                    per[k] = per.get(k, 0.0) + us
+                    rec[k] = rec.get(k, 0) + e.count
+        out[name] = dict(step_ms=med * 1e3, step_min_ms=min(arm["times"]) * 1e3,
+                         step_max_ms=max(arm["times"]) * 1e3,
+                         busy_ms=busy / 1e3, idle=1 - busy / 1e6 / med,
+                         ln_bwd_ms={k: v / 1e3 for k, v in per.items()},
+                         ln_bwd_records=rec)
+        print(f"  LN backward A/B, {name}: step median {med * 1e3:.3f} ms "
+              f"[{min(arm['times']) * 1e3:.3f}, {max(arm['times']) * 1e3:.3f}]"
+              f" over {len(arm['times'])} steps ({runs} runs of {steps}, in "
+              f"turns); one profiled step: busy {busy / 1e3:.3f} ms, idle "
+              f"{1 - busy / 1e6 / med:.4f}; LN backward kernels "
+              f"{ {k: round(v / 1e3, 4) for k, v in per.items()} } ms, "
+              f"records {rec}" + (" (+ 12 eager gs + dx adds)"
+                                  if name == "parent" else ""))
+    print(f"  LN backward A/B: step fused / parent "
+          f"{out['fused']['step_ms'] / out['parent']['step_ms']:.4f}, busy "
+          f"{out['fused']['busy_ms'] - out['parent']['busy_ms']:+.3f} ms; "
+          f"losses of the {len(arms['fused']['losses'])} steps within "
+          f"{diff:.3g} (tol 1e-2)")
+    out["loss_diff"] = diff
+    del arms
+    return out
 
 
 def _leaf_rel(torch, a, b):
@@ -2273,6 +2584,7 @@ def knobbed_phase(torch, port, counters, ln, fa, fx, af):
     print(f"  launches on the main path (10 steps): {launches}")
     for k in TRAIN_KERNELS + KNOB_KERNELS:
         check(launches[k] > 0, f"{k} was never launched on the knobbed path")
+    check_ln_bwd_launches(launches, cfg, 10, "phase 5")
     check(launches["paged_attention"] == 0, "training ran the decode kernel")
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     check(10.5 <= losses[0] <= 11.2,
@@ -3011,6 +3323,7 @@ def engine_run(torch, port, counters, name, cfg, b=8, t=1024, warm=3,
     launches = {k: fn.launches for k, fn in counters.items()}
     for k in need:
         check(launches[k] > 0, f"{name}: {k} never launched")
+    check_ln_bwd_launches(launches, cfg, timed, name)
     check(all(math.isfinite(x) for x in losses), f"{name}: losses {losses}")
     med = statistics.median(times)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -3026,8 +3339,9 @@ def engine_run(torch, port, counters, name, cfg, b=8, t=1024, warm=3,
         prof = profiled(torch, one_step)
         check(prof is not None, "the profiler recorded no device time")
         # NCCL's kernels; at world 1 it may copy instead (memcpy)
-        per, busy, _ = kernel_shares(torch, prof, {"nccl": "nccl",
-                                                   "memcpy": "Memcpy"})
+        per, busy, rows = kernel_shares(torch, prof, {"nccl": "nccl",
+                                                      "memcpy": "Memcpy"})
+        check_no_pair_records(rows, f"{name}'s profiled step")
         out.update(nccl_ms=per.get("nccl", 0.0) / 1e3,
                    copy_ms=per.get("memcpy", 0.0) / 1e3, busy_ms=busy / 1e3)
     return out
@@ -3202,7 +3516,7 @@ def ab_phase(torch, counters):
           f"(bthd / transpose {fb['bthd_fa2'] / fb['transpose+fa2']:.4f})")
     print(f"  launches of the A/B run: "
           f"{ {k: v for k, v in launches.items() if v} }")
-    for k in BTHD_KERNELS + TRAIN_KERNELS[3:6]:
+    for k in BTHD_KERNELS + FA2_TRAIN:
         check(launches[k] > 0, f"the A/B never launched {k}")
     return dict(launches=launches, fb_ms=fb)
 
@@ -3379,24 +3693,32 @@ def main():
           f"{time.perf_counter() - t:.2f}s")
 
     print("phase 2: kernel parity on the card (bf16)")
+    lap("phase 1")
     ln_res, ln_err = layernorm_phase(torch, F, ln)
     fa_res, fa_err = flash_phase(torch, F, fa)
+    lap("rows 1, 4")
     pa_res, pa_err = paged_phase(torch, F, pa, pool_mod)
     pq_res, pq_err = paged_quant_phase(torch, F, pa, pool_mod)
     ps_res, ps_err = paged_span_phase(torch, F, pa, pool_mod)
+    lap("rows 9a-9c")
     qz_res = quantize_phase(torch, qm)
     kv_res, kv_err = kv_write_phase(torch, pool_mod, qm)
     aln_res, aln_err = add_ln_phase(torch, F, ln)
     torch.cuda.empty_cache()
-    bwd_res = ln_bwd_phase(torch, F, ln)
+    lap("rows 10, 10kv, 1r")
+    lnb_res = ln_bwd_phase(torch, F, ln)
+    bwd_res = {"layernorm_bwd": lnb_res[768, False]}
+    lap("row 2+3")
     bwd_res.update(flash_bwd_phase(torch, F, fa))
     f32_err = flash_f32_phase(torch, fa)
+    lap("rows 5, 6 and the f32 FA2")
     bwd_res.update(xent_phase(torch, F, fx))
     torch.cuda.empty_cache()
     cfg = port.GPT2_PRESETS["gpt2-124m"]
     shapes = port.GPT2Model.param_shapes(types.SimpleNamespace(config=cfg))
     bwd_res["adamw_update_fused"] = adamw_phase(torch, af, shapes)
     torch.cuda.empty_cache()
+    lap("rows 11-13")
 
     print("phase 3: serving gpt2-124m")
     model = port.GPT2Model(cfg).init(
@@ -3408,6 +3730,7 @@ def main():
                 "kv_write": pool_mod.kv_write,
                 "layernorm_dx": ln.layernorm_dx,
                 "layernorm_dwdb": ln.layernorm_dwdb,
+                "layernorm_bwd": ln.layernorm_bwd,
                 "fa2_flash_attention_fwd": fa.fa2_flash_attention_fwd,
                 "fa2_flash_attention_dq": fa.fa2_flash_attention_dq,
                 "fa2_flash_attention_dkv": fa.fa2_flash_attention_dkv,
@@ -3496,8 +3819,10 @@ def main():
           f"{shares}")
     for us, n, key in rows[:10]:
         print(f"    {us / 1e3:10.3f} ms x{n:<6d} {key[:90]}")
+    lap("phase 3's serving runs")
     ticks = {"plain": tick_report(torch, model, prompts, counters, pool_mod,
                                   "phase 3 (bf16 pool)")}
+    lap("phase 3's decode tick")
     plain_tokens = [r.tokens for r in reqs]
     del eng, model, prof
     torch.cuda.empty_cache()
@@ -3508,10 +3833,15 @@ def main():
           "the default training path ran a knob's kernel")
     unfused_training_check(torch, port, counters, train)
     torch.cuda.empty_cache()
+    lap("phase 4")
+    train["ln_bwd_ab"] = ln_bwd_step_ab(torch, port, ln)
+    torch.cuda.empty_cache()
+    lap("phase 4's LN backward A/B")
     print("phase 5: knobbed training gpt2-124m (fused head, fused AdamW, "
           "dropout)")
     knob = knobbed_phase(torch, port, counters, ln, fa, fx, af)
     torch.cuda.empty_cache()
+    lap("phase 5")
 
     print("phase 6: serving variants of gpt2-124m (speculative decoding, "
           "prefix cache, int8/fp8 pools)")
@@ -3520,10 +3850,12 @@ def main():
     var_paths, var_res, agree = variants_phase(
         torch, np, model, counters, pa, pool_mod, qm, plain_tokens)
     f32_identity(torch, np, port, model, counters)
+    lap("phase 6's serving runs")
     for mode in ("int8", "fp8"):
         ticks[mode] = tick_report(torch, model, prompts, counters, pool_mod,
                                   f"phase 6 ({mode} pool)", quant=mode)
     torch.cuda.empty_cache()
+    lap("phase 6's decode ticks")
 
     t7 = time.perf_counter()
     print("phase 7: distributed — the unmasked FA2 chunk kernels, ring "
@@ -3554,7 +3886,7 @@ def main():
 
     timed = ("shape", "ms", "plain_ms", "library_ms", "call_ms", "bound_ms",
              "bound_by")
-    extra_keys = TURN_KEYS + UNFUSED_KEYS
+    extra_keys = TURN_KEYS + UNFUSED_KEYS + PARENT_KEYS
 
     def entry(name, route, source, replaces, res, err=None, training=None):
         """One row: its times at `res["shape"]`; a forward kernel that
@@ -3610,14 +3942,15 @@ def main():
               "tiny_deepspeed_tpu_torch/ops/quant.py",
               "tiny_deepspeed_tpu/ops/quant_pallas.py:59",
               qz_res["kv_append"]),
-        entry("layernorm_dx", "triton",
-              "tiny_deepspeed_tpu_torch/ops/layernorm.py",
+        # rows 2 and 3: one launch of csrc/ln_bwd.cu computes both
+        entry("layernorm_bwd", "cuda",
+              "tiny_deepspeed_tpu_torch/csrc/ln_bwd.cu",
               "tiny_deepspeed_tpu/ops/layernorm_pallas.py:132",
-              bwd_res["layernorm_dx"]),
-        entry("layernorm_dwdb", "triton",
-              "tiny_deepspeed_tpu_torch/ops/layernorm.py",
+              bwd_res["layernorm_bwd"]),
+        entry("layernorm_bwd", "cuda",
+              "tiny_deepspeed_tpu_torch/csrc/ln_bwd.cu",
               "tiny_deepspeed_tpu/ops/layernorm_pallas.py:185",
-              bwd_res["layernorm_dwdb"]),
+              bwd_res["layernorm_bwd"]),
         entry("fa2_flash_attention_dq", "cuda",
               "tiny_deepspeed_tpu_torch/csrc/flash_bwd.cu",
               "tiny_deepspeed_tpu/ops/flash_fa2.py:281",
@@ -3687,7 +4020,10 @@ def main():
              **{k: {"b8": bthd_res[k, 8]} for k in BTHD_KERNELS},
              "kv_write": {"decode_int8": kv_res["decode_int8"],
                           "prefill_int8": kv_res["prefill_int8"]},
-             "add_layernorm_fwd": {"prefill": aln_res[512]}}
+             "add_layernorm_fwd": {"prefill": aln_res[512]},
+             "layernorm_bwd": {"add": lnb_res[768, True],
+                               "n1600": lnb_res[1600, False],
+                               "n1600_add": lnb_res[1600, True]}}
     for row in kernels:
         for k, v in extra.get(row["name"], {}).items():
             row[k + "_shape"] = {f: v[f] for f in timed + extra_keys

@@ -46,7 +46,14 @@ prefill shapes, over f32, bf16, f16, int8 and e4m3 pools, head dims 32,
 64 and 128, with one launch a call; the fused residual add + LayerNorm
 (`ops/layernorm.add_layernorm`) bit for bit `x + r` then the forward
 kernel — s, y, mean, rstd and every gradient — at 8, 40, 512 and 8192
-rows of 768 in bf16 and f32.
+rows of 768 in bf16 and f32.  Slice 12 (LayerNorm's backward in one
+pass, `ops/layernorm.layernorm_bwd`, csrc/ln_bwd.cu; `-k ln_bwd`):
+against `_ln_bwd_plain` at N in {64, 96, 100, 768, 1001, 1600, 4096,
+16384} (100 and 1001 take the one-element chunks, 4096 and 16384 the
+wide kernel), 1, 7 and 8192 rows, f32 / bf16 / f16, with and without
+gs; the gs variant's dx bit for bit `gs + dx`, two calls bit for bit,
+one launch a call; strided and misaligned rows, mixed weight dtypes,
+and a refused operand.
 """
 
 import math
@@ -430,6 +437,82 @@ def test_flash_bthd_refuses_grouped_kv():
     kv = torch.zeros(1, 16, 2, 64, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="MHA"):
         flash_fa2.fa2_flash_attention_bthd_fwd(q, kv, kv)
+
+
+def _ln_bwd_rel(got, ref):
+    """max abs err over max |ref|, per output."""
+    return [float((a.float() - r.float()).abs().max())
+            / max(float(r.float().abs().max()), 1e-30)
+            for a, r in zip(got, ref)]
+
+
+LN_BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+
+
+@pytest.mark.parametrize("add", [False, True], ids=["nogs", "gs"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("rows", [1, 7, 8192])
+@pytest.mark.parametrize("n", [64, 96, 100, 768, 1001, 1600, 4096, 16384])
+def test_ln_bwd_kernel(n, rows, dtype, add):
+    """layernorm_bwd against _ln_bwd_plain (per output, max abs err <=
+    tol x max |plain|), one launch, repeatable, and with gs the dx of
+    `gs +` the call without it, bit for bit."""
+    gy, x, w, mean, rstd = _ln_bwd_inputs(dtype, rows, n, rows + n)
+    gs = torch.randn(rows, n, generator=_g(n), device="cuda").to(dtype)
+    g = gs if add else None
+    before = layernorm.layernorm_bwd.launches
+    got = layernorm.layernorm_bwd(gy, x, w, mean, rstd, g)
+    torch.cuda.synchronize()
+    assert layernorm.layernorm_bwd.launches == before + 1
+    ref = layernorm._ln_bwd_plain(gy, x, w, mean, rstd, g)
+    assert all(a.dtype == r.dtype and a.shape == r.shape
+               for a, r in zip(got, ref))
+    assert max(_ln_bwd_rel(got, ref)) <= LN_BWD_TOL[dtype]
+    again = layernorm.layernorm_bwd(gy, x, w, mean, rstd, g)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    if add:
+        nogs = layernorm.layernorm_bwd(gy, x, w, mean, rstd)
+        assert torch.equal(got[0], gs + nogs[0])
+        assert torch.equal(got[1], nogs[1]) and torch.equal(got[2], nogs[2])
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ln_bwd_strided_misaligned_and_mixed_dtypes(dtype):
+    """gy as a column slice of a wider buffer (a row stride, no copy), x
+    and gs one element off a 16-byte boundary (the one-element chunks),
+    an f32 weight under a bf16 x, dw in f32 and db in f16."""
+    rows, n = 300, 768
+    gy, x, w, mean, rstd = _ln_bwd_inputs(dtype, rows, n, 3)
+    wide = torch.zeros(rows, n + 64, device="cuda", dtype=dtype)
+    wide[:, :n] = gy
+    flat = torch.zeros(2 * rows * n + 1, device="cuda", dtype=dtype)
+    xo = flat[1:rows * n + 1].view(rows, n)
+    xo.copy_(x)
+    gso = flat[rows * n + 1:].view(rows, n)
+    gso.copy_(torch.randn(rows, n, generator=_g(4), device="cuda"))
+    wf = w.float()
+    got = layernorm.layernorm_bwd(wide[:, :n], xo, wf, mean, rstd, gso,
+                                  torch.float32, torch.float16)
+    ref = layernorm._ln_bwd_plain(gy, x, wf, mean, rstd, gso.clone(),
+                                  torch.float32, torch.float16)
+    torch.cuda.synchronize()
+    assert [a.dtype for a in got] == [dtype, torch.float32, torch.float16]
+    assert max(_ln_bwd_rel(got, ref)) <= LN_BWD_TOL[dtype]
+
+
+def test_ln_bwd_refuses_bad_operands():
+    z = torch.zeros(4, 768, device="cuda", dtype=torch.bfloat16)
+    s = torch.zeros(4, device="cuda")
+    w = torch.ones(768, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="f32/bf16/f16"):
+        layernorm.layernorm_bwd(z.double(), z.double(), w, s, s)
+    with pytest.raises(ValueError, match="mean/rstd"):
+        layernorm.layernorm_bwd(z, z, w, s[:3], s)
+    with pytest.raises(ValueError, match="gs"):
+        layernorm.layernorm_bwd(z, z, w, s, s, z.float())
+    with pytest.raises(ValueError, match="mixed devices"):
+        layernorm.layernorm_bwd(z, z, w.cpu(), s, s)
 
 
 def test_backward_kernels_bitwise_repeatable():

@@ -12,7 +12,7 @@ the other — a CUDA tensor the kernel cannot take raises.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 
@@ -47,7 +47,9 @@ def acc_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
-def require(cond: bool, msg: str) -> None:
-    """Validate a kernel operand (never `assert`: -O strips those)."""
+def require(cond: bool, msg: Union[str, Callable[[], str]]) -> None:
+    """Validate a kernel operand (never `assert`: -O strips those).  A
+    callable `msg` is formatted only when the check fails, which keeps a
+    hot wrapper's checks off the host's clock."""
     if not cond:
-        raise ValueError(msg)
+        raise ValueError(msg() if callable(msg) else msg)

@@ -1,7 +1,7 @@
 # Copyright 2026 tiny-deepspeed-tpu authors
 # SPDX-License-Identifier: Apache-2.0
 
-"""LayerNorm forward and backward: hand-written Triton kernels on the card.
+"""LayerNorm forward and backward: hand-written kernels on the card.
 
 Counterpart of `tiny_deepspeed_tpu/ops/layernorm.py` (the `custom_vjp` at
 :147-167) and of its three Pallas kernels in `ops/layernorm_pallas.py`:
@@ -31,19 +31,28 @@ nothing, and no divisibility fallback exists here:
   runs the forward's body on it.  s, y, mean and rstd are bit for bit
   `x + r` followed by the forward kernel (same body, same block, same
   warps: the same reduction order).
-- dwdb: the TPU grid runs in order and carries the sums with `+=` across
-  grid steps (:168-182); Hopper runs blocks in parallel and in no order.
-  So it is two kernels, the reference's own decomposition
-  (layernorm_pallas.py:16-21): stage 1 reduces a tile of rows x columns
-  per program into an f32 (G, N) partials buffer; stage 2 reduces the G
-  partials per column.  No float atomics: dw and db are bit-for-bit
-  repeatable, run to run.  Bound by reading gy and x once (the partials
-  are ~1 MB at gpt2-124m's 8192 x 768, noise beside 25 MB).
+- the backward, `layernorm_bwd`: `ln_dx_pallas` and `ln_dwdb_pallas` in
+  ONE pass over gy and x (csrc/ln_bwd.cu, CUDA C++ behind one ctypes
+  call): a warp owns a row at a time and its lanes own the same columns
+  in every row, so the row sums that dx needs and the column sums of dw
+  and db come from the same loads; a CTA's column sums land in an f32
+  (G, N) partials buffer (G = ceil(rows / 64), fixed by the shape) and
+  a second kernel folds the G partials per column in ascending order.
+  No float atomics: dw and db are bit-for-bit repeatable, run to run.
+  With `gs` (AddLayerNormFn: the upstream gradient of s = x + r) the
+  kernel stores gs + dx, rounded as autograd's `gs + dx` rounds it.
+- the Triton pair it replaced stays behind the public `layernorm_dx` /
+  `layernorm_dwdb` (the counterparts of JAX's two functions, and the
+  parent arm of chip_smoke.py's comparisons): `_ln_dx_kernel`, one
+  program a row, and `_ln_dwdb_partial_kernel` + `_ln_dwdb_final_kernel`
+  (the reference's two-stage decomposition, layernorm_pallas.py:16-21,
+  as Hopper runs blocks in no order).  No training path launches them.
 
 Numerics follow the JAX package's XLA versions (`_ln_fwd_xla`,
 `_ln_dx_xla`, `_ln_dwdb_xla`, :71-134): statistics in f32 with
 var = E[x^2] - mean^2; dx in x's dtype; dw/db emitted in x's dtype, then
-cast to the weight's dtype by the backward rule (:158-164).
+cast to the weight's dtype by the backward rule (:158-164; the port
+casts db to the bias's dtype).
 
 This module must import without triton: `triton` is imported, and the
 kernels defined, inside the function that first launches one.  It also
@@ -51,10 +60,12 @@ avoids `from __future__ import annotations`, so the kernels'
 `tl.constexpr` annotations are real objects when Triton reads them.
 """
 
+import ctypes
 import types
 
 import torch
 
+from . import _build
 from .dispatch import acc_dtype, on_cuda, require
 
 _DTYPES = (torch.float32, torch.bfloat16, torch.float16)
@@ -99,6 +110,21 @@ def _ln_dwdb_plain(gy, x, mean, rstd):
     dims = tuple(range(gy.dim() - 1))
     return (gyf * xhat).sum(dim=dims).to(x.dtype), \
         gyf.sum(dim=dims).to(x.dtype)
+
+
+def _ln_bwd_plain(gy, x, w, mean, rstd, gs=None, w_dtype=None,
+                  b_dtype=None):
+    """The whole backward: (dx, dw, db).  dx is `_ln_dx_plain`'s, plus
+    `gs` when given (as autograd adds it, in x's dtype); dw, db are
+    `_ln_dwdb_plain`'s cast to w_dtype (default w's) and b_dtype (default
+    w_dtype's, as JAX's rule casts both to w's dtype)."""
+    w_dtype = w.dtype if w_dtype is None else w_dtype
+    b_dtype = w_dtype if b_dtype is None else b_dtype
+    dx = _ln_dx_plain(gy, x, w, mean, rstd)
+    if gs is not None:
+        dx = gs + dx
+    dw, db = _ln_dwdb_plain(gy, x, mean, rstd)
+    return dx, dw.to(w_dtype), db.to(b_dtype)
 
 
 # -- the Triton kernels -----------------------------------------------------
@@ -362,6 +388,87 @@ def _ln_dwdb_triton(gy, x, mean, rstd):
     return dw, db
 
 
+# rows a CTA of csrc/ln_bwd.cu owns (its kRows): G = ceil(rows / 64)
+_BWD_ROWS = 64
+_BWD_ARGS = ([ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 3
+             + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+
+
+def _rows_ptr(t, n):
+    """t (..., N) as rows of N with unit column stride: (the tensor to
+    keep alive through the call, its data pointer, its row stride).  A
+    contiguous t is passed as it is (no view: each costs the host)."""
+    if t.is_contiguous():
+        return t, t.data_ptr(), n
+    t2 = t.reshape(-1, n)
+    if t2.stride(-1) != 1:
+        t2 = t2.contiguous()
+    return t2, t2.data_ptr(), t2.stride(0)
+
+
+def _flat_ptr(t):
+    return (t if t.is_contiguous() else t.contiguous()).data_ptr()
+
+
+def _ln_bwd_cuda(gy, x, w, mean, rstd, gs=None, w_dtype=None,
+                 b_dtype=None):
+    """One `ln_bwd` call of csrc/ln_bwd.cu: both stages, on the current
+    stream.  Every operand is checked before anything is built; each
+    message is formatted only when its check fails."""
+    n = x.shape[-1]
+    w_dtype = w.dtype if w_dtype is None else w_dtype
+    b_dtype = w_dtype if b_dtype is None else b_dtype
+    require(x.dtype in _DTYPES and gy.dtype == x.dtype,
+            lambda: f"layernorm_bwd: x and gy must share one of "
+            f"f32/bf16/f16, got {x.dtype}, {gy.dtype}")
+    require(gy.shape == x.shape, lambda: f"layernorm_bwd: gy "
+            f"{tuple(gy.shape)} does not match x {tuple(x.shape)}")
+    require(0 < n <= _MAX_N, lambda: f"layernorm_bwd: N={n} not in "
+            f"[1, {_MAX_N}]")
+    require(w.shape == (n,) and w.dtype in _DTYPES,
+            lambda: f"layernorm_bwd: weight must be ({n},) in "
+            f"f32/bf16/f16, got {tuple(w.shape)} {w.dtype}")
+    lead = x.shape[:-1]
+    require(mean.shape == lead and rstd.shape == lead
+            and mean.dtype == torch.float32 and rstd.dtype == torch.float32,
+            lambda: f"layernorm_bwd: mean/rstd must be f32 of shape "
+            f"{tuple(lead)}, got {tuple(mean.shape)} {mean.dtype}, "
+            f"{tuple(rstd.shape)} {rstd.dtype}")
+    require(gs is None or (gs.shape == x.shape and gs.dtype == x.dtype),
+            lambda: f"layernorm_bwd: gs {tuple(gs.shape)} {gs.dtype} must "
+            f"match x {tuple(x.shape)} {x.dtype}")
+    require(w_dtype in _DTYPES and b_dtype in _DTYPES,
+            lambda: f"layernorm_bwd: dw/db dtypes must be f32/bf16/f16, "
+            f"got {w_dtype}, {b_dtype}")
+    dev = x.device
+    require(dev.type == "cuda" and gy.device == dev and w.device == dev
+            and mean.device == dev and rstd.device == dev
+            and (gs is None or gs.device == dev),
+            lambda: "layernorm_bwd: the operands must lie on one CUDA "
+            "device")
+    x2, px, sx = _rows_ptr(x, n)
+    gy2, pgy, sgy = _rows_ptr(gy, n)
+    gs2, pgs, sgs = (None, None, 0) if gs is None else _rows_ptr(gs, n)
+    rows = x.numel() // n
+    groups = -(-rows // _BWD_ROWS)
+    dx = torch.empty(x.shape, dtype=x.dtype, device=dev)
+    part = torch.empty((2 * groups * n,), dtype=torch.float32, device=dev)
+    dw = torch.empty((n,), dtype=w_dtype, device=dev)
+    db = torch.empty((n,), dtype=b_dtype, device=dev)
+    p = part.data_ptr()
+    codes = _build.DTYPE_CODES
+    err = _build.entry("ln_bwd", "ln_bwd", _BWD_ARGS)(
+        pgy, px, pgs, _flat_ptr(w), _flat_ptr(mean), _flat_ptr(rstd),
+        dx.data_ptr(), p, p + groups * n * 4, dw.data_ptr(), db.data_ptr(),
+        sgy, sx, sgs, rows, n, groups, codes[x.dtype], codes[w.dtype],
+        codes[w_dtype], codes[b_dtype], _build.stream_ptr(x))
+    _build.check(err, "ln_bwd")
+    layernorm_bwd.launches += 1
+    if gs is not None:
+        layernorm_bwd.launches_gs += 1
+    return dx, dw, db
+
+
 # -- public wrappers --------------------------------------------------------
 
 def layernorm_fwd(x, w, b, eps: float = 1e-5):
@@ -401,18 +508,34 @@ def layernorm_dwdb(gy, x, mean, rstd):
     return _ln_dwdb_plain(gy, x, mean, rstd)
 
 
-# kernel launches (CUDA path only)
+def layernorm_bwd(gy, x, w, mean, rstd, gs=None, w_dtype=None,
+                  b_dtype=None):
+    """LayerNorm's whole backward from the saved row stats: (dx, dw, db),
+    dx in x's dtype (plus `gs`, the upstream gradient of the norm's input,
+    when given), dw in w_dtype (default w's), db in b_dtype (default
+    w_dtype).  CUDA tensors launch csrc/ln_bwd.cu (or raise); CPU tensors
+    take `_ln_bwd_plain`."""
+    if on_cuda(gy, x, w, mean, rstd, gs):
+        return _ln_bwd_cuda(gy, x, w, mean, rstd, gs, w_dtype, b_dtype)
+    return _ln_bwd_plain(gy, x, w, mean, rstd, gs, w_dtype, b_dtype)
+
+
+# kernel launches (CUDA path only); layernorm_bwd.launches_gs counts the
+# launches among layernorm_bwd's that added a `gs`
 layernorm_fwd.launches = 0
 add_layernorm_fwd.launches = 0
 layernorm_dx.launches = 0
 layernorm_dwdb.launches = 0
+layernorm_bwd.launches = 0
+layernorm_bwd.launches_gs = 0
 
 
 class LayerNormFn(torch.autograd.Function):
     """y = layernorm(x) * w + b with the JAX package's vjp rules
     (`_layernorm_fwd_rule` / `_layernorm_bwd_rule`, ops/layernorm.py:153-
-    164): the forward saves (x, w, mean, rstd); the backward returns dx
-    in x's dtype and dw, db through x's dtype into the weights' dtypes."""
+    164): the forward saves (x, w, mean, rstd); the backward, one
+    `layernorm_bwd` call, returns dx in x's dtype and dw, db through x's
+    dtype into the weights' dtypes."""
 
     @staticmethod
     def forward(ctx, x, w, b, eps):
@@ -424,9 +547,9 @@ class LayerNormFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         x, w, mean, rstd = ctx.saved_tensors
-        dx = layernorm_dx(gy, x, w, mean, rstd)
-        dw, db = layernorm_dwdb(gy, x, mean, rstd)
-        return dx, dw.to(w.dtype), db.to(ctx.b_dtype), None
+        dx, dw, db = layernorm_bwd(gy, x, w, mean, rstd, None, w.dtype,
+                                   ctx.b_dtype)
+        return dx, dw, db, None
 
 
 def layernorm(x, w, b, eps: float = 1e-5):
@@ -440,8 +563,9 @@ class AddLayerNormFn(torch.autograd.Function):
     Saves what `LayerNormFn` saves for its input s — (s, w, mean, rstd),
     no more.  The backward is the composition's: s's gradient is the
     upstream g_s plus the norm's dx (autograd's accumulation, in the
-    compute dtype), and it flows unchanged to both x and r; dw, db as
-    `LayerNormFn` returns them."""
+    compute dtype; `layernorm_bwd` adds it in the same pass), and it
+    flows unchanged to both x and r; dw, db as `LayerNormFn` returns
+    them."""
 
     @staticmethod
     def forward(ctx, x, r, w, b, eps):
@@ -453,9 +577,9 @@ class AddLayerNormFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gs, gy):
         s, w, mean, rstd = ctx.saved_tensors
-        d = gs + layernorm_dx(gy, s, w, mean, rstd)
-        dw, db = layernorm_dwdb(gy, s, mean, rstd)
-        return d, d, dw.to(w.dtype), db.to(ctx.b_dtype), None
+        d, dw, db = layernorm_bwd(gy, s, w, mean, rstd, gs, w.dtype,
+                                  ctx.b_dtype)
+        return d, d, dw, db, None
 
 
 def add_layernorm(x, r, w, b, eps: float = 1e-5):
