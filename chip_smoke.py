@@ -16,15 +16,16 @@ Needs one CUDA card (Hopper: the kernels compile for sm_90a) and exits
 non-zero, printing no result, without one.  Phases, each on its own line:
 
   1. the card (`nvidia-smi` name and power limit) and the kernel build —
-     nvcc for csrc/*.cu (in parallel) plus the Triton layernorm's first
-     compile; each CUDA kernel's registers, spill bytes and shared memory
+     nvcc for csrc/*.cu (in parallel) plus the first compile of the
+     Triton LayerNorm forward pair rows 1 and 1r replaced (the parent's
+     arm below); each CUDA kernel's registers, spill bytes and shared memory
      (ptxas; the tensor-core FA2 kernels' dynamic shared memory beside
      it), and `cuobjdump -sass` proof that every bf16/f16 instantiation of
      the tensor-core FA2 forward, dq and dk/dv kernels, of the fused
      head's forward, dx and dW kernels and of the tensor-core span-verify
      kernel issues HGMMA (wgmma), and no f32 one does (and that the fused
      head's forward and dx and the paged attention kernels do not
-     spill);
+     spill, nor the LayerNorm forward's and backward's);
   2. kernel parity: each hand-written kernel against its plain PyTorch
      version on the card at its main paths' shapes (the two forward
      kernels at serving's and at training's; the fused xent kernels also
@@ -41,11 +42,18 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      span-commit and prefill writers' shapes over bf16, f32, int8 and
      e4m3 pools — pool bytes and scales on blocks 1.. bit-identical to
      the unfused writers (the quantizer kernel and index writes), one
-     launch a call — and the residual add + LayerNorm (1r) at 8, 40, 512
-     and 8192 rows of 768 in bf16 and f32 — s, y, mean, rstd and the
-     gradients bit-identical to `x + r` then the forward kernel; both
-     also timed against that unfused sequence (device time, in turns,
-     and host `call_ms`).  The slice-12 row 2+3: LayerNorm's backward in
+     launch a call — timed against that unfused sequence (device time,
+     in turns, and host `call_ms`).  The slice-13 rows 1 and 1r:
+     LayerNorm's forward and the residual add + forward behind one C
+     entry (csrc/ln_fwd.cu) at 8, 40, 512, 8192 rows of 768 and 8192 of
+     1600 in bf16, f32 and f16 (row 1 also an f32 weight under bf16 x):
+     against their plain versions, one launch a call, repeatable, 1r's
+     s, y, mean, rstd and gradients bit for bit `x + r` then row 1, and
+     whether each is bit-identical to the Triton kernel it replaced
+     (`_ln_fwd_triton`, `_add_ln_fwd_triton`, held to the plain version
+     too); then at 8, 512, 8192 x 768 and 8192 x 1600 bf16 three sides
+     in turns — the kernel, the Triton kernel, F.layer_norm (after
+     `x + r` for 1r) — device and host ms a call.  The slice-12 row 2+3: LayerNorm's backward in
      one pass (`layernorm_bwd`, csrc/ln_bwd.cu) at 8192 rows of 768 and
      1600 bf16 and of 768 f32 and f16, with and without gs, against
      `_ln_bwd_plain` (2e-2 x max |plain| per output), repeatable, the gs
@@ -79,8 +87,10 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      card.  A second, profiled pass of the same traffic gives each
      kernel's device time, reported as a share of the (unprofiled) main
      run's wall.  Then the decode tick alone (8 requests decoding): host
-     ms, launches, device kernels and busy ms a tick, with the fused
-     kernels and with the unfused sequence swapped in;
+     ms, launches, device kernels and busy ms a tick, and the host ms at
+     each call site (`linear`, which no arm changes, the control), with
+     the kernels as they are, with the Triton LayerNorm forward pair and
+     with the unfused sequence swapped in, in turns;
   4. training: gpt2-124m at full width and depth (f32 masters, bf16
      compute, remat "dots_no_batch"), SingleDevice + AdamW(lr=1e-5,
      weight_decay=0.1) on the JAX package's synthetic stream, B=8,
@@ -164,8 +174,9 @@ non-zero, printing no result, without one.  Phases, each on its own line:
         11.2]; median step time, tokens/s, peak memory, one profiled
         step's busy / idle and kernel classes, and the per-rank state at
         data 4 and 8 from the shard layout (not measured);
-  then the `kernels` JSON line (22 kernels, launches by path), then the
-  result line {"ok": true, "device": {"platform": "gpu", ...}}.
+  then the `kernels` JSON line (24 rows: the 22 kernels and the Triton
+  LayerNorm forward pair, launched on no path; launches by path), then
+  the result line {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -503,7 +514,7 @@ def build_report(_build):
     3xTF32 wmma forward, dx and dW)."""
     resources = kernel_resources(_build.build_logs)
     for src, name, regs, sst, sld, smem in resources:
-        if "ln_bwd_" in name:  # 85 instantiations: summed up below
+        if "ln_bwd_" in name or "ln_fwd_" in name:  # summed up below
             continue
         print(f"  ptxas {src}: {name}: {regs} registers, spill stores "
               f"{sst} B / loads {sld} B, smem {smem} B static")
@@ -584,6 +595,16 @@ def build_report(_build):
           + (f"; the training paths' (N 768 and 1600 bf16, with and "
              f"without gs, the column fold): {'; '.join(path)}" if lnb else
              " (ptxas report not in this process's build: cached)"))
+    lnf = [(n, regs, sst + sld) for _, n, regs, sst, sld, _ in resources
+           if "ln_fwd_" in n]
+    check(not any(s for *_, s in lnf), f"ln_fwd kernels spill: "
+          f"{[(n, s) for n, _, s in lnf if s]}")
+    print(f"  ln_fwd: {len(lnf)} kernels, no spills"
+          + (f"; the fast ones: " + "; ".join(
+              f"{n[n.index('ln_fwd_') - (4 if 'add_' in n else 0):]}: {r} "
+              "registers" for n, r, _ in lnf if "_row_kernel" in n)
+             if lnf else " (ptxas report not in this process's build: "
+             "cached)"))
     kvw = [n for n in counts if "kv_write_kernel" in n]
     check(len(kvw) == 15, f"{len(kvw)} kv_write instantiations, expected "
           "15 (f32/bf16/f16 sources x f32/bf16/f16/int8/e4m3 pools)")
@@ -610,11 +631,12 @@ def build_report(_build):
 
 # -- phase 2: kernel parity -------------------------------------------------
 
-def checked_ln_fwd(torch, ln, x, w, b):
-    """layernorm_fwd on the card against its plain version: (y, mean,
-    rstd) and y's max abs err.  bf16 y: the stats agree to f32 rounding,
-    so y agrees to ~1 bf16 ulp (atol 2e-2, rtol 1.6e-2)."""
-    y, mean, rstd = ln.layernorm_fwd(x, w, b)
+def checked_ln_fwd(torch, ln, x, w, b, fwd=None):
+    """The forward (`fwd`, default layernorm_fwd: csrc/ln_fwd.cu) on the
+    card against its plain version: (y, mean, rstd) and y's max abs err.
+    bf16 y: the stats agree to f32 rounding, so y agrees to ~1 bf16 ulp
+    (atol 2e-2, rtol 1.6e-2)."""
+    y, mean, rstd = (fwd or ln.layernorm_fwd)(x, w, b)
     torch.cuda.synchronize()
     py, pmean, prstd = ln._ln_fwd_plain(x, w, b)
     torch.testing.assert_close(y.float(), py.float(), atol=2e-2,
@@ -624,32 +646,134 @@ def checked_ln_fwd(torch, ln, x, w, b):
     return y, mean, rstd, max_err(y, py)
 
 
+def three_sides(torch, kernel, parent, library):
+    """The kernel, the parent's sequence and the library call in turns
+    (kernel, parent, library x 5; `sides_in_turns`, `host_in_turns`):
+    device and host ms per call, medians and spreads, and the ratios."""
+    sides = {"kernel": kernel, "parent": parent, "library": library}
+    dev, host = sides_in_turns(torch, sides), host_in_turns(torch, sides)
+    return dict(
+        turns_ms=dev["kernel"][0], turns_spread_ms=list(dev["kernel"][1:]),
+        parent_turns_ms=dev["parent"][0],
+        parent_turns_spread_ms=list(dev["parent"][1:]),
+        library_turns_ms=dev["library"][0],
+        library_turns_spread_ms=list(dev["library"][1:]),
+        ratio_parent=dev["kernel"][0] / dev["parent"][0],
+        ratio_library=dev["kernel"][0] / dev["library"][0],
+        host_ms=host["kernel"][0], host_spread_ms=list(host["kernel"][1:]),
+        parent_host_ms=host["parent"][0],
+        parent_host_spread_ms=list(host["parent"][1:]),
+        library_host_ms=host["library"][0])
+
+
+def sides_text(r):
+    return (f"in turns kernel {r['turns_ms']:.5g} "
+            f"[{r['turns_spread_ms'][0]:.5g}, {r['turns_spread_ms'][1]:.5g}]"
+            f", parent {r['parent_turns_ms']:.5g} "
+            f"[{r['parent_turns_spread_ms'][0]:.5g}, "
+            f"{r['parent_turns_spread_ms'][1]:.5g}], library "
+            f"{r['library_turns_ms']:.5g}: x{r['ratio_parent']:.4g} the "
+            f"parent, x{r['ratio_library']:.4g} the library; host per call "
+            f"in turns {r['host_ms']:.5g} (parent {r['parent_host_ms']:.5g}"
+            f", library {r['library_host_ms']:.5g}) ms")
+
+
+def parent_row(torch, res, fn, err):
+    """The parent's (Triton) row at res's shape, from the same turns:
+    its own device and host times, the library's beside them."""
+    return dict(
+        ms=device_ms(torch, fn), plain_ms=res["plain_ms"],
+        library_ms=res["library_ms"], call_ms=time_ms(torch, fn),
+        bound_ms=res["bound_ms"], bound_by=res["bound_by"],
+        max_abs_err=err, shape=res["shape"],
+        turns_ms=res["parent_turns_ms"],
+        turns_spread_ms=res["parent_turns_spread_ms"],
+        library_turns_ms=res["library_turns_ms"],
+        library_turns_spread_ms=res["library_turns_spread_ms"],
+        ratio=res["parent_turns_ms"] / res["library_turns_ms"],
+        host_ms=res["parent_host_ms"],
+        host_spread_ms=res["parent_host_spread_ms"],
+        library_host_ms=res["library_host_ms"])
+
+
+# rows 1 / 1r's shapes: serving's decode tick (8 rows), span verify (40),
+# a prefill (512), training (8192) of 768, and gpt2-1.5b's 8192 of 1600
+LN_SHAPES = ((8, 768), (40, 768), (512, 768), (8192, 768), (8192, 1600))
+LN_TIMED = ((8, 768), (512, 768), (8192, 768), (8192, 1600))
+
+
+def _ln_inputs(torch, rows, n, dtype, seed, wdtype=None):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x, r = ((torch.randn(rows, n, generator=g, device="cuda") * 2 + 0.3
+             ).to(dtype) for _ in range(2))
+    w, b = (torch.randn(n, generator=g, device="cuda").to(wdtype or dtype)
+            for _ in range(2))
+    return x, r, w, b
+
+
 def layernorm_phase(torch, F, ln):
-    """Serving's shapes (8 decode rows, a 512-token prefill) and
-    training's (B*T = 8192 rows)."""
-    rows_all, n, res = (8, 512, 8192), 768, {}
-    worst = 0.0
-    for rows in rows_all:
-        g = torch.Generator(device="cuda").manual_seed(rows)
-        x = (torch.randn(rows, n, generator=g, device="cuda") * 2 + 0.3
-             ).bfloat16()
-        w = torch.randn(n, generator=g, device="cuda").bfloat16()
-        b = torch.randn(n, generator=g, device="cuda").bfloat16()
+    """Row 1: the forward (`layernorm_fwd`, csrc/ln_fwd.cu) at LN_SHAPES
+    in bf16, f32 and f16 (and an f32 weight under bf16 x) against its
+    plain version (`checked_ln_fwd`), one launch a call, two calls bit
+    for bit, and against the Triton kernel it replaced (`_ln_fwd_triton`,
+    the parent's arm, off every path: held to the plain version too, and
+    whether the two agree bit for bit printed a shape).  Then at LN_TIMED
+    in bf16, in turns (`three_sides`): the kernel, the Triton kernel and
+    F.layer_norm, device and host ms a call; and each one's device time
+    (profiler) beside the plain version's and the bound."""
+    bits, worst, worst_tri = {}, 0.0, 0.0
+    for dtype, wdtype in ((torch.bfloat16, None), (torch.float32, None),
+                          (torch.float16, None),
+                          (torch.bfloat16, torch.float32)):
+        for rows, n in LN_SHAPES:
+            x, _, w, b = _ln_inputs(torch, rows, n, dtype, rows + n, wdtype)
+            before = ln.layernorm_fwd.launches
+            got = checked_ln_fwd(torch, ln, x, w, b)
+            check(ln.layernorm_fwd.launches == before + 1,
+                  "layernorm_fwd: not one launch")
+            _bitwise(torch, lambda: ln.layernorm_fwd(x, w, b),
+                     f"layernorm_fwd {rows}x{n}")
+            tri = checked_ln_fwd(torch, ln, x, w, b, lambda *a:
+                                 ln._ln_fwd_triton(*a, 1e-5))
+            worst, worst_tri = max(worst, got[3]), max(worst_tri, tri[3])
+            name = f"{rows}x{n} {str(dtype)[6:]}" + (
+                f" (w {str(wdtype)[6:]})" if wdtype else "")
+            bits[name] = all(torch.equal(u, v) for u, v in zip(got[:3],
+                                                              tri[:3]))
+    print(f"kernel layernorm_fwd (row 1, csrc/ln_fwd.cu): y max_abs_err="
+          f"{worst:.3g} against the plain version (tol atol=2e-2 rtol="
+          f"1.6e-2), one launch a call, repeatable; the Triton kernel it "
+          f"replaced {worst_tri:.3g}; bit-identical to the Triton kernel "
+          f"(y, mean, rstd): {bits}")
+    res, tri_res = {}, {}
+    for rows, n in LN_TIMED:
+        x, _, w, b = _ln_inputs(torch, rows, n, torch.bfloat16, rows + n + 1)
         *_, err = checked_ln_fwd(torch, ln, x, w, b)
-        worst = max(worst, err)
+        *_, terr = checked_ln_fwd(torch, ln, x, w, b, lambda *a:
+                                  ln._ln_fwd_triton(*a, 1e-5))
         nbytes = rows * n * 2 * 2 + 2 * n * 2 + rows * 8
         bms, by = bound_ms(nbytes, 8 * rows * n, "bfloat16")
-        res[rows] = dict(
-            **timings(torch, lambda: ln.layernorm_fwd(x, w, b),
-                      lambda: ln._ln_fwd_plain(x, w, b),
-                      lambda: F.layer_norm(x, (n,), w, b)),
-            bound_ms=bms, bound_by=by, max_abs_err=err,
-            shape=f"{rows}x{n} bf16")
+
+        def kernel():
+            return ln.layernorm_fwd(x, w, b)
+
+        def parent():  # the parent's `layernorm_fwd`: dispatch, then Triton
+            return ln.on_cuda(x, w, b) and ln._ln_fwd_triton(x, w, b, 1e-5)
+
+        r = dict(**timings(torch, kernel, lambda: ln._ln_fwd_plain(x, w, b),
+                           lambda: F.layer_norm(x, (n,), w, b)),
+                 **three_sides(torch, kernel, parent,
+                               lambda: F.layer_norm(x, (n,), w, b)),
+                 bound_ms=bms, bound_by=by, max_abs_err=err,
+                 shape=f"{rows}x{n} bf16")
+        res[rows, n] = r
+        tri_res[rows, n] = parent_row(torch, r, parent, terr)
         print(f"kernel layernorm_fwd rows={rows} N={n} bf16: "
-              f"max_abs_err={err:.3g} (tol atol=2e-2 rtol=1.6e-2) "
-              + " ".join(f"{k}={v:.5g}" for k, v in res[rows].items()
-                         if k.endswith("ms")))
-    return {"serving": res[512], "training": res[8192]}, worst
+              + " ".join(f"{k}={r[k]:.5g}" for k in
+                         ("ms", "plain_ms", "library_ms", "call_ms",
+                          "bound_ms"))
+              + f" (Triton {tri_res[rows, n]['ms']:.5g}); " + sides_text(r))
+    return res, tri_res, worst, worst_tri
 
 
 def checked_fa2_fwd(torch, fa, q, k, v):
@@ -1184,12 +1308,13 @@ def kv_write_phase(torch, pool_mod, qm):
     return res, worst
 
 
-def checked_add_ln_fwd(torch, ln, x, r, w, b):
-    """add_layernorm_fwd on the card against its plain version
+def checked_add_ln_fwd(torch, ln, x, r, w, b, fwd=None):
+    """The residual add + forward (`fwd`, default add_layernorm_fwd:
+    csrc/ln_fwd.cu) on the card against its plain version
     (`_add_ln_fwd_plain`: `x + r`, then the plain LayerNorm): s bit for
     bit, y, mean and rstd at `checked_ln_fwd`'s tolerances.  Returns
     (s, y, mean, rstd) and y's max abs err."""
-    got = ln.add_layernorm_fwd(x, r, w, b)
+    got = (fwd or ln.add_layernorm_fwd)(x, r, w, b)
     torch.cuda.synchronize()
     ps, py, pmean, prstd = ln._add_ln_fwd_plain(x, r, w, b)
     check(torch.equal(got[0], ps), "add_layernorm_fwd: s is not x + r")
@@ -1201,36 +1326,39 @@ def checked_add_ln_fwd(torch, ln, x, r, w, b):
 
 
 def add_ln_phase(torch, F, ln):
-    """1r: the residual add + LayerNorm forward at serving's decode (8
-    rows), verify (40), prefill (512) and training's (8192) row counts of
-    768, bf16 and f32: s, y, mean, rstd against the plain version
-    (`checked_add_ln_fwd`) and bit for bit `x + r` then `layernorm_fwd`,
-    and AddLayerNormFn's x, r, w, b gradients bit for bit autograd's
-    through that composition.  Times at 8 rows (the
-    decode tick's, the row), 512 and 8192 (bf16): the kernel, the plain
-    version, the unfused sequence (`x + r`, then the forward kernel:
-    device time, in turns with the kernel, and host call_ms) and the
-    library pair (`x + r`, then `F.layer_norm`)."""
-    n, ok, res, worst = 768, [], {}, 0.0
-    for dtype in (torch.bfloat16, torch.float32):
-        for rows in (8, 40, 512, 8192):
+    """1r: the residual add + LayerNorm forward (`add_layernorm_fwd`,
+    csrc/ln_fwd.cu's add kernels) at LN_SHAPES in bf16, f32 and f16: s,
+    y, mean, rstd against the plain version (`checked_add_ln_fwd`), one
+    launch a call, bit for bit `x + r` then `layernorm_fwd`, and
+    AddLayerNormFn's x, r, w, b gradients bit for bit autograd's through
+    that composition; the Triton kernel it replaced (`_add_ln_fwd_triton`)
+    held to the plain version, and whether the two agree bit for bit
+    printed a shape.  Then at LN_TIMED in bf16, in turns
+    (`three_sides`): the kernel, the Triton kernel and `x + r` then
+    F.layer_norm, device and host ms a call."""
+    ok, bits, worst, worst_tri = [], {}, 0.0, 0.0
+    for dtype in (torch.bfloat16, torch.float32, torch.float16):
+        for rows, n in LN_SHAPES:
+            x, r, w, b = _ln_inputs(torch, rows, n, dtype, rows + n)
             g = torch.Generator(device="cuda").manual_seed(rows)
-            x, r, gs, gy = ((torch.randn(rows, n, generator=g,
-                                         device="cuda") * 2 + 0.3).to(dtype)
-                            for _ in range(4))
-            w, b = (torch.randn(n, generator=g, device="cuda").to(dtype)
-                    for _ in range(2))
+            gs, gy = (torch.randn(rows, n, generator=g, device="cuda"
+                                  ).to(dtype) for _ in range(2))
             before = ln.add_layernorm_fwd.launches
             got, err = checked_add_ln_fwd(torch, ln, x, r, w, b)
-            worst = max(worst, err)
+            tri, terr = checked_add_ln_fwd(
+                torch, ln, x, r, w, b,
+                lambda *a: ln._add_ln_fwd_triton(*a, 1e-5))
+            worst, worst_tri = max(worst, err), max(worst_tri, terr)
             s = x + r
             want = (s, *ln.layernorm_fwd(s, w, b))
             torch.cuda.synchronize()
+            name = f"{rows}x{n} {str(dtype)[6:]}"
             check(ln.add_layernorm_fwd.launches == before + 1,
                   "add_layernorm_fwd: not one launch")
             check(all(torch.equal(a, c) for a, c in zip(got, want)),
-                  f"add_layernorm {rows}x{n} {dtype}: (s, y, mean, rstd) "
-                  "not bit-identical to x + r then layernorm_fwd")
+                  f"add_layernorm {name}: (s, y, mean, rstd) not "
+                  "bit-identical to x + r then layernorm_fwd")
+            bits[name] = all(torch.equal(a, c) for a, c in zip(got, tri))
             outs = []
             for fused in (True, False):
                 leaves = [t.clone().requires_grad_() for t in (x, r, w, b)]
@@ -1241,60 +1369,49 @@ def add_ln_phase(torch, F, ln):
                     fy = ln.layernorm(fs, leaves[2], leaves[3])
                 outs.append(torch.autograd.grad((fs, fy), leaves, (gs, gy)))
             check(all(torch.equal(a, c) for a, c in zip(*outs)),
-                  f"add_layernorm {rows}x{n} {dtype}: gradients not "
-                  "bit-identical to the composition's")
-            ok.append(f"{rows}x{n} {str(dtype)[6:]}")
-    print(f"kernel add_layernorm_fwd: y max_abs_err={worst:.3g} against "
-          f"the plain version (tol atol=2e-2 rtol=1.6e-2; s equal); s, y, "
-          f"mean, rstd and the x, r, w, b gradients bit-identical to x + r "
-          f"then layernorm_fwd at {', '.join(ok)}")
-    for rows in (8, 512, 8192):
-        g = torch.Generator(device="cuda").manual_seed(rows + 1)
-        x, r = ((torch.randn(rows, n, generator=g, device="cuda") * 2
-                 + 0.3).bfloat16() for _ in range(2))
-        w, b = (torch.randn(n, generator=g, device="cuda").bfloat16()
-                for _ in range(2))
+                  f"add_layernorm {name}: gradients not bit-identical to "
+                  "the composition's")
+            ok.append(name)
+    print(f"kernel add_layernorm_fwd (row 1r, csrc/ln_fwd.cu): y "
+          f"max_abs_err={worst:.3g} against the plain version (tol "
+          f"atol=2e-2 rtol=1.6e-2; s equal), one launch a call; s, y, mean, "
+          f"rstd and the x, r, w, b gradients bit-identical to x + r then "
+          f"layernorm_fwd at {', '.join(ok)}; the Triton kernel it replaced "
+          f"{worst_tri:.3g}; bit-identical to the Triton kernel (s, y, "
+          f"mean, rstd): {bits}")
+    res, tri_res = {}, {}
+    for rows, n in LN_TIMED:
+        x, r, w, b = _ln_inputs(torch, rows, n, torch.bfloat16, rows + n + 1)
+        _, err = checked_add_ln_fwd(torch, ln, x, r, w, b)
+        _, terr = checked_add_ln_fwd(
+            torch, ln, x, r, w, b, lambda *a: ln._add_ln_fwd_triton(*a, 1e-5))
         nbytes = 4 * rows * n * 2 + 2 * n * 2 + rows * 8
         bms, by = bound_ms(nbytes, 10 * rows * n, "bfloat16")
-        _, err = checked_add_ln_fwd(torch, ln, x, r, w, b)
-        worst = max(worst, err)
 
         def kernel():
             return ln.add_layernorm_fwd(x, r, w, b)
 
-        def unfused():
-            return ln.layernorm_fwd(x + r, w, b)
+        def parent():  # the parent's `add_layernorm_fwd`
+            return ln.on_cuda(x, r, w, b) and ln._add_ln_fwd_triton(
+                x, r, w, b, 1e-5)
 
-        tr = turns(torch, kernel, unfused)
-        res[rows] = dict(
-            ms=device_ms(torch, kernel),
-            plain_ms=device_ms(torch, lambda: ln._add_ln_fwd_plain(x, r, w,
-                                                                   b)),
-            library_ms=device_ms(torch, lambda: F.layer_norm(x + r, (n,), w,
-                                                             b)),
-            unfused_ms=device_ms(torch, unfused),
-            **call_turns(torch, kernel, unfused),
-            **{k.replace("library", "unfused"): v for k, v in tr.items()},
-            bound_ms=bms, bound_by=by, max_abs_err=err,
-            shape=f"{rows}x{n} bf16")
+        def library():
+            return F.layer_norm(x + r, (n,), w, b)
+
+        rr = dict(**timings(torch, kernel,
+                            lambda: ln._add_ln_fwd_plain(x, r, w, b),
+                            library),
+                  **three_sides(torch, kernel, parent, library),
+                  bound_ms=bms, bound_by=by, max_abs_err=err,
+                  shape=f"{rows}x{n} bf16")
+        res[rows, n] = rr
+        tri_res[rows, n] = parent_row(torch, rr, parent, terr)
         print(f"kernel add_layernorm_fwd rows={rows} N={n} bf16: "
-              f"max_abs_err={err:.3g} "
-              + " ".join(f"{k}={v:.5g}" for k, v in res[rows].items()
-                         if k.endswith("ms") and isinstance(v, float))
-              + f"; in turns with x + r then layernorm_fwd: kernel "
-              f"{res[rows]['turns_ms']:.5g} ms, unfused "
-              f"{res[rows]['unfused_turns_ms']:.5g}, ratio "
-              f"{res[rows]['ratio']:.4g}")
-    # the forward wrappers' operand checks alone (three `require`s, their
-    # messages formatted eagerly, and the row view) at the decode shape
-    x8, w8, b8 = x[:8], w, b
-    t0 = time.perf_counter()
-    for _ in range(10000):
-        ln._fwd_rows(x8, w8, b8)
-    print(f"  the forward wrappers' operand checks (_fwd_rows): "
-          f"{(time.perf_counter() - t0) / 10000 * 1e6:.3f} us a call on the "
-          "host")
-    return res, worst
+              + " ".join(f"{k}={rr[k]:.5g}" for k in
+                         ("ms", "plain_ms", "library_ms", "call_ms",
+                          "bound_ms"))
+              + f" (Triton {tri_res[rows, n]['ms']:.5g}); " + sides_text(rr))
+    return res, tri_res, worst, worst_tri
 
 
 def _rel_err(a, b):
@@ -1453,9 +1570,6 @@ def ln_bwd_phase(torch, F, ln):
                 d = library()
                 return (g + d[0], *d[1:]) if add else d
 
-            sides = {"kernel": kernel, "parent": par, "library": lib}
-            dev = sides_in_turns(torch, sides)
-            host = host_in_turns(torch, sides)
             got, want = kernel(), ln._ln_bwd_plain(gy, x, w, mean, rstd, g)
             err = max(max_err(a, r) for a, r in zip(got, want))
             # bytes: gy, x (and gs) read once, dx written once, w, the
@@ -1470,19 +1584,7 @@ def ln_bwd_phase(torch, F, ln):
                     gy, x, w, mean, rstd, g)),
                 library_ms=device_ms(torch, lib),
                 call_ms=time_ms(torch, kernel),
-                turns_ms=dev["kernel"][0],
-                turns_spread_ms=list(dev["kernel"][1:]),
-                parent_turns_ms=dev["parent"][0],
-                parent_turns_spread_ms=list(dev["parent"][1:]),
-                library_turns_ms=dev["library"][0],
-                library_turns_spread_ms=list(dev["library"][1:]),
-                ratio_parent=dev["kernel"][0] / dev["parent"][0],
-                ratio_library=dev["kernel"][0] / dev["library"][0],
-                host_ms=host["kernel"][0],
-                host_spread_ms=list(host["kernel"][1:]),
-                parent_host_ms=host["parent"][0],
-                parent_host_spread_ms=list(host["parent"][1:]),
-                library_host_ms=host["library"][0],
+                **three_sides(torch, kernel, par, lib),
                 bound_ms=bms, bound_by=by, max_abs_err=err,
                 shape=f"{rows}x{n} bf16" + (" +gs" if add else ""))
             res[n, add] = r
@@ -1491,16 +1593,7 @@ def ln_bwd_phase(torch, F, ln):
                   + " ".join(f"{k}={r[k]:.5g}" for k in
                              ("ms", "plain_ms", "library_ms", "call_ms",
                               "bound_ms"))
-                  + f"; in turns kernel {r['turns_ms']:.5g} "
-                  f"[{r['turns_spread_ms'][0]:.5g}, "
-                  f"{r['turns_spread_ms'][1]:.5g}], parent "
-                  f"{r['parent_turns_ms']:.5g} [{r['parent_turns_spread_ms'][0]:.5g}, "
-                  f"{r['parent_turns_spread_ms'][1]:.5g}], library "
-                  f"{r['library_turns_ms']:.5g}: x{r['ratio_parent']:.4g} the "
-                  f"parent, x{r['ratio_library']:.4g} the library; host per "
-                  f"call in turns {r['host_ms']:.5g} (parent "
-                  f"{r['parent_host_ms']:.5g}, library "
-                  f"{r['library_host_ms']:.5g}) ms")
+                  + "; " + sides_text(r))
     # the one pass must beat the sequence it replaced
     check(res[768, False]["ratio_parent"] < 1.0,
           "layernorm_bwd is not faster than the parent's pair at 8192x768")
@@ -2073,9 +2166,24 @@ def unfused_serving(pool_mod):
                    (pool_mod, "kv_write", pool_mod._kv_write_plain))
 
 
-# the tick's call sites that the fused kernels change, timed on the host
+def triton_forward():
+    """The parent's LayerNorm forwards: the Triton pair in place of
+    csrc/ln_fwd.cu behind `layernorm_fwd` / `add_layernorm_fwd` (the
+    autograd Functions look them up at call time)."""
+    from tiny_deepspeed_tpu_torch.ops import layernorm as ln
+    return swapped(
+        (ln, "layernorm_fwd",
+         lambda x, w, b, eps=1e-5: ln._ln_fwd_triton(x, w, b, eps)),
+        (ln, "add_layernorm_fwd",
+         lambda x, r, w, b, eps=1e-5: ln._add_ln_fwd_triton(x, r, w, b,
+                                                            eps)))
+
+
+# the tick's call sites that the port's launch work changed, timed on the
+# host, and `linear`, which no arm changes: the control for the host's
+# drift between arms
 TICK_SITES = (("gpt2", "add_layernorm"), ("gpt2", "layernorm"),
-              ("pool", "kv_write"))
+              ("pool", "kv_write"), ("gpt2", "linear"))
 
 
 @contextlib.contextmanager
@@ -2167,44 +2275,49 @@ def tick_profile(torch, model, prompts, counters, pool_mod, ticks=8,
     return out
 
 
-def tick_report(torch, model, prompts, counters, pool_mod, name, **knobs):
-    """`tick_profile` with the fused kernels and with the unfused
-    sequence, in turns (fused, unfused, unfused, fused, twice: the host
-    clock drifts over a call), the first of each profiled; printed side
-    by side with the host ms a tick as the median of the four."""
-    runs = {"fused": [], "unfused": []}
-    for k in ("fused", "unfused", "unfused", "fused") * 2:
-        with (unfused_serving(pool_mod) if k == "unfused"
-              else contextlib.nullcontext()):
+def tick_report(torch, model, prompts, counters, pool_mod, name,
+                arms=("fused", "unfused"), **knobs):
+    """`tick_profile` under each of `arms` — "fused" (the port as it
+    is), "unfused" (`unfused_serving`), "triton" (`triton_forward`) — in
+    turns (the arms in order, then reversed, twice: the host clock drifts
+    over a call), the first of each profiled; printed side by side with
+    the host ms a tick and at each call site as medians of the four."""
+    swaps = {"fused": contextlib.nullcontext,
+             "unfused": lambda: unfused_serving(pool_mod),
+             "triton": triton_forward}
+    runs = {k: [] for k in arms}
+    for k in (tuple(arms) + tuple(arms[::-1])) * 2:
+        with swaps[k]():
             runs[k].append(tick_profile(torch, model, prompts, counters,
                                         pool_mod, profile=not runs[k],
                                         **knobs))
-    fused, unfused = (dict(runs[k][0], host_ms=statistics.median(
-        r["host_ms"] for r in runs[k]), host_runs_ms=[
-        r["host_ms"] for r in runs[k]]) for k in ("fused", "unfused"))
-    for k, v in (("fused", fused), ("unfused", unfused)):
+    out = {k: dict(v[0], host_ms=statistics.median(r["host_ms"] for r in v),
+                   host_runs_ms=[r["host_ms"] for r in v])
+           for k, v in runs.items()}
+    for k, v in out.items():
         print(f"  {name} decode tick, {k}: {v['kernels']:.2f} device kernels "
               f"a tick, device busy {v['busy_ms']:.4f} ms, host "
               f"{v['host_ms']:.4f} ms (median of "
               f"{[round(x, 4) for x in v['host_runs_ms']]}); launches a "
               f"tick {v['launches']}")
-    print(f"  {name}: {unfused['kernels'] - fused['kernels']:.2f} fewer "
-          f"device kernels a tick with the fused kernels")
+    if "unfused" in out:
+        print(f"  {name}: {out['unfused']['kernels'] - out['fused']['kernels']:.2f}"
+              " fewer device kernels a tick with the fused kernels")
     # host ms a tick at each call site, median over the four runs of
-    # each (interleaved as above): what the fused wrappers cost the host
-    for k in ("fused", "unfused"):
+    # each arm (interleaved as above): what each arm's wrappers cost the
+    # host, `linear` the control
+    for k in arms:
         sites = {s: (runs[k][0]["sites"][s][0], statistics.median(
             r["sites"][s][1] for r in runs[k])) for s in runs[k][0]["sites"]}
         tick = statistics.median(r["sites_tick_ms"] for r in runs[k])
-        in_sites = sum(v for _, v in sites.values())
-        (fused if k == "fused" else unfused).update(
-            sites=sites, sites_tick_ms=tick)
+        in_sites = sum(v for s, (_, v) in sites.items() if s != "linear")
+        out[k].update(sites=sites, sites_tick_ms=tick)
         print(f"  {name} host a tick at the call sites, {k}: "
               + ", ".join(f"{s} {n:g} calls {ms:.4f} ms ({ms / n * 1e3:.2f} "
                           f"us a call)" for s, (n, ms) in sites.items() if n)
-              + f"; {in_sites:.4f} ms of a {tick:.4f} ms tick (medians of "
-              f"{len(runs[k])})")
-    return dict(fused=fused, unfused=unfused)
+              + f"; {in_sites:.4f} ms of a {tick:.4f} ms tick outside "
+              f"`linear` (medians of {len(runs[k])})")
+    return out
 
 
 # -- phase 4: training -------------------------------------------------------
@@ -2217,9 +2330,11 @@ FA2_TRAIN = TRAIN_KERNELS[2:5]
 LN_PAIR = ("layernorm_dx", "layernorm_dwdb")
 KNOB_KERNELS = ("fused_xent_fwd", "fused_xent_dx", "fused_xent_dw",
                 "adamw_update_fused")
-# profiler kernel-name fragments of each hand-written kernel
-PATTERNS = {"layernorm_fwd": "_ln_fwd_kernel",
-            "add_layernorm_fwd": "_add_ln_fwd_kernel",
+# profiler kernel-name fragments of each hand-written kernel (the longest
+# match wins: "add_ln_fwd_" over "ln_fwd_"); the replaced Triton
+# kernels' are REPLACED
+PATTERNS = {"layernorm_fwd": "ln_fwd_",
+            "add_layernorm_fwd": "add_ln_fwd_",
             "kv_write": "kv_write_kernel",
             "layernorm_dx": "_ln_dx_kernel",
             "layernorm_dwdb": "_ln_dwdb_",
@@ -2263,11 +2378,16 @@ def check_ln_bwd_launches(launches, cfg, steps, where):
           f"{where}: the Triton pair {LN_PAIR} ran")
 
 
+# kernel-name fragments of the Triton kernels rows 2+3, 1 and 1r
+# replaced: no path may launch them
+REPLACED = ("_ln_dx_kernel", "_ln_dwdb_", "_ln_fwd_kernel",
+            "_add_ln_fwd_kernel")
+
+
 def check_no_pair_records(rows, where):
-    """No profiled kernel record of the Triton pair (`_ln_dx_kernel`,
-    `_ln_dwdb_*`)."""
-    bad = [key for _, _, key in rows
-           if "_ln_dx_kernel" in key or "_ln_dwdb_" in key]
+    """No profiled kernel record of a replaced Triton kernel (REPLACED:
+    the backward pair, the forward pair)."""
+    bad = [key for _, _, key in rows if any(k in key for k in REPLACED)]
     check(not bad, f"{where}: the profiler recorded {bad}")
 
 
@@ -2734,8 +2854,8 @@ VARIANT_KERNELS = {
     "prefix_on": SERVE_BASE + ("paged_attention", "paged_attention_span"),
     "prefix_off": SERVE_BASE + ("paged_attention",),
 }
-SERVE_PATTERNS = {"layernorm_fwd": "_ln_fwd_kernel",
-                  "add_layernorm_fwd": "_add_ln_fwd_kernel",
+SERVE_PATTERNS = {"layernorm_fwd": "ln_fwd_",
+                  "add_layernorm_fwd": "add_ln_fwd_",
                   "kv_write": "kv_write_kernel",
                   "fa2_flash_attention_fwd": "flash_fwd_",
                   "paged_attention": "paged_decode_kernel",
@@ -3021,6 +3141,7 @@ def variants_phase(torch, np, model, counters, pa, pool_mod, qm,
         check(prof is not None, f"{name}: the profiler recorded no device "
               "time")
         per, busy, rows = kernel_shares(torch, prof, SERVE_PATTERNS)
+        check_no_pair_records(rows, f"{name}'s profiled pass")
         with open(os.path.join(OUT_DIR, f"{name}_profile.txt"), "w") as f:
             for us, n, key in rows:
                 f.write(f"{us / 1e3:12.3f} ms {n:8d}  {key}\n")
@@ -3685,16 +3806,18 @@ def main():
     build_report(_build)
     t = time.perf_counter()
     x = torch.randn(4, 768, device="cuda", dtype=torch.bfloat16)
-    ln.layernorm_fwd(x, torch.ones(768, device="cuda", dtype=torch.bfloat16),
-                     torch.zeros(768, device="cuda", dtype=torch.bfloat16))
+    w, b = (torch.ones(768, device="cuda", dtype=torch.bfloat16)
+            for _ in range(2))
+    ln._ln_fwd_triton(x, w, b, 1e-5)
+    ln._add_ln_fwd_triton(x, x, w, b, 1e-5)
     torch.cuda.synchronize()
     print(f"phase 1: nvcc build {_build.last_build_s:.2f}s (csrc/*.cu, in "
-          f"parallel); triton layernorm first compile "
-          f"{time.perf_counter() - t:.2f}s")
+          f"parallel); the Triton forward pair's first compile (the "
+          f"parent's arm) {time.perf_counter() - t:.2f}s")
 
     print("phase 2: kernel parity on the card (bf16)")
     lap("phase 1")
-    ln_res, ln_err = layernorm_phase(torch, F, ln)
+    ln_res, ln_tri, ln_err, ln_tri_err = layernorm_phase(torch, F, ln)
     fa_res, fa_err = flash_phase(torch, F, fa)
     lap("rows 1, 4")
     pa_res, pa_err = paged_phase(torch, F, pa, pool_mod)
@@ -3703,7 +3826,7 @@ def main():
     lap("rows 9a-9c")
     qz_res = quantize_phase(torch, qm)
     kv_res, kv_err = kv_write_phase(torch, pool_mod, qm)
-    aln_res, aln_err = add_ln_phase(torch, F, ln)
+    aln_res, aln_tri, aln_err, aln_tri_err = add_ln_phase(torch, F, ln)
     torch.cuda.empty_cache()
     lap("rows 10, 10kv, 1r")
     lnb_res = ln_bwd_phase(torch, F, ln)
@@ -3727,6 +3850,8 @@ def main():
     serve(torch, port, model, [prompts[0][:24], prompts[1][:40]], 4)  # warm
     counters = {"layernorm_fwd": ln.layernorm_fwd,
                 "add_layernorm_fwd": ln.add_layernorm_fwd,
+                "ln_fwd_triton": ln._ln_fwd_triton,
+                "add_ln_fwd_triton": ln._add_ln_fwd_triton,
                 "kv_write": pool_mod.kv_write,
                 "layernorm_dx": ln.layernorm_dx,
                 "layernorm_dwdb": ln.layernorm_dwdb,
@@ -3804,6 +3929,7 @@ def main():
             break
     check(prof is not None, "the profiler recorded no device time")
     per, busy, rows = kernel_shares(torch, prof, patterns)
+    check_no_pair_records(rows, "phase 3's profiled pass")
     with open(os.path.join(OUT_DIR, "serving_profile.txt"), "w") as f:
         for us, n, key in rows:
             f.write(f"{us / 1e3:12.3f} ms {n:8d}  {key}\n")
@@ -3821,7 +3947,8 @@ def main():
         print(f"    {us / 1e3:10.3f} ms x{n:<6d} {key[:90]}")
     lap("phase 3's serving runs")
     ticks = {"plain": tick_report(torch, model, prompts, counters, pool_mod,
-                                  "phase 3 (bf16 pool)")}
+                                  "phase 3 (bf16 pool)",
+                                  arms=("fused", "triton", "unfused"))}
     lap("phase 3's decode tick")
     plain_tokens = [r.tokens for r in reqs]
     del eng, model, prof
@@ -3918,10 +4045,10 @@ def main():
         return row
 
     kernels = [
-        entry("layernorm_fwd", "triton",
-              "tiny_deepspeed_tpu_torch/ops/layernorm.py",
+        entry("layernorm_fwd", "cuda",
+              "tiny_deepspeed_tpu_torch/csrc/ln_fwd.cu",
               "tiny_deepspeed_tpu/ops/layernorm_pallas.py:78",
-              ln_res["serving"], ln_err, ln_res["training"]),
+              ln_res[512, 768], ln_err, ln_res[8192, 768]),
         entry("fa2_flash_attention_fwd", "cuda",
               "tiny_deepspeed_tpu_torch/csrc/flash_fwd.cu",
               "tiny_deepspeed_tpu/ops/flash_fa2.py:381",
@@ -4003,10 +4130,20 @@ def main():
               "tiny_deepspeed_tpu_torch/csrc/kv_write.cu",
               "tiny_deepspeed_tpu/ops/quant_pallas.py:59",
               kv_res["decode_bf16"], err=kv_err),
-        entry("add_layernorm_fwd", "triton",
+        entry("add_layernorm_fwd", "cuda",
+              "tiny_deepspeed_tpu_torch/csrc/ln_fwd.cu",
+              "tiny_deepspeed_tpu/ops/layernorm_pallas.py:78",
+              aln_res[8, 768], err=aln_err, training=aln_res[8192, 768]),
+        # the Triton pair rows 1 and 1r replaced: the parent's arm, off
+        # every path
+        entry("ln_fwd_triton", "triton",
               "tiny_deepspeed_tpu_torch/ops/layernorm.py",
               "tiny_deepspeed_tpu/ops/layernorm_pallas.py:78",
-              aln_res[8], err=aln_err, training=aln_res[8192]),
+              ln_tri[512, 768], ln_tri_err, ln_tri[8192, 768]),
+        entry("add_ln_fwd_triton", "triton",
+              "tiny_deepspeed_tpu_torch/ops/layernorm.py",
+              "tiny_deepspeed_tpu/ops/layernorm_pallas.py:78",
+              aln_tri[8, 768], aln_tri_err, aln_tri[8192, 768]),
     ]
     kernels[13]["per_step"] = bwd_res["adamw_update_fused"]["per_step"]
     extra = {"paged_attention": {"long_context": pa_res["long_context"]},
@@ -4020,7 +4157,14 @@ def main():
              **{k: {"b8": bthd_res[k, 8]} for k in BTHD_KERNELS},
              "kv_write": {"decode_int8": kv_res["decode_int8"],
                           "prefill_int8": kv_res["prefill_int8"]},
-             "add_layernorm_fwd": {"prefill": aln_res[512]},
+             "layernorm_fwd": {"decode": ln_res[8, 768],
+                               "n1600": ln_res[8192, 1600]},
+             "add_layernorm_fwd": {"prefill": aln_res[512, 768],
+                                   "n1600": aln_res[8192, 1600]},
+             "ln_fwd_triton": {"decode": ln_tri[8, 768],
+                               "n1600": ln_tri[8192, 1600]},
+             "add_ln_fwd_triton": {"prefill": aln_tri[512, 768],
+                                   "n1600": aln_tri[8192, 1600]},
              "layernorm_bwd": {"add": lnb_res[768, True],
                                "n1600": lnb_res[1600, False],
                                "n1600_add": lnb_res[1600, True]}}
@@ -4038,16 +4182,20 @@ def main():
     print(f"clocks: {len(clocks) - len(events)} of {len(clocks)} device "
           f"times from the profiler, {len(events)} from CUDA events"
           + (f" ({', '.join(events)})" if events else ""))
-    check(len(kernels) == 22, f"{len(kernels)} kernel rows")
+    check(len(kernels) == 24, f"{len(kernels)} kernel rows")
     for row in kernels[14:17]:
         check(row["launches_by_path"]["ring4"] > 0,
               f"{row['name']} was never launched on the ring path")
     for row in kernels[17:20]:
         check(row["launches_by_path"]["ab"] > 0,
               f"{row['name']} was never launched on the A/B path")
-    for row in kernels[20:]:
+    for row in kernels[20:22]:
         check(row["launches_by_path"]["serving"] > 0,
               f"{row['name']} was never launched on the serving path")
+    for row in kernels[22:]:
+        check(not any(row["launches_by_path"].values()),
+              f"the Triton pair's {row['name']} ran on a path: "
+              f"{row['launches_by_path']}")
     with open(os.path.join(OUT_DIR, "variants.json"), "w") as f:
         json.dump({"results": var_res, "agreement": agree,
                    "ticks": ticks}, f, indent=1, default=str)

@@ -53,7 +53,14 @@ against `_ln_bwd_plain` at N in {64, 96, 100, 768, 1001, 1600, 4096,
 wide kernel), 1, 7 and 8192 rows, f32 / bf16 / f16, with and without
 gs; the gs variant's dx bit for bit `gs + dx`, two calls bit for bit,
 one launch a call; strided and misaligned rows, mixed weight dtypes,
-and a refused operand.
+and a refused operand.  Slice 13 (LayerNorm's forward and its
+residual-add variant behind one C entry, csrc/ln_fwd.cu; `-k ln_fwd`):
+against `_ln_fwd_plain` / `_add_ln_fwd_plain` at 8, 40, 512 and 8192
+rows of 768, 8192 of 1600, N = 16384 (the CTA kernels), unaligned N (7,
+770) and 0 rows, in f32 / bf16 / f16 with mixed weight dtypes; the add
+variant bit for bit `x + r` then the forward; one launch a call; two
+calls bit for bit; bit for bit the Triton pair it replaced; strided and
+misaligned rows; refused operands.
 """
 
 import math
@@ -1150,6 +1157,117 @@ def test_add_layernorm_kernel_matches_composition(dtype, rows):
     assert torch.equal(fs, cs) and torch.equal(fy, cy)
     for a, c in zip(fused, comp):
         assert a.dtype == c.dtype and torch.equal(a, c)
+
+
+LN_FWD_SHAPES = [(8, 768), (40, 768), (512, 768), (8192, 768),
+                 (8192, 1600), (3, 16384), (5, 7), (5, 770), (0, 768)]
+LN_FWD_DTYPES = [(torch.float32, torch.float32),
+                 (torch.bfloat16, torch.bfloat16),
+                 (torch.float16, torch.float16),
+                 (torch.bfloat16, torch.float32),
+                 (torch.float16, torch.float32),
+                 (torch.float32, torch.bfloat16)]
+
+
+def _ln_fwd_inputs(rows, n, dtype, wdtype, seed):
+    g = _g(seed)
+    x, r = ((torch.randn(rows, n, generator=g, device="cuda") * 2 + 0.3
+             ).to(dtype) for _ in range(2))
+    w, b = (torch.randn(n, generator=g, device="cuda").to(wdtype)
+            for _ in range(2))
+    return x, r, w, b
+
+
+def _ln_fwd_close(got, ref, dtype):
+    y, mean, rstd = got
+    py, pm, pr = ref
+    assert y.dtype == dtype and y.shape == py.shape
+    torch.testing.assert_close(y.float(), py.float(), **TOL[dtype])
+    torch.testing.assert_close(mean, pm, atol=1e-5, rtol=1e-4)
+    torch.testing.assert_close(rstd, pr, atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("add", [False, True], ids=["fwd", "add"])
+@pytest.mark.parametrize("dtype,wdtype", LN_FWD_DTYPES)
+@pytest.mark.parametrize("rows,n", LN_FWD_SHAPES)
+def test_ln_fwd_kernel(rows, n, dtype, wdtype, add):
+    """csrc/ln_fwd.cu against `_ln_fwd_plain` / `_add_ln_fwd_plain` (s
+    bit for bit `x + r`), one launch a call (none for 0 rows), two calls
+    bit for bit, and the add variant bit for bit `x + r` then the forward
+    kernel."""
+    x, r, w, b = _ln_fwd_inputs(rows, n, dtype, wdtype, rows + n)
+    fn = layernorm.add_layernorm_fwd if add else layernorm.layernorm_fwd
+    args = (x, r, w, b) if add else (x, w, b)
+    before = fn.launches
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert fn.launches == before + (1 if rows else 0)
+    if add:
+        s = x + r
+        assert torch.equal(got[0], s)
+        want = (s, *layernorm.layernorm_fwd(s, w, b))
+        assert all(torch.equal(u, v) for u, v in zip(got, want))
+        got = got[1:]
+        ref = layernorm._add_ln_fwd_plain(x, r, w, b)[1:]
+    else:
+        ref = layernorm._ln_fwd_plain(x, w, b)
+    _ln_fwd_close(got, ref, dtype)
+    again = fn(*args)
+    assert all(torch.equal(u, v) for u, v in zip(again[-3:], got))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("rows,n", [(8, 768), (512, 768), (8192, 768),
+                                    (8192, 1600), (33, 1280), (33, 770),
+                                    (33, 100), (2, 16384)])
+def test_ln_fwd_kernel_is_the_triton_pair_bit_for_bit(rows, n, dtype):
+    """The forward and the add variant give the bits of the Triton
+    kernels they replaced (`_ln_fwd_triton`, `_add_ln_fwd_triton`): the
+    same reduction order and the same div.full / sqrt.approx / FMA
+    arithmetic, so serving's tokens and training's losses are theirs."""
+    x, r, w, b = _ln_fwd_inputs(rows, n, dtype, dtype, n)
+    got = layernorm.layernorm_fwd(x, w, b)
+    want = layernorm._ln_fwd_triton(x, w, b, 1e-5)
+    got_r = layernorm.add_layernorm_fwd(x, r, w, b)
+    want_r = layernorm._add_ln_fwd_triton(x, r, w, b, 1e-5)
+    torch.cuda.synchronize()
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+    assert all(torch.equal(u, v) for u, v in zip(got_r, want_r))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_ln_fwd_strided_and_misaligned_rows(dtype):
+    """x as a column slice of a wider buffer (a row stride, no copy) and
+    r one element off a 16-byte boundary (element-wise loads): against
+    the plain versions, and the Triton kernels' bits for x."""
+    rows, n = 300, 768
+    x, r, w, b = _ln_fwd_inputs(rows, n, dtype, dtype, 5)
+    wide = torch.zeros(rows, n + 64, device="cuda", dtype=dtype)
+    wide[:, :n] = x
+    flat = torch.zeros(rows * n + 1, device="cuda", dtype=dtype)
+    ro = flat[1:].view(rows, n)
+    ro.copy_(r)
+    got = layernorm.layernorm_fwd(wide[:, :n], w, b)
+    _ln_fwd_close(got, layernorm._ln_fwd_plain(x, w, b), dtype)
+    want = layernorm._ln_fwd_triton(wide[:, :n], w, b, 1e-5)
+    assert all(torch.equal(u, v) for u, v in zip(got, want))
+    s, *rest = layernorm.add_layernorm_fwd(wide[:, :n], ro, w, b)
+    assert torch.equal(s, x + r)
+    _ln_fwd_close(rest, layernorm._ln_fwd_plain(x + r, w, b), dtype)
+
+
+def test_ln_fwd_refuses_bad_operands():
+    z = torch.zeros(4, 768, device="cuda", dtype=torch.bfloat16)
+    w = torch.ones(768, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="f32/bf16/f16"):
+        layernorm.layernorm_fwd(z.double(), w, w)
+    with pytest.raises(ValueError, match="weight/bias"):
+        layernorm.layernorm_fwd(z, w[:7], w)
+    with pytest.raises(ValueError, match="must match x"):
+        layernorm.add_layernorm_fwd(z, z.float(), w, w)
+    with pytest.raises(ValueError, match="mixed devices"):
+        layernorm.layernorm_fwd(z, w.cpu(), w)
 
 
 def test_ring_threads_on_card_match_cpu():

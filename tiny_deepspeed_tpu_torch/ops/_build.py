@@ -130,8 +130,10 @@ def entry(lib: str, name: str, argtypes: Sequence):
 
 
 def stream_ptr(t: torch.Tensor) -> int:
-    """PyTorch's current stream on t's device, as the kernels launch on it."""
-    return torch.cuda.current_stream(t.device).cuda_stream
+    """PyTorch's current stream on t's device, as the kernels launch on it:
+    its raw handle (a `torch.cuda.Stream` object costs the host ~4 us a
+    call on the H100 machine, the handle ~0.1)."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())
 
 
 def check(err: int, what: str) -> None:

@@ -18,19 +18,24 @@ The Pallas kernels tile rows into VMEM blocks that must divide the row
 count (:41-58, with an XLA fallback).  On Hopper that tiling buys
 nothing, and no divisibility fallback exists here:
 
-- fwd and dx: one program owns one row.  N (768 on gpt2-124m) fits one
-  power-of-two block, so each input is read once and each output written
-  once.  Both are bound by those bytes (a few flops per element against
-  the card's ~300 flop/byte balance point); the kernels move nothing else
-  but the 8-byte (mean, rstd) per row.
-- add + fwd: every pre-LN norm but the first reads a residual sum made
-  one launch earlier (`x + r`).  At serving's few rows both launches sit
-  at a launch's own floor, so the sum is made inside the forward's
-  program: it loads a row of x and of r, adds in f32, rounds once to x's
-  dtype (RTNE, as PyTorch's eager `x + r` rounds), stores that sum s and
-  runs the forward's body on it.  s, y, mean and rstd are bit for bit
-  `x + r` followed by the forward kernel (same body, same block, same
-  warps: the same reduction order).
+- the forward, `layernorm_fwd`, and the residual add fused into it,
+  `add_layernorm_fwd`: ONE C entry (csrc/ln_fwd.cu, CUDA C++ behind one
+  ctypes call with declared argtypes; `r` null or not).  Both are bound
+  by bytes (x, and r, read once; y, and s, written once; a few flops an
+  element against the card's ~300 flop/byte balance point), and at
+  serving's few rows a launch's floor sets the device time, so the
+  entry is built for the host: no launcher, no per-call formatting, the
+  fewest allocations.  A CTA of 4 warps owns a row (of 8 past N =
+  2048): the add variant loads a row of x and of r, adds in f32, rounds
+  once to x's dtype (RTNE, as eager `x + r` rounds), stores that sum s
+  and runs the forward's body on it, so s, y, mean and rstd are bit for
+  bit `x + r` then the forward.  The statistics repeat the reduction
+  order and the arithmetic of the Triton kernels the entry replaced, so
+  serving's tokens and training's losses are theirs, bit for bit.
+- the Triton forward pair it replaced stays behind `_ln_fwd_triton` /
+  `_add_ln_fwd_triton` (`_ln_fwd_kernel`, `_add_ln_fwd_kernel`: one
+  program a row), the parent's arm of chip_smoke.py's comparisons, with
+  launch counters of their own.  No path launches them.
 - the backward, `layernorm_bwd`: `ln_dx_pallas` and `ln_dwdb_pallas` in
   ONE pass over gy and x (csrc/ln_bwd.cu, CUDA C++ behind one ctypes
   call): a warp owns a row at a time and its lanes own the same columns
@@ -316,7 +321,7 @@ def _ln_fwd_triton(x, w, b, eps: float):
             x2, w.contiguous(), b.contiguous(), y, mean, rstd,
             x2.stride(0), y.stride(0), n, eps,
             BLOCK_N=block, num_warps=_fwd_warps(block))
-        layernorm_fwd.launches += 1
+        _ln_fwd_triton.launches += 1
     lead = x.shape[:-1]
     return y.reshape(x.shape), mean.reshape(lead), rstd.reshape(lead)
 
@@ -335,7 +340,7 @@ def _add_ln_fwd_triton(x, r, w, b, eps: float):
         _triton_kernels().add_fwd[(rows,)](
             x2, r2, w.contiguous(), b.contiguous(), s, y, mean, rstd, n,
             eps, BLOCK_N=block, num_warps=_fwd_warps(block))
-        add_layernorm_fwd.launches += 1
+        _add_ln_fwd_triton.launches += 1
     lead = x.shape[:-1]
     return (s.reshape(x.shape), y.reshape(x.shape), mean.reshape(lead),
             rstd.reshape(lead))
@@ -469,24 +474,92 @@ def _ln_bwd_cuda(gy, x, w, mean, rstd, gs=None, w_dtype=None,
     return dx, dw, db
 
 
+# the C entry of csrc/ln_fwd.cu: x, r, w, b, s, y, mean, rstd; sx, sr,
+# rows; n and the three dtype codes; eps; the stream
+_FWD_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 3
+             + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
+
+
+def _fwd_cuda(x, r, w, b, eps, what):
+    """One `ln_fwd` call of csrc/ln_fwd.cu on the current stream (with r:
+    the residual add first): (s or None, y, mean, rstd).  Every operand is
+    checked before anything is built; each message is formatted only when
+    its check fails."""
+    n = x.shape[-1]
+    require(x.dtype in _DTYPES, lambda: f"{what}: x must be f32/bf16/f16, "
+            f"got {x.dtype}")
+    require(0 < n <= _MAX_N, lambda: f"{what}: N={n} not in [1, {_MAX_N}]")
+    require(w.shape == (n,) and b.shape == (n,) and w.dtype in _DTYPES
+            and b.dtype in _DTYPES, lambda: f"{what}: weight/bias must be "
+            f"({n},) in f32/bf16/f16, got {tuple(w.shape)} {w.dtype}, "
+            f"{tuple(b.shape)} {b.dtype}")
+    require(r is None or (r.shape == x.shape and r.dtype == x.dtype),
+            lambda: f"{what}: r {tuple(r.shape)} {r.dtype} must match x "
+            f"{tuple(x.shape)} {x.dtype}")
+    dev = x.device
+    require(dev.type == "cuda" and w.device == dev and b.device == dev
+            and (r is None or r.device == dev),
+            lambda: f"{what}: the operands must lie on one CUDA device")
+    x2, px, sx = _rows_ptr(x, n)
+    r2, pr, sr = (None, None, 0) if r is None else _rows_ptr(r, n)
+    rows = x.numel() // n
+    y = _empty_rows(x)
+    s = None if r is None else _empty_rows(x)
+    # two allocations cost the host less than one buffer and its views
+    lead = x.shape[:-1] or ((),)
+    mean = torch.empty(*lead, dtype=torch.float32, device=dev)
+    rstd = torch.empty(*lead, dtype=torch.float32, device=dev)
+    if rows:
+        codes = _build.DTYPE_CODES
+        err = _build.entry("ln_fwd", "ln_fwd", _FWD_ARGS)(
+            px, pr, _flat_ptr(w), _flat_ptr(b),
+            None if s is None else s.data_ptr(), y.data_ptr(),
+            mean.data_ptr(), rstd.data_ptr(), sx, sr, rows, n,
+            codes[x.dtype], codes[w.dtype], codes[b.dtype], eps,
+            _build.stream_ptr(x))
+        _build.check(err, "ln_fwd")
+        (layernorm_fwd if r is None else add_layernorm_fwd).launches += 1
+    return s, y, mean, rstd
+
+
+def _empty_rows(x):
+    """An empty contiguous tensor of x's shape and dtype: `empty_like` for
+    a contiguous x (the cheapest call on the host), else sized by ints."""
+    if x.is_contiguous():
+        return torch.empty_like(x)
+    return torch.empty(*x.shape, dtype=x.dtype, device=x.device)
+
+
+def _ln_fwd_cuda(x, w, b, eps: float = 1e-5):
+    """(y, mean, rstd) from one launch of csrc/ln_fwd.cu."""
+    return _fwd_cuda(x, None, w, b, eps, "layernorm_fwd")[1:]
+
+
+def _add_ln_fwd_cuda(x, r, w, b, eps: float = 1e-5):
+    """(s, y, mean, rstd) of s = x + r from one launch of csrc/ln_fwd.cu
+    (its add kernels)."""
+    return _fwd_cuda(x, r, w, b, eps, "add_layernorm_fwd")
+
+
 # -- public wrappers --------------------------------------------------------
 
 def layernorm_fwd(x, w, b, eps: float = 1e-5):
     """Returns (y, mean, rstd); mean/rstd are f32 with shape x.shape[:-1].
 
-    CUDA tensors launch the Triton kernel (or raise); CPU tensors take
+    CUDA tensors launch csrc/ln_fwd.cu (or raise); CPU tensors take
     `_ln_fwd_plain`."""
     if on_cuda(x, w, b):
-        return _ln_fwd_triton(x, w, b, eps)
+        return _ln_fwd_cuda(x, w, b, eps)
     return _ln_fwd_plain(x, w, b, eps)
 
 
 def add_layernorm_fwd(x, r, w, b, eps: float = 1e-5):
     """s = x + r (rounded to x's dtype) and its (y, mean, rstd), as
-    `layernorm_fwd(x + r, ...)` gives them.  CUDA tensors launch the
-    fused Triton kernel (or raise); CPU tensors take `_add_ln_fwd_plain`."""
+    `layernorm_fwd(x + r, ...)` gives them.  CUDA tensors launch
+    csrc/ln_fwd.cu's add kernels (or raise); CPU tensors take
+    `_add_ln_fwd_plain`."""
     if on_cuda(x, r, w, b):
-        return _add_ln_fwd_triton(x, r, w, b, eps)
+        return _add_ln_fwd_cuda(x, r, w, b, eps)
     return _add_ln_fwd_plain(x, r, w, b, eps)
 
 
@@ -521,8 +594,11 @@ def layernorm_bwd(gy, x, w, mean, rstd, gs=None, w_dtype=None,
 
 
 # kernel launches (CUDA path only); layernorm_bwd.launches_gs counts the
-# launches among layernorm_bwd's that added a `gs`
+# launches among layernorm_bwd's that added a `gs`; the Triton forward
+# pair, off every path, counts its own
 layernorm_fwd.launches = 0
+_ln_fwd_triton.launches = 0
+_add_ln_fwd_triton.launches = 0
 add_layernorm_fwd.launches = 0
 layernorm_dx.launches = 0
 layernorm_dwdb.launches = 0
