@@ -53,7 +53,19 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      (`_ln_fwd_triton`, `_add_ln_fwd_triton`, held to the plain version
      too); then at 8, 512, 8192 x 768 and 8192 x 1600 bf16 three sides
      in turns — the kernel, the Triton kernel, F.layer_norm (after
-     `x + r` for 1r) — device and host ms a call.  The slice-12 row 2+3: LayerNorm's backward in
+     `x + r` for 1r) — device and host ms a call.  The slice-14 rows:
+     the decode with its append (`paged_attention(append_kv=)`, the
+     decode kernel's APPEND instantiation) bit for bit `kv_write` then
+     the decode kernel over bf16, f16, f32 (and f32 q over bf16) and int8
+     / e4m3 pools, Dh 32, 64 and 128, grouped heads, the split count
+     forced to 1-8, offsets 0 and bt - 1 and the table's last position,
+     then timed at the decode shape over bf16 and int8 pools in turns
+     with those two calls; and the writer (csrc/kv_write.cu) bit for bit
+     the v1 kernel (`kv_write_v1`, off every path) at the three writer
+     shapes, the prefill read from each layer's own qkv views, timed in
+     turns against the v1 kernel, the unfused sequence and (prefill) the
+     parent's whole writer, its two stacks then the v1 kernel.  The
+     slice-12 row 2+3: LayerNorm's backward in
      one pass (`layernorm_bwd`, csrc/ln_bwd.cu) at 8192 rows of 768 and
      1600 bf16 and of 768 f32 and f16, with and without gs, against
      `_ln_bwd_plain` (2e-2 x max |plain| per output), repeatable, the gs
@@ -86,11 +98,14 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      request's prefill logits are checked against the plain path on the
      card.  A second, profiled pass of the same traffic gives each
      kernel's device time, reported as a share of the (unprofiled) main
-     run's wall.  Then the decode tick alone (8 requests decoding): host
-     ms, launches, device kernels and busy ms a tick, and the host ms at
-     each call site (`linear`, which no arm changes, the control), with
-     the kernels as they are, with the Triton LayerNorm forward pair and
-     with the unfused sequence swapped in, in turns;
+     run's wall.  Every decode launch must carry its layer's append
+     (`paged_attention.appends` equal to its launches) and `kv_write`
+     launch once a prefill.  Then the decode tick alone (8 requests
+     decoding): host ms, launches, device kernels and busy ms a tick, and
+     the host ms at each call site (`linear`, which no arm changes, the
+     control), with the kernels as they are, with the append apart (the
+     parent's tick: its own kv_write launch), with the Triton LayerNorm
+     forward pair and with the unfused sequence swapped in, in turns;
   4. training: gpt2-124m at full width and depth (f32 masters, bf16
      compute, remat "dots_no_batch"), SingleDevice + AdamW(lr=1e-5,
      weight_decay=0.1) on the JAX package's synthetic stream, B=8,
@@ -132,7 +147,7 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      greedy tokens of plain, spec-ngram and spec-model:self serving must
      be identical, and those of the prefix cache on and off; in bf16 the
      agreement is reported, not gated.  The int8 and fp8 decode ticks
-     alone as in phase 3, fused and unfused;
+     alone as in phase 3, fused, with the append apart and unfused;
   7. distributed, on the one card:
      a. the unmasked FA2 chunk kernels (4c fwd, 6c dq, 5c dk/dv) at ring
         attention's shape on gpt2-124m with T=1024 over 4 seq ranks (B=8
@@ -184,6 +199,7 @@ Imports nothing of JAX or of the JAX package.
 import contextlib
 import ctypes
 import dataclasses
+import itertools
 import json
 import math
 import os
@@ -606,14 +622,19 @@ def build_report(_build):
              if lnf else " (ptxas report not in this process's build: "
              "cached)"))
     kvw = [n for n in counts if "kv_write_kernel" in n]
-    check(len(kvw) == 15, f"{len(kvw)} kv_write instantiations, expected "
-          "15 (f32/bf16/f16 sources x f32/bf16/f16/int8/e4m3 pools)")
+    kv1 = [n for n in counts if "kv_write_v1_kernel" in n]
+    check(len(kvw) == 90 and len(kv1) == 15,
+          f"{len(kvw)} kv_write and {len(kv1)} kv_write_v1 instantiations, "
+          "expected 90 (f32/bf16/f16 sources x f32/bf16/f16/int8/e4m3 pools "
+          "x Dh 32/64/128 x 1 or 4 vectors a lane group) and 15 (sources x "
+          "pools)")
     kv_res = [(n, regs, sst + sld) for _, n, regs, sst, sld, _ in resources
-              if "kv_write_kernel" in n]
+              if "kv_write_kernel" in n or "kv_write_v1_kernel" in n]
     check(not any(s for *_, s in kv_res), f"kv_write kernels spill: "
           f"{kv_res}")
-    regs = sorted(r for _, r, _ in kv_res)
-    print(f"  kv_write: {len(kvw)} instantiations (sass), "
+    regs = sorted(r for n, r, _ in kv_res if "v1" not in n)
+    print(f"  kv_write: {len(kvw)} instantiations (sass) and the v1 kernel's "
+          f"{len(kv1)}, "
           + (f"{regs[0]}-{regs[-1]} registers, no spills" if regs else
              "ptxas report not in this process's build (cached)"))
     print(f"  sass: HGMMA in all {len(paged_tc)} bf16/f16 tensor-core span "
@@ -1063,6 +1084,178 @@ def paged_span_phase(torch, F, pa, pool_mod):
     return res, worst
 
 
+# the fused decode's bit-identity matrix: (name, q dtype, pool dtype,
+# quant mode), (Hq, KVH, Dh), and (W, positions) — offsets 0 and bt - 1,
+# an invalid slot (slot 1: an all-scratch table row), the table's last
+# position, and (W = 64) live ranges across many splits
+APPEND_POOLS = (("bf16", "bfloat16", "bfloat16", None),
+                ("f16", "float16", "float16", None),
+                ("f32", "float32", "float32", None),
+                ("f32q_bf16", "float32", "bfloat16", None),
+                ("int8", "bfloat16", "bfloat16", "int8"),
+                ("e4m3", "bfloat16", "bfloat16", "fp8"))
+APPEND_HEADS = ((12, 12, 64), (4, 2, 32), (2, 1, 128), (8, 2, 64))
+APPEND_POS = ((6, (0, 5, 15, 16, 6 * 16 - 1, 47)),
+              (64, (0, 5, 1023, 511, 64, 700)))
+
+
+def _append_case(torch, pool_mod, qdt, pdt, mode, hq, kvh, d, w, pos, seed,
+                 bt=16, nl=3):
+    """(view, q, k, v, page) of one fused-decode case: a noisy pool of
+    distinct blocks a slot, slot 1 invalid (its table row all scratch);
+    q, k and v the column slices of one (S, 1, (Hq + 2 KVH) Dh) qkv
+    product, as the model hands them over."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    s = len(pos)
+    view = pool_mod.PagedKVPool(
+        n_layer=nl, kv_heads=kvh, head_dim=d, num_blocks=s * w,
+        block_tokens=bt, dtype=pdt, quant=mode, device="cuda").view
+    for t in view:
+        if t is not None:
+            if t.dtype in (torch.float32, torch.bfloat16, torch.float16):
+                t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+            else:
+                pool_mod._raw(t).copy_(torch.randint(
+                    0, 100, t.shape, generator=g, device="cuda"))
+    tables = (torch.randperm(s * w, generator=g, device="cuda") + 1
+              ).reshape(s, w).to(torch.int32)
+    tables[1] = 0
+    page = pool_mod.page_ref(tables, torch.tensor(
+        pos, dtype=torch.int32, device="cuda"), bt)
+    qkv = (torch.randn(s, 1, (hq + 2 * kvh) * d, generator=g, device="cuda")
+           * 3).to(qdt)
+    q = qkv[..., :hq * d].reshape(s, 1, hq, d).transpose(1, 2)
+    k = qkv[..., hq * d:(hq + kvh) * d].reshape(s, kvh, d)
+    v = qkv[..., (hq + kvh) * d:].reshape(s, kvh, d)
+    return view, q, k, v, page
+
+
+def append_phase(torch, pa, pool_mod):
+    """9a/9b with the decode append (`paged_attention(append_kv=)`,
+    csrc/paged_attn.cu APPEND): bit for bit `kv_write` (through
+    `paged_append`) followed by the decode kernel — the output of every
+    valid slot and the pool's bytes and scales on blocks 1.. — over bf16,
+    f16, f32 (and f32 q over bf16) and int8 / e4m3 pools, Dh 32, 64 and
+    128, grouped heads, the split count forced to each of 1-8, offsets 0
+    and bt - 1, the table's last position; one launch a call, counted in
+    `paged_attention.appends` and not in `kv_write`'s count.  Then at
+    phase 2's decode shape over bf16 and int8 pools: the fused launch,
+    its plain version, and in turns the two calls it replaces (device
+    ms, and host ms a call)."""
+    plan, cases, valid = pa.split_plan, 0, [0, 2, 3, 4, 5]
+    try:
+        for (_, qn, pn, mode), (hq, kvh, d), (w, pos), splits in (
+                itertools.product(APPEND_POOLS, APPEND_HEADS, APPEND_POS,
+                                  range(1, 9))):
+            qdt, pdt = getattr(torch, qn), getattr(torch, pn)
+            view, q, k, v, page = _append_case(
+                torch, pool_mod, qdt, pdt, mode, hq, kvh, d, w, pos, cases)
+            ref = pool_mod.KVPoolView(*(None if t is None else t.clone()
+                                        for t in view))
+            pa.split_plan = (lambda n=splits, **kw:
+                             plan(**kw)._replace(splits=n))
+            before = (pa.paged_attention.appends, pool_mod.kv_write.launches)
+            o = pa.paged_attention(q, view, page, 1, append_kv=(k, v))
+            torch.cuda.synchronize()
+            check((pa.paged_attention.appends, pool_mod.kv_write.launches)
+                  == (before[0] + 1, before[1]),
+                  "paged_attention(append_kv=): not one fused launch")
+            pool_mod.paged_append(ref, k, v, 1, page)
+            ro = pa.paged_attention(q, ref, page, 1)
+            torch.cuda.synchronize()
+            what = (f"{pn} pool, {qn} q, mode {mode}, Hq {hq} KVH {kvh} Dh "
+                    f"{d}, W {w}, splits {splits}")
+            check(torch.equal(o[valid], ro[valid]), f"fused decode output "
+                  f"differs from kv_write + paged_decode: {what}")
+            bad = [i for i, (a, b) in enumerate(zip(view, ref))
+                   if a is not None and not torch.equal(
+                       pool_mod._raw(a)[1:], pool_mod._raw(b)[1:])]
+            check(not bad, f"fused decode pool tensors {bad} differ from "
+                  f"kv_write + paged_decode on blocks 1..: {what}")
+            cases += 1
+    finally:
+        pa.split_plan = plan
+    print(f"kernel paged_attention(append_kv=) (9a/9b APPEND): {cases} cases"
+          f" bit-identical to kv_write + paged_decode (valid slots' output, "
+          f"pool bytes and scales on blocks 1..): pools "
+          f"{[p[0] for p in APPEND_POOLS]}, (Hq, KVH, Dh) {APPEND_HEADS}, "
+          f"splits 1-8, W 6 and 64 with offsets 0 and bt-1 and the table's "
+          f"last position; one launch a call")
+    res, worst = {}, 0.0
+    for mode in (None, "int8"):
+        view, tables, pos, g = _decode_inputs(torch, pool_mod, mode)
+        s, hq, d, nl = 8, 12, 64, 12
+        page = pool_mod.page_ref(tables, pos, 16)
+        qkv = torch.randn(s, 1, 3 * hq * d, generator=g,
+                          device="cuda").bfloat16()
+        # q contiguous (as 9a's rows time it): the call is the kernel alone
+        q = qkv[..., :hq * d].reshape(s, 1, hq, d).transpose(1, 2)
+        q = q.contiguous()
+        k = qkv[..., hq * d:2 * hq * d].reshape(s, hq, d)
+        v = qkv[..., 2 * hq * d:].reshape(s, hq, d)
+        ref = pool_mod.KVPoolView(*(None if t is None else t.clone()
+                                    for t in view))
+        o = pa.paged_attention(q, view, page, 4, append_kv=(k, v))
+        pool_mod.paged_append(ref, k, v, 4, page)
+        po = pa._paged_attention_plain(q, ref, page, 4)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(o.float(), po.float(), atol=2e-2,
+                                   rtol=2e-2)
+        err = max_err(o, po)
+        worst = max(worst, err)
+        del ref
+        live = int((pos.long() + 1).sum())
+        nbytes = (live * hq * _vector_bytes(view) * 2 + 2 * s * hq * d * 2
+                  + s * (tables.shape[1] + 1) * 4
+                  + 2 * s * hq * (d * 2 + _vector_bytes(view)) + 16 * s)
+        bms, by = bound_ms(nbytes, 4 * live * hq * d, "bfloat16")
+        nxt = _layer_cycle(nl)
+
+        def kernel():
+            return pa.paged_attention(q, view, page, nxt(), append_kv=(k, v))
+
+        def two_calls():
+            layer = nxt()
+            pool_mod.paged_append(view, k, v, layer, page)
+            return pa.paged_attention(q, view, page, layer)
+
+        def plain():
+            return pa._paged_attention_plain(q, view, page, nxt(),
+                                             append_kv=(k, v))
+
+        def decode():  # the decode kernel alone: the prologue's cost
+            return pa.paged_attention(q, view, page, nxt())
+
+        t = sides_in_turns(torch, {"kernel": kernel, "unfused": two_calls,
+                                   "decode": decode})
+        key = mode or "bf16"
+        res[key] = dict(
+            ms=device_ms(torch, kernel), plain_ms=device_ms(torch, plain),
+            library_ms=None, unfused_ms=device_ms(torch, two_calls),
+            decode_ms=device_ms(torch, decode),
+            **call_turns(torch, kernel, two_calls),
+            turns_ms=t["kernel"][0], turns_spread_ms=list(t["kernel"][1:]),
+            unfused_turns_ms=t["unfused"][0],
+            unfused_turns_spread_ms=list(t["unfused"][1:]),
+            ratio=t["kernel"][0] / t["unfused"][0],
+            decode_turns_ms=t["decode"][0],
+            decode_turns_spread_ms=list(t["decode"][1:]),
+            bound_ms=bms, bound_by=by, max_abs_err=err,
+            shape=f"S={s} Hq={hq} Dh={d} bt=16 pos<=1000 bf16 q and rows, "
+                  f"{key} pool")
+        print(f"kernel paged_attention(append_kv=) {res[key]['shape']}: "
+              f"max_abs_err={err:.3g} against the plain version (tol "
+              f"atol=rtol=2e-2); "
+              + " ".join(f"{k_}={v_:.5g}" for k_, v_ in res[key].items()
+                         if k_.endswith("ms") and isinstance(v_, float))
+              + f"; in turns: fused {res[key]['turns_ms']:.5g} ms, "
+              f"kv_write + paged_decode {res[key]['unfused_turns_ms']:.5g} "
+              f"(ratio {res[key]['ratio']:.4g}), the decode kernel alone "
+              f"{res[key]['decode_turns_ms']:.5g}")
+        del view
+    return res, worst
+
+
 def quantize_phase(torch, qm):
     """10: the blockwise quantizer at the KV append shape (96 head
     vectors x 64, bf16: S=8 slots x 12 heads), the prefill shape
@@ -1122,10 +1315,13 @@ KV_NB, KV_BT, KV_L, KV_H, KV_D = 8 * 38 + 1, 16, 12, 12, 64
 
 
 def _kv_case(torch, pool_mod, writer, pool_dtype, mode, src_dtype, seed):
-    """(view, kv_write args) at `writer`'s main-path shape; the view a
-    fresh noisy pool.  Rows on scratch (invalid slots, rejected drafts,
-    the padding tail) as the engine makes them; every other destination
-    its own."""
+    """(view, kv_write args, the parent's stacked args) at `writer`'s
+    main-path shape; the view a fresh noisy pool.  Rows on scratch
+    (invalid slots, rejected drafts, the padding tail) as the engine makes
+    them; every other destination its own.  The prefill hands over each
+    layer's own (1, P, KVH, Dh) views of its qkv product, as
+    `paged_scatter` does; the parent stacked the (1, KVH, P,
+    Dh) views first (`_stacked_args`)."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     view = pool_mod.PagedKVPool(
         n_layer=KV_L, kv_heads=KV_H, head_dim=KV_D, num_blocks=KV_NB - 1,
@@ -1151,8 +1347,8 @@ def _kv_case(torch, pool_mod, writer, pool_dtype, mode, src_dtype, seed):
         pos = torch.randint(0, 600, (s,), generator=g, device="cuda",
                             dtype=torch.int32)
         page = pool_mod.page_ref(tables, pos, KV_BT)
-        return view, (k[None, :, None], v[None, :, None], page.blk,
-                      page.off, 7)
+        args = (k[None, :, None], v[None, :, None], page.blk, page.off, 7)
+        return view, args, args
     if writer == "span":  # the verify commit's (L, S, KVH, K1, Dh) stacks
         s, k1 = 8, 5
         ks, vs = ((torch.randn(KV_L, s, KV_H, k1, KV_D, generator=g,
@@ -1168,14 +1364,32 @@ def _kv_case(torch, pool_mod, writer, pool_dtype, mode, src_dtype, seed):
             wpos, KV_BT, rounding_mode="floor"))
         blk = torch.where(j < count[:, None], blk, 0).reshape(-1)
         off = torch.where(j < count[:, None], wpos % KV_BT, 0).reshape(-1)
-        return view, (ks.transpose(2, 3), vs.transpose(2, 3), blk, off, 0)
-    p = 512  # a prefill's (L, 1, KVH, P, Dh) stacks, 32 whole blocks
-    ks, vs = ((torch.randn(KV_L, 1, KV_H, p, KV_D, generator=g,
-                           device="cuda") * 2).to(src_dtype)
-              for _ in range(2))
+        args = (ks.transpose(2, 3), vs.transpose(2, 3), blk, off, 0)
+        return view, args, args
+    p = 512  # a prefill of 32 whole blocks, each layer's own qkv product
+    qkvs = [(torch.randn(1, p, 3 * d, generator=g, device="cuda") * 2
+             ).to(src_dtype) for _ in range(KV_L)]
+
+    def heads(z):  # (1, P, D) -> (1, KVH, P, Dh), as `_block` returns it
+        return z.reshape(1, p, KV_H, KV_D).transpose(1, 2)
+
+    kh = [heads(x[..., d:2 * d]) for x in qkvs]
+    vh = [heads(x[..., 2 * d:]) for x in qkvs]
     ids = perm[:p // KV_BT].clone()
     ids[-3:] = 0  # the padding tail
-    return view, (ks.transpose(2, 3), vs.transpose(2, 3), ids, None, 0)
+    args = ([x.transpose(1, 2) for x in kh], [x.transpose(1, 2) for x in vh],
+            ids, None, 0)
+    return view, args, _stacked_args(torch, args, kh, vh)
+
+
+def _stacked_args(torch, args, kh=None, vh=None):
+    """The parent's prefill operands: the (1, KVH, P, Dh) views stacked
+    into (L, 1, KVH, P, Dh) tensors (`torch.stack` in `paged_prefill`),
+    read as (L, 1, P, KVH, Dh); other writers' args as they are."""
+    if kh is None:
+        return args
+    return (torch.stack(kh).transpose(2, 3), torch.stack(vh).transpose(2, 3),
+            *args[2:])
 
 
 def _plain_quantizer(pool_mod, qm):
@@ -1186,26 +1400,34 @@ def _plain_quantizer(pool_mod, qm):
                     qm._quantize_plain(x.reshape(-1), mode, block, dither)))
 
 
-def _kv_check(torch, pool_mod, qm, view, args, what):
+def _kv_check(torch, pool_mod, qm, view, args, sargs, what):
     """kv_write on `view` (one launch) against the same write on copies
-    of it by the unfused writer on the card (`_kv_write_plain`: the
-    Triton quantizer and index writes) and by the plain version (those
-    index writes through the plain codec, `_quantize_plain`): pool bytes
-    and scales on blocks 1.. bit for bit both.  Returns the max abs err
-    against the plain version over k, v and the scales, as values."""
-    ref, plain = (pool_mod.KVPoolView(*(None if t is None else t.clone()
-                                        for t in view)) for _ in range(2))
-    before = pool_mod.kv_write.launches
+    of it by the v1 kernel (`kv_write_v1`, from the parent's stacked
+    operands `sargs`), by the unfused writer on the card
+    (`_kv_write_plain`: the Triton quantizer and index writes) and by the
+    plain version (those index writes through the plain codec,
+    `_quantize_plain`): pool bytes and scales on blocks 1.. bit for bit
+    all three.  Returns the max abs err against the plain version over k,
+    v and the scales, as values."""
+    v1, ref, plain = (pool_mod.KVPoolView(*(None if t is None else t.clone()
+                                            for t in view))
+                      for _ in range(3))
+    before = pool_mod.kv_write.launches, pool_mod.kv_write_v1.launches
     pool_mod.kv_write(view, *args)
     torch.cuda.synchronize()
-    check(pool_mod.kv_write.launches == before + 1,
+    check(pool_mod.kv_write.launches == before[0] + 1,
           f"kv_write {what}: not one launch")
-    pool_mod._kv_write_plain(ref, *args)
+    pool_mod.kv_write_v1(v1, *sargs)
+    torch.cuda.synchronize()
+    check(pool_mod.kv_write_v1.launches == before[1] + 1,
+          f"kv_write_v1 {what}: not one launch")
+    pool_mod._kv_write_plain(ref, *sargs)
     with _plain_quantizer(pool_mod, qm):
-        pool_mod._kv_write_plain(plain, *args)
+        pool_mod._kv_write_plain(plain, *sargs)
     torch.cuda.synchronize()
     err = 0.0
-    for against, other in (("unfused writer's", ref),
+    for against, other in (("v1 kernel's", v1),
+                           ("unfused writer's", ref),
                            ("plain version's", plain)):
         bad = [i for i, (a, b) in enumerate(zip(view, other))
                if a is not None and not torch.equal(
@@ -1218,19 +1440,31 @@ def _kv_check(torch, pool_mod, qm, view, args, what):
     return err
 
 
+# the writer's timed shapes: (key, writer, quant mode); phase 3 writes a
+# bf16 pool, phase 6 int8 / fp8 ones
+KV_TIMED = (("prefill_bf16", "prefill", None), ("prefill_int8", "prefill",
+                                                "int8"),
+            ("decode_bf16", "decode", None), ("decode_int8", "decode",
+                                              "int8"),
+            ("span_bf16", "span", None))
+
+
 def kv_write_phase(torch, pool_mod, qm):
     """10kv: the pool write (csrc/kv_write.cu) at the three writers'
-    main-path shapes (decode: 8 slots x 12 heads x 64 of one layer, read
-    from the qkv product's column slice; span commit: 8 x K1=5 rows x 12
-    layers; prefill: 512 rows x 12 layers), over bf16, f32, int8 and e4m3
-    pools.  Pool bytes and scales on blocks 1.. must be bit-identical to
-    the unfused writers on the card and to the plain version
-    (`_kv_check`), one launch a call.  Times at the decode
-    shape over a bf16 pool (phase 3's row) and over int8 (phase 6's), and
-    the prefill over int8: the kernel, the plain version (plain codec),
-    the unfused launch sequence (device time, in turns with the kernel,
-    and host call_ms), and the library: the two `index_put_` calls that
-    store the cast rows (bf16 pool only: no PyTorch call quantizes)."""
+    main-path shapes (prefill: 512 rows x 12 layers from each layer's own
+    qkv views; span commit: 8 x K1=5 rows x 12 layers; decode: 8 slots x
+    12 heads x 64 of one layer, read from the qkv product's column slice
+    — off the tick, which appends inside the decode launch),
+    over bf16, f32, int8 and e4m3 pools.  Pool bytes and scales on blocks
+    1.. must be bit-identical to the v1 kernel (`kv_write_v1`), to the
+    unfused writers on the card and to the plain version (`_kv_check`),
+    one launch a call.  Times at KV_TIMED: the kernel, the plain version
+    (plain codec), and in turns the kernel, the v1 kernel, the unfused
+    launch sequence and (prefill) the parent's whole writer, the two
+    stacks then the v1 kernel (device ms); host ms a call in turns with
+    the unfused sequence; the library: the two `index_put_` calls that
+    store the cast rows (the bf16 decode only: no PyTorch call
+    quantizes)."""
     pools = (("bf16", torch.bfloat16, None, torch.bfloat16),
              ("f32", torch.float32, None, torch.float32),
              ("int8", torch.bfloat16, "int8", torch.bfloat16),
@@ -1238,27 +1472,24 @@ def kv_write_phase(torch, pool_mod, qm):
     ok, worst = [], 0.0
     for writer in ("decode", "span", "prefill"):
         for name, pdt, mode, sdt in pools:
-            view, args = _kv_case(torch, pool_mod, writer, pdt, mode, sdt,
-                                  seed=len(writer) + len(name))
+            view, args, sargs = _kv_case(torch, pool_mod, writer, pdt, mode,
+                                         sdt, seed=len(writer) + len(name))
             worst = max(worst, _kv_check(torch, pool_mod, qm, view, args,
+                                         sargs,
                                          f"{writer} over a {name} pool"))
             ok.append(f"{writer}/{name}")
-            del view, args
-    print(f"kernel kv_write: pool bytes and scales bit-identical to the "
-          f"unfused writers and to the plain version on blocks 1.. for "
-          f"{', '.join(ok)} (max_abs_err={worst:.3g}); one launch a call")
-    res = {}
-    for key, writer, pdt, mode in (("decode_bf16", "decode", torch.bfloat16,
-                                    None),
-                                   ("decode_int8", "decode", torch.bfloat16,
-                                    "int8"),
-                                   ("prefill_int8", "prefill",
-                                    torch.bfloat16, "int8")):
-        view, args = _kv_case(torch, pool_mod, writer, pdt, mode,
-                              torch.bfloat16, seed=3)
-        err = _kv_check(torch, pool_mod, qm, view, args, key)
+            del view, args, sargs
+    print(f"kernel kv_write: pool bytes and scales bit-identical to the v1 "
+          f"kernel (kv_write_v1), the unfused writers and the plain version "
+          f"on blocks 1.. for {', '.join(ok)} (max_abs_err={worst:.3g}); "
+          f"one launch a call")
+    res, v1_res = {}, {}
+    for key, writer, mode in KV_TIMED:
+        view, args, sargs = _kv_case(torch, pool_mod, writer, torch.bfloat16,
+                                     mode, torch.bfloat16, seed=3)
+        err = _kv_check(torch, pool_mod, qm, view, args, sargs, key)
         worst = max(worst, err)
-        ks, vs, blk, off, l0 = args
+        ks, vs, blk, off, l0 = sargs
         lc, r1, r2, kvh, dh = ks.shape
         vec = 2 * lc * r1 * r2 * kvh
         nbytes = (vec * dh * 2 + vec * dh * (1 if mode else 2)
@@ -1270,15 +1501,28 @@ def kv_write_phase(torch, pool_mod, qm):
         def kernel():
             pool_mod.kv_write(view, *args)
 
+        def v1():
+            pool_mod.kv_write_v1(view, *sargs)
+
         def unfused():
-            pool_mod._kv_write_plain(view, *args)
+            pool_mod._kv_write_plain(view, *sargs)
 
         def plain():
             with _plain_quantizer(pool_mod, qm):
-                pool_mod._kv_write_plain(view, *args)
+                pool_mod._kv_write_plain(view, *sargs)
 
+        sides = {"kernel": kernel, "v1": v1, "unfused": unfused}
+        if writer == "prefill":
+            kh = [x.transpose(1, 2) for x in args[0]]
+            vh = [x.transpose(1, 2) for x in args[1]]
+
+            def parent():  # `paged_prefill`'s stacks, then the v1 kernel
+                pool_mod.kv_write_v1(view, *_stacked_args(torch, args, kh,
+                                                          vh))
+
+            sides["parent"] = parent
         library = None
-        if mode is None:
+        if writer == "decode" and mode is None:
             kl, vl = view.k[:, :, l0], view.v[:, :, l0]
             k2, v2 = ks[0, :, 0], vs[0, :, 0]
 
@@ -1286,26 +1530,45 @@ def kv_write_phase(torch, pool_mod, qm):
                 kl.index_put_((blk, off), k2)
                 vl.index_put_((blk, off), v2)
 
-        tr = turns(torch, kernel, unfused)
-        res[key] = dict(
+        t = sides_in_turns(torch, sides)
+        kt = t["kernel"]
+        row = dict(
             ms=device_ms(torch, kernel), plain_ms=device_ms(torch, plain),
             library_ms=None if library is None else device_ms(torch,
                                                               library),
             unfused_ms=device_ms(torch, unfused),
             **call_turns(torch, kernel, unfused),
-            **{k.replace("library", "unfused"): v for k, v in tr.items()},
+            turns_ms=kt[0], turns_spread_ms=list(kt[1:]),
+            unfused_turns_ms=t["unfused"][0],
+            unfused_turns_spread_ms=list(t["unfused"][1:]),
+            ratio=kt[0] / t["unfused"][0],
+            v1_turns_ms=t["v1"][0], v1_turns_spread_ms=list(t["v1"][1:]),
+            ratio_v1=kt[0] / t["v1"][0],
             bound_ms=bms, bound_by=by, max_abs_err=err,
             shape=f"{writer} {r1 * r2} rows x {lc} layers x {kvh}x{dh} "
                   f"bf16 -> {mode or 'bf16'} pool")
-        print(f"kernel kv_write {res[key]['shape']}: "
-              + " ".join(f"{k}={v:.5g}" for k, v in res[key].items()
+        if "parent" in t:
+            row.update(parent_turns_ms=t["parent"][0],
+                       parent_turns_spread_ms=list(t["parent"][1:]),
+                       ratio_parent=kt[0] / t["parent"][0],
+                       parent_ms=device_ms(torch, sides["parent"]))
+        res[key] = row
+        v1_res[key] = dict(
+            ms=device_ms(torch, v1), plain_ms=row["plain_ms"],
+            library_ms=row["library_ms"], call_ms=time_ms(torch, v1),
+            bound_ms=bms, bound_by=by, max_abs_err=err, shape=row["shape"],
+            turns_ms=t["v1"][0], turns_spread_ms=list(t["v1"][1:]))
+        print(f"kernel kv_write {row['shape']}: "
+              + " ".join(f"{k}={v:.5g}" for k, v in row.items()
                          if k.endswith("ms") and isinstance(v, float))
-              + f"; in turns with the unfused sequence: kernel "
-              f"{res[key]['turns_ms']:.5g} ms, unfused "
-              f"{res[key]['unfused_turns_ms']:.5g}, ratio "
-              f"{res[key]['ratio']:.4g}")
-        del view, args
-    return res, worst
+              + f" (the v1 kernel {v1_res[key]['ms']:.5g}); in turns: "
+              f"kernel {kt[0]:.5g} ms, v1 {t['v1'][0]:.5g} (x"
+              f"{row['ratio_v1']:.4g}), unfused {t['unfused'][0]:.5g} (x"
+              f"{row['ratio']:.4g})"
+              + (f", the parent's stacks + v1 {t['parent'][0]:.5g} (x"
+                 f"{row['ratio_parent']:.4g})" if "parent" in t else ""))
+        del view, args, sargs
+    return res, v1_res, worst
 
 
 def checked_add_ln_fwd(torch, ln, x, r, w, b, fwd=None):
@@ -1478,6 +1741,11 @@ PARENT_KEYS = ("turns_ms", "turns_spread_ms", "parent_turns_ms",
                "library_turns_spread_ms", "ratio_parent", "ratio_library",
                "host_ms", "host_spread_ms", "parent_host_ms",
                "parent_host_spread_ms", "library_host_ms")
+# row 10kv: the v1 kernel in the same turns, and the parent's
+# whole prefill writer (its stacks, then the v1 kernel)
+V1_KEYS = ("v1_turns_ms", "v1_turns_spread_ms", "ratio_v1", "parent_ms",
+           # the decode with its append: the decode kernel alone beside it
+           "decode_ms", "decode_turns_ms", "decode_turns_spread_ms")
 
 
 def ln_bwd_phase(torch, F, ln):
@@ -2095,7 +2363,8 @@ def serve(torch, port, model, prompts, new, profile=False):
     cfg = ServeConfig(max_active=8, block_tokens=16,
                       num_blocks=8 * per_req, max_seq_tokens=longest)
     eng = ServingEngine(model, cfg)
-    seg = {"prefill_s": 0.0, "decode_s": 0.0, "decode_ticks": 0}
+    seg = {"prefill_s": 0.0, "decode_s": 0.0, "decode_ticks": 0,
+           "prefills": 0}
     pre, dec = eng._prefill_step, eng._decode_plain
 
     def timed_prefill(*a):
@@ -2104,6 +2373,7 @@ def serve(torch, port, model, prompts, new, profile=False):
             return pre(*a)  # ends in a host sync (the sampled token)
         finally:
             seg["prefill_s"] += time.perf_counter() - t
+            seg["prefills"] += 1
 
     def timed_decode(*a):
         t = time.perf_counter()
@@ -2157,12 +2427,34 @@ def _add_then_norm(x, r, w, b, eps=1e-5):
     return s, layernorm(s, w, b, eps)
 
 
-def unfused_serving(pool_mod):
+def _append_apart(pool_mod, pa):
+    """The model's `paged_attention` with the decode append routed as two
+    calls again — `paged_append` (a `kv_write` launch) then the decode
+    kernel — the parent's route."""
+    def two_calls(q, view, page, l, span_kv=None, append_kv=None):
+        if append_kv is not None:
+            pool_mod.paged_append(view, *append_kv, l, page)
+        return pa.paged_attention(q, view, page, l, span_kv=span_kv)
+    return two_calls
+
+
+def append_apart(pool_mod, pa):
+    """The parent's decode tick: the append as its own `kv_write` launch
+    and host entry, everything else as it is."""
+    from tiny_deepspeed_tpu_torch.models import gpt2 as gpt2_mod
+    return swapped((gpt2_mod, "paged_attention",
+                    _append_apart(pool_mod, pa)))
+
+
+def unfused_serving(pool_mod, pa):
     """The serving tick's unfused launch sequence: the model's residual
-    adds as `x + r` before the forward kernel, the pool writes as the
-    quantizer kernel and index writes (`_kv_write_plain`)."""
+    adds as `x + r` before the forward kernel, the decode append apart
+    from the decode kernel, and the pool writes as the quantizer kernel
+    and index writes (`_kv_write_plain`)."""
     from tiny_deepspeed_tpu_torch.models import gpt2 as gpt2_mod
     return swapped((gpt2_mod, "add_layernorm", _add_then_norm),
+                   (gpt2_mod, "paged_attention",
+                    _append_apart(pool_mod, pa)),
                    (pool_mod, "kv_write", pool_mod._kv_write_plain))
 
 
@@ -2181,9 +2473,12 @@ def triton_forward():
 
 # the tick's call sites that the port's launch work changed, timed on the
 # host, and `linear`, which no arm changes: the control for the host's
-# drift between arms
+# drift between arms.  `paged_attention` carries the decode append;
+# where an arm routes the append apart, its time holds the `kv_write`
+# call it makes (timed on its own too)
 TICK_SITES = (("gpt2", "add_layernorm"), ("gpt2", "layernorm"),
-              ("pool", "kv_write"), ("gpt2", "linear"))
+              ("pool", "kv_write"), ("gpt2", "paged_attention"),
+              ("gpt2", "linear"))
 
 
 @contextlib.contextmanager
@@ -2278,12 +2573,16 @@ def tick_profile(torch, model, prompts, counters, pool_mod, ticks=8,
 def tick_report(torch, model, prompts, counters, pool_mod, name,
                 arms=("fused", "unfused"), **knobs):
     """`tick_profile` under each of `arms` — "fused" (the port as it
-    is), "unfused" (`unfused_serving`), "triton" (`triton_forward`) — in
-    turns (the arms in order, then reversed, twice: the host clock drifts
-    over a call), the first of each profiled; printed side by side with
-    the host ms a tick and at each call site as medians of the four."""
+    is), "apart" (`append_apart`: the decode append as its own kv_write,
+    the parent's tick), "unfused" (`unfused_serving`), "triton"
+    (`triton_forward`) — in turns (the arms in order, then reversed,
+    twice: the host clock drifts over a call), the first of each
+    profiled; printed side by side with the host ms a tick and at each
+    call site as medians of the four."""
+    from tiny_deepspeed_tpu_torch.ops import paged_attn as pa
     swaps = {"fused": contextlib.nullcontext,
-             "unfused": lambda: unfused_serving(pool_mod),
+             "apart": lambda: append_apart(pool_mod, pa),
+             "unfused": lambda: unfused_serving(pool_mod, pa),
              "triton": triton_forward}
     runs = {k: [] for k in arms}
     for k in (tuple(arms) + tuple(arms[::-1])) * 2:
@@ -2303,6 +2602,23 @@ def tick_report(torch, model, prompts, counters, pool_mod, name,
     if "unfused" in out:
         print(f"  {name}: {out['unfused']['kernels'] - out['fused']['kernels']:.2f}"
               " fewer device kernels a tick with the fused kernels")
+    if "apart" in out:
+        fu, ap = out["fused"], out["apart"]
+        print(f"  {name}: the append inside the decode launch: "
+              f"{ap['kernels'] - fu['kernels']:.2f} fewer device records a "
+              f"tick ({ap['kernels']:.2f} -> {fu['kernels']:.2f}), busy "
+              f"{ap['busy_ms']:.4f} -> {fu['busy_ms']:.4f} ms, host "
+              f"{ap['host_ms']:.4f} -> {fu['host_ms']:.4f} ms; launches a "
+              f"tick kv_write {ap['launches'].get('kv_write', 0):g} -> "
+              f"{fu['launches'].get('kv_write', 0):g}, appends "
+              f"{ap['launches'].get('paged_attention_append', 0):g} -> "
+              f"{fu['launches'].get('paged_attention_append', 0):g}")
+        check(fu["launches"].get("kv_write", 0) == 0
+              and fu["launches"].get("paged_attention_append", 0)
+              == ap["launches"].get("kv_write", 0) > 0
+              and ap["launches"].get("paged_attention_append", 0) == 0,
+              f"{name}: the tick's appends did not move into the decode "
+              f"launch: {fu['launches']} against {ap['launches']}")
     # host ms a tick at each call site, median over the four runs of
     # each arm (interleaved as above): what each arm's wrappers cost the
     # host, `linear` the control
@@ -2310,7 +2626,9 @@ def tick_report(torch, model, prompts, counters, pool_mod, name,
         sites = {s: (runs[k][0]["sites"][s][0], statistics.median(
             r["sites"][s][1] for r in runs[k])) for s in runs[k][0]["sites"]}
         tick = statistics.median(r["sites_tick_ms"] for r in runs[k])
-        in_sites = sum(v for s, (_, v) in sites.items() if s != "linear")
+        # kv_write's time, where it runs, lies inside paged_attention's
+        in_sites = sum(v for s, (_, v) in sites.items()
+                       if s not in ("linear", "kv_write"))
         out[k].update(sites=sites, sites_tick_ms=tick)
         print(f"  {name} host a tick at the call sites, {k}: "
               + ", ".join(f"{s} {n:g} calls {ms:.4f} ms ({ms / n * 1e3:.2f} "
@@ -2318,6 +2636,23 @@ def tick_report(torch, model, prompts, counters, pool_mod, name,
               + f"; {in_sites:.4f} ms of a {tick:.4f} ms tick outside "
               f"`linear` (medians of {len(runs[k])})")
     return out
+
+
+class Appends:
+    """`paged_attention.appends` (the decode launches that carried the
+    append) as a counter of the `counters` table, read and zeroed through
+    `launches` like every wrapper's."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self):
+        return self.fn.appends
+
+    @launches.setter
+    def launches(self, n):
+        self.fn.appends = n
 
 
 # -- phase 4: training -------------------------------------------------------
@@ -2379,9 +2714,9 @@ def check_ln_bwd_launches(launches, cfg, steps, where):
 
 
 # kernel-name fragments of the Triton kernels rows 2+3, 1 and 1r
-# replaced: no path may launch them
+# replaced, and of the v1 writer kernel: no path may launch them
 REPLACED = ("_ln_dx_kernel", "_ln_dwdb_", "_ln_fwd_kernel",
-            "_add_ln_fwd_kernel")
+            "_add_ln_fwd_kernel", "kv_write_v1_kernel")
 
 
 def check_no_pair_records(rows, where):
@@ -2845,14 +3180,19 @@ SERVE_VARIANTS = (("spec_ngram", dict(spec_draft="ngram", spec_k=4)),
 # the kernels each path must launch (the drafter's apart)
 SERVE_BASE = ("layernorm_fwd", "add_layernorm_fwd",
               "fa2_flash_attention_fwd", "kv_write")
+# (every decode launch carries its layer's append)
 VARIANT_KERNELS = {
     "spec_ngram": SERVE_BASE + ("paged_attention_span",),
     "spec_model_self": SERVE_BASE + ("paged_attention_span",),
-    "spec_model_self_drafter": SERVE_BASE + ("paged_attention",),
-    "quant_int8": SERVE_BASE + ("paged_attention_quant",),
-    "quant_fp8": SERVE_BASE + ("paged_attention_quant",),
-    "prefix_on": SERVE_BASE + ("paged_attention", "paged_attention_span"),
-    "prefix_off": SERVE_BASE + ("paged_attention",),
+    "spec_model_self_drafter": SERVE_BASE + ("paged_attention",
+                                             "paged_attention_append"),
+    "quant_int8": SERVE_BASE + ("paged_attention_quant",
+                                "paged_attention_append"),
+    "quant_fp8": SERVE_BASE + ("paged_attention_quant",
+                               "paged_attention_append"),
+    "prefix_on": SERVE_BASE + ("paged_attention", "paged_attention_span",
+                               "paged_attention_append"),
+    "prefix_off": SERVE_BASE + ("paged_attention", "paged_attention_append"),
 }
 SERVE_PATTERNS = {"layernorm_fwd": "ln_fwd_",
                   "add_layernorm_fwd": "add_ln_fwd_",
@@ -2950,8 +3290,9 @@ def plain_serving_ops(pa, pool_mod, qm):
          _add_ln_fwd_plain(x, r, w, b, eps)[:2]),
         (gpt2_mod, "sharded_attention", lambda q, k_, v, impl, pctx=None:
          _fa2_fwd_plain(q, k_, v)[0]),
-        (gpt2_mod, "paged_attention", lambda q, view, page, l, span_kv=None:
-         pa._paged_attention_plain(q, view, page, l, span_kv)),
+        (gpt2_mod, "paged_attention",
+         lambda q, view, page, l, span_kv=None, append_kv=None:
+         pa._paged_attention_plain(q, view, page, l, span_kv, append_kv)),
         (pool_mod, "kv_write", pool_mod._kv_write_plain),
         (pool_mod, "quantize_blockwise",
          lambda x, mode, block=256, dither=None:
@@ -3824,8 +4165,10 @@ def main():
     pq_res, pq_err = paged_quant_phase(torch, F, pa, pool_mod)
     ps_res, ps_err = paged_span_phase(torch, F, pa, pool_mod)
     lap("rows 9a-9c")
+    app_res, app_err = append_phase(torch, pa, pool_mod)
+    lap("9a/9b with the append")
     qz_res = quantize_phase(torch, qm)
-    kv_res, kv_err = kv_write_phase(torch, pool_mod, qm)
+    kv_res, kv_v1_res, kv_err = kv_write_phase(torch, pool_mod, qm)
     aln_res, aln_tri, aln_err, aln_tri_err = add_ln_phase(torch, F, ln)
     torch.cuda.empty_cache()
     lap("rows 10, 10kv, 1r")
@@ -3853,6 +4196,8 @@ def main():
                 "ln_fwd_triton": ln._ln_fwd_triton,
                 "add_ln_fwd_triton": ln._add_ln_fwd_triton,
                 "kv_write": pool_mod.kv_write,
+                "kv_write_v1": pool_mod.kv_write_v1,
+                "paged_attention_append": Appends(pa.paged_attention),
                 "layernorm_dx": ln.layernorm_dx,
                 "layernorm_dwdb": ln.layernorm_dwdb,
                 "layernorm_bwd": ln.layernorm_bwd,
@@ -3871,12 +4216,26 @@ def main():
                 "fa2_chunk_dq": fa.fa2_chunk_dq,
                 "fa2_chunk_dkv": fa.fa2_chunk_dkv,
                 **{k: getattr(fa, k) for k in BTHD_KERNELS}}
-    serve_kernels = SERVE_BASE + ("paged_attention",)
+    serve_kernels = SERVE_BASE + ("paged_attention",
+                                  "paged_attention_append")
     for fn in counters.values():
         fn.launches = 0
     eng, reqs, wall, seg, _ = serve(torch, port, model, prompts, new)
     serve_launches = {k: fn.launches for k, fn in counters.items()}
     print(f"  launches on the main path: {serve_launches}")
+    # every decode launch carries its layer's append; kv_write launches
+    # once a prefill (12 layers, one group)
+    check(serve_launches["paged_attention_append"]
+          == serve_launches["paged_attention"]
+          and serve_launches["kv_write"] == seg["prefills"],
+          f"phase 3: appends {serve_launches['paged_attention_append']} "
+          f"against {serve_launches['paged_attention']} decode launches, "
+          f"kv_write {serve_launches['kv_write']} against "
+          f"{seg['prefills']} prefills")
+    print(f"  kv_write.launches {serve_launches['kv_write']} (one a "
+          f"prefill, {seg['prefills']} prefills), paged_attention.appends "
+          f"{serve_launches['paged_attention_append']} (every decode "
+          f"launch)")
     for k in serve_kernels:
         check(serve_launches[k] > 0, f"{k} was never launched on the main "
               "path")
@@ -3921,7 +4280,8 @@ def main():
           f"{int(kern.argmax())} plain {int(plain.argmax())}")
     check(perr <= 5e-2 * scale, "prefill logits disagree with the plain path")
 
-    patterns = {k: PATTERNS[k] for k in serve_kernels}
+    # (the append's device time lies inside the decode kernel's records)
+    patterns = {k: PATTERNS[k] for k in serve_kernels if k in PATTERNS}
     for _ in range(3):  # an empty CUPTI trace: serve the traffic again
         _, _, pwall, _, prof = serve(torch, port, model, prompts, new,
                                      profile=True)
@@ -3948,7 +4308,8 @@ def main():
     lap("phase 3's serving runs")
     ticks = {"plain": tick_report(torch, model, prompts, counters, pool_mod,
                                   "phase 3 (bf16 pool)",
-                                  arms=("fused", "triton", "unfused"))}
+                                  arms=("fused", "apart", "triton",
+                                        "unfused"))}
     lap("phase 3's decode tick")
     plain_tokens = [r.tokens for r in reqs]
     del eng, model, prof
@@ -3980,7 +4341,9 @@ def main():
     lap("phase 6's serving runs")
     for mode in ("int8", "fp8"):
         ticks[mode] = tick_report(torch, model, prompts, counters, pool_mod,
-                                  f"phase 6 ({mode} pool)", quant=mode)
+                                  f"phase 6 ({mode} pool)",
+                                  arms=("fused", "apart", "unfused"),
+                                  quant=mode)
     torch.cuda.empty_cache()
     lap("phase 6's decode ticks")
 
@@ -4013,7 +4376,7 @@ def main():
 
     timed = ("shape", "ms", "plain_ms", "library_ms", "call_ms", "bound_ms",
              "bound_by")
-    extra_keys = TURN_KEYS + UNFUSED_KEYS + PARENT_KEYS
+    extra_keys = TURN_KEYS + UNFUSED_KEYS + PARENT_KEYS + V1_KEYS
 
     def entry(name, route, source, replaces, res, err=None, training=None):
         """One row: its times at `res["shape"]`; a forward kernel that
@@ -4129,7 +4492,7 @@ def main():
         entry("kv_write", "cuda",
               "tiny_deepspeed_tpu_torch/csrc/kv_write.cu",
               "tiny_deepspeed_tpu/ops/quant_pallas.py:59",
-              kv_res["decode_bf16"], err=kv_err),
+              kv_res["prefill_bf16"], err=kv_err),
         entry("add_layernorm_fwd", "cuda",
               "tiny_deepspeed_tpu_torch/csrc/ln_fwd.cu",
               "tiny_deepspeed_tpu/ops/layernorm_pallas.py:78",
@@ -4144,6 +4507,17 @@ def main():
               "tiny_deepspeed_tpu_torch/ops/layernorm.py",
               "tiny_deepspeed_tpu/ops/layernorm_pallas.py:78",
               aln_tri[8, 768], aln_tri_err, aln_tri[8192, 768]),
+        # the decode kernel's APPEND instantiation: 9a/9b with the write
+        # of the decode step's K/V (JAX paged_append, then attention)
+        entry("paged_attention_append", "cuda",
+              "tiny_deepspeed_tpu_torch/csrc/paged_attn.cu",
+              "tiny_deepspeed_tpu/ops/paged_attn_pallas.py:228",
+              app_res["bf16"], err=app_err),
+        # the v1 writer kernel: the new one's reference, off every path
+        entry("kv_write_v1", "cuda",
+              "tiny_deepspeed_tpu_torch/csrc/kv_write.cu",
+              "tiny_deepspeed_tpu/ops/quant_pallas.py:59",
+              kv_v1_res["prefill_bf16"], err=kv_err),
     ]
     kernels[13]["per_step"] = bwd_res["adamw_update_fused"]["per_step"]
     extra = {"paged_attention": {"long_context": pa_res["long_context"]},
@@ -4155,8 +4529,11 @@ def main():
              "quantize_blockwise": {k: v for k, v in qz_res.items()
                                     if k != "kv_append"},
              **{k: {"b8": bthd_res[k, 8]} for k in BTHD_KERNELS},
-             "kv_write": {"decode_int8": kv_res["decode_int8"],
-                          "prefill_int8": kv_res["prefill_int8"]},
+             "kv_write": {k: kv_res[k] for k, *_ in KV_TIMED
+                          if k != "prefill_bf16"},
+             "kv_write_v1": {k: kv_v1_res[k] for k, *_ in KV_TIMED
+                             if k != "prefill_bf16"},
+             "paged_attention_append": {"int8_pool": app_res["int8"]},
              "layernorm_fwd": {"decode": ln_res[8, 768],
                                "n1600": ln_res[8192, 1600]},
              "add_layernorm_fwd": {"prefill": aln_res[512, 768],
@@ -4182,7 +4559,7 @@ def main():
     print(f"clocks: {len(clocks) - len(events)} of {len(clocks)} device "
           f"times from the profiler, {len(events)} from CUDA events"
           + (f" ({', '.join(events)})" if events else ""))
-    check(len(kernels) == 24, f"{len(kernels)} kernel rows")
+    check(len(kernels) == 26, f"{len(kernels)} kernel rows")
     for row in kernels[14:17]:
         check(row["launches_by_path"]["ring4"] > 0,
               f"{row['name']} was never launched on the ring path")
@@ -4192,10 +4569,12 @@ def main():
     for row in kernels[20:22]:
         check(row["launches_by_path"]["serving"] > 0,
               f"{row['name']} was never launched on the serving path")
-    for row in kernels[22:]:
+    for row in kernels[22:24] + kernels[25:]:
         check(not any(row["launches_by_path"].values()),
-              f"the Triton pair's {row['name']} ran on a path: "
+              f"the replaced kernel {row['name']} ran on a path: "
               f"{row['launches_by_path']}")
+    check(kernels[24]["launches_by_path"]["serving"] > 0,
+          "the decode append was never launched on the serving path")
     with open(os.path.join(OUT_DIR, "variants.json"), "w") as f:
         json.dump({"results": var_res, "agreement": agree,
                    "ticks": ticks}, f, indent=1, default=str)

@@ -60,7 +60,16 @@ rows of 768, 8192 of 1600, N = 16384 (the CTA kernels), unaligned N (7,
 770) and 0 rows, in f32 / bf16 / f16 with mixed weight dtypes; the add
 variant bit for bit `x + r` then the forward; one launch a call; two
 calls bit for bit; bit for bit the Triton pair it replaced; strided and
-misaligned rows; refused operands.
+misaligned rows; refused operands.  Slice 14 (the decode append inside
+the decode launch, `paged_attention(append_kv=)`; the writer with a lane
+group a head vector, fed per layer; `-k "append or kv_write or
+scatter"`): the fused decode bit for bit `paged_append` then the decode
+kernel over bf16, f16, f32 (and f32 q over bf16) and int8 / e4m3 pools,
+Dh 32, 64 and 128, grouped heads, offsets 0 and bt - 1, the table's last
+position, the split count forced to 1-8; refused operands; the writer
+bit for bit the v1 kernel (`kv_write_v1`) at the three writers' shapes,
+and from misaligned sources; the prefill from per-layer views equal to
+the stacked call, in one launch per layer group.
 """
 
 import math
@@ -1124,6 +1133,205 @@ def test_kv_write_refuses_bad_operands():
         pool_mod.paged_append(view._replace(v_scale=view.v_scale.cpu()),
                               k, k, 0, page)
     assert pool_mod.kv_write.launches == before
+
+
+# -- slice 14: the decode append in the decode launch; the writer per layer --
+
+APPEND_POOLS = [(torch.bfloat16, torch.bfloat16, None),
+                (torch.float16, torch.float16, None),
+                (torch.float32, torch.float32, None),
+                (torch.float32, torch.bfloat16, None),
+                (torch.bfloat16, torch.bfloat16, "int8"),
+                (torch.bfloat16, torch.bfloat16, "fp8"),
+                (torch.float32, torch.float32, "int8")]
+APPEND_IDS = ["bf16", "f16", "f32", "f32q_bf16", "bf16_int8", "bf16_fp8",
+              "f32_int8"]
+
+
+def _append_inputs(qdt, pdt, mode, hq, kvh, d, case, seed, bt=16, nl=3):
+    """A noisy pool, distinct blocks a slot, slot 1 invalid (an
+    all-scratch table row); q, k, v the column slices of one qkv product;
+    positions at offsets 0 and bt - 1 and the table's last position."""
+    g = _g(seed)
+    w = 6 if case == "short" else 64
+    pos = ([0, 5, bt - 1, bt, w * bt - 1, 47] if case == "short"
+           else [0, 5, 1023, 511, 64, w * bt - 1])
+    s = len(pos)
+    view = _kv_pool(pdt, mode, kvh, d, g, nl=nl, nb=s * w + 1, bt=bt)
+    if mode is None:
+        for t in view[:2]:
+            t.copy_(torch.randn(t.shape, generator=g, device="cuda"))
+    tables = (torch.randperm(s * w, generator=g, device="cuda") + 1
+              ).reshape(s, w).to(torch.int32)
+    tables[1] = 0
+    page = pool_mod.page_ref(tables, torch.tensor(pos, dtype=torch.int32,
+                                                  device="cuda"), bt)
+    qkv = (torch.randn(s, 1, (hq + 2 * kvh) * d, generator=g, device="cuda")
+           * 3).to(qdt)
+    q = qkv[..., :hq * d].reshape(s, 1, hq, d).transpose(1, 2)
+    k = qkv[..., hq * d:(hq + kvh) * d].reshape(s, kvh, d)
+    v = qkv[..., (hq + kvh) * d:].reshape(s, kvh, d)
+    return view, q, k, v, page
+
+
+def _same_blocks(a, b):
+    return all(x is None or torch.equal(pool_mod._raw(x)[1:],
+                                        pool_mod._raw(y)[1:])
+               for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("case", ["short", "long"])
+@pytest.mark.parametrize("hq,kvh,d", [(12, 12, 64), (4, 2, 32), (2, 1, 128),
+                                      (8, 2, 64)])
+@pytest.mark.parametrize("qdt,pdt,mode", APPEND_POOLS, ids=APPEND_IDS)
+def test_decode_append_matches_two_calls(qdt, pdt, mode, hq, kvh, d, case):
+    """`paged_attention(append_kv=)` (one launch, counted in
+    `paged_attention.appends`, none in kv_write's count) leaves the pool
+    and the valid slots' output bit for bit as `paged_append` (kv_write)
+    followed by the decode kernel."""
+    view, q, k, v, page = _append_inputs(qdt, pdt, mode, hq, kvh, d, case,
+                                         hq * d + kvh)
+    ref = pool_mod.KVPoolView(*(None if t is None else t.clone()
+                                for t in view))
+    before = paged_attn.paged_attention.appends, pool_mod.kv_write.launches
+    o = paged_attn.paged_attention(q, view, page, 2, append_kv=(k, v))
+    torch.cuda.synchronize()
+    assert (paged_attn.paged_attention.appends,
+            pool_mod.kv_write.launches) == (before[0] + 1, before[1])
+    pool_mod.paged_append(ref, k, v, 2, page)
+    ro = paged_attn.paged_attention(q, ref, page, 2)
+    torch.cuda.synchronize()
+    valid = [0, 2, 3, 4, 5]
+    assert torch.equal(o[valid], ro[valid])
+    assert _same_blocks(view, ref)
+
+
+@pytest.mark.parametrize("splits", range(1, 9))
+@pytest.mark.parametrize("mode", [None, "int8"], ids=["bf16", "int8"])
+def test_decode_append_any_split(splits, mode, monkeypatch):
+    """The split count forced to 1-8: whichever rank holds the decoded
+    key writes it, and the result is the two calls' bit for bit."""
+    plan = paged_attn.split_plan
+    monkeypatch.setattr(paged_attn, "split_plan", lambda **kw: plan(
+        **kw)._replace(splits=splits))
+    view, q, k, v, page = _append_inputs(torch.bfloat16, torch.bfloat16,
+                                         mode, 12, 12, 64, "long", splits)
+    ref = pool_mod.KVPoolView(*(None if t is None else t.clone()
+                                for t in view))
+    o = paged_attn.paged_attention(q, view, page, 0, append_kv=(k, v))
+    pool_mod.paged_append(ref, k, v, 0, page)
+    ro = paged_attn.paged_attention(q, ref, page, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(o[[0, 2, 3, 4, 5]], ro[[0, 2, 3, 4, 5]])
+    assert _same_blocks(view, ref)
+
+
+def test_decode_append_refuses_bad_operands():
+    view, q, k, v, page = _append_inputs(torch.bfloat16, torch.bfloat16,
+                                         None, 4, 2, 64, "short", 0)
+    before = paged_attn.paged_attention.appends
+    with pytest.raises(ValueError, match="q's dtype"):
+        paged_attn.paged_attention(q, view, page, 0,
+                                   append_kv=(k.float(), v.float()))
+    with pytest.raises(ValueError, match="expected"):
+        paged_attn.paged_attention(q, view, page, 0,
+                                   append_kv=(k[:, :1], v[:, :1]))
+    with pytest.raises(ValueError, match="int64"):
+        paged_attn.paged_attention(q, view, page._replace(
+            blk=page.blk.int()), 0, append_kv=(k, v))
+    with pytest.raises(ValueError, match="mixed devices"):
+        paged_attn.paged_attention(q, view, page, 0,
+                                   append_kv=(k.cpu(), v.cpu()))
+    with pytest.raises(ValueError, match="decode variant only"):
+        span = torch.zeros(q.shape[0], 2, 1, 64, device="cuda",
+                           dtype=torch.bfloat16)
+        paged_attn.paged_attention(q, view, page, 0, span_kv=(span, span),
+                                   append_kv=(k, v))
+    assert paged_attn.paged_attention.appends == before
+
+
+@pytest.mark.parametrize("kvh,dh", [(12, 64), (2, 128), (2, 32)])
+@pytest.mark.parametrize("src,pool,mode", [
+    (torch.bfloat16, torch.bfloat16, None),
+    (torch.float32, torch.float32, None),
+    (torch.float32, torch.bfloat16, None),
+    (torch.bfloat16, torch.float32, None),
+    (torch.float16, torch.float16, None),
+    (torch.bfloat16, torch.bfloat16, "int8"),
+    (torch.bfloat16, torch.bfloat16, "fp8"),
+    (torch.float32, torch.float32, "int8"),
+    (torch.float16, torch.float16, "fp8")],
+    ids=["bf16", "f32", "f32_into_bf16", "bf16_into_f32", "f16",
+         "bf16_int8", "bf16_fp8", "f32_int8", "f16_fp8"])
+@pytest.mark.parametrize("writer", ["decode", "span", "prefill"])
+def test_kv_write_kernel_matches_pr11_kernel(writer, src, pool, mode, kvh,
+                                             dh, monkeypatch):
+    """The writer (a lane group a head vector, 16-byte loads) leaves the
+    pool bit for bit as the v1 kernel (`kv_write_v1`) does, from the
+    same operands."""
+    g = _g(kvh * dh + 1)
+    view = _kv_pool(pool, mode, kvh, dh, g)
+    ref = pool_mod.KVPoolView(*(None if t is None else t.clone()
+                                for t in view))
+    write = _kv_writer_call(writer, view, src, g)
+    v1 = pool_mod.kv_write_v1
+    before = v1.launches
+    write(view)
+    monkeypatch.setattr(pool_mod, "kv_write", v1)  # the v1 kernel
+    write(ref)
+    torch.cuda.synchronize()
+    assert v1.launches == before + 1
+    assert _same_blocks(view, ref)
+
+
+@pytest.mark.parametrize("cap", [64, 5, 1])
+@pytest.mark.parametrize("mode", [None, "int8"], ids=["bf16", "int8"])
+def test_scatter_from_layer_views_matches_stacked(mode, cap, monkeypatch):
+    """12 layers of (1, KVH, P, Dh) column slices of their own qkv
+    products, as `paged_prefill` hands them over, written in one launch
+    per group of `cap` layers, equal the stacked call bit for bit."""
+    g = _g(cap)
+    nl, kvh, dh, bt, p = 12, 4, 64, 8, 32
+    view = _kv_pool(torch.bfloat16, mode, kvh, dh, g, nl=nl, nb=25, bt=bt)
+    ref = pool_mod.KVPoolView(*(None if t is None else t.clone()
+                                for t in view))
+    d = kvh * dh
+    qkvs = [(torch.randn(1, p, 3 * d, generator=g, device="cuda") * 2
+             ).bfloat16() for _ in range(nl)]
+    kh = [x[..., d:2 * d].reshape(1, p, kvh, dh).transpose(1, 2)
+          for x in qkvs]
+    vh = [x[..., 2 * d:].reshape(1, p, kvh, dh).transpose(1, 2)
+          for x in qkvs]
+    ids = torch.tensor([3, 9, 14, 0], device="cuda")
+    pool_mod.paged_scatter(ref, torch.stack(kh), torch.stack(vh), ids, bt)
+    monkeypatch.setattr(pool_mod, "MAX_LAYERS", cap)
+    before = pool_mod.kv_write.launches
+    pool_mod.paged_scatter(view, kh, vh, ids, bt)
+    torch.cuda.synchronize()
+    assert pool_mod.kv_write.launches == before + -(-nl // cap)
+    assert _same_blocks(view, ref)
+
+
+@pytest.mark.parametrize("src", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("mode", [None, "int8", "fp8"])
+def test_kv_write_misaligned_sources(src, mode):
+    """Sources one element off 16-byte alignment take element loads:
+    still the v1 kernel's bits."""
+    g = _g(7)
+    kvh, dh = 2, 64
+    view = _kv_pool(torch.bfloat16, mode, kvh, dh, g)
+    ref = pool_mod.KVPoolView(*(None if t is None else t.clone()
+                                for t in view))
+    buf = (torch.randn(6 * 2 * kvh * dh + 1, generator=g, device="cuda")
+           * 3).to(src)
+    k = buf[1:1 + 6 * kvh * dh].reshape(1, 6, 1, kvh, dh)
+    v = buf[1 + 6 * kvh * dh:].reshape(1, 6, 1, kvh, dh)
+    blk = torch.tensor([2, 5, 0, 7, 11, 13], device="cuda")
+    off = torch.tensor([0, 7, 3, 1, 2, 6], device="cuda")
+    pool_mod.kv_write(view, k, v, blk, off, 1)
+    pool_mod.kv_write_v1(ref, k, v, blk, off, 1)
+    torch.cuda.synchronize()
+    assert _same_blocks(view, ref)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -63,6 +63,16 @@
 // chip_smoke's decode shape is one wave.  A 1-byte pool is dequantized
 // at use, on the ALUs.  The warps merge in shared memory, then the
 // cluster.  Grouped query heads loop inside the CTA over the same range.
+// With `APPEND` (C entry `paged_decode_append`) the decode step's own K/V
+// write rides in this launch instead of one of its own (the TPU path
+// writes with `paged_append`, tiny_deepspeed_tpu/serving/pool.py:110,
+// then attends): the CTA whose share holds key n - 1 loads the slot's new
+// head vectors once pos is read, stores them with csrc/kv_codec.cuh's
+// codec (as csrc/kv_write.cu does, bit for bit) before its first copy,
+// and a CTA barrier orders the stores before the ring reads the row
+// back.  (Loading them beside pos, in every CTA, read slower.)  No other
+// CTA reads that row, so the walk, split and merge are unchanged, and
+// every output bit is that of kv_write followed by the decode kernel.
 //
 // Span design.  Two kernels, chosen on the host by the rows G*K1 of a
 // (slot, kv head) and the dtype:
@@ -111,6 +121,7 @@
 
 #include "common.cuh"
 #include "hopper.cuh"
+#include "kv_codec.cuh"
 
 namespace {
 
@@ -332,6 +343,16 @@ __device__ __forceinline__ void load_vec(const E* p, float* out) {
   }
 }
 
+// The decode append (`APPEND`): the slot's new K and V head vectors, read
+// where they lie (the column slices of the qkv product, in q's dtype),
+// and their pool row (blk[s], off[s]).
+struct Append {
+  const void *k, *v;
+  long long k_row, k_head, v_row, v_head;  // element strides
+  const long long *blk, *off;
+  int nb;
+};
+
 // -- decode ------------------------------------------------------------------
 
 namespace decode {
@@ -362,18 +383,58 @@ struct Layout {
   }
 };
 
-// six CTAs an SM (80 registers a thread) where the walk's registers fit
-// them, four at Dh = 128
+// APPEND's prologue: warp 0 writes the slot's new K head vector, warp 1
+// the new V, D / 32 elements a lane, at pool row (blk[s], off[s], layer,
+// kvh), with kv_write's codec
 template <typename TQ, typename TKV, int D>
+__device__ __forceinline__ void append_row(const Append ap, TKV* kpool,
+                                           TKV* vpool, float* kscale,
+                                           float* vscale, int s, int kvh,
+                                           int warp, int lane, int KVH,
+                                           int bt, int nlayer, int layer) {
+  constexpr int EPA = D / 32;
+  const TQ* x = static_cast<const TQ*>(warp ? ap.v : ap.k)
+                + s * (warp ? ap.v_row : ap.k_row)
+                + kvh * (warp ? ap.v_head : ap.k_head) + lane * EPA;
+  float xa[EPA];
+#pragma unroll
+  for (int i = 0; i < EPA; ++i) xa[i] = tds::to_f(x[i]);
+  const long long ab = ap.blk[s], ao = ap.off[s];
+  if (ab < 0 || ab >= ap.nb || ao < 0 || ao >= bt) __trap();
+  tds::kv::store_vector<tds::kv::pool_code<TKV>(), EPA, 32>(
+      xa, true, lane, warp ? (void*)vpool : (void*)kpool,
+      warp ? vscale : kscale, ((ab * bt + ao) * nlayer + layer) * KVH + kvh);
+}
+
+// The same as a call: over a bf16 / f16 pool at Dh 64 the walk takes all
+// 80 registers six CTAs an SM leave it, and the prologue inlined cost it
+// one (ptxas spilled the group loop's counter); a 1-byte pool's prologue
+// (the codec's shuffles and divisions) stays inlined, which timed faster
+template <typename TQ, typename TKV, int D>
+__device__ __noinline__ void append_row_call(const Append ap, TKV* kpool,
+                                             TKV* vpool, float* kscale,
+                                             float* vscale, int s, int kvh,
+                                             int warp, int lane, int KVH,
+                                             int bt, int nlayer, int layer) {
+  append_row<TQ, TKV, D>(ap, kpool, vpool, kscale, vscale, s, kvh, warp,
+                         lane, KVH, bt, nlayer, layer);
+}
+
+// six CTAs an SM (80 registers a thread) where the walk's registers fit
+// them, four at Dh = 128.  APPEND: the CTA whose share holds the slot's
+// last key (n - 1, the position being decoded) first writes that key's K
+// and V head vectors into the pool, with kv_write's codec
+// (csrc/kv_codec.cuh), then walks as without it: the walk reads the row
+// back through its ring like any other (no other CTA reads it).
+template <typename TQ, typename TKV, int D, bool APPEND>
 __global__ void __launch_bounds__(THREADS, D == 128 ? 4 : 6)
-paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kpool,
-                    const TKV* __restrict__ vpool,
-                    const float* __restrict__ kscale,
-                    const float* __restrict__ vscale,
+paged_decode_kernel(const TQ* __restrict__ q, TKV* __restrict__ kpool,
+                    TKV* __restrict__ vpool, float* __restrict__ kscale,
+                    float* __restrict__ vscale,
                     const int* __restrict__ tables,
                     const int* __restrict__ pos, TQ* __restrict__ o,
                     int Hq, int KVH, int bt, int nlayer, int layer, int W,
-                    float sl2) {
+                    float sl2, const Append ap) {
   using Ly = Layout<TKV, D>;
   constexpr int LPT = lanes_per_token<TKV, D>();
   constexpr int EPL = D / LPT;  // elements a lane holds
@@ -427,6 +488,20 @@ paged_decode_kernel(const TQ* __restrict__ q, const TKV* __restrict__ kpool,
   if (!whole && k0 < k1)
     for (int i = threadIdx.x; i <= (k1 - 1) / bt - e0; i += THREADS)
       stab[i] = trow[e0 + i];
+  if constexpr (APPEND) {
+    // the one CTA whose share holds key n - 1 writes that row before any
+    // of its warps issues a copy (the barrier below orders the stores
+    // before the ring's reads)
+    const int last = (n - 1) / TK;
+    if (warp < 2 && tlo <= last && last < thi) {
+      if constexpr (sizeof(TKV) == 1)
+        append_row<TQ, TKV, D>(ap, kpool, vpool, kscale, vscale, s, kvh,
+                               warp, lane, KVH, bt, nlayer, layer);
+      else
+        append_row_call<TQ, TKV, D>(ap, kpool, vpool, kscale, vscale, s,
+                                    kvh, warp, lane, KVH, bt, nlayer, layer);
+    }
+  }
   __syncthreads();
 
   const size_t tok_stride = (size_t)nlayer * KVH * D;
@@ -1138,6 +1213,7 @@ struct Args {
   bool tensor_cores;
   float scale;
   cudaStream_t st;
+  const Append* append;  // decode only: the new rows to write first
 };
 
 // one launch of `Kernel` over grid, in clusters of `splits` CTAs along x
@@ -1185,10 +1261,20 @@ cudaError_t launch(const Args& a) {
   if (a.sk == nullptr) {
     const int slots = table_slots((a.W * a.bt + decode::TK - 1) / decode::TK,
                                   a.splits, decode::TK, a.bt, a.W);
-    return launch_cluster<decode::paged_decode_kernel<TQ, TKV, D>>(
-        dim3(a.splits, a.KVH, a.S), a.splits,
-        decode::Layout<TKV, D>::bytes(G, slots), a.st, q, k, v, a.ks, a.vs,
-        a.tables, a.pos, o, a.Hq, a.KVH, a.bt, a.nlayer, a.layer, a.W, sl2);
+    const dim3 grid(a.splits, a.KVH, a.S);
+    const size_t smem = decode::Layout<TKV, D>::bytes(G, slots);
+    // the pool is written only under APPEND
+    auto* kw = const_cast<TKV*>(k);
+    auto* vw = const_cast<TKV*>(v);
+    auto* ksw = const_cast<float*>(a.ks);
+    auto* vsw = const_cast<float*>(a.vs);
+    if (a.append)
+      return launch_cluster<decode::paged_decode_kernel<TQ, TKV, D, true>>(
+          grid, a.splits, smem, a.st, q, kw, vw, ksw, vsw, a.tables, a.pos,
+          o, a.Hq, a.KVH, a.bt, a.nlayer, a.layer, a.W, sl2, *a.append);
+    return launch_cluster<decode::paged_decode_kernel<TQ, TKV, D, false>>(
+        grid, a.splits, smem, a.st, q, kw, vw, ksw, vsw, a.tables, a.pos, o,
+        a.Hq, a.KVH, a.bt, a.nlayer, a.layer, a.W, sl2, Append{});
   }
   const auto* sk = static_cast<const TQ*>(a.sk);
   const auto* sv = static_cast<const TQ*>(a.sv);
@@ -1271,7 +1357,31 @@ extern "C" int paged_decode(const void* q, const void* kpool,
                             int splits, void* stream) {
   Args a{q, kpool, vpool, kscale, vscale, nullptr, nullptr, tables, pos, o,
          S, Hq, KVH, 1, bt, nlayer, layer, W, splits, false, scale,
-         static_cast<cudaStream_t>(stream)};
+         static_cast<cudaStream_t>(stream), nullptr};
+  return dispatch(D, q_dtype, kv_dtype, a);
+}
+
+// Decode with the append folded in: as paged_decode, and first each
+// slot's new K and V head vectors — k_src + s*k_row + h*k_head (Dh
+// contiguous elements, q's dtype; likewise v) — are written at pool row
+// (blk[s], off[s], layer, h) (int64 (S,) each), codes and scales or the
+// cast row, by the one CTA of the slot's cluster that walks the key being
+// decoded.  Bit for bit kv_write followed by paged_decode.
+extern "C" int paged_decode_append(
+    const void* q, void* kpool, void* vpool, float* kscale, float* vscale,
+    const int* tables, const int* pos, void* o, const void* k_src,
+    const void* v_src, const long long* blk, const long long* off,
+    long long k_row, long long k_head, long long v_row, long long v_head,
+    int S, int Hq, int KVH, int D, int bt, int nlayer, int layer, int W,
+    int nb, int q_dtype, int kv_dtype, float scale, int splits,
+    void* stream) {
+  if (k_src == nullptr || v_src == nullptr || blk == nullptr ||
+      off == nullptr || nb < 1)
+    return cudaErrorInvalidValue;
+  const Append ap{k_src, v_src, k_row, k_head, v_row, v_head, blk, off, nb};
+  Args a{q, kpool, vpool, kscale, vscale, nullptr, nullptr, tables, pos, o,
+         S, Hq, KVH, 1, bt, nlayer, layer, W, splits, false, scale,
+         static_cast<cudaStream_t>(stream), &ap};
   return dispatch(D, q_dtype, kv_dtype, a);
 }
 
@@ -1290,6 +1400,6 @@ extern "C" int paged_span(const void* q, const void* kpool,
   if (sk == nullptr || sv == nullptr) return cudaErrorInvalidValue;
   Args a{q, kpool, vpool, kscale, vscale, sk, sv, tables, pos0, o,
          S, Hq, KVH, K1, bt, nlayer, layer, W, splits, tensor_cores != 0,
-         scale, static_cast<cudaStream_t>(stream)};
+         scale, static_cast<cudaStream_t>(stream), nullptr};
   return dispatch(D, q_dtype, kv_dtype, a);
 }

@@ -618,17 +618,22 @@ class GPT2Model(nn.Module):
     def _decode_attention(self, q, ck, cv, pos):
         return decode_attention(q, ck, cv, pos)
 
-    def _paged_attention(self, q, view, l: int, page, span_kv=None):
+    def _paged_attention(self, q, view, l: int, page, span_kv=None,
+                         append_kv=None):
         """Pool-panel attention (JAX :585): the paged kernels on the card,
         the plain gather + `ops.paged_attn.decode_attention` or
         `span_attention` on the CPU.  span_kv = (sk, sv) switches to the
-        span-verify mask."""
-        return paged_attention(q, view, page, l, span_kv=span_kv)
+        span-verify mask; append_kv = (k, v) first writes the decode
+        step's own K/V into the pool (JAX's `paged_append`), on the card
+        inside the decode launch."""
+        return paged_attention(q, view, page, l, span_kv=span_kv,
+                               append_kv=append_kv)
 
     def _paged_attn_decode(self, h, bp: Params, view, l: int, page):
         """Attention half of one paged decode step on ln_1's output h
-        (S, 1, D): the projected attention output, before its residual."""
-        from ..serving.pool import paged_append
+        (S, 1, D): the projected attention output, before its residual.
+        The step's K/V are written at (page.blk, page.off, l) by the
+        attention call itself, before it reads them."""
         c = self.config
         s = h.shape[0]
         qkv = linear(h, self._bw(bp, "attn.qkv.w"), bp.get("attn.qkv.b"))
@@ -637,8 +642,9 @@ class GPT2Model(nn.Module):
         def heads1(z):  # (S, 1, D) -> (S, H, 1, Dh)
             return z.reshape(s, 1, c.n_head, c.head_dim).transpose(1, 2)
 
-        paged_append(view, heads1(k)[:, :, 0], heads1(v)[:, :, 0], l, page)
-        y = self._paged_attention(heads1(q), view, l, page)
+        y = self._paged_attention(
+            heads1(q), view, l, page,
+            append_kv=(heads1(k)[:, :, 0], heads1(v)[:, :, 0]))
         y = y.transpose(1, 2).reshape(s, 1, c.n_embd)
         return linear(y, self._bw(bp, "attn.proj.w"), bp.get("attn.proj.b"))
 
@@ -719,14 +725,15 @@ class GPT2Model(nn.Module):
         x = self.embed(idx)
         if stacked is None:
             stacked = self.stacked_compute_params()
+        cdt = resolved_cache_dtype(self.config)
         ks, vs = [], []
         for l in range(self.config.n_layer):
             x, (k, v) = self._block(x, self._layer(stacked, l),
                                     return_kv=True)
-            ks.append(k)
-            vs.append(v)
-        cdt = resolved_cache_dtype(self.config)
-        view = paged_scatter(view, torch.stack(ks).to(cdt),
-                             torch.stack(vs).to(cdt), block_ids,
-                             block_tokens)
+            # each layer's (1, H, P, Dh) views of its qkv product, read
+            # where they lie (cast first only when the cache's dtype
+            # differs, so the codec reads the value rounded to it)
+            ks.append(k.to(cdt))
+            vs.append(v.to(cdt))
+        view = paged_scatter(view, ks, vs, block_ids, block_tokens)
         return self.head(x, position=last_pos, params=head_params)[:, 0], view

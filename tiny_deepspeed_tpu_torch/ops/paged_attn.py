@@ -40,10 +40,23 @@ few rows (the speculative verify step), f32 and Dh = 128 stay on FP32
 FMAs.  `split_range` is the device's split arithmetic and
 `merge_partials` a plain reference of its merge (tests only).
 
+The decode append (`append_kv=(k, v)`).  The decode step writes
+the slot's new K/V (JAX `serving/pool.py:110` `paged_append`) and then
+attends over it.  On the card the write rides in the decode launch
+(csrc/paged_attn.cu `APPEND`, C entry `paged_decode_append`): the one CTA
+of each (slot, kv head) cluster whose share holds the key being decoded
+(`append_rank`) stores the new head vectors with csrc/kv_write.cu's codec
+before its walk, so the outputs and the pool are bit for bit kv_write
+followed by the decode kernel, one launch and one host entry fewer a
+layer.  On the CPU the plain version writes (`_kv_write_plain`) and then
+attends, JAX's order.
+
 Each variant counts its own launches, one per call, so a run can tell
 them apart: `paged_attention.launches` decode over a bf16/f16/f32 pool,
 `paged_attention_quant.launches` decode over an int8/e4m3 pool and
-`paged_attention_span.launches` span verify over any pool.
+`paged_attention_span.launches` span verify over any pool;
+`paged_attention.appends` counts the decode launches that carried the
+append (they count in the decode counters too).
 
 The plain versions are the JAX package's XLA path: `paged_panel`
 (serving/pool.py:130, dequantizing to q's dtype) followed by
@@ -112,8 +125,12 @@ def span_attention(q, ck, cv, sk, sv, pos0):
     return y.reshape(s, hq, k1, dh).to(out_dtype)
 
 
-def _paged_attention_plain(q, view, page, l, span_kv=None):
-    from ..serving.pool import paged_panel
+def _paged_attention_plain(q, view, page, l, span_kv=None, append_kv=None):
+    from ..serving.pool import _kv_write_plain, paged_panel
+    if append_kv is not None:  # write, then attend: JAX's order
+        k, v = append_kv
+        _kv_write_plain(view, k[None, :, None], v[None, :, None], page.blk,
+                        page.off, l)
     ck, cv = paged_panel(view, l, page, q.dtype)
     if span_kv is None:
         return decode_attention(q, ck, cv, page.pos)
@@ -208,6 +225,16 @@ def split_keys(plan: SplitPlan, rank: int, n: int, row_tile: int = 0,
     return pool, span
 
 
+def append_rank(n: int, splits: int, tile: int = _GEOMETRY["decode"][0]):
+    """The rank of a decode cluster that writes the appended row: the one
+    whose share of the n = min(pos + 1, W*bt) live keys' tiles
+    (`split_range`) holds key n - 1, the position being decoded.  The
+    kernel tests its own share; this is the closed form (tests only)."""
+    ntiles = -(-n // tile)
+    per = -(-ntiles // splits)
+    return ((n - 1) // tile) // per
+
+
 def merge_partials(parts):
     """Plain reference of the kernels' cluster merge: `parts` the splits'
     partial states in rank order, each (m (R,), l (R,), acc (R, D)) — m
@@ -228,6 +255,9 @@ def merge_partials(parts):
 
 _DECODE_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_APPEND_ARGS = ([ctypes.c_void_p] * 12 + [ctypes.c_longlong] * 4
+                + [ctypes.c_int] * 11
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _SPAN_ARGS = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 11
               + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                  ctypes.c_void_p])
@@ -238,7 +268,31 @@ def _aligned(*ts):
     return all(t.data_ptr() % 16 == 0 for t in ts)
 
 
-def _paged_attention_cuda(q, view, page, l: int, span_kv=None):
+def _append_operands(q, view, page, append_kv):
+    """Checks the decode append's operands; returns (k, v, their row and
+    head element strides)."""
+    k, v = append_kv
+    s, hq, _, dh = q.shape
+    kvh = view.k.shape[3]
+    for t in (k, v, page.blk, page.off):
+        require(t.device == q.device, lambda: "paged attention append: "
+                f"every operand must lie on {q.device}")
+    require(k.shape == v.shape == (s, kvh, dh) and k.dtype == v.dtype
+            == q.dtype and k.stride(-1) == 1 and v.stride(-1) == 1,
+            lambda: f"paged attention append: k/v {tuple(k.shape)} "
+            f"{k.dtype} / {tuple(v.shape)} {v.dtype}, expected "
+            f"{(s, kvh, dh)} in q's dtype {q.dtype}, head vectors "
+            "contiguous")
+    require(page.blk.dtype == page.off.dtype == torch.int64
+            and page.blk.is_contiguous() and page.off.is_contiguous()
+            and page.blk.numel() == page.off.numel() == s,
+            "paged attention append: page.blk / page.off must be "
+            "contiguous int64 (S,)")
+    return k, v, (k.stride(0), k.stride(1), v.stride(0), v.stride(1))
+
+
+def _paged_attention_cuda(q, view, page, l: int, span_kv=None,
+                          append_kv=None):
     s, hq, k1, dh = q.shape
     nb, bt, nl, kvh, dk = view.k.shape
     span = span_kv is not None
@@ -289,12 +343,26 @@ def _paged_attention_cuda(q, view, page, l: int, span_kv=None):
     if not span:
         require(_aligned(view.k, view.v, qc, *scales),
                 "paged attention: operands must be 16-byte aligned")
-        fn = _build.entry("paged_attn", "paged_decode", _DECODE_ARGS)
-        err = fn(qc.data_ptr(), view.k.data_ptr(), view.v.data_ptr(),
-                 ks_ptr, vs_ptr, tables.data_ptr(), pos.data_ptr(),
-                 o.data_ptr(), s, hq, kvh, dh, bt, nl, int(l), w, qd, kd,
-                 1.0 / math.sqrt(dh), plan.splits, _build.stream_ptr(q))
-        _build.check(err, "paged_decode")
+        if append_kv is None:
+            fn = _build.entry("paged_attn", "paged_decode", _DECODE_ARGS)
+            err = fn(qc.data_ptr(), view.k.data_ptr(), view.v.data_ptr(),
+                     ks_ptr, vs_ptr, tables.data_ptr(), pos.data_ptr(),
+                     o.data_ptr(), s, hq, kvh, dh, bt, nl, int(l), w, qd,
+                     kd, 1.0 / math.sqrt(dh), plan.splits,
+                     _build.stream_ptr(q))
+            _build.check(err, "paged_decode")
+        else:
+            k, v, st = _append_operands(q, view, page, append_kv)
+            fn = _build.entry("paged_attn", "paged_decode_append",
+                              _APPEND_ARGS)
+            err = fn(qc.data_ptr(), view.k.data_ptr(), view.v.data_ptr(),
+                     ks_ptr, vs_ptr, tables.data_ptr(), pos.data_ptr(),
+                     o.data_ptr(), k.data_ptr(), v.data_ptr(),
+                     page.blk.data_ptr(), page.off.data_ptr(), *st, s, hq,
+                     kvh, dh, bt, nl, int(l), w, nb, qd, kd,
+                     1.0 / math.sqrt(dh), plan.splits, _build.stream_ptr(q))
+            _build.check(err, "paged_decode_append")
+            paged_attention.appends += 1
         if quant:
             paged_attention_quant.launches += 1
         else:
@@ -318,15 +386,20 @@ def _paged_attention_cuda(q, view, page, l: int, span_kv=None):
     return o
 
 
-def paged_attention(q, view, page, l, *, span_kv=None):
+def paged_attention(q, view, page, l, *, span_kv=None, append_kv=None):
     """Attention over the paged pool: q (S, Hq, K1, Dh); view a
     serving.pool.KVPoolView (int8/fp8 pools carry scales); page a
     serving.pool.PageRef; l the layer index.  span_kv=None is the decode
     variant (K1 = 1, positions <= page.pos); span_kv=(sk, sv), each
     (S, KVH, K1, Dh), the span-verify variant (positions < page.pos plus
-    span offsets <= j).  Returns (S, Hq, K1, Dh) in q's dtype.  CUDA
-    tensors launch csrc/paged_attn.cu (or raise); CPU tensors take the
-    plain version."""
+    span offsets <= j).  append_kv=(k, v), each (S, KVH, Dh) in q's dtype
+    (decode only): first write them at (page.blk, page.off, l) in place,
+    as `serving.pool.paged_append` does — in the same launch on the card.
+    Returns (S, Hq, K1, Dh) in q's dtype.  CUDA tensors launch
+    csrc/paged_attn.cu (or raise); CPU tensors take the plain version."""
+    if append_kv is not None and span_kv is not None:
+        raise ValueError("paged attention: append_kv rides the decode "
+                         "variant only (a span commits after its verify)")
     if span_kv is not None:
         s, hq, k1, dh = q.shape
         kvh = view.k.shape[3]
@@ -335,12 +408,13 @@ def paged_attention(q, view, page, l, *, span_kv=None):
                 raise ValueError(
                     f"paged attention span: span K/V {tuple(t.shape)}, "
                     f"expected {(s, kvh, k1, dh)} for q {tuple(q.shape)}")
-    if on_cuda(q, view.k):
-        return _paged_attention_cuda(q, view, page, l, span_kv)
-    return _paged_attention_plain(q, view, page, l, span_kv)
+    if on_cuda(q, view.k, *(append_kv or ())):
+        return _paged_attention_cuda(q, view, page, l, span_kv, append_kv)
+    return _paged_attention_plain(q, view, page, l, span_kv, append_kv)
 
 
 # kernel launches (CUDA path only), one count per variant
 paged_attention.launches = 0  # decode over a bf16/f16/f32 pool
+paged_attention.appends = 0  # decode launches that carried the append
 paged_attention_quant = types.SimpleNamespace(launches=0)  # int8/e4m3 pool
 paged_attention_span = types.SimpleNamespace(launches=0)  # span, any pool

@@ -24,10 +24,15 @@ tensors (bit for bit; PyTorch indexes every byte type that way).
 paged-attention kernels dequantize in registers instead.
 
 Every writer goes through `kv_write`: on the card ONE launch of
-csrc/kv_write.cu per call writes both sides — the codec and the scatter
-of codes and scales, or the cast rows on a bf16/f16/f32 pool — reading
-the source vectors where they lie; on the CPU its plain version, the
-codec and index writes of `_write`.
+csrc/kv_write.cu per call (and layer group of up to MAX_LAYERS) writes
+both sides — the codec and the scatter of codes and scales, or the cast
+rows on a bf16/f16/f32 pool — reading the source vectors where they lie,
+a pointer per layer (the prefill hands over each layer's own view, no
+stack); on the CPU its plain version, the codec and index writes of
+`_write`.  The decode step's append is not a writer call on the card: it
+rides in the paged-decode launch (`ops.paged_attn.paged_attention(...,
+append_kv=)`); `paged_append` stays for the unfused arm and for callers
+outside the tick.
 """
 
 from __future__ import annotations
@@ -121,11 +126,18 @@ def _write(view: KVPoolView, idx, k, v) -> KVPoolView:
     return view
 
 
+def _stacked(xs):
+    """A writer's source as one (lc, R1, R2, KVH, Dh) tensor: a list of
+    per-layer tensors stacked (the plain version's way, as JAX's)."""
+    return xs if isinstance(xs, torch.Tensor) else torch.stack(list(xs))
+
+
 def _kv_write_plain(view: KVPoolView, ks, vs, blk, off, l0: int):
     """`kv_write` as index writes: the rows gathered into (rows, lc, KVH,
     Dh) slabs (whole (blocks, bt, ...) slabs when off is None) and
     written by `_write` — on a quantized pool through `quantize_blockwise`
     and four index writes."""
+    ks, vs = _stacked(ks), _stacked(vs)
     lc, r1, r2, kvh, dh = ks.shape
     lay = slice(l0, l0 + lc)
 
@@ -138,33 +150,56 @@ def _kv_write_plain(view: KVPoolView, ks, vs, blk, off, l0: int):
     return _write(view, idx, rows(ks), rows(vs))
 
 
-_KV_WRITE_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 8
-                  + [ctypes.c_int] * 12 + [ctypes.c_void_p])
-_SRC_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+# layers one launch of csrc/kv_write.cu takes (kMaxLayers: a source
+# pointer per layer and side rides in the kernel's arguments)
+MAX_LAYERS = 64
 
 
-def _kv_write_cuda(view: KVPoolView, ks, vs, blk, off, l0: int):
-    lc, r1, r2, kvh, dh = ks.shape
+def layer_sources(xs):
+    """A writer call's K (or V) source as the kernel reads it: the
+    per-layer (R1, R2, KVH, Dh) shape, its element strides (one set for
+    every layer) and each layer's address.  xs: a stacked (lc, R1, R2,
+    KVH, Dh) tensor, or a sequence of lc (R1, R2, KVH, Dh) tensors of one
+    shape, dtype and strides (the prefill's per-layer views)."""
+    if isinstance(xs, torch.Tensor):
+        base, step = xs.data_ptr(), xs.stride(0) * xs.element_size()
+        return (tuple(xs.shape[1:]), xs.stride()[1:],
+                [base + l * step for l in range(xs.shape[0])])
+    first = xs[0]
+    require(all(t.shape == first.shape and t.stride() == first.stride()
+                and t.dtype == first.dtype for t in xs),
+            "kv_write: per-layer sources must share shape, dtype and "
+            "strides")
+    return tuple(first.shape), first.stride(), [t.data_ptr() for t in xs]
+
+
+def layer_groups(lc: int, cap: int):
+    """[l0, l1) layer ranges of at most `cap` layers covering lc: the
+    launches of one writer call."""
+    return [(a, min(a + cap, lc)) for a in range(0, lc, cap)]
+
+
+def _check_write(view: KVPoolView, shape, dtype, stride, blk, off, l0, lc,
+                 vshape, vdtype, vstride, what):
+    """The operand checks both CUDA writers make."""
+    r1, r2, kvh, dh = shape
     nb, bt, nl, pkvh, pdh = view.k.shape
     quant = view.k_scale is not None
-    require(all(t is None or t.device == ks.device
-                for t in (vs, *view, blk, off)),
-            f"kv_write: every operand must lie on {ks.device}")
-    require(vs.shape == ks.shape and (kvh, dh) == (pkvh, pdh)
+    require(vshape == shape and (kvh, dh) == (pkvh, pdh)
             and view.v.shape == view.k.shape,
-            f"kv_write: source {tuple(ks.shape)} / "
-            f"{tuple(vs.shape)} vs pool {tuple(view.k.shape)}")
-    require(ks.dtype == vs.dtype and ks.dtype in _SRC_DTYPES,
-            f"kv_write: source dtypes {ks.dtype}/{vs.dtype} (f32, "
-            "bf16 or f16, equal)")
-    require(ks.stride(-1) == 1 and vs.stride(-1) == 1,
-            "kv_write: a head vector must be contiguous (stride 1)")
+            lambda: f"{what}: source {shape} / {vshape} per layer vs pool "
+            f"{tuple(view.k.shape)}")
+    require(dtype == vdtype and dtype in _SRC_DTYPES,
+            lambda: f"{what}: source dtypes {dtype}/{vdtype} (f32, bf16 "
+            "or f16, equal)")
+    require(stride[-1] == 1 and vstride[-1] == 1,
+            f"{what}: a head vector must be contiguous (stride 1)")
     require(view.k.dtype == view.v.dtype and view.k.is_contiguous()
             and view.v.is_contiguous(),
-            "kv_write: the k/v pools must be contiguous, of one dtype")
+            f"{what}: the k/v pools must be contiguous, of one dtype")
     require(quant == (view.k.dtype in (torch.int8, torch.float8_e4m3fn))
             and (view.v_scale is not None) == quant,
-            f"kv_write: a {view.k.dtype} pool needs scales iff it "
+            lambda: f"{what}: a {view.k.dtype} pool needs scales iff it "
             "is int8/e4m3")
     if quant:
         require(view.k_scale.shape == view.k.shape[:-1]
@@ -172,7 +207,7 @@ def _kv_write_cuda(view: KVPoolView, ks, vs, blk, off, l0: int):
                 and view.k_scale.dtype == view.v_scale.dtype == torch.float32
                 and view.k_scale.is_contiguous()
                 and view.v_scale.is_contiguous(),
-                "kv_write: scales must be contiguous f32 (NB, bt, L, KVH)")
+                f"{what}: scales must be contiguous f32 (NB, bt, L, KVH)")
     rows = r1 * r2
     div = 1 if off is not None else bt
     require(blk.dtype == torch.int64 and blk.is_contiguous()
@@ -180,12 +215,105 @@ def _kv_write_cuda(view: KVPoolView, ks, vs, blk, off, l0: int):
             and (off is None or (off.dtype == torch.int64
                                  and off.is_contiguous()
                                  and off.numel() == rows)),
-            f"kv_write: blk/off must be contiguous int64 for {rows} "
+            lambda: f"{what}: blk/off must be contiguous int64 for {rows} "
             "rows")
     require(0 <= l0 and l0 + lc <= nl and dh <= 128,
-            f"kv_write: layers [{l0}, {l0 + lc}) of {nl}, Dh {dh} "
+            lambda: f"{what}: layers [{l0}, {l0 + lc}) of {nl}, Dh {dh} "
             "<= 128")
+    return rows, div
+
+
+_KV_WRITE_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 6
+                  + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+_KV_WRITE_V1_ARGS = ([ctypes.c_void_p] * 8 + [ctypes.c_longlong] * 8
+                     + [ctypes.c_int] * 12 + [ctypes.c_void_p])
+_SRC_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
+def _same_device(view, blk, off, *srcs):
+    dev = srcs[0].device
+    require(all(t is None or t.device == dev
+                for t in (*srcs, *view, blk, off)),
+            lambda: f"kv_write: every operand must lie on {dev}")
+
+
+def _kv_write_cuda(view: KVPoolView, ks, vs, blk, off, l0: int):
+    """One launch of csrc/kv_write.cu for at most MAX_LAYERS layers."""
+    (kshape, kst, kptr), (vshape, vst, vptr) = (layer_sources(ks),
+                                               layer_sources(vs))
+    lc = len(kptr)
+    require(len(vptr) == lc and 1 <= lc <= MAX_LAYERS,
+            lambda: f"kv_write: {lc} / {len(vptr)} layers a launch (1 to "
+            f"{MAX_LAYERS}, equal)")
+    first = ks if isinstance(ks, torch.Tensor) else ks[0]
+    vfirst = vs if isinstance(vs, torch.Tensor) else vs[0]
+    rows, div = _check_write(view, kshape, first.dtype, kst, blk, off, l0,
+                             lc, vshape, vfirst.dtype, vst, "kv_write")
+    r1, r2, kvh, dh = kshape
+    nb, bt, nl = view.k.shape[:3]
+    require(dh in (32, 64, 128) and all(
+        t.data_ptr() % 16 == 0 for t in (view.k, view.v)),
+            lambda: f"kv_write: head dim {dh} not in (32, 64, 128), or a "
+            "pool not 16-byte aligned")
+    quant = view.k_scale is not None
     fn = _build.entry("kv_write", "kv_write", _KV_WRITE_ARGS)
+    arr = ctypes.c_void_p * lc
+    err = fn(arr(*kptr), arr(*vptr), view.k.data_ptr(), view.v.data_ptr(),
+             view.k_scale.data_ptr() if quant else None,
+             view.v_scale.data_ptr() if quant else None, blk.data_ptr(),
+             None if off is None else off.data_ptr(),
+             kst[0], kst[1], kst[2], vst[0], vst[1], vst[2],
+             rows, r2, lc, kvh, dh, div, bt, nb, nl, int(l0),
+             _build.DTYPE_CODES[first.dtype], _build.POOL_CODES[view.k.dtype],
+             _build.stream_ptr(first))
+    _build.check(err, "kv_write")
+    kv_write.launches += 1
+    return view
+
+
+def kv_write(view: KVPoolView, ks, vs, blk, off, l0: int) -> KVPoolView:
+    """Store K/V head vectors in the pool, in place, both sides at once.
+    ks/vs: (lc, R1, R2, KVH, Dh) tensors, or sequences of lc (R1, R2,
+    KVH, Dh) tensors of one shape and strides (a layer each, read where it
+    lies), any strides with the head vector contiguous: row r = (r // R2,
+    r % R2) of layer l goes to (blk[r], off[r], l0 + l), or with off None
+    to (blk[r // bt], r % bt, l0 + l) — whole blocks.  Quantized (codes
+    and scales) on an int8/fp8 pool, cast to the pool's dtype otherwise.
+    CUDA tensors launch csrc/kv_write.cu once per group of up to
+    MAX_LAYERS layers (or raise); CPU tensors take `_kv_write_plain`, by
+    the same groups."""
+    srcs = (ks,) if isinstance(ks, torch.Tensor) else tuple(ks)
+    vsrcs = (vs,) if isinstance(vs, torch.Tensor) else tuple(vs)
+    cuda = on_cuda(*srcs, *vsrcs, *view, blk, off)
+    if cuda:
+        _same_device(view, blk, off, *srcs, *vsrcs)
+    write = _kv_write_cuda if cuda else _kv_write_plain
+    for a, b in layer_groups(len(ks), MAX_LAYERS):
+        write(view, ks[a:b], vs[a:b], blk, off, l0 + a)
+    return view
+
+
+kv_write.launches = 0  # kernel launches (CUDA path only)
+
+
+def kv_write_v1(view: KVPoolView, ks, vs, blk, off, l0: int) -> KVPoolView:
+    """`kv_write` through the v1 kernel (csrc/kv_write.cu
+    `kv_write_v1`, a warp a head vector), off every path: the new
+    kernel's reference in bits and time.  ks/vs stacked (lc, R1, R2, KVH,
+    Dh) tensors, any Dh <= 128.  CUDA tensors launch it (or raise); CPU
+    tensors take `_kv_write_plain`."""
+    if not on_cuda(ks, vs, *view, blk, off):
+        return _kv_write_plain(view, ks, vs, blk, off, l0)
+    _same_device(view, blk, off, ks, vs)
+    lc = ks.shape[0]
+    rows, div = _check_write(view, tuple(ks.shape[1:]), ks.dtype,
+                             ks.stride()[1:], blk, off, l0, lc,
+                             tuple(vs.shape[1:]), vs.dtype, vs.stride()[1:],
+                             "kv_write_v1")
+    r1, r2, kvh, dh = ks.shape[1:]
+    nb, bt, nl = view.k.shape[:3]
+    quant = view.k_scale is not None
+    fn = _build.entry("kv_write", "kv_write_v1", _KV_WRITE_V1_ARGS)
     sk, sv = ks.stride(), vs.stride()
     err = fn(ks.data_ptr(), vs.data_ptr(), view.k.data_ptr(),
              view.v.data_ptr(),
@@ -196,25 +324,12 @@ def _kv_write_cuda(view: KVPoolView, ks, vs, blk, off, l0: int):
              rows, r2, lc, kvh, dh, div, bt, nb, nl, int(l0),
              _build.DTYPE_CODES[ks.dtype], _build.POOL_CODES[view.k.dtype],
              _build.stream_ptr(ks))
-    _build.check(err, "kv_write")
-    kv_write.launches += 1
+    _build.check(err, "kv_write_v1")
+    kv_write_v1.launches += 1
     return view
 
 
-def kv_write(view: KVPoolView, ks, vs, blk, off, l0: int) -> KVPoolView:
-    """Store K/V head vectors in the pool, in place, both sides at once.
-    ks/vs (lc, R1, R2, KVH, Dh), any strides with the head vector
-    contiguous: row r = (r // R2, r % R2) of layer l goes to (blk[r],
-    off[r], l0 + l), or with off None to (blk[r // bt], r % bt, l0 + l)
-    — whole blocks.  Quantized (codes and scales) on an int8/fp8 pool,
-    cast to the pool's dtype otherwise.  CUDA tensors launch
-    csrc/kv_write.cu (or raise); CPU tensors take `_kv_write_plain`."""
-    if on_cuda(ks, vs, *view, blk, off):
-        return _kv_write_cuda(view, ks, vs, blk, off, l0)
-    return _kv_write_plain(view, ks, vs, blk, off, l0)
-
-
-kv_write.launches = 0  # kernel launches (CUDA path only)
+kv_write_v1.launches = 0  # kernel launches (CUDA path only)
 
 
 def paged_append(view: KVPoolView, k, v, l: int, page: PageRef) -> KVPoolView:
@@ -272,16 +387,24 @@ def paged_append_span(view: KVPoolView, ks, vs, tables, pos0, count,
 
 def paged_scatter(view: KVPoolView, ks, vs, block_ids,
                   block_tokens: int) -> KVPoolView:
-    """Scatter a prefill's K/V — ks/vs (L, 1, KVH, P, Dh) — into the pool
-    blocks `block_ids` ((P / block_tokens,) physical ids; padding-tail
-    entries point at scratch), in place."""
-    require(ks.shape[1] == 1 and ks.shape[3] % block_tokens == 0
+    """Scatter a prefill's K/V into the pool blocks `block_ids`
+    ((P / block_tokens,) physical ids; padding-tail entries point at
+    scratch), in place.  ks/vs: (L, 1, KVH, P, Dh) stacks, or sequences
+    of L (1, KVH, P, Dh) tensors — each layer's own K/V (the model's
+    strided views of its qkv product), read where they lie."""
+    one = ks if isinstance(ks, torch.Tensor) else ks[0][None]
+    require(one.shape[1] == 1 and one.shape[3] % block_tokens == 0
             and block_tokens == view.k.shape[1],
-            f"paged_scatter: one request of whole {view.k.shape[1]}-token "
-            f"blocks, got {tuple(ks.shape)} at block_tokens {block_tokens}")
-    # prompt position p of every layer: (L, 1, P, KVH, Dh) views
-    return kv_write(view, ks.transpose(2, 3), vs.transpose(2, 3),
-                    block_ids.long(), None, 0)
+            lambda: f"paged_scatter: one request of whole "
+            f"{view.k.shape[1]}-token blocks, got {tuple(one.shape)} at "
+            f"block_tokens {block_tokens}")
+
+    def rows(xs):  # prompt position p of every layer: (1, P, KVH, Dh)
+        if isinstance(xs, torch.Tensor):
+            return xs.transpose(2, 3)
+        return [x.transpose(1, 2) for x in xs]
+
+    return kv_write(view, rows(ks), rows(vs), block_ids.long(), None, 0)
 
 
 class PagedKVPool:
