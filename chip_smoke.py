@@ -8,7 +8,8 @@ serve it again under speculative decoding, the prefix cache and int8/fp8
 pools, run the distributed path: ring attention's chunk kernels, the
 ring itself and the DDP / ZeRO-1 / ZeRO-2 engines, and ZeRO-3 with the
 fp8 weight gather (gpt2-124m and gpt2-1.5b) and the heads-last FA2
-kernels through their A/B.
+kernels through their A/B; then the Llama family: RMSNorm's entries,
+llama-160m served and trained.
 
     python3 chip_smoke.py
 
@@ -189,9 +190,43 @@ non-zero, printing no result, without one.  Phases, each on its own line:
         11.2]; median step time, tokens/s, peak memory, one profiled
         step's busy / idle and kernel classes, and the per-rank state at
         data 4 and 8 from the shard layout (not measured);
-  then the `kernels` JSON line (24 rows: the 22 kernels and the Triton
-  LayerNorm forward pair, launched on no path; launches by path), then
-  the result line {"ok": true, "device": {"platform": "gpu", ...}}.
+  9. the Llama family (every count zeroed before each path, read after):
+     a. RMSNorm's entries, the LayerNorm C entries under their RMS flag
+        (rows r1 `rmsnorm_fwd`, r1r `add_rmsnorm_fwd`, r2+3
+        `rmsnorm_bwd`, r2+3r its gs launches): against their plain
+        versions at 8, 512, 8192 x 768 and 8192 x 2048 bf16, and 8 and
+        512 x 768 in f32 and f16 (2e-2 bf16/f16, 1e-5 f32, of the
+        output's scale), each twice and bit for bit, s = x + r and the
+        gs variant's dx = gs + dx bit for bit; timed at 8192 x 768 (and
+        8 x 768: host ms a call; 8192 x 2048: kernel and library in
+        turns) beside the bound, the plain version and the library call
+        (F.rms_norm; after `x + r`; its autograd backward; `gs + dx`
+        after), in turns;
+     b. llama-160m (12 layers, 12 query heads over 4 kv heads, Dh 64,
+        SwiGLU 2048, seeded random weights, bf16) through ServingEngine:
+        phase 3's traffic, then 8 requests under spec-ngram (spec_k 4),
+        an int8 pool and the prefix cache — every request ok, each
+        decode launch carrying its append, kv_write once a prefill, the
+        RMS forwards and never rows 1 / 1r, no kernel off the path; the
+        prefill's and the first decode step's logits against the plain
+        path (5e-2 x max|logit|); an f32 pass whose plain and
+        spec-ngram tokens must be identical; decode tok/s, TTFT p50,
+        busy and idle from a profiled pass; the decode tick alone (host
+        ms, device records, busy ms, launches), its RoPE and SwiGLU
+        launches beside gpt2-124m's phase-3 tick;
+     c. llama-160m training with phase 4's config (SingleDevice +
+        AdamW(1e-5, wd 0.1), B=8 T=1024, the synthetic stream): 3
+        warm-up and 10 timed steps, the first loss in [10.5, 11.2], 25
+        RMS backward launches a step (12 with gs); median step time,
+        tokens/s, peak memory, one profiled step's busy / idle and
+        kernel classes; one step's gradients against the plain path
+        (rel L2 <= 5e-2 a leaf), remat on and off bit for bit, 8 steps
+        on one batch at lr 1e-3 lowering its loss;
+  then the `kernels` JSON line (30 rows: the 22 kernels, rows 10kv, 1r
+  and the decode append, the Triton LayerNorm forward pair and the v1
+  writer, launched on no path, and the four RMS rows; launches by path,
+  the Llama paths `llama_*` among them), then the result line
+  {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Imports nothing of JAX or of the JAX package.
 """
@@ -2309,10 +2344,11 @@ def serving_traffic(np):
     return [rng.integers(0, 50257, size=int(n)).tolist() for n in lens], 64
 
 
-def plain_prefill_logits(torch, port, model, prompt):
+def plain_prefill_logits(torch, port, model, prompt, extra=None):
     """The first request's prefill logits through every kernel's plain
     version on the card (the module-level ops the model calls swapped
-    for their plain versions), next to the kernel path's."""
+    for their plain versions, and `extra`, a context that swaps more),
+    next to the kernel path's."""
     from tiny_deepspeed_tpu_torch.models import gpt2 as gpt2_mod
     from tiny_deepspeed_tpu_torch.ops.flash_fa2 import (
         _fa2_fwd_plain, fa2_flash_attention_fwd)
@@ -2332,7 +2368,8 @@ def plain_prefill_logits(torch, port, model, prompt):
 
     def run():
         c = model.config
-        pool = PagedKVPool(n_layer=c.n_layer, kv_heads=c.n_head,
+        pool = PagedKVPool(n_layer=c.n_layer,
+                           kv_heads=getattr(c, "kv_heads", c.n_head),
                            head_dim=c.head_dim, num_blocks=bucket // bt,
                            block_tokens=bt, dtype=torch.bfloat16,
                            device="cuda")
@@ -2348,7 +2385,8 @@ def plain_prefill_logits(torch, port, model, prompt):
              _add_ln_fwd_plain(x, r, w, b, eps)[:2]),
             (gpt2_mod, "sharded_attention", lambda q, k_, v, impl, pctx=None:
              _fa2_fwd_plain(q, k_, v)[0]),
-            (pool_mod, "kv_write", pool_mod._kv_write_plain)):
+            (pool_mod, "kv_write", pool_mod._kv_write_plain)), \
+            extra or contextlib.nullcontext():
         plain = run()
     check(paged_attention.launches == before, "prefill ran decode kernels")
     check(fa2_flash_attention_fwd.launches == fwd,
@@ -2638,21 +2676,22 @@ def tick_report(torch, model, prompts, counters, pool_mod, name,
     return out
 
 
-class Appends:
-    """`paged_attention.appends` (the decode launches that carried the
-    append) as a counter of the `counters` table, read and zeroed through
-    `launches` like every wrapper's."""
+class Attr:
+    """An attribute of a wrapper other than `launches` as a counter of the
+    `counters` table, read and zeroed through `launches` like every
+    wrapper's: `paged_attention.appends` (the decode launches that carried
+    the append), `rmsnorm_bwd.launches_gs`."""
 
-    def __init__(self, fn):
-        self.fn = fn
+    def __init__(self, fn, attr):
+        self.fn, self.attr = fn, attr
 
     @property
     def launches(self):
-        return self.fn.appends
+        return getattr(self.fn, self.attr)
 
     @launches.setter
     def launches(self, n):
-        self.fn.appends = n
+        setattr(self.fn, self.attr, n)
 
 
 # -- phase 4: training -------------------------------------------------------
@@ -3338,10 +3377,10 @@ def verify_logits_check(torch, np, model, prompts, plain, counters):
 
 
 def quant_prefill_check(torch, model, prompt, mode, plain, counters):
-    """A prefill into an int8 / fp8 pool and the decode step after it
-    (the quantizer writes the pool, the quantized decode kernel reads
-    it), on the kernel path and on the plain path: (prefill logits,
-    decode logits) each."""
+    """A prefill into an int8 / fp8 pool (mode None: a pool in the
+    compute dtype) and the decode step after it (the writer fills the
+    pool, the decode kernel reads it), on the kernel path and on the
+    plain path: (prefill logits, decode logits) each."""
     from tiny_deepspeed_tpu_torch.serving.pool import PagedKVPool, page_ref
     c = model.config
     p = len(prompt)
@@ -3356,7 +3395,8 @@ def quant_prefill_check(torch, model, prompt, mode, plain, counters):
 
     @torch.no_grad()
     def run():
-        pool = PagedKVPool(n_layer=c.n_layer, kv_heads=c.n_head,
+        pool = PagedKVPool(n_layer=c.n_layer,
+                           kv_heads=getattr(c, "kv_heads", c.n_head),
                            head_dim=c.head_dim, num_blocks=nblk,
                            block_tokens=16, dtype=torch.bfloat16,
                            quant=mode, device="cuda")
@@ -4107,6 +4147,513 @@ def zero3_xl_phase(torch, port, counters):
     return out
 
 
+# -- phase 9: the Llama family ------------------------------------------------
+
+LLAMA = "llama-160m"
+# rows r1, r1r, r2+3, r2+3r: RMSNorm on the LayerNorm entries' RMS flag
+# (csrc/ln_fwd.cu `rms_fwd`, csrc/ln_bwd.cu `rms_bwd`); r2+3 counts every
+# RMS backward launch, r2+3r those that added a gs
+RMS_KERNELS = ("rmsnorm_fwd", "add_rmsnorm_fwd", "rmsnorm_bwd",
+               "rmsnorm_bwd_gs")
+# 9a's shapes: llama-160m's decode tick (8 rows), a prefill (512), the
+# training step (8192) of 768, and llama-1b's width (8192 x 2048), bf16;
+# f32 and f16 at 768
+RMS_CASES = ((8, 768, "bfloat16"), (512, 768, "bfloat16"),
+             (8192, 768, "bfloat16"), (8192, 2048, "bfloat16"),
+             (8, 768, "float32"), (512, 768, "float32"),
+             (8, 768, "float16"), (512, 768, "float16"))
+RMS_TOL = {"bfloat16": 2e-2, "float16": 2e-2, "float32": 1e-5}
+# the kernels each Llama serving path must launch, and nothing else
+LLAMA_BASE = ("rmsnorm_fwd", "add_rmsnorm_fwd", "fa2_flash_attention_fwd",
+              "kv_write")
+LLAMA_PATHS = {
+    "llama_serving": LLAMA_BASE + ("paged_attention",
+                                   "paged_attention_append"),
+    "llama_spec_ngram": LLAMA_BASE + ("paged_attention_span",),
+    "llama_quant_int8": LLAMA_BASE + ("paged_attention_quant",
+                                      "paged_attention_append"),
+    "llama_prefix_on": LLAMA_BASE + ("paged_attention",
+                                     "paged_attention_span",
+                                     "paged_attention_append"),
+}
+LLAMA_TRAIN = ("rmsnorm_fwd", "add_rmsnorm_fwd", "rmsnorm_bwd",
+               "rmsnorm_bwd_gs", "fa2_flash_attention_fwd",
+               "fa2_flash_attention_dq", "fa2_flash_attention_dkv")
+LLAMA_PATTERNS = {"rmsnorm_fwd": "rms_fwd_", "add_rmsnorm_fwd": "add_rms_fwd_",
+                  "rmsnorm_bwd": "rms_bwd_",
+                  "fa2_flash_attention_fwd": "flash_fwd_",
+                  "fa2_flash_attention_dq": "flash_dq_",
+                  "fa2_flash_attention_dkv": "flash_dkv_",
+                  "kv_write": "kv_write_kernel",
+                  "paged_attention": "paged_decode_kernel",
+                  "paged_attention_span": "paged_span_",
+                  "layernorm": "ln_fwd_"}
+
+
+def _rms_inputs(torch, rows, n, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x, r, gy, gs = ((torch.randn(rows, n, generator=g, device="cuda") * 2
+                     + 0.3).to(dtype) for _ in range(4))
+    w = (1 + 0.3 * torch.randn(n, generator=g, device="cuda")).to(dtype)
+    return x, r, gy, gs, w
+
+
+def _rms_sides(torch, F, rn, x, r, gy, gs, w):
+    """{row: (kernel, plain version, library call, bytes, flops)}: the
+    bytes each function must move (inputs read once, outputs written
+    once; ln_bwd's f32 partials are its own) and its operations."""
+    rows, n = x.shape
+    e = x.element_size()
+    rstd = rn._rms_fwd_plain(x, w)[1]
+    xg = x.detach().clone().requires_grad_()
+    wg = w.detach().clone().requires_grad_()
+    yl = F.rms_norm(xg, (n,), wg, 1e-5)
+
+    def lib_bwd():
+        return torch.autograd.grad(yl, (xg, wg), gy, retain_graph=True)
+
+    def lib_bwd_gs():
+        dx, dw = lib_bwd()
+        return gs + dx, dw
+
+    io = rows * n * e
+    return {
+        "rmsnorm_fwd": (lambda: rn.rmsnorm_fwd(x, w),
+                        lambda: rn._rms_fwd_plain(x, w),
+                        lambda: F.rms_norm(x, (n,), w, 1e-5),
+                        2 * io + n * e + rows * 4, 4 * rows * n),
+        "add_rmsnorm_fwd": (lambda: rn.add_rmsnorm_fwd(x, r, w),
+                            lambda: rn._add_rms_fwd_plain(x, r, w),
+                            lambda: F.rms_norm(x + r, (n,), w, 1e-5),
+                            4 * io + n * e + rows * 4, 5 * rows * n),
+        "rmsnorm_bwd": (lambda: rn.rmsnorm_bwd(gy, x, w, rstd),
+                        lambda: rn._rms_bwd_plain(gy, x, w, rstd),
+                        lib_bwd, 3 * io + 2 * n * e + rows * 4,
+                        8 * rows * n),
+        "rmsnorm_bwd_gs": (lambda: rn.rmsnorm_bwd(gy, x, w, rstd, gs),
+                           lambda: rn._rms_bwd_plain(gy, x, w, rstd, gs),
+                           lib_bwd_gs, 4 * io + 2 * n * e + rows * 4,
+                           9 * rows * n),
+    }
+
+
+def rms_phase(torch, F, rn):
+    """9a: the RMS entries against their plain versions at RMS_CASES (y /
+    dx within RMS_TOL of the row scale, dw of the column sums', rstd 1e-5;
+    the add's s bit for bit `x + r`, the gs variant bit for bit `gs + dx`;
+    each call twice, bit for bit), then timed in bf16 at 8192 x 768 (the
+    training step: the rows' shape) beside the bound, the plain version
+    and the library call (F.rms_norm; `x + r` first; its autograd
+    backward; `gs + dx` after), kernel and library in turns; at 8 x 768
+    (the decode tick) the forwards' device time and every row's host ms
+    a call; at 8192 x 2048 each kernel in turns with the library call."""
+    errs = {k: 0.0 for k in RMS_KERNELS}
+    dw_errs = {k: 0.0 for k in RMS_KERNELS[2:]}
+    for i, (rows, n, dt) in enumerate(RMS_CASES):
+        dtype = getattr(torch, dt)
+        x, r, gy, gs, w = _rms_inputs(torch, rows, n, dtype, 40 + i)
+        for name, (kern, plain, *_) in _rms_sides(torch, F, rn, x, r, gy, gs,
+                                                  w).items():
+            got, again, ref = kern(), kern(), plain()
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                  f"9a: {name} at {rows}x{n} {dt} not bit for bit on a "
+                  "repeat")
+            if name == "add_rmsnorm_fwd":
+                check(torch.equal(got[0], x + r), "9a: add_rmsnorm_fwd's s "
+                      "is not x + r")
+            out, want = got[-2], ref[-2]  # y, or dx
+            scale = float(want.float().abs().max()) + 1.0
+            e = max_err(out, want)
+            check(e <= RMS_TOL[dt] * scale,
+                  f"9a: {name} at {rows}x{n} {dt}: max_abs_err {e:.4g} > "
+                  f"{RMS_TOL[dt]} x {scale:.4g}")
+            errs[name] = max(errs[name], e)
+            if name.startswith("rmsnorm_bwd"):
+                sc = float(ref[1].float().abs().max()) + 1.0
+                ew = max_err(got[1], ref[1])
+                check(ew <= RMS_TOL[dt] * sc, f"9a: {name} dw at {rows}x{n} "
+                      f"{dt}: max_abs_err {ew:.4g} > {RMS_TOL[dt]} x {sc:.4g}")
+                dw_errs[name] = max(dw_errs[name], ew)
+            else:
+                e = max_err(got[-1], ref[-1])
+                check(e <= 1e-5 * (float(ref[-1].abs().max()) + 1.0),
+                      f"9a: {name} rstd at {rows}x{n} {dt}: {e:.4g}")
+        dx0 = rn.rmsnorm_bwd(gy, x, w, rn._rms_fwd_plain(x, w)[1])[0]
+        dxg = rn.rmsnorm_bwd(gy, x, w, rn._rms_fwd_plain(x, w)[1], gs)[0]
+        check(torch.equal(dxg, gs + dx0), f"9a: the gs variant at {rows}x{n}"
+              f" {dt} is not gs + dx")
+    print(f"  RMS entries vs plain at {len(RMS_CASES)} shapes (bf16 8/512/"
+          f"8192 x 768, 8192 x 2048; f32, f16 8/512 x 768): max_abs_err "
+          f"y/dx { {k: float(f'{v:.4g}') for k, v in errs.items()} }, dw "
+          f"{ {k: float(f'{v:.4g}') for k, v in dw_errs.items()} } (tol "
+          "2e-2 bf16/f16, 1e-5 f32, x the output's scale); repeats bit for "
+          "bit; s = x + r and dx_gs = gs + dx bit for bit")
+    res = {}
+    for rows, n in ((8192, 768), (8, 768), (8192, 2048)):
+        x, r, gy, gs, w = _rms_inputs(torch, rows, n, torch.bfloat16, 7)
+        for name, (kern, plain, lib, nbytes, flops) in _rms_sides(
+                torch, F, rn, x, r, gy, gs, w).items():
+            if n == 2048:  # CUDA events, kernel and library in turns
+                t = turns(torch, kern, lib, reps=3)
+                t.update(ms=Ms(t["turns_ms"], "events"),
+                         library_ms=Ms(t["library_turns_ms"], "events"))
+            elif rows == 8:  # the decode tick's: host ms a call
+                t = dict(call_ms=time_ms(torch, kern))
+                if not name.startswith("rmsnorm_bwd"):
+                    t["ms"] = device_ms(torch, kern)
+            else:
+                t = timings(torch, kern, plain, lib)
+                t.update(turns(torch, kern, lib))
+            b, by = bound_ms(nbytes, flops, "bfloat16")
+            t.update(shape=f"{rows}x{n} bf16", bound_ms=b, bound_by=by,
+                     max_abs_err=errs[name])
+            for k in ("ms", "plain_ms", "library_ms", "call_ms"):
+                t.setdefault(k, None)
+            res[name, rows, n] = t
+            print(f"  {name} {rows}x{n} bf16: "
+                  + (f"{t['ms']:.5g} ms device ({t['ms'].source})"
+                     if t["ms"] is not None else "device -")
+                  + f", bound {b:.5g} ms ({by}), plain "
+                  + (f"{t['plain_ms']:.5g}" if t["plain_ms"] is not None
+                     else "-") + ", library "
+                  + (f"{t['library_ms']:.5g}" if t["library_ms"] is not None
+                     else "-")
+                  + (f", host {t['call_ms']:.5g} ms a call"
+                     if t["call_ms"] is not None else "")
+                  + (f"; {turns_text(t)}" if "turns_ms" in t else ""))
+    return res
+
+
+def llama_plain_ops(rn):
+    """The RMS entries swapped for their plain versions (the autograd
+    Functions look them up at call time)."""
+    return swapped((rn, "rmsnorm_fwd", rn._rms_fwd_plain),
+                   (rn, "add_rmsnorm_fwd", rn._add_rms_fwd_plain),
+                   (rn, "rmsnorm_bwd", rn._rms_bwd_plain))
+
+
+def _llama_launch_check(launches, want, where):
+    for k in want:
+        check(launches[k] > 0, f"{where}: {k} was never launched")
+    quiet = {k: v for k, v in launches.items() if k not in want and v}
+    check(not quiet, f"{where} ran kernels outside its path: {quiet}")
+
+
+def rope_swiglu_launches(torch, F, model):
+    """Kernel launches a decode tick spends on RoPE (the tick's tables
+    once, then q and k rotated in one pass a layer) and on SwiGLU's
+    elementwise part (silu, the product), at llama-160m's tick shapes (8
+    slots), and on gpt2-124m's GELU for comparison: each piece called
+    once under a dispatch mode that counts the aten ops that launch a
+    kernel on the card (views launch none).  Counted at the dispatcher:
+    late in a run the profiler's CUPTI traces come back empty or short."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+
+    class Launches(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            if not func.is_view and any(
+                    isinstance(t, torch.Tensor) and t.is_cuda
+                    for t in tree_leaves(out)):
+                self.n += 1
+            return out
+
+    def count(fn):
+        with Launches() as mode:
+            fn()
+        return mode.n
+
+    c = model.config
+    g = torch.Generator(device="cuda").manual_seed(5)
+    pos = torch.randint(16, 600, (8,), device="cuda", generator=g)
+    bp = model._layer(model.stacked_compute_params(), 0)
+    h = torch.randn(8, 1, c.n_embd, device="cuda", generator=g).to(
+        c.compute_dtype)
+    gate, up = (torch.randn(8, 1, c.ffn, device="cuda", generator=g).to(
+        c.compute_dtype) for _ in range(2))
+    with torch.no_grad():
+        q, k, _ = model._qkv(h, bp)
+        rot = model._rot(pos[:, None])
+        tables = count(lambda: model._rot(pos[:, None]))
+        qk = count(lambda: model._rope_qk(q, k, rot))
+        swi = count(lambda: F.silu(gate) * up)
+        gelu = count(lambda: F.gelu(gate, approximate="tanh"))
+    return dict(rope=tables + c.n_layer * qk, rope_tables=tables,
+                rope_qk_layer=qk, swiglu=c.n_layer * swi,
+                swiglu_layer=swi, gpt2_gelu=c.n_layer * gelu)
+
+
+def llama_serving_phase(torch, np, port, counters, pa, pool_mod, qm, rn,
+                        gpt2_tick):
+    """9b: llama-160m (bf16, seeded random weights) served through
+    ServingEngine: phase 3's traffic, then 8 requests under spec-ngram,
+    an int8 pool and the prefix cache; the prefill's and first decode
+    step's logits against the plain path; an f32 pass whose plain and
+    spec-ngram tokens must be identical; a profiled pass; the decode tick
+    alone."""
+    cfg = port.LLAMA_PRESETS[LLAMA]
+    model = port.LlamaModel(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    print(f"  llama-160m: {model.num_params() / 1e6:.1f}M params, "
+          f"{cfg.n_layer} layers, {cfg.n_head} query heads over "
+          f"{cfg.kv_heads} kv heads, Dh {cfg.head_dim}, SwiGLU {cfg.ffn}")
+    prompts, new = serving_traffic(np)
+    serve(torch, port, model, [prompts[0][:24], prompts[1][:40]], 4)  # warm
+    for fn in counters.values():
+        fn.launches = 0
+    eng, reqs, wall, seg, _ = serve(torch, port, model, prompts, new)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    paths = {"llama_serving": launches}
+    print(f"  launches on the main path: "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    _llama_launch_check(launches, LLAMA_PATHS["llama_serving"],
+                        "phase 9b (llama serving)")
+    check(launches["paged_attention_append"] == launches["paged_attention"]
+          and launches["kv_write"] == seg["prefills"],
+          f"9b: appends {launches['paged_attention_append']} against "
+          f"{launches['paged_attention']} decode launches, kv_write "
+          f"{launches['kv_write']} against {seg['prefills']} prefills")
+    check(all(r.status == "ok" for r in reqs), f"9b statuses "
+          f"{[r.status for r in reqs]}")
+    check(all(len(r.tokens) == new for r in reqs)
+          and all(0 <= t < cfg.vocab_size for r in reqs for t in r.tokens),
+          "9b: short token streams or ids out of range")
+    check(eng.pool.blocks_in_use == 0 and eng.restarts == 0,
+          "9b: pool blocks leaked or a warm restart")
+    total = sum(len(r.tokens) for r in reqs)
+    ttft = statistics.median(r.t_first - r.t_arrival for r in reqs)
+    out = dict(wall_s=wall, decode_tok_s=(total - len(reqs))
+               / seg["decode_s"], ttft_p50_ms=ttft * 1e3,
+               prefill_s=seg["prefill_s"], decode_s=seg["decode_s"],
+               ticks=seg["decode_ticks"])
+    print(f"  16 requests ok, {total} tokens in {wall:.4f}s; decode "
+          f"{total - len(reqs)} tokens in {seg['decode_ticks']} ticks, "
+          f"{seg['decode_s']:.4f}s -> {out['decode_tok_s']:.2f} decode "
+          f"tok/s; prefill {seg['prefill_s']:.4f}s; TTFT p50 "
+          f"{ttft * 1e3:.2f} ms (all 16 submitted at t=0)")
+    del eng
+
+    def _both_plain():
+        stack = contextlib.ExitStack()
+        stack.enter_context(plain_serving_ops(pa, pool_mod, qm))
+        stack.enter_context(llama_plain_ops(rn))
+        return stack
+
+    kern, ref = plain_prefill_logits(torch, port, model, prompts[0],
+                                     extra=llama_plain_ops(rn))
+    (_, kd), (_, rd) = quant_prefill_check(torch, model, prompts[0], None,
+                                           _both_plain, counters)
+    for what, a, b in (("prefill", kern, ref), ("first decode step", kd,
+                                                 rd)):
+        e, sc = max_err(a, b), float(b.abs().max())
+        print(f"  {what} logits vs the plain path on the card: "
+              f"max_abs_err={e:.4g}, max|logit|={sc:.4g} (tol 5e-2 x "
+              f"max|logit|); argmax {int(a.argmax())} / {int(b.argmax())}")
+        check(bool(torch.isfinite(a).all()) and e <= 5e-2 * sc,
+              f"9b: the {what} logits disagree with the plain path")
+        out[what.replace(" ", "_") + "_err"] = e
+
+    pprompts, pnew = prefix_traffic(np)
+    for name, ps, nw, knobs in (
+            ("llama_spec_ngram", prompts[:8], new,
+             dict(spec_draft="ngram", spec_k=4)),
+            ("llama_quant_int8", prompts[:8], new, dict(quant="int8")),
+            ("llama_prefix_on", pprompts[:8], pnew,
+             dict(prefix_cache=True))):
+        serve_variant(torch, model, [ps[0][:24], ps[1][:300]], 4, counters,
+                      **knobs)  # warm
+        veng, vreqs, vwall, vseg, vl, _, _ = serve_variant(
+            torch, model, ps, nw, counters, **knobs)
+        paths[name] = vl
+        _llama_launch_check(vl, LLAMA_PATHS[name], f"9b ({name})")
+        check(all(r.status == "ok" and len(r.tokens) == nw for r in vreqs),
+              f"9b ({name}): statuses {[r.status for r in vreqs]}")
+        held = len(set(veng._prefix.blocks())) if veng._prefix else 0
+        check(veng.pool.blocks_in_use == held and veng.restarts == 0,
+              f"9b ({name}): pool blocks leaked or a warm restart")
+        vt = sum(len(r.tokens) for r in vreqs)
+        st = ""
+        if veng._spec is not None:
+            st = (f"; acceptance {veng._spec_accepted}/"
+                  f"{veng._spec_proposed}")
+        if veng._prefix is not None:
+            ps_ = veng.prefix_stats()
+            check(ps_["blocks_aliased"] > 0, "9b: the prefix run aliased "
+                  "nothing")
+            st = f"; aliased blocks {ps_['blocks_aliased']}"
+        out[name] = dict(wall_s=vwall, decode_tok_s=(vt - len(vreqs))
+                         / vseg["decode_s"], ttft_p50_ms=statistics.median(
+                             r.t_first - r.t_arrival for r in vreqs) * 1e3)
+        print(f"  {name}: 8 requests ok, {vt} tokens in {vwall:.4f}s, "
+              f"{out[name]['decode_tok_s']:.2f} decode tok/s, TTFT p50 "
+              f"{out[name]['ttft_p50_ms']:.2f} ms{st}; launches "
+              f"{ {k: v for k, v in vl.items() if v} }")
+        del veng
+    torch.cuda.empty_cache()
+
+    m32 = port.LlamaModel(dataclasses.replace(cfg,
+                                              compute_dtype=torch.float32))
+    m32.load_state_dict(model.state_dict())
+    toks = {}
+    for name, knobs in (("plain", {}), ("spec_ngram",
+                                        dict(spec_draft="ngram", spec_k=4))):
+        _, rq, *_ = serve_variant(torch, m32, prompts[:8], 32, counters,
+                                  **knobs)
+        check(all(r.status == "ok" for r in rq), f"9b f32 {name} failed")
+        toks[name] = [r.tokens for r in rq]
+    print(f"  f32 llama-160m, 8 requests x 32 tokens: plain == spec-ngram: "
+          f"{toks['plain'] == toks['spec_ngram']}")
+    check(toks["plain"] == toks["spec_ngram"], "9b: f32 spec-ngram tokens "
+          f"differ from plain greedy ({_agree(toks['plain'], toks['spec_ngram'])})")
+    del m32
+    torch.cuda.empty_cache()
+
+    for _ in range(3):  # an empty CUPTI trace: serve the traffic again
+        *_, prof = serve(torch, port, model, prompts, new, profile=True)
+        if prof is not None:
+            break
+    check(prof is not None, "9b: the profiler recorded no device time")
+    per, busy, rows = kernel_shares(torch, prof, LLAMA_PATTERNS)
+    check(per.get("layernorm", 0.0) == 0.0, "9b: a LayerNorm kernel ran")
+    with open(os.path.join(OUT_DIR, "llama_serving_profile.txt"), "w") as f:
+        for us, n, key in rows:
+            f.write(f"{us / 1e3:12.3f} ms {n:8d}  {key}\n")
+    out.update(busy_s=busy / 1e6, idle_share=1 - busy / 1e6 / wall,
+               kernel_s={k: v / 1e6 for k, v in per.items()})
+    print(f"  device busy {busy / 1e6:.4f}s of the main run's {wall:.4f}s "
+          f"wall (idle share {out['idle_share']:.4f}); kernel device s "
+          f"{ {k: round(v / 1e6, 5) for k, v in per.items()} }")
+    for us, n, key in rows[:8]:
+        print(f"    {us / 1e3:10.3f} ms x{n:<6d} {key[:90]}")
+    del prof
+    tick = tick_report(torch, model, prompts, counters, pool_mod,
+                       "phase 9 (llama-160m, bf16 pool)", arms=("fused",))
+    rs = rope_swiglu_launches(torch, torch.nn.functional, model)
+    out.update(tick=tick["fused"], rope_swiglu=rs)
+    print(f"  decode tick device kernels: llama-160m "
+          f"{tick['fused']['kernels']:.2f} (launches: RoPE {rs['rope']}, "
+          f"tables {rs['rope_tables']} once + {rs['rope_qk_layer']} a "
+          f"layer; SwiGLU's silu and product {rs['swiglu']}), gpt2-124m "
+          f"(phase 3) {gpt2_tick['kernels']:.2f} (GELU {rs['gpt2_gelu']}); "
+          "busy "
+          f"{tick['fused']['busy_ms']:.4f} vs {gpt2_tick['busy_ms']:.4f} ms,"
+          f" host {tick['fused']['host_ms']:.4f} vs "
+          f"{gpt2_tick['host_ms']:.4f} ms a tick")
+    del model
+    torch.cuda.empty_cache()
+    return paths, out
+
+
+def llama_train_phase(torch, port, counters, rn, ln, fa, fx, af):
+    """9c: llama-160m through SingleDevice + AdamW(lr=1e-5, wd=0.1) at B=8
+    T=1024 on the synthetic stream: 3 warm-up and 10 timed steps, the
+    first loss in [10.5, 11.2], the RMS backward's launches, one profiled
+    step, one step's gradients against the plain path (rel L2 <= 5e-2 a
+    leaf), remat on and off bit for bit (wte: the CUDA embedding
+    backward's rounding), 8 steps on one batch at lr 1e-3."""
+    b, t = 8, 1024
+    cfg = port.LLAMA_PRESETS[LLAMA]
+    torch.cuda.reset_peak_memory_stats()
+    model = port.LlamaModel(cfg)
+    eng = port.SingleDevice(model, port.AdamW(lr=1e-5, weight_decay=0.1))
+    state = eng.init(0)
+    loader = port.TokenLoader(None, batch=b, seq=t,
+                              vocab_size=cfg.vocab_size, seed=0)
+    print(f"  {eng.describe()}; {LLAMA} {model.num_params() / 1e6:.1f}M "
+          f"params, remat={cfg.remat} policy={cfg.remat_policy}, B={b} "
+          f"T={t}")
+    losses = []
+    for _ in range(3):
+        state, loss = eng.step(state, loader.next())
+        losses.append(float(loss))
+    for fn in counters.values():
+        fn.launches = 0
+    times = []
+    for _ in range(10):
+        batch = loader.next()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = eng.step(state, batch)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    print(f"  launches on the main path (10 steps): "
+          f"{ {k: v for k, v in launches.items() if v} }")
+    _llama_launch_check(launches, LLAMA_TRAIN, "phase 9c (llama training)")
+    check(launches["rmsnorm_bwd"] == (2 * cfg.n_layer + 1) * 10
+          and launches["rmsnorm_bwd_gs"] == cfg.n_layer * 10,
+          f"9c: rmsnorm_bwd {launches['rmsnorm_bwd']} (gs "
+          f"{launches['rmsnorm_bwd_gs']}), want {(2 * cfg.n_layer + 1) * 10}"
+          f" ({cfg.n_layer * 10})")
+    check(all(math.isfinite(x) for x in losses), f"9c losses {losses}")
+    check(10.5 <= losses[0] <= 11.2,
+          f"9c: first loss {losses[0]} outside [10.5, 11.2]")
+    med = statistics.median(times)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"  losses {[round(x, 4) for x in losses]}")
+    print(f"  step time median {med * 1e3:.3f} ms (min "
+          f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}) -> "
+          f"{b * t / med:.1f} tokens/s; peak memory {peak:.2f} GiB")
+    kernels = ("rmsnorm_fwd", "add_rmsnorm_fwd", "rmsnorm_bwd",
+               "fa2_flash_attention_fwd", "fa2_flash_attention_dq",
+               "fa2_flash_attention_dkv")
+    step_ms, busy, gemm, other = step_profile(
+        torch, eng, state, loader.next(), "llama_train_profile.txt", kernels,
+        med, patterns={k: LLAMA_PATTERNS[k] for k in kernels})
+
+    batch = loader.next()
+    kl, kg = loss_and_grads(torch, model, batch)
+    before = {k: fn.launches for k, fn in counters.items()}
+    with plain_ops(ln, fa, fx, af), llama_plain_ops(rn):
+        pl, pg = loss_and_grads(torch, model, batch)
+    check({k: fn.launches for k, fn in counters.items()} == before,
+          "9c: the plain path launched a kernel")
+    rel = {n: float((kg[n].float() - pg[n].float()).norm()
+                    / pg[n].float().norm().clamp_min(1e-30)) for n in kg}
+    worst = max(rel, key=rel.get)
+    print(f"  gradients kernel vs plain path: loss {kl:.6f} vs {pl:.6f} "
+          f"(tol 1e-2); worst leaf {worst} rel L2 err {rel[worst]:.4g} "
+          "(tol 5e-2)")
+    check(abs(kl - pl) <= 1e-2 and rel[worst] <= 5e-2,
+          "9c: the gradients disagree with the plain path")
+    model.config = dataclasses.replace(cfg, remat=False)
+    try:
+        ol, og = loss_and_grads(torch, model, batch)
+    finally:
+        model.config = cfg
+    differ = [n for n in kg if n != "wte" and not torch.equal(kg[n], og[n])]
+    wte_rel = float((kg["wte"] - og["wte"]).norm()
+                    / og["wte"].norm().clamp_min(1e-30))
+    print(f"  remat on vs off: loss {kl!r} vs {ol!r}; {len(kg) - 1} leaves "
+          f"bit-identical: {not differ}; wte rel L2 {wte_rel:.3g}")
+    check(kl == ol and not differ and wte_rel <= 1e-5,
+          f"9c: remat changed the gradients: {differ}")
+    del kg, pg, og
+    eng2 = port.SingleDevice(model, port.AdamW(lr=1e-3, weight_decay=0.1))
+    state2 = eng2.init(1)
+    fixed = loader.next()
+    fit = []
+    for _ in range(8):
+        state2, loss = eng2.step(state2, fixed)
+        fit.append(float(loss))
+    print(f"  8 steps at lr=1e-3 on one batch: {[round(x, 4) for x in fit]}")
+    check(all(math.isfinite(x) for x in fit) and fit[-1] < fit[0],
+          "9c: the loss did not fall on a fixed batch")
+    del model, eng, state, eng2, state2
+    torch.cuda.empty_cache()
+    return dict(launches=launches, step_ms=med * 1e3,
+                tokens_per_s=b * t / med, peak_gib=peak, busy_ms=busy / 1e3,
+                idle_share=1 - busy / 1e6 / med, gemm_ms=gemm / 1e3,
+                other_ms=other / 1e3, kernel_ms_per_step=step_ms,
+                first_loss=losses[0], fit=fit)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4124,6 +4671,7 @@ def main():
     from tiny_deepspeed_tpu_torch.ops import layernorm as ln
     from tiny_deepspeed_tpu_torch.ops import paged_attn as pa
     from tiny_deepspeed_tpu_torch.ops import quant as qm
+    from tiny_deepspeed_tpu_torch.ops import rmsnorm as rn
     from tiny_deepspeed_tpu_torch.optim import adamw_fused as af
     from tiny_deepspeed_tpu_torch.serving import pool as pool_mod
 
@@ -4197,7 +4745,7 @@ def main():
                 "add_ln_fwd_triton": ln._add_ln_fwd_triton,
                 "kv_write": pool_mod.kv_write,
                 "kv_write_v1": pool_mod.kv_write_v1,
-                "paged_attention_append": Appends(pa.paged_attention),
+                "paged_attention_append": Attr(pa.paged_attention, "appends"),
                 "layernorm_dx": ln.layernorm_dx,
                 "layernorm_dwdb": ln.layernorm_dwdb,
                 "layernorm_bwd": ln.layernorm_bwd,
@@ -4215,7 +4763,11 @@ def main():
                 "fa2_chunk_fwd": fa.fa2_chunk_fwd,
                 "fa2_chunk_dq": fa.fa2_chunk_dq,
                 "fa2_chunk_dkv": fa.fa2_chunk_dkv,
-                **{k: getattr(fa, k) for k in BTHD_KERNELS}}
+                **{k: getattr(fa, k) for k in BTHD_KERNELS},
+                "rmsnorm_fwd": rn.rmsnorm_fwd,
+                "add_rmsnorm_fwd": rn.add_rmsnorm_fwd,
+                "rmsnorm_bwd": rn.rmsnorm_bwd,
+                "rmsnorm_bwd_gs": Attr(rn.rmsnorm_bwd, "launches_gs")}
     serve_kernels = SERVE_BASE + ("paged_attention",
                                   "paged_attention_append")
     for fn in counters.values():
@@ -4374,6 +4926,23 @@ def main():
         torch.cuda.empty_cache()
         print(f"phase 8: {time.perf_counter() - t8:.2f}s")
 
+    t9 = time.perf_counter()
+    lap("phases 7-8")
+    print("phase 9: the Llama family — RMSNorm on the LayerNorm entries' "
+          "RMS flag (rows r1, r1r, r2+3, r2+3r), llama-160m served and "
+          "trained")
+    rms_res = rms_phase(torch, F, rn)
+    lap("9a, the RMS entries")
+    llama_paths, llama_serve = llama_serving_phase(
+        torch, np, port, counters, pa, pool_mod, qm, rn,
+        ticks["plain"]["fused"])
+    lap("9b, llama-160m served")
+    llama_train = llama_train_phase(torch, port, counters, rn, ln, fa, fx,
+                                    af)
+    llama_paths["llama_training"] = llama_train["launches"]
+    lap("9c, llama-160m trained")
+    print(f"phase 9: {time.perf_counter() - t9:.2f}s")
+
     timed = ("shape", "ms", "plain_ms", "library_ms", "call_ms", "bound_ms",
              "bound_by")
     extra_keys = TURN_KEYS + UNFUSED_KEYS + PARENT_KEYS + V1_KEYS
@@ -4391,7 +4960,8 @@ def main():
                    **{p: v["launches"][name] for p, v in dist_res.items()},
                    "ab": ab["launches"][name],
                    **{p: v["launches"][name] for p, v in z3_res.items()},
-                   "zero3_1.5b": xl["launches"][name]}
+                   "zero3_1.5b": xl["launches"][name],
+                   **{p: v[name] for p, v in llama_paths.items()}}
         row = {"name": name, "route": route, "source": source,
                "replaces": replaces, "launches": sum(by_path.values()),
                "launches_by_path": by_path,
@@ -4518,6 +5088,17 @@ def main():
               "tiny_deepspeed_tpu_torch/csrc/kv_write.cu",
               "tiny_deepspeed_tpu/ops/quant_pallas.py:59",
               kv_v1_res["prefill_bf16"], err=kv_err),
+        # rows r1, r1r, r2+3, r2+3r: RMSNorm, the LayerNorm entries under
+        # their RMS flag.  No TPU kernel stands behind them: in JAX they
+        # are an XLA fusion of ops/rmsnorm.py's plain functions
+        *(entry(name, "cuda", f"tiny_deepspeed_tpu_torch/csrc/{src}",
+                f"tiny_deepspeed_tpu/ops/rmsnorm.py:{line} (no TPU "
+                "kernel: an XLA fusion)", rms_res[name, 8192, 768])
+          for name, src, line in (
+              ("rmsnorm_fwd", "ln_fwd.cu", 25),
+              ("add_rmsnorm_fwd", "ln_fwd.cu", 25),
+              ("rmsnorm_bwd", "ln_bwd.cu", 33),
+              ("rmsnorm_bwd_gs", "ln_bwd.cu", 33))),
     ]
     kernels[13]["per_step"] = bwd_res["adamw_update_fused"]["per_step"]
     extra = {"paged_attention": {"long_context": pa_res["long_context"]},
@@ -4544,7 +5125,9 @@ def main():
                                    "n1600": aln_tri[8192, 1600]},
              "layernorm_bwd": {"add": lnb_res[768, True],
                                "n1600": lnb_res[1600, False],
-                               "n1600_add": lnb_res[1600, True]}}
+                               "n1600_add": lnb_res[1600, True]},
+             **{k: {"decode": rms_res[k, 8, 768],
+                    "n2048": rms_res[k, 8192, 2048]} for k in RMS_KERNELS}}
     for row in kernels:
         for k, v in extra.get(row["name"], {}).items():
             row[k + "_shape"] = {f: v[f] for f in timed + extra_keys
@@ -4559,7 +5142,21 @@ def main():
     print(f"clocks: {len(clocks) - len(events)} of {len(clocks)} device "
           f"times from the profiler, {len(events)} from CUDA events"
           + (f" ({', '.join(events)})" if events else ""))
-    check(len(kernels) == 26, f"{len(kernels)} kernel rows")
+    check(len(kernels) == 30, f"{len(kernels)} kernel rows")
+    gpt2_paths = [p for p in kernels[0]["launches_by_path"]
+                  if not p.startswith("llama_")]
+    for row in kernels[26:]:
+        by = row["launches_by_path"]
+        want = ("llama_training",) if row["name"].startswith(
+            "rmsnorm_bwd") else ("llama_serving", "llama_training")
+        check(all(by[p] > 0 for p in want),
+              f"{row['name']} was never launched on {want}: {by}")
+        check(not any(by[p] for p in gpt2_paths),
+              f"{row['name']} ran on a GPT-2 path: {by}")
+    for row in (kernels[0], kernels[21]):  # rows 1 and 1r
+        check(not any(v for p, v in row["launches_by_path"].items()
+                      if p.startswith("llama_")),
+              f"{row['name']} ran on a Llama path")
     for row in kernels[14:17]:
         check(row["launches_by_path"]["ring4"] > 0,
               f"{row['name']} was never launched on the ring path")
@@ -4569,7 +5166,7 @@ def main():
     for row in kernels[20:22]:
         check(row["launches_by_path"]["serving"] > 0,
               f"{row['name']} was never launched on the serving path")
-    for row in kernels[22:24] + kernels[25:]:
+    for row in kernels[22:24] + kernels[25:26]:
         check(not any(row["launches_by_path"].values()),
               f"the replaced kernel {row['name']} ran on a path: "
               f"{row['launches_by_path']}")
@@ -4577,7 +5174,10 @@ def main():
           "the decode append was never launched on the serving path")
     with open(os.path.join(OUT_DIR, "variants.json"), "w") as f:
         json.dump({"results": var_res, "agreement": agree,
-                   "ticks": ticks}, f, indent=1, default=str)
+                   "ticks": ticks, "llama_serving": llama_serve,
+                   "llama_training": {k: v for k, v in llama_train.items()
+                                      if k != "launches"}},
+                  f, indent=1, default=str)
     print(f"total {time.perf_counter() - t_all:.2f}s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

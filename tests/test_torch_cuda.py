@@ -69,7 +69,19 @@ Dh 32, 64 and 128, grouped heads, offsets 0 and bt - 1, the table's last
 position, the split count forced to 1-8; refused operands; the writer
 bit for bit the v1 kernel (`kv_write_v1`) at the three writers' shapes,
 and from misaligned sources; the prefill from per-layer views equal to
-the stacked call, in one launch per layer group.
+the stacked call, in one launch per layer group.  Slice 15 (the Llama
+family; `-k "rms or llama or g3"`): RMSNorm's forward, its residual-add
+variant and its backward (`ops/rmsnorm.py`, the `rms_fwd` / `rms_bwd`
+entries of csrc/ln_fwd.cu / csrc/ln_bwd.cu) against their plain
+versions at 8, 512 and 8192 rows of 768, 8192 of 2048 (bf16), 768 in f32
+and f16, the ragged widths 64, 48 and 2048 at odd row counts, with and
+without gs: the add's s bit for bit `x + r`, one launch a call, two
+calls bit for bit; grouped K/V at llama-160m's group 3 and llama-1b's
+group 4 — FA2 forward and backward at (8, 12, 4, 1024, 64), paged decode,
+decode with its append and span (K1 5 and 256) at (Hq, KVH) = (12, 4)
+and (32, 8), Dh 64, bt 16, over bf16 and int8 pools; tiny Llama
+training gradients and greedy tokens (plain, speculative, prefix cache,
+int8 pool) on the card against the CPU port's.
 """
 
 import math
@@ -122,7 +134,7 @@ def test_layernorm_kernel(dtype, rows, n):
 @pytest.mark.parametrize("b,h,kvh,t,d", [
     (1, 12, 12, 1024, 64), (2, 4, 2, 100, 64), (1, 2, 1, 33, 32),
     (3, 2, 2, 1, 64), (1, 2, 2, 2048, 64), (1, 2, 1, 4096, 64),
-    (2, 4, 2, 130, 64), (1, 6, 2, 200, 32)])
+    (2, 4, 2, 130, 64), (1, 6, 2, 200, 32), (8, 12, 4, 1024, 64)])
 def test_flash_kernel(dtype, b, h, kvh, t, d):
     g = _g(t + h)
     q = torch.randn(b, h, t, d, generator=g, device="cuda").to(dtype)
@@ -154,7 +166,8 @@ def _decode_case(case, bt):
     (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
     (torch.float16, torch.float16), (torch.float32, torch.bfloat16)])
 @pytest.mark.parametrize("hq,kvh,d,bt", [(12, 12, 64, 16), (4, 2, 32, 8),
-                                         (2, 1, 128, 32), (4, 2, 64, 16)])
+                                         (2, 1, 128, 32), (4, 2, 64, 16),
+                                         (12, 4, 64, 16), (32, 8, 64, 16)])
 def test_paged_kernel(qdt, kdt, hq, kvh, d, bt, case):
     s, nl = 5, 3
     w, pos = _decode_case(case, bt)
@@ -224,7 +237,9 @@ def test_layernorm_backward_kernels(dtype, rows, n):
     # the tensor-core kernels' 64-row tiles: just short of, at and just
     # past one and two tiles; a query-head group of 4
     (2, 2, 2, 63, 64), (1, 2, 2, 64, 64), (2, 2, 1, 65, 64),
-    (1, 2, 2, 127, 32), (1, 8, 2, 300, 64)])
+    (1, 2, 2, 127, 32), (1, 8, 2, 300, 64),
+    # llama-160m: 12 query heads over 4 kv heads, Dh 64, T 1024
+    (8, 12, 4, 1024, 64)])
 def test_flash_backward_kernels(dtype, b, h, kvh, t, d):
     g = _g(7 * t + h)
     q = torch.randn(b, h, t, d, generator=g, device="cuda").to(dtype)
@@ -807,7 +822,8 @@ def _quant_pool(qdt, shape, g):
     (torch.float32, torch.float8_e4m3fn),
     (torch.bfloat16, torch.float8_e4m3fn)])
 @pytest.mark.parametrize("hq,kvh,d,bt", [(12, 12, 64, 16), (4, 2, 32, 8),
-                                         (2, 1, 128, 32)])
+                                         (2, 1, 128, 32), (12, 4, 64, 16),
+                                         (32, 8, 64, 16)])
 def test_paged_quant_decode_kernel(qdt, kdt, hq, kvh, d, bt, case):
     s, nl = 5, 3
     w, pos = _decode_case(case, bt)
@@ -838,7 +854,11 @@ def test_paged_quant_decode_kernel(qdt, kdt, hq, kvh, d, bt, case):
 @pytest.mark.parametrize("hq,kvh,d,bt,k1", [
     (12, 12, 64, 16, 5), (4, 2, 32, 8, 17), (2, 1, 128, 32, 3),
     (12, 12, 64, 16, 256), (12, 12, 64, 16, 16), (12, 12, 64, 16, 17),
-    (4, 2, 64, 16, 64), (2, 1, 32, 16, 5)])
+    (4, 2, 64, 16, 64), (2, 1, 32, 16, 5),
+    # llama-160m's group 3 and llama-1b's group 4: the verify span (15
+    # and 20 rows: FMA, and wgmma's 64-row tiles across the groups)
+    (12, 4, 64, 16, 5), (12, 4, 64, 16, 256), (32, 8, 64, 16, 5),
+    (32, 8, 64, 16, 256)])
 @pytest.mark.parametrize("case", ["short", "long"])
 def test_paged_span_kernel(qdt, kdt, hq, kvh, d, bt, k1, case):
     """pos0 = 0, on a block boundary, mid-block and near the table's
@@ -1182,7 +1202,7 @@ def _same_blocks(a, b):
 
 @pytest.mark.parametrize("case", ["short", "long"])
 @pytest.mark.parametrize("hq,kvh,d", [(12, 12, 64), (4, 2, 32), (2, 1, 128),
-                                      (8, 2, 64)])
+                                      (8, 2, 64), (12, 4, 64), (32, 8, 64)])
 @pytest.mark.parametrize("qdt,pdt,mode", APPEND_POOLS, ids=APPEND_IDS)
 def test_decode_append_matches_two_calls(qdt, pdt, mode, hq, kvh, d, case):
     """`paged_attention(append_kv=)` (one launch, counted in
@@ -1519,3 +1539,186 @@ def test_engine_on_card_needs_nccl():
     finally:
         dist.destroy_process_group()
 
+
+
+# -- slice 15: RMSNorm under the LayerNorm entries' RMS flag, the Llama
+# family on the card ---------------------------------------------------------
+
+from tiny_deepspeed_tpu_torch.ops import rmsnorm  # noqa: E402
+
+RMS_SHAPES = [(8, 768, torch.bfloat16), (512, 768, torch.bfloat16),
+              (8192, 768, torch.bfloat16), (8192, 2048, torch.bfloat16),
+              (8, 768, torch.float32), (512, 768, torch.float32),
+              (8, 768, torch.float16), (512, 768, torch.float16),
+              (37, 64, torch.bfloat16), (33, 48, torch.bfloat16),
+              (65, 48, torch.float32), (7, 2048, torch.float16),
+              (129, 2048, torch.float32), (5, 7, torch.bfloat16)]
+RMS_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+
+
+def _rms_inputs(rows, n, dtype, seed, wdtype=None):
+    g = _g(seed)
+    x, r, gy, gs = ((torch.randn(rows, n, generator=g, device="cuda") * 2
+                     + 0.3).to(dtype) for _ in range(4))
+    w = (1 + 0.3 * torch.randn(n, generator=g, device="cuda")).to(
+        wdtype or dtype)
+    return x, r, gy, gs, w
+
+
+def _rms_close(got, ref, dtype):
+    scale = float(ref.float().abs().max()) + 1.0
+    assert got.dtype == ref.dtype and got.shape == ref.shape
+    assert float((got.float() - ref.float()).abs().max()) <= \
+        RMS_TOL[dtype] * scale
+
+
+@pytest.mark.parametrize("add", [False, True], ids=["rms_fwd", "add_rms"])
+@pytest.mark.parametrize("rows,n,dtype", RMS_SHAPES)
+def test_rms_fwd_kernel(rows, n, dtype, add):
+    """`rmsnorm_fwd` / `add_rmsnorm_fwd` (csrc/ln_fwd.cu's RMS kernels)
+    against their plain versions: y within 2e-2 (bf16/f16) or 1e-5 (f32)
+    of the row scale, rstd within 1e-5, s bit for bit `x + r`; one launch
+    a call, two calls bit for bit, the LayerNorm counters untouched."""
+    x, r, _, _, w = _rms_inputs(rows, n, dtype, rows + n)
+    fn = rmsnorm.add_rmsnorm_fwd if add else rmsnorm.rmsnorm_fwd
+    args = (x, r, w) if add else (x, w)
+    before = (fn.launches, layernorm.layernorm_fwd.launches,
+              layernorm.add_layernorm_fwd.launches)
+    got = fn(*args)
+    torch.cuda.synchronize()
+    assert (fn.launches, layernorm.layernorm_fwd.launches,
+            layernorm.add_layernorm_fwd.launches) == (
+                before[0] + 1, before[1], before[2])
+    ref = (rmsnorm._add_rms_fwd_plain if add else rmsnorm._rms_fwd_plain)(
+        *args)
+    if add:
+        assert torch.equal(got[0], x + r)
+    _rms_close(got[-2], ref[-2], dtype)
+    torch.testing.assert_close(got[-1], ref[-1], atol=1e-5, rtol=1e-5)
+    again = fn(*args)
+    assert all(torch.equal(u, v) for u, v in zip(again, got))
+
+
+@pytest.mark.parametrize("gs", [False, True], ids=["nogs", "gs"])
+@pytest.mark.parametrize("rows,n,dtype", RMS_SHAPES)
+def test_rms_bwd_kernel(rows, n, dtype, gs):
+    """`rmsnorm_bwd` (csrc/ln_bwd.cu's RMS kernels) against
+    `_rms_bwd_plain`: dx within the dtype's tolerance of the row scale
+    (with gs: bit for bit `gs + dx` of the no-gs call), dw in f32 within
+    it of the column sums' scale; one launch a call, two calls bit for
+    bit."""
+    x, _, gy, g_s, w = _rms_inputs(rows, n, dtype, 3 * rows + n)
+    rstd = rmsnorm._rms_fwd_plain(x, w)[1]
+    extra = g_s if gs else None
+    before = (rmsnorm.rmsnorm_bwd.launches, rmsnorm.rmsnorm_bwd.launches_gs,
+              layernorm.layernorm_bwd.launches)
+    dx, dw = rmsnorm.rmsnorm_bwd(gy, x, w, rstd, extra, torch.float32)
+    torch.cuda.synchronize()
+    assert (rmsnorm.rmsnorm_bwd.launches, rmsnorm.rmsnorm_bwd.launches_gs,
+            layernorm.layernorm_bwd.launches) == (
+                before[0] + 1, before[1] + gs, before[2])
+    pdx, pdw = rmsnorm._rms_bwd_plain(gy, x, w, rstd, extra, torch.float32)
+    _rms_close(dx, pdx, dtype)
+    _rms_close(dw, pdw, dtype)
+    if gs:
+        dx0, _ = rmsnorm.rmsnorm_bwd(gy, x, w, rstd, None, torch.float32)
+        assert torch.equal(dx, g_s + dx0)
+    again = rmsnorm.rmsnorm_bwd(gy, x, w, rstd, extra, torch.float32)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
+
+
+@pytest.mark.parametrize("dtype,wdtype", [(torch.bfloat16, torch.float32),
+                                          (torch.float32, torch.bfloat16)])
+def test_rms_mixed_dtypes_and_strided_rows(dtype, wdtype):
+    """A weight in another dtype, rows of a strided view (a column slice):
+    the same values as the plain versions on contiguous copies."""
+    x, r, gy, _, w = _rms_inputs(64, 1536, dtype, 5, wdtype)
+    xs, rs, gys = x[:, 256:1024], r[:, 256:1024], gy[:, 256:1024]
+    w = w[:768].contiguous()
+    y, rstd = rmsnorm.rmsnorm_fwd(xs, w)
+    py, pr = rmsnorm._rms_fwd_plain(xs.contiguous(), w)
+    _rms_close(y, py, dtype)
+    s, y2, _ = rmsnorm.add_rmsnorm_fwd(xs, rs, w)
+    assert torch.equal(s, xs + rs)
+    dx, dw = rmsnorm.rmsnorm_bwd(gys, xs, w, pr)
+    pdx, pdw = rmsnorm._rms_bwd_plain(gys.contiguous(), xs.contiguous(), w,
+                                      pr)
+    _rms_close(dx, pdx, dtype)
+    _rms_close(dw, pdw, dtype if wdtype == torch.float32 else wdtype)
+
+
+def test_rms_refuses_bad_operands():
+    x = torch.zeros(4, 8, device="cuda")
+    with pytest.raises(ValueError, match="weight"):
+        rmsnorm.rmsnorm_fwd(x, torch.ones(7, device="cuda"))
+    with pytest.raises(ValueError, match="rstd must be"):
+        rmsnorm.rmsnorm_bwd(x, x, torch.ones(8, device="cuda"),
+                            torch.ones(5, device="cuda"))
+
+
+def _tiny_llama(**knobs):
+    import dataclasses
+
+    import tiny_deepspeed_tpu_torch as T
+    cfg = dataclasses.replace(T.LLAMA_PRESETS["llama-tiny"], n_head=6,
+                              n_kv_head=2, n_embd=192, **knobs)
+    cpu = T.LlamaModel(cfg, device="cpu").init(
+        torch.Generator().manual_seed(0))
+    gpu = T.LlamaModel(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    return T, cfg, cpu, gpu
+
+
+@pytest.mark.parametrize("knobs", [
+    {}, dict(fused_xent=True, fused_xent_impl="pallas")],
+    ids=["default", "pallas_head"])
+def test_tiny_llama_training_grads_match_cpu(knobs):
+    """f32 tiny Llama at group 3 (6 heads of 32 over 2): one step's loss and
+    gradients through the RMS entries and FA2 on the card match the CPU
+    port's plain path."""
+    T, cfg, cpu, gpu = _tiny_llama(**knobs)
+    g = torch.Generator().manual_seed(1)
+    idx = torch.randint(0, cfg.vocab_size, (2, 100), generator=g)
+    tgt = torch.randint(0, cfg.vocab_size, (2, 100), generator=g)
+    out = []
+    before = rmsnorm.rmsnorm_bwd.launches
+    for model in (cpu, gpu):
+        loss = model.apply(idx.to(model.device), tgt.to(model.device))
+        grads = torch.autograd.grad(loss, list(model.parameters()))
+        out.append((float(loss), [gr.cpu() for gr in grads]))
+    # per layer ln_1 (no gs) and ln_2 (the add, with gs), and ln_f
+    assert rmsnorm.rmsnorm_bwd.launches == before + 2 * cfg.n_layer + 1
+    assert abs(out[0][0] - out[1][0]) <= 1e-4
+    for (name, _), a, b in zip(cpu.named_parameters(), out[0][1],
+                               out[1][1]):
+        torch.testing.assert_close(b, a, atol=1e-4, rtol=1e-3, msg=name)
+
+
+@pytest.mark.parametrize("knobs", [
+    {}, dict(spec_draft="ngram", spec_k=4), dict(spec_draft="model:self"),
+    dict(prefix_cache=True), dict(quant="int8")],
+    ids=["plain", "ngram", "model_self", "prefix", "int8"])
+def test_tiny_llama_engine_tokens_match_cpu(knobs):
+    """f32 tiny Llama at group 3: the card (the RMS entries, the paged
+    kernels with the append, the writer) and the CPU port give the same
+    greedy tokens; no LayerNorm forward launches."""
+    T, cfg, cpu, gpu = _tiny_llama()
+    outs = []
+    before = (layernorm.layernorm_fwd.launches,
+              layernorm.add_layernorm_fwd.launches,
+              rmsnorm.add_rmsnorm_fwd.launches)
+    for model, dev in ((cpu, "cpu"), (gpu, "cuda")):
+        eng = T.ServingEngine(model, T.ServeConfig(
+            max_active=3, num_blocks=9, block_tokens=8, max_seq_tokens=64,
+            **knobs), device=dev)
+        shared = list(range(5, 21))
+        hs = [eng.submit((shared if knobs.get("prefix_cache") else [])
+                         + list(range(3 + i, 30 + 2 * i)), 12)
+              for i in range(4)]
+        eng.drain(max_ticks=500)
+        assert [h.status for h in hs] == ["ok"] * 4
+        outs.append([h.tokens for h in hs])
+    assert outs[0] == outs[1]
+    assert (layernorm.layernorm_fwd.launches,
+            layernorm.add_layernorm_fwd.launches) == before[:2]
+    assert rmsnorm.add_rmsnorm_fwd.launches > before[2]

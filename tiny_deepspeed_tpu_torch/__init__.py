@@ -27,7 +27,11 @@ easy to find.  Ported so far:
   layer, with the fp8 weight gather (`GPTConfig(gather_quant="fp8")`,
   also under the other engines and in serving), and the heads-last FA2
   entry `ops.flash_fa2.fa2_flash_attention_bthd` with its A/B
-  (`python -m tiny_deepspeed_tpu_torch.fa2_bthd_ab`).
+  (`python -m tiny_deepspeed_tpu_torch.fa2_bthd_ab`);
+- slice 15, the Llama family: `LlamaModel` (RMSNorm, RoPE, SwiGLU,
+  grouped K/V) served and trained through the same entry points,
+  `build_model` / `ALL_PRESETS` over both families
+  (`python -m tiny_deepspeed_tpu_torch.train --model llama-160m`).
 
 Every Pallas kernel those paths run on a TPU is rewritten for Hopper:
 layernorm forward, dx and dw/db in Triton (ops/layernorm.py); the fused
@@ -46,6 +50,8 @@ without CUDA and without a device they raise.
 from .convert import (opt_state_from_numpy, opt_state_to_numpy,
                       params_from_numpy, params_to_numpy)
 from .data import TokenLoader
+from .models import (ALL_PRESETS, LLAMA_PRESETS, LlamaConfig, LlamaModel,
+                     build_model)
 from .models.gpt2 import (GPT2_PRESETS, GPT2Model, GPTConfig,
                           effective_xent_impl)
 from .optim import SGD, AdamW
@@ -54,9 +60,11 @@ from .parallel import (DDP, SingleDevice, TrainState, Zero1, Zero2, Zero3,
 from .serving import PrefixCache, SpecDecoder
 from .serving.engine import ServeConfig, ServingEngine
 
-__all__ = ["AdamW", "DDP", "GPTConfig", "GPT2_PRESETS", "GPT2Model",
+__all__ = ["ALL_PRESETS", "AdamW", "DDP", "GPTConfig", "GPT2_PRESETS",
+           "GPT2Model", "LLAMA_PRESETS", "LlamaConfig", "LlamaModel",
            "PrefixCache", "SGD", "ServeConfig", "ServingEngine",
            "SingleDevice", "SpecDecoder", "TokenLoader", "TrainState",
-           "Zero1", "Zero2", "Zero3", "ZeroEngine", "effective_xent_impl",
+           "Zero1", "Zero2", "Zero3", "ZeroEngine", "build_model",
+           "effective_xent_impl",
            "init_distributed", "opt_state_from_numpy", "opt_state_to_numpy",
            "params_from_numpy", "params_to_numpy", "partition_tensors"]

@@ -64,6 +64,15 @@
 // Rows whose bases are not 16-byte aligned (N not a multiple of the
 // 16-byte vector, or an odd stride or offset) take one-element chunks:
 // the same kernels with E = 1, copies through registers.
+//
+// RMSNorm's backward (the Llama family's norm; an XLA fusion in the JAX
+// package, tiny_deepspeed_tpu/ops/rmsnorm.py:33-49, no TPU kernel) runs
+// the same kernels under the RMS flag, behind a C entry of its own
+// (`rms_bwd`): mean is 0 and never read, xhat = x*rstd, the row's one
+// sum c2 = sum(gy*w*xhat)/N, and dx = dxhat*rstd + xhat*(-c2*rstd) =
+// rstd*(gy*w) - x*rstd^3*mean(gy*w*x); dw's partials only (no db), the
+// same fixed fold.  The kernels are named rms_bwd_* so a profile tells
+// them from LayerNorm's; with the flag off the code is LayerNorm's.
 
 #include <type_traits>
 
@@ -92,11 +101,11 @@ struct Args {
   const void* x;
   const void* gs;  // null: no upstream gradient to add
   const void* w;
-  const float* mean;
+  const float* mean;  // null under RMS
   const float* rstd;
   void* dx;
   float* pdw;
-  float* pdb;
+  float* pdb;  // null under RMS
   long long sgy, sx, sgs;  // row strides, elements
   int rows, n, w_dtype;
 };
@@ -242,12 +251,26 @@ __device__ __forceinline__ float dx_of(float dxh, float xh, float rstd,
   return __fmaf_rn(dxh, rstd, __fmaf_rn(xh, k2, k1));
 }
 
+__device__ __forceinline__ void butterfly1(float& a) {
+#pragma unroll
+  for (int m = 16; m; m >>= 1) a += __shfl_xor_sync(0xffffffffu, a, m);
+}
+
 __device__ __forceinline__ void butterfly2(float& a, float& b) {
 #pragma unroll
   for (int m = 16; m; m >>= 1) {
     a += __shfl_xor_sync(0xffffffffu, a, m);
     b += __shfl_xor_sync(0xffffffffu, b, m);
   }
+}
+
+// the row sums' butterfly: both of LayerNorm's, RMSNorm's second alone
+template <bool RMS>
+__device__ __forceinline__ void row_sums(float& s1, float& s2) {
+  if constexpr (RMS)
+    butterfly1(s2);
+  else
+    butterfly2(s1, s2);
 }
 
 // dx (f32 values of one chunk) rounded to T, plus g_s's chunk when
@@ -320,9 +343,8 @@ __device__ __forceinline__ void w_chunk(const float* sw, int c, float* wf) {
   }
 }
 
-template <typename T, int E, int CPL, bool HAS_GS>
-__global__ void __launch_bounds__(RowCfg<T, E, CPL>::kWarps * 32, 1)
-    ln_bwd_rows_kernel(const Args a) {
+template <typename T, int E, int CPL, bool HAS_GS, bool RMS>
+__device__ __forceinline__ void rows_body(const Args& a) {
   using C = RowCfg<T, E, CPL>;
   constexpr int W = C::kWarps, S = C::kStages, K = C::kCols;
   constexpr int kRowElems = C::kRowBytes / static_cast<int>(sizeof(T));
@@ -356,7 +378,7 @@ __global__ void __launch_bounds__(RowCfg<T, E, CPL>::kWarps * 32, 1)
           copy_chunk<T, E>(bx + K + c * E, gy + r * a.sgy + c * E);
         }
       }
-      if (lane < 2)
+      if (lane < 2 && (!RMS || lane))
         cp_async4(smem_u32(stats + (warp * S + s) * 2 + lane),
                   lane ? a.rstd + r : a.mean + r, true);
     }
@@ -386,7 +408,7 @@ __global__ void __launch_bounds__(RowCfg<T, E, CPL>::kWarps * 32, 1)
     __syncwarp();  // lanes 0 and 1 copied the row's stats
     const int s = j % S;
     const T* bx = ring + (warp * S + s) * kRowElems;
-    const float mean = stats[(warp * S + s) * 2];
+    const float mean = RMS ? 0.f : stats[(warp * S + s) * 2];
     const float rstd = stats[(warp * S + s) * 2 + 1];
 
     const long long r = r0 + warp + j * W;
@@ -413,15 +435,15 @@ __global__ void __launch_bounds__(RowCfg<T, E, CPL>::kWarps * 32, 1)
         for (int e = 0; e < E; ++e) {
           const float xh = xhat_of(xf[e], mean, rstd);
           const float dxh = __fmul_rn(gf[e], wf[e]);
-          s1 += dxh;
+          if constexpr (!RMS) s1 += dxh;
           s2 = fmaf(dxh, xh, s2);
           adw[k * E + e] = fmaf(gf[e], xh, adw[k * E + e]);
-          adb[k * E + e] += gf[e];
+          if constexpr (!RMS) adb[k * E + e] += gf[e];
         }
       }
     }
-    butterfly2(s1, s2);
-    const float k1 = -(s1 / static_cast<float>(n)) * rstd;
+    row_sums<RMS>(s1, s2);
+    const float k1 = RMS ? 0.f : -(s1 / static_cast<float>(n)) * rstd;
     const float k2 = -(s2 / static_cast<float>(n)) * rstd;
 
 #pragma unroll
@@ -471,25 +493,36 @@ __global__ void __launch_bounds__(RowCfg<T, E, CPL>::kWarps * 32, 1)
   }
   __syncthreads();
   float* pdw = a.pdw + static_cast<size_t>(blockIdx.x) * n;
-  float* pdb = a.pdb + static_cast<size_t>(blockIdx.x) * n;
+  float* pdb = RMS ? nullptr : a.pdb + static_cast<size_t>(blockIdx.x) * n;
   for (int i = threadIdx.x; i < n; i += W * 32) {
     const int at = w_slot<E>(i / E, i % E);
     float sdw = dump[at], sdb = dump[K + at];
 #pragma unroll
     for (int q = 1; q < W; ++q) {  // warp order
       sdw += dump[q * 2 * K + at];
-      sdb += dump[q * 2 * K + K + at];
+      if constexpr (!RMS) sdb += dump[q * 2 * K + K + at];
     }
     pdw[i] = sdw;
-    pdb[i] = sdb;
+    if constexpr (!RMS) pdb[i] = sdb;
   }
+}
+
+template <typename T, int E, int CPL, bool HAS_GS>
+__global__ void __launch_bounds__(RowCfg<T, E, CPL>::kWarps * 32, 1)
+    ln_bwd_rows_kernel(const Args a) {
+  rows_body<T, E, CPL, HAS_GS, false>(a);
+}
+
+template <typename T, int E, int CPL, bool HAS_GS>
+__global__ void __launch_bounds__(RowCfg<T, E, CPL>::kWarps * 32, 1)
+    rms_bwd_rows_kernel(const Args a) {
+  rows_body<T, E, CPL, HAS_GS, true>(a);
 }
 
 // -- stage 1: wide rows, the sums in shared memory --------------------------
 
-template <typename T, int E, bool HAS_GS>
-__global__ void __launch_bounds__(256, 1)
-    ln_bwd_rows_wide_kernel(const Args a) {
+template <typename T, int E, bool HAS_GS, bool RMS>
+__device__ __forceinline__ void wide_body(const Args& a) {
   extern __shared__ uint4 smem_raw[];
   float* acc = reinterpret_cast<float*>(smem_raw);  // [W][2][n]
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -511,7 +544,7 @@ __global__ void __launch_bounds__(256, 1)
     const long long r = r0 + i;
     const T* xr = x + r * a.sx;
     const T* gr = gy + r * a.sgy;
-    const float mean = a.mean[r], rstd = a.rstd[r];
+    const float mean = RMS ? 0.f : a.mean[r], rstd = a.rstd[r];
     float s1 = 0.f, s2 = 0.f;
 #pragma unroll 4
     for (int c = lane; c < chunks; c += 32) {
@@ -522,14 +555,14 @@ __global__ void __launch_bounds__(256, 1)
       for (int e = 0; e < E; ++e) {
         const float xh = xhat_of(xf[e], mean, rstd);
         const float dxh = __fmul_rn(gf[e], load_as_f(a.w, a.w_dtype, c * E + e));
-        s1 += dxh;
+        if constexpr (!RMS) s1 += dxh;
         s2 = fmaf(dxh, xh, s2);
         mdw[c * E + e] = fmaf(gf[e], xh, mdw[c * E + e]);
-        mdb[c * E + e] += gf[e];
+        if constexpr (!RMS) mdb[c * E + e] += gf[e];
       }
     }
-    butterfly2(s1, s2);
-    const float k1 = -(s1 / static_cast<float>(n)) * rstd;
+    row_sums<RMS>(s1, s2);
+    const float k1 = RMS ? 0.f : -(s1 / static_cast<float>(n)) * rstd;
     const float k2 = -(s2 / static_cast<float>(n)) * rstd;
 #pragma unroll 4
     for (int c = lane; c < chunks; c += 32) {
@@ -547,24 +580,39 @@ __global__ void __launch_bounds__(256, 1)
   }
   __syncthreads();
   float* pdw = a.pdw + static_cast<size_t>(blockIdx.x) * n;
-  float* pdb = a.pdb + static_cast<size_t>(blockIdx.x) * n;
+  float* pdb = RMS ? nullptr : a.pdb + static_cast<size_t>(blockIdx.x) * n;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     float sdw = acc[i], sdb = acc[n + i];
     for (int q = 1; q < W; ++q) {  // warp order
       sdw += acc[static_cast<size_t>(q) * 2 * n + i];
-      sdb += acc[static_cast<size_t>(q) * 2 * n + n + i];
+      if constexpr (!RMS) sdb += acc[static_cast<size_t>(q) * 2 * n + n + i];
     }
     pdw[i] = sdw;
-    pdb[i] = sdb;
+    if constexpr (!RMS) pdb[i] = sdb;
   }
+}
+
+template <typename T, int E, bool HAS_GS>
+__global__ void __launch_bounds__(256, 1)
+    ln_bwd_rows_wide_kernel(const Args a) {
+  wide_body<T, E, HAS_GS, false>(a);
+}
+
+template <typename T, int E, bool HAS_GS>
+__global__ void __launch_bounds__(256, 1)
+    rms_bwd_rows_wide_kernel(const Args a) {
+  wide_body<T, E, HAS_GS, true>(a);
 }
 
 // -- stage 2: the column fold -----------------------------------------------
 
-__global__ void __launch_bounds__(kFoldThreads)
-    ln_bwd_cols_kernel(const float* pdw, const float* pdb, void* dw, void* db,
-                       int groups, int n, int x_dtype, int dw_dtype,
-                       int db_dtype) {
+// HAS_DB: LayerNorm's dw and db; without it (RMS) dw alone, in the same
+// order (the db half of the tile stays zero and is never stored)
+template <bool HAS_DB>
+__device__ __forceinline__ void cols_body(const float* pdw, const float* pdb,
+                                          void* dw, void* db, int groups,
+                                          int n, int x_dtype, int dw_dtype,
+                                          int db_dtype) {
   constexpr int kSpan = 2 * kFoldCols;  // dw's columns, then db's
   __shared__ float tile[kFoldRows * kSpan];
   const int t = threadIdx.x;
@@ -579,7 +627,7 @@ __global__ void __launch_bounds__(kFoldThreads)
       const int i = t + u * kFoldThreads;
       const int j = i % kSpan, c = c0 + j % kFoldCols;
       const float* p = j < kFoldCols ? pdw : pdb;
-      v[u] = i < gn * kSpan && c < n
+      v[u] = i < gn * kSpan && c < n && (HAS_DB || j < kFoldCols)
                  ? p[static_cast<size_t>(g0 + i / kSpan) * n + c]
                  : 0.f;
     }
@@ -593,11 +641,25 @@ __global__ void __launch_bounds__(kFoldThreads)
     __syncthreads();
   }
   const int c = c0 + t % kFoldCols;
-  if (t < kSpan && c < n) {
+  if (t < (HAS_DB ? kSpan : kFoldCols) && c < n) {
     const bool is_db = t >= kFoldCols;
     store_as(is_db ? db : dw, is_db ? db_dtype : dw_dtype, c,
              round_as(x_dtype, acc));
   }
+}
+
+__global__ void __launch_bounds__(kFoldThreads)
+    ln_bwd_cols_kernel(const float* pdw, const float* pdb, void* dw, void* db,
+                       int groups, int n, int x_dtype, int dw_dtype,
+                       int db_dtype) {
+  cols_body<true>(pdw, pdb, dw, db, groups, n, x_dtype, dw_dtype, db_dtype);
+}
+
+__global__ void __launch_bounds__(kFoldThreads)
+    rms_bwd_cols_kernel(const float* pdw, void* dw, int groups, int n,
+                        int x_dtype, int dw_dtype) {
+  cols_body<false>(pdw, nullptr, dw, nullptr, groups, n, x_dtype, dw_dtype,
+                   dw_dtype);
 }
 
 // -- launches -----------------------------------------------------------------
@@ -610,57 +672,59 @@ cudaError_t grant_smem(K kernel, int smem) {
              : cudaSuccess;
 }
 
-template <typename T, int E, int CPL, bool HAS_GS>
+template <typename T, int E, int CPL, bool HAS_GS, bool RMS>
 cudaError_t launch_rows(const Args& a, int groups, cudaStream_t st) {
   using C = RowCfg<T, E, CPL>;
-  auto kernel = ln_bwd_rows_kernel<T, E, CPL, HAS_GS>;
+  auto kernel = RMS ? rms_bwd_rows_kernel<T, E, CPL, HAS_GS>
+                    : ln_bwd_rows_kernel<T, E, CPL, HAS_GS>;
   const cudaError_t e = grant_smem(kernel, C::kSmem);
   if (e != cudaSuccess) return e;
   kernel<<<groups, C::kWarps * 32, C::kSmem, st>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int E, bool HAS_GS>
+template <typename T, int E, bool HAS_GS, bool RMS>
 cudaError_t launch_wide(const Args& a, int groups, cudaStream_t st) {
   int warps = kWideBytes / (8 * a.n);
   warps = warps < 1 ? 1 : (warps > 8 ? 8 : warps);
   const int smem = warps * 8 * a.n;
-  auto kernel = ln_bwd_rows_wide_kernel<T, E, HAS_GS>;
+  auto kernel = RMS ? rms_bwd_rows_wide_kernel<T, E, HAS_GS>
+                    : ln_bwd_rows_wide_kernel<T, E, HAS_GS>;
   const cudaError_t e = grant_smem(kernel, smem);
   if (e != cudaSuccess) return e;
   kernel<<<groups, warps * 32, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-template <typename T, int E, bool HAS_GS>
+template <typename T, int E, bool HAS_GS, bool RMS>
 cudaError_t pick(const Args& a, int groups, cudaStream_t st) {
   const int cpl = (a.n + 32 * E - 1) / (32 * E);
   if constexpr (E == 1) {  // one-element chunks: a few widths suffice
-    if (cpl <= 1) return launch_rows<T, E, 1, HAS_GS>(a, groups, st);
-    if (cpl <= 2) return launch_rows<T, E, 2, HAS_GS>(a, groups, st);
-    if (cpl <= 4) return launch_rows<T, E, 4, HAS_GS>(a, groups, st);
-    if (cpl <= kMaxChunks) return launch_rows<T, E, 8, HAS_GS>(a, groups, st);
+    if (cpl <= 1) return launch_rows<T, E, 1, HAS_GS, RMS>(a, groups, st);
+    if (cpl <= 2) return launch_rows<T, E, 2, HAS_GS, RMS>(a, groups, st);
+    if (cpl <= 4) return launch_rows<T, E, 4, HAS_GS, RMS>(a, groups, st);
+    if (cpl <= kMaxChunks) return launch_rows<T, E, 8, HAS_GS, RMS>(a, groups, st);
   } else {
     switch (cpl) {
-      case 1: return launch_rows<T, E, 1, HAS_GS>(a, groups, st);
-      case 2: return launch_rows<T, E, 2, HAS_GS>(a, groups, st);
-      case 3: return launch_rows<T, E, 3, HAS_GS>(a, groups, st);
-      case 4: return launch_rows<T, E, 4, HAS_GS>(a, groups, st);
-      case 5: return launch_rows<T, E, 5, HAS_GS>(a, groups, st);
-      case 6: return launch_rows<T, E, 6, HAS_GS>(a, groups, st);
-      case 7: return launch_rows<T, E, 7, HAS_GS>(a, groups, st);
-      case 8: return launch_rows<T, E, 8, HAS_GS>(a, groups, st);
+      case 1: return launch_rows<T, E, 1, HAS_GS, RMS>(a, groups, st);
+      case 2: return launch_rows<T, E, 2, HAS_GS, RMS>(a, groups, st);
+      case 3: return launch_rows<T, E, 3, HAS_GS, RMS>(a, groups, st);
+      case 4: return launch_rows<T, E, 4, HAS_GS, RMS>(a, groups, st);
+      case 5: return launch_rows<T, E, 5, HAS_GS, RMS>(a, groups, st);
+      case 6: return launch_rows<T, E, 6, HAS_GS, RMS>(a, groups, st);
+      case 7: return launch_rows<T, E, 7, HAS_GS, RMS>(a, groups, st);
+      case 8: return launch_rows<T, E, 8, HAS_GS, RMS>(a, groups, st);
       default: break;
     }
   }
-  return launch_wide<T, E, HAS_GS>(a, groups, st);
+  return launch_wide<T, E, HAS_GS, RMS>(a, groups, st);
 }
 
 bool aligned16(const void* p) {
   return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
 }
 
-template <typename T>
+template <typename T, bool RMS>
 cudaError_t launch_stage1(const Args& a, int groups, cudaStream_t st) {
   constexpr int E = 16 / static_cast<int>(sizeof(T));
   const bool gs = a.gs != nullptr;
@@ -668,14 +732,24 @@ cudaError_t launch_stage1(const Args& a, int groups, cudaStream_t st) {
                    (!gs || (a.sgs % E == 0 && aligned16(a.gs))) &&
                    aligned16(a.x) && aligned16(a.gy) && aligned16(a.dx);
   if (vec)
-    return gs ? pick<T, E, true>(a, groups, st)
-              : pick<T, E, false>(a, groups, st);
-  return gs ? pick<T, 1, true>(a, groups, st)
-            : pick<T, 1, false>(a, groups, st);
+    return gs ? pick<T, E, true, RMS>(a, groups, st)
+              : pick<T, E, false, RMS>(a, groups, st);
+  return gs ? pick<T, 1, true, RMS>(a, groups, st)
+            : pick<T, 1, false, RMS>(a, groups, st);
 }
 
 bool dtype_ok(int code) {
   return code == tds::kF32 || code == tds::kBF16 || code == tds::kF16;
+}
+
+template <bool RMS>
+cudaError_t stage1(const Args& a, int x_dtype, int groups, cudaStream_t st) {
+  if (a.rows == 0) return cudaSuccess;
+  switch (x_dtype) {
+    case tds::kF32: return launch_stage1<float, RMS>(a, groups, st);
+    case tds::kBF16: return launch_stage1<__nv_bfloat16, RMS>(a, groups, st);
+    default: return launch_stage1<__half, RMS>(a, groups, st);
+  }
 }
 
 }  // namespace
@@ -699,16 +773,30 @@ extern "C" int ln_bwd(const void* gy, const void* x, const void* gs,
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Args a{gy, x, gs, w, mean, rstd, dx, pdw, pdb, sgy, sx, sgs,
                rows, n, w_dtype};
-  if (rows > 0) {
-    cudaError_t e;
-    switch (x_dtype) {
-      case tds::kF32: e = launch_stage1<float>(a, groups, st); break;
-      case tds::kBF16: e = launch_stage1<__nv_bfloat16>(a, groups, st); break;
-      default: e = launch_stage1<__half>(a, groups, st); break;
-    }
-    if (e != cudaSuccess) return e;
-  }
+  const cudaError_t e = stage1<false>(a, x_dtype, groups, st);
+  if (e != cudaSuccess) return e;
   ln_bwd_cols_kernel<<<(n + kFoldCols - 1) / kFoldCols, kFoldThreads, 0, st>>>(
       pdw, pdb, dw, db, groups, n, x_dtype, dw_dtype, db_dtype);
+  return cudaGetLastError();
+}
+
+// RMSNorm's backward (the RMS flag), both stages on `stream`: as `ln_bwd`
+// without mean, pdb and db — dx (plus gs when given) and dw in dw_dtype.
+extern "C" int rms_bwd(const void* gy, const void* x, const void* gs,
+                       const void* w, const float* rstd, void* dx, float* pdw,
+                       void* dw, long long sgy, long long sx, long long sgs,
+                       int rows, int n, int groups, int x_dtype, int w_dtype,
+                       int dw_dtype, void* stream) {
+  if (n < 1 || n > kMaxN || rows < 0 ||
+      groups != (rows + kRows - 1) / kRows || !dtype_ok(x_dtype) ||
+      !dtype_ok(w_dtype) || !dtype_ok(dw_dtype))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Args a{gy, x, gs, w, nullptr, rstd, dx, pdw, nullptr, sgy, sx, sgs,
+               rows, n, w_dtype};
+  const cudaError_t e = stage1<true>(a, x_dtype, groups, st);
+  if (e != cudaSuccess) return e;
+  rms_bwd_cols_kernel<<<(n + kFoldCols - 1) / kFoldCols, kFoldThreads, 0,
+                        st>>>(pdw, dw, groups, n, x_dtype, dw_dtype);
   return cudaGetLastError();
 }

@@ -64,6 +64,16 @@
 // With HAS_R the sum x + r is rounded once to T (RTNE, as eager `x + r`
 // rounds it), stored as s, and the same body runs on it: s, y, mean,
 // rstd are bit for bit `x + r` then the norm.
+//
+// RMSNorm (the Llama family's norm; an XLA fusion in the JAX package,
+// tiny_deepspeed_tpu/ops/rmsnorm.py, no TPU kernel) rides the same
+// kernels under the RMS flag, behind a C entry of its own (`rms_fwd`):
+// no sum of x, no mean and no bias, rstd = 1/sqrt(sum(x*x)/N + eps) and
+// y = (x * rstd) * w, the plain version's order (f32 statistics; its
+// rsqrt and this sqrt.approx agree to an ulp or two).  HAS_R works with
+// it, so the Llama block's residual add and the next norm are one
+// launch.  The kernels are named rms_* / add_rms_* so a profile tells
+// them from LayerNorm's; with the flag off the code is LayerNorm's.
 
 #include <string.h>
 
@@ -83,10 +93,10 @@ struct Args {
   const void* x;
   const void* r;  // null without the residual add
   const void* w;
-  const void* b;
+  const void* b;  // null under RMS
   void* s;
   void* y;
-  float* mean;
+  float* mean;  // null under RMS
   float* rstd;
   long long sx, sr, rows;  // row strides (elements) and the row count
   int n, w_dtype, b_dtype;
@@ -148,6 +158,8 @@ __device__ __forceinline__ float sqrt_approx(float a) {
 // order, as Triton's compiler emits them: the first two squares
 // contracted into one FMA, then an FMA a square.  A thread of one
 // element keeps x*x unadded: the first butterfly step contracts it.
+// Under RMS the sum of x is neither kept nor shuffled.
+template <bool RMS>
 struct Partial {
   float s1, s2, x0;
 
@@ -157,7 +169,7 @@ struct Partial {
       s1 = x0 = v;
       s2 = __fmul_rn(v, v);
     } else {
-      s1 = __fadd_rn(s1, v);
+      if constexpr (!RMS) s1 = __fadd_rn(s1, v);
       s2 = i == 1 ? __fmaf_rn(x0, x0, __fmul_rn(v, v)) : __fmaf_rn(v, v, s2);
     }
   }
@@ -165,9 +177,9 @@ struct Partial {
   // one step of the xor butterfly over a warp's lanes (m = 16, 8, 4, 2,
   // 1); `first`: the step that takes a lone element's x*x into an FMA
   __device__ __forceinline__ void step(int m, bool first) {
-    const float o1 = __shfl_xor_sync(0xffffffffu, s1, m);
+    if constexpr (!RMS)
+      s1 = __fadd_rn(s1, __shfl_xor_sync(0xffffffffu, s1, m));
     const float o2 = __shfl_xor_sync(0xffffffffu, s2, m);
-    s1 = __fadd_rn(s1, o1);
     s2 = first ? __fmaf_rn(x0, x0, o2) : __fadd_rn(s2, o2);
   }
 };
@@ -181,9 +193,20 @@ __device__ __forceinline__ void stats(float s1, float s2, int n, float eps,
   rstd = div_full(1.0f, sqrt_approx(__fadd_rn(var, eps)));
 }
 
+// RMSNorm's rstd from the row's sum of squares
+__device__ __forceinline__ float rms_rstd(float s2, int n, float eps) {
+  return div_full(1.0f, sqrt_approx(__fadd_rn(
+                            div_full(s2, static_cast<float>(n)), eps)));
+}
+
 __device__ __forceinline__ float y_of(float x, float mean, float rstd,
                                       float w, float b) {
   return __fmaf_rn(__fmul_rn(__fsub_rn(x, mean), rstd), w, b);
+}
+
+// RMSNorm's output: (x * rstd) * w, the plain version's order
+__device__ __forceinline__ float rms_y(float x, float rstd, float w) {
+  return __fmul_rn(__fmul_rn(x, rstd), w);
 }
 
 // v rounded to T and back (the value a T tensor holds)
@@ -206,22 +229,23 @@ __device__ __forceinline__ float fold(float* f) {
 // the Triton reduction's tail: lane 0 of each warp leaves its warp's
 // sums in shared memory; after the barrier every thread folds them in
 // Triton's order
-template <int W>
-__device__ __forceinline__ void cta_fold(const Partial& p, float (*sums)[W],
-                                         float& s1, float& s2) {
+template <int W, bool RMS>
+__device__ __forceinline__ void cta_fold(const Partial<RMS>& p,
+                                         float (*sums)[W], float& s1,
+                                         float& s2) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) {
-    sums[0][warp] = p.s1;
+    if constexpr (!RMS) sums[0][warp] = p.s1;
     sums[1][warp] = p.s2;
   }
   __syncthreads();
   float f1[W], f2[W];
 #pragma unroll
   for (int i = 0; i < W; ++i) {
-    f1[i] = sums[0][i];
+    if constexpr (!RMS) f1[i] = sums[0][i];
     f2[i] = sums[1][i];
   }
-  s1 = fold<W>(f1);
+  if constexpr (!RMS) s1 = fold<W>(f1);
   s2 = fold<W>(f2);
 }
 
@@ -230,7 +254,7 @@ __device__ __forceinline__ void cta_fold(const Partial& p, float (*sums)[W],
 // loads: a CTA of 4 warps a row, thread t Triton's thread t, its R chunks
 // of V elements in registers ------------------------------------------------
 
-template <typename T, int V, int R, bool HAS_R>
+template <typename T, int V, int R, bool HAS_R, bool RMS>
 __device__ __forceinline__ void fast_row(const Args& a) {
   constexpr int kSpan = V * 32 * kWarps;  // columns one rep covers
   __shared__ float sums[2][kWarps];
@@ -245,7 +269,7 @@ __device__ __forceinline__ void fast_row(const Args& a) {
   const int c0 = V * threadIdx.x;
 
   // x (and r), w and b: every load issued before any is used
-  T cx[R][V], cr[HAS_R ? R : 1][V], cw[R][V], cb[R][V];
+  T cx[R][V], cr[HAS_R ? R : 1][V], cw[R][V], cb[RMS ? 1 : R][V];
 #pragma unroll
   for (int j = 0; j < R; ++j) {
     const int c = j * kSpan + c0;
@@ -253,7 +277,7 @@ __device__ __forceinline__ void fast_row(const Args& a) {
       ld_chunk<T, V>(x + c, cx[j]);
       if constexpr (HAS_R) ld_chunk<T, V>(r + c, cr[j]);
       ld_chunk<T, V>(w + c, cw[j]);
-      ld_chunk<T, V>(b + c, cb[j]);
+      if constexpr (!RMS) ld_chunk<T, V>(b + c, cb[j]);
     }
   }
   float v[R * V];
@@ -273,28 +297,35 @@ __device__ __forceinline__ void fast_row(const Args& a) {
       }
     }
   }
-  Partial p;
+  Partial<RMS> p;
 #pragma unroll
   for (int i = 0; i < R * V; ++i) p.add(i, v[i]);
 #pragma unroll
   for (int m = 16; m; m >>= 1) p.step(m, false);
-  float s1, s2, mean, rstd;
+  float s1, s2, mean = 0.f, rstd;
   cta_fold<kWarps>(p, sums, s1, s2);
-  stats(s1, s2, n, a.eps, mean, rstd);
+  if constexpr (RMS)
+    rstd = rms_rstd(s2, n, a.eps);
+  else
+    stats(s1, s2, n, a.eps, mean, rstd);
 #pragma unroll
   for (int j = 0; j < R; ++j) {
     const int c = j * kSpan + c0;
     if (c < n) {
       float o[V];
 #pragma unroll
-      for (int e = 0; e < V; ++e)
-        o[e] = y_of(v[j * V + e], mean, rstd, tds::to_f<T>(cw[j][e]),
-                    tds::to_f<T>(cb[j][e]));
+      for (int e = 0; e < V; ++e) {
+        if constexpr (RMS)
+          o[e] = rms_y(v[j * V + e], rstd, tds::to_f<T>(cw[j][e]));
+        else
+          o[e] = y_of(v[j * V + e], mean, rstd, tds::to_f<T>(cw[j][e]),
+                      tds::to_f<T>(cb[j][e]));
+      }
       st_chunk<T, V>(y + c, o);
     }
   }
   if (threadIdx.x == 0) {
-    a.mean[row] = mean;
+    if constexpr (!RMS) a.mean[row] = mean;
     a.rstd[row] = rstd;
   }
 }
@@ -316,7 +347,7 @@ __device__ __forceinline__ float row_at(const T* x, const T* r, T* s, int c,
   return v;
 }
 
-template <typename T, int W, bool HAS_R>
+template <typename T, int W, bool HAS_R, bool RMS>
 __device__ __forceinline__ void any_row(const Args& a) {
   __shared__ float sums[2][W];
   const int n = a.n, V = a.spt, R = a.reps, span = V * 32 * W;
@@ -326,7 +357,7 @@ __device__ __forceinline__ void any_row(const Args& a) {
   T* s = HAS_R ? static_cast<T*>(a.s) + row * n : nullptr;
   T* y = static_cast<T*>(a.y) + row * n;
   const int c0 = V * threadIdx.x;
-  Partial p;
+  Partial<RMS> p;
 #pragma unroll 1  // run-time trip counts: nvcc takes minutes to unroll them
   for (int k = 0; k < R * V; ++k)
     p.add(k, row_at<T, HAS_R>(x, r, s, (k / V) * span + c0 + k % V, n));
@@ -335,20 +366,25 @@ __device__ __forceinline__ void any_row(const Args& a) {
   // unadded x*x into an FMA
 #pragma unroll
   for (int m = 16; m; m >>= 1) p.step(m, m == a.first);
-  float s1 = p.s1, s2 = p.s2, mean, rstd;
+  float s1 = p.s1, s2 = p.s2, mean = 0.f, rstd;
   if (!a.own) cta_fold<W>(p, sums, s1, s2);
-  stats(s1, s2, n, a.eps, mean, rstd);
+  if constexpr (RMS)
+    rstd = rms_rstd(s2, n, a.eps);
+  else
+    stats(s1, s2, n, a.eps, mean, rstd);
 #pragma unroll 1
   for (int k = 0; k < R * V; ++k) {
     const int c = (k / V) * span + c0 + k % V;
     if (c < n) {
       const float v = tds::to_f<T>(HAS_R ? s[c] : x[c]);
-      y[c] = tds::from_f<T>(y_of(v, mean, rstd, load_as_f(a.w, a.w_dtype, c),
-                                 load_as_f(a.b, a.b_dtype, c)));
+      const float w = load_as_f(a.w, a.w_dtype, c);
+      y[c] = tds::from_f<T>(RMS ? rms_y(v, rstd, w)
+                                : y_of(v, mean, rstd, w,
+                                       load_as_f(a.b, a.b_dtype, c)));
     }
   }
   if (threadIdx.x == 0) {
-    a.mean[row] = mean;
+    if constexpr (!RMS) a.mean[row] = mean;
     a.rstd[row] = rstd;
   }
 }
@@ -359,24 +395,65 @@ __device__ __forceinline__ void any_row(const Args& a) {
 template <typename T, int V, int R>
 __global__ void __launch_bounds__(kWarps * 32)
     ln_fwd_row_kernel(const Args a) {
-  fast_row<T, V, R, false>(a);
+  fast_row<T, V, R, false, false>(a);
 }
 
 template <typename T, int V, int R>
 __global__ void __launch_bounds__(kWarps * 32)
     add_ln_fwd_row_kernel(const Args a) {
-  fast_row<T, V, R, true>(a);
+  fast_row<T, V, R, true, false>(a);
 }
 
 template <typename T, int W>
 __global__ void __launch_bounds__(W * 32) ln_fwd_any_kernel(const Args a) {
-  any_row<T, W, false>(a);
+  any_row<T, W, false, false>(a);
 }
 
 template <typename T, int W>
 __global__ void __launch_bounds__(W * 32)
     add_ln_fwd_any_kernel(const Args a) {
-  any_row<T, W, true>(a);
+  any_row<T, W, true, false>(a);
+}
+
+template <typename T, int V, int R>
+__global__ void __launch_bounds__(kWarps * 32)
+    rms_fwd_row_kernel(const Args a) {
+  fast_row<T, V, R, false, true>(a);
+}
+
+template <typename T, int V, int R>
+__global__ void __launch_bounds__(kWarps * 32)
+    add_rms_fwd_row_kernel(const Args a) {
+  fast_row<T, V, R, true, true>(a);
+}
+
+template <typename T, int W>
+__global__ void __launch_bounds__(W * 32) rms_fwd_any_kernel(const Args a) {
+  any_row<T, W, false, true>(a);
+}
+
+template <typename T, int W>
+__global__ void __launch_bounds__(W * 32)
+    add_rms_fwd_any_kernel(const Args a) {
+  any_row<T, W, true, true>(a);
+}
+
+// the kernel of each (RMS, HAS_R) pair: LayerNorm's, or RMSNorm's
+template <typename T, int V, int R, bool HAS_R, bool RMS>
+auto row_kernel() {
+  if constexpr (RMS)
+    return HAS_R ? add_rms_fwd_row_kernel<T, V, R>
+                 : rms_fwd_row_kernel<T, V, R>;
+  else
+    return HAS_R ? add_ln_fwd_row_kernel<T, V, R> : ln_fwd_row_kernel<T, V, R>;
+}
+
+template <typename T, int W, bool HAS_R, bool RMS>
+auto any_kernel() {
+  if constexpr (RMS)
+    return HAS_R ? add_rms_fwd_any_kernel<T, W> : rms_fwd_any_kernel<T, W>;
+  else
+    return HAS_R ? add_ln_fwd_any_kernel<T, W> : ln_fwd_any_kernel<T, W>;
 }
 
 // -- launches -----------------------------------------------------------------
@@ -412,15 +489,16 @@ cudaError_t launch(K kernel, const Args& a, int warps, cudaStream_t st) {
 // its memory operands' (x, w, b, y; r and s), but no more than BLOCK /
 // threads — and the kernel that reproduces it: the fast kernels where
 // that is 16 bytes' worth of T at BLOCK 1024 or 2048, else the kernels
-// that take any layout.
-template <typename T, bool HAS_R>
+// that take any layout.  Under RMS there is no b to count.
+template <typename T, bool HAS_R, bool RMS>
 cudaError_t dispatch(Args a, cudaStream_t st) {
   constexpr int kT = static_cast<int>(sizeof(T)), kVec = 16 / kT;
   int block = 1;
   while (block < a.n) block <<= 1;
   int most = std::max(per_thread(a.x, a.sx, kT), per_thread(a.y, a.n, kT));
   most = std::max(most, per_thread(a.w, 0, dtype_bytes(a.w_dtype)));
-  most = std::max(most, per_thread(a.b, 0, dtype_bytes(a.b_dtype)));
+  if (!RMS)
+    most = std::max(most, per_thread(a.b, 0, dtype_bytes(a.b_dtype)));
   if (HAS_R)
     most = std::max({most, per_thread(a.r, a.sr, kT),
                      per_thread(a.s, a.n, kT)});
@@ -437,27 +515,39 @@ cudaError_t dispatch(Args a, cudaStream_t st) {
   // the fast kernels: 16-byte chunks of T for x, y, w and b (r and s)
   const bool vec =
       a.n % kVec == 0 && a.sx % kVec == 0 && aligned16(a.x) &&
-      aligned16(a.y) && a.w_dtype == code_of<T>() &&
-      a.b_dtype == code_of<T>() && aligned16(a.w) && aligned16(a.b) &&
+      aligned16(a.y) && a.w_dtype == code_of<T>() && aligned16(a.w) &&
+      (RMS || (a.b_dtype == code_of<T>() && aligned16(a.b))) &&
       (!HAS_R || (a.sr % kVec == 0 && aligned16(a.r) && aligned16(a.s)));
   if (vec && warps == kWarps && a.spt == kVec &&
       (block == 1024 || block == 2048)) {
     constexpr int kR1 = 1024 / (kVec * 32 * kWarps);  // reps at 1024
     if (block == 1024)
-      return launch(HAS_R ? add_ln_fwd_row_kernel<T, kVec, kR1>
-                          : ln_fwd_row_kernel<T, kVec, kR1>, a, kWarps, st);
-    return launch(HAS_R ? add_ln_fwd_row_kernel<T, kVec, 2 * kR1>
-                        : ln_fwd_row_kernel<T, kVec, 2 * kR1>, a, kWarps, st);
+      return launch(row_kernel<T, kVec, kR1, HAS_R, RMS>(), a, kWarps, st);
+    return launch(row_kernel<T, kVec, 2 * kR1, HAS_R, RMS>(), a, kWarps, st);
   }
   if (warps == kWarps)
-    return launch(HAS_R ? add_ln_fwd_any_kernel<T, kWarps>
-                        : ln_fwd_any_kernel<T, kWarps>, a, kWarps, st);
-  return launch(HAS_R ? add_ln_fwd_any_kernel<T, kWideWarps>
-                      : ln_fwd_any_kernel<T, kWideWarps>, a, kWideWarps, st);
+    return launch(any_kernel<T, kWarps, HAS_R, RMS>(), a, kWarps, st);
+  return launch(any_kernel<T, kWideWarps, HAS_R, RMS>(), a, kWideWarps, st);
 }
 
 bool dtype_ok(int code) {
   return code == tds::kF32 || code == tds::kBF16 || code == tds::kF16;
+}
+
+template <bool RMS>
+cudaError_t dispatch_dtype(const Args& a, int x_dtype, cudaStream_t st) {
+  const bool add = a.r != nullptr;
+  switch (x_dtype) {
+    case tds::kF32:
+      return add ? dispatch<float, true, RMS>(a, st)
+                 : dispatch<float, false, RMS>(a, st);
+    case tds::kBF16:
+      return add ? dispatch<__nv_bfloat16, true, RMS>(a, st)
+                 : dispatch<__nv_bfloat16, false, RMS>(a, st);
+    default:
+      return add ? dispatch<__half, true, RMS>(a, st)
+                 : dispatch<__half, false, RMS>(a, st);
+  }
 }
 
 }  // namespace
@@ -477,18 +567,24 @@ extern "C" int ln_fwd(const void* x, const void* r, const void* w,
       (r != nullptr && s == nullptr))
     return cudaErrorInvalidValue;
   if (rows == 0) return cudaSuccess;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Args a{x, r, w, b, s, y, mean, rstd, sx, sr, rows, n, w_dtype,
                b_dtype, 1, 1, 0, false, eps};
-  const bool add = r != nullptr;
-  switch (x_dtype) {
-    case tds::kF32:
-      return add ? dispatch<float, true>(a, st) : dispatch<float, false>(a, st);
-    case tds::kBF16:
-      return add ? dispatch<__nv_bfloat16, true>(a, st)
-                 : dispatch<__nv_bfloat16, false>(a, st);
-    default:
-      return add ? dispatch<__half, true>(a, st)
-                 : dispatch<__half, false>(a, st);
-  }
+  return dispatch_dtype<false>(a, x_dtype, static_cast<cudaStream_t>(stream));
+}
+
+// RMSNorm's forward on `stream` (the RMS flag): as `ln_fwd` without b and
+// mean; y = (x * rstd) * w with rstd = 1/sqrt(mean(x*x) + eps) f32
+// (rows,).  With r non-null the residual add first, its sum in s.
+extern "C" int rms_fwd(const void* x, const void* r, const void* w, void* s,
+                       void* y, float* rstd, long long sx, long long sr,
+                       long long rows, int n, int x_dtype, int w_dtype,
+                       float eps, void* stream) {
+  if (n < 1 || n > kMaxN || rows < 0 || rows > 0x7fffffffLL ||
+      !dtype_ok(x_dtype) || !dtype_ok(w_dtype) ||
+      (r != nullptr && s == nullptr))
+    return cudaErrorInvalidValue;
+  if (rows == 0) return cudaSuccess;
+  const Args a{x, r, w, nullptr, s, y, nullptr, rstd, sx, sr, rows, n,
+               w_dtype, x_dtype, 1, 1, 0, false, eps};
+  return dispatch_dtype<true>(a, x_dtype, static_cast<cudaStream_t>(stream));
 }

@@ -381,8 +381,8 @@ class GPT2Model(nn.Module):
         cast once — the inference head reads them every decode step."""
         p = self.param_dict() if params is None else params
         cd = self.config.compute_dtype
-        names = ["ln_f.w", "ln_f.b",
-                 "wte" if self.config.tie_weights else "lm_head.w"]
+        names = [n for n in self.param_shapes() if n.startswith("ln_f.")]
+        names.append("wte" if self.config.tie_weights else "lm_head.w")
         return {n: p[n].to(cd) for n in names}
 
     @staticmethod
@@ -431,18 +431,48 @@ class GPT2Model(nn.Module):
 
     def _block(self, x, bp: Params, return_kv: bool = False,
                dkey: Optional[int] = None, pctx=None):
-        """One pre-LN block.  x (B, T, D) compute dtype; bp this layer's
+        """One pre-norm block.  x (B, T, D) compute dtype; bp this layer's
         compute-dtype params.  return_kv also returns this layer's (k, v)
         head tensors — the prefill hook.  dkey, this layer's dropout key,
-        drops after attn.proj (site 0) and after mlp.proj (site 1), JAX
-        :370-379.  pctx routes attention (`sharded_attention`); under
-        ZeRO-3 its gather first fetches this layer's weights (bp holds
-        the rank's shards)."""
+        drops after the attention's output projection (site 0) and after
+        the MLP (site 1), JAX :370-379.  pctx routes attention
+        (`sharded_attention`); under ZeRO-3 its gather first fetches this
+        layer's weights (bp holds the rank's shards).  The norms, the
+        attention half and the MLP are the hooks `_norm` / `_add_norm`,
+        `_attn` and `_mlp`, which a model family overrides."""
         c = self.config
-        b, t, d = x.shape
         if pctx is not None and pctx.gather is not None:
             bp = pctx.gather.layer(bp)
-        h = layernorm(x, bp["ln_1.w"], bp["ln_1.b"])
+        h = self._norm(x, bp, "ln_1")
+        y, kv = self._attn(h, bp, pctx)
+        if dkey is not None:
+            y = _dropout(y, prng.fold_in(dkey, 0), c.dropout)
+        # the attention residual and ln_2 in one launch.  ln_1 stays
+        # unfused: its residual is the previous block's output, across
+        # the checkpoint boundary (fusing it would make each checkpoint
+        # keep x and h instead of their sum)
+        x, h = self._add_norm(x, y, bp, "ln_2")
+        h = self._mlp(h, bp)
+        if dkey is not None:
+            h = _dropout(h, prng.fold_in(dkey, 1), c.dropout)
+        x = x + h
+        return (x, kv) if return_kv else x
+
+    def _norm(self, x, p: Params, name: str):
+        """The norm `name` ("ln_1", "ln_2", "ln_f") of x with its
+        compute-dtype weights in p: LayerNorm."""
+        return layernorm(x, p[name + ".w"], p[name + ".b"])
+
+    def _add_norm(self, x, r, p: Params, name: str):
+        """(x + r, the norm `name` of it) in one call."""
+        return add_layernorm(x, r, p[name + ".w"], p[name + ".b"])
+
+    def _attn(self, h, bp: Params, pctx=None):
+        """The attention half of a block on ln_1's output h (B, T, D):
+        (the projected attention output, before its residual, and the
+        layer's (k, v) head tensors)."""
+        c = self.config
+        b, t, d = h.shape
         qkv = linear(h, self._bw(bp, "attn.qkv.w"), bp.get("attn.qkv.b"))
         q, k, v = qkv.split(d, dim=-1)
 
@@ -452,19 +482,8 @@ class GPT2Model(nn.Module):
         kh, vh = heads(k), heads(v)
         y = sharded_attention(heads(q), kh, vh, c.attn_impl, pctx)
         y = y.transpose(1, 2).reshape(b, t, d)
-        y = linear(y, self._bw(bp, "attn.proj.w"), bp.get("attn.proj.b"))
-        if dkey is not None:
-            y = _dropout(y, prng.fold_in(dkey, 0), c.dropout)
-        # the attention residual and ln_2 in one launch.  ln_1 stays
-        # unfused: its residual is the previous block's output, across
-        # the checkpoint boundary (fusing it would make each checkpoint
-        # keep x and h instead of their sum)
-        x, h = add_layernorm(x, y, bp["ln_2.w"], bp["ln_2.b"])
-        h = self._mlp(h, bp)
-        if dkey is not None:
-            h = _dropout(h, prng.fold_in(dkey, 1), c.dropout)
-        x = x + h
-        return (x, (kh, vh)) if return_kv else x
+        return (linear(y, self._bw(bp, "attn.proj.w"), bp.get("attn.proj.b")),
+                (kh, vh))
 
     def _mlp(self, h, bp: Params):
         """The MLP on ln_2's output h."""
@@ -475,7 +494,8 @@ class GPT2Model(nn.Module):
     def final_norm(self, x, params: Optional[Params] = None):
         cd = self.config.compute_dtype
         p = self.param_dict() if params is None else params
-        return layernorm(x, p["ln_f.w"].to(cd), p["ln_f.b"].to(cd))
+        return self._norm(x, {n: p[n].to(cd) for n in ("ln_f.w", "ln_f.b")
+                              if n in p}, "ln_f")
 
     def _lm_head_w(self, params: Optional[Params] = None):
         """(d, vocab) projection weight — wte.T when tied."""
@@ -659,12 +679,12 @@ class GPT2Model(nn.Module):
         for l in range(self.config.n_layer):
             bp = self._layer(stacked, l)
             if pending is None:
-                h = layernorm(x, bp["ln_1.w"], bp["ln_1.b"])
+                h = self._norm(x, bp, "ln_1")
             else:
-                x, h = add_layernorm(x, pending, bp["ln_1.w"], bp["ln_1.b"])
+                x, h = self._add_norm(x, pending, bp, "ln_1")
             y, extra = attn(h, bp, l)
             got.append(extra)
-            x, h = add_layernorm(x, y, bp["ln_2.w"], bp["ln_2.b"])
+            x, h = self._add_norm(x, y, bp, "ln_2")
             pending = self._mlp(h, bp)
         return x + pending, got
 

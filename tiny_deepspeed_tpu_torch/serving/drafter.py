@@ -208,7 +208,8 @@ def make_drafter(spec: str, model, k: int, *, max_active: int, max_seq: int,
                             rollout step costs a full target pass: an
                             acceptance ceiling, never a speedup);
       * "model:<preset>" -> ModelDrafter over a seeded random-init
-                            `GPT2_PRESETS[<preset>]` sharing the target's
+                            `ALL_PRESETS[<preset>]` (either family, built
+                            by `build_model`) sharing the target's
                             vocab, on the target's device (random weights
                             exercise the machinery; a speedup needs a
                             trained drafter).
@@ -220,20 +221,20 @@ def make_drafter(spec: str, model, k: int, *, max_active: int, max_seq: int,
         if name == "self":
             dmodel = model
         else:
-            from ..models.gpt2 import GPT2_PRESETS, GPT2Model
-            if name not in GPT2_PRESETS:
+            from ..models import ALL_PRESETS, build_model
+            if name not in ALL_PRESETS:
                 raise ValueError(
                     f"unknown draft preset {name!r}; spec_draft takes "
                     "'ngram', 'model:self', or 'model:<preset>' with a "
-                    f"preset in {sorted(GPT2_PRESETS)}")
-            cfg = GPT2_PRESETS[name]
+                    f"preset in {sorted(ALL_PRESETS)}")
+            cfg = ALL_PRESETS[name]
             if cfg.vocab_size != model.config.vocab_size:
                 raise ValueError(
                     f"draft preset {name!r} has vocab_size "
                     f"{cfg.vocab_size} but the target serves "
                     f"{model.config.vocab_size}: drafts are token ids, the "
                     "vocabularies must match")
-            dmodel = GPT2Model(cfg, device=model.device).init(
+            dmodel = build_model(cfg, device=model.device).init(
                 torch.Generator().manual_seed(seed))
         return ModelDrafter(dmodel, k, max_active=max_active,
                             max_seq=max_seq, block_tokens=block_tokens)

@@ -148,8 +148,9 @@ class _Slot:
 
 
 class ServingEngine:
-    """Continuous-batching inference over one GPT2Model (weights in the
-    model).  Runs on `device`: the card unless the caller passes
+    """Continuous-batching inference over one model, GPT2Model or
+    LlamaModel (weights in the model; the pool rests at the model's
+    `kv_heads`).  Runs on `device`: the card unless the caller passes
     device="cpu"; without CUDA and without a device it raises."""
 
     def __init__(self, model, config: ServeConfig = ServeConfig(), *,

@@ -1,10 +1,11 @@
 # Copyright 2026 tiny-deepspeed-tpu authors
 # SPDX-License-Identifier: Apache-2.0
 
-"""GPT-2 training, the port's entry point: one device, DDP, ZeRO-1/2/3.
+"""Training, the port's entry point: one device, DDP, ZeRO-1/2/3.
 
     python -m tiny_deepspeed_tpu_torch.train [--model gpt2-124m] [--iters N]
     python -m tiny_deepspeed_tpu_torch.train --device cpu --model tiny
+    python -m tiny_deepspeed_tpu_torch.train --model llama-160m
     torchrun --standalone --nproc-per-node N -m tiny_deepspeed_tpu_torch.train
         --engine zero2 [--seq-parallel SP] [--device cpu]    (one line)
     torchrun ... -m tiny_deepspeed_tpu_torch.train --engine zero3
@@ -39,7 +40,7 @@ import torch
 import torch.distributed as dist
 
 from .data import TokenLoader
-from .models.gpt2 import GPT2_PRESETS, GPT2Model
+from .models import ALL_PRESETS, build_model
 from .optim import AdamW
 from .optim import schedule as schedules
 from .parallel import (DDP, SingleDevice, Zero1, Zero2, Zero3,
@@ -64,7 +65,7 @@ def parse_args(argv=None):
         prog="python -m tiny_deepspeed_tpu_torch.train",
         description=__doc__.split("\n\n")[0])
     p.add_argument("--model", default="gpt2-124m",
-                   choices=sorted(GPT2_PRESETS))
+                   choices=sorted(ALL_PRESETS))
     p.add_argument("--iters", type=int, default=100)
     p.add_argument("--batch-per-device", type=int, default=1)
     p.add_argument("--seq-len", type=int, default=None,
@@ -117,7 +118,7 @@ def parse_args(argv=None):
                         "ported)")
     args = p.parse_args(argv)
     if args.seq_len is None:
-        args.seq_len = min(1024, GPT2_PRESETS[args.model].block_size)
+        args.seq_len = min(1024, ALL_PRESETS[args.model].block_size)
     return args
 
 
@@ -139,7 +140,7 @@ def _lr(args):
 def _model_config(args):
     """The preset with --dropout, --fused-xent and --gather-quant applied,
     as examples/common.py:419-429 does."""
-    cfg = GPT2_PRESETS[args.model]
+    cfg = ALL_PRESETS[args.model]
     if args.dropout:
         cfg = dataclasses.replace(cfg, dropout=args.dropout)
     if args.fused_xent:
@@ -159,7 +160,7 @@ def run(args):
     else:
         device = init_distributed(args.device)
         kw.update(seq_parallel=args.seq_parallel, seq_impl=args.seq_impl)
-    model = GPT2Model(_model_config(args), device=device)
+    model = build_model(_model_config(args), device=device)
     opt = AdamW(lr=_lr(args), weight_decay=args.weight_decay,
                 decay_exclude=tuple(
                     p for p in (args.wd_exclude or "").split(",") if p))
