@@ -9,7 +9,8 @@ pools, run the distributed path: ring attention's chunk kernels, the
 ring itself and the DDP / ZeRO-1 / ZeRO-2 engines, and ZeRO-3 with the
 fp8 weight gather (gpt2-124m and gpt2-1.5b) and the heads-last FA2
 kernels through their A/B; then the Llama family: RMSNorm's entries,
-llama-160m served and trained.
+llama-160m served and trained; then the MoE family: moe-8x124m trained
+with both dispatches.
 
     python3 chip_smoke.py
 
@@ -169,7 +170,9 @@ non-zero, printing no result, without one.  Phases, each on its own line:
         SingleDevice bit for bit; step time, tokens/s and peak memory
         beside phase 4's, one profiled step's NCCL time.  NCCL refuses
         two ranks on one card, so the multi-rank engines are held to the
-        JAX engines on the CPU (tests/test_torch_dist*.py);
+        JAX engines on the CPU (tests/test_torch_dist*.py).  MoE (after
+        8d, in the same group): DDP on moe-8x124m (einsum, phase 4's
+        config) 2 steps bit for bit SingleDevice's (`moe_ddp`);
   8. ZeRO-3 and the last two TPU kernels (in 7c's NCCL group):
      a. the heads-last FA2 kernels (#7 fwd, #8 dq and dk/dv) at the A/B's
         shape (B=12 H=12 T=1024 Dh=64 bf16) and at B=8 against their
@@ -190,6 +193,9 @@ non-zero, printing no result, without one.  Phases, each on its own line:
         11.2]; median step time, tokens/s, peak memory, one profiled
         step's busy / idle and kernel classes, and the per-rank state at
         data 4 and 8 from the shard layout (not measured);
+     MoE (after 8d): Zero3 on moe-8x124m 2 steps bit for bit
+        SingleDevice's (`moe_zero3`), and with the fp8 gather bit for bit
+        fp8 SingleDevice's (`moe_zero3_fp8`);
   9. the Llama family (every count zeroed before each path, read after):
      a. RMSNorm's entries, the LayerNorm C entries under their RMS flag
         (rows r1 `rmsnorm_fwd`, r1r `add_rmsnorm_fwd`, r2+3
@@ -222,10 +228,30 @@ non-zero, printing no result, without one.  Phases, each on its own line:
         kernel classes; one step's gradients against the plain path
         (rel L2 <= 5e-2 a leaf), remat on and off bit for bit, 8 steps
         on one batch at lr 1e-3 lowering its loss;
+ 10. the MoE family: moe-8x124m (gpt2-124m's skeleton, 8 experts of F
+     3072 a block, top-2, capacity factor 1.25; seeded random weights)
+     trained with phase 4's config (SingleDevice + AdamW(1e-5, wd 0.1),
+     remat "dots_no_batch", B=8 T=1024, the synthetic stream), once with
+     the "einsum" dispatch and once with "sort": 3 warm-up and 10 timed
+     steps, the first loss in [10.5, 11.2], the (token, choice) pairs
+     capacity dropped in the first step, the launches of rows 1, 1r,
+     2+3, 4-6 equal to phase 4's (250 / 240 / 250 / 240 / 120 / 120 in 10
+     steps) and no other kernel; median step time, tokens/s, peak
+     memory, one profiled step's busy / idle and its device time by
+     class (the routing tables, the dispatch — the einsum path's five
+     contractions over the tokens or the sort path's slot gathers and
+     sums —, the experts' batched products, the rest); one step's loss
+     and gradients against the plain path, which is handed the kernel
+     path's expert choices (`moe_routing`; its own must agree on 90% of
+     the tokens in every router call), loss 1e-2, rel L2 <= 5e-2 a leaf;
+     remat on and off bit for bit (wte as in 9c); then, on one
+     batch and the same weights, the einsum loss against the sort loss
+     (1e-2);
   then the `kernels` JSON line (30 rows: the 22 kernels, rows 10kv, 1r
   and the decode append, the Triton LayerNorm forward pair and the v1
   writer, launched on no path, and the four RMS rows; launches by path,
-  the Llama paths `llama_*` among them), then the result line
+  the Llama paths `llama_*` and the MoE paths `moe_*` among them), then
+  the result line
   {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Imports nothing of JAX or of the JAX package.
@@ -3803,7 +3829,7 @@ def engine_run(torch, port, counters, name, cfg, b=8, t=1024, warm=3,
     and, with `whole`, the whole params after them (`gather_params`)."""
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    model = port.GPT2Model(cfg)
+    model = port.build_model(cfg)
     eng = getattr(port, name)(model, port.AdamW(lr=lr, weight_decay=0.1))
     state = eng.init(0)
     loader = port.TokenLoader(None, batch=b, seq=t,
@@ -4654,6 +4680,318 @@ def llama_train_phase(torch, port, counters, rn, ln, fa, fx, af):
                 first_loss=losses[0], fit=fit)
 
 
+# -- phase 10: the MoE family ------------------------------------------------
+
+MOE = "moe-8x124m"
+# phase 4's launches in 10 steps of each training kernel: moe-8x124m's
+# blocks norm and attend as gpt2-124m's
+MOE_TRAIN = {"layernorm_fwd": 250, "add_layernorm_fwd": 240,
+             "layernorm_bwd": 250, "fa2_flash_attention_fwd": 240,
+             "fa2_flash_attention_dq": 120, "fa2_flash_attention_dkv": 120}
+# the profiler ranges `moe_ranges` opens (also device-side annotations:
+# spans, not kernels)
+MOE_RANGES = ("moe_route", "moe_mlp", "moe_experts")
+
+
+@contextlib.contextmanager
+def moe_routing(model, picks, own=None):
+    """The model's expert choices, call by call: recorded into `picks`
+    (own None), or forced to `picks` in call order — its own choices then
+    appended to `own`, its gates taken from its own probabilities at the
+    forced experts (the router's formula).  bf16 LayerNorm and attention
+    outputs round apart between the kernel and plain paths, which flips a
+    token's choice where two probabilities nearly tie and reorders the
+    capacity's drops; forced, the plain path routes as the kernel path
+    did."""
+    cls = type(model)
+
+    def router(x, w):
+        gate, idx, probs = cls._router(model, x, w)
+        if own is None:
+            picks.append(idx)
+            return gate, idx, probs
+        own.append(idx)
+        idx = picks[len(own) - 1]
+        gate = probs.gather(1, idx)
+        return gate / (gate.sum(-1, keepdim=True) + 1e-9), idx, probs
+
+    model._router = router
+    try:
+        yield
+    finally:
+        del model._router
+
+
+@contextlib.contextmanager
+def moe_ranges(torch, model, drops=None):
+    """The model's routing (`_route` / `_route_sort`), MoE MLP and experts
+    each inside a profiler range (instance attributes, removed on the way
+    out); with `drops`, each routing call appends the (token, choice)
+    pairs capacity dropped (the einsum table's missing ones, the sort
+    path's dump entries)."""
+    from torch.profiler import record_function
+    cls, k = type(model), model.config.expert_top_k
+
+    def ranged(label, fn, count=None):
+        def call(*a, **kw):
+            with record_function(label):
+                out = fn(model, *a, **kw)
+            if count is not None and drops is not None:
+                drops.append(count(a[0], out))
+            return out
+        return call
+
+    model._route = ranged("moe_route", cls._route, lambda x, out: (
+        x.shape[0] * k - int(out[0].sum(dtype=torch.float32))))
+    model._route_sort = ranged("moe_route", cls._route_sort,
+                               lambda x, out: int((out[3] == out[0].numel())
+                                                  .sum()))
+    model._moe_mlp = ranged("moe_mlp", cls._moe_mlp)
+    model._expert_ffn = ranged("moe_experts", cls._expert_ffn)
+    try:
+        yield
+    finally:
+        for name in ("_route", "_route_sort", "_moe_mlp", "_expert_ffn"):
+            delattr(model, name)
+
+
+def moe_classes(torch, prof, slots):
+    """Device us of a profiled MoE step by class, from each CPU op's own
+    kernels: the experts' batched products (`aten::bmm`, forward,
+    recompute and backward), the dispatch (the einsum path's products
+    with an E*C = `slots` side; the sort path's slot gathers and gated
+    sums: the MoE MLP's range and SlotRows' backward), the routing tables
+    (the routing's range, also in the recompute); the rest is busy minus
+    these."""
+    cuda = torch.autograd.DeviceType.CUDA
+    out = {"routing": 0.0, "dispatch": 0.0, "experts": 0.0}
+    for e in prof.events():
+        if (e.device_type == cuda or not e.self_device_time_total
+                or e.name in MOE_RANGES):
+            continue
+        shapes = e.input_shapes or []
+        if e.name == "aten::bmm":
+            cls = "experts"
+        elif e.name == "aten::mm" and any(slots in (s or ()) for s in shapes):
+            cls = "dispatch"
+        else:
+            cls, p = None, e.cpu_parent
+            while p is not None and cls is None:
+                if p.name == "moe_route":
+                    cls = "routing"
+                elif p.name == "moe_experts":
+                    break
+                elif p.name == "moe_mlp" or "SlotRows" in p.name:
+                    cls = "dispatch"
+                p = p.cpu_parent
+        if cls is not None:
+            out[cls] += e.self_device_time_total
+    return out
+
+
+def moe_step_profile(torch, model, eng, state, batch, name, med):
+    """One profiled step (CPU ops with shapes, CUDA kernels) under
+    `moe_ranges`: busy, idle share, cuBLAS GEMMs and the device ms by
+    class (`moe_classes`); the table to build/chip_smoke/`name`."""
+    from torch.profiler import ProfilerActivity, profile
+    c = model.config
+    slots = c.n_expert * max(1, int(c.capacity_factor * c.expert_top_k
+                                    * batch[0].size / c.n_expert))
+    for _ in range(3):  # an empty CUPTI trace: step again
+        with moe_ranges(torch, model), profile(
+                activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                record_shapes=True) as prof:
+            float(eng.step(state, batch)[1])
+            torch.cuda.synchronize()
+        per, busy, rows = kernel_shares(torch, prof, PATTERNS)
+        busy -= sum(us for us, _, key in rows if key in MOE_RANGES)
+        rows = [r for r in rows if r[2] not in MOE_RANGES]
+        if busy > 0:
+            break
+    check(busy > 0, "the profiler recorded no device time")
+    check_no_pair_records(rows, name)
+    gemm = sum(us for us, _, key in rows
+               if "gemm" in key.lower() or key.startswith("nvjet"))
+    classes = {k: v / 1e3 for k, v in moe_classes(torch, prof, slots).items()}
+    classes["rest"] = busy / 1e3 - sum(classes.values())
+    with open(os.path.join(OUT_DIR, name), "w") as f:
+        for us, n, key in rows:
+            f.write(f"{us / 1e3:12.3f} ms {n:8d}  {key}\n")
+    print(f"  one profiled step: device busy {busy / 1e3:.3f} ms = "
+          f"{busy / 1e3 / (med * 1e3):.4f} of the median step wall (idle "
+          f"share {1 - busy / 1e6 / med:.4f}); cuBLAS GEMMs "
+          f"{gemm / 1e3:.3f} ms; by class (ms): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in classes.items()))
+    for us, n, key in rows[:8]:
+        print(f"    {us / 1e3:10.3f} ms x{n:<6d} {key[:90]}")
+    return dict(busy_ms=busy / 1e3, idle_share=1 - busy / 1e6 / med,
+                gemm_ms=gemm / 1e3, classes_ms=classes,
+                kernel_ms_per_step={k: per.get(k, 0.0) / 1e3
+                                    for k in MOE_TRAIN})
+
+
+def moe_train_phase(torch, port, counters, ln, fa, fx, af):
+    """10: moe-8x124m through SingleDevice + AdamW(lr=1e-5, wd=0.1) at B=8
+    T=1024 on the synthetic stream, with each dispatch (see the module
+    docstring)."""
+    b, t = 8, 1024
+    paths, res = {}, {}
+    for disp in ("einsum", "sort"):
+        cfg = dataclasses.replace(port.MOE_PRESETS[MOE], moe_dispatch=disp)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = port.MoEGPT(cfg)
+        eng = port.SingleDevice(model, port.AdamW(lr=1e-5, weight_decay=0.1))
+        state = eng.init(0)
+        loader = port.TokenLoader(None, batch=b, seq=t,
+                                  vocab_size=cfg.vocab_size, seed=0)
+        print(f"  {disp}: {eng.describe()}; {MOE} "
+              f"{model.num_params() / 1e6:.1f}M params, remat={cfg.remat} "
+              f"policy={cfg.remat_policy}, B={b} T={t}")
+        drops = []
+        with moe_ranges(torch, model, drops):
+            state, loss = eng.step(state, loader.next())
+        drops = drops[:cfg.n_layer]  # the forward's (then the recompute's)
+        losses = [float(loss)]
+        for _ in range(2):
+            state, loss = eng.step(state, loader.next())
+            losses.append(float(loss))
+        for fn in counters.values():
+            fn.launches = 0
+        ln.layernorm_bwd.launches_gs = 0
+        times = []
+        for _ in range(10):
+            batch = loader.next()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, loss = eng.step(state, batch)
+            losses.append(float(loss))
+            times.append(time.perf_counter() - t0)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        with_gs = ln.layernorm_bwd.launches_gs
+        got = {k: v for k, v in launches.items() if v}
+        print(f"  launches on the main path (10 steps): {got}; "
+              f"layernorm_bwd with gs (row 2+3r) {with_gs}")
+        check(got == MOE_TRAIN and with_gs == 120,
+              f"10 ({disp}): launches {got} (gs {with_gs}), want "
+              f"{MOE_TRAIN} (gs 120)")
+        check(all(math.isfinite(x) for x in losses), f"10 losses {losses}")
+        check(10.5 <= losses[0] <= 11.2,
+              f"10 ({disp}): first loss {losses[0]} outside [10.5, 11.2]")
+        med = statistics.median(times)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        s_tok = b * t
+        print(f"  losses {[round(x, 4) for x in losses]}")
+        print(f"  first step: (token, choice) pairs dropped by capacity "
+              f"{sum(drops)} of {s_tok * cfg.expert_top_k * cfg.n_layer} "
+              f"(per layer {drops})")
+        print(f"  step time median {med * 1e3:.3f} ms (min "
+              f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}) -> "
+              f"{s_tok / med:.1f} tokens/s; peak memory {peak:.2f} GiB")
+        prof = moe_step_profile(torch, model, eng, state, loader.next(),
+                                f"moe_{disp}_profile.txt", med)
+
+        batch = loader.next()
+        picks, own = [], []
+        with moe_routing(model, picks):
+            kl, kg = loss_and_grads(torch, model, batch)
+        before = {k: fn.launches for k, fn in counters.items()}
+        with plain_ops(ln, fa, fx, af), moe_routing(model, picks, own):
+            pl, pg = loss_and_grads(torch, model, batch)
+        check({k: fn.launches for k, fn in counters.items()} == before,
+              "10: the plain path launched a kernel")
+        agree = min(float((a == b).all(-1).float().mean())
+                    for a, b in zip(own, picks))
+        rel = _leaf_rel(torch, kg, pg)
+        worst = max(rel, key=rel.get)
+        print(f"  gradients kernel vs plain path (routed as the kernel "
+              f"path; its own choices agree on {agree:.4f} of the tokens "
+              f"in the worst of {len(own)} router calls): loss {kl:.6f} vs "
+              f"{pl:.6f} (tol 1e-2); worst leaf {worst} rel L2 err "
+              f"{rel[worst]:.4g} (tol 5e-2)")
+        check(len(own) == len(picks) and agree >= 0.9,
+              f"10 ({disp}): the plain path routed {agree} alike")
+        check(abs(kl - pl) <= 1e-2 and rel[worst] <= 5e-2,
+              f"10 ({disp}): the gradients disagree with the plain path")
+        del pg
+        model.config = dataclasses.replace(cfg, remat=False)
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            ol, og = loss_and_grads(torch, model, batch)
+            off_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        finally:
+            model.config = cfg
+        differ = [n for n in kg
+                  if n != "wte" and not torch.equal(kg[n], og[n])]
+        wte_rel = _leaf_rel(torch, {"wte": kg["wte"]},
+                            {"wte": og["wte"]})["wte"]
+        print(f"  remat on vs off: loss {kl!r} vs {ol!r}; {len(kg) - 1} "
+              f"leaves bit-identical: {not differ}; wte rel L2 "
+              f"{wte_rel:.3g}; peak memory with remat off {off_peak:.2f} "
+              "GiB")
+        check(kl == ol and not differ and wte_rel <= 1e-5,
+              f"10 ({disp}): remat changed the gradients: {differ}")
+        del kg, og
+        if disp == "sort":  # the other dispatch on the same weights
+            with torch.no_grad():
+                idx, tgt = (torch.as_tensor(a, device=model.device).long()
+                            for a in batch)
+                sl = float(model.apply(idx, tgt))
+                model.config = dataclasses.replace(cfg,
+                                                   moe_dispatch="einsum")
+                try:
+                    el = float(model.apply(idx, tgt))
+                finally:
+                    model.config = cfg
+            print(f"  einsum vs sort on one batch, the same weights: loss "
+                  f"{el!r} vs {sl!r} (tol 1e-2)")
+            check(abs(el - sl) <= 1e-2, "10: einsum and sort disagree")
+            res["einsum_vs_sort"] = (el, sl)
+        paths[f"moe_{disp}_training"] = launches
+        res[disp] = dict(step_ms=med * 1e3, tokens_per_s=s_tok / med,
+                         layernorm_bwd_gs=with_gs,
+                         peak_gib=peak, remat_off_peak_gib=off_peak,
+                         first_loss=losses[0], losses=losses,
+                         drops_first_step=drops, grad_rel_worst=rel[worst],
+                         plain_routing_agreement=agree, **prof)
+        del model, eng, state
+        torch.cuda.empty_cache()
+    return paths, res
+
+
+def moe_engines_phase(torch, port, counters, steps=2):
+    """7c / 8c for the MoE family (in their NCCL group): DDP and Zero3 at
+    world 1 on moe-8x124m with phase 4's config (einsum) `steps` steps
+    bit for bit SingleDevice's, and Zero3 with the fp8 gather bit for bit
+    fp8 SingleDevice's.  Returns each path's launches."""
+    base = port.MOE_PRESETS[MOE]
+    paths = {}
+    for quant, names in ((None, ("DDP", "Zero3")), ("fp8", ("Zero3",))):
+        cfg = dataclasses.replace(base, gather_quant=quant)
+        ref = engine_run(torch, port, counters, "SingleDevice", cfg, warm=0,
+                         timed=steps, profile=False)
+        want_losses, want = ref["losses"], ref["params"]
+        _free(ref)
+        for name in names:
+            run = engine_run(torch, port, counters, name, cfg, warm=0,
+                             timed=steps, profile=False)
+            same = run["losses"] == want_losses and all(
+                torch.equal(p, want[n]) for n, p in run["params"].items())
+            what = f"{name}" + (" (fp8 gather)" if quant else "")
+            check(same, f"MoE {what} at world 1 differs from SingleDevice: "
+                  f"{run['losses']} vs {want_losses}")
+            print(f"  {MOE} {what}: {steps} steps bit-identical to "
+                  f"SingleDevice (losses {run['losses']} and params); step "
+                  f"time median {run['step_ms']:.3f} ms; peak memory "
+                  f"{run['peak_gib']:.2f} GiB")
+            paths["moe_" + name.lower() + ("_fp8" if quant else "")] = \
+                run["launches"]
+            _free(run)
+        del want
+        torch.cuda.empty_cache()
+    return paths
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4925,6 +5263,10 @@ def main():
         xl = zero3_xl_phase(torch, port, counters)
         torch.cuda.empty_cache()
         print(f"phase 8: {time.perf_counter() - t8:.2f}s")
+        print("phases 7c and 8c on the MoE family: DDP and Zero3 (bf16, "
+              "fp8 gather) at world 1 on moe-8x124m")
+        moe_paths = moe_engines_phase(torch, port, counters)
+        lap("7c / 8c on moe-8x124m")
 
     t9 = time.perf_counter()
     lap("phases 7-8")
@@ -4942,6 +5284,15 @@ def main():
     llama_paths["llama_training"] = llama_train["launches"]
     lap("9c, llama-160m trained")
     print(f"phase 9: {time.perf_counter() - t9:.2f}s")
+
+    t10 = time.perf_counter()
+    print(f"phase 10: the MoE family — {MOE} trained with the einsum and "
+          "the sort dispatch")
+    moe_train_paths, moe_train = moe_train_phase(torch, port, counters, ln,
+                                                 fa, fx, af)
+    moe_paths.update(moe_train_paths)
+    print(f"phase 10: {time.perf_counter() - t10:.2f}s")
+    lap("phase 10")
 
     timed = ("shape", "ms", "plain_ms", "library_ms", "call_ms", "bound_ms",
              "bound_by")
@@ -4961,7 +5312,8 @@ def main():
                    "ab": ab["launches"][name],
                    **{p: v["launches"][name] for p, v in z3_res.items()},
                    "zero3_1.5b": xl["launches"][name],
-                   **{p: v[name] for p, v in llama_paths.items()}}
+                   **{p: v[name] for p, v in llama_paths.items()},
+                   **{p: v[name] for p, v in moe_paths.items()}}
         row = {"name": name, "route": route, "source": source,
                "replaces": replaces, "launches": sum(by_path.values()),
                "launches_by_path": by_path,
@@ -5176,7 +5528,8 @@ def main():
         json.dump({"results": var_res, "agreement": agree,
                    "ticks": ticks, "llama_serving": llama_serve,
                    "llama_training": {k: v for k, v in llama_train.items()
-                                      if k != "launches"}},
+                                      if k != "launches"},
+                   "moe_training": moe_train},
                   f, indent=1, default=str)
     print(f"total {time.perf_counter() - t_all:.2f}s")
     print(json.dumps({"kernels": kernels}))

@@ -81,7 +81,10 @@ group 4 — FA2 forward and backward at (8, 12, 4, 1024, 64), paged decode,
 decode with its append and span (K1 5 and 256) at (Hq, KVH) = (12, 4)
 and (32, 8), Dh 64, bt 16, over bf16 and int8 pools; tiny Llama
 training gradients and greedy tokens (plain, speculative, prefix cache,
-int8 pool) on the card against the CPU port's.
+int8 pool) on the card against the CPU port's.  Slice 16 (the MoE
+family; `-k moe`): one block at moe-8x124m's widths (D 768, 8 experts,
+F 3072, 512 tokens, bf16), forward and backward on the card against the
+CPU port's, for both dispatches, and remat on and off bit for bit.
 """
 
 import math
@@ -1722,3 +1725,111 @@ def test_tiny_llama_engine_tokens_match_cpu(knobs):
     assert (layernorm.layernorm_fwd.launches,
             layernorm.add_layernorm_fwd.launches) == before[:2]
     assert rmsnorm.add_rmsnorm_fwd.launches > before[2]
+
+
+def _moe_pair(dispatch):
+    """One MoE block at moe-8x124m's widths (D 768, 12 heads, 8 experts,
+    F 3072), bf16 compute, the same weights on the CPU and the card."""
+    import dataclasses
+
+    import tiny_deepspeed_tpu_torch as T
+    cfg = dataclasses.replace(T.MOE_PRESETS["moe-8x124m"], n_layer=1,
+                              vocab_size=256, block_size=512,
+                              moe_dispatch=dispatch)
+    cpu = T.MoEGPT(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    gpu = T.MoEGPT(cfg, device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+    return cpu, gpu
+
+
+def _moe_block_grads(model, x, gy, remat=None):
+    """The block's (y, aux) on x and the gradients of <y, gy> + aux (x's
+    and the block leaves'), through the configured remat (`remat`
+    overrides config.remat)."""
+    import dataclasses
+    cfg = model.config
+    if remat is not None:
+        model.config = dataclasses.replace(cfg, remat=remat)
+    try:
+        x = x.to(model.device).requires_grad_()
+        leaves = [p for n, p in model.named_parameters()
+                  if n.startswith("h.")]
+        bp = model._layers(model.stacked_compute_params())[0]
+        y, aux = model._block_fn()(x, bp)
+        loss = (y.float() * gy.to(model.device).float()).sum() + aux
+        grads = torch.autograd.grad(loss, [x] + leaves)
+    finally:
+        model.config = cfg
+    return y.detach(), aux.detach(), grads
+
+
+def _rel(a, b):
+    a, b = a.float().cpu(), b.float().cpu()
+    return float((a - b).norm() / b.norm().clamp_min(1e-30))
+
+
+@pytest.mark.parametrize("dispatch", ["einsum", "sort"])
+def test_moe_block_matches_cpu(dispatch):
+    """One MoE block (512 tokens, bf16) forward and backward on the card
+    against the CPU port's plain path.  bf16 LayerNorm and attention
+    outputs round apart between the two, which can flip a token's
+    expert choice where two probabilities nearly tie, so the CPU side is
+    handed the card's choices (its gates from its own probabilities):
+    at least 97% of the tokens must have chosen the same experts on
+    their own; y, dx and every leaf's gradient within 3e-2 relative L2,
+    the aux term within 1e-3."""
+    cpu, gpu = _moe_pair(dispatch)
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(1, 512, 768, generator=g).bfloat16()
+    gy = torch.randn(1, 512, 768, generator=g).bfloat16()
+    picks, own = [], []
+
+    def spy(xr, w):
+        out = type(gpu)._router(gpu, xr, w)
+        picks.append(out[1].cpu())
+        return out
+
+    def forced(xr, w):
+        _, idx, probs = type(cpu)._router(cpu, xr, w)
+        own.append(idx)
+        idx = picks[len(own) - 1]
+        gate = probs.gather(1, idx)
+        return gate / (gate.sum(-1, keepdim=True) + 1e-9), idx, probs
+
+    before = (layernorm.layernorm_fwd.launches,
+              layernorm.add_layernorm_fwd.launches,
+              flash_fa2.fa2_flash_attention_fwd.launches)
+    gpu._router, cpu._router = spy, forced
+    try:
+        card = _moe_block_grads(gpu, x, gy, remat=False)
+        plain = _moe_block_grads(cpu, x, gy, remat=False)
+    finally:
+        del gpu._router, cpu._router
+    assert (layernorm.layernorm_fwd.launches,
+            layernorm.add_layernorm_fwd.launches,
+            flash_fa2.fa2_flash_attention_fwd.launches) == tuple(
+                n + 1 for n in before)
+    same = float((own[0] == picks[0]).all(-1).float().mean())
+    assert same >= 0.97, same
+    assert _rel(card[0], plain[0]) <= 3e-2
+    assert abs(float(card[1]) - float(plain[1])) <= 1e-3 * float(plain[1])
+    for i, (a, b) in enumerate(zip(card[2], plain[2])):
+        assert _rel(a, b) <= 3e-2, (i, _rel(a, b))
+
+
+@pytest.mark.parametrize("dispatch", ["einsum", "sort"])
+def test_moe_block_remat_bit_identical(dispatch):
+    """The block under remat "dots_no_batch" and without remat: the same
+    bits on the card (deterministic kernels, the sort path's slot sums
+    in a fixed order), also on a repeat."""
+    _, gpu = _moe_pair(dispatch)
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(1, 512, 768, generator=g).bfloat16()
+    gy = torch.randn(1, 512, 768, generator=g).bfloat16()
+    runs = [_moe_block_grads(gpu, x, gy, remat=r)
+            for r in (True, False, True)]
+    for other in runs[1:]:
+        assert torch.equal(other[0], runs[0][0])
+        assert torch.equal(other[1], runs[0][1])
+        for a, b in zip(other[2], runs[0][2]):
+            assert torch.equal(a, b)

@@ -334,7 +334,7 @@ def test_param_shapes_equal_jax_init(name, tied):
 def test_presets_and_build_model():
     import tiny_deepspeed_tpu.models as JM
     assert set(T.ALL_PRESETS) == set(JM.GPT2_PRESETS) | set(
-        JM.LLAMA_PRESETS)
+        JM.LLAMA_PRESETS) | set(JM.MOE_PRESETS)
     for name, c in T.LLAMA_PRESETS.items():
         jc = JM.LLAMA_PRESETS[name]
         for f in ("block_size", "vocab_size", "n_layer", "n_head",

@@ -31,7 +31,12 @@ easy to find.  Ported so far:
 - slice 15, the Llama family: `LlamaModel` (RMSNorm, RoPE, SwiGLU,
   grouped K/V) served and trained through the same entry points,
   `build_model` / `ALL_PRESETS` over both families
-  (`python -m tiny_deepspeed_tpu_torch.train --model llama-160m`).
+  (`python -m tiny_deepspeed_tpu_torch.train --model llama-160m`);
+- slice 16, the MoE family: `MoEGPT` (top-k routed experts, both
+  dispatches, routing global across ranks as JAX's GSPMD routes it)
+  trained under every engine (`python -m tiny_deepspeed_tpu_torch.train
+  --model moe-8x124m [--moe-dispatch sort]`); serving refuses it, as
+  JAX's does.
 
 Every Pallas kernel those paths run on a TPU is rewritten for Hopper:
 layernorm forward, dx and dw/db in Triton (ops/layernorm.py); the fused
@@ -50,8 +55,8 @@ without CUDA and without a device they raise.
 from .convert import (opt_state_from_numpy, opt_state_to_numpy,
                       params_from_numpy, params_to_numpy)
 from .data import TokenLoader
-from .models import (ALL_PRESETS, LLAMA_PRESETS, LlamaConfig, LlamaModel,
-                     build_model)
+from .models import (ALL_PRESETS, LLAMA_PRESETS, MOE_PRESETS, LlamaConfig,
+                     LlamaModel, MoEConfig, MoEGPT, build_model)
 from .models.gpt2 import (GPT2_PRESETS, GPT2Model, GPTConfig,
                           effective_xent_impl)
 from .optim import SGD, AdamW
@@ -62,7 +67,7 @@ from .serving.engine import ServeConfig, ServingEngine
 
 __all__ = ["ALL_PRESETS", "AdamW", "DDP", "GPTConfig", "GPT2_PRESETS",
            "GPT2Model", "LLAMA_PRESETS", "LlamaConfig", "LlamaModel",
-           "PrefixCache", "SGD", "ServeConfig", "ServingEngine",
+           "MOE_PRESETS", "MoEConfig", "MoEGPT", "PrefixCache", "SGD", "ServeConfig", "ServingEngine",
            "SingleDevice", "SpecDecoder", "TokenLoader", "TrainState",
            "Zero1", "Zero2", "Zero3", "ZeroEngine", "build_model",
            "effective_xent_impl",

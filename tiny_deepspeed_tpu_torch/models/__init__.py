@@ -1,14 +1,16 @@
 # Copyright 2026 tiny-deepspeed-tpu authors
 # SPDX-License-Identifier: Apache-2.0
 
-"""The model families: GPT-2 and Llama (counterpart of the JAX package's
-`models/__init__.py`; its MoE family is not ported yet)."""
+"""The model families: GPT-2, Llama and MoE (counterpart of the JAX
+package's `models/__init__.py`)."""
 
 from .gpt2 import GPT2_PRESETS, GPT2Model, GPTConfig, resolved_cache_dtype
 from .llama import LLAMA_PRESETS, LlamaConfig, LlamaModel
+from .moe import MOE_PRESETS, MoEConfig, MoEGPT
 
-# one flat preset namespace across families (tiny / gpt2-* / llama-*)
-ALL_PRESETS = {**GPT2_PRESETS, **LLAMA_PRESETS}
+# one flat preset namespace across families (tiny / gpt2-* / llama-* /
+# moe-*)
+ALL_PRESETS = {**GPT2_PRESETS, **LLAMA_PRESETS, **MOE_PRESETS}
 
 
 def build_model(name_or_cfg, device=None):
@@ -17,11 +19,13 @@ def build_model(name_or_cfg, device=None):
     :16-27)."""
     cfg = (ALL_PRESETS[name_or_cfg] if isinstance(name_or_cfg, str)
            else name_or_cfg)
+    if isinstance(cfg, MoEConfig):
+        return MoEGPT(cfg, device=device)
     if isinstance(cfg, LlamaConfig):
         return LlamaModel(cfg, device=device)
     return GPT2Model(cfg, device=device)
 
 
 __all__ = ["ALL_PRESETS", "GPT2_PRESETS", "GPT2Model", "GPTConfig",
-           "LLAMA_PRESETS", "LlamaConfig", "LlamaModel", "build_model",
-           "resolved_cache_dtype"]
+           "LLAMA_PRESETS", "LlamaConfig", "LlamaModel", "MOE_PRESETS",
+           "MoEConfig", "MoEGPT", "build_model", "resolved_cache_dtype"]

@@ -350,7 +350,6 @@ class GPT2Model(nn.Module):
         as in JAX, and — the port's own key — its f32 master under
         name + "#master", which `_bw`'s Function hands the gradient."""
         p = self.param_dict() if params is None else params
-        cd = self.config.compute_dtype
         out = {}
         for k, v in p.items():
             if not k.startswith("h."):
@@ -364,8 +363,15 @@ class GPT2Model(nn.Module):
                 out[name + "#scale"] = s
                 out[name + "#master"] = v
             else:
-                out[name] = v.to(cd)
+                out[name] = v.to(self._stacked_dtype(name))
         return out
+
+    def _stacked_dtype(self, name: str):
+        """The dtype a stacked block leaf that the fp8 gather leaves
+        alone rests in for the step (`stacked_compute_params`, ZeRO-3's
+        `prepare`): the compute dtype.  A family keeps a leaf wider by
+        overriding it (MoE's router)."""
+        return self.config.compute_dtype
 
     def _bw(self, bp: Params, name: str):
         """A block weight of this layer's dict, dequantized when the fp8
@@ -531,7 +537,8 @@ class GPT2Model(nn.Module):
         return linear(x, self._lm_head_w(params), None).float()
 
     def _block_fn(self):
-        """(x, bp) -> x under the configured remat policy (JAX
+        """(x, bp) -> the block's output (x; MoE's blocks: (x, aux))
+        under the configured remat policy (JAX
         `block_fn` / `remat_policy`, :893-928), as a non-reentrant
         `torch.utils.checkpoint` per block:
 
@@ -590,12 +597,12 @@ class GPT2Model(nn.Module):
         if pctx is not None and targets is None:
             raise ValueError("apply(pctx=...) is the training forward: "
                              "pass targets")
+        c = self.config
         if targets is None:
             with torch.no_grad():
                 x = self.embed(idx)
-                stacked = self.stacked_compute_params()
-                for l in range(self.config.n_layer):
-                    x = self._block(x, self._layer(stacked, l))
+                x, _ = self._blocks(x, self.stacked_compute_params(),
+                                    [None] * c.n_layer)
                 return self.head(x, position)
         if params is None:
             params = self.param_dict()
@@ -604,7 +611,6 @@ class GPT2Model(nn.Module):
         else:
             stacked = self.stacked_compute_params(params)
         x = self.embed(idx, pctx, params)
-        c = self.config
         dkeys = [None] * c.n_layer
         if rng is not None and c.dropout:
             if pctx is not None and pctx.is_multi_device:
@@ -614,10 +620,18 @@ class GPT2Model(nn.Module):
             keys = prng.split(rng, c.n_layer + 1)
             x = _dropout(x, keys[0], c.dropout)
             dkeys = keys[1:]
+        x, extra = self._blocks(x, stacked, dkeys, pctx)
+        loss = self.head(x, params=params, targets=targets, pctx=pctx)
+        return loss if extra is None else loss + extra
+
+    def _blocks(self, x, stacked: Params, dkeys, pctx=None):
+        """The layer loop: x through every block under the remat policy,
+        layer l with its dropout key dkeys[l].  Returns (x, a term the
+        blocks add to the loss, or None: GPT-2's blocks add none)."""
         block = self._block_fn()
         for bp, dkey in zip(self._layers(stacked), dkeys):
             x = block(x, bp, dkey, pctx)
-        return self.head(x, params=params, targets=targets, pctx=pctx)
+        return x, None
 
     # -- paged KV-cache decode (the serving tier) ---------------------------
 

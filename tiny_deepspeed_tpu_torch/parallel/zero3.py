@@ -22,7 +22,8 @@ gradients.  Here the same schedule is spelled out:
 - `Zero3Gather.prepare` (once per step, outside the layer loop and the
   remat): the non-block leaves gathered whole through `GatherFn` (f32),
   and the block shards cast to the compute dtype — so the per-layer
-  gathers move compute-dtype bytes (JAX's `stacked_compute_params`) —
+  gathers move compute-dtype bytes (JAX's `stacked_compute_params`; a
+  leaf the model keeps wider, MoE's router, in its `_stacked_dtype`) —
   or, under `gather_quant="fp8"`, quantized: each rank takes its slice's
   per-(layer, out-channel) absmax, an all-reduce MAX over the data group
   completes it (a rank holds only part of a channel's IN), and each rank
@@ -195,18 +196,20 @@ class Zero3Gather:
 
     def _quantize(self, name: str, shard: torch.Tensor):
         """The fp8 gather's rest form of one block weight's (L, own) f32
-        shard: (codes as uint8, scale (L, 1, out)), bit for bit JAX's
-        codes and scales."""
+        shard: (codes as uint8, scale (L, 1, ..., 1, out) — the absmax
+        over every axis but the layer's and the out-channel's, an expert
+        leaf's (E, IN) included), bit for bit JAX's codes and scales."""
         leaf = self.leaves["h." + name]
         v = shard.detach()
         col = leaf.cols(v.device).expand(self.n_layer, -1)
         amax = v.new_zeros(self.n_layer, leaf.shape[-1]).scatter_reduce_(
             1, col, v.abs(), "amax")
         dist.all_reduce(amax, op=_MAX, group=self.pctx.data_group)
-        scale = fp8_scale(amax)[:, None, :]
-        codes = (v / torch.gather(scale[:, 0, :], 1, col)).to(
+        scale = fp8_scale(amax)
+        codes = (v / torch.gather(scale, 1, col)).to(
             torch.float8_e4m3fn).view(torch.uint8)
-        return codes, scale
+        return codes, scale.view(self.n_layer, *[1] * (len(leaf.shape) - 1),
+                                 -1)
 
     def prepare(self, shards: Dict[str, torch.Tensor]):
         """Once per step: (the non-block leaves gathered whole, the block
@@ -225,7 +228,7 @@ class Zero3Gather:
                 stacked.update({short: codes, short + "#scale": scale,
                                 short + "#master": t})
             else:
-                stacked[short] = t.to(self.cd)
+                stacked[short] = t.to(self.model._stacked_dtype(short))
         return params, stacked
 
     def layer(self, bp: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:

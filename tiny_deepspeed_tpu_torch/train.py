@@ -6,6 +6,8 @@
     python -m tiny_deepspeed_tpu_torch.train [--model gpt2-124m] [--iters N]
     python -m tiny_deepspeed_tpu_torch.train --device cpu --model tiny
     python -m tiny_deepspeed_tpu_torch.train --model llama-160m
+    python -m tiny_deepspeed_tpu_torch.train --model moe-8x124m
+        [--moe-dispatch sort]                                 (one line)
     torchrun --standalone --nproc-per-node N -m tiny_deepspeed_tpu_torch.train
         --engine zero2 [--seq-parallel SP] [--device cpu]    (one line)
     torchrun ... -m tiny_deepspeed_tpu_torch.train --engine zero3
@@ -14,20 +16,19 @@
 Counterpart of `examples/{single_device,ddp,zero1,zero2,zero3}/train.py`
 with the harness of `examples/common.py` (`parse_args` / `run`): the same
 flags, with the same names and defaults, for what the port supports
-(`--dropout`, `--fused-xent`, `--seq-parallel`, `--gather-quant` among
-them), plus `--device` (default the card) and `--engine` (default
-`single`; `examples/zero3/train.py` defaults to gpt2-1.5b, here `--model`
-says so).  Seeded init, the JAX package's token stream (synthetic
-unless `--data`), `AdamW(lr, weight_decay, decay_exclude)` with an
-optional schedule, the engine with optional grad clipping and loss
-scaling.  A distributed
-engine runs one process per rank under torchrun (NCCL on the card, one
-card per rank; gloo with `--device cpu`); without torchrun it is a world
-of one.  Every rank draws the same global batch of `--batch-per-device`
-x world rows and trains on its block.  Rank 0 prints the engine's
-description, `model=... params=...M global_batch=B T=T`, `iter N loss X`
-per step, optional `iter N val_loss X`, and `done: N iters in Xs (Y
-tokens/s)`.
+(`--dropout`, `--fused-xent`, `--seq-parallel`, `--gather-quant`,
+`--moe-dispatch` among them), plus `--device` (default the card) and
+`--engine` (default `single`; `examples/zero3/train.py` defaults to
+gpt2-1.5b, here `--model` says so).  Seeded init, the JAX package's
+token stream (synthetic unless `--data`), `AdamW(lr, weight_decay,
+decay_exclude)` with an optional schedule, the engine with optional grad
+clipping and loss scaling.  A distributed engine runs one process per
+rank under torchrun (NCCL on the card, one card per rank; gloo with
+`--device cpu`); without torchrun it is a world of one.  Every rank
+draws the same global batch of `--batch-per-device` x world rows and
+trains on its block.  Rank 0 prints the engine's description, `model=...
+params=...M global_batch=B T=T`, `iter N loss X` per step, optional
+`iter N val_loss X`, and `done: N iters in Xs (Y tokens/s)`.
 """
 
 from __future__ import annotations
@@ -98,6 +99,12 @@ def parse_args(argv=None):
                         "weights stack as float8_e4m3 codes + per-channel "
                         "scales, so ZeRO-3's per-layer gathers move 1-byte "
                         "codes (lossy; also valid under the other engines)")
+    p.add_argument("--moe-dispatch", choices=("einsum", "sort"),
+                   default=None,
+                   help="MoE families only: token dispatch mechanism "
+                        "(MoEConfig.moe_dispatch — 'sort' skips the dense "
+                        "one-hot dispatch products on one device and under "
+                        "pure data parallelism)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--data", default=None, metavar="TOKENS.bin",
                    help="uint16 token corpus; default synthetic tokens")
@@ -138,9 +145,15 @@ def _lr(args):
 
 
 def _model_config(args):
-    """The preset with --dropout, --fused-xent and --gather-quant applied,
-    as examples/common.py:419-429 does."""
+    """The preset with --dropout, --fused-xent, --gather-quant and
+    --moe-dispatch applied, as examples/common.py:410-429 does (a knob
+    the family lacks exits)."""
     cfg = ALL_PRESETS[args.model]
+    if args.moe_dispatch:
+        if not hasattr(cfg, "moe_dispatch"):
+            raise SystemExit(f"--moe-dispatch: the {type(cfg).__name__} "
+                             "family has no moe_dispatch knob")
+        cfg = dataclasses.replace(cfg, moe_dispatch=args.moe_dispatch)
     if args.dropout:
         cfg = dataclasses.replace(cfg, dropout=args.dropout)
     if args.fused_xent:
