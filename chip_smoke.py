@@ -10,7 +10,8 @@ ring itself and the DDP / ZeRO-1 / ZeRO-2 engines, and ZeRO-3 with the
 fp8 weight gather (gpt2-124m and gpt2-1.5b) and the heads-last FA2
 kernels through their A/B; then the Llama family: RMSNorm's entries,
 llama-160m served and trained; then the MoE family: moe-8x124m trained
-with both dispatches.
+with both dispatches; then `generate` on all three families and a
+checkpoint's save and resume.
 
     python3 chip_smoke.py
 
@@ -247,11 +248,30 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      remat on and off bit for bit (wte as in 9c); then, on one
      batch and the same weights, the einsum loss against the sort loss
      (1e-2);
+ 11. sampling and checkpoints: a. `generate` (greedy) on gpt2-124m,
+     llama-160m and moe-8x124m (bf16, full width and depth, seeded
+     random weights), B=8 rows of a seeded 128-token prompt, 128 new
+     tokens: counts zeroed just before and read just after the call —
+     the prefill's norms, 12 FA2 forwards and one kv_write, 12 decode
+     launches a step each with its append, 23 norms with their add and
+     2 alone a step, and nothing else — and every plain version wrapped
+     to count its calls (none may run); prefill ms (the TTFT), decode
+     tokens/s, one profiled decode step's busy and idle share, peak
+     memory; the prefill's and first decode step's logits against the
+     plain path (5e-2 x max |logit|; MoE's plain path handed the kernel
+     path's expert choices); in f32 gpt2-124m's greedy tokens equal to
+     ServingEngine's on the same 8 prompts (32 tokens) and cached equal
+     to uncached over 8;  b. phase 4's config 6 steps straight (phase
+     4's first 6 losses bit for bit), then 3 steps + save + a fresh
+     model and engine loaded + 3 steps under SingleDevice and under
+     Zero3 at world 1 (NCCL), each bit for bit the straight run (losses,
+     params, moments, step): save and load seconds and bytes, in a temp
+     dir under build/chip_smoke/ that the phase removes;
   then the `kernels` JSON line (30 rows: the 22 kernels, rows 10kv, 1r
   and the decode append, the Triton LayerNorm forward pair and the v1
   writer, launched on no path, and the four RMS rows; launches by path,
-  the Llama paths `llama_*` and the MoE paths `moe_*` among them), then
-  the result line
+  the Llama paths `llama_*`, the MoE paths `moe_*` and the generate
+  paths `gen`, `L-gen`, `M-gen` among them), then the result line
   {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Imports nothing of JAX or of the JAX package.
@@ -4992,6 +5012,345 @@ def moe_engines_phase(torch, port, counters, steps=2):
     return paths
 
 
+# -- phase 11: generate and checkpoints ----------------------------------------
+
+# (launch path, preset): the generate paths of the `kernels` line
+GEN_PATHS = (("gen", "gpt2-124m"), ("L-gen", "llama-160m"),
+             ("M-gen", MOE))
+GEN_B, GEN_T0, GEN_NEW = 8, 128, 128
+# the plain versions the generate paths must never reach on the card:
+# (module attribute, module name in `main`)
+GEN_PLAIN = (("_paged_attention_plain", "pa"), ("_kv_write_plain", "pool"),
+             ("_ln_fwd_plain", "ln"), ("_add_ln_fwd_plain", "ln"),
+             ("_fa2_fwd_plain", "fa"), ("_rms_fwd_plain", "rn"),
+             ("_add_rms_fwd_plain", "rn"))
+
+
+def is_llama_path(p):
+    return p.startswith("llama_") or p == "L-gen"
+
+
+def gen_launches_want(cfg, new):
+    """Each generate kernel's launches in one greedy call: the prefill's
+    norms (ln_1 alone and ln_2 with its add a block, ln_f), one FA2
+    forward a layer and one kv_write for every layer; each of the new - 1
+    decode steps one decode launch (with its append) a layer, its first
+    ln_1 and ln_f alone and 23 norms with their add."""
+    n_l, steps = cfg.n_layer, new - 1
+    return {"norm": n_l + 1 + 2 * steps,
+            "add_norm": n_l + (2 * n_l - 1) * steps,
+            "fa2_flash_attention_fwd": n_l, "kv_write": 1,
+            "paged_attention": n_l * steps,
+            "paged_attention_append": n_l * steps}
+
+
+@contextlib.contextmanager
+def counted_plain(mods, calls):
+    """Every plain version in GEN_PLAIN wrapped to count its calls into
+    `calls` (a run on the card must leave it empty)."""
+    changes = []
+    for attr, mod in GEN_PLAIN:
+        m = mods[mod]
+        fn = getattr(m, attr)
+
+        def wrapped(*a, _fn=fn, _name=attr, **kw):
+            calls.append(_name)
+            return _fn(*a, **kw)
+        changes.append((m, attr, wrapped))
+    with swapped(*changes):
+        yield
+
+
+def gen_first_logits(model, prompt, tok=None):
+    """The prefill's and the first decode step's logits, (B, V) f32 each,
+    over a fresh private pool; the decode step takes `tok` when given
+    (the plain path decodes the kernel path's token)."""
+    b, t0 = prompt.shape
+    cache = model._gen_cache(b, t0 + GEN_NEW)
+    stacked = model.stacked_compute_params()
+    hp = model.head_compute_params()
+    l0 = model._prefill(prompt, cache, stacked, hp)
+    tok = l0.argmax(-1) if tok is None else tok
+    l1 = model._decode_step(tok, t0, cache, stacked, hp)
+    return l0, l1, tok, (cache, stacked, hp)
+
+
+def gen_logits_check(model, prompt, plain_ops, is_moe):
+    """First decode step's logits, kernel path against the plain path on
+    the card (5e-2 x max |logit|); the MoE plain path is handed the
+    kernel path's expert choices (`moe_routing`)."""
+    picks, own = [], []
+    with (moe_routing(model, picks) if is_moe
+          else contextlib.nullcontext()):
+        k0, k1, tok, kept = gen_first_logits(model, prompt)
+    with plain_ops(), (moe_routing(model, picks, own) if is_moe
+                       else contextlib.nullcontext()):
+        p0, p1, _, _ = gen_first_logits(model, prompt, tok)
+    err0, err1 = max_err(k0, p0), max_err(k1, p1)
+    scale0, scale1 = float(p0.abs().max()), float(p1.abs().max())
+    agree = None
+    if is_moe:
+        agree = min(float((a == b).all(-1).float().mean())
+                    for a, b in zip(picks, own))
+    return {"prefill_err": err0, "prefill_scale": scale0,
+            "decode_err": err1, "decode_scale": scale1,
+            "argmax_agree": float((k1.argmax(-1) == p1.argmax(-1))
+                                  .float().mean()),
+            "moe_own_choices_agree_min": agree}, kept
+
+
+def gen_plain_ops(pa, pool_mod, qm, rn):
+    """Every kernel wrapper the generate paths reach swapped for its plain
+    version: serving's (`plain_serving_ops`) and the RMS entries."""
+    stack = contextlib.ExitStack()
+    stack.enter_context(plain_serving_ops(pa, pool_mod, qm))
+    stack.enter_context(llama_plain_ops(rn))
+    return stack
+
+
+def gen_phase(torch, np, port, counters, mods, plain_ops):
+    """11a: generate on gpt2-124m, llama-160m and moe-8x124m (bf16, full
+    width and depth, seeded random weights): B=8 rows of a 128-token
+    seeded prompt, 128 new greedy tokens.  Counts zeroed just before the
+    timed call and read just after: every decode step on 9a with its
+    append, the prefill on #4, the norms and one kv_write, no plain
+    version (each wrapped to count); prefill ms (the TTFT), decode
+    tokens/s, one profiled decode step's busy and idle, peak memory; the
+    first decode step's logits against the plain path."""
+    paths, res = {}, {}
+    rng = np.random.default_rng(11)
+    for path, preset in GEN_PATHS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = port.build_model(preset).init(
+            torch.Generator(device="cuda").manual_seed(0))
+        cfg = model.config
+        prompt = torch.as_tensor(rng.integers(0, 50257, (GEN_B, GEN_T0)),
+                                 device="cuda")
+        model.generate(prompt[:, :16], 4, temperature=0.0)  # warm
+        is_moe = preset == MOE
+        check_res, kept = gen_logits_check(model, prompt, plain_ops,
+                                           is_moe)
+        seg = {}
+        prefill = model._prefill
+
+        def timed_prefill(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = prefill(*a)
+            out.argmax(-1).cpu()  # the first token on the host: the TTFT
+            seg["prefill_s"] = time.perf_counter() - t
+            return out
+
+        model._prefill = timed_prefill
+        plain_calls = []
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with counted_plain(mods, plain_calls):
+            out = model.generate(prompt, GEN_NEW, temperature=0.0)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        del model._prefill
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        paths[path] = launches
+        norm, add = (("rmsnorm_fwd", "add_rmsnorm_fwd") if path == "L-gen"
+                     else ("layernorm_fwd", "add_layernorm_fwd"))
+        want = gen_launches_want(cfg, GEN_NEW)
+        got = {"norm": launches[norm], "add_norm": launches[add],
+               **{k: launches[k] for k in want if k in launches}}
+        check(got == want, f"11a {preset}: launches {got}, expected {want}")
+        on_path = {norm, add, *[k for k in want if k in launches]}
+        check(not any(v for k, v in launches.items() if k not in on_path),
+              f"11a {preset}: a kernel off the generate path ran: "
+              f"{ {k: v for k, v in launches.items() if v and k not in on_path} }")
+        check(not plain_calls, f"11a {preset}: plain versions ran on the "
+              f"card: {sorted(set(plain_calls))}")
+        check(out.shape == (GEN_B, GEN_T0 + GEN_NEW)
+              and torch.equal(out[:, :GEN_T0], prompt)
+              and int(out.min()) >= 0 and int(out.max()) < cfg.vocab_size,
+              f"11a {preset}: output malformed")
+        cr = check_res
+        check(cr["prefill_err"] <= 5e-2 * cr["prefill_scale"]
+              and cr["decode_err"] <= 5e-2 * cr["decode_scale"],
+              f"11a {preset}: logits disagree with the plain path: {cr}")
+        # one decode step, profiled, over the check's pool (position T0+1)
+        cache, stacked, hp = kept
+        tok = out[:, GEN_T0].contiguous()
+        prof = profiled(torch, lambda: model._decode_step(
+            tok, GEN_T0 + 1, cache, stacked, hp))
+        check(prof is not None, "the profiler recorded no device time")
+        _, busy, rows = kernel_shares(torch, prof, PATTERNS)
+        with open(os.path.join(OUT_DIR, f"{path}_profile.txt"), "w") as f:
+            for us, n, key in rows:
+                f.write(f"{us / 1e3:12.3f} ms {n:8d}  {key}\n")
+        ttft = seg["prefill_s"]
+        decode_s = wall - ttft
+        step_ms = decode_s / (GEN_NEW - 1) * 1e3
+        r = {"preset": preset, "wall_s": wall, "prefill_ms": ttft * 1e3,
+             "decode_s": decode_s, "decode_step_ms": step_ms,
+             "decode_tok_s": GEN_B * (GEN_NEW - 1) / decode_s,
+             "end_to_end_tok_s": GEN_B * GEN_NEW / wall,
+             "profiled_step_busy_ms": busy / 1e3,
+             "profiled_step_records": sum(n for _, n, _ in rows),
+             "idle_share": 1 - busy / 1e3 / step_ms, "peak_gib": peak,
+             "launches": got, **cr}
+        res[path] = r
+        print(f"  {path} {preset}: prefill (B={GEN_B} T0={GEN_T0}) "
+              f"{r['prefill_ms']:.3f} ms (the TTFT); {GEN_NEW - 1} decode "
+              f"steps {decode_s:.4f}s -> {r['decode_tok_s']:.2f} decode "
+              f"tok/s ({step_ms:.4f} ms a step; end to end "
+              f"{r['end_to_end_tok_s']:.2f} tok/s); one profiled step busy "
+              f"{r['profiled_step_busy_ms']:.4f} ms, "
+              f"{r['profiled_step_records']} records, idle share "
+              f"{r['idle_share']:.4f}; peak {peak:.2f} GiB")
+        print(f"    launches {got} (= expected; plain versions 0; 9a "
+              f"appends {launches['paged_attention_append']}); logits vs "
+              f"plain: prefill {cr['prefill_err']:.4g} (max|logit| "
+              f"{cr['prefill_scale']:.4g}), first decode step "
+              f"{cr['decode_err']:.4g} ({cr['decode_scale']:.4g}), tol "
+              f"5e-2 x max|logit|; argmax agree {cr['argmax_agree']:.3f}"
+              + ("" if not is_moe else f"; the plain path's own choices "
+                 f"agree on >= {cr['moe_own_choices_agree_min']:.3f} of "
+                 "the tokens a router call"))
+        for us, n, key in rows[:6]:
+            print(f"      {us / 1e3:9.4f} ms x{n:<4d} {key[:80]}")
+        if path == "gen":
+            res["f32"] = gen_f32_identity(torch, port, model, prompt)
+        del model, cache, stacked, hp, kept, prof
+        torch.cuda.empty_cache()
+    return paths, res
+
+
+def gen_f32_identity(torch, port, model, prompt):
+    """gpt2-124m in f32 (the same weights): greedy `generate` equal to the
+    port's ServingEngine on the same 8 prompts (32 new tokens), and the
+    cached path to the uncached one over 8 tokens."""
+    cfg = dataclasses.replace(model.config, compute_dtype=torch.float32)
+    m32 = port.GPT2Model(cfg)
+    m32.load_state_dict(model.state_dict())
+    new = 32
+    out = m32.generate(prompt, new, temperature=0.0)
+    from tiny_deepspeed_tpu_torch.serving import ServeConfig, ServingEngine
+    per = -(-(GEN_T0 + new) // 16) + 1
+    eng = ServingEngine(m32, ServeConfig(max_active=GEN_B, block_tokens=16,
+                                         num_blocks=GEN_B * per))
+    reqs = [eng.submit(p, new) for p in prompt.tolist()]
+    eng.drain(max_ticks=10_000)
+    check(all(r.status == "ok" for r in reqs), "11a f32: serving failed")
+    served = [r.tokens for r in reqs]
+    mine = out[:, GEN_T0:].tolist()
+    same = mine == served
+    cached = m32.generate(prompt, 8, temperature=0.0)
+    uncached = m32.generate(prompt, 8, temperature=0.0, use_cache=False)
+    same_uc = torch.equal(cached, uncached)
+    agree = sum(a == b for x, y in zip(mine, served) for a, b in zip(x, y))
+    print(f"  f32 gpt2-124m: generate == ServingEngine over 8 prompts x "
+          f"{new} tokens: {same} ({agree} of {GEN_B * new} tokens agree); "
+          f"cached == uncached over 8 tokens: {same_uc}")
+    check(same, "11a f32: generate's greedy tokens differ from the "
+          "serving engine's")
+    check(same_uc, "11a f32: cached generate differs from uncached")
+    del m32, eng
+    torch.cuda.empty_cache()
+    return {"same_as_serving": same, "cached_equals_uncached": same_uc}
+
+
+def ckpt_run(torch, port, engine_cls, batches, ckpt_dir=None, **kw):
+    """Phase 4's config on `engine_cls`: the 6 steps straight (ckpt_dir
+    None), or 3 steps, save, a fresh model and engine loaded from the
+    checkpoint (no init drawn), 3 steps.  Returns (losses, whole params,
+    whole optimizer state, save s, load s, bytes)."""
+    from tiny_deepspeed_tpu_torch.utils import checkpoint as ck
+    cfg = port.GPT2_PRESETS["gpt2-124m"]
+
+    def engine():
+        return engine_cls(port.GPT2Model(cfg),
+                          port.AdamW(lr=1e-5, weight_decay=0.1), **kw)
+
+    eng = engine()
+    state = eng.init(0)
+    losses, save_s, load_s, nbytes = [], None, None, None
+    for i, batch in enumerate(batches):
+        if ckpt_dir is not None and i == 3:
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            path = ck.save_checkpoint(ckpt_dir, state, 3)
+            save_s = time.perf_counter() - t
+            nbytes = sum(os.path.getsize(os.path.join(path, f))
+                         for f in os.listdir(path))
+            del eng, state
+            torch.cuda.empty_cache()
+            eng = engine()
+            t = time.perf_counter()
+            state = ck.load_checkpoint(ckpt_dir, eng)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t
+        state, loss = eng.step(state, batch)
+        losses.append(float(loss))
+    opt = eng.gather_opt_state(state)
+    params = eng.gather_params(state)
+    del eng, state
+    torch.cuda.empty_cache()
+    return losses, params, opt, save_s, load_s, nbytes
+
+
+def _same_state(torch, a, b):
+    """Bit for bit: params, the optimizer's step and every slot."""
+    if a[2]["step"] != b[2]["step"]:
+        return False
+    return all(torch.equal(a[1][n], b[1][n]) for n in a[1]) and all(
+        torch.equal(a[2]["state"][n][k], b[2]["state"][n][k])
+        for n in a[2]["state"] for k in a[2]["state"][n])
+
+
+def ckpt_phase(torch, port, phase4_losses):
+    """11b: phase 4's config (gpt2-124m, SingleDevice + AdamW(1e-5, wd
+    0.1), B=8 T=1024, the synthetic stream seed 0): 6 steps straight
+    (phase 4's first 6 losses, bit for bit, when given),
+    then 3 + save + load + 3 under SingleDevice and under world-1 Zero3
+    (NCCL), each bit for bit the straight 6 — losses, params, the
+    optimizer's moments and step — in a temp dir under build/chip_smoke/
+    that the phase removes; save and load seconds and bytes."""
+    import shutil
+    import tempfile
+    cfg = port.GPT2_PRESETS["gpt2-124m"]
+    loader = port.TokenLoader(None, batch=8, seq=1024,
+                              vocab_size=cfg.vocab_size, seed=0)
+    batches = [loader.next() for _ in range(6)]
+    tmp = tempfile.mkdtemp(prefix="ckpt_", dir=OUT_DIR)
+    try:
+        straight = ckpt_run(torch, port, port.SingleDevice, batches)
+        check(phase4_losses is None or straight[0] == phase4_losses,
+              f"11b: the straight 6 steps {straight[0]} differ from phase "
+              f"4's {phase4_losses}")
+        out = {"single": ckpt_run(torch, port, port.SingleDevice, batches,
+                                  os.path.join(tmp, "single"))}
+        shutil.rmtree(os.path.join(tmp, "single"))
+        with nccl_world1(torch):
+            out["zero3"] = ckpt_run(torch, port, port.Zero3, batches,
+                                    os.path.join(tmp, "zero3"))
+        res = {"losses": straight[0]}
+        for name in ("single", "zero3"):
+            r = out[name]
+            same = r[0] == straight[0] and _same_state(torch, r, straight)
+            res[name] = {"bitwise": same, "losses": r[0], "save_s": r[3],
+                         "load_s": r[4], "bytes": r[5]}
+            print(f"  {name}: 3 steps + save ({r[3]:.3f} s, {r[5]} bytes) "
+                  f"+ load ({r[4]:.3f} s) + 3 steps bit for bit the "
+                  f"straight 6 (losses, params, moments, step): {same}")
+            check(same, f"11b {name}: the resumed run differs from the "
+                  f"straight one: {r[0]} vs {straight[0]}")
+        print(f"  the straight 6 losses {[round(x, 4) for x in straight[0]]}"
+              " (= phase 4's first 6)")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    check(not os.path.exists(tmp), "11b: the temp dir was not removed")
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5294,6 +5653,19 @@ def main():
     print(f"phase 10: {time.perf_counter() - t10:.2f}s")
     lap("phase 10")
 
+    t11 = time.perf_counter()
+    print("phase 11: generate on gpt2-124m, llama-160m and moe-8x124m (the "
+          "paged decode kernel with its append over a private pool); "
+          "checkpoint and resume under SingleDevice and world-1 Zero3")
+    mods = {"pa": pa, "pool": pool_mod, "ln": ln, "fa": fa, "rn": rn}
+    gen_paths, gen_res = gen_phase(
+        torch, np, port, counters, mods,
+        lambda: gen_plain_ops(pa, pool_mod, qm, rn))
+    lap("11a, generate")
+    ckpt_res = ckpt_phase(torch, port, train["losses13"][:6])
+    lap("11b, checkpoints")
+    print(f"phase 11: {time.perf_counter() - t11:.2f}s")
+
     timed = ("shape", "ms", "plain_ms", "library_ms", "call_ms", "bound_ms",
              "bound_by")
     extra_keys = TURN_KEYS + UNFUSED_KEYS + PARENT_KEYS + V1_KEYS
@@ -5313,7 +5685,8 @@ def main():
                    **{p: v["launches"][name] for p, v in z3_res.items()},
                    "zero3_1.5b": xl["launches"][name],
                    **{p: v[name] for p, v in llama_paths.items()},
-                   **{p: v[name] for p, v in moe_paths.items()}}
+                   **{p: v[name] for p, v in moe_paths.items()},
+                   **{p: v[name] for p, v in gen_paths.items()}}
         row = {"name": name, "route": route, "source": source,
                "replaces": replaces, "launches": sum(by_path.values()),
                "launches_by_path": by_path,
@@ -5496,19 +5869,27 @@ def main():
           + (f" ({', '.join(events)})" if events else ""))
     check(len(kernels) == 30, f"{len(kernels)} kernel rows")
     gpt2_paths = [p for p in kernels[0]["launches_by_path"]
-                  if not p.startswith("llama_")]
+                  if not is_llama_path(p)]
     for row in kernels[26:]:
         by = row["launches_by_path"]
         want = ("llama_training",) if row["name"].startswith(
-            "rmsnorm_bwd") else ("llama_serving", "llama_training")
+            "rmsnorm_bwd") else ("llama_serving", "llama_training", "L-gen")
         check(all(by[p] > 0 for p in want),
               f"{row['name']} was never launched on {want}: {by}")
         check(not any(by[p] for p in gpt2_paths),
               f"{row['name']} ran on a GPT-2 path: {by}")
     for row in (kernels[0], kernels[21]):  # rows 1 and 1r
         check(not any(v for p, v in row["launches_by_path"].items()
-                      if p.startswith("llama_")),
+                      if is_llama_path(p)),
               f"{row['name']} ran on a Llama path")
+        check(all(row["launches_by_path"][p] > 0 for p in ("gen", "M-gen")),
+              f"{row['name']} never ran on a GPT-2 / MoE generate path")
+    # rows 4, 9a (every launch with its append) and 10kv on every
+    # generate path
+    for row in (kernels[1], kernels[2], kernels[20], kernels[24]):
+        check(all(row["launches_by_path"][p] > 0 for p, _ in GEN_PATHS),
+              f"{row['name']} never ran on a generate path: "
+              f"{row['launches_by_path']}")
     for row in kernels[14:17]:
         check(row["launches_by_path"]["ring4"] > 0,
               f"{row['name']} was never launched on the ring path")
@@ -5529,7 +5910,8 @@ def main():
                    "ticks": ticks, "llama_serving": llama_serve,
                    "llama_training": {k: v for k, v in llama_train.items()
                                       if k != "launches"},
-                   "moe_training": moe_train},
+                   "moe_training": moe_train,
+                   "generate": gen_res, "checkpoint": ckpt_res},
                   f, indent=1, default=str)
     print(f"total {time.perf_counter() - t_all:.2f}s")
     print(json.dumps({"kernels": kernels}))

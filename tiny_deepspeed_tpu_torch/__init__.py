@@ -36,7 +36,12 @@ easy to find.  Ported so far:
   dispatches, routing global across ranks as JAX's GSPMD routes it)
   trained under every engine (`python -m tiny_deepspeed_tpu_torch.train
   --model moe-8x124m [--moe-dispatch sort]`); serving refuses it, as
-  JAX's does.
+  JAX's does;
+- slice 17, sampling and checkpoints: `GPT2Model.generate` for every
+  family over a private paged pool (`python -m
+  tiny_deepspeed_tpu_torch.generate [--ckpt DIR]`, the byte tokenizer in
+  `data/tokenizer.py`), and atomic per-rank save / resume under every
+  engine (`utils/checkpoint.py`; `train --checkpoint-every N --resume`).
 
 Every Pallas kernel those paths run on a TPU is rewritten for Hopper:
 layernorm forward, dx and dw/db in Triton (ops/layernorm.py); the fused

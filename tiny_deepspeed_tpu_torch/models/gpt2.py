@@ -38,6 +38,13 @@ Serving: the `return_kv` prefill hook, the paged decode step, the
 speculative verify span (`paged_verify`, `head_span`; also the prefix
 cache's suffix prefill) and the inference head, all without a graph.
 
+Sampling: `generate` (JAX :1204-1280), cached or not.  The cached path
+keeps JAX's dense cache in the paged pool's layout — a private
+`PagedKVPool` in which row b owns one fixed run of blocks (`GenCache`) —
+so its prompt pass is one batched block pass plus one `kv_write`, and
+each token one paged decode step, the serving tier's decode kernel with
+its append (9a) on the card, every row at the same position.
+
 `GPTConfig(gather_quant="fp8")` (JAX :84-104, :826-900): the block
 matmul weights stack once per step as float8_e4m3 codes plus a
 per-(layer, out-channel) f32 scale, and every path that reads a block
@@ -57,7 +64,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import functools
-from typing import Any, Dict, List, Optional, Union
+from typing import Any, Dict, List, NamedTuple, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -73,6 +80,7 @@ from ..ops.layernorm import add_layernorm, layernorm
 from ..ops.linear import linear
 from ..ops.paged_attn import decode_attention, paged_attention
 from ..ops.softmax_xent import fused_linear_xent, softmax_cross_entropy
+from .sampling import sample_logits
 
 
 @dataclasses.dataclass(frozen=True)
@@ -771,3 +779,147 @@ class GPT2Model(nn.Module):
             vs.append(v.to(cdt))
         view = paged_scatter(view, ks, vs, block_ids, block_tokens)
         return self.head(x, position=last_pos, params=head_params)[:, 0], view
+
+    # -- generate: the sampling loop (JAX :1204-1280) ------------------------
+
+    # tokens a block of generate's private pool (the serving default)
+    GEN_BLOCK_TOKENS = 16
+
+    def _gen_cache(self, b: int, total: int) -> "GenCache":
+        """The private pool for B rows of `total` positions at
+        `resolved_cache_dtype`: B*W usable blocks, W = ceil(total /
+        GEN_BLOCK_TOKENS), row b's table [1 + b*W, 1 + (b+1)*W).  int8 /
+        fp8 caches are refused, as JAX's cache_dtype refuses them."""
+        from ..serving.pool import PagedKVPool
+        c = self.config
+        cdt = resolved_cache_dtype(c)
+        if cdt not in (torch.float32, torch.bfloat16, torch.float16):
+            raise ValueError(
+                f"generate's cache rests in f32, bf16 or f16, not {cdt}: "
+                "int8/fp8 cache compression lives in the serving pool "
+                "(ServeConfig(quant=...))")
+        bt = self.GEN_BLOCK_TOKENS
+        w = -(-total // bt)
+        pool = PagedKVPool(n_layer=c.n_layer,
+                           kv_heads=getattr(c, "kv_heads", c.n_head),
+                           head_dim=c.head_dim, num_blocks=b * w,
+                           block_tokens=bt, dtype=cdt, device=self.device)
+        tables = torch.tensor(pool.alloc(b * w), dtype=torch.int32,
+                              device=self.device).view(b, w)
+        p = torch.arange(total, device=self.device)
+        return GenCache(
+            view=pool.view, tables=tables,
+            blk=tables.long()[:, p // bt].t().contiguous(),
+            off=(p % bt)[:, None].expand(total, b).contiguous(),
+            pos=p.to(torch.int32)[:, None].expand(total, b).contiguous())
+
+    def _prefill_body(self, x, bp: Params):
+        """One block of generate's prompt pass: (x, (k, v)) (JAX :479).  A
+        family whose block returns more (MoE's aux term) drops it here."""
+        return self._block(x, bp, return_kv=True)
+
+    @torch.no_grad()
+    def _prefill(self, idx, cache: "GenCache", stacked: Params,
+                 head_params: Params):
+        """generate's prompt pass (JAX `_prefill`, :485): the (B, T0)
+        prompt through every block in one batch, every layer's K/V written
+        into the cache at positions [0, T0) by one `kv_write` (row 10kv),
+        and the (B, V) f32 logits at the last position."""
+        from ..serving import pool as pool_mod
+        t0 = idx.shape[1]
+        x = self.embed(idx)
+        cdt = cache.view.k.dtype
+        ks, vs = [], []
+        for l in range(self.config.n_layer):
+            x, (k, v) = self._prefill_body(x, self._layer(stacked, l))
+            # (B, T0, KVH, Dh) views: row b*T0 + t is position t of row b
+            ks.append(k.to(cdt).transpose(1, 2))
+            vs.append(v.to(cdt).transpose(1, 2))
+        pool_mod.kv_write(cache.view, ks, vs,
+                          cache.blk[:t0].t().reshape(-1),
+                          cache.off[:t0].t().reshape(-1), 0)
+        return self.head(x, params=head_params)[:, 0]
+
+    @torch.no_grad()
+    def _decode_step(self, tok, i: int, cache: "GenCache", stacked: Params,
+                     head_params: Params):
+        """One token a row at position i (JAX's loop body, :557-565):
+        `_embed_decode`, the paged decode over the cache (the step's K/V
+        appended at i), the head: (B, V) f32 logits."""
+        page = cache.page(i)
+        x = self._embed_decode(tok, page.pos)
+        x, _ = self.paged_decode(stacked, x, cache.view, page)
+        return self.head(x, params=head_params)[:, 0]
+
+    @torch.no_grad()
+    def generate(self, idx, max_new_tokens: int, *,
+                 temperature: float = 1.0, top_k: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None,
+                 use_cache: bool = True) -> torch.Tensor:
+        """Autoregressive sampling (JAX :1204): (B, T0) prompt -> (B, T0 +
+        max_new_tokens) int64 tokens on the model's device.
+
+        use_cache=True runs the prompt once (`_prefill`) and then one (B,
+        1, D) paged decode step a token over the private cache; the last
+        token is only sampled, so N new tokens take N - 1 decode steps.
+        use_cache=False re-runs `apply` over a fixed (B, block_size)
+        buffer a token.  temperature 0 is greedy and needs no generator;
+        any other temperature needs an explicit `generator` (no silent
+        seed), whose draws are not JAX's bits; sampling goes through the
+        one core shared with the serving tier (models/sampling.py)."""
+        c = self.config
+        idx = torch.as_tensor(idx, device=self.device).long()
+        b, t0 = idx.shape
+        total = t0 + max_new_tokens
+        if total > c.block_size:
+            raise ValueError(f"prompt {t0} + new {max_new_tokens} tokens > "
+                             f"block_size {c.block_size}")
+        if temperature != 0.0 and generator is None:
+            raise ValueError(
+                "stochastic sampling (temperature != 0) requires an "
+                "explicit generator; pass generator=torch.Generator(...)"
+                ".manual_seed(...) or use temperature=0.0 for greedy "
+                "decoding")
+        if not use_cache:
+            buf = torch.zeros((b, c.block_size), dtype=torch.long,
+                              device=self.device)
+            buf[:, :t0] = idx
+            for i in range(t0, total):
+                logit = self.apply(buf, position=i - 1)[:, 0]
+                buf[:, i] = sample_logits(logit, generator, temperature,
+                                          top_k)
+            return buf[:, :total]
+        buf = torch.zeros((b, total), dtype=torch.long, device=self.device)
+        buf[:, :t0] = idx
+        if max_new_tokens == 0:
+            return buf
+        stacked = self.stacked_compute_params()
+        head_params = self.head_compute_params()
+        cache = self._gen_cache(b, total)
+        logits = self._prefill(idx, cache, stacked, head_params)
+        # N-1 decode steps: the last token needs only its sample
+        for i in range(t0, total - 1):
+            nxt = sample_logits(logits, generator, temperature, top_k)
+            buf[:, i] = nxt
+            logits = self._decode_step(nxt, i, cache, stacked, head_params)
+        buf[:, total - 1] = sample_logits(logits, generator, temperature,
+                                          top_k)
+        return buf
+
+
+class GenCache(NamedTuple):
+    """generate's dense cache in the paged pool's layout: `view` the
+    private pool's tensors, `tables` (B, W) int32 each row's blocks, and
+    per position p the write coordinates of every row, (total, B) each:
+    `blk` and `off` int64, `pos` int32 (= p, the mask bound)."""
+
+    view: Any
+    tables: torch.Tensor
+    blk: torch.Tensor
+    off: torch.Tensor
+    pos: torch.Tensor
+
+    def page(self, i: int):
+        """The decode step's PageRef at position i (contiguous rows)."""
+        from ..serving.pool import PageRef
+        return PageRef(self.tables, self.blk[i], self.off[i], self.pos[i])

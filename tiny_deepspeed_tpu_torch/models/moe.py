@@ -12,7 +12,11 @@ loop sums those terms through each block's remat checkpoint and `apply`
 adds `aux_loss_weight * sum / n_layer` to the loss.  Every engine and the
 fp8 gather run it; the serving engine refuses it (`paged_decode_capable
 = False`, as in JAX: static per-expert capacity over a batch of slots at
-mixed positions would skew the routing).
+mixed positions would skew the routing).  `generate` decodes it: its
+prompt pass drops the aux term (`_prefill_body`) and each decode step
+routes the step's B tokens together with the drop-free capacity B*k
+(`_mlp`, the decode's MLP hook; JAX `_block_decode`, :466-480), under
+either dispatch.
 
 - The router reads its input and its weight in f32 (`stacked_compute_
   params` and ZeRO-3's `prepare` keep `moe.router.w` f32 through
@@ -221,18 +225,20 @@ class MoEGPT(GPT2Model):
         frac = first.float() / tokens
         return self.config.n_expert * torch.sum(frac * probs.mean(0))
 
-    def _capacity(self, tokens: int) -> int:
-        """Slots an expert holds for a panel of `tokens` (JAX :256)."""
+    def _capacity(self, tokens: int, capacity=None) -> int:
+        """Slots an expert holds for a panel of `tokens` (JAX :256), or
+        `capacity` when given (the decode's drop-free S*k)."""
         c = self.config
-        return max(1, int(c.capacity_factor * c.expert_top_k * tokens
-                          / c.n_expert))
+        return capacity or max(1, int(c.capacity_factor * c.expert_top_k
+                                      * tokens / c.n_expert))
 
-    def _slots(self, expert_idx, rows: int, pctx):
+    def _slots(self, expert_idx, rows: int, pctx, capacity=None):
         """Each (token, choice)'s slot in its expert under the einsum
         path's fill (JAX :262-270): choice by choice, in global token
-        order.  expert_idx (S, k) holds `rows` rows of the rank's block.
-        Returns (pos (S, k) int64, keep (S, k) bool, capacity, the global
-        first-choice count (E,), the global token count).
+        order.  expert_idx (S, k) holds `rows` rows of the rank's block;
+        `capacity` overrides the formula's.  Returns (pos (S, k) int64,
+        keep (S, k) bool, capacity, the global first-choice count (E,),
+        the global token count).
 
         Per choice, a token's position is the number of earlier tokens of
         that choice on its expert plus the slots the earlier choices
@@ -260,7 +266,7 @@ class MoEGPT(GPT2Model):
             mine = ((pctx.data_rank * rows + mine) * pctx.seq_size
                     + pctx.seq_rank)
         tokens = s * world
-        cap = self._capacity(tokens)
+        cap = self._capacity(tokens, capacity)
         total = chunks.sum(0)                  # (k, E) over the world
         kept = [torch.zeros_like(total[0])]    # slots used before choice j
         for j in range(k - 1):
@@ -271,10 +277,11 @@ class MoEGPT(GPT2Model):
         return pos, pos < cap, cap, total[0], tokens
 
     def _route(self, x, router_w, rows: int = 1, pctx=None,
-               dtype=torch.float32):
+               dtype=torch.float32, capacity=None):
         """The einsum path's tables (JAX :242-272) for x (S, D) f32, the
         rank's `rows` rows b-major: (dispatch (S, E, C), combine (S, E,
-        C), aux), in `dtype` — the values JAX builds in f32, cast.  A
+        C), aux), in `dtype` — the values JAX builds in f32, cast; C from
+        `capacity` when given.  A
         token's k choices sit in k different experts, so every (token,
         expert, slot) takes at most one write: a dropped choice writes its
         zero into slot 0 of its own expert, in its own row."""
@@ -282,7 +289,8 @@ class MoEGPT(GPT2Model):
         s = x.shape[0]
         e, k = c.n_expert, c.expert_top_k
         gate_vals, expert_idx, probs = self._router(x, router_w)
-        pos, keep, cap, first, tokens = self._slots(expert_idx, rows, pctx)
+        pos, keep, cap, first, tokens = self._slots(expert_idx, rows, pctx,
+                                                    capacity)
         tok = torch.arange(s, device=x.device)[:, None].expand(s, k)
         col = expert_idx * cap + torch.where(keep, pos, 0)
         dispatch = torch.zeros(s, e * cap, dtype=dtype, device=x.device)
@@ -293,8 +301,9 @@ class MoEGPT(GPT2Model):
         return (dispatch.view(s, e, cap), combine.view(s, e, cap),
                 self._aux(probs, first, tokens))
 
-    def _route_sort(self, x, router_w):
-        """The sort path's tables (JAX :293-325) for x (S, D) f32: (src
+    def _route_sort(self, x, router_w, capacity=None):
+        """The sort path's tables (JAX :293-325) for x (S, D) f32, C from
+        `capacity` when given: (src
         (E*C,) each slot's token, S where empty; gate (E*C,) f32 each
         slot's combine weight; aux; inv (S, k) each (token, choice)'s
         slot, E*C where dropped).  Slots fill token-major (a stable sort
@@ -303,7 +312,7 @@ class MoEGPT(GPT2Model):
         c = self.config
         s = x.shape[0]
         e, k = c.n_expert, c.expert_top_k
-        cap = self._capacity(s)
+        cap = self._capacity(s, capacity)
         gate_vals, expert_idx, probs = self._router(x, router_w)
         flat_e = expert_idx.reshape(-1)        # (S*k,) token-major
         order = torch.sort(flat_e, stable=True).indices
@@ -342,19 +351,20 @@ class MoEGPT(GPT2Model):
             ye = ye + bp["moe.proj.b"][:, None]
         return ye
 
-    def _moe_mlp(self, x, bp: Params, pctx=None):
+    def _moe_mlp(self, x, bp: Params, pctx=None, capacity=None):
         """x (B, T, D) -> ((B, T, D), aux) (JAX :329-397).  The router
         reads x and its weight in f32; the einsum tables take x's dtype
         before the two contractions (in bf16 the gates round, as in
-        JAX)."""
+        JAX).  `capacity` overrides the slots an expert holds."""
         b, t, d = x.shape
         xs = x.reshape(b * t, d)
         router_w = bp["moe.router.w"].float()
         if effective_dispatch(self.config, pctx) == "sort":
-            y, aux = self._moe_mlp_sort(xs, router_w, bp)
+            y, aux = self._moe_mlp_sort(xs, router_w, bp, capacity)
             return y.view(b, t, d), aux
         dispatch, combine, aux = self._route(xs.float(), router_w, rows=b,
-                                             pctx=pctx, dtype=x.dtype)
+                                             pctx=pctx, dtype=x.dtype,
+                                             capacity=capacity)
         s, e, cap = dispatch.shape
         # (S, E*C)^T (S, D) and (S, E*C) (E*C, D): the contractions over
         # the tokens
@@ -363,12 +373,13 @@ class MoEGPT(GPT2Model):
         y = combine.view(s, e * cap) @ ye.view(e * cap, d)
         return y.view(b, t, d), aux
 
-    def _moe_mlp_sort(self, xs, router_w, bp: Params):
+    def _moe_mlp_sort(self, xs, router_w, bp: Params, capacity=None):
         """The sort path on the flat (S, D) panel (JAX :412-430): gather
         each slot's token row (an empty slot a zero row), the experts,
         the gated outputs summed back into their tokens."""
         e, d = self.config.n_expert, xs.shape[1]
-        src, gate, aux, inv = self._route_sort(xs.float(), router_w)
+        src, gate, aux, inv = self._route_sort(xs.float(), router_w,
+                                               capacity)
         cap = src.shape[0] // e
         xe = SlotRows.apply(xs, src, inv).view(e, cap, d)
         ye = self._expert_ffn(xe, bp).reshape(e * cap, d)
@@ -406,3 +417,22 @@ class MoEGPT(GPT2Model):
             x, aux = block(x, bp, dkey, pctx)
             aux_sum = aux_sum + aux
         return x, c.aux_loss_weight * aux_sum / c.n_layer
+
+    # -- generate (JAX :460-480) ----------------------------------------------
+
+    def _prefill_body(self, x, bp: Params):
+        """generate's prompt pass drops the aux term, a training quantity
+        (JAX :460)."""
+        (x, _aux), kv = self._block(x, bp, return_kv=True)
+        return x, kv
+
+    def _mlp(self, h, bp: Params):
+        """The decode step's MLP (`_serve_layers`' hook; the training block
+        calls `_moe_mlp` itself): the step's S = B tokens routed together
+        under either dispatch with the drop-free capacity S*k — the
+        training formula would collapse to ~1 slot at S = B — and the aux
+        term dropped (JAX `_block_decode`, :466-480)."""
+        s = h.shape[0] * h.shape[1]
+        y, _aux = self._moe_mlp(h, bp,
+                                capacity=s * self.config.expert_top_k)
+        return y

@@ -116,6 +116,9 @@ class TrainState:
     # the dropout mask stream's base key (derived from the init seed)
     # when the model has dropout > 0; None otherwise (JAX :86-92)
     dropout_base: Optional[int] = None
+    # the engine and rank that hold this state (`ZeroEngine.layout`):
+    # what a checkpoint records and a load checks (utils/checkpoint.py)
+    layout: Optional[Dict[str, Any]] = None
 
 
 # knobs of the JAX engine the port refuses, with their off values
@@ -232,7 +235,59 @@ class ZeroEngine:
         base = (prng.fold_in(g.initial_seed(), 0xD0)
                 if self.model.config.dropout else None)
         return TrainState(params=params, opt_state=opt_state,
-                          scaler=scaler, dropout_base=base)
+                          scaler=scaler, dropout_base=base,
+                          layout=self.layout())
+
+    # -- the layout a checkpoint records -----------------------------------
+
+    def layout(self) -> Dict[str, Any]:
+        """This engine and rank: the engine's name and ZeRO stage, the
+        world, data and seq sizes, the rank's coordinates and the model's
+        whole param shapes.  Two states share a shard layout iff engine,
+        stage and sizes agree."""
+        p = self.pctx
+        return {"engine": type(self).__name__, "stage": self.stage,
+                "shapes": {n: list(s) for n, s in
+                           self.model.param_shapes().items()},
+                "world": 1 if p is None else p.world,
+                "data_size": 1 if p is None else p.data_size,
+                "seq_size": 1 if p is None else p.seq_size,
+                "rank": 0 if p is None else p.rank,
+                "data_rank": 0 if p is None else p.data_rank,
+                "seq_rank": 0 if p is None else p.seq_rank}
+
+    def state_target(self):
+        """The rank's TrainState tensors as `init` would build them, on
+        the meta device (no memory, no init drawn): (params, opt_state),
+        each leaf the shape and dtype the rank holds — whole leaves, or
+        ZeRO-3's shards; the optimizer's slots of whole leaves (stage 0),
+        of the rank's flat shard (stages 1-2) or of its ZeRO-3 shard."""
+        whole = {n: torch.empty(s, dtype=self.model.config.param_dtype,
+                                device="meta")
+                 for n, s in self.model.param_shapes().items()}
+        if self.stage >= 3:
+            params = {n: self._z3.shard(n, t) for n, t in whole.items()}
+            slots = params
+        elif self.stage >= 1:
+            params = whole
+            slots = {n: self._own(n, t) for n, t in whole.items()}
+        else:
+            params = slots = whole
+        return params, self.optimizer.init(slots)
+
+    @torch.no_grad()
+    def restore(self, params, opt_state, scaler=None,
+                dropout_base=None) -> TrainState:
+        """A TrainState from a checkpoint's tensors (this rank's, checked
+        against `state_target`, on the engine's device), in place of
+        `init`: the params are copied into the model's own parameters
+        (ZeRO-3 takes them as its shards)."""
+        state_params = self.model.param_dict()
+        for n, p in state_params.items():
+            p.copy_(params[n])
+        return TrainState(params=state_params, opt_state=opt_state,
+                          scaler=scaler, dropout_base=dropout_base,
+                          layout=self.layout())
 
     def _own(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """The rank's flat shard of a whole leaf (a view)."""
@@ -505,9 +560,25 @@ class Zero3(ZeroEngine):
         released (a forward takes the shards: `apply(params=...)`)."""
         shards = {n: self._z3.shard(n, p.detach()).clone().requires_grad_()
                   for n, p in params.items()}
-        for p in params.values():
-            p.data = p.data.new_empty(0)
+        self._release()
         return shards
+
+    def _release(self):
+        """Drop the model's whole parameters (the forward takes shards)."""
+        for p in self.model.parameters():
+            p.data = p.data.new_empty(0)
+
+    @torch.no_grad()
+    def restore(self, params, opt_state, scaler=None,
+                dropout_base=None) -> TrainState:
+        """The checkpoint's shards become the state's params, as new leaves
+        that require grad, and the model's whole parameters are released,
+        as `init` does — no whole leaf is built."""
+        self._release()
+        return TrainState(
+            params={n: t.detach().requires_grad_() for n, t in params.items()},
+            opt_state=opt_state, scaler=scaler, dropout_base=dropout_base,
+            layout=self.layout())
 
     def gather_params(self, state: TrainState) -> Dict[str, torch.Tensor]:
         """The whole params, all-gathered from the data ranks' shards."""

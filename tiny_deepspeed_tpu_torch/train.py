@@ -29,6 +29,16 @@ draws the same global batch of `--batch-per-device` x world rows and
 trains on its block.  Rank 0 prints the engine's description, `model=...
 params=...M global_batch=B T=T`, `iter N loss X` per step, optional
 `iter N val_loss X`, and `done: N iters in Xs (Y tokens/s)`.
+
+Checkpoints (`--checkpoint-every N --checkpoint-dir DIR`, legacy
+`--save-every` / `--save-dir`) commit the TrainState every N iters
+through `utils/checkpoint.py`, synchronously (`--checkpoint-sync` is the
+port's only mode).  `--resume` restores the latest committed step in
+place of init and seeks the data stream to its sample offset (the
+indexed stream when the global batch changed), so the run continues the
+uninterrupted one's losses; the lr schedule continues from the restored
+optimizer step.  JAX's async writer, SIGTERM drain and telemetry-driven
+checkpoints are not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ from .optim import AdamW
 from .optim import schedule as schedules
 from .parallel import (DDP, SingleDevice, Zero1, Zero2, Zero3,
                        init_distributed)
+from .utils import checkpoint as ckpt
 
 ENGINES = {"single": SingleDevice, "ddp": DDP, "zero1": Zero1,
            "zero2": Zero2, "zero3": Zero3}
@@ -123,6 +134,29 @@ def parse_args(argv=None):
     p.add_argument("--seq-impl", default="ring", choices=("ring", "ulysses"),
                    help="sequence-parallel attention (only the ring is "
                         "ported)")
+    p.add_argument("--save-every", type=int, default=0, metavar="N",
+                   help="legacy alias of --checkpoint-every")
+    p.add_argument("--save-dir", default="checkpoints", metavar="DIR",
+                   help="legacy alias of --checkpoint-dir")
+    p.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
+                   help="commit a checkpoint of the TrainState every N "
+                        "iters into --checkpoint-dir, atomically (tmp dir "
+                        "+ rename + COMMITTED marker; each rank writes what "
+                        "it holds; utils/checkpoint.py)")
+    p.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                   help="checkpoint directory (default: --save-dir, i.e. "
+                        "'checkpoints')")
+    p.add_argument("--checkpoint-sync", action="store_true",
+                   help="write checkpoints synchronously: the port's only "
+                        "mode (the async writer is not ported), accepted "
+                        "for the JAX scripts' command lines")
+    p.add_argument("--resume", action="store_true",
+                   help="resume from the latest COMMITTED checkpoint in "
+                        "--checkpoint-dir: the state restored in the "
+                        "engine's layout and the data stream sought to the "
+                        "saved sample offset, so the losses continue the "
+                        "uninterrupted run's.  The same engine and world "
+                        "size only (elastic resume is not ported)")
     args = p.parse_args(argv)
     if args.seq_len is None:
         args.seq_len = min(1024, ALL_PRESETS[args.model].block_size)
@@ -164,6 +198,30 @@ def _model_config(args):
     return cfg
 
 
+def _resume_stream(meta, start_iter: int, b: int, say):
+    """(sample offset to seek, indexed) for a run resumed at `start_iter`
+    with global batch b (examples/common.py:553-591): the per-batch
+    stream continues at the saved offset when the batch is unchanged; a
+    changed batch, or an offset it does not divide, continues on the
+    per-sample indexed stream at that offset."""
+    data = (meta or {}).get("data") or {}
+    saved_b = data.get("global_batch")
+    seen = data.get("samples_seen")
+    if data.get("indexed") or (saved_b is not None and int(saved_b) != b):
+        if not data.get("indexed"):
+            say(f"resume: global batch changed {int(saved_b)} -> {b}; "
+                "continuing on the indexed per-sample stream at offset "
+                f"{int(seen)}")
+        return int(seen), True
+    if seen is None:
+        return start_iter * b, False
+    if int(seen) % b:
+        say(f"resume offset {int(seen)} samples not divisible by global "
+            f"batch {b}: using the indexed loader")
+        return int(seen), True
+    return int(seen), False
+
+
 def run(args):
     kw = dict(grad_clip=args.grad_clip or None, loss_scale=args.loss_scale)
     device = args.device
@@ -185,15 +243,31 @@ def run(args):
     say(engine.describe())
     say(f"model={args.model} params={model.num_params() / 1e6:.1f}M "
         f"global_batch={b} T={args.seq_len}")
-    state = engine.init(args.seed)
+    ckpt_dir = args.checkpoint_dir or args.save_dir
+    ckpt_every = args.checkpoint_every or args.save_every
+    start_iter = 0
+    resume_step = ckpt.latest_step(ckpt_dir) if args.resume else None
+    seek, indexed = 0, False
+    if resume_step is not None:
+        # restore INSTEAD of init: the engine builds its layout from the
+        # checkpoint's tensors, no init drawn
+        state = ckpt.load_checkpoint(ckpt_dir, engine, step=resume_step)
+        start_iter = resume_step
+        say(f"resumed from {ckpt_dir} at iter {resume_step}")
+        seek, indexed = _resume_stream(ckpt.read_meta(ckpt_dir, resume_step),
+                                       start_iter, b, say)
+    else:
+        state = engine.init(args.seed)
     vocab = model.config.vocab_size
     loader = TokenLoader(args.data, batch=b, seq=args.seq_len,
-                         vocab_size=vocab, seed=args.seed)
+                         vocab_size=vocab, seed=args.seed, indexed=indexed)
+    if seek:
+        loader.seek_samples(seek)
     val_loader = (TokenLoader(args.val_data, batch=b, seq=args.seq_len,
                               vocab_size=vocab, seed=args.seed + 1)
                   if args.eval_every else None)
     t0 = time.perf_counter()
-    for it in range(args.iters):
+    for it in range(start_iter, args.iters):
         state, loss = engine.step(state, loader.next())
         loss = float(loss)  # syncs the step
         say(f"iter {it:3d} loss {loss:.4f}")
@@ -201,18 +275,27 @@ def run(args):
             vals = [float(engine.eval_loss(state, val_loader.next()))
                     for _ in range(args.eval_batches)]
             say(f"iter {it:3d} val_loss {sum(vals) / len(vals):.4f}")
+        if ckpt_every and (it + 1) % ckpt_every == 0:
+            path = ckpt.save_checkpoint(ckpt_dir, state, it + 1, meta={
+                "model": args.model,
+                "data": {"samples_seen": loader.samples_seen,
+                         "global_batch": b, "seed": args.seed,
+                         "indexed": loader.indexed}})
+            say(f"saved checkpoint at iter {it + 1} ({path})")
     if torch.device(args.device).type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    toks = args.iters * b * args.seq_len
-    say(f"done: {args.iters} iters in {dt:.1f}s ({toks / dt:.0f} tokens/s)")
+    n = args.iters - start_iter
+    toks = n * b * args.seq_len
+    say(f"done: {n} iters in {dt:.1f}s ({toks / max(dt, 1e-9):.0f} "
+        "tokens/s)")
     return state
 
 
 def main(argv=None):
     args = parse_args(argv)
     try:
-        run(args)
+        return run(args)
     finally:
         if args.engine != "single" and dist.is_initialized():
             dist.destroy_process_group()
