@@ -267,11 +267,33 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      Zero3 at world 1 (NCCL), each bit for bit the straight run (losses,
      params, moments, step): save and load seconds and bytes, in a temp
      dir under build/chip_smoke/ that the phase removes;
+ 12. the in-step collective schedule (inside phase 7c's NCCL group, every
+     count zeroed before each path and read after; every number beside
+     the card's name and power limit): a. through the engines at world
+     1 — DDP `grad_buckets=4`, Zero3 `gather_prefetch=2` and Zero3
+     `gather_prefetch=2, grad_buckets=4` under the fp8 gather, 3 steps
+     of phase 4's config each: JAX's inert warning for every slot, the
+     plain lowering, losses and params bit for bit SingleDevice's (phase
+     4's first 3 losses; fp8: phase 8c's); b. the executors built
+     directly over the one-rank group (the engines keep JAX's inert
+     rule): one forward and backward of phase 4's batch through the
+     prefetching gather at K=2 and K=3, the composed schedule under
+     Zero3 with 4 buckets, and the bucketed release at K=4 and K=12
+     under DDP — gradients bit for bit the on-demand path's (the
+     bucketed tail: the plain tail through the compute dtype, JAX's
+     pmean); the peak bytes of gathered layer weights against K layers'
+     worth (14.18 MB a gpt2-124m layer in bf16); one profiled pass's
+     share of the collectives' device time on the side streams that
+     overlaps compute kernels; the pass's ms beside the on-demand
+     pass's (reported, not claimed); c. from the layout: hpZ's per-rank
+     replica bytes for gpt2-1.5b at data 8 over 2 granules and the
+     gather wire a step with and without hpZ;
   then the `kernels` JSON line (30 rows: the 22 kernels, rows 10kv, 1r
   and the decode append, the Triton LayerNorm forward pair and the v1
   writer, launched on no path, and the four RMS rows; launches by path,
   the Llama paths `llama_*`, the MoE paths `moe_*` and the generate
-  paths `gen`, `L-gen`, `M-gen` among them), then the result line
+  paths `gen`, `L-gen`, `M-gen` and phase 12's `sched_*` / `exec_*`
+  among them), then the result line
   {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Imports nothing of JAX or of the JAX package.
@@ -290,6 +312,7 @@ import subprocess
 import sys
 import time
 import types
+import warnings
 
 # H100 SXM published peaks (dense) by operand type, the bound's
 # denominators
@@ -5351,6 +5374,312 @@ def ckpt_phase(torch, port, phase4_losses):
     return res
 
 
+
+# -- phase 12: the in-step collective schedule (parallel/schedule.py) -------
+
+SCHED_ENGINES = (("sched_ddp_b4", "DDP", dict(grad_buckets=4), None),
+                 ("sched_zero3_p2", "Zero3", dict(gather_prefetch=2), None),
+                 ("sched_zero3_p2_b4_fp8", "Zero3",
+                  dict(gather_prefetch=2, grad_buckets=4), "fp8"))
+# gpt2-124m: one block's params, and its bytes in bf16
+LAYER_PARAMS = 7_087_872
+
+
+def _sched_steps(torch, port, name, cfg, n=3, b=8, t=1024, **kw):
+    """`name` on `cfg` as engine_run builds it, `n` steps: (losses, whole
+    params, engine, the construction's warnings)."""
+    torch.cuda.empty_cache()
+    model = port.build_model(cfg)
+    with warnings.catch_warnings(record=True) as w:
+        warnings.simplefilter("always")
+        eng = getattr(port, name)(model, port.AdamW(lr=1e-5,
+                                                    weight_decay=0.1), **kw)
+    state = eng.init(0)
+    loader = port.TokenLoader(None, batch=b, seq=t,
+                              vocab_size=cfg.vocab_size, seed=0)
+    losses = [float(eng.step(state, loader.next())[1]) for _ in range(n)]
+    return losses, eng.gather_params(state), eng, [str(x.message) for x in w]
+
+
+def sched_engines_phase(torch, port, counters, train, z3_fp8_losses, card):
+    """12a: each knob set through its engine at world 1 — inert, with
+    JAX's warning, the plain path bit for bit."""
+    cfg = port.GPT2_PRESETS["gpt2-124m"]
+    refs = {}
+    for gq in (None, "fp8"):
+        losses, params, _, _ = _sched_steps(
+            torch, port, "SingleDevice",
+            dataclasses.replace(cfg, gather_quant=gq))
+        refs[gq] = (losses, params)
+    check(refs[None][0] == train["losses13"][:3],
+          f"12a: SingleDevice's 3 losses {refs[None][0]} are not phase 4's "
+          f"{train['losses13'][:3]}")
+    check(refs["fp8"][0] == z3_fp8_losses[:3],
+          f"12a: fp8 SingleDevice's losses {refs['fp8'][0]} are not phase "
+          f"8c's {z3_fp8_losses[:3]}")
+    paths = {}
+    for path, name, kw, gq in SCHED_ENGINES:
+        for fn in counters.values():
+            fn.launches = 0
+        losses, params, eng, warns = _sched_steps(
+            torch, port, name, dataclasses.replace(cfg, gather_quant=gq),
+            **kw)
+        paths[path] = {k: fn.launches for k, fn in counters.items()}
+        for k in TRAIN_KERNELS:
+            check(paths[path][k] > 0, f"12a {path}: {k} never launched")
+        slots = [w for w in warns if "inert on a 1-device data axis" in w]
+        check(len(slots) == 1 + ("grad_buckets" in kw and
+                                 "gather_prefetch" in kw),
+              f"12a {path}: warnings {warns}")
+        check(eng._schedule.lowering == "plain", f"12a {path}: lowering "
+              f"{eng._schedule.lowering}")
+        want_l, want_p = refs[gq]
+        check(losses == want_l and all(torch.equal(p, want_p[n])
+                                       for n, p in params.items()),
+              f"12a {path}: losses {losses} vs {want_l} or params differ")
+        print(f"  [{card}] 12a {name}({kw}{', fp8' if gq else ''}): "
+              f"{'; '.join(w.split(';')[0] for w in slots)}; lowering "
+              f"plain; 3 steps bit for bit SingleDevice's "
+              f"({'phase 8c fp8' if gq else 'phase 4'}): losses {losses}")
+        del eng, params
+    return paths
+
+
+def _trace_overlap(torch, fn):
+    """One profiled call of fn: (the share of the device time of the
+    collectives — every record on a stream other than the one that runs
+    the most kernel time — that overlaps a kernel on that compute stream,
+    the collectives' ms, the compute stream's kernel ms, their names)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        path = os.path.join(OUT_DIR, "sched_trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            ev = json.load(f).get("traceEvents", [])
+        dev = [e for e in ev if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                 "gpu_memset")
+               and "dur" in e]
+        if dev:
+            break
+    else:
+        return None
+    by = {}
+    for e in dev:
+        if e["cat"] == "kernel":
+            by[e["args"].get("stream")] = by.get(
+                e["args"].get("stream"), 0.0) + e["dur"]
+    main = max(by, key=by.get)
+    comp = sorted((e["ts"], e["ts"] + e["dur"]) for e in dev
+                  if e["cat"] == "kernel" and e["args"].get("stream") == main)
+    merged = []
+    for a, b in comp:
+        if merged and a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    side = [e for e in dev if e["args"].get("stream") != main]
+    total = sum(e["dur"] for e in side)
+    over = 0.0
+    for e in side:
+        a, b = e["ts"], e["ts"] + e["dur"]
+        over += sum(max(0.0, min(b, y) - max(a, x)) for x, y in merged)
+    names = sorted({e["name"][:40] for e in side})
+    return (over / total if total else 0.0, total / 1e3,
+            sum(y - x for x, y in merged) / 1e3, names)
+
+
+def _pass_turns(torch, arms, reps=3):
+    """Each arm's forward + backward wall ms, the median of `reps` taken
+    in turns (reported, not claimed)."""
+    times = {a: [] for a in arms}
+    for _ in range(reps):
+        for a, fn in arms.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times[a].append((time.perf_counter() - t0) * 1e3)
+    return {a: statistics.median(v) for a, v in times.items()}
+
+
+def _grads_equal(torch, got, want, what):
+    bad = [n for n, g in want.items() if not torch.equal(got[n], g)]
+    check(not bad, f"12b {what}: gradients differ from the on-demand "
+          f"path's on {bad}")
+
+
+def sched_exec_phase(torch, port, counters, card):
+    """12b: the executors built directly at world 1 over the one-rank
+    group, one forward and backward of phase 4's batch each."""
+    from tiny_deepspeed_tpu_torch.parallel import schedule as S
+    from tiny_deepspeed_tpu_torch.parallel.zero3 import LayerGather
+    cfg = port.GPT2_PRESETS["gpt2-124m"]
+    L = cfg.n_layer
+    layer_bytes = LAYER_PARAMS * 2
+    batch = port.TokenLoader(None, batch=8, seq=1024,
+                             vocab_size=cfg.vocab_size, seed=0).next()
+    torch.cuda.empty_cache()
+    z3 = port.Zero3(port.build_model(cfg), port.AdamW(lr=1e-5))
+    zs = z3.init(0)
+    idx, tg = (z3._local(a) for a in batch)
+    zp = zs.params
+    out, paths = {}, {}
+
+    def z3_pass(exe=None):
+        kw = {} if exe is None else {"sched": exe}
+        loss = z3.model.apply(idx, tg, pctx=z3.pctx, params=zp, **kw)
+        g = torch.autograd.grad(loss / z3.pctx.world, list(zp.values()))
+        return loss.detach(), dict(zip(zp, g))
+
+    def composed_pass(exe):
+        z3._exec = exe
+        try:
+            return z3._composed(zp, idx, tg, None)
+        finally:
+            z3._exec = None
+
+    want_loss, want = z3_pass()
+    arms = {"on-demand": lambda: z3_pass()}
+    for k in (2, 3):
+        exe = S.ScanExecutor(z3, "prefetch", k - 1, None,
+                             LayerGather(z3._z3))
+        for fn in counters.values():
+            fn.launches = 0
+        loss, got = z3_pass(exe)
+        paths[f"exec_prefetch{k}"] = {n: fn.launches
+                                      for n, fn in counters.items()}
+        check(torch.equal(loss, want_loss), f"12b prefetch K={k}: loss")
+        _grads_equal(torch, got, want, f"prefetch K={k}")
+        check(exe._lb_bytes == layer_bytes,
+              f"12b: a layer's gathered bytes {exe._lb_bytes}")
+        check(exe.live.peak <= k * layer_bytes and exe.live.now == 0,
+              f"12b prefetch K={k}: peak {exe.live.peak} bytes > {k} layers")
+        out[f"prefetch{k}"] = {"peak_bytes": exe.live.peak,
+                               "k_layers_bytes": k * layer_bytes}
+        arms[f"prefetch K={k}"] = (lambda e=exe: z3_pass(e))
+    exe = S.ScanExecutor(z3, "composed", 0, L // 4, LayerGather(z3._z3))
+    for fn in counters.values():
+        fn.launches = 0
+    loss, got = composed_pass(exe)
+    paths["exec_composed_b4"] = {n: fn.launches for n, fn in counters.items()}
+    check(torch.equal(loss, want_loss), "12b composed: loss")
+    _grads_equal(torch, got, want, "composed, 4 buckets")
+    out["composed_b4"] = {"peak_bytes": exe.live.peak,
+                          "k_layers_bytes": layer_bytes}
+    arms["composed 4 buckets"] = (lambda e=exe: composed_pass(e))
+    ov = {}
+    for name in ("prefetch K=2", "composed 4 buckets"):
+        res = _trace_overlap(torch, arms[name])
+        check(res is not None, f"12b {name}: the trace has no device record")
+        ov[name] = res
+    med = _pass_turns(torch, arms)
+    del arms, z3, zs, zp, want, got, exe
+    torch.cuda.empty_cache()
+
+    ddp = port.DDP(port.build_model(cfg), port.AdamW(lr=1e-5))
+    ds = ddp.init(0)
+    dp = ds.params
+    didx, dtg = (ddp._local(a) for a in batch)
+    tail = [n for n in dp if not n.startswith("h.")]
+    cd = cfg.compute_dtype
+
+    def ddp_pass():
+        loss, g = ddp._loss_and_grads(dp, didx, dtg, None, None)
+        return loss, ddp._reduce(g)
+
+    def bucket_pass(k):
+        rel = S.BucketRelease(ddp, n_buckets=k)
+        loss = ddp.model.apply(didx, dtg, params=dp, sched=rel)
+        g = torch.autograd.grad(loss, [dp[n] for n in tail] + [rel.anchor])
+        grads = ddp._release_tail(dict(zip(tail, g)), tail, None)
+        grads.update(rel.finish(dp))
+        return loss.detach(), grads
+
+    dwant_loss, dwant = ddp_pass()
+    arms = {"DDP plain": ddp_pass}
+    for k in (4, 12):
+        for fn in counters.values():
+            fn.launches = 0
+        loss, got = bucket_pass(k)
+        paths[f"exec_bucket{k}"] = {n: fn.launches
+                                    for n, fn in counters.items()}
+        check(torch.equal(loss, dwant_loss), f"12b buckets K={k}: loss")
+        _grads_equal(torch, {n: got[n] for n in dwant if n not in tail},
+                     {n: g for n, g in dwant.items() if n not in tail},
+                     f"buckets K={k}")
+        _grads_equal(torch, {n: got[n] for n in tail},
+                     {n: dwant[n].to(cd).float() for n in tail},
+                     f"buckets K={k} (tail through {cd})")
+        arms[f"DDP buckets K={k}"] = (lambda k=k: bucket_pass(k))
+    ov["DDP buckets K=4"] = _trace_overlap(torch, lambda: bucket_pass(4))
+    check(ov["DDP buckets K=4"] is not None, "12b buckets: empty trace")
+    for path, launches in paths.items():
+        for k in TRAIN_KERNELS:
+            check(launches[k] > 0, f"12b {path}: {k} never launched")
+    med.update(_pass_turns(torch, arms))
+    for name in ("prefetch2", "prefetch3"):
+        print(f"  [{card}] 12b {name}: gradients bit for bit the "
+              f"on-demand path's; gathered layer weights peak "
+              f"{out[name]['peak_bytes']} bytes against "
+              f"{out[name]['k_layers_bytes']} ({name[-1]} layers of "
+              f"{layer_bytes} bytes)")
+    print(f"  [{card}] 12b composed (Zero3, 4 buckets of {L // 4} layers): "
+          f"loss and gradients bit for bit the on-demand path's, peak "
+          f"{out['composed_b4']['peak_bytes']} bytes (one layer)")
+    print(f"  [{card}] 12b buckets K=4, K=12 (DDP): block gradients bit for "
+          f"bit the plain path's, the tail equal to the plain tail through "
+          f"{cd} (JAX's compute-dtype pmean)")
+    for name, (share, comm, comp, names) in ov.items():
+        print(f"  [{card}] 12b one profiled {name} pass: collectives "
+              f"{comm:.4f} ms on side streams, {share:.4f} of it overlapping "
+              f"compute kernels ({comp:.3f} ms of kernels on the compute "
+              f"stream); side records {names}")
+    print(f"  [{card}] 12b forward + backward ms, median of 3 in turns: "
+          + ", ".join(f"{a} {m:.3f}" for a, m in med.items()))
+    out.update(overlap={k: v[:3] for k, v in ov.items()}, pass_ms=med)
+    del ddp, ds, dp
+    torch.cuda.empty_cache()
+    return paths, out
+
+
+def hpz_layout(port, card, data=8, n_gran=2):
+    """12c: hpZ on gpt2-1.5b at `data` ranks over `n_gran` granules, from
+    the shard layout (parallel/zero3.py's flat per-layer shards): the
+    per-rank replica bytes and the gather wire a step per rank (received
+    bytes; the forward's and the recompute's layer gathers and the
+    non-block leaves' one f32 gather), and the part that crosses
+    granules."""
+    import math as m
+    cfg = port.GPT2_PRESETS["gpt2-1.5b"]
+    shapes = port.GPT2Model.param_shapes(types.SimpleNamespace(config=cfg))
+    L, ici = cfg.n_layer, data // n_gran
+    blk_s = sum(-(-m.prod(s[1:]) // data) for n, s in shapes.items()
+                if n.startswith("h."))  # one layer's shard, elements
+    tail_s = sum(-(-m.prod(s) // data) for n, s in shapes.items()
+                 if not n.startswith("h."))
+    tail = (data - 1) * tail_s * 4
+    tail_x = (data - ici) * tail_s * 4
+    plain = 2 * L * (data - 1) * blk_s * 2 + tail
+    plain_x = 2 * L * (data - ici) * blk_s * 2 + tail_x
+    rebuild = (n_gran - 1) * blk_s * L * 2
+    hpz = rebuild + 2 * L * (ici - 1) * n_gran * blk_s * 2 + tail
+    hpz_x = rebuild + tail_x
+    replica = n_gran * blk_s * L * 2
+    print(f"  [{card}] 12c hpZ, gpt2-1.5b at data {data} over {n_gran} "
+          f"granules of {ici} (from the layout, not measured): replica "
+          f"{replica / 2 ** 30:.3f} GiB a rank (its own bf16 block shards "
+          f"{blk_s * L * 2 / 2 ** 30:.3f} GiB); gather wire a step a rank: "
+          f"without hpZ {plain / 1e9:.3f} GB ({plain_x / 1e9:.3f} GB across "
+          f"granules), with hpZ {hpz / 1e9:.3f} GB ({hpz_x / 1e9:.3f} GB "
+          f"across granules: the one rebuild {rebuild / 1e9:.3f} GB + the "
+          f"f32 tail)")
+    return {"replica_bytes": replica, "wire_plain": plain,
+            "wire_plain_cross": plain_x, "wire_hpz": hpz,
+            "wire_hpz_cross": hpz_x}
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -5627,6 +5956,18 @@ def main():
         moe_paths = moe_engines_phase(torch, port, counters)
         lap("7c / 8c on moe-8x124m")
 
+        t12 = time.perf_counter()
+        print(f"phase 12: the in-step collective schedule at world 1 "
+              f"[{card}]")
+        sched_paths = sched_engines_phase(
+            torch, port, counters, train, z3_res["zero3_fp8"]["losses"],
+            card)
+        lap("12a, the engines")
+        exec_paths, sched_res = sched_exec_phase(torch, port, counters, card)
+        sched_paths.update(exec_paths)
+        sched_res["hpz_1.5b"] = hpz_layout(port, card)
+        print(f"phase 12: {time.perf_counter() - t12:.2f}s")
+
     t9 = time.perf_counter()
     lap("phases 7-8")
     print("phase 9: the Llama family — RMSNorm on the LayerNorm entries' "
@@ -5686,7 +6027,8 @@ def main():
                    "zero3_1.5b": xl["launches"][name],
                    **{p: v[name] for p, v in llama_paths.items()},
                    **{p: v[name] for p, v in moe_paths.items()},
-                   **{p: v[name] for p, v in gen_paths.items()}}
+                   **{p: v[name] for p, v in gen_paths.items()},
+                   **{p: v[name] for p, v in sched_paths.items()}}
         row = {"name": name, "route": route, "source": source,
                "replaces": replaces, "launches": sum(by_path.values()),
                "launches_by_path": by_path,
@@ -5911,7 +6253,8 @@ def main():
                    "llama_training": {k: v for k, v in llama_train.items()
                                       if k != "launches"},
                    "moe_training": moe_train,
-                   "generate": gen_res, "checkpoint": ckpt_res},
+                   "generate": gen_res, "checkpoint": ckpt_res,
+                   "schedule": sched_res},
                   f, indent=1, default=str)
     print(f"total {time.perf_counter() - t_all:.2f}s")
     print(json.dumps({"kernels": kernels}))

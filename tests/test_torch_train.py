@@ -26,6 +26,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -361,7 +362,29 @@ class TestRefusalsAndEntryPoints:
         dict(pipeline_parallel=2),
     ])
     def test_refused_engine_knobs_raise(self, knob):
+        """The knobs still refused say so; the schedule's are inert on
+        one device, with JAX's warning, and run the plain path bit for
+        bit."""
         pm = T.GPT2Model(T.GPT2_PRESETS["tiny"], device="cpu")
+        if set(knob) & {"grad_buckets", "gather_prefetch", "hpz"}:
+            batches = [T.TokenLoader(None, 2, 16, vocab_size=512,
+                                     seed=3).next() for _ in range(2)]
+            out = []
+            for kw in ({}, knob):
+                m = T.GPT2Model(T.GPT2_PRESETS["tiny"], device="cpu")
+                with warnings.catch_warnings(record=True) as w:
+                    warnings.simplefilter("always")
+                    eng = T.SingleDevice(m, T.AdamW(lr=1e-3), device="cpu",
+                                         **kw)
+                assert any("inert" in str(x.message) for x in w) == bool(kw)
+                assert eng._schedule.lowering == "plain"
+                st = eng.init(0)
+                out.append(([float(eng.step(st, b)[1]) for b in batches],
+                            eng.gather_params(st)))
+            assert out[0][0] == out[1][0]
+            for n, p in out[0][1].items():
+                assert torch.equal(out[1][1][n], p), n
+            return
         with pytest.raises(ValueError, match="not ported"):
             T.SingleDevice(pm, T.AdamW(), device="cpu", **knob)
 

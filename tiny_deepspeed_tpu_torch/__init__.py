@@ -41,7 +41,12 @@ easy to find.  Ported so far:
   family over a private paged pool (`python -m
   tiny_deepspeed_tpu_torch.generate [--ckpt DIR]`, the byte tokenizer in
   `data/tokenizer.py`), and atomic per-rank save / resume under every
-  engine (`utils/checkpoint.py`; `train --checkpoint-every N --resume`).
+  engine (`utils/checkpoint.py`; `train --checkpoint-every N --resume`);
+- slice 18, the in-step collective schedule: `grad_buckets` (each
+  bucket's gradient collective from inside the backward), ZeRO-3's
+  `gather_prefetch`, the 2-hop `gather_groups` and `hpz`, validated and
+  lowered by one `build_schedule` as JAX's (`parallel/schedule.py`;
+  `train --grad-buckets K --gather-prefetch K --sched SPEC`).
 
 Every Pallas kernel those paths run on a TPU is rewritten for Hopper:
 layernorm forward, dx and dw/db in Triton (ops/layernorm.py); the fused
@@ -65,16 +70,20 @@ from .models import (ALL_PRESETS, LLAMA_PRESETS, MOE_PRESETS, LlamaConfig,
 from .models.gpt2 import (GPT2_PRESETS, GPT2Model, GPTConfig,
                           effective_xent_impl)
 from .optim import SGD, AdamW
-from .parallel import (DDP, SingleDevice, TrainState, Zero1, Zero2, Zero3,
-                       ZeroEngine, init_distributed, partition_tensors)
+from .parallel import (DDP, ScheduleConflictError, SingleDevice,
+                       TrainState, Zero1, Zero2, Zero3, ZeroEngine,
+                       build_schedule, init_distributed, parse_sched_spec,
+                       partition_tensors)
 from .serving import PrefixCache, SpecDecoder
 from .serving.engine import ServeConfig, ServingEngine
 
 __all__ = ["ALL_PRESETS", "AdamW", "DDP", "GPTConfig", "GPT2_PRESETS",
            "GPT2Model", "LLAMA_PRESETS", "LlamaConfig", "LlamaModel",
-           "MOE_PRESETS", "MoEConfig", "MoEGPT", "PrefixCache", "SGD", "ServeConfig", "ServingEngine",
+           "MOE_PRESETS", "MoEConfig", "MoEGPT", "PrefixCache", "SGD",
+           "ScheduleConflictError", "ServeConfig", "ServingEngine",
            "SingleDevice", "SpecDecoder", "TokenLoader", "TrainState",
            "Zero1", "Zero2", "Zero3", "ZeroEngine", "build_model",
-           "effective_xent_impl",
+           "build_schedule", "effective_xent_impl",
            "init_distributed", "opt_state_from_numpy", "opt_state_to_numpy",
-           "params_from_numpy", "params_to_numpy", "partition_tensors"]
+           "params_from_numpy", "params_to_numpy", "parse_sched_spec",
+           "partition_tensors"]

@@ -57,6 +57,14 @@ rank's shards as `params`: the engine's gather returns the non-block
 leaves whole and the block leaves stacked at rest, and each block
 gathers its own layer's weights inside its checkpoint, so the backward's
 recompute gathers them again.
+
+The schedule seam (JAX `apply(..., sched=)`, :982-1016): `apply(...,
+sched=executor)` hands the step's stacking of the block weights to
+`sched.prepare` and the layer loop to `sched.blocks`
+(parallel/schedule.py: the bucketed gradient release, the prefetching
+ZeRO-3 gather, the composed schedule).  With no executor the program is
+the one above.  `grad_bucket_capable` / `gather_prefetch_capable` say a
+family's loop may be handed over (JAX :255-257).
 """
 
 from __future__ import annotations
@@ -254,6 +262,10 @@ class GPT2Model(nn.Module):
 
     # the serving engine's paged decode batches slots at mixed positions
     paged_decode_capable = True
+    # apply() hands its layer loop to the schedule's executor (sched=):
+    # the bucketed grad-release tap and the scheduled weight gathers
+    grad_bucket_capable = True
+    gather_prefetch_capable = True
 
     def __init__(self, config: GPTConfig,
                  device: Union[None, str, torch.device] = None):
@@ -589,7 +601,7 @@ class GPT2Model(nn.Module):
     def apply(self, idx: torch.Tensor,
               targets: Optional[torch.Tensor] = None,
               position: Optional[int] = None, rng: Optional[int] = None,
-              pctx=None, params: Optional[Params] = None):
+              pctx=None, params: Optional[Params] = None, sched=None):
         """Full forward of (B, T) tokens.  With `targets` (B, T): the mean
         loss, differentiable (JAX `apply(params, idx, targets)`).
         Without: (B, 1, V) f32 logits at `position` (default the last),
@@ -601,10 +613,12 @@ class GPT2Model(nn.Module):
         `params` (training only; default the model's own): the flat dict
         the forward reads — under ZeRO-3 (`pctx.gather`) the rank's
         shards, which the gather turns into whole non-block leaves and
-        per-layer block weights."""
-        if pctx is not None and targets is None:
-            raise ValueError("apply(pctx=...) is the training forward: "
-                             "pass targets")
+        per-layer block weights.  `sched` (training only): the schedule's
+        executor, which stacks the block weights and runs the layer loop
+        (parallel/schedule.py)."""
+        if (pctx is not None or sched is not None) and targets is None:
+            raise ValueError("apply(pctx=... / sched=...) is the training "
+                             "forward: pass targets")
         c = self.config
         if targets is None:
             with torch.no_grad():
@@ -614,7 +628,9 @@ class GPT2Model(nn.Module):
                 return self.head(x, position)
         if params is None:
             params = self.param_dict()
-        if pctx is not None and pctx.gather is not None:
+        if sched is not None:
+            params, stacked = sched.prepare(self, params)
+        elif pctx is not None and pctx.gather is not None:
             params, stacked = pctx.gather.prepare(params)
         else:
             stacked = self.stacked_compute_params(params)
@@ -628,14 +644,17 @@ class GPT2Model(nn.Module):
             keys = prng.split(rng, c.n_layer + 1)
             x = _dropout(x, keys[0], c.dropout)
             dkeys = keys[1:]
-        x, extra = self._blocks(x, stacked, dkeys, pctx)
+        x, extra = self._blocks(x, stacked, dkeys, pctx, sched)
         loss = self.head(x, params=params, targets=targets, pctx=pctx)
         return loss if extra is None else loss + extra
 
-    def _blocks(self, x, stacked: Params, dkeys, pctx=None):
+    def _blocks(self, x, stacked: Params, dkeys, pctx=None, sched=None):
         """The layer loop: x through every block under the remat policy,
-        layer l with its dropout key dkeys[l].  Returns (x, a term the
+        layer l with its dropout key dkeys[l] — or the schedule's
+        executor's loop when `sched` is given.  Returns (x, a term the
         blocks add to the loss, or None: GPT-2's blocks add none)."""
+        if sched is not None:
+            return sched.blocks(self, x, stacked, dkeys, pctx)
         block = self._block_fn()
         for bp, dkey in zip(self._layers(stacked), dkeys):
             x = block(x, bp, dkey, pctx)

@@ -156,6 +156,10 @@ class MoEGPT(GPT2Model):
 
     # the serving engine refuses it (JAX :140-143)
     paged_decode_capable = False
+    # the layer loop carries the aux-loss sum, which the schedule's
+    # executors do not thread: the schedule refuses it (JAX :137-138)
+    grad_bucket_capable = False
+    gather_prefetch_capable = False
 
     def __init__(self, config: MoEConfig, device=None):
         if config.moe_dispatch not in _DISPATCHES:
@@ -406,10 +410,15 @@ class MoEGPT(GPT2Model):
         x = x + y
         return ((x, aux), kv) if return_kv else (x, aux)
 
-    def _blocks(self, x, stacked: Params, dkeys, pctx=None):
+    def _blocks(self, x, stacked: Params, dkeys, pctx=None, sched=None):
         """The layer loop with the blocks' aux terms summed in f32 through
         each block's checkpoint (its second output, under every remat
-        policy): (x, aux_loss_weight * sum / n_layer) (JAX :512-527)."""
+        policy): (x, aux_loss_weight * sum / n_layer) (JAX :512-527).
+        No executor threads the aux term (`build_schedule` refuses)."""
+        if sched is not None:
+            raise ValueError("MoEGPT's layer loop cannot be handed to a "
+                             "schedule executor (grad_bucket_capable / "
+                             "gather_prefetch_capable are False)")
         c = self.config
         block = self._block_fn()
         aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)

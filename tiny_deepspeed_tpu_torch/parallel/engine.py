@@ -76,23 +76,52 @@ of a `torch.distributed` group laid out as the JAX mesh (data, seq)
 - init: every rank seeds alike, and rank 0's params are broadcast once
   as a guard;
 - on the card the engines need an NCCL process group (gloo would stage
-  the card's traffic through the host) and raise otherwise.  The
-  collectives are per leaf, after the backward: no overlap with it.
+  the card's traffic through the host) and raise otherwise.  Without a
+  schedule the collectives are per leaf, after the backward: no overlap
+  with it.
+
+The in-step collective schedule (parallel/schedule.py; JAX :581-716).
+`grad_buckets`, `gather_prefetch`, `gather_groups` and `hpz` (with
+`hpz_granule_of`) become slot declarations; one `build_schedule` at
+construction validates them and picks JAX's lowering, which `describe()`
+names and `step` follows:
+
+- "plain": the step above (also every knob on a 1-rank data axis, with
+  JAX's inert warning);
+- "prefetch": the same step, the model's layer loop replaced by the
+  prefetching executor (its numbers are the on-demand gather's);
+- "bucket" (stages 0-2): each rank differentiates its own batch's mean
+  and the buckets' collectives run from inside the backward; the tail is
+  released after it, in the compute dtype; the earlier microbatches of
+  an accumulated step are summed locally and folded into the last one's
+  releases (JAX `bucketed_step`);
+- "composed": the executor of JAX's `composed_step` — own-batch means,
+  releases per bucket (or per layer) as means over the data group, the
+  ZeRO-3 tail through its gather's reduce-scatter times 1/(scale * D).
+  No accumulation (JAX refuses it there too).
+
+The explicit lowerings ("bucket", "composed") unscale before their
+collectives, so the engine does not unscale again; `_reduce` is skipped
+for what they released.  On the card they need world > 1 to differ
+from the plain step, so at world 1 they are driven by building the
+executors directly (chip_smoke.py phase 12).
 
 `SingleDevice` is the stage-0 engine without a process group, the JAX
 `SingleDevice`.  The update is in place (optim/base.py): the TrainState's
 params ARE the model's parameters.  One difference from the JAX engine:
 the dynamic scaler's finiteness flag is read on the host (one sync per
 step) and the skip is a host branch, where the JAX engine selects on
-device.  The JAX engine's telemetry, offload, grad-comm codecs,
-buckets, ZeRO-3's prefetch, gather groups and hpZ, and tensor, expert
-and pipeline parallelism are refused with a ValueError (ROADMAP.md).
+device.  The JAX engine's telemetry, offload, grad-comm codecs (and
+`hpz_comm` other than "fp32", the "auto" sizing), and tensor, expert and
+pipeline parallelism are refused with a ValueError (ROADMAP.md).
+`evenness_priority` shapes `rank_map` only, with JAX's warning.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 from typing import Any, Dict, Optional, Union
 
 import torch
@@ -101,9 +130,11 @@ import torch.distributed as dist
 from .. import rng as prng
 from ..data.loader import rank_block
 from ..ops.dispatch import resolve_device
-from .mesh import make_context
+from . import schedule as sched
+from .comm import _hier_groups, new_groups
+from .mesh import granule_map, make_context
 from .partition import partition_tensors
-from .zero3 import Zero3Gather, gather_flat, scatter_flat
+from .zero3 import LayerGather, Zero3Gather, gather_flat, scatter_flat
 
 
 @dataclasses.dataclass
@@ -123,9 +154,11 @@ class TrainState:
 
 # knobs of the JAX engine the port refuses, with their off values
 _REFUSED = {"telemetry": None, "offload_opt_state": False,
-            "grad_comm": "fp32", "grad_buckets": 1, "gather_prefetch": 0,
-            "gather_groups": None, "hpz": False, "tensor_parallel": 1,
-            "expert_parallel": 1, "pipeline_parallel": 1}
+            "grad_comm": "fp32", "grad_comm_groups": None,
+            "grad_comm_block": 256, "grad_comm_error_feedback": True,
+            "grad_comm_tail": "fp32", "hpz_comm": "fp32",
+            "tensor_parallel": 1, "expert_parallel": 1,
+            "pipeline_parallel": 1}
 _AVG, _SUM, _MIN = dist.ReduceOp.AVG, dist.ReduceOp.SUM, dist.ReduceOp.MIN
 
 
@@ -140,6 +173,31 @@ def _refuse(name: str, refused: Dict[str, Any], knobs: Dict[str, Any],
                          "slice of the port, ROADMAP.md)")
 
 
+def _sched_knobs(grad_buckets, gather_prefetch, gather_groups, hpz):
+    """The schedule knobs checked as the JAX engine checks them
+    (:613-649) before its schedule is built: (grad_buckets,
+    gather_prefetch, gather_groups, hpz)."""
+    for name, v in (("grad_buckets", grad_buckets),
+                    ("gather_groups", gather_groups)):
+        if v == "auto":
+            raise ValueError(f"{name}='auto' (the DCN-aware sizing): "
+                             f"{sched._LATER}")
+    grad_buckets = int(grad_buckets) if grad_buckets else 1
+    if grad_buckets < 1:
+        raise ValueError(f"grad_buckets must be >= 1, got {grad_buckets}")
+    gather_prefetch = int(gather_prefetch) if gather_prefetch else 0
+    if gather_prefetch < 0:
+        raise ValueError(
+            f"gather_prefetch must be >= 0 (0/1 = the on-demand gather; "
+            f"K >= 2 holds K layers), got {gather_prefetch}")
+    gather_groups = int(gather_groups) if gather_groups else None
+    if gather_groups and gather_prefetch <= 1:
+        raise ValueError("gather_groups requires gather_prefetch >= 2 (the "
+                         "2-hop gather lives in the explicit prefetched "
+                         "schedule)")
+    return grad_buckets, gather_prefetch, gather_groups, bool(hpz)
+
+
 class ZeroEngine:
     """Training engine of one ZeRO stage over the default process group
     (`init_distributed`), or over `pctx` when given."""
@@ -151,11 +209,15 @@ class ZeroEngine:
                  accum_steps: int = 1, grad_clip: Optional[float] = None,
                  loss_scale=None, loss_scale_growth_interval: int = 2000,
                  seq_parallel: int = 1, seq_impl: str = "ring",
-                 pctx=None, **knobs):
+                 pctx=None, grad_buckets: int = 1, gather_prefetch: int = 0,
+                 gather_groups: Optional[int] = None, hpz: bool = False,
+                 hpz_granule_of: Optional[Dict[int, int]] = None,
+                 evenness_priority: float = 0.0, **knobs):
         _refuse(type(self).__name__, _REFUSED, knobs,
-                "telemetry, offload, grad-comm codecs and buckets, ZeRO-3's "
-                "prefetch, gather groups and hpZ (slice 7) and "
+                "telemetry, offload, the grad-comm codecs and "
                 "tensor/expert/pipeline parallelism are")
+        knob = _sched_knobs(grad_buckets, gather_prefetch, gather_groups,
+                            hpz)
         self._setup(model, optimizer, device, accum_steps, grad_clip,
                     loss_scale, loss_scale_growth_interval)
         self.pctx = pctx or make_context(seq_parallel, seq_impl)
@@ -170,10 +232,8 @@ class ZeroEngine:
                 "would change with the rank count (ROADMAP.md)")
         self.n_dev = self.pctx.world
         self.n_shard = self.pctx.data_size
-        # names in sorted order, as JAX walks them (its param_shapes is a
-        # pytree, whose dict keys sort)
-        self.rank_map = partition_tensors(
-            dict(sorted(model.param_shapes().items())), self.n_shard)
+        self._build_schedule(*knob, hpz_granule_of)
+        self._rank_map(evenness_priority)
         # flat shard of each leaf: (numel, shard size S, [lo, hi) owned)
         r = self.pctx.data_rank
         self._shards = {}
@@ -181,6 +241,41 @@ class ZeroEngine:
             n = math.prod(shape)
             s = -(-n // self.n_shard)
             self._shards[name] = (n, s, min(r * s, n), min((r + 1) * s, n))
+        if self.stage < 3:  # Zero3 builds its executor over its gather
+            self._exec = self._make_executor()
+
+    def _rank_map(self, evenness_priority: float) -> None:
+        """`rank_map`: names in sorted order, as JAX walks them (its
+        param_shapes is a pytree, whose dict keys sort)."""
+        self.rank_map = partition_tensors(
+            dict(sorted(self.model.param_shapes().items())), self.n_shard,
+            evenness_priority)
+        if evenness_priority:
+            warnings.warn(
+                "evenness_priority shapes only engine.rank_map (the "
+                "reference-parity ownership report); the physical layout "
+                "is always even axis-sharding.  For the reference's "
+                "whole-tensor placement semantics use partition_tensors + "
+                "materialize_owned directly (parallel/partition.py).",
+                stacklevel=3)
+
+    def _build_schedule(self, grad_buckets, gather_prefetch, gather_groups,
+                        hpz, granule_of) -> None:
+        """One `build_schedule` over the knobs (JAX :670-703); the hpZ
+        granule map is the hosts' (`mesh.granule_map`) unless
+        `hpz_granule_of` overrides it."""
+        pctx = self.pctx
+        if granule_of is None and pctx is not None:
+            def granule_of():
+                return granule_map(pctx)
+        busy = ["seq"] if pctx is not None and pctx.seq_size > 1 else []
+        self._schedule = sched.build_schedule(
+            model=self.model, stage=self.stage, n_shard=self.n_shard,
+            busy_axes=busy, accum_steps=self.accum_steps,
+            grad_buckets=grad_buckets, gather_prefetch=gather_prefetch,
+            gather_groups=gather_groups, hpz=hpz, granule_of=granule_of)
+        self._lowering = self._schedule.lowering
+        self._exec = None
 
     def _setup(self, model, optimizer, device, accum_steps, grad_clip,
                loss_scale, loss_scale_growth_interval):
@@ -307,9 +402,48 @@ class ZeroEngine:
 
     # -- the train step ----------------------------------------------------
 
+    def _make_executor(self):
+        """The lowering's executor (parallel/schedule.py), None for
+        "plain" and for "bucket" (built per step)."""
+        s = self._schedule
+        if self._lowering not in ("prefetch", "composed"):
+            return None
+        gather = None
+        if self.stage >= 3:
+            gather = LayerGather(self._z3, hop=self._hop_groups(s.gather),
+                                 hpz=self._hpz_groups(s.hpz_geom))
+        look = (s.gather.prefetch - 1) if s.gather is not None else 0
+        lb = None
+        if self._lowering == "composed" and s.grad is not None:
+            lb = s.layout["layers_per_bucket"]
+        return sched.ScanExecutor(self, self._lowering, look, lb, gather)
+
+    def _data_groups(self, lists):
+        """Every rank list of data ranks as a process group (created in
+        order on every rank); this rank's."""
+        pctx = self.pctx
+        sp = pctx.seq_size
+        return new_groups(lists, pctx.data_rank,
+                          ranks_of=lambda d: d * sp + pctx.seq_rank)
+
+    def _hop_groups(self, gather):
+        if gather is None or not gather.groups:
+            return None
+        intra, inter = _hier_groups(self.n_shard, gather.groups)
+        return (self._data_groups(intra), self._data_groups(inter),
+                gather.groups)
+
+    def _hpz_groups(self, geom):
+        if geom is None:
+            return None
+        intra, inter, ici, n_gran = geom
+        return (self._data_groups(intra), self._data_groups(inter), ici,
+                n_gran)
+
     def _loss_and_grads(self, params, idx, targets, scale, rng):
+        kw = {"sched": self._exec} if self._lowering == "prefetch" else {}
         loss = self.model.apply(idx, targets, rng=rng, pctx=self.pctx,
-                                params=params)
+                                params=params, **kw)
         if scale is not None:
             loss = loss * scale
         # the rank's share of the global mean (see the module docstring)
@@ -354,7 +488,12 @@ class ZeroEngine:
                if state.dropout_base is not None else None)
         sharded_grads = self.stage >= 2 and self.pctx is not None
 
-        if self.accum_steps == 1:
+        explicit = self._lowering in ("bucket", "composed")
+        if self._lowering == "bucket":
+            loss, grads = self._bucketed(params, idx, targets, scale)
+        elif self._lowering == "composed":
+            loss, grads = self._composed(params, idx, targets, scale)
+        elif self.accum_steps == 1:
             loss, grads = self._loss_and_grads(params, idx, targets, scale,
                                                rng)
             grads = self._reduce(grads)
@@ -385,9 +524,10 @@ class ZeroEngine:
 
         if scale is not None:
             loss = loss / scale
-            inv = 1.0 / scale
-            grads = {n: (g.float() * inv).to(g.dtype)
-                     for n, g in grads.items()}
+            if not explicit:  # those unscaled before their collectives
+                inv = 1.0 / scale
+                grads = {n: (g.float() * inv).to(g.dtype)
+                         for n, g in grads.items()}
         finite = True
         if dynamic:
             # judged on the UNSCALED grads, before clipping
@@ -424,6 +564,95 @@ class ZeroEngine:
             else:
                 state.scaler = {"scale": max(scale * 0.5, 1.0), "good": 0}
         return state, loss
+
+    # -- the explicit lowerings (JAX bucketed_step, composed_step) ----------
+
+    def _release_tail(self, grads, names, inv):
+        """Stages 0-2: the non-block leaves' own-batch gradients unscaled,
+        cast to the compute dtype, SUMmed over the data group (stage 2:
+        reduce-scattered into the flat shard), divided by the rank count
+        — JAX's compute-dtype `pmean` — back in the param dtype."""
+        cd = self.model.config.compute_dtype
+        out = {}
+        for n in names:
+            g = grads[n].float()
+            if inv is not None:
+                g = g * inv
+            g = g.to(cd)
+            if self.stage < 2:
+                dist.all_reduce(g, op=_SUM, group=self.pctx.data_group)
+            else:
+                numel, s, lo, hi = self._shards[n]
+                g = scatter_flat(g, numel, s, hi - lo, self.pctx.data_group,
+                                 self.n_shard)
+            out[n] = (g / self.n_shard).to(grads[n].dtype)
+        return out
+
+    def _bucketed(self, params, idx, targets, scale):
+        """The "bucket" lowering's loss and grads (JAX `bucketed_step`):
+        (the scaled loss averaged over the ranks, the mean gradients
+        unscaled — whole leaves at stages 0-1, flat shards at stage 2)."""
+        inv = None if scale is None else 1.0 / scale
+        tail = [n for n in params if not n.startswith("h.")]
+        accum = self.accum_steps
+        acc, loss = None, torch.zeros((), dtype=torch.float32,
+                                      device=self.device)
+        if accum > 1:
+            if idx.dim() != 3 or idx.shape[0] != accum:
+                raise ValueError(f"accum_steps={accum}: batch must be "
+                                 f"(accum, B, T), got {tuple(idx.shape)}")
+            acc = {}
+            for i in range(accum - 1):  # the prefix, summed locally
+                l = self.model.apply(idx[i], targets[i], params=params)
+                if scale is not None:
+                    l = l * scale
+                g = torch.autograd.grad(l, list(params.values()))
+                loss = loss + l.detach()
+                for n, t in zip(params, g):
+                    acc[n] = t.float() if i == 0 else acc[n] + t.float()
+            idx, targets = idx[-1], targets[-1]
+        rel = sched.BucketRelease(self, acc, accum, inv)
+        l = self.model.apply(idx, targets, params=params, sched=rel)
+        if scale is not None:
+            l = l * scale
+        got = torch.autograd.grad(l, [params[n] for n in tail]
+                                  + [rel.anchor])
+        loss = (loss + l.detach()) / accum
+        g_tail = dict(zip(tail, got))
+        if acc is not None:
+            g_tail = {n: ((acc[n] + g.float()) / accum).to(g.dtype)
+                      for n, g in g_tail.items()}
+        grads = self._release_tail(g_tail, tail, inv)
+        grads.update(rel.finish(params))
+        dist.all_reduce(loss, op=_AVG, group=self.pctx.world_group)
+        return loss, {n: grads[n] for n in params}
+
+    def _composed(self, params, idx, targets, scale):
+        """The "composed" lowering's loss and grads (JAX `composed_step`):
+        the executor releases the block leaves; the tail — ZeRO-3: its
+        gather's reduce-scatter SUM times 1/(scale * D); stages 0-2: as
+        `_release_tail`."""
+        exe = self._exec
+        inv = None if scale is None else 1.0 / scale
+        exe.inv = inv
+        l = self.model.apply(idx, targets, params=params, sched=exe)
+        if scale is not None:
+            l = l * scale
+        got = torch.autograd.grad(l, list(params.values()))
+        grads = dict(zip(params, got))
+        tail = [n for n in params if not n.startswith("h.")]
+        if self.stage >= 3:
+            f = (1.0 if inv is None else inv) / self.n_shard
+            for n in tail:
+                grads[n] = (grads[n].float() * f).to(grads[n].dtype)
+        else:
+            grads.update(self._release_tail(grads, tail, inv))
+            if self.stage == 2:
+                grads = {n: (g if n in tail else self._own(n, g))
+                         for n, g in grads.items()}
+        loss = l.detach()
+        dist.all_reduce(loss, op=_AVG, group=self.pctx.world_group)
+        return loss, grads
 
     @torch.no_grad()
     def _update_shards(self, params, grads, opt_state):
@@ -494,6 +723,17 @@ class ZeroEngine:
             extras += f", grad_clip={self.grad_clip}"
         if self.loss_scale is not None:
             extras += f", loss_scale={self.loss_scale}"
+        s = self._schedule
+        if s.grad is not None and s.grad.buckets > 1:
+            extras += f", grad_buckets={s.grad.buckets}"
+        if s.gather is not None and s.gather.prefetch > 1:
+            extras += f", gather_prefetch={s.gather.prefetch}"
+            if s.gather.groups:
+                extras += f"(2-hop inner={s.gather.groups})"
+        if s.gather is not None and s.gather.hpz:
+            extras += ", hpz=on"
+        if self._lowering != "plain":
+            extras += f", sched={s.describe()}"
         return (f"{type(self).__name__}(stage={self.stage}, "
                 f"devices={self.n_dev}, accum={self.accum_steps}, params "
                 f"sharded={self.stage >= 3}, grads sharded="
@@ -511,12 +751,21 @@ class SingleDevice(ZeroEngine):
                  device: Union[None, str, torch.device] = None,
                  accum_steps: int = 1, grad_clip: Optional[float] = None,
                  loss_scale=None, loss_scale_growth_interval: int = 2000,
-                 **knobs):
+                 grad_buckets: int = 1, gather_prefetch: int = 0,
+                 gather_groups: Optional[int] = None, hpz: bool = False,
+                 hpz_granule_of: Optional[Dict[int, int]] = None,
+                 evenness_priority: float = 0.0, **knobs):
         _refuse("SingleDevice", dict(_REFUSED, seq_parallel=1), knobs,
                 "multi-device, telemetry and offload knobs are")
+        knob = _sched_knobs(grad_buckets, gather_prefetch, gather_groups,
+                            hpz)
         self._setup(model, optimizer, device, accum_steps, grad_clip,
                     loss_scale, loss_scale_growth_interval)
         self.pctx = None
+        self.n_shard = 1
+        # one device: every slot is inert, with JAX's warning
+        self._build_schedule(*knob, hpz_granule_of)
+        self._rank_map(evenness_priority)
 
     def describe(self) -> str:
         return (f"SingleDevice(device={self.device}, "
@@ -552,6 +801,7 @@ class Zero3(ZeroEngine):
         super().__init__(model, optimizer, *args, **kw)
         self._z3 = Zero3Gather(model, self.pctx)
         self.pctx = dataclasses.replace(self.pctx, gather=self._z3)
+        self._exec = self._make_executor()
 
     @torch.no_grad()
     def _shard_model(self, params):

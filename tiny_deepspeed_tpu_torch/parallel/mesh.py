@@ -22,13 +22,18 @@ is a set of `torch.distributed` process groups:
 - `ParallelContext` carries both groups, both sizes, this rank's
   coordinates and the seq group's ring communicator — what the model's
   forward and the engine's collectives need.
+- `granule_map` / `granule_geometry` (JAX :224-251): the link hierarchy
+  hpZ keys on.  On a TPU a granule is a DCN slice; here it is a host
+  (ranks on one host share NVLink, hosts share the network): the map is
+  {data rank: host index}, None on one host.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Any, Optional, Union
+import socket
+from typing import Any, Dict, Optional, Union
 
 import torch
 import torch.distributed as dist
@@ -154,3 +159,31 @@ def make_context(seq_parallel: int = 1, seq_impl: str = "ring"
         seq_rank=s, data_group=data_group, seq_group=seq_group,
         world_group=dist.group.WORLD,
         seq_comm=GroupRing(seq_group) if seq_group is not None else None)
+
+
+def granule_map(pctx: ParallelContext) -> Optional[Dict[int, int]]:
+    """{data rank: granule index} over `pctx`'s data group, a granule
+    being a host (its name), indexed in order of first appearance along
+    the data axis; None when every data rank is on one host.
+    Collective over the data group."""
+    names = [None] * pctx.data_size
+    dist.all_gather_object(names, socket.gethostname(),
+                           group=pctx.data_group)
+    ix: Dict[str, int] = {}
+    for n in names:
+        ix.setdefault(n, len(ix))
+    if len(ix) <= 1:
+        return None
+    return {r: ix[n] for r, n in enumerate(names)}
+
+
+def granule_geometry(granule_of: Optional[dict], n: int) -> tuple:
+    """(n_granules, ici) of a granule map over an n-rank data axis (JAX
+    mesh.py:240): a None / empty map is one granule, (1, n); `ici` is the
+    ranks a granule when the granules split n evenly, else n."""
+    if not granule_of:
+        return 1, n
+    n_gran = len(set(granule_of.values()))
+    if n_gran <= 1 or n % n_gran:
+        return max(n_gran, 1), n
+    return n_gran, n // n_gran

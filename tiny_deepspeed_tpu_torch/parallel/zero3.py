@@ -38,13 +38,28 @@ gradients.  Here the same schedule is spelled out:
   gloo have no float8 type) and are dequantized after the gather by
   `GatherFp8Fn`, whose backward is JAX's fp8 cotangent
   (`models.gpt2.fp8_cotangent`) taken on the reduce-scattered shard.
+- `LayerGather` (the scheduled gathers of parallel/schedule.py, JAX
+  `GatherPrefetchScan._gather` and `composed_step`'s `gather_k`): one
+  layer's gathers issued asynchronously (`issue`) and completed later
+  (`finish`), so a layer-ahead prefetch keeps them in flight while the
+  layer before computes.  Three routes: flat (one all-gather over the
+  data group, as `GatherFn`), the 2-hop gather (hop 1 over m
+  consecutive ranks at the resting precision, the group's chunk
+  dequantized once, hop 2 across the groups in the compute dtype; JAX
+  schedule.py:580-700) and hpZ's (once a step, `begin` all-gathers each
+  granule's compute-dtype replica of the block weights over the
+  inter-granule group; every layer gather then runs over the
+  intra-granule group and reorders the pieces into rank order, JAX's
+  `unperm`).  The gathered weights equal `GatherFn` / `GatherFp8Fn`'s
+  bit for bit on every route: the pieces are moved, and the fp8 codes
+  dequantized by the same elementwise product.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple
+from typing import Dict, List, Tuple
 
 import torch
 import torch.distributed as dist
@@ -245,4 +260,144 @@ class Zero3Gather:
                     leaf, self.pctx, self.cd)
             else:
                 out[name] = GatherFn.apply(bp[name], leaf, self.pctx)
+        return out
+
+
+def _pad(t: torch.Tensor, s: int) -> torch.Tensor:
+    t = t.reshape(-1)
+    if t.numel() == s:
+        return t.contiguous()
+    return torch.cat([t, t.new_zeros(s - t.numel())])
+
+
+class _Pending:
+    """One layer's gathers in flight: per weight name its work handles,
+    output buffers and route state."""
+
+    def __init__(self, layer: int):
+        self.layer = layer
+        self.items: Dict[str, list] = {}
+
+
+class LayerGather:
+    """One layer's block weights gathered from the rank's resting shards
+    (`Zero3Gather.prepare`'s stacked dict), issued ahead of their use.
+
+    `hop` = (intra group, inter group, m) runs the 2-hop gather; `hpz` =
+    (intra group, inter group, ici, n_gran) gathers within the granule
+    from the replica `begin` builds.  `finish` returns {name: the
+    layer's whole weight in the compute dtype}: fp8 codes dequantized,
+    codes * scale, as `GatherFp8Fn`."""
+
+    def __init__(self, z3: Zero3Gather, hop=None, hpz=None):
+        self.z3, self.hop, self.hpz = z3, hop, hpz
+        self.cd = z3.cd
+        self.group = z3.pctx.data_group
+        self.n = z3.pctx.data_size
+
+    @staticmethod
+    def names(stacked) -> List[str]:
+        return [k for k in stacked if "#" not in k]
+
+    def layer_bytes(self, stacked) -> int:
+        """The bytes of one layer's gathered weights (compute form)."""
+        out = 0
+        for k in self.names(stacked):
+            leaf = self.z3.leaves["h." + k]
+            dt = self.cd if k + "#scale" in stacked else stacked[k].dtype
+            out += leaf.n * torch.empty((), dtype=dt).element_size()
+        return out
+
+    def begin(self, stacked):
+        """The gather source for the step: the resting shards, or under
+        hpZ each granule's replica — one all-gather a leaf over the
+        inter-granule group, (L, n_gran, S) with slot g this rank's
+        intra position's shard in granule g."""
+        if self.hpz is None:
+            return stacked
+        _, inter, _, n_gran = self.hpz
+        src = dict(stacked)
+        for k in self.names(stacked):
+            leaf = self.z3.leaves["h." + k]
+            rest = stacked[k].detach()
+            rows = rest.new_zeros(self.z3.n_layer, leaf.s)
+            rows[:, :leaf.own] = rest
+            out = rows.new_empty(n_gran * self.z3.n_layer * leaf.s)
+            dist.all_gather_into_tensor(out, rows.reshape(-1), group=inter)
+            src[k] = out.view(n_gran, self.z3.n_layer, leaf.s).transpose(
+                0, 1).contiguous()
+        return src
+
+    def issue(self, src, l: int) -> _Pending:
+        """Start layer l's gathers (asynchronous).  Each item holds its
+        work handle, output and input buffers until `finish`."""
+        p = _Pending(l)
+        for k in self.names(src):
+            leaf = self.z3.leaves["h." + k]
+            rest = src[k][l].detach()
+            if self.hpz is not None:
+                intra, _, ici, _ = self.hpz
+                buf = rest.reshape(-1).contiguous()
+                group, size = intra, ici
+            elif self.hop is not None:
+                intra, _, m = self.hop
+                buf, group, size = _pad(rest, leaf.s), intra, m
+            else:
+                buf, group, size = _pad(rest, leaf.s), self.group, self.n
+            out = buf.new_empty(size * buf.numel())
+            w = dist.all_gather_into_tensor(out, buf, group=group,
+                                            async_op=True)
+            p.items[k] = [w, out, 1, buf]
+        return p
+
+    def _deq(self, src, k: str, l: int, codes: torch.Tensor,
+             lo: int) -> torch.Tensor:
+        """Codes (uint8) of the flat elements [lo, lo + len) of layer l's
+        leaf k -> codes * scale in the compute dtype (`GatherFp8Fn`'s
+        product, elementwise)."""
+        leaf = self.z3.leaves["h." + k]
+        scale = src[k + "#scale"][l].reshape(-1)
+        cols = torch.arange(lo, lo + codes.numel(),
+                            device=codes.device) % leaf.shape[-1]
+        return (codes.view(torch.float8_e4m3fn).to(self.cd)
+                * scale[cols].to(self.cd))
+
+    def advance(self, src, p: _Pending) -> None:
+        """The 2-hop gather's second hop: wait for hop 1, dequantize the
+        group's chunk once, start hop 2 across the groups."""
+        if self.hop is None:
+            return
+        intra, inter, m = self.hop
+        for k, it in p.items.items():
+            if it[2] != 1:
+                continue
+            work, out, _, _ = it
+            work.wait()
+            leaf = self.z3.leaves["h." + k]
+            chunk = out
+            if k + "#scale" in src:
+                g = dist.get_rank(self.group) // m  # this rank's group
+                chunk = self._deq(src, k, p.layer, out, g * m * leaf.s)
+            out2 = chunk.new_empty(self.n * leaf.s)
+            w2 = dist.all_gather_into_tensor(out2, chunk, group=inter,
+                                             async_op=True)
+            it[:] = [w2, out2, 2, chunk]
+
+    def finish(self, src, p: _Pending) -> Dict[str, torch.Tensor]:
+        """Wait for layer p.layer's gathers: {name: whole weight}."""
+        self.advance(src, p)
+        out = {}
+        for k, (work, buf, stage, _) in p.items.items():
+            work.wait()
+            leaf = self.z3.leaves["h." + k]
+            if self.hpz is not None:
+                _, _, ici, n_gran = self.hpz
+                buf = buf.view(ici, n_gran, leaf.s).transpose(0, 1).reshape(-1)
+            flat = buf[:leaf.n]
+            if k + "#scale" in src and stage != 2:
+                scale = src[k + "#scale"][p.layer]
+                out[k] = (flat.view(torch.float8_e4m3fn).view(leaf.shape)
+                          .to(self.cd) * scale.to(self.cd))
+            else:
+                out[k] = flat.view(leaf.shape)
         return out

@@ -12,12 +12,18 @@
         --engine zero2 [--seq-parallel SP] [--device cpu]    (one line)
     torchrun ... -m tiny_deepspeed_tpu_torch.train --engine zero3
         --model gpt2-1.5b [--gather-quant fp8]                (one line)
+    torchrun ... -m tiny_deepspeed_tpu_torch.train --engine zero3
+        --gather-prefetch 2 [--gather-groups M] [--grad-buckets K]
+        [--sched gather_prefetch=2,grad_buckets=4,hpz]        (one line)
 
 Counterpart of `examples/{single_device,ddp,zero1,zero2,zero3}/train.py`
 with the harness of `examples/common.py` (`parse_args` / `run`): the same
 flags, with the same names and defaults, for what the port supports
 (`--dropout`, `--fused-xent`, `--seq-parallel`, `--gather-quant`,
-`--moe-dispatch` among them), plus `--device` (default the card) and
+`--moe-dispatch`, and the collective schedule's `--grad-buckets`,
+`--gather-prefetch`, `--gather-groups` and `--sched` — the spec merges
+over those flags and wins, as examples/common.py:451-484 merges it —
+among them), plus `--device` (default the card) and
 `--engine` (default `single`; `examples/zero3/train.py` defaults to
 gpt2-1.5b, here `--model` says so).  Seeded init, the JAX package's
 token stream (synthetic unless `--data`), `AdamW(lr, weight_decay,
@@ -56,6 +62,7 @@ from .optim import AdamW
 from .optim import schedule as schedules
 from .parallel import (DDP, SingleDevice, Zero1, Zero2, Zero3,
                        init_distributed)
+from .parallel.schedule import parse_sched_spec
 from .utils import checkpoint as ckpt
 
 ENGINES = {"single": SingleDevice, "ddp": DDP, "zero1": Zero1,
@@ -116,6 +123,25 @@ def parse_args(argv=None):
                         "(MoEConfig.moe_dispatch — 'sort' skips the dense "
                         "one-hot dispatch products on one device and under "
                         "pure data parallelism)")
+    p.add_argument("--grad-buckets", type=int, default=1, metavar="K",
+                   help="bucketed gradient release: K layer buckets (+ the "
+                        "non-block tail), each bucket's collective issued "
+                        "from inside the backward (K divides n_layer; 1 = "
+                        "after the backward)")
+    p.add_argument("--gather-prefetch", type=int, default=0, metavar="K",
+                   help="ZeRO-3 layer-ahead weight-gather prefetch: layer "
+                        "k+K-1's gather in flight while layer k computes, "
+                        "at most K layers' gathered weights, forward and "
+                        "recompute (0/1 = on demand; zero3 only)")
+    p.add_argument("--gather-groups", type=int, default=None, metavar="M",
+                   help="with --gather-prefetch >= 2: the 2-hop gather — "
+                        "resting precision within M consecutive ranks, "
+                        "the compute dtype across the groups")
+    p.add_argument("--sched", default=None, metavar="SPEC",
+                   help="the collective schedule as one spec, e.g. "
+                        "'gather_prefetch=2,grad_buckets=4,hpz' "
+                        "(parallel/schedule.parse_sched_spec); merges over "
+                        "the flags above and wins")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--data", default=None, metavar="TOKENS.bin",
                    help="uint16 token corpus; default synthetic tokens")
@@ -223,7 +249,12 @@ def _resume_stream(meta, start_iter: int, b: int, say):
 
 
 def run(args):
-    kw = dict(grad_clip=args.grad_clip or None, loss_scale=args.loss_scale)
+    kw = dict(grad_clip=args.grad_clip or None, loss_scale=args.loss_scale,
+              grad_buckets=args.grad_buckets,
+              gather_prefetch=args.gather_prefetch,
+              gather_groups=args.gather_groups)
+    if args.sched:
+        kw.update(parse_sched_spec(args.sched))
     device = args.device
     if args.engine == "single":
         if args.seq_parallel != 1:
