@@ -11,7 +11,8 @@ fp8 weight gather (gpt2-124m and gpt2-1.5b) and the heads-last FA2
 kernels through their A/B; then the Llama family: RMSNorm's entries,
 llama-160m served and trained; then the MoE family: moe-8x124m trained
 with both dispatches; then `generate` on all three families and a
-checkpoint's save and resume.
+checkpoint's save and resume; the in-step collective schedule and the
+grad-comm codecs at world 1.
 
     python3 chip_smoke.py
 
@@ -288,12 +289,31 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      pass's (reported, not claimed); c. from the layout: hpZ's per-rank
      replica bytes for gpt2-1.5b at data 8 over 2 granules and the
      gather wire a step with and without hpZ;
+ 13. the grad-comm codecs (inside the same NCCL group; every count
+     zeroed before each path and read after): a. DDP `grad_comm="int8"`,
+     Zero2 `grad_comm="fp8", grad_buckets=4` and Zero3 `grad_comm="int8",
+     grad_comm_tail="int8"` at world 1, 3 steps of phase 4's config each:
+     JAX's inert warning, the plain lowering, bit for bit SingleDevice,
+     the quantizer (#10) launched no time; b. the codec functions over
+     the one-rank group on one phase-4 gpt2-124m gradient (163,109,376
+     f32 elements): `quantized_grad_sync` int8 (dither, error feedback)
+     and fp8 bit for bit the same call on the plain quantizer, the new
+     residual exactly err - dequant, 2 launches of #10 a sync; the hpZ
+     rebuild codec (int8, fp8) on the rank's bf16 block shards, 1 launch,
+     equal to the plain version; #10 at the codec's shape (block 256,
+     dither) against its bound and in turns with its plain version, one
+     whole sync's device and host ms; c. the executors at world 1:
+     DDP's bucketed release (int8, K=4, the tail through the codec) and
+     Zero3's composed schedule (int8, K=4, `grad_comm_tail` int8) —
+     gradients and residual row bit for bit the plain quantizer's pass,
+     the row `residual_len` long, 10 launches of #10 a pass;
   then the `kernels` JSON line (30 rows: the 22 kernels, rows 10kv, 1r
   and the decode append, the Triton LayerNorm forward pair and the v1
   writer, launched on no path, and the four RMS rows; launches by path,
   the Llama paths `llama_*`, the MoE paths `moe_*` and the generate
-  paths `gen`, `L-gen`, `M-gen` and phase 12's `sched_*` / `exec_*`
-  among them), then the result line
+  paths `gen`, `L-gen`, `M-gen`, phase 12's `sched_*` / `exec_*` and
+  phase 13's `codec_*` among them; row 10 timed at the grad codec's
+  shape, its earlier shapes beside it), then the result line
   {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Imports nothing of JAX or of the JAX package.
@@ -5537,7 +5557,7 @@ def sched_exec_phase(torch, port, counters, card):
     def composed_pass(exe):
         z3._exec = exe
         try:
-            return z3._composed(zp, idx, tg, None)
+            return z3._composed(zp, idx, tg, None)[:2]
         finally:
             z3._exec = None
 
@@ -5594,7 +5614,7 @@ def sched_exec_phase(torch, port, counters, card):
         rel = S.BucketRelease(ddp, n_buckets=k)
         loss = ddp.model.apply(didx, dtg, params=dp, sched=rel)
         g = torch.autograd.grad(loss, [dp[n] for n in tail] + [rel.anchor])
-        grads = ddp._release_tail(dict(zip(tail, g)), tail, None)
+        grads = ddp._release_tail(dict(zip(tail, g)), tail, None)[0]
         grads.update(rel.finish(dp))
         return loss.detach(), grads
 
@@ -5679,6 +5699,300 @@ def hpz_layout(port, card, data=8, n_gran=2):
     return {"replica_bytes": replica, "wire_plain": plain,
             "wire_plain_cross": plain_x, "wire_hpz": hpz,
             "wire_hpz_cross": hpz_x}
+
+# -- phase 13: the grad-comm codecs -----------------------------------------
+
+CODEC_ENGINES = (("codec_ddp_int8", "DDP", dict(grad_comm="int8")),
+                 ("codec_zero2_fp8_b4", "Zero2",
+                  dict(grad_comm="fp8", grad_buckets=4)),
+                 ("codec_zero3_int8_tail", "Zero3",
+                  dict(grad_comm="int8", grad_comm_tail="int8")))
+# gpt2-124m's whole gradient (the untied head included), f32 elements
+CODEC_ELEMS = 163_109_376
+
+
+def codec_engines_phase(torch, port, counters, card):
+    """13a: each codec knob set through its engine at world 1 — JAX's
+    inert warning, the plain lowering, 3 steps bit for bit
+    SingleDevice's; the quantizer launched no time."""
+    cfg = port.GPT2_PRESETS["gpt2-124m"]
+    want_l, want_p, _, _ = _sched_steps(torch, port, "SingleDevice", cfg)
+    paths = {}
+    for path, name, kw in CODEC_ENGINES:
+        for fn in counters.values():
+            fn.launches = 0
+        losses, params, eng, warns = _sched_steps(torch, port, name, cfg,
+                                                  **kw)
+        paths[path] = {k: fn.launches for k, fn in counters.items()}
+        for k in TRAIN_KERNELS:
+            check(paths[path][k] > 0, f"13a {path}: {k} never launched")
+        check(paths[path]["quantize_blockwise"] == 0,
+              f"13a {path}: the quantizer ran on an inert codec")
+        slots = [w for w in warns if "inert on a 1-device data axis" in w]
+        check(len(slots) == 1 + (name == "Zero3") and all(
+            "grad slot" in w or "gather slot" in w for w in slots),
+            f"13a {path}: warnings {warns}")
+        check(eng._schedule.lowering == "plain"
+              and eng._schedule.residual_len == 0,
+              f"13a {path}: lowering {eng._schedule.lowering}")
+        check(losses == want_l and all(torch.equal(p, want_p[n])
+                                       for n, p in params.items()),
+              f"13a {path}: losses {losses} vs {want_l} or params differ")
+        print(f"  [{card}] 13a {name}({kw}): "
+              f"{'; '.join(w.split(';')[0] for w in slots)}; lowering "
+              f"plain; 3 steps bit for bit SingleDevice's: losses {losses}; "
+              f"quantize_blockwise.launches 0")
+        del eng, params
+    torch.cuda.empty_cache()
+    return paths
+
+
+@contextlib.contextmanager
+def plain_quantizer(comm, qm):
+    """comm's quantizer swapped for the plain version (on the same CUDA
+    tensors): the codec's reference arm."""
+    real = comm.quantize_blockwise
+
+    def plain(x, mode, block=256, dither=None):
+        return qm._quantize_plain(x.reshape(-1), mode, block, dither)
+
+    comm.quantize_blockwise = plain
+    try:
+        yield
+    finally:
+        comm.quantize_blockwise = real
+
+
+def _same_dict(torch, a, b):
+    return set(a) == set(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def codec_sync_phase(torch, port, qm, counters, card):
+    """13b: the codec functions over the one-rank NCCL group on one
+    gpt2-124m phase-4 gradient (B=8, T=1024, bf16 compute, f32 masters):
+    the int8 sync (dither, error feedback) and the fp8 one bit for bit
+    the same calls on the plain quantizer, the residual exactly err -
+    dequant, 2 launches of #10 a sync; the hpZ rebuild codec on the
+    rank's block shards, 1 launch, equal to the plain version; #10 at
+    the codec's shape in turns with its plain version, and one whole
+    sync's device and host ms."""
+    import torch.distributed as dist
+    from tiny_deepspeed_tpu_torch.parallel import comm
+    cfg = port.GPT2_PRESETS["gpt2-124m"]
+    model = port.GPT2Model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(0))
+    batch = port.TokenLoader(None, batch=8, seq=1024,
+                             vocab_size=cfg.vocab_size, seed=0).next()
+    _, grads = loss_and_grads(torch, model, batch)
+    total = sum(g.numel() for g in grads.values())
+    check(total == CODEC_ELEMS, f"13b: {total} gradient elements")
+    e_pad = comm.padded_size(total, 1, 256)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    residual = torch.randn(e_pad, generator=g, device="cuda") * 1e-4
+    group = dist.group.WORLD
+    out, paths = {}, {}
+    qz = counters["quantize_blockwise"]
+    for mode in ("int8", "fp8"):
+        key = comm.SyncKey(5, 0) if mode == "int8" else None
+
+        def sync():
+            return comm.quantized_grad_sync(grads, residual, group, 1, mode,
+                                            key=key)
+        for fn in counters.values():
+            fn.launches = 0
+        red, nres = sync()
+        torch.cuda.synchronize()
+        paths[f"codec_sync_{mode}"] = {k: fn.launches
+                                       for k, fn in counters.items()}
+        check(qz.launches == 2, f"13b {mode}: {qz.launches} launches of "
+              "#10 in one sync (2 expected)")
+        with plain_quantizer(comm, qm):
+            pred, pres = sync()
+        check(_same_dict(torch, red, pred) and torch.equal(nres, pres),
+              f"13b {mode}: the sync differs from the plain quantizer's")
+        flat = torch.cat([grads[k].reshape(-1).float()
+                          for k in sorted(grads)])
+        err = flat + residual
+        d = (comm.draw_dither(5, 0, None, "rs", e_pad, "cuda")
+             if mode == "int8" else None)
+        q, sc = qm.quantize_blockwise(err, mode, 256, d)
+        check(torch.equal(nres, err - qm.dequantize_blockwise(q, sc)),
+              f"13b {mode}: the residual is not err - dequant(q, s)")
+        rerr = max(max_err(red[k], grads[k]) for k in grads)
+        out[mode] = {"reduced_max_abs_err_vs_local": rerr,
+                     "residual_absmax": float(nres.abs().max())}
+        print(f"  [{card}] 13b quantized_grad_sync {mode} over "
+              f"{total} elements ({e_pad} padded), error feedback"
+              f"{', dither' if key else ''}: reduced gradient and residual "
+              f"bit for bit the plain quantizer's; residual = err - "
+              f"dequant exactly (|r| max {out[mode]['residual_absmax']:.4g}); "
+              f"#10 launches "
+              f"{paths[f'codec_sync_{mode}']['quantize_blockwise']}; "
+              f"|reduced - local| max "
+              f"{rerr:.4g}")
+        del red, nres, pred, pres, flat, err, q, sc, d
+        torch.cuda.empty_cache()
+    rows = {n[2:]: p.detach().to(cfg.compute_dtype).reshape(cfg.n_layer, -1)
+            for n, p in model.param_dict().items() if n.startswith("h.")}
+    for mode in ("int8", "fp8"):
+        for fn in counters.values():
+            fn.launches = 0
+        rep = comm.hpz_rebuild(rows, mode, group, 1)
+        torch.cuda.synchronize()
+        paths[f"codec_hpz_{mode}"] = {k: fn.launches
+                                      for k, fn in counters.items()}
+        check(qz.launches == 1, f"13b hpZ {mode}: {qz.launches} launches")
+        with plain_quantizer(comm, qm):
+            prep = comm.hpz_rebuild(rows, mode, group, 1)
+        check(_same_dict(torch, rep, prep), f"13b hpZ {mode}: the replica "
+              "differs from the plain quantizer's")
+        rerr = max(max_err(rep[k][:, 0], rows[k]) for k in rows)
+        print(f"  [{card}] 13b hpZ rebuild codec {mode} on the rank's "
+              f"{sum(r.numel() for r in rows.values())} block elements "
+              f"(bf16): replica bit for bit the plain quantizer's; #10 "
+              f"launches 1; |replica - shard| max {rerr:.4g}")
+        out[f"hpz_{mode}"] = {"replica_max_abs_err": rerr}
+        del rep, prep
+    del rows, model
+    torch.cuda.empty_cache()
+
+    # #10 at the codec's shape: the error-fed flat, block 256, a dither
+    n = e_pad
+    x = torch.randn(n, generator=g, device="cuda")
+    d = torch.rand(n, generator=g, device="cuda") - 0.5
+    q, sc = qm.quantize_blockwise(x, "int8", 256, d)
+    pq, psc = qm._quantize_plain(x, "int8", 256, d)
+    check(torch.equal(q, pq) and torch.equal(sc, psc),
+          "13b: #10 at the codec's shape differs from its plain version")
+    err = max(max_err(q, pq), max_err(sc, psc))
+    del q, sc, pq, psc
+    kern = lambda: qm.quantize_blockwise(x, "int8", 256, d)  # noqa: E731
+    plain = lambda: qm._quantize_plain(x, "int8", 256, d)  # noqa: E731
+    bms, by = bound_ms(n * 9 + 4 * (n // 256), 5 * n, "float32")
+    t = sides_in_turns(torch, {"kernel": kern, "plain": plain}, reps=5, n=5)
+    res = dict(ms=device_ms(torch, kern, iters=10),
+               plain_ms=device_ms(torch, plain, iters=5), library_ms=None,
+               call_ms=time_ms(torch, kern, iters=10), bound_ms=bms,
+               bound_by=by, max_abs_err=err,
+               shape=f"{n // 256}x256 float32 int8 dither (grad codec)",
+               turns_ms=t["kernel"][0], turns_spread_ms=list(t["kernel"][1:]),
+               plain_turns_ms=t["plain"][0],
+               plain_turns_spread_ms=list(t["plain"][1:]))
+    del x, d
+    torch.cuda.empty_cache()
+    # one whole sync: device ms (profiler) and host ms (perf_counter)
+    key = comm.SyncKey(5, 0)
+
+    def whole():
+        return comm.quantized_grad_sync(grads, residual, group, 1, "int8",
+                                        key=key)
+    sync_dev = device_ms(torch, whole, iters=3, warmup=1)
+    hosts = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        whole()
+        torch.cuda.synchronize()
+        hosts.append((time.perf_counter() - t0) * 1e3)
+    out["sync_int8"] = {"device_ms": sync_dev,
+                        "host_ms": statistics.median(hosts),
+                        "host_spread_ms": [min(hosts), max(hosts)]}
+    print(f"  [{card}] 13b #10 at {res['shape']}: {res['ms']:.5g} ms "
+          f"against its {bms:.5g} ms bound ({by}; 9 B an element + 4 B a "
+          f"block at 3.35 TB/s), plain {res['plain_ms']:.5g} ms; in turns "
+          f"(kernel, plain, plain, kernel) x 5: kernel "
+          f"{res['turns_ms']:.5g} [{res['turns_spread_ms'][0]:.5g}, "
+          f"{res['turns_spread_ms'][1]:.5g}], plain "
+          f"{res['plain_turns_ms']:.5g} [{res['plain_turns_spread_ms'][0]:.5g}"
+          f", {res['plain_turns_spread_ms'][1]:.5g}]; one whole int8 sync "
+          f"{sync_dev:.5g} device ms, {out['sync_int8']['host_ms']:.5g} host "
+          f"ms (median of 5, [{min(hosts):.5g}, {max(hosts):.5g}]; world 1: "
+          f"the collectives are copies)")
+    del grads, residual
+    torch.cuda.empty_cache()
+    return paths, res, out
+
+
+def codec_exec_phase(torch, port, qm, counters, card):
+    """13c: the executors at world 1 with an int8 codec, as phase 12b
+    builds them: DDP's bucketed release at K=4 with the tail through the
+    codec, and Zero3's composed schedule at K=4 with `grad_comm_tail`
+    int8 — gradients and the new residual row bit for bit the same pass
+    on the plain quantizer, the row JAX's `residual_len` long, #10
+    launched 4 x 2 + 2 = 10 times a pass."""
+    import torch.distributed as dist
+    from tiny_deepspeed_tpu_torch.parallel import comm
+    from tiny_deepspeed_tpu_torch.parallel import schedule as S
+    from tiny_deepspeed_tpu_torch.parallel.zero3 import LayerGather
+    cfg = port.GPT2_PRESETS["gpt2-124m"]
+    L, K = cfg.n_layer, 4
+    batch = port.TokenLoader(None, batch=8, seq=1024,
+                             vocab_size=cfg.vocab_size, seed=0).next()
+    codec = S.Codec(mode="int8", group=dist.group.WORLD, n=1, rank=0)
+    paths, out = {}, {}
+    qz = counters["quantize_blockwise"]
+
+    def run(eng, lowering, tail_codec, drive):
+        shapes = eng.model.param_shapes()
+        lay = comm.bucket_layout(shapes, L, K, 1, 256)
+        eng._schedule = S.Schedule(
+            grad=S.GradSlot(buckets=K, mode="int8", tail_mode=tail_codec),
+            gather=S.GatherSlot() if eng.stage >= 3 else None,
+            lowering=lowering, layout=lay,
+            residual_len=lay["residual_len"])
+        eng._codec = codec
+        eng._tail_codec = codec if tail_codec != "fp32" else None
+        residual = eng.zero_residual()
+        residual.normal_(0.0, 1e-4)
+        for fn in counters.values():
+            fn.launches = 0
+        loss, grads, new_res = drive(residual)
+        torch.cuda.synchronize()
+        launches = {k: fn.launches for k, fn in counters.items()}
+        with plain_quantizer(comm, qm):
+            ploss, pgrads, pres = drive(residual)
+        check(torch.equal(loss, ploss) and _same_dict(torch, grads, pgrads)
+              and torch.equal(new_res, pres),
+              f"13c {lowering}: gradients or residual differ from the plain "
+              "quantizer's pass")
+        check(new_res.numel() == lay["residual_len"] == K * lay["bucket_pad"]
+              + lay["tail_pad"], f"13c {lowering}: residual row "
+              f"{new_res.numel()} long")
+        check(launches["quantize_blockwise"] == 2 * K + 2,
+              f"13c {lowering}: {launches['quantize_blockwise']} launches of "
+              f"#10 (10 expected)")
+        for k in TRAIN_KERNELS:
+            check(launches[k] > 0, f"13c {lowering}: {k} never launched")
+        return launches, lay["residual_len"], float(loss)
+
+    ddp = port.DDP(port.build_model(cfg), port.AdamW(lr=1e-5))
+    ds = ddp.init(0)
+    didx, dtg = (ddp._local(a) for a in batch)
+    paths["codec_exec_bucket4"], rl, loss = run(
+        ddp, "bucket", "fp32",
+        lambda r: ddp._bucketed(ds.params, didx, dtg, None, r, 0))
+    out["bucket4"] = {"residual_len": rl, "loss": loss}
+    print(f"  [{card}] 13c BucketRelease, DDP, int8 buckets K=4 + the tail: "
+          f"gradients and the {rl}-element residual row bit for bit the "
+          f"plain quantizer's pass; #10 launches 10")
+    del ddp, ds
+    torch.cuda.empty_cache()
+    z3 = port.Zero3(port.build_model(cfg), port.AdamW(lr=1e-5))
+    zs = z3.init(0)
+    zidx, ztg = (z3._local(a) for a in batch)
+    z3._exec = S.ScanExecutor(z3, "composed", 0, L // K,
+                              LayerGather(z3._z3), codec=codec)
+    paths["codec_exec_composed4"], rl, loss = run(
+        z3, "composed", "int8",
+        lambda r: z3._composed(zs.params, zidx, ztg, None, r, 0))
+    out["composed4_tail"] = {"residual_len": rl, "loss": loss}
+    print(f"  [{card}] 13c ScanExecutor composed, Zero3, int8 buckets K=4 + "
+          f"grad_comm_tail int8: gradients and the {rl}-element residual "
+          f"row bit for bit the plain quantizer's pass; #10 launches 10")
+    del z3, zs
+    torch.cuda.empty_cache()
+    return paths, out
+
 
 def main():
     import torch
@@ -5968,6 +6282,19 @@ def main():
         sched_res["hpz_1.5b"] = hpz_layout(port, card)
         print(f"phase 12: {time.perf_counter() - t12:.2f}s")
 
+        t13 = time.perf_counter()
+        print(f"phase 13: the grad-comm codecs at world 1 [{card}]")
+        codec_paths = codec_engines_phase(torch, port, counters, card)
+        lap("13a, the engines")
+        got, qz_codec, codec_res = codec_sync_phase(torch, port, qm,
+                                                    counters, card)
+        codec_paths.update(got)
+        lap("13b, the codec functions")
+        got, exec_res = codec_exec_phase(torch, port, qm, counters, card)
+        codec_paths.update(got)
+        codec_res.update(exec_res)
+        print(f"phase 13: {time.perf_counter() - t13:.2f}s")
+
     t9 = time.perf_counter()
     lap("phases 7-8")
     print("phase 9: the Llama family — RMSNorm on the LayerNorm entries' "
@@ -6009,7 +6336,8 @@ def main():
 
     timed = ("shape", "ms", "plain_ms", "library_ms", "call_ms", "bound_ms",
              "bound_by")
-    extra_keys = TURN_KEYS + UNFUSED_KEYS + PARENT_KEYS + V1_KEYS
+    extra_keys = (TURN_KEYS + UNFUSED_KEYS + PARENT_KEYS + V1_KEYS
+                  + ("plain_turns_ms", "plain_turns_spread_ms"))
 
     def entry(name, route, source, replaces, res, err=None, training=None):
         """One row: its times at `res["shape"]`; a forward kernel that
@@ -6028,7 +6356,8 @@ def main():
                    **{p: v[name] for p, v in llama_paths.items()},
                    **{p: v[name] for p, v in moe_paths.items()},
                    **{p: v[name] for p, v in gen_paths.items()},
-                   **{p: v[name] for p, v in sched_paths.items()}}
+                   **{p: v[name] for p, v in sched_paths.items()},
+                   **{p: v[name] for p, v in codec_paths.items()}}
         row = {"name": name, "route": route, "source": source,
                "replaces": replaces, "launches": sum(by_path.values()),
                "launches_by_path": by_path,
@@ -6068,7 +6397,7 @@ def main():
         entry("quantize_blockwise", "triton",
               "tiny_deepspeed_tpu_torch/ops/quant.py",
               "tiny_deepspeed_tpu/ops/quant_pallas.py:59",
-              qz_res["kv_append"]),
+              qz_codec),
         # rows 2 and 3: one launch of csrc/ln_bwd.cu computes both
         entry("layernorm_bwd", "cuda",
               "tiny_deepspeed_tpu_torch/csrc/ln_bwd.cu",
@@ -6174,8 +6503,7 @@ def main():
                  "suffix": ps_res["bf16", "suffix"],
                  "int8_pool": ps_res["int8", "spec"],
                  "int8_pool_suffix": ps_res["int8", "suffix"]},
-             "quantize_blockwise": {k: v for k, v in qz_res.items()
-                                    if k != "kv_append"},
+             "quantize_blockwise": dict(qz_res),
              **{k: {"b8": bthd_res[k, 8]} for k in BTHD_KERNELS},
              "kv_write": {k: kv_res[k] for k, *_ in KV_TIMED
                           if k != "prefill_bf16"},
@@ -6254,7 +6582,7 @@ def main():
                                       if k != "launches"},
                    "moe_training": moe_train,
                    "generate": gen_res, "checkpoint": ckpt_res,
-                   "schedule": sched_res},
+                   "schedule": sched_res, "codecs": codec_res},
                   f, indent=1, default=str)
     print(f"total {time.perf_counter() - t_all:.2f}s")
     print(json.dumps({"kernels": kernels}))

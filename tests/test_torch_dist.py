@@ -108,6 +108,10 @@ def _engine_worker(rank, world, store, out_dir, name, sp, kw, opt, accum,
                         "rank_map": engine.rank_map, "eval": eval_loss,
                         "lowering": engine._schedule.lowering},
                        os.path.join(out_dir, "result.pt"))
+        # every rank done before any tears its groups down: gloo aborted
+        # a rank now and then (exit -6) on a teardown race under hpZ's
+        # subgroups
+        dist.barrier()
     finally:
         dist.destroy_process_group()
 
@@ -283,9 +287,17 @@ def _fake_pctx():
     dict(pipeline_parallel=2)])
 def test_refused_engine_knobs_raise(knob):
     """The knobs still refused name ROADMAP.md; of the schedule's, Zero2 at
-    data 2 builds the bucket lowering and refuses the gather slot as JAX
-    does (it needs ZeRO-3)."""
+    data 2 builds the bucket lowering (and, with `grad_comm`, the
+    quantized "quant_mono" one) and refuses the gather slot as JAX does
+    (it needs ZeRO-3)."""
     pm = T.GPT2Model(T.GPT2_PRESETS["tiny"], device="cpu")
+    if "grad_comm" in knob:
+        eng = T.Zero2(pm, T.AdamW(), device="cpu", pctx=_fake_pctx(),
+                      **knob)
+        assert eng._schedule.lowering == "quant_mono"
+        assert "sched=grad_buckets=1,grad_comm=int8@quant_mono" in \
+            eng.describe()
+        return
     if "grad_buckets" in knob:
         eng = T.Zero2(pm, T.AdamW(), device="cpu", pctx=_fake_pctx(),
                       **knob)

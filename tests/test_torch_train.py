@@ -366,7 +366,8 @@ class TestRefusalsAndEntryPoints:
         one device, with JAX's warning, and run the plain path bit for
         bit."""
         pm = T.GPT2Model(T.GPT2_PRESETS["tiny"], device="cpu")
-        if set(knob) & {"grad_buckets", "gather_prefetch", "hpz"}:
+        if set(knob) & {"grad_buckets", "gather_prefetch", "hpz",
+                        "grad_comm"}:
             batches = [T.TokenLoader(None, 2, 16, vocab_size=512,
                                      seed=3).next() for _ in range(2)]
             out = []

@@ -15,8 +15,10 @@ block, s = max|x| / qmax + 1e-12 and y = x / s (+ dither); int8 codes
 are clip(round_half_even(y), -127, 127), fp8 codes the e4m3fn cast of y
 (round to nearest even).  `dither` is an operand (flat uniform(-1/2,
 1/2) f32 of x's length, drawn by the caller) as in JAX; the KV pool
-passes none, the grad-comm codecs of the distributed engines will pass
-one.
+passes none, the int8 grad-comm codec (parallel/comm.py) passes one.
+On the card every quantize of the grad-comm codecs launches this
+kernel: two a gradient sync (the error-fed reduce-scatter payload and
+the all-gather's re-quantize), one a step for hpZ's rebuild.
 
 Bound: one read of x (bf16 or f32) and the dither, one write of the
 1-byte codes and a 4-byte scale per block, with ~5 operations an

@@ -100,19 +100,34 @@ names and `step` follows:
   ZeRO-3 tail through its gather's reduce-scatter times 1/(scale * D).
   No accumulation (JAX refuses it there too).
 
-The explicit lowerings ("bucket", "composed") unscale before their
-collectives, so the engine does not unscale again; `_reduce` is skipped
-for what they released.  On the card they need world > 1 to differ
-from the plain step, so at world 1 they are driven by building the
-executors directly (chip_smoke.py phase 12).
+The grad-comm codecs (parallel/comm.py; JAX :582-624).  `grad_comm`
+int8 or fp8 (or "auto") sends every gradient release through the
+error-fed blockwise codec, `grad_comm_block` elements a scale,
+`grad_comm_groups` the 2-hop schedule's inner size (intra and inter
+process groups made once, on every rank in one order);
+`grad_comm_error_feedback` keeps the residual, the rank's row of
+`Schedule.residual_len` f32 zeros at init in `TrainState.grad_residual`;
+`grad_comm_tail` quantizes composed ZeRO-3's non-block tail too;
+`hpz_comm` moves hpZ's replica rebuild through the codec.  Without
+buckets at stages 0-2 the lowering is "quant_mono" (JAX
+`monolithic_quant_step`): each rank differentiates its own batch with
+the model run as on one device (`pctx=None`: an MoE routes within the
+rank's shard, as JAX's replay does), accumulated microbatches summed
+locally, unscaled, then one sync.  A step the dynamic scaler skips
+rolls the residual back with the rest of the state.
+
+The explicit lowerings ("quant_mono", "bucket", "composed") unscale
+before their collectives, so the engine does not unscale again;
+`_reduce` is skipped for what they released.  On the card they need
+world > 1 to differ from the plain step, so at world 1 they are driven
+by building the executors directly (chip_smoke.py phases 12 and 13).
 
 `SingleDevice` is the stage-0 engine without a process group, the JAX
 `SingleDevice`.  The update is in place (optim/base.py): the TrainState's
 params ARE the model's parameters.  One difference from the JAX engine:
 the dynamic scaler's finiteness flag is read on the host (one sync per
 step) and the skip is a host branch, where the JAX engine selects on
-device.  The JAX engine's telemetry, offload, grad-comm codecs (and
-`hpz_comm` other than "fp32", the "auto" sizing), and tensor, expert and
+device.  The JAX engine's telemetry, offload, and tensor, expert and
 pipeline parallelism are refused with a ValueError (ROADMAP.md).
 `evenness_priority` shapes `rank_map` only, with JAX's warning.
 """
@@ -131,7 +146,7 @@ from .. import rng as prng
 from ..data.loader import rank_block
 from ..ops.dispatch import resolve_device
 from . import schedule as sched
-from .comm import _hier_groups, new_groups
+from .comm import GRAD_COMM_MODES, _hier_groups, new_groups
 from .mesh import granule_map, make_context
 from .partition import partition_tensors
 from .zero3 import LayerGather, Zero3Gather, gather_flat, scatter_flat
@@ -150,13 +165,13 @@ class TrainState:
     # the engine and rank that hold this state (`ZeroEngine.layout`):
     # what a checkpoint records and a load checks (utils/checkpoint.py)
     layout: Optional[Dict[str, Any]] = None
+    # the grad-comm codec's error-feedback residual: this rank's row of
+    # Schedule.residual_len f32 (JAX :97); None without one
+    grad_residual: Optional[torch.Tensor] = None
 
 
 # knobs of the JAX engine the port refuses, with their off values
 _REFUSED = {"telemetry": None, "offload_opt_state": False,
-            "grad_comm": "fp32", "grad_comm_groups": None,
-            "grad_comm_block": 256, "grad_comm_error_feedback": True,
-            "grad_comm_tail": "fp32", "hpz_comm": "fp32",
             "tensor_parallel": 1, "expert_parallel": 1,
             "pipeline_parallel": 1}
 _AVG, _SUM, _MIN = dist.ReduceOp.AVG, dist.ReduceOp.SUM, dist.ReduceOp.MIN
@@ -173,29 +188,49 @@ def _refuse(name: str, refused: Dict[str, Any], knobs: Dict[str, Any],
                          "slice of the port, ROADMAP.md)")
 
 
-def _sched_knobs(grad_buckets, gather_prefetch, gather_groups, hpz):
-    """The schedule knobs checked as the JAX engine checks them
-    (:613-649) before its schedule is built: (grad_buckets,
-    gather_prefetch, gather_groups, hpz)."""
-    for name, v in (("grad_buckets", grad_buckets),
-                    ("gather_groups", gather_groups)):
-        if v == "auto":
-            raise ValueError(f"{name}='auto' (the DCN-aware sizing): "
-                             f"{sched._LATER}")
-    grad_buckets = int(grad_buckets) if grad_buckets else 1
-    if grad_buckets < 1:
-        raise ValueError(f"grad_buckets must be >= 1, got {grad_buckets}")
+def _sched_knobs(grad_buckets, gather_prefetch, gather_groups, hpz,
+                 grad_comm="fp32", grad_comm_groups=None,
+                 grad_comm_block=256, grad_comm_error_feedback=True,
+                 grad_comm_tail="fp32", hpz_comm="fp32") -> Dict[str, Any]:
+    """The schedule and codec knobs checked as the JAX engine checks them
+    (:582-649) before its schedule is built; build_schedule's keyword
+    arguments."""
+    if grad_comm not in GRAD_COMM_MODES and grad_comm != "auto":
+        raise ValueError(f"grad_comm must be one of {GRAD_COMM_MODES} or "
+                         f"'auto', got {grad_comm!r}")
+    grad_comm_groups = int(grad_comm_groups) if grad_comm_groups else None
+    if grad_comm == "fp32" and grad_comm_groups:
+        raise ValueError("grad_comm_groups requires grad_comm='int8' or "
+                         "'fp8' (grad_comm='fp32' runs no quantized "
+                         "schedule)")
+    if grad_buckets != "auto":
+        grad_buckets = int(grad_buckets) if grad_buckets else 1
+        if grad_buckets < 1:
+            raise ValueError(f"grad_buckets must be >= 1, got "
+                             f"{grad_buckets}")
+    if grad_comm_tail not in GRAD_COMM_MODES:
+        raise ValueError(f"grad_comm_tail must be one of {GRAD_COMM_MODES}, "
+                         f"got {grad_comm_tail!r}")
     gather_prefetch = int(gather_prefetch) if gather_prefetch else 0
     if gather_prefetch < 0:
         raise ValueError(
             f"gather_prefetch must be >= 0 (0/1 = the on-demand gather; "
             f"K >= 2 holds K layers), got {gather_prefetch}")
-    gather_groups = int(gather_groups) if gather_groups else None
-    if gather_groups and gather_prefetch <= 1:
-        raise ValueError("gather_groups requires gather_prefetch >= 2 (the "
-                         "2-hop gather lives in the explicit prefetched "
-                         "schedule)")
-    return grad_buckets, gather_prefetch, gather_groups, bool(hpz)
+    if gather_groups != "auto":
+        gather_groups = int(gather_groups) if gather_groups else None
+        if gather_groups and gather_prefetch <= 1:
+            raise ValueError("gather_groups requires gather_prefetch >= 2 "
+                             "(the 2-hop gather lives in the explicit "
+                             "prefetched schedule)")
+    if hpz_comm not in GRAD_COMM_MODES:
+        raise ValueError(f"hpz_comm must be one of {GRAD_COMM_MODES}, "
+                         f"got {hpz_comm!r}")
+    return dict(grad_buckets=grad_buckets, gather_prefetch=gather_prefetch,
+                gather_groups=gather_groups, hpz=bool(hpz),
+                grad_comm=grad_comm, grad_comm_groups=grad_comm_groups,
+                grad_comm_block=int(grad_comm_block),
+                grad_comm_error_feedback=bool(grad_comm_error_feedback),
+                grad_comm_tail=grad_comm_tail, hpz_comm=hpz_comm)
 
 
 class ZeroEngine:
@@ -209,15 +244,22 @@ class ZeroEngine:
                  accum_steps: int = 1, grad_clip: Optional[float] = None,
                  loss_scale=None, loss_scale_growth_interval: int = 2000,
                  seq_parallel: int = 1, seq_impl: str = "ring",
-                 pctx=None, grad_buckets: int = 1, gather_prefetch: int = 0,
-                 gather_groups: Optional[int] = None, hpz: bool = False,
+                 pctx=None, grad_buckets=1, gather_prefetch: int = 0,
+                 gather_groups=None, hpz: bool = False,
                  hpz_granule_of: Optional[Dict[int, int]] = None,
+                 grad_comm: str = "fp32",
+                 grad_comm_groups: Optional[int] = None,
+                 grad_comm_block: int = 256,
+                 grad_comm_error_feedback: bool = True,
+                 grad_comm_tail: str = "fp32", hpz_comm: str = "fp32",
                  evenness_priority: float = 0.0, **knobs):
         _refuse(type(self).__name__, _REFUSED, knobs,
-                "telemetry, offload, the grad-comm codecs and "
-                "tensor/expert/pipeline parallelism are")
+                "telemetry, offload and tensor/expert/pipeline "
+                "parallelism are")
         knob = _sched_knobs(grad_buckets, gather_prefetch, gather_groups,
-                            hpz)
+                            hpz, grad_comm, grad_comm_groups,
+                            grad_comm_block, grad_comm_error_feedback,
+                            grad_comm_tail, hpz_comm)
         self._setup(model, optimizer, device, accum_steps, grad_clip,
                     loss_scale, loss_scale_growth_interval)
         self.pctx = pctx or make_context(seq_parallel, seq_impl)
@@ -232,7 +274,7 @@ class ZeroEngine:
                 "would change with the rank count (ROADMAP.md)")
         self.n_dev = self.pctx.world
         self.n_shard = self.pctx.data_size
-        self._build_schedule(*knob, hpz_granule_of)
+        self._build_schedule(knob, hpz_granule_of)
         self._rank_map(evenness_priority)
         # flat shard of each leaf: (numel, shard size S, [lo, hi) owned)
         r = self.pctx.data_rank
@@ -259,11 +301,11 @@ class ZeroEngine:
                 "materialize_owned directly (parallel/partition.py).",
                 stacklevel=3)
 
-    def _build_schedule(self, grad_buckets, gather_prefetch, gather_groups,
-                        hpz, granule_of) -> None:
-        """One `build_schedule` over the knobs (JAX :670-703); the hpZ
-        granule map is the hosts' (`mesh.granule_map`) unless
-        `hpz_granule_of` overrides it."""
+    def _build_schedule(self, knob, granule_of) -> None:
+        """One `build_schedule` over the knobs (JAX :670-703); the hpZ /
+        "auto" granule map is the hosts' (`mesh.granule_map`) unless
+        `hpz_granule_of` overrides it.  Then the grad slot's codecs (the
+        2-hop groups made here, on every rank in one order)."""
         pctx = self.pctx
         if granule_of is None and pctx is not None:
             def granule_of():
@@ -272,10 +314,23 @@ class ZeroEngine:
         self._schedule = sched.build_schedule(
             model=self.model, stage=self.stage, n_shard=self.n_shard,
             busy_axes=busy, accum_steps=self.accum_steps,
-            grad_buckets=grad_buckets, gather_prefetch=gather_prefetch,
-            gather_groups=gather_groups, hpz=hpz, granule_of=granule_of)
+            granule_of=granule_of, **knob)
         self._lowering = self._schedule.lowering
         self._exec = None
+        self._codec = self._tail_codec = None
+        g = self._schedule.grad
+        if g is not None and (g.mode != "fp32" or g.tail_mode != "fp32"):
+            hops = None
+            if g.groups:
+                intra, inter = _hier_groups(self.n_shard, g.groups)
+                hops = (self._data_groups(intra), self._data_groups(inter))
+            kw = dict(group=pctx.data_group, n=self.n_shard,
+                      rank=pctx.data_rank, block=g.block, inner=g.groups,
+                      hops=hops)
+            if g.mode != "fp32":
+                self._codec = sched.Codec(mode=g.mode, **kw)
+            if g.tail_mode != "fp32":
+                self._tail_codec = sched.Codec(mode=g.tail_mode, **kw)
 
     def _setup(self, model, optimizer, device, accum_steps, grad_clip,
                loss_scale, loss_scale_growth_interval):
@@ -331,7 +386,16 @@ class ZeroEngine:
                 if self.model.config.dropout else None)
         return TrainState(params=params, opt_state=opt_state,
                           scaler=scaler, dropout_base=base,
-                          layout=self.layout())
+                          layout=self.layout(),
+                          grad_residual=self.zero_residual())
+
+    def zero_residual(self) -> Optional[torch.Tensor]:
+        """This rank's error-feedback residual row at init: residual_len
+        f32 zeros (JAX :1051-1057), or None without one."""
+        n = self._schedule.residual_len
+        if not n:
+            return None
+        return torch.zeros(n, dtype=torch.float32, device=self.device)
 
     # -- the layout a checkpoint records -----------------------------------
 
@@ -372,17 +436,28 @@ class ZeroEngine:
 
     @torch.no_grad()
     def restore(self, params, opt_state, scaler=None,
-                dropout_base=None) -> TrainState:
+                dropout_base=None, grad_residual=None) -> TrainState:
         """A TrainState from a checkpoint's tensors (this rank's, checked
         against `state_target`, on the engine's device), in place of
         `init`: the params are copied into the model's own parameters
-        (ZeRO-3 takes them as its shards)."""
+        (ZeRO-3 takes them as its shards).  Without a saved residual an
+        engine that keeps one starts from zeros (JAX
+        utils/checkpoint.py:277-290)."""
         state_params = self.model.param_dict()
         for n, p in state_params.items():
             p.copy_(params[n])
         return TrainState(params=state_params, opt_state=opt_state,
                           scaler=scaler, dropout_base=dropout_base,
-                          layout=self.layout())
+                          layout=self.layout(),
+                          grad_residual=self._residual_of(grad_residual))
+
+    def _residual_of(self, saved) -> Optional[torch.Tensor]:
+        """A checkpoint's residual row if it fits this engine's, else the
+        zeros `init` makes (None when the engine keeps none)."""
+        zero = self.zero_residual()
+        if zero is None or saved is None or saved.shape != zero.shape:
+            return zero
+        return saved.to(zero.device, torch.float32).clone()
 
     def _own(self, name: str, t: torch.Tensor) -> torch.Tensor:
         """The rank's flat shard of a whole leaf (a view)."""
@@ -411,7 +486,8 @@ class ZeroEngine:
         gather = None
         if self.stage >= 3:
             gather = LayerGather(self._z3, hop=self._hop_groups(s.gather),
-                                 hpz=self._hpz_groups(s.hpz_geom))
+                                 hpz=self._hpz_groups(s.hpz_geom),
+                                 hpz_mode=s.gather.hpz_mode)
         look = (s.gather.prefetch - 1) if s.gather is not None else 0
         lb = None
         if self._lowering == "composed" and s.grad is not None:
@@ -488,11 +564,19 @@ class ZeroEngine:
                if state.dropout_base is not None else None)
         sharded_grads = self.stage >= 2 and self.pctx is not None
 
-        explicit = self._lowering in ("bucket", "composed")
-        if self._lowering == "bucket":
-            loss, grads = self._bucketed(params, idx, targets, scale)
+        explicit = self._lowering in ("quant_mono", "bucket", "composed")
+        residual = state.grad_residual
+        new_residual = residual
+        qstep = int(state.opt_state["step"])
+        if self._lowering == "quant_mono":
+            loss, grads, new_residual = self._quant_mono(
+                params, idx, targets, scale, residual, qstep)
+        elif self._lowering == "bucket":
+            loss, grads, new_residual = self._bucketed(
+                params, idx, targets, scale, residual, qstep)
         elif self._lowering == "composed":
-            loss, grads = self._composed(params, idx, targets, scale)
+            loss, grads, new_residual = self._composed(
+                params, idx, targets, scale, residual, qstep)
         elif self.accum_steps == 1:
             loss, grads = self._loss_and_grads(params, idx, targets, scale,
                                                rng)
@@ -552,6 +636,10 @@ class ZeroEngine:
                 self._update_shards(params, grads, state.opt_state)
             else:
                 self.optimizer.update(params, grads, state.opt_state)
+        # a skipped step's sync consumed the residual into a discarded
+        # update: it rolls back with the rest of the state (JAX :1367)
+        if finite:
+            state.grad_residual = new_residual
         if dynamic:
             # overflow -> the whole update was skipped (params, moments
             # and the step counter); halve the scale.  Grow it after
@@ -565,15 +653,48 @@ class ZeroEngine:
                 state.scaler = {"scale": max(scale * 0.5, 1.0), "good": 0}
         return state, loss
 
-    # -- the explicit lowerings (JAX bucketed_step, composed_step) ----------
+    # -- the explicit lowerings (JAX monolithic_quant_step, bucketed_step,
+    #    composed_step) ------------------------------------------------------
 
-    def _release_tail(self, grads, names, inv):
+    def _n_buckets(self) -> int:
+        lay = self._schedule.layout
+        return lay["n_buckets"] if lay is not None else 1
+
+    def _split_residual(self, residual):
+        """(the buckets' part, the tail's slice) of the rank's residual
+        row [b0 | ... | bK-1 | tail]; (None, None) without one."""
+        if residual is None:
+            return None, None
+        lay = self._schedule.layout
+        cut = lay["n_buckets"] * lay["bucket_pad"]
+        return residual[:cut], residual[cut:]
+
+    @staticmethod
+    def _join_residual(parts):
+        parts = [p for p in parts if p is not None]
+        return torch.cat(parts) if parts else None
+
+    def _release_tail(self, grads, names, inv, residual=None, step=0):
         """Stages 0-2: the non-block leaves' own-batch gradients unscaled,
         cast to the compute dtype, SUMmed over the data group (stage 2:
         reduce-scattered into the flat shard), divided by the rank count
-        — JAX's compute-dtype `pmean` — back in the param dtype."""
+        — JAX's compute-dtype `pmean` — back in the param dtype.  With a
+        codec: one quantized sync of their f32 gradients with the tail's
+        residual slice, site (K, K) of the step's stream.  Returns
+        (grads, the tail's new residual slice or None)."""
         cd = self.model.config.compute_dtype
         out = {}
+        if self._codec is not None:
+            tail = {}
+            for n in names:
+                g = grads[n].float()
+                tail[n] = g * inv if inv is not None else g
+            k = self._n_buckets()
+            red, new_t = self._codec.sync(tail, residual, step, (k, k))
+            for n in names:
+                g = red[n].to(grads[n].dtype)
+                out[n] = g if self.stage < 2 else self._own(n, g).clone()
+            return out, new_t
         for n in names:
             g = grads[n].float()
             if inv is not None:
@@ -586,12 +707,58 @@ class ZeroEngine:
                 g = scatter_flat(g, numel, s, hi - lo, self.pctx.data_group,
                                  self.n_shard)
             out[n] = (g / self.n_shard).to(grads[n].dtype)
-        return out
+        return out, None
 
-    def _bucketed(self, params, idx, targets, scale):
+    def _local_loss_grads(self, params, idx, targets, scale):
+        """The rank's own batch as on one device (the model with no
+        pctx): its scaled loss and gradients."""
+        l = self.model.apply(idx, targets, params=params)
+        if scale is not None:
+            l = l * scale
+        return l.detach(), torch.autograd.grad(l, list(params.values()))
+
+    def _quant_mono(self, params, idx, targets, scale, residual, step):
+        """The "quant_mono" lowering's loss and grads (JAX
+        `monolithic_quant_step`): each rank's own-batch gradient with the
+        model run as on one device, microbatches summed locally, unscaled,
+        then one quantized sync (`Codec.sync`, the step's stream).
+        Returns (the scaled loss averaged over the ranks, the mean
+        gradients — whole leaves at stages 0-1, flat shards at stage 2 —,
+        the new residual row or None)."""
+        accum = self.accum_steps
+        if accum == 1:
+            loss, got = self._local_loss_grads(params, idx, targets, scale)
+            g = dict(zip(params, got))
+        else:
+            if idx.dim() != 3 or idx.shape[0] != accum:
+                raise ValueError(f"accum_steps={accum}: batch must be "
+                                 f"(accum, B, T), got {tuple(idx.shape)}")
+            loss, acc = None, {}
+            for i in range(accum):
+                l, got = self._local_loss_grads(params, idx[i], targets[i],
+                                                scale)
+                loss = l if i == 0 else loss + l
+                for n, t in zip(params, got):
+                    acc[n] = t.float() if i == 0 else acc[n] + t.float()
+            loss = loss / accum
+            g = {n: (acc[n] / accum).to(p.dtype) for n, p in params.items()}
+        if scale is not None:
+            # unscaled BEFORE the sync: the residual carries true
+            # gradient units
+            inv = 1.0 / scale
+            g = {n: (t.float() * inv).to(t.dtype) for n, t in g.items()}
+        red, new_residual = self._codec.sync(g, residual, step)
+        grads = {n: red[n] if self.stage < 2 else self._own(n, red[n]).clone()
+                 for n in params}
+        dist.all_reduce(loss, op=_AVG, group=self.pctx.world_group)
+        return loss, grads, new_residual
+
+    def _bucketed(self, params, idx, targets, scale, residual=None,
+                  step=0):
         """The "bucket" lowering's loss and grads (JAX `bucketed_step`):
         (the scaled loss averaged over the ranks, the mean gradients
-        unscaled — whole leaves at stages 0-1, flat shards at stage 2)."""
+        unscaled — whole leaves at stages 0-1, flat shards at stage 2 —,
+        the new residual row or None)."""
         inv = None if scale is None else 1.0 / scale
         tail = [n for n in params if not n.startswith("h.")]
         accum = self.accum_steps
@@ -611,7 +778,9 @@ class ZeroEngine:
                 for n, t in zip(params, g):
                     acc[n] = t.float() if i == 0 else acc[n] + t.float()
             idx, targets = idx[-1], targets[-1]
-        rel = sched.BucketRelease(self, acc, accum, inv)
+        bres, tres = self._split_residual(residual)
+        rel = sched.BucketRelease(self, acc, accum, inv, residual=bres,
+                                  step=step)
         l = self.model.apply(idx, targets, params=params, sched=rel)
         if scale is not None:
             l = l * scale
@@ -622,37 +791,69 @@ class ZeroEngine:
         if acc is not None:
             g_tail = {n: ((acc[n] + g.float()) / accum).to(g.dtype)
                       for n, g in g_tail.items()}
-        grads = self._release_tail(g_tail, tail, inv)
+        grads, new_t = self._release_tail(g_tail, tail, inv, tres, step)
         grads.update(rel.finish(params))
         dist.all_reduce(loss, op=_AVG, group=self.pctx.world_group)
-        return loss, {n: grads[n] for n in params}
+        new_residual = None
+        if residual is not None:
+            new_residual = self._join_residual(rel.new_residual + [new_t])
+        return loss, {n: grads[n] for n in params}, new_residual
 
-    def _composed(self, params, idx, targets, scale):
+    def _composed(self, params, idx, targets, scale, residual=None,
+                  step=0):
         """The "composed" lowering's loss and grads (JAX `composed_step`):
         the executor releases the block leaves; the tail — ZeRO-3: its
-        gather's reduce-scatter SUM times 1/(scale * D); stages 0-2: as
-        `_release_tail`."""
+        gather's reduce-scatter SUM times 1/(scale * D), or with
+        `grad_comm_tail` one quantized sync of the whole leaves'
+        gradients (JAX `qtail`, :2188-2220), each rank keeping its shard;
+        stages 0-2: as `_release_tail`.  Returns (loss, grads, the new
+        residual row or None)."""
         exe = self._exec
         inv = None if scale is None else 1.0 / scale
         exe.inv = inv
-        l = self.model.apply(idx, targets, params=params, sched=exe)
-        if scale is not None:
-            l = l * scale
-        got = torch.autograd.grad(l, list(params.values()))
-        grads = dict(zip(params, got))
+        bres, tres = self._split_residual(residual)
+        exe.residual, exe.step = bres, step
         tail = [n for n in params if not n.startswith("h.")]
-        if self.stage >= 3:
+        tail_q = self.stage >= 3 and self._tail_codec is not None
+        exe.tail_whole = {} if tail_q else None
+        try:
+            l = self.model.apply(idx, targets, params=params, sched=exe)
+            if scale is not None:
+                l = l * scale
+            wrt = dict(params)
+            if tail_q:
+                wrt.update(exe.tail_whole)
+            got = torch.autograd.grad(l, list(wrt.values()))
+        finally:
+            exe.tail_whole = None
+        grads = dict(zip(wrt, got))
+        new_t = None
+        if tail_q:
+            g32 = {}
+            for n in tail:
+                g = grads[n].float()
+                g32[n] = g * inv if inv is not None else g
+            k = self._n_buckets()
+            red, new_t = self._tail_codec.sync(g32, tres, step, (k, k))
+            for n in tail:
+                grads[n] = self._own(n, red[n]).to(params[n].dtype).clone()
+        elif self.stage >= 3:
             f = (1.0 if inv is None else inv) / self.n_shard
             for n in tail:
                 grads[n] = (grads[n].float() * f).to(grads[n].dtype)
         else:
-            grads.update(self._release_tail(grads, tail, inv))
+            g_tail, new_t = self._release_tail(grads, tail, inv, tres, step)
+            grads.update(g_tail)
             if self.stage == 2:
                 grads = {n: (g if n in tail else self._own(n, g))
                          for n, g in grads.items()}
         loss = l.detach()
         dist.all_reduce(loss, op=_AVG, group=self.pctx.world_group)
-        return loss, grads
+        new_residual = None
+        if residual is not None:
+            new_residual = self._join_residual(
+                (exe.new_residual or []) + [new_t])
+        return loss, {n: grads[n] for n in params}, new_residual
 
     @torch.no_grad()
     def _update_shards(self, params, grads, opt_state):
@@ -724,6 +925,14 @@ class ZeroEngine:
         if self.loss_scale is not None:
             extras += f", loss_scale={self.loss_scale}"
         s = self._schedule
+        if s.grad is not None and s.grad.mode != "fp32":
+            extras += f", grad_comm={s.grad.mode}"
+            if s.grad.groups:
+                extras += f"(2-hop inner={s.grad.groups})"
+            if not s.grad.error_feedback:
+                extras += "(no-ef)"
+            if s.grad.tail_mode != "fp32":
+                extras += f", grad_comm_tail={s.grad.tail_mode}"
         if s.grad is not None and s.grad.buckets > 1:
             extras += f", grad_buckets={s.grad.buckets}"
         if s.gather is not None and s.gather.prefetch > 1:
@@ -732,6 +941,8 @@ class ZeroEngine:
                 extras += f"(2-hop inner={s.gather.groups})"
         if s.gather is not None and s.gather.hpz:
             extras += ", hpz=on"
+            if s.gather.hpz_mode != "fp32":
+                extras += f"[{s.gather.hpz_mode}]"
         if self._lowering != "plain":
             extras += f", sched={s.describe()}"
         return (f"{type(self).__name__}(stage={self.stage}, "
@@ -751,20 +962,27 @@ class SingleDevice(ZeroEngine):
                  device: Union[None, str, torch.device] = None,
                  accum_steps: int = 1, grad_clip: Optional[float] = None,
                  loss_scale=None, loss_scale_growth_interval: int = 2000,
-                 grad_buckets: int = 1, gather_prefetch: int = 0,
-                 gather_groups: Optional[int] = None, hpz: bool = False,
+                 grad_buckets=1, gather_prefetch: int = 0,
+                 gather_groups=None, hpz: bool = False,
                  hpz_granule_of: Optional[Dict[int, int]] = None,
+                 grad_comm: str = "fp32",
+                 grad_comm_groups: Optional[int] = None,
+                 grad_comm_block: int = 256,
+                 grad_comm_error_feedback: bool = True,
+                 grad_comm_tail: str = "fp32", hpz_comm: str = "fp32",
                  evenness_priority: float = 0.0, **knobs):
         _refuse("SingleDevice", dict(_REFUSED, seq_parallel=1), knobs,
                 "multi-device, telemetry and offload knobs are")
         knob = _sched_knobs(grad_buckets, gather_prefetch, gather_groups,
-                            hpz)
+                            hpz, grad_comm, grad_comm_groups,
+                            grad_comm_block, grad_comm_error_feedback,
+                            grad_comm_tail, hpz_comm)
         self._setup(model, optimizer, device, accum_steps, grad_clip,
                     loss_scale, loss_scale_growth_interval)
         self.pctx = None
         self.n_shard = 1
         # one device: every slot is inert, with JAX's warning
-        self._build_schedule(*knob, hpz_granule_of)
+        self._build_schedule(knob, hpz_granule_of)
         self._rank_map(evenness_priority)
 
     def describe(self) -> str:
@@ -820,7 +1038,7 @@ class Zero3(ZeroEngine):
 
     @torch.no_grad()
     def restore(self, params, opt_state, scaler=None,
-                dropout_base=None) -> TrainState:
+                dropout_base=None, grad_residual=None) -> TrainState:
         """The checkpoint's shards become the state's params, as new leaves
         that require grad, and the model's whole parameters are released,
         as `init` does — no whole leaf is built."""
@@ -828,7 +1046,8 @@ class Zero3(ZeroEngine):
         return TrainState(
             params={n: t.detach().requires_grad_() for n, t in params.items()},
             opt_state=opt_state, scaler=scaler, dropout_base=dropout_base,
-            layout=self.layout())
+            layout=self.layout(),
+            grad_residual=self._residual_of(grad_residual))
 
     def gather_params(self, state: TrainState) -> Dict[str, torch.Tensor]:
         """The whole params, all-gathered from the data ranks' shards."""

@@ -57,9 +57,21 @@ NCCL still reads or writes it.  Every rank issues every collective in
 the same order: the forward and backward loops run the same layer
 sequence on each rank.
 
-Not ported yet (ROADMAP.md): the int8/fp8 grad codecs (`grad_comm`),
-`grad_comm_groups`, error feedback, `grad_comm_tail`, `hpz_comm` other
-than "fp32", the "auto" sizing and the telemetry probe slot.
+The grad-comm codecs (JAX `GradSlot.mode`, parallel/comm.py): with
+`grad_comm` int8 or fp8 every gradient release goes through the
+error-fed blockwise codec (`comm.start_grad_sync` / `finish_grad_sync`)
+instead of an fp32 collective — "quant_mono" (no buckets, stages 0-2:
+the engine's `_quant_mono`, JAX `monolithic_quant_step` :1297), each
+bucket and the tail of "bucket" (JAX `bucketed_step` :1416), each bucket
+of "composed" and, with `grad_comm_tail`, ZeRO-3's non-block tail (JAX
+`composed_step` :2088-2220).  The residual row is laid out [bucket 0 |
+... | bucket K-1 | tail] (`Schedule.residual_len`).  `hpz_comm` int8 or
+fp8 moves hpZ's once-a-step replica rebuild through the codec
+(`comm.hpz_rebuild`, JAX `build_sec`).  "auto" resolves `grad_comm`,
+`grad_buckets` and `gather_groups` by `auto_comm_plan` (JAX :249).
+
+Not ported yet (ROADMAP.md): the telemetry probe slot (`health`) and the
+pipeline slot (`pipe`).
 """
 
 from __future__ import annotations
@@ -73,8 +85,11 @@ import torch
 import torch.distributed as dist
 
 from ..models.gpt2 import e4m3_round
-from .comm import (bucket_layout, f8_pmean_shard, f8_pmean_whole,
-                   f8_sum_mean, padded_scatter, to_codes)
+from . import comm as C
+from .comm import (DEFAULT_BLOCK, GRAD_COMM_MODES, bucket_layout,
+                   f8_pmean_shard, f8_pmean_whole, f8_sum_mean, numel,
+                   padded_scatter, padded_size, to_codes)
+from .mesh import granule_geometry
 
 _SUM = dist.ReduceOp.SUM
 _LATER = "not ported yet (a later slice of the port, ROADMAP.md)"
@@ -89,15 +104,12 @@ class ScheduleConflictError(ValueError):
 class GatherSlot:
     """Per-layer weight gathers (ZeRO-3): `prefetch` gathered layers held
     live (1 = on demand), `groups` the 2-hop gather's inner size, `hpz`
-    the gathers within a granule from its replica (JAX :91)."""
+    the gathers within a granule from its replica, `hpz_mode` the
+    replica rebuild's codec (JAX :91)."""
     prefetch: int = 1
     groups: Optional[int] = None
     hpz: bool = False
     hpz_mode: str = "fp32"
-
-    def __post_init__(self):
-        if self.hpz_mode != "fp32":
-            raise ValueError(f"hpz_comm={self.hpz_mode!r}: {_LATER}")
 
     def describe(self) -> str:
         s = f"gather_prefetch={self.prefetch}"
@@ -105,22 +117,34 @@ class GatherSlot:
             s += f"(2-hop inner={self.groups})"
         if self.hpz:
             s += "+hpz"
+            if self.hpz_mode != "fp32":
+                s += f"[{self.hpz_mode}]"
         return s
 
 
 @dataclasses.dataclass(frozen=True)
 class GradSlot:
-    """Gradient releases: `buckets` layer buckets plus the non-block tail
-    (JAX :116), in fp32 — the codecs are a later slice."""
+    """Gradient releases (JAX :116): `buckets` layer buckets plus the
+    non-block tail, the codec `mode` with `block`-element absmax scales
+    and optional error-feedback residual slices, `groups` the 2-hop
+    schedule's inner size, `tail_mode` the codec of composed ZeRO-3's
+    non-block tail."""
     buckets: int = 1
     mode: str = "fp32"
-
-    def __post_init__(self):
-        if self.mode != "fp32":
-            raise ValueError(f"grad_comm={self.mode!r}: {_LATER}")
+    block: int = DEFAULT_BLOCK
+    groups: Optional[int] = None
+    error_feedback: bool = True
+    tail_mode: str = "fp32"
 
     def describe(self) -> str:
-        return f"grad_buckets={self.buckets},grad_comm={self.mode}"
+        s = f"grad_buckets={self.buckets},grad_comm={self.mode}"
+        if self.groups:
+            s += f"(2-hop inner={self.groups})"
+        if self.mode != "fp32" and not self.error_feedback:
+            s += "(no-ef)"
+        if self.tail_mode != "fp32":
+            s += f",tail_comm={self.tail_mode}"
+        return s
 
 
 @dataclasses.dataclass
@@ -130,7 +154,11 @@ class Schedule:
     grad: Optional[GradSlot] = None
     lowering: str = "plain"
     layout: Optional[dict] = None
+    # the error-feedback residual row's length (0: no residual)
+    residual_len: int = 0
     hpz_geom: Optional[tuple] = None
+    # the resolved auto_comm_plan when a knob arrived as "auto"
+    auto_plan: Optional[dict] = None
 
     @property
     def slots(self):
@@ -144,21 +172,24 @@ class Schedule:
 
 
 # ---------------------------------------------------------------------------
-# --sched spec parsing (JAX :177, the ported vocabulary)
+# --sched spec parsing (JAX :177)
 # ---------------------------------------------------------------------------
 
-_SPEC_INT = ("gather_prefetch", "gather_groups", "grad_buckets")
-_SPEC_FP32 = ("grad_comm", "hpz_comm")
-_SPEC_LATER = ("grad_comm_groups", "grad_comm_block", "grad_comm_tail",
-               "pipe")
+_SPEC_INT = ("gather_prefetch", "gather_groups", "grad_buckets",
+             "grad_comm_groups", "grad_comm_block")
+_SPEC_AUTO = ("gather_groups", "grad_buckets", "grad_comm")
+_SPEC_MODE = ("grad_comm", "grad_comm_tail", "hpz_comm")
 
 
 def parse_sched_spec(spec: str) -> Dict[str, Any]:
     """A `--sched` composition string -> engine kwargs, e.g.
-    "gather_prefetch=2,grad_buckets=4,hpz" -> {"gather_prefetch": 2,
-    "grad_buckets": 4, "hpz": True}.  `grad_comm` / `hpz_comm` take only
-    "fp32"; the codecs, "auto", `health` and the pipe slot are refused by
-    name (ROADMAP.md), an unknown key as JAX refuses it."""
+    "gather_prefetch=2,grad_buckets=4,grad_comm=int8,hpz" ->
+    {"gather_prefetch": 2, "grad_buckets": 4, "grad_comm": "int8",
+    "hpz": True}.  JAX's vocabulary: `grad_buckets`, `gather_groups` and
+    `grad_comm` also take "auto" (`auto_comm_plan`); `grad_comm_tail` and
+    `hpz_comm` take a codec.  `health` (the telemetry probe slot) and
+    `pipe` (the pipeline slot) are refused by name (ROADMAP.md), an
+    unknown key or mode as JAX refuses it."""
     out: Dict[str, Any] = {}
     for part in (p.strip() for p in spec.split(",") if p.strip()):
         if part == "hpz":
@@ -171,18 +202,85 @@ def parse_sched_spec(spec: str) -> Dict[str, Any]:
             raise ValueError(f"--sched element {part!r} is not "
                              "'key=value', 'health' or 'hpz'")
         key, val = (s.strip() for s in part.split("=", 1))
-        if key in _SPEC_LATER or val == "auto" and (
-                key in _SPEC_INT or key in _SPEC_FP32):
-            raise ValueError(f"--sched {key}={val}: {_LATER}")
-        if key in _SPEC_INT:
+        if key == "pipe":
+            raise ValueError(f"--sched pipe={val} (the pipeline slot): "
+                             f"{_LATER}")
+        if val == "auto" and key in _SPEC_AUTO:
+            out[key] = "auto"
+        elif key in _SPEC_INT:
             out[key] = int(val)
-        elif key in _SPEC_FP32:
-            if val != "fp32":
-                raise ValueError(f"--sched {key}={val}: {_LATER}")
+        elif key in _SPEC_MODE:
+            if val not in GRAD_COMM_MODES:
+                raise ValueError(f"--sched {key} must be one of "
+                                 f"{GRAD_COMM_MODES}, got {val!r}")
             out[key] = val
         else:
             raise ValueError(f"unknown --sched key {key!r}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the "auto" comm sizing (JAX :249-342)
+# ---------------------------------------------------------------------------
+
+def auto_comm_plan(*, n_shard: int, n_layer: int, shapes=None,
+                   granule_of=None, block: int = DEFAULT_BLOCK,
+                   max_buckets: int = 8,
+                   overhead_tol: float = 0.10) -> Dict[str, Any]:
+    """The "auto" comm knobs from the link hierarchy and the modeled
+    bytes (JAX :249): `grad_comm` "int8" whenever there is a gradient
+    collective; `grad_buckets` the largest divisor of n_layer (at most
+    `max_buckets`, and max(2, max_buckets // granules) over several
+    granules) whose padded per-bucket syncs stay within `overhead_tol` of
+    the monolithic sync's modeled wire; `gather_inner` the ranks a
+    granule over several granules, else None.  A pure function of the
+    geometry."""
+    n_gran, ici = granule_geometry(granule_of, n_shard)
+    plan: Dict[str, Any] = {
+        "n_granules": n_gran,
+        "grad_comm": "int8" if n_shard > 1 else "fp32",
+        "grad_buckets": 1,
+        "gather_inner": (ici if n_gran > 1 and 2 <= ici < n_shard
+                         and n_shard % ici == 0 else None),
+    }
+    if n_shard <= 1 or n_layer <= 1 or not shapes:
+        return plan
+    cap = max_buckets if n_gran <= 1 else max(2, max_buckets // n_gran)
+    divisors = [k for k in range(1, min(n_layer, cap) + 1)
+                if n_layer % k == 0]
+    block_elems = sum(numel(s) for nm, s in shapes.items()
+                      if nm.startswith("h."))
+    if not block_elems:
+        return plan
+    mode = plan["grad_comm"]
+    base = C.modeled_wire_bytes(block_elems, n_shard, mode, block=block)
+    budget = (1.0 + overhead_tol) * base["quant_wire_bytes"]
+    best_k, best_wire = 1, base["quant_wire_bytes"]
+    for k in divisors:
+        per = C.modeled_wire_bytes(block_elems // k, n_shard, mode,
+                                   block=block)
+        wire_k = k * per["quant_wire_bytes"]
+        if wire_k <= budget:
+            best_k, best_wire = k, wire_k
+    plan["grad_buckets"] = best_k
+    plan["modeled"] = {
+        "grad_wire_bytes": float(best_wire),
+        "grad_wire_bytes_monolithic": float(base["quant_wire_bytes"]),
+        "fp32_allreduce_wire_bytes": base["fp32_allreduce_wire_bytes"],
+        "dcn_frac_est": 1.0 if n_gran > 1 else 0.0,
+    }
+    return plan
+
+
+# the comm knobs a plan may carry, in engine-kwarg spelling (JAX :331)
+COMM_PLAN_KEYS = ("grad_comm", "grad_buckets", "grad_comm_tail",
+                  "gather_groups", "gather_prefetch", "hpz", "hpz_comm")
+
+
+def comm_plan_engine_kwargs(plan: Dict[str, Any]) -> Dict[str, Any]:
+    """A plan filtered down to the engine kwargs it carries (JAX :337)."""
+    return {k: plan[k] for k in COMM_PLAN_KEYS
+            if k in plan and plan[k] is not None}
 
 
 # ---------------------------------------------------------------------------
@@ -227,19 +325,69 @@ def hpz_groups(granule_of: Dict[int, int], n: int):
 
 def build_schedule(*, model, stage: int, n_shard: int, busy_axes=(),
                    accum_steps: int = 1, grad_comm: str = "fp32",
-                   grad_buckets: int = 1, gather_prefetch: int = 0,
-                   gather_groups: Optional[int] = None, hpz: bool = False,
-                   hpz_comm: str = "fp32", granule_of=None) -> Schedule:
+                   grad_comm_block: int = DEFAULT_BLOCK,
+                   grad_comm_groups: Optional[int] = None,
+                   grad_comm_error_feedback: bool = True,
+                   grad_buckets=1, grad_comm_tail: str = "fp32",
+                   gather_prefetch: int = 0, gather_groups=None,
+                   hpz: bool = False, hpz_comm: str = "fp32",
+                   granule_of=None) -> Schedule:
     """Translate the knobs into slots, validate the composition once and
-    pick the lowering, as JAX's does.  `granule_of` is a {rank: granule}
-    map or a callable returning one (called only when hpZ's geometry is
-    needed: the port's map is a collective over the hosts' names)."""
+    pick the lowering, as JAX's does (:904-1296).  `granule_of` is a
+    {rank: granule} map or a callable returning one (called only when
+    hpZ's geometry or "auto" needs it: the port's map is a collective over
+    the hosts' names)."""
     n_layer = int(getattr(getattr(model, "config", None), "n_layer", 0)
                   or 0)
     gq = bool(getattr(getattr(model, "config", None), "gather_quant", None))
+
+    def gmap():
+        return granule_of() if callable(granule_of) else granule_of
+
+    # ---- resolve "auto" knobs against the link hierarchy --------------------
+    auto_plan = None
+    if "auto" in (grad_comm, grad_buckets, gather_groups):
+        granule_of = gmap()
+        auto_plan = auto_comm_plan(
+            n_shard=n_shard, n_layer=n_layer, shapes=model.param_shapes(),
+            granule_of=granule_of, block=int(grad_comm_block))
+        if grad_comm == "auto":
+            grad_comm = auto_plan["grad_comm"]
+        if grad_buckets == "auto":
+            # bucketing pipelines the quantized syncs; an fp32 program has
+            # no bucket machinery to size
+            grad_buckets = (auto_plan["grad_buckets"]
+                            if grad_comm != "fp32" else 1)
+        if gather_groups == "auto":
+            # the 2-hop gather exists only in the single-slot prefetch
+            # lowering; under a composition "auto" means flat
+            legacy_prefetch = (gather_prefetch > 1 and not hpz
+                               and grad_comm == "fp32"
+                               and grad_buckets in (0, 1))
+            gather_groups = (auto_plan["gather_inner"]
+                             if legacy_prefetch else None)
+
+    # ---- tail / hpz codec preconditions -------------------------------------
+    if grad_comm_tail not in GRAD_COMM_MODES:
+        raise ValueError(f"grad_comm_tail must be one of {GRAD_COMM_MODES}, "
+                         f"got {grad_comm_tail!r}")
+    if hpz_comm not in GRAD_COMM_MODES:
+        raise ValueError(f"hpz_comm must be one of {GRAD_COMM_MODES}, "
+                         f"got {hpz_comm!r}")
     if hpz_comm != "fp32" and not hpz:
         raise ValueError("hpz_comm quantizes the hpZ secondary rebuild; "
                          "it needs hpz=True")
+    if grad_comm_tail != "fp32":
+        if stage < 3:
+            raise ValueError(
+                "grad_comm_tail is a ZeRO-3 knob: at stages 0-2 the "
+                "non-block tail already syncs through the grad_comm "
+                "codec — drop grad_comm_tail or set grad_comm=")
+        if grad_comm == "fp32":
+            raise ValueError(
+                "grad_comm_tail composes with a quantized grad slot "
+                "(the tail shares the codec machinery and the residual "
+                "row); set grad_comm='int8'/'fp8' first")
 
     # ---- declare slots from the knobs --------------------------------------
     gather = None
@@ -249,7 +397,10 @@ def build_schedule(*, model, stage: int, n_shard: int, busy_axes=(),
                             hpz_mode=str(hpz_comm))
     grad = None
     if grad_buckets > 1 or grad_comm != "fp32":
-        grad = GradSlot(buckets=max(int(grad_buckets), 1), mode=grad_comm)
+        grad = GradSlot(buckets=max(int(grad_buckets), 1), mode=grad_comm,
+                        block=int(grad_comm_block), groups=grad_comm_groups,
+                        error_feedback=bool(grad_comm_error_feedback),
+                        tail_mode=str(grad_comm_tail))
     # ZeRO-3 with a grad slot: the on-demand gather slot, implicitly
     if stage >= 3 and grad is not None and gather is None:
         gather = GatherSlot(prefetch=1)
@@ -310,6 +461,9 @@ def build_schedule(*, model, stage: int, n_shard: int, busy_axes=(),
     # ---- slot-level validation ---------------------------------------------
     busy = [ax for ax in busy_axes if ax is not None]
     if grad is not None:
+        if grad.mode not in GRAD_COMM_MODES:
+            raise ValueError(f"grad_comm must be one of {GRAD_COMM_MODES}, "
+                             f"got {grad.mode!r}")
         if busy:
             raise ValueError(
                 f"the grad slot needs a pure data-parallel mesh (the "
@@ -321,6 +475,12 @@ def build_schedule(*, model, stage: int, n_shard: int, busy_axes=(),
                 f"{type(model).__name__} does not thread the bucketed "
                 "grad-release tap through its layer scan "
                 "(grad_bucket_capable=False)")
+        if grad.groups is not None and (
+                grad.groups < 2 or grad.groups >= n_shard
+                or n_shard % grad.groups):
+            raise ValueError(
+                f"grad_comm_groups={grad.groups} must be a proper "
+                f"divisor of the data-axis size {n_shard} (>= 2)")
     if gather is not None:
         if stage < 3:
             raise ValueError(
@@ -349,26 +509,46 @@ def build_schedule(*, model, stage: int, n_shard: int, busy_axes=(),
     # ---- hpZ geometry -------------------------------------------------------
     geom = None
     if gather is not None and gather.hpz:
-        gmap = granule_of() if callable(granule_of) else granule_of
-        if gmap is None:
+        granule_of = gmap()
+        if granule_of is None:
             raise ScheduleConflictError(
                 "gather slot (hpz): no DCN granule map — the mesh spans "
                 "a single slice/process (parallel/mesh.granule_map "
                 "returned None) and no granule_of= override was given")
-        geom = hpz_groups(gmap, n_shard)
+        geom = hpz_groups(granule_of, n_shard)
 
     # ---- pick the lowering --------------------------------------------------
     layout = None
-    if grad is not None and (grad.buckets > 1 or multi):
-        layout = bucket_layout(model.param_shapes(), n_layer, grad.buckets)
+    residual_len = 0
+    if grad is not None:
+        shapes = model.param_shapes()
+        stack_dims = [getattr(s, "shape", s)[0] for nm, s in shapes.items()
+                      if nm.startswith("h.")]
+        if grad.buckets > 1 and not stack_dims:
+            raise ValueError("grad_buckets needs a stacked-block model (no "
+                             "'h.*' leaves to bucket by layer)")
+        if grad.buckets > 1 or multi:
+            layout = bucket_layout(shapes, stack_dims[0], grad.buckets,
+                                   n_shard, grad.block)
+        if grad.mode != "fp32" and grad.error_feedback:
+            if layout is not None:
+                residual_len = grad.buckets * layout["bucket_pad"]
+                # composed ZeRO-3 with an fp32 tail: the tail
+                # reduce-scatters through its gather, no residual slice
+                if stage < 3 or grad.tail_mode != "fp32":
+                    residual_len += layout["tail_pad"]
+            else:
+                total = sum(numel(s) for s in shapes.values())
+                residual_len = padded_size(total, n_shard, grad.block)
     if multi:
         lowering = "composed"
     elif grad is not None:
-        lowering = "bucket"
+        lowering = "bucket" if grad.buckets > 1 else "quant_mono"
     else:
         lowering = "prefetch"
     return Schedule(gather=gather, grad=grad, lowering=lowering,
-                    layout=layout, hpz_geom=geom)
+                    layout=layout, residual_len=residual_len, hpz_geom=geom,
+                    auto_plan=auto_plan)
 
 
 # ---------------------------------------------------------------------------
@@ -393,12 +573,47 @@ class _TapFn(torch.autograd.Function):
                 *[None] * len(grads))
 
 
+@dataclasses.dataclass
+class Codec:
+    """A grad slot's codec as a release runs it (JAX `GradSlot.mode`,
+    `block`, `groups`): the data `group` of `n` ranks, this rank's data
+    `rank` (the dither's stream), and under the 2-hop schedule `inner`
+    with `hops` = (intra group, inter group)."""
+    mode: str
+    group: Any
+    n: int
+    rank: int = 0
+    block: int = DEFAULT_BLOCK
+    inner: Optional[int] = None
+    hops: Optional[tuple] = None
+
+    def start(self, grads, residual, step: int, site=None):
+        """`comm.start_grad_sync` of {name: f32 grad} with this rank's
+        residual slice (or None); int8 draws its dither from (step, rank,
+        site)."""
+        key = (C.SyncKey(int(step), self.rank, site)
+               if self.mode == "int8" else None)
+        return C.start_grad_sync(grads, residual, self.group, self.n,
+                                 self.mode, block=self.block, key=key,
+                                 inner=self.inner, hops=self.hops)
+
+    def sync(self, grads, residual, step: int, site=None):
+        """The whole sync: ({name: mean}, new residual or None)."""
+        return C.finish_grad_sync(self.start(grads, residual, step, site))
+
+
 class BucketRelease:
     """The bucket lowering's executor for one step (stages 0-2): each
     bucket's gradient all-reduced (stages 0-1) or reduce-scattered into
     the rank's flat shard (stage 2) from inside the backward, in the
     compute dtype, then divided by the rank count — JAX's compute-dtype
-    `pmean` of each rank's own-batch gradient.
+    `pmean` of each rank's own-batch gradient.  With the engine's codec
+    (`engine._codec`) each bucket goes through the error-fed
+    quantized sync instead (JAX `bucket_reduce`, :1499-1545): its f32
+    gradient, its slice of `residual` (the rank's row, [b0 | ... | bK-1 |
+    tail]) and the site (b, K) of the `step`'s dither stream; its reduce-
+    scatter is issued from the backward, the all-gather in `finish`, and
+    `new_residual` holds the buckets' new slices after it.
 
     `acc` ({name: f32 summed gradient of the earlier microbatches}) and
     `accum` fold accumulation in as JAX's final-microbatch taps do;
@@ -407,11 +622,19 @@ class BucketRelease:
     held until `finish` has waited on it."""
 
     def __init__(self, engine, acc=None, accum: int = 1, inv=None,
-                 n_buckets: Optional[int] = None):
+                 n_buckets: Optional[int] = None,
+                 residual: Optional[torch.Tensor] = None, step: int = 0):
         self.eng = engine
         self.k = n_buckets or engine._schedule.layout["n_buckets"]
         self.lb = engine.model.config.n_layer // self.k
         self.acc, self.accum, self.inv = acc, accum, inv
+        self.codec = getattr(engine, "_codec", None)
+        self.residual, self.step = residual, step
+        self.new_residual: Optional[List[torch.Tensor]] = None
+        if self.codec is not None:
+            self.bpad = bucket_layout(
+                engine.model.param_shapes(), engine.model.config.n_layer,
+                self.k, self.codec.n, self.codec.block)["bucket_pad"]
         self.anchor = torch.zeros((), device=engine.device,
                                   requires_grad=True)
         self.names: List[str] = []
@@ -444,8 +667,9 @@ class BucketRelease:
 
     def release(self, b: int, grads) -> None:
         """Bucket b's collective, from inside the backward: f32, plus the
-        earlier microbatches' share over accum, unscaled, cast to the
-        compute dtype, then issued asynchronously."""
+        earlier microbatches' share over accum, unscaled, then issued
+        asynchronously — cast to the compute dtype for the fp32 sum, or
+        into the codec's reduce-scatter."""
         eng = self.eng
         sl = slice(b * self.lb, (b + 1) * self.lb)
         red = []
@@ -455,7 +679,14 @@ class BucketRelease:
                 f = (f + self.acc["h." + n][sl]) / self.accum
             if self.inv is not None:
                 f = f * self.inv
-            red.append(f.to(g.dtype))
+            red.append(f if self.codec is not None else f.to(g.dtype))
+        if self.codec is not None:
+            res = (None if self.residual is None else
+                   self.residual[b * self.bpad:(b + 1) * self.bpad])
+            p = self.codec.start(dict(zip(self.names, red)), res, self.step,
+                                 (b, self.k))
+            self.pending.append((b, p, [g.dtype for g in grads]))
+            return
         pctx = eng.pctx
         if eng.stage < 2:
             flat = torch.cat([r.reshape(-1) for r in red])
@@ -478,6 +709,8 @@ class BucketRelease:
         """Wait for every bucket's collective; the block leaves' reduced
         gradients in the params' dtype — whole leaves (stages 0-1) or the
         rank's flat shards (stage 2)."""
+        if self.codec is not None:
+            return self._finish_codec(params)
         eng = self.eng
         n = eng.n_shard
         out: Dict[str, torch.Tensor] = {}
@@ -504,6 +737,28 @@ class BucketRelease:
                     if z > a:
                         out["h." + nm][a - lo:z - lo] = got[:z - a] / n
         self.pending = []
+        return out
+
+    def _finish_codec(self, params) -> Dict[str, torch.Tensor]:
+        """The codec's second halves, bucket by bucket in issue order: the
+        mean in the compute dtype (JAX casts the release back to the
+        tap's), then the param dtype — whole leaves, or at stage 2 the
+        rank's part of each bucket's range."""
+        eng = self.eng
+        chunks = {nm: [None] * self.k for nm in self.names}
+        new_res = [None] * self.k
+        for b, p, dtypes in self.pending:
+            red, new_res[b] = C.finish_grad_sync(p)
+            for nm, dt in zip(self.names, dtypes):
+                chunks[nm][b] = red[nm].to(dt)
+        self.pending = []
+        if self.residual is not None:
+            self.new_residual = new_res
+        out: Dict[str, torch.Tensor] = {}
+        for nm in self.names:
+            whole = torch.cat(chunks[nm]).to(params["h." + nm].dtype)
+            out["h." + nm] = (whole if eng.stage < 2
+                              else eng._own("h." + nm, whole).clone())
         return out
 
 
@@ -564,11 +819,18 @@ class ScanExecutor:
     dtype's sum divided by the rank count, or XLA's float8 pmean of the
     e4m3 cotangents under the fp8 gather; unscaled by `inv` first.
 
+    With a `codec` (composed with a grad slot; the engine's, by default)
+    each bucket's f32 dW goes through the error-fed quantized sync
+    instead (JAX `composed_step` :2088-2112): its slice of `residual`
+    (the rank's row) and the site (b, K) of the `step`'s dither stream;
+    the full mean comes back and each rank keeps its shard's part.
+    `new_residual` holds the buckets' new slices after the backward.
+
     `live` counts the bytes of gathered layer weights it holds (issued
     and not yet dropped): at most `look + 1` layers' worth."""
 
     def __init__(self, engine, mode: str, look: int, lb: Optional[int],
-                 gather=None):
+                 gather=None, codec=None):
         self.eng, self.mode, self.look, self.lb = engine, mode, look, lb
         self.g = gather  # zero3.LayerGather (stage 3) or None
         self.model = engine.model
@@ -576,6 +838,13 @@ class ScanExecutor:
         self.n = engine.n_shard
         self.group = engine.pctx.data_group
         self.inv: Optional[float] = None
+        self.codec = codec
+        if codec is None and mode == "composed" and lb is not None:
+            self.codec = getattr(engine, "_codec", None)
+        self.residual: Optional[torch.Tensor] = None
+        self.step = 0
+        self.new_residual: Optional[List[torch.Tensor]] = None
+        self.tail_whole: Optional[Dict[str, torch.Tensor]] = None
         self.live = _Live()
 
     # -- the model seam ---------------------------------------------------
@@ -585,7 +854,7 @@ class ScanExecutor:
         `prepare` (the tail gathered whole, the block shards cast or
         quantized at rest), or at stages 0-2 the model's own stacking."""
         if self.g is not None:
-            return self.g.z3.prepare(params)
+            return self.g.z3.prepare(params, tail_whole=self.tail_whole)
         return params, model.stacked_compute_params(params)
 
     def blocks(self, model, x, stacked, dkeys, pctx=None):
@@ -663,6 +932,8 @@ class ScanExecutor:
         look = self.look
         grads = self._grad_buffers(stacked)
         lb = self.lb or 1
+        if self.codec is not None:
+            self.new_residual = [None] * (L // lb)
         bucket: Dict[int, Dict[str, torch.Tensor]] = {}
         inflight: Optional[tuple] = None
         dx = dy
@@ -735,10 +1006,64 @@ class ScanExecutor:
             out.append((k, fp8, vals))
         return out
 
+    def _release_codec(self, stacked, layers):
+        """One bucket through the codec: {name: (lb, ...) f32 dW} — an
+        fp8 weight's e4m3 cotangent of its codes, e4m3(dW * scale) —
+        unscaled by inv, its residual slice, the reduce-scatter issued."""
+        ls = sorted(layers)
+        gf = {}
+        for k in self._names(stacked):
+            vals = []
+            for l in ls:
+                g = layers[l][k]
+                if k + "#scale" in stacked:
+                    g = e4m3_round(g * stacked[k + "#scale"][l].to(self.cd))
+                vals.append(g.float())
+            gf[k] = torch.stack(vals)
+            if self.inv is not None:
+                gf[k] = gf[k] * self.inv
+        b, nb = ls[0] // self.lb, self.model.config.n_layer // self.lb
+        res = None
+        if self.residual is not None:
+            bpad = bucket_layout(self.model.param_shapes(),
+                                 self.model.config.n_layer, nb,
+                                 self.codec.n, self.codec.block)["bucket_pad"]
+            res = self.residual[b * bpad:(b + 1) * bpad]
+        return ("codec", b, self.codec.start(gf, res, self.step, (b, nb)),
+                ls)
+
+    def _land_codec(self, stacked, grads, rel) -> None:
+        """The bucket's mean (JAX: f32, the shard's part, the rest dtype;
+        an fp8 weight's master through e4m3 and / scale)."""
+        _, b, p, ls = rel
+        red, nr = C.finish_grad_sync(p)
+        if self.residual is not None:
+            self.new_residual[b] = nr
+        for k in self._names(stacked):
+            fp8 = k + "#scale" in stacked
+            for i, l in enumerate(ls):
+                full = red[k][i]
+                if self.g is not None:
+                    leaf = self.g.z3.leaves["h." + k]
+                    piece = full.reshape(-1)[leaf.lo:leaf.hi]
+                    if fp8:
+                        s = stacked[k + "#scale"][l].reshape(-1)[
+                            leaf.cols(piece.device)]
+                else:
+                    piece = full
+                    if fp8:
+                        s = stacked[k + "#scale"][l]
+                if fp8:
+                    grads[k + "#master"][l] = e4m3_round(piece) / s
+                else:
+                    grads[k][l] = piece.to(grads[k].dtype)
+
     def _release(self, stacked, layers):
         """Issue one release's collectives (at most two: a SUM of the
         compute-dtype values, and under the composed fp8 gather the
-        codes' exchange); returns what `_land` needs."""
+        codes' exchange; or the codec's); returns what `_land` needs."""
+        if self.codec is not None:
+            return self._release_codec(stacked, layers)
         n, stage3 = self.n, self.g is not None
         works = []
         pieces = self._pieces(stacked, layers)
@@ -782,6 +1107,8 @@ class ScanExecutor:
         """Wait for one release and write its results into the
         gradients: a compute-dtype rest tensor's rows, or an fp8 weight's
         master rows through the stacked cast's pullback (/ scale)."""
+        if self.codec is not None:
+            return self._land_codec(stacked, grads, works)
         n, stage3 = self.n, self.g is not None
         for work, out, _buf, spans, codes in works:
             work.wait()

@@ -226,15 +226,27 @@ class Zero3Gather:
         return codes, scale.view(self.n_layer, *[1] * (len(leaf.shape) - 1),
                                  -1)
 
-    def prepare(self, shards: Dict[str, torch.Tensor]):
+    def prepare(self, shards: Dict[str, torch.Tensor], tail_whole=None):
         """Once per step: (the non-block leaves gathered whole, the block
         leaves stacked at rest — cast to the compute dtype, or e4m3 codes
-        with their scale and master under the fp8 gather)."""
+        with their scale and master under the fp8 gather).  Given a dict
+        `tail_whole`, the non-block leaves are gathered without a graph
+        into new leaves that require grad, recorded there: their
+        gradients stay whole and unreduced (the quantized tail release,
+        JAX `qtail`)."""
         params, stacked = {}, {}
         for name, t in shards.items():
             if not name.startswith("h."):
-                params[name] = GatherFn.apply(t, self.leaves[name],
-                                              self.pctx)
+                leaf = self.leaves[name]
+                if tail_whole is not None:
+                    with torch.no_grad():
+                        w = gather_flat(t.detach(), leaf.n, leaf.s,
+                                        self.pctx.data_group,
+                                        self.pctx.data_size)
+                    params[name] = tail_whole[name] = \
+                        w.view(leaf.shape).requires_grad_()
+                    continue
+                params[name] = GatherFn.apply(t, leaf, self.pctx)
                 continue
             short = name[2:]
             shape = (self.n_layer, *self.leaves[name].shape)
@@ -289,8 +301,10 @@ class LayerGather:
     layer's whole weight in the compute dtype}: fp8 codes dequantized,
     codes * scale, as `GatherFp8Fn`."""
 
-    def __init__(self, z3: Zero3Gather, hop=None, hpz=None):
+    def __init__(self, z3: Zero3Gather, hop=None, hpz=None,
+                 hpz_mode: str = "fp32"):
         self.z3, self.hop, self.hpz = z3, hop, hpz
+        self.hpz_mode = hpz_mode
         self.cd = z3.cd
         self.group = z3.pctx.data_group
         self.n = z3.pctx.data_size
@@ -317,6 +331,8 @@ class LayerGather:
             return stacked
         _, inter, _, n_gran = self.hpz
         src = dict(stacked)
+        if self.hpz_mode != "fp32":
+            return self._begin_codec(stacked, src, inter, n_gran)
         for k in self.names(stacked):
             leaf = self.z3.leaves["h." + k]
             rest = stacked[k].detach()
@@ -326,6 +342,30 @@ class LayerGather:
             dist.all_gather_into_tensor(out, rows.reshape(-1), group=inter)
             src[k] = out.view(n_gran, self.z3.n_layer, leaf.s).transpose(
                 0, 1).contiguous()
+        return src
+
+    def _begin_codec(self, stacked, src, inter, n_gran):
+        """hpZ's rebuild through the codec (`hpz_comm`, JAX `build_sec`
+        :1867-1920): every leaf's (L, S) rest rows in one blockwise
+        payload, rounded to nearest, gathered as codes and scales over
+        the inter-granule group and dequantized once (`comm.hpz_rebuild`).
+        An fp8 gather's codes travel as their e4m3 values and come back
+        as codes.  The replica feeds the forward only: the gradients
+        reach the masters straight through."""
+        from .comm import hpz_rebuild
+        rows = {}
+        for k in self.names(stacked):
+            leaf = self.z3.leaves["h." + k]
+            rest = stacked[k].detach()
+            if k + "#scale" in stacked:
+                rest = rest.view(torch.float8_e4m3fn).float()
+            r = rest.new_zeros(self.z3.n_layer, leaf.s)
+            r[:, :leaf.own] = rest
+            rows[k] = r
+        for k, v in hpz_rebuild(rows, self.hpz_mode, inter, n_gran).items():
+            if k + "#scale" in stacked:
+                v = e4m3_round(v).to(torch.float8_e4m3fn).view(torch.uint8)
+            src[k] = v
         return src
 
     def issue(self, src, l: int) -> _Pending:

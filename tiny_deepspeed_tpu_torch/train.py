@@ -15,13 +15,19 @@
     torchrun ... -m tiny_deepspeed_tpu_torch.train --engine zero3
         --gather-prefetch 2 [--gather-groups M] [--grad-buckets K]
         [--sched gather_prefetch=2,grad_buckets=4,hpz]        (one line)
+    torchrun ... -m tiny_deepspeed_tpu_torch.train --engine zero2
+        --grad-comm int8 [--grad-comm-groups M] [--grad-buckets K]
+        [--sched grad_comm=auto,grad_buckets=auto]            (one line)
 
 Counterpart of `examples/{single_device,ddp,zero1,zero2,zero3}/train.py`
 with the harness of `examples/common.py` (`parse_args` / `run`): the same
 flags, with the same names and defaults, for what the port supports
 (`--dropout`, `--fused-xent`, `--seq-parallel`, `--gather-quant`,
-`--moe-dispatch`, and the collective schedule's `--grad-buckets`,
-`--gather-prefetch`, `--gather-groups` and `--sched` — the spec merges
+`--moe-dispatch`, the grad-comm codecs' `--grad-comm`,
+`--grad-comm-groups`, `--grad-comm-block`,
+`--no-grad-comm-error-feedback` and `--hpz-comm`, and the collective
+schedule's `--grad-buckets`, `--gather-prefetch`, `--gather-groups` and
+`--sched` — the spec merges
 over those flags and wins, as examples/common.py:451-484 merges it —
 among them), plus `--device` (default the card) and
 `--engine` (default `single`; `examples/zero3/train.py` defaults to
@@ -123,6 +129,27 @@ def parse_args(argv=None):
                         "(MoEConfig.moe_dispatch — 'sort' skips the dense "
                         "one-hot dispatch products on one device and under "
                         "pure data parallelism)")
+    p.add_argument("--grad-comm", choices=("fp32", "int8", "fp8"),
+                   default="fp32",
+                   help="gradient-collective precision "
+                        "(parallel/comm.py): int8/fp8 quantize every "
+                        "gradient release blockwise with an error-feedback "
+                        "residual (~4x less gradient wire; pure "
+                        "data-parallel meshes)")
+    p.add_argument("--grad-comm-groups", type=int, default=None,
+                   metavar="M",
+                   help="with --grad-comm int8/fp8: the 2-hop schedule — "
+                        "the codes within M consecutive ranks, bf16 "
+                        "partial sums across the groups (M a proper "
+                        "divisor of the data size)")
+    p.add_argument("--grad-comm-block", type=int, default=256, metavar="N",
+                   help="elements per absmax scale of the grad codec")
+    p.add_argument("--no-grad-comm-error-feedback", action="store_true",
+                   help="drop the codec's error-feedback residual")
+    p.add_argument("--hpz-comm", choices=("fp32", "int8", "fp8"),
+                   default="fp32",
+                   help="with hpZ: the once-a-step replica rebuild as "
+                        "blockwise codes + scales (qwZ)")
     p.add_argument("--grad-buckets", type=int, default=1, metavar="K",
                    help="bucketed gradient release: K layer buckets (+ the "
                         "non-block tail), each bucket's collective issued "
@@ -139,9 +166,14 @@ def parse_args(argv=None):
                         "the compute dtype across the groups")
     p.add_argument("--sched", default=None, metavar="SPEC",
                    help="the collective schedule as one spec, e.g. "
-                        "'gather_prefetch=2,grad_buckets=4,hpz' "
-                        "(parallel/schedule.parse_sched_spec); merges over "
-                        "the flags above and wins")
+                        "'gather_prefetch=2,grad_buckets=4,grad_comm=int8,"
+                        "hpz' (parallel/schedule.parse_sched_spec): also "
+                        "'grad_comm_tail=int8' (ZeRO-3's non-block tail "
+                        "through the codec), 'hpz_comm=fp8' and "
+                        "'grad_comm=auto' / 'grad_buckets=auto' / "
+                        "'gather_groups=auto' (sized from the hosts' "
+                        "granule map, schedule.auto_comm_plan); merges "
+                        "over the flags above and wins")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--data", default=None, metavar="TOKENS.bin",
                    help="uint16 token corpus; default synthetic tokens")
@@ -252,7 +284,11 @@ def run(args):
     kw = dict(grad_clip=args.grad_clip or None, loss_scale=args.loss_scale,
               grad_buckets=args.grad_buckets,
               gather_prefetch=args.gather_prefetch,
-              gather_groups=args.gather_groups)
+              gather_groups=args.gather_groups, grad_comm=args.grad_comm,
+              grad_comm_groups=args.grad_comm_groups,
+              grad_comm_block=args.grad_comm_block,
+              grad_comm_error_feedback=not args.no_grad_comm_error_feedback,
+              hpz_comm=args.hpz_comm)
     if args.sched:
         kw.update(parse_sched_spec(args.sched))
     device = args.device

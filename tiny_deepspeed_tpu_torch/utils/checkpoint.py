@@ -13,7 +13,8 @@ same API and guarantees in the port's own format.
 Layout of one step: `dir/step_XXXXXXXX/` holds `rank_XXXXX.pt` per rank
 (`torch.save` of what that rank holds of its `TrainState`: the params —
 ZeRO-3's shards under Zero3 — the optimizer state as the rank holds it,
-`scaler`, `dropout_base` and the engine's `layout`, the model's whole
+`scaler`, `dropout_base`, the grad-comm codec's error-feedback
+residual row `grad_residual` and the engine's `layout`, the model's whole
 param shapes in it), the JSON sidecar `ckpt_meta.json` and the `COMMITTED`
 marker.
 
@@ -166,7 +167,9 @@ def _payload(state, layout) -> Dict:
                           "state": {n: {k: t.detach() for k, t in s.items()}
                                     for n, s in opt["state"].items()}},
             "scaler": None if state.scaler is None else dict(state.scaler),
-            "dropout_base": state.dropout_base}
+            "dropout_base": state.dropout_base,
+            "grad_residual": (None if state.grad_residual is None
+                              else state.grad_residual.detach())}
 
 
 def save_checkpoint(directory: str, state, step: int, *,
@@ -295,7 +298,9 @@ def load_checkpoint(directory: str, engine, step: Optional[int] = None, *,
     in `engine`'s layout on its device, in place of `engine.init`: the
     rank reads only its own file.  Refuses another engine, world size or
     shard layout, and any leaf whose name, shape or dtype differs from
-    what the engine would hold."""
+    what the engine would hold.  An engine that keeps an error-feedback
+    residual resumes with the saved row, or with zeros from a checkpoint
+    without one (JAX :277-290: the feedback loop refills it in a step)."""
     step = _resolve_step(directory, step)
     path = _step_dir(directory, step)
     mine = engine.layout()
@@ -314,11 +319,16 @@ def load_checkpoint(directory: str, engine, step: Optional[int] = None, *,
         for n, slots in opt_t["state"].items():
             bad += _check_leaves(f"optimizer slot of {n}", opt["state"][n],
                                  slots)
+    res, zero = blob.get("grad_residual"), engine.zero_residual()
+    if res is not None and zero is not None and res.shape != zero.shape:
+        bad.append(f"grad_residual: {tuple(res.shape)}, expected "
+                   f"{tuple(zero.shape)}")
     if bad:
         raise ValueError(f"checkpoint {path} does not fit this engine's "
                          "state: " + "; ".join(bad[:8]))
     return engine.restore(blob["params"], opt, scaler=blob["scaler"],
-                          dropout_base=blob["dropout_base"])
+                          dropout_base=blob["dropout_base"],
+                          grad_residual=res)
 
 
 def load_params(directory: str, step: Optional[int] = None,
