@@ -12,7 +12,8 @@ kernels through their A/B; then the Llama family: RMSNorm's entries,
 llama-160m served and trained; then the MoE family: moe-8x124m trained
 with both dispatches; then `generate` on all three families and a
 checkpoint's save and resume; the in-step collective schedule and the
-grad-comm codecs at world 1.
+grad-comm codecs at world 1; Ulysses on the FA2 kernels and the
+counter-based dropout kernel.
 
     python3 chip_smoke.py
 
@@ -307,13 +308,30 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      Zero3's composed schedule (int8, K=4, `grad_comm_tail` int8) —
      gradients and residual row bit for bit the plain quantizer's pass,
      the row `residual_len` long, 10 launches of #10 a pass;
-  then the `kernels` JSON line (30 rows: the 22 kernels, rows 10kv, 1r
+ 14. Ulysses and the counter-based dropout kernel (after 13, in the same
+     NCCL group): a. `ulysses_fwd` / `ulysses_bwd` over 2 and 4 lockstep
+     threads on the FA2 kernels #4-#6, gpt2-124m's (Hq = KVH = 12) and
+     llama-160m's grouped (Hq 12, KVH 4: K/V at kv_heads) attention at
+     B=8 T=1024 bf16, forward and backward of sum(o^2), within 2e-2 x
+     max|ref| of the whole-sequence kernels, #4-#6 exactly n launches
+     each, no plain version, each all-to-all's bytes against the
+     expanded route's; b. `ulysses_attention` over the one-rank NCCL
+     group bit for bit the direct kernel call; c. DDP, Zero2 and Zero3 at
+     world 1 with seq_impl="ulysses" and dropout 0.1 on phase 4's config,
+     3 steps bit for bit SingleDevice with dropout, the dropout kernel's
+     launches exact (`dropout_launches_per_step`; phase 5's too);
+     d. the dropout kernel (ops/dropout.py) at 8 x 1024 x 768 bf16 and
+     f32 bit for bit its plain version, the whole mask = 4 row blocks
+     = 2 token blocks at their offsets, timed and in turns against the
+     parent's rand + where and F.dropout, host ms a call, bound in bytes;
+  then the `kernels` JSON line (31 rows: the 22 kernels, rows 10kv, 1r
   and the decode append, the Triton LayerNorm forward pair and the v1
-  writer, launched on no path, and the four RMS rows; launches by path,
-  the Llama paths `llama_*`, the MoE paths `moe_*` and the generate
-  paths `gen`, `L-gen`, `M-gen`, phase 12's `sched_*` / `exec_*` and
-  phase 13's `codec_*` among them; row 10 timed at the grad codec's
-  shape, its earlier shapes beside it), then the result line
+  writer, launched on no path, the four RMS rows and the dropout
+  kernel; launches by path, the Llama paths `llama_*`, the MoE paths
+  `moe_*` and the generate paths `gen`, `L-gen`, `M-gen`, phase 12's
+  `sched_*` / `exec_*`, phase 13's `codec_*` and phase 14's
+  `ulysses*` / `uly_drop_*` among them; row 10 timed at the grad
+  codec's shape, its earlier shapes beside it), then the result line
   {"ok": true, "device": {"platform": "gpu", ...}}.
 
 Imports nothing of JAX or of the JAX package.
@@ -3168,6 +3186,9 @@ def knobbed_phase(torch, port, counters, ln, fa, fx, af):
     for k in TRAIN_KERNELS + KNOB_KERNELS:
         check(launches[k] > 0, f"{k} was never launched on the knobbed path")
     check_ln_bwd_launches(launches, cfg, 10, "phase 5")
+    check(launches["dropout"] == 10 * dropout_launches_per_step(cfg),
+          f"phase 5: dropout launches {launches['dropout']}, want 10 x "
+          f"{dropout_launches_per_step(cfg)}")
     check(launches["paged_attention"] == 0, "training ran the decode kernel")
     check(all(math.isfinite(x) for x in losses), f"losses {losses}")
     check(10.5 <= losses[0] <= 11.2,
@@ -5994,6 +6015,291 @@ def codec_exec_phase(torch, port, qm, counters, card):
     return paths, out
 
 
+# -- phase 14: Ulysses and rank-invariant dropout ----------------------------
+
+FA2_KERNELS = ("fa2_flash_attention_fwd", "fa2_flash_attention_dq",
+               "fa2_flash_attention_dkv")
+FA2_PLAIN = ("_fa2_fwd_plain", "_fa2_dq_plain", "_fa2_dkv_plain")
+# (model, q heads, K/V heads) of 14a / 14b, at B=8 T=1024 Dh=64 bf16
+ULY_SHAPES = (("gpt2-124m", 12, 12), ("llama-160m", 12, 4))
+ULY_B, ULY_T, ULY_D = 8, 1024, 64
+# 14c's engines at world 1 (Ulysses inert without a seq split)
+ULY_ENGINES = (("uly_drop_ddp", "DDP"), ("uly_drop_zero2", "Zero2"),
+               ("uly_drop_zero3", "Zero3"))
+DROP_SHAPE = (8, 1024, 768)  # phase 4's residual, (B, T, C)
+
+
+def dropout_launches_per_step(cfg):
+    """The dropout kernel's launches in one training step: the embedding's
+    and each layer's two sites in the forward, the same in the backward
+    (DropoutFn's gradient is the kernel on dy), and, under remat, each
+    layer's site 0 again in the recompute — site 1's output feeds only
+    the residual add, whose backward keeps nothing, so the checkpoint's
+    early stop never redraws it."""
+    n_l = cfg.n_layer
+    fwd = 1 + 2 * n_l
+    remat = n_l if cfg.remat and cfg.remat_policy != "all" else 0
+    return 2 * fwd + remat
+
+
+def _uly_inputs(torch, hq, kvh, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(ULY_B, h, ULY_T, ULY_D, generator=g,
+                        device="cuda").bfloat16() for h in (hq, kvh, kvh)]
+
+
+def _whole_attention(torch, q, k, v):
+    """The whole-sequence FA2 kernels on one thread: o and the gradients
+    of sum(o^2) (do = 2o, exact in bf16)."""
+    from tiny_deepspeed_tpu_torch.ops.attention import flash_attention
+    args = [z.detach().requires_grad_() for z in (q, k, v)]
+    o = flash_attention(*args)
+    return (o.detach(), *torch.autograd.grad(o, args, o.detach() * 2))
+
+
+class _CountingComm:
+    """An all-to-all communicator that adds the bytes of what it is given
+    (this rank's share of each all-to-all) to `moved`."""
+
+    def __init__(self, comm, moved):
+        self.comm, self.moved = comm, moved
+        self.rank, self.size = comm.rank, comm.size
+
+    def all_to_all(self, x):
+        self.moved.append(x.numel() * x.element_size())
+        return self.comm.all_to_all(x)
+
+
+def ulysses_lockstep_phase(torch, fa, counters, card):
+    """14a: `ulysses_fwd` / `ulysses_bwd` over n lockstep threads on the
+    card (n = 2, 4), the local attention the FA2 kernels #4-#6 on whole
+    sequences, at gpt2-124m's and llama-160m's attention shapes (the
+    latter grouped: K/V cross the all-to-alls at kv_heads), forward and
+    backward of sum(o^2): o, dq, dk, dv within 2e-2 x max|ref| of the
+    whole-sequence kernels on one thread; #4, #5, #6 launched exactly n
+    times each a call, no other kernel, no plain version; each
+    all-to-all's bytes against the expanded route's."""
+    from tiny_deepspeed_tpu_torch.ops.attention import flash_attention
+    from tiny_deepspeed_tpu_torch.parallel import ulysses as U
+    res, paths = {}, {}
+    for model, hq, kvh in ULY_SHAPES:
+        q, k, v = _uly_inputs(torch, hq, kvh, seed=hq + kvh)
+        ref = _whole_attention(torch, q, k, v)
+        torch.cuda.synchronize()
+        for n in (2, 4):
+            tl, moved = ULY_T // n, []
+
+            def rank(r, comm, tl=tl, n=n):
+                args = [z[:, :, r * tl:(r + 1) * tl].contiguous()
+                        for z in (q, k, v)]
+                c = _CountingComm(comm, moved) if r == 0 else comm
+                o, saved = U.ulysses_fwd(*args, c, flash_attention)
+                return (o, *U.ulysses_bwd(saved, o * 2, c))
+
+            calls = []
+            for fn in counters.values():
+                fn.launches = 0
+            with counted_plain_fa2(fa, calls):
+                t0 = time.perf_counter()
+                out = U.run_lockstep(n, rank)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            launches = {k: fn.launches for k, fn in counters.items()}
+            want = {kn: n for kn in FA2_KERNELS}
+            check({kn: launches[kn] for kn in want} == want and not any(
+                c for kn, c in launches.items() if kn not in want),
+                f"14a {model} n={n}: launches {launches}, want {want}")
+            check(not calls, f"14a {model} n={n}: plain versions ran {calls}")
+            got = [torch.cat([o[i] for o in out], dim=2) for i in range(4)]
+            errs = {nm: _rel_err(a, b) for nm, a, b in
+                    zip(("o", "dq", "dk", "dv"), got, ref)}
+            check(all(rel <= 2e-2 for _, rel in errs.values()),
+                  f"14a {model} n={n}: against the whole-sequence kernels "
+                  f"{errs}")
+            # q, k, v to heads, o home; do to heads, dq, dk, dv home: the
+            # expanded route moves each at q's heads
+            expanded = len(moved) * moved[0]
+            res[model, n] = dict(errs=errs, bytes=moved, wall_ms=wall * 1e3,
+                                 bytes_expanded=expanded)
+            paths[f"ulysses{n}_{model}"] = launches
+            print(f"  [{card}] 14a {model} (B={ULY_B} Hq={hq} KVH={kvh} "
+                  f"T={ULY_T} Dh={ULY_D} bf16) over {n} lockstep threads: "
+                  + ", ".join(f"{nm} max_abs_err={e:.3g} ({rel:.3g} of "
+                              f"max|ref|)" for nm, (e, rel) in errs.items())
+                  + f" (tol 2e-2); #4/#5/#6 launches {n} each; rank 0's "
+                  f"all-to-all bytes {moved} = {sum(moved)} a call "
+                  f"(expanded K/V: {expanded}); forward+backward wall "
+                  f"{wall * 1e3:.2f} ms (threads in lockstep, not a "
+                  f"multi-card time)")
+    return res, paths
+
+
+@contextlib.contextmanager
+def counted_plain_fa2(fa, calls):
+    """The FA2 plain versions wrapped to count their calls into `calls`."""
+    changes = []
+    for attr in FA2_PLAIN:
+        fn = getattr(fa, attr)
+
+        def wrapped(*a, _fn=fn, _name=attr, **kw):
+            calls.append(_name)
+            return _fn(*a, **kw)
+        changes.append((fa, attr, wrapped))
+    with swapped(*changes):
+        yield
+
+
+def ulysses_group_phase(torch, card):
+    """14b: `ulysses_attention` (its autograd Functions) over the real
+    one-rank NCCL group's `GroupAllToAll`, at 14a's shapes: o, dq, dk, dv
+    bit for bit the direct kernel call."""
+    import torch.distributed as dist
+    from tiny_deepspeed_tpu_torch.ops.attention import flash_attention
+    from tiny_deepspeed_tpu_torch.parallel import mesh
+    from tiny_deepspeed_tpu_torch.parallel import ulysses as U
+    comm = mesh.GroupAllToAll(dist.group.WORLD)
+    for model, hq, kvh in ULY_SHAPES:
+        q, k, v = _uly_inputs(torch, hq, kvh, seed=hq + kvh + 1)
+        ref = _whole_attention(torch, q, k, v)
+        args = [z.detach().requires_grad_() for z in (q, k, v)]
+        o = U.ulysses_attention(*args, comm, flash_attention)
+        got = (o.detach(), *torch.autograd.grad(o, args, o.detach() * 2))
+        torch.cuda.synchronize()
+        same = [torch.equal(a, b) for a, b in zip(got, ref)]
+        check(all(same), f"14b {model}: not bit for bit the kernel call "
+              f"(o, dq, dk, dv equal: {same})")
+        print(f"  [{card}] 14b {model}: ulysses_attention over the one-rank "
+              f"NCCL group = the direct FA2 call bit for bit (o, dq, dk, "
+              f"dv)")
+
+
+def ulysses_engines_phase(torch, port, counters, card):
+    """14c: DDP, Zero2 and Zero3 at world 1 with seq_impl="ulysses" and
+    dropout 0.1 on gpt2-124m (phase 4's config), 3 steps each: losses and
+    params bit for bit SingleDevice's with dropout 0.1, the dropout
+    kernel's launches exactly `dropout_launches_per_step` a step."""
+    cfg = dataclasses.replace(port.GPT2_PRESETS["gpt2-124m"], dropout=0.1)
+    per = dropout_launches_per_step(cfg)
+    for fn in counters.values():
+        fn.launches = 0
+    want_l, want_p, _, _ = _sched_steps(torch, port, "SingleDevice", cfg)
+    single = {k: fn.launches for k, fn in counters.items()}
+    check(single["dropout"] == 3 * per,
+          f"14c SingleDevice: dropout launches {single['dropout']}, want "
+          f"3 x {per}")
+    paths = {"uly_drop_single": single}
+    for path, name in ULY_ENGINES:
+        for fn in counters.values():
+            fn.launches = 0
+        losses, params, eng, _ = _sched_steps(torch, port, name, cfg,
+                                              seq_impl="ulysses")
+        launches = {k: fn.launches for k, fn in counters.items()}
+        paths[path] = launches
+        check(eng.pctx.seq_impl == "ulysses", f"14c {name}: seq_impl")
+        check(launches["dropout"] == 3 * per,
+              f"14c {name}: dropout launches {launches['dropout']}, want "
+              f"3 x {per}")
+        for kn in TRAIN_KERNELS:
+            check(launches[kn] > 0, f"14c {name}: {kn} never launched")
+        check(not any(launches[kn] for kn in CHUNK_KERNELS),
+              f"14c {name}: a ring chunk kernel ran")
+        check(losses == want_l and all(torch.equal(p, want_p[nm])
+                                       for nm, p in params.items()),
+              f"14c {name}: losses {losses} vs {want_l} or params differ")
+        print(f"  [{card}] 14c {eng.describe()} seq_impl=ulysses, dropout "
+              f"0.1: 3 steps bit for bit SingleDevice's (losses {losses}); "
+              f"dropout launches {launches['dropout']} = 3 x {per} "
+              f"(1 + 2L forward, L recompute, 1 + 2L backward)")
+        del eng, params
+    torch.cuda.empty_cache()
+    return paths
+
+
+def parent_dropout(torch, x, key, keep):
+    """The parent's dropout: a mask from a generator seeded with the key
+    (`torch.rand < keep` over the rank's own shape), then where."""
+    g = torch.Generator(device=x.device).manual_seed(key)
+    mask = torch.rand(x.shape, generator=g, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
+def dropout_phase(torch, F, D, card):
+    """14d: the dropout kernel at phase 4's residual shape (8 x 1024 x
+    768), bf16 and f32: bit for bit its plain version, forward and
+    through DropoutFn's backward; the whole mask's output equal, bit for
+    bit, to the same tensor dropped as 4 row blocks and as 2 token blocks
+    at their offsets; timed (device ms, plain, F.dropout — not the same
+    bits, so time only) and in turns against the parent's rand + where
+    and F.dropout, host ms a call, its bound in bytes."""
+    from tiny_deepspeed_tpu_torch import rng as prng
+    key, rate = prng.fold_in(prng.fold_in(0, 0xD0), 14), 0.1
+    keep = 1.0 - rate
+    b, t, c = DROP_SHAPE
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device="cuda").manual_seed(14)
+        x = torch.randn(DROP_SHAPE, generator=g, device="cuda").to(dtype)
+        dname = str(dtype)[6:]
+        before = D.dropout.launches
+        y = D._dropout_triton(x, key, keep, None)
+        torch.cuda.synchronize()
+        check(D.dropout.launches == before + 1, f"14d {dname}: not one launch")
+        check(torch.equal(y, D._dropout_plain(x, key, keep, None)),
+              f"14d {dname}: the kernel is not bit for bit its plain version")
+        kept = float((y != 0).float().mean())
+        check(abs(kept - keep) < 1e-3, f"14d {dname}: kept share {kept}")
+        blocks = [((2 * i, 0, 0), x[2 * i:2 * i + 2]) for i in range(4)]
+        tokens = [((0, 512 * j, 0), x[:, 512 * j:512 * (j + 1)])
+                  for j in range(2)]
+        for (off, xb) in blocks + tokens:
+            yb = D._dropout_triton(xb.contiguous(), key, keep,
+                                   (DROP_SHAPE, off))
+            sl = tuple(slice(o, o + n) for o, n in zip(off, xb.shape))
+            check(torch.equal(yb, y[sl]),
+                  f"14d {dname}: the block at {off} is not the whole "
+                  "mask's block")
+        xr = x.detach().requires_grad_()
+        dy = torch.randn(DROP_SHAPE, generator=g, device="cuda").to(dtype)
+        before = D.dropout.launches
+        yr = D.dropout(xr, key, rate)
+        (dx,) = torch.autograd.grad(yr, xr, dy)
+        torch.cuda.synchronize()
+        check(D.dropout.launches == before + 2 and torch.equal(yr, y)
+              and torch.equal(dx, D._dropout_plain(dy, key, keep, None)),
+              f"14d {dname}: DropoutFn's forward / backward")
+
+        def kernel():
+            return D._dropout_triton(x, key, keep, None)
+
+        def plain():
+            return D._dropout_plain(x, key, keep, None)
+
+        def par():
+            return parent_dropout(torch, x, key, keep)
+
+        def lib():
+            return F.dropout(x, rate, training=True)
+
+        # x read once, y written once; a compare and a divide an element
+        bms, by = bound_ms(2 * x.numel() * x.element_size(), 0, "float32")
+        r = dict(ms=device_ms(torch, kernel), plain_ms=device_ms(torch, plain),
+                 library_ms=device_ms(torch, lib),
+                 call_ms=time_ms(torch, kernel),
+                 **three_sides(torch, kernel, par, lib), bound_ms=bms,
+                 bound_by=by, max_abs_err=0.0,
+                 shape=f"{b}x{t}x{c} {dname}")
+        res[dname] = r
+        print(f"  [{card}] 14d dropout {b}x{t}x{c} {dname}: bit for bit the "
+              f"plain version (forward and DropoutFn's backward); whole = "
+              f"4 row blocks = 2 token blocks bit for bit; kept "
+              f"{kept:.5f}; "
+              + " ".join(f"{k}={r[k]:.5g}" for k in
+                         ("ms", "plain_ms", "library_ms", "call_ms",
+                          "bound_ms"))
+              + f" (bound by {by}); " + sides_text(r))
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6008,6 +6314,7 @@ def main():
     from tiny_deepspeed_tpu_torch.ops import _build
     from tiny_deepspeed_tpu_torch.ops import flash_fa2 as fa
     from tiny_deepspeed_tpu_torch.ops import fused_xent as fx
+    from tiny_deepspeed_tpu_torch.ops import dropout as dr
     from tiny_deepspeed_tpu_torch.ops import layernorm as ln
     from tiny_deepspeed_tpu_torch.ops import paged_attn as pa
     from tiny_deepspeed_tpu_torch.ops import quant as qm
@@ -6107,7 +6414,8 @@ def main():
                 "rmsnorm_fwd": rn.rmsnorm_fwd,
                 "add_rmsnorm_fwd": rn.add_rmsnorm_fwd,
                 "rmsnorm_bwd": rn.rmsnorm_bwd,
-                "rmsnorm_bwd_gs": Attr(rn.rmsnorm_bwd, "launches_gs")}
+                "rmsnorm_bwd_gs": Attr(rn.rmsnorm_bwd, "launches_gs"),
+                "dropout": dr.dropout}
     serve_kernels = SERVE_BASE + ("paged_attention",
                                   "paged_attention_append")
     for fn in counters.values():
@@ -6295,6 +6603,19 @@ def main():
         codec_res.update(exec_res)
         print(f"phase 13: {time.perf_counter() - t13:.2f}s")
 
+        t14 = time.perf_counter()
+        print(f"phase 14: Ulysses on the FA2 kernels and the counter-based "
+              f"dropout kernel [{card}]")
+        uly_res, uly_paths = ulysses_lockstep_phase(torch, fa, counters,
+                                                    card)
+        lap("14a, Ulysses over lockstep threads")
+        ulysses_group_phase(torch, card)
+        uly_paths.update(ulysses_engines_phase(torch, port, counters, card))
+        lap("14b / 14c, the NCCL group and the engines")
+        drop_res = dropout_phase(torch, F, dr, card)
+        torch.cuda.empty_cache()
+        print(f"phase 14: {time.perf_counter() - t14:.2f}s")
+
     t9 = time.perf_counter()
     lap("phases 7-8")
     print("phase 9: the Llama family — RMSNorm on the LayerNorm entries' "
@@ -6357,7 +6678,8 @@ def main():
                    **{p: v[name] for p, v in moe_paths.items()},
                    **{p: v[name] for p, v in gen_paths.items()},
                    **{p: v[name] for p, v in sched_paths.items()},
-                   **{p: v[name] for p, v in codec_paths.items()}}
+                   **{p: v[name] for p, v in codec_paths.items()},
+                   **{p: v[name] for p, v in uly_paths.items()}}
         row = {"name": name, "route": route, "source": source,
                "replaces": replaces, "launches": sum(by_path.values()),
                "launches_by_path": by_path,
@@ -6495,6 +6817,11 @@ def main():
               ("add_rmsnorm_fwd", "ln_fwd.cu", 25),
               ("rmsnorm_bwd", "ln_bwd.cu", 33),
               ("rmsnorm_bwd_gs", "ln_bwd.cu", 33))),
+        # no TPU kernel stands behind it: JAX drops with
+        # jax.random.bernoulli + where, two XLA ops
+        entry("dropout", "triton", "tiny_deepspeed_tpu_torch/ops/dropout.py",
+              "tiny_deepspeed_tpu/models/gpt2.py:228 (no TPU kernel: "
+              "jax.random.bernoulli + where, XLA ops)", drop_res["bfloat16"]),
     ]
     kernels[13]["per_step"] = bwd_res["adamw_update_fused"]["per_step"]
     extra = {"paged_attention": {"long_context": pa_res["long_context"]},
@@ -6522,7 +6849,8 @@ def main():
                                "n1600": lnb_res[1600, False],
                                "n1600_add": lnb_res[1600, True]},
              **{k: {"decode": rms_res[k, 8, 768],
-                    "n2048": rms_res[k, 8192, 2048]} for k in RMS_KERNELS}}
+                    "n2048": rms_res[k, 8192, 2048]} for k in RMS_KERNELS},
+             "dropout": {"f32": drop_res["float32"]}}
     for row in kernels:
         for k, v in extra.get(row["name"], {}).items():
             row[k + "_shape"] = {f: v[f] for f in timed + extra_keys
@@ -6537,10 +6865,17 @@ def main():
     print(f"clocks: {len(clocks) - len(events)} of {len(clocks)} device "
           f"times from the profiler, {len(events)} from CUDA events"
           + (f" ({', '.join(events)})" if events else ""))
-    check(len(kernels) == 30, f"{len(kernels)} kernel rows")
+    check(len(kernels) == 31, f"{len(kernels)} kernel rows")
+    # the dropout kernel: on the dropout paths, exactly, and nowhere else
+    by = kernels[30]["launches_by_path"]
+    drop_paths = ("knobbed_training", "uly_drop_single",
+                  *(p for p, _ in ULY_ENGINES))
+    check(all(by[p] > 0 for p in drop_paths)
+          and not any(v for p, v in by.items() if p not in drop_paths),
+          f"dropout launches by path {by}")
     gpt2_paths = [p for p in kernels[0]["launches_by_path"]
                   if not is_llama_path(p)]
-    for row in kernels[26:]:
+    for row in kernels[26:30]:
         by = row["launches_by_path"]
         want = ("llama_training",) if row["name"].startswith(
             "rmsnorm_bwd") else ("llama_serving", "llama_training", "L-gen")

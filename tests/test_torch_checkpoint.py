@@ -181,7 +181,8 @@ def _jax_mask_table(monkeypatch, n_layer, steps):
                 table[prng.fold_in(pk[l + 1], site)] = jax.random.fold_in(
                     jk[l + 1], site)
 
-    def keep_mask(key, shape, keep, device):
+    def keep_mask(key, shape, keep, device, frame=None):
+        assert frame is None  # one device
         return torch.from_numpy(np.array(
             jax.random.bernoulli(table[key], keep, tuple(shape))))
 

@@ -32,6 +32,7 @@ and must not start JAX.
 """
 
 import dataclasses
+import functools
 import os
 
 import numpy as np
@@ -76,44 +77,60 @@ def _overflow(state, params):
         params["lm_head.w"].mul_(40)
 
 
-def _engine_worker(rank, world, store, out_dir, name, sp, kw, opt, accum,
-                   overflow, model_kw=None, preset="tiny"):
-    """One gloo rank: `name` engine steps over the global batches; rank 0
-    saves the losses, params, optimizer state and scaler."""
+def multi_engine_worker(rank, world, store, out_dir, configs):
+    """One gloo rank running each configuration in turn (one spawn
+    serving several checks): the `name` engine steps over the global
+    batches from the weights in params{tag}.npz (or params{params}.npz);
+    rank 0 saves the losses, params, optimizer state and scaler to
+    result{tag}.pt.  A
+    configuration's `hook` (fn, args), when given, is called as
+    fn(rank, out_dir, tag, *args) before the engine is built; what it
+    returns, if callable, after the run."""
     import torch.distributed as dist
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
     try:
-        model = T.build_model(dataclasses.replace(T.ALL_PRESETS[preset],
-                                                  **(model_kw or {})),
-                              device="cpu")
-        engine = getattr(T, name)(model, _optimizer(opt), device="cpu",
-                                  seq_parallel=sp, accum_steps=accum, **kw)
-        state = engine.init(0)
-        ref = np.load(os.path.join(out_dir, "params.npz"))
-        engine.load_params(state, T.params_from_numpy(dict(ref), "cpu"))
-        if overflow:
-            _overflow(state, state.params)
-        losses = []
-        for batch in _batches(STEPS if not overflow else 4, accum):
-            state, loss = engine.step(state, batch)
-            losses.append(float(loss))
-        params = engine.gather_params(state)
-        opt_state = engine.gather_opt_state(state)
-        eval_loss = float(engine.eval_loss(state, _batches(1)[0]))
-        if rank == 0:
-            torch.save({"losses": losses, "params": params,
-                        "opt": opt_state, "scaler": state.scaler,
-                        "rank_map": engine.rank_map, "eval": eval_loss,
-                        "lowering": engine._schedule.lowering},
-                       os.path.join(out_dir, "result.pt"))
-        # every rank done before any tears its groups down: gloo aborted
-        # a rank now and then (exit -6) on a teardown race under hpZ's
-        # subgroups
-        dist.barrier()
+        for c in configs:
+            _run_config(rank, out_dir, **c)
+            # every rank done before any tears its groups down: gloo
+            # aborted a rank now and then (exit -6) on a teardown race
+            # under hpZ's subgroups
+            dist.barrier()
     finally:
         dist.destroy_process_group()
+
+
+def _run_config(rank, out_dir, name, sp, kw, opt, accum, overflow,
+                model_kw=None, preset="tiny", tag="", hook=None,
+                steps=STEPS, params=None):
+    done = hook[0](rank, out_dir, tag, *hook[1]) if hook else None
+    model = T.build_model(dataclasses.replace(T.ALL_PRESETS[preset],
+                                              **(model_kw or {})),
+                          device="cpu")
+    engine = getattr(T, name)(model, _optimizer(opt), device="cpu",
+                              seq_parallel=sp, accum_steps=accum, **kw)
+    state = engine.init(0)
+    ref = np.load(os.path.join(
+        out_dir, f"params{tag if params is None else params}.npz"))
+    engine.load_params(state, T.params_from_numpy(dict(ref), "cpu"))
+    if overflow:
+        _overflow(state, state.params)
+    losses = []
+    for batch in _batches(steps if not overflow else 4, accum):
+        state, loss = engine.step(state, batch)
+        losses.append(float(loss))
+    params = engine.gather_params(state)
+    opt_state = engine.gather_opt_state(state)
+    eval_loss = float(engine.eval_loss(state, _batches(1)[0]))
+    if callable(done):
+        done()
+    if rank == 0:
+        torch.save({"losses": losses, "params": params,
+                    "opt": opt_state, "scaler": state.scaler,
+                    "rank_map": engine.rank_map, "eval": eval_loss,
+                    "lowering": engine._schedule.lowering},
+                   os.path.join(out_dir, f"result{tag}.pt"))
 
 
 def _jax_run(name, dp, sp, kw, opt, accum, overflow, model_kw=None,
@@ -167,15 +184,51 @@ def check_against_jax(tmp_path, name, dp, sp, kw=None, opt="adamw",
     only where JAX's own loss does not fall (the random tokens sit near
     ln(vocab) from the start).  Returns (the port's result, JAX's state,
     engine, losses and least gradient RMS per element)."""
+    runs = run_cases(tmp_path, {"": dict(
+        name=name, dp=dp, sp=sp, kw=kw or {}, opt=opt, accum=accum,
+        overflow=overflow, model_kw=model_kw, preset=preset)})
+    return check_case(runs, "", atol, progress)
+
+
+def run_cases(tmp_path, cases):
+    """Each case — {id: check_against_jax's arguments as a dict: name, dp,
+    sp and any of kw, opt, accum, overflow, model_kw, preset} — on JAX,
+    then every case of one world size in one gloo spawn
+    (`multi_engine_worker`): {id: (the port's result, JAX's run, the
+    case)}.  A module-scoped fixture over it serves each case's test."""
+    runs, by_world = {}, {}
+    for cid, c in cases.items():
+        c = dict(dict(kw={}, opt="adamw", accum=1, overflow=False,
+                      model_kw=None, preset="tiny"), **c)
+        out = _jax_run(c["name"], c["dp"], c["sp"], c["kw"], c["opt"],
+                       c["accum"], c["overflow"], c["model_kw"],
+                       c["preset"])
+        np.savez(tmp_path / f"params{cid}.npz", **out[0])
+        by_world.setdefault(c["dp"] * c["sp"], []).append(dict(
+            name=c["name"], sp=c["sp"], kw=c["kw"], opt=c["opt"],
+            accum=c["accum"], overflow=c["overflow"],
+            model_kw=c["model_kw"], preset=c["preset"], tag=cid))
+        runs[cid] = (out, c)
+    for world, configs in by_world.items():
+        spawn(multi_engine_worker, world, tmp_path, configs,
+              timeout=120 + 60 * len(configs))
+    return {cid: (torch.load(tmp_path / f"result{cid}.pt"), out, c)
+            for cid, (out, c) in runs.items()}
+
+
+def check_case(runs, cid, atol=1e-5, progress=True):
+    """`check_against_jax`'s comparison of case `cid` of `run_cases`."""
+    res, out, c = runs[cid]
+    return compare_with_jax(res, out, c["dp"], c["opt"], c["overflow"],
+                            atol, progress)
+
+
+def compare_with_jax(res, jax_out, dp, opt="adamw", overflow=False,
+                     atol=1e-5, progress=True):
+    """`check_against_jax`'s comparison of a port result (what
+    `multi_engine_worker` saves) with `_jax_run`'s output."""
     from tiny_deepspeed_tpu.parallel.partition import partition_tensors
-    kw = kw or {}
-    init, jl, jstate, jeng, jev, rms = _jax_run(name, dp, sp, kw, opt,
-                                                accum, overflow, model_kw,
-                                                preset)
-    np.savez(tmp_path / "params.npz", **init)
-    spawn(_engine_worker, dp * sp, tmp_path, name, sp, kw, opt, accum,
-          overflow, model_kw, preset, timeout=180)
-    res = torch.load(tmp_path / "result.pt")
+    _, jl, jstate, jeng, jev, rms = jax_out
     tl = np.asarray(res["losses"])
     assert res["rank_map"] == jeng.rank_map == partition_tensors(
         jeng.model.param_shapes(), dp)
@@ -213,9 +266,16 @@ def check_against_jax(tmp_path, name, dp, sp, kw=None, opt="adamw",
     return res, jstate, jeng, jl, rms
 
 
+@pytest.fixture(scope="module")
+def data2(tmp_path_factory):
+    """DDP, Zero1 and Zero2 at data 2: one gloo spawn runs all three."""
+    return run_cases(tmp_path_factory.mktemp("data2"), {
+        n: dict(name=n, dp=2, sp=1) for n in ("DDP", "Zero1", "Zero2")})
+
+
 @pytest.mark.parametrize("name", ["DDP", "Zero1", "Zero2"])
-def test_engine_matches_jax_data2(tmp_path, name):
-    check_against_jax(tmp_path, name, 2, 1)
+def test_engine_matches_jax_data2(data2, name):
+    check_case(data2, name)
 
 
 @pytest.fixture
@@ -240,14 +300,22 @@ def _run_engine(cls, batches, **kw):
             engine.gather_opt_state(state))
 
 
+@functools.lru_cache(maxsize=None)
+def _single_device_run(accum):
+    """SingleDevice's 3 steps, the world-1 cases' reference: run once a
+    module for each accum."""
+    return _run_engine(T.SingleDevice, _batches(3, accum),
+                       accum_steps=accum)
+
+
 @pytest.mark.parametrize("name", ["DDP", "Zero1", "Zero2"])
 @pytest.mark.parametrize("accum", [1, 2])
 def test_world1_engine_equals_single_device(world1, name, accum):
     """At world 1, AVG over one rank and a one-shard update change
     nothing: losses, params and moments bit for bit."""
-    batches = _batches(3, accum)
-    want = _run_engine(T.SingleDevice, batches, accum_steps=accum)
-    got = _run_engine(getattr(T, name), batches, accum_steps=accum)
+    want = _single_device_run(accum)
+    got = _run_engine(getattr(T, name), _batches(3, accum),
+                      accum_steps=accum)
     assert got[0] == want[0]
     for n, p in want[1].items():
         assert torch.equal(got[1][n], p), n
@@ -325,11 +393,19 @@ def test_refused_configurations_raise(world1):
         for n, p in want[1].items():
             assert torch.equal(got[1][n], p), n
     pm = T.GPT2Model(T.GPT2_PRESETS["tiny"], device="cpu")
-    with pytest.raises(ValueError, match="Ulysses.*ROADMAP.md"):
-        T.DDP(pm, T.AdamW(), device="cpu", seq_impl="ulysses")
+    # Ulysses builds (inert without a seq split, as in JAX)
+    eng = T.DDP(pm, T.AdamW(), device="cpu", seq_impl="ulysses")
+    assert eng.pctx.seq_impl == "ulysses" and eng.pctx.seq_comm is None
     with pytest.raises(ValueError, match="divide"):
         T.DDP(pm, T.AdamW(), device="cpu", seq_parallel=2)
+    # dropout on two ranks builds, and rank 1 draws its rows of the
+    # global batch's mask
     drop = T.GPT2Model(dataclasses.replace(T.GPT2_PRESETS["tiny"],
                                            dropout=0.1), device="cpu")
-    with pytest.raises(ValueError, match="dropout.*ROADMAP.md"):
-        T.Zero1(drop, T.AdamW(), device="cpu", pctx=_fake_pctx())
+    eng = T.Zero1(drop, T.AdamW(), device="cpu", pctx=_fake_pctx())
+    rank1 = dataclasses.replace(eng.pctx, rank=1, data_rank=1)
+    x = torch.ones(2, 8, 4)
+    from tiny_deepspeed_tpu_torch.models import gpt2 as gpt2_mod
+    whole = gpt2_mod._dropout(torch.ones(4, 8, 4), 5, 0.1)
+    assert torch.equal(gpt2_mod._dropout(x, 5, 0.1, eng.pctx), whole[:2])
+    assert torch.equal(gpt2_mod._dropout(x, 5, 0.1, rank1), whole[2:])

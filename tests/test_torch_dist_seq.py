@@ -12,18 +12,27 @@ import sys
 
 import pytest
 
-from test_torch_dist import check_against_jax
+from test_torch_dist import check_case, run_cases
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+@pytest.fixture(scope="module")
+def seq2(tmp_path_factory):
+    """Every data 2 x seq 2 case of this file in one 4-rank gloo spawn."""
+    cases = {n: dict(name=n, dp=2, sp=2) for n in ("DDP", "Zero1", "Zero2")}
+    cases["Zero2-clip"] = dict(name="Zero2", dp=2, sp=2,
+                               kw=dict(grad_clip=0.5))
+    return run_cases(tmp_path_factory.mktemp("seq2"), cases)
+
+
 @pytest.mark.parametrize("name", ["DDP", "Zero1", "Zero2"])
-def test_engine_matches_jax_data2_seq2(tmp_path, name):
-    check_against_jax(tmp_path, name, 2, 2)
+def test_engine_matches_jax_data2_seq2(seq2, name):
+    check_case(seq2, name)
 
 
-def test_zero2_grad_clip_matches_jax_data2_seq2(tmp_path):
-    check_against_jax(tmp_path, "Zero2", 2, 2, dict(grad_clip=0.5))
+def test_zero2_grad_clip_matches_jax_data2_seq2(seq2):
+    check_case(seq2, "Zero2-clip")
 
 
 def test_torchrun_zero2_seq2_on_cpu():

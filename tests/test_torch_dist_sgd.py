@@ -9,9 +9,16 @@ roundoff stays roundoff)."""
 
 import pytest
 
-from test_torch_dist import check_against_jax
+from test_torch_dist import check_case, run_cases
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Both engines in one 2-rank gloo spawn."""
+    return run_cases(tmp_path_factory.mktemp("sgd"), {
+        n: dict(name=n, dp=2, sp=1, opt="sgd") for n in ("DDP", "Zero1")})
 
 
 @pytest.mark.parametrize("name", ["DDP", "Zero1"])
-def test_sgd_matches_jax(tmp_path, name):
-    check_against_jax(tmp_path, name, 2, 1, opt="sgd")
+def test_sgd_matches_jax(runs, name):
+    check_case(runs, name)

@@ -140,61 +140,71 @@ def _load_jax_state(engine, state, npz, rank):
                         "good": int(npz["good"])}
 
 
-def _codec_engine_worker(rank, world, store, out_dir, name, kw, accum,
-                         overflow, model_kw, preset, steps):
-    """One gloo rank, JAX's dither patched in (when the table exists):
-    `name` free-running over the global batches from JAX's init (the
-    losses), then step t again from JAX's state before step t, for every
-    t (teacher-forced).  Rank 0 saves the free-running losses, and per
-    forced step the loss, the whole params, AdamW state, scaler and every
-    rank's residual row after it."""
+def _codec_engine_worker(rank, world, store, base, cases):
+    """One gloo rank running each case in turn (one spawn serving several
+    checks), case `cid`'s files under `base/cid`: `_codec_case`."""
+    import torch.distributed as dist
+    torch.set_num_threads(1)
+    draw = C.draw_dither
+    dist.init_process_group("gloo", init_method=f"file://{store}",
+                            rank=rank, world_size=world)
+    try:
+        for cid, args in cases:
+            out_dir = os.path.join(base, cid)
+            table = os.path.join(out_dir, "dither.npz")
+            C.draw_dither = (table_draw(table) if os.path.exists(table)
+                             else draw)
+            _codec_case(rank, world, out_dir, *args)
+            dist.barrier()  # no rank tears its groups down before the rest
+    finally:
+        C.draw_dither = draw
+        dist.destroy_process_group()
+
+
+def _codec_case(rank, world, out_dir, name, kw, accum, overflow, model_kw,
+                preset, steps):
+    """One case on this rank, JAX's dither patched in (when the case has
+    a table): `name` free-running over the global batches from JAX's init
+    (the losses), then step t again from JAX's state before step t, for
+    every t (teacher-forced).  Rank 0 saves the free-running losses, and
+    per forced step the loss, the whole params, AdamW state, scaler and
+    every rank's residual row after it."""
     import dataclasses
 
     import torch.distributed as dist
     from test_torch_dist import _batches, _optimizer, _overflow
-    torch.set_num_threads(1)
-    table = os.path.join(out_dir, "dither.npz")
-    if os.path.exists(table):
-        C.draw_dither = table_draw(table)
-    dist.init_process_group("gloo", init_method=f"file://{store}",
-                            rank=rank, world_size=world)
-    try:
-        model = T.build_model(dataclasses.replace(T.ALL_PRESETS[preset],
-                                                  **(model_kw or {})),
-                              device="cpu")
-        engine = getattr(T, name)(model, _optimizer("adamw"), device="cpu",
-                                  accum_steps=accum, **kw)
-        state = engine.init(0)
-        ref = np.load(os.path.join(out_dir, "params.npz"))
-        engine.load_params(state, T.params_from_numpy(dict(ref), "cpu"))
-        if overflow:
-            _overflow(state, state.params)
-        batches = _batches(steps, accum)
-        free = [float(engine.step(state, b)[1]) for b in batches]
-        forced = []
-        for t, batch in enumerate(batches):
-            _load_jax_state(engine, state,
-                            np.load(os.path.join(out_dir, f"jax{t}.npz")),
-                            rank)
-            state, loss = engine.step(state, batch)
-            res = None
-            if state.grad_residual is not None:
-                rows = [torch.empty_like(state.grad_residual)
-                        for _ in range(world)]
-                dist.all_gather(rows, state.grad_residual)
-                res = torch.stack(rows)
-            forced.append({"loss": float(loss),
-                           "params": engine.gather_params(state),
-                           "opt": engine.gather_opt_state(state),
-                           "scaler": state.scaler, "residual": res})
-        if rank == 0:
-            torch.save({"free": free, "forced": forced,
-                        "describe": engine.describe(),
-                        "lowering": engine._schedule.lowering},
-                       os.path.join(out_dir, "result.pt"))
-        dist.barrier()  # no rank tears its groups down before the rest
-    finally:
-        dist.destroy_process_group()
+    model = T.build_model(dataclasses.replace(T.ALL_PRESETS[preset],
+                                              **(model_kw or {})),
+                          device="cpu")
+    engine = getattr(T, name)(model, _optimizer("adamw"), device="cpu",
+                              accum_steps=accum, **kw)
+    state = engine.init(0)
+    ref = np.load(os.path.join(out_dir, "params.npz"))
+    engine.load_params(state, T.params_from_numpy(dict(ref), "cpu"))
+    if overflow:
+        _overflow(state, state.params)
+    batches = _batches(steps, accum)
+    free = [float(engine.step(state, b)[1]) for b in batches]
+    forced = []
+    for t, batch in enumerate(batches):
+        _load_jax_state(engine, state,
+                        np.load(os.path.join(out_dir, f"jax{t}.npz")), rank)
+        state, loss = engine.step(state, batch)
+        res = None
+        if state.grad_residual is not None:
+            rows = [torch.empty_like(state.grad_residual)
+                    for _ in range(world)]
+            dist.all_gather(rows, state.grad_residual)
+            res = torch.stack(rows)
+        forced.append({"loss": float(loss),
+                       "params": engine.gather_params(state),
+                       "opt": engine.gather_opt_state(state),
+                       "scaler": state.scaler, "residual": res})
+    if rank == 0:
+        torch.save({"free": free, "forced": forced,
+                    "describe": engine.describe(),
+                    "lowering": engine._schedule.lowering},
+                   os.path.join(out_dir, "result.pt"))
 
 
 def _jax_codec_run(tmp_path, name, dp, kw, accum, overflow, model_kw,
@@ -298,20 +308,53 @@ def check_codec_against_jax(tmp_path, name, dp, kw, accum=1, overflow=False,
     for a forward whose weights the port rounds in other blocks than JAX
     does (hpZ's rebuild codec over the port's flat shard layout).
     Returns (the port's result, JAX's final state as numpy, engine)."""
-    from test_torch_dist import RMS_FLOOR, STEPS
-    kw = dict(kw)
-    if hpz_granule_of is not None:
-        kw["hpz_granule_of"] = hpz_granule_of
-    steps = STEPS if not overflow else 4
-    jl, jstates, jeng, rms = _jax_codec_run(tmp_path, name, dp, kw, accum,
-                                            overflow, model_kw, preset,
-                                            steps)
-    sites = _dither_sites(jeng, dp)
-    if sites:
-        jax_dither_table(tmp_path / "dither.npz", range(steps), dp, sites)
-    spawn(_codec_engine_worker, dp, tmp_path, name, kw, accum, overflow,
-          model_kw, preset, steps, timeout=180)
-    res = torch.load(tmp_path / "result.pt")
+    runs = run_codec_cases(tmp_path, {"": dict(
+        name=name, dp=dp, kw=kw, accum=accum, overflow=overflow,
+        model_kw=model_kw, atol=atol, preset=preset,
+        hpz_granule_of=hpz_granule_of, states=states)})
+    return check_codec_case(runs, "")
+
+
+def run_codec_cases(tmp_path, cases):
+    """Each case — {id: check_codec_against_jax's arguments as a dict} —
+    on JAX (its files under tmp_path/id), then every case of one `dp` in
+    one gloo spawn: {id: (the port's result, JAX's losses, states after
+    each step, engine, least gradient RMS per element, the case)}.  A
+    module-scoped fixture over it serves each case's test."""
+    from test_torch_dist import STEPS
+    out, by_dp = {}, {}
+    for cid, c in cases.items():
+        c = dict(dict(accum=1, overflow=False, model_kw=None, atol=1e-5,
+                      preset="tiny", hpz_granule_of=None, states=True), **c)
+        kw = dict(c["kw"])
+        if c["hpz_granule_of"] is not None:
+            kw["hpz_granule_of"] = c["hpz_granule_of"]
+        steps = STEPS if not c["overflow"] else 4
+        d = tmp_path / cid
+        d.mkdir(exist_ok=True)
+        jl, jstates, jeng, rms = _jax_codec_run(
+            d, c["name"], c["dp"], kw, c["accum"], c["overflow"],
+            c["model_kw"], c["preset"], steps)
+        sites = _dither_sites(jeng, c["dp"])
+        if sites:
+            jax_dither_table(d / "dither.npz", range(steps), c["dp"], sites)
+        by_dp.setdefault(c["dp"], []).append((cid, (
+            c["name"], kw, c["accum"], c["overflow"], c["model_kw"],
+            c["preset"], steps)))
+        out[cid] = (jl, jstates, jeng, rms, c)
+    for dp, todo in by_dp.items():
+        spawn(_codec_engine_worker, dp, tmp_path, todo,
+              timeout=120 + 60 * len(todo))
+    return {cid: (torch.load(tmp_path / cid / "result.pt"), *v)
+            for cid, v in out.items()}
+
+
+def check_codec_case(runs, cid):
+    """`check_codec_against_jax`'s comparison of case `cid` of
+    `run_codec_cases`: (the port's result, JAX's final state, engine)."""
+    from test_torch_dist import RMS_FLOOR
+    res, jl, jstates, jeng, rms, c = runs[cid]
+    atol, states = c["atol"], c["states"]
     assert res["lowering"] == jeng._schedule.lowering, res["lowering"]
     fin = np.isfinite(jl)
     np.testing.assert_array_equal(np.isfinite(res["free"]), fin)

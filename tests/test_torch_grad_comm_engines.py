@@ -30,19 +30,25 @@ and must not start JAX.
 
 import pytest
 
-from test_torch_grad_comm import check_codec_against_jax
+from test_torch_grad_comm import check_codec_case, run_codec_cases
 
 INT8 = dict(grad_comm="int8")
+CASES = {
+    "ddp-int8": dict(name="DDP", dp=2, kw=INT8),
+    "ddp-fp8": dict(name="DDP", dp=2, kw=dict(grad_comm="fp8"), atol=2e-4),
+    "zero1-int8": dict(name="Zero1", dp=2, kw=INT8),
+    "zero2-int8-accum2": dict(name="Zero2", dp=2, kw=INT8, accum=2),
+}
 
 
-@pytest.mark.parametrize("name,dp,kw,accum,atol", [
-    ("DDP", 2, INT8, 1, 1e-5),
-    ("DDP", 2, dict(grad_comm="fp8"), 1, 2e-4),
-    ("Zero1", 2, INT8, 1, 1e-5),
-    ("Zero2", 2, INT8, 2, 1e-5),
-], ids=["ddp-int8", "ddp-fp8", "zero1-int8", "zero2-int8-accum2"])
-def test_quant_mono_matches_jax(tmp_path, name, dp, kw, accum, atol):
-    res, _, _ = check_codec_against_jax(tmp_path, name, dp, kw,
-                                        accum=accum, atol=atol)
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """The four cases in one 2-rank gloo spawn."""
+    return run_codec_cases(tmp_path_factory.mktemp("codec_engines"), CASES)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_quant_mono_matches_jax(runs, case):
+    res, _, _ = check_codec_case(runs, case)
     assert res["lowering"] == "quant_mono"
     assert res["forced"][-1]["residual"] is not None

@@ -48,7 +48,7 @@ import torch
 
 import tiny_deepspeed_tpu_torch as T
 from tiny_deepspeed_tpu_torch.parallel import comm as C
-from test_torch_grad_comm import check_codec_against_jax
+from test_torch_grad_comm import check_codec_case, run_codec_cases
 from test_torch_ring import spawn
 
 L4 = {"n_layer": 4}
@@ -57,22 +57,33 @@ INT8 = dict(grad_comm="int8")
 FP8 = dict(L4, gather_quant="fp8")
 
 
-@pytest.mark.parametrize("dp,kw,model_kw,gran,atol,lowering,tail", [
-    (2, INT8, L4, None, 1e-5, "composed", False),
-    (2, dict(INT8, grad_comm_tail="int8", gather_prefetch=2), L4, None,
-     1e-5, "composed", True),
-    (4, dict(hpz=True, hpz_comm="int8"), L4, GRAN, 1e-5, "composed", None),
-    (4, dict(hpz=True, hpz_comm="fp8"), L4, GRAN, 2e-4, "composed", None),
-    (2, dict(INT8, grad_buckets=2), FP8, None, 2e-4, "composed", False),
-], ids=["zero3-int8", "zero3-int8-tail-prefetch2",
-        "zero3-hpz-int8-data4", "zero3-hpz-fp8-data4",
-        "zero3-fp8-gather-int8-buckets2"])
-def test_codec_schedule_matches_jax(tmp_path, dp, kw, model_kw, gran, atol,
-                                    lowering, tail):
-    res, js, jeng = check_codec_against_jax(tmp_path, "Zero3", dp, kw,
-                                            model_kw=model_kw, atol=atol,
-                                            hpz_granule_of=gran,
-                                            states=gran is None)
+SCHED = {
+    "zero3-int8": (2, INT8, L4, None, 1e-5, "composed", False),
+    "zero3-int8-tail-prefetch2": (2, dict(INT8, grad_comm_tail="int8",
+                                          gather_prefetch=2), L4, None,
+                                  1e-5, "composed", True),
+    "zero3-hpz-int8-data4": (4, dict(hpz=True, hpz_comm="int8"), L4, GRAN,
+                             1e-5, "composed", None),
+    "zero3-hpz-fp8-data4": (4, dict(hpz=True, hpz_comm="fp8"), L4, GRAN,
+                            2e-4, "composed", None),
+    "zero3-fp8-gather-int8-buckets2": (2, dict(INT8, grad_buckets=2), FP8,
+                                       None, 2e-4, "composed", False),
+}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Every case: one gloo spawn a data size (2 and 4)."""
+    return run_codec_cases(tmp_path_factory.mktemp("codec_zero3"), {
+        cid: dict(name="Zero3", dp=dp, kw=kw, model_kw=model_kw, atol=atol,
+                  hpz_granule_of=gran, states=gran is None)
+        for cid, (dp, kw, model_kw, gran, atol, _, _) in SCHED.items()})
+
+
+@pytest.mark.parametrize("case", list(SCHED))
+def test_codec_schedule_matches_jax(runs, case):
+    *_, lowering, tail = SCHED[case]
+    res, js, jeng = check_codec_case(runs, case)
     assert res["lowering"] == lowering
     lay = jeng._schedule.layout
     if tail is None:  # no grad slot: no residual

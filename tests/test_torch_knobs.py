@@ -291,8 +291,8 @@ def _jax_masks(monkeypatch, rng, jkey, n_layer, keep=0.9):
                 jkeys[l + 1], site)
     seen = []
 
-    def keep_mask(key, shape, keep_, device):
-        assert keep_ == keep
+    def keep_mask(key, shape, keep_, device, frame=None):
+        assert keep_ == keep and frame is None  # one device
         seen.append(key)
         return torch.from_numpy(np.asarray(
             jax.random.bernoulli(table[key], keep_, tuple(shape))))

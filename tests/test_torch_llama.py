@@ -289,6 +289,26 @@ def test_rope_angles_match_jax():
     np.testing.assert_allclose(sin2[:, :half].numpy(), -np.sin(ang), **TOL6)
 
 
+def test_rope_tables_equal_on_repeated_calls():
+    """Two calls on the same positions return the same bits, each cos /
+    sin the f64 value rounded once."""
+    pos = _t(np.arange(0, 2048, 7))
+    first = TL.rope_tables(pos, 64, 10000.0)
+    second = TL.rope_tables(pos, 64, 10000.0)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    half = 32
+    freqs = first[0].new_tensor(
+        10000.0 ** (-np.arange(half, dtype=np.float32) / half).astype(
+            np.float64)).numpy()
+    ang = (pos.numpy().astype(np.float32)[:, None] * freqs).astype(
+        np.float64)
+    np.testing.assert_array_equal(first[0][:, :half].numpy(),
+                                  np.cos(ang).astype(np.float32))
+    np.testing.assert_array_equal(first[1][:, half:].numpy(),
+                                  np.sin(ang).astype(np.float32))
+
+
 @pytest.mark.parametrize("dh", [8, 16, 64])
 def test_rope_variants_match_jax(dh):
     rng = np.random.default_rng(dh)

@@ -32,32 +32,42 @@ and must not start JAX.
 
 import pytest
 
-from test_torch_dist import check_against_jax
+from test_torch_dist import check_case, run_cases
 
 L4 = {"n_layer": 4}
+DATA2 = {
+    "ddp-buckets2": ("DDP", dict(grad_buckets=2), 1, L4, 1e-5, "bucket"),
+    "zero2-buckets2-accum2": ("Zero2", dict(grad_buckets=2), 2, L4, 1e-5,
+                              "bucket"),
+    "zero3-prefetch2": ("Zero3", dict(gather_prefetch=2), 1, L4, 1e-5,
+                        "prefetch"),
+    "zero3-prefetch3-fp8": ("Zero3", dict(gather_prefetch=3), 1,
+                            dict(L4, gather_quant="fp8"), 2e-4, "prefetch"),
+}
 
 
-@pytest.mark.parametrize("name,kw,accum,model_kw,atol,lowering", [
-    ("DDP", dict(grad_buckets=2), 1, L4, 1e-5, "bucket"),
-    ("Zero2", dict(grad_buckets=2), 2, L4, 1e-5, "bucket"),
-    ("Zero3", dict(gather_prefetch=2), 1, L4, 1e-5, "prefetch"),
-    ("Zero3", dict(gather_prefetch=3), 1, dict(L4, gather_quant="fp8"),
-     2e-4, "prefetch"),
-], ids=["ddp-buckets2", "zero2-buckets2-accum2", "zero3-prefetch2",
-        "zero3-prefetch3-fp8"])
-def test_schedule_matches_jax_data2(tmp_path, name, kw, accum, model_kw,
-                                    atol, lowering):
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Every case of this file in one 2-rank gloo spawn."""
+    cases = {cid: dict(name=name, dp=2, sp=1, kw=kw, accum=accum,
+                       model_kw=model_kw)
+             for cid, (name, kw, accum, model_kw, _, _) in DATA2.items()}
+    cases["llama"] = dict(name="Zero3", dp=2, sp=1,
+                          kw=dict(gather_prefetch=2), preset="llama-tiny")
+    return run_cases(tmp_path_factory.mktemp("sched"), cases)
+
+
+@pytest.mark.parametrize("case", list(DATA2))
+def test_schedule_matches_jax_data2(runs, case):
+    _, _, accum, _, atol, lowering = DATA2[case]
     # the accumulated step's 8 random rows sit at ln(512) from the start:
     # JAX's loss does not fall over 10 steps either
-    res, _, jeng, *_ = check_against_jax(tmp_path, name, 2, 1, kw,
-                                         accum=accum, model_kw=model_kw,
-                                         atol=atol, progress=accum == 1)
+    res, _, jeng, *_ = check_case(runs, case, atol=atol,
+                                  progress=accum == 1)
     assert jeng._schedule.lowering == res["lowering"] == lowering
 
 
-def test_llama_zero3_prefetch_matches_jax(tmp_path):
+def test_llama_zero3_prefetch_matches_jax(runs):
     """llama-tiny's loss does not fall over 10 steps on JAX either."""
-    res, _, jeng, *_ = check_against_jax(
-        tmp_path, "Zero3", 2, 1, dict(gather_prefetch=2),
-        preset="llama-tiny", progress=False)
+    res, _, jeng, *_ = check_case(runs, "llama", progress=False)
     assert jeng._schedule.lowering == res["lowering"] == "prefetch"

@@ -32,32 +32,46 @@ and must not start JAX.
 import numpy as np
 import pytest
 
-from test_torch_dist import check_against_jax
+from test_torch_dist import check_case, run_cases
 
 L4 = {"n_layer": 4}
 FP8 = dict(L4, gather_quant="fp8")
 GRAN = {0: 0, 1: 0, 2: 1, 3: 1}
 
 
-@pytest.mark.parametrize("dp,kw,model_kw,atol,lowering", [
-    (4, dict(gather_prefetch=2, gather_groups=2), FP8, 2e-4, "prefetch"),
-    (4, dict(hpz=True, hpz_granule_of=GRAN), L4, 1e-5, "composed"),
-    (4, dict(hpz=True, hpz_granule_of=GRAN, gather_prefetch=2,
-             grad_buckets=2), L4, 1e-5, "composed"),
-    (2, dict(grad_buckets=2), FP8, 2e-4, "composed"),
-], ids=["data4-2hop-fp8", "data4-hpz", "data4-hpz-prefetch2-buckets2",
-        "data2-buckets2-fp8"])
-def test_zero3_schedule_matches_jax(tmp_path, dp, kw, model_kw, atol,
-                                    lowering):
-    res, _, jeng, *_ = check_against_jax(tmp_path, "Zero3", dp, 1, kw,
-                                         model_kw=model_kw, atol=atol)
+CASES = {
+    "data4-2hop-fp8": (4, dict(gather_prefetch=2, gather_groups=2), FP8,
+                       2e-4, "prefetch"),
+    "data4-hpz": (4, dict(hpz=True, hpz_granule_of=GRAN), L4, 1e-5,
+                  "composed"),
+    "data4-hpz-prefetch2-buckets2": (4, dict(hpz=True, hpz_granule_of=GRAN,
+                                             gather_prefetch=2,
+                                             grad_buckets=2), L4, 1e-5,
+                                     "composed"),
+    "data2-buckets2-fp8": (2, dict(grad_buckets=2), FP8, 2e-4, "composed"),
+}
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    """Every case of this file: one gloo spawn a world size (4 and 2)."""
+    cases = {cid: dict(name="Zero3", dp=dp, sp=1, kw=kw, model_kw=model_kw)
+             for cid, (dp, kw, model_kw, _, _) in CASES.items()}
+    cases["loss-scale"] = dict(name="Zero3", dp=2, sp=1,
+                               kw=dict(grad_buckets=2, loss_scale=2 ** 20),
+                               model_kw=FP8)
+    return run_cases(tmp_path_factory.mktemp("sched_zero3"), cases)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+def test_zero3_schedule_matches_jax(runs, case):
+    *_, atol, lowering = CASES[case]
+    res, _, jeng, *_ = check_case(runs, case, atol=atol)
     assert jeng._schedule.lowering == res["lowering"] == lowering
 
 
-def test_zero3_composed_fp8_matches_jax_under_loss_scale(tmp_path):
-    res, _, jeng, *_ = check_against_jax(
-        tmp_path, "Zero3", 2, 1, dict(grad_buckets=2, loss_scale=2 ** 20),
-        model_kw=FP8, atol=2e-4)
+def test_zero3_composed_fp8_matches_jax_under_loss_scale(runs):
+    res, _, jeng, *_ = check_case(runs, "loss-scale", atol=2e-4)
     assert jeng._schedule.lowering == res["lowering"] == "composed"
     for name in ("attn.qkv.w", "attn.proj.w", "mlp.fc.w", "mlp.proj.w"):
         m = res["opt"]["state"]["h." + name]["m"].numpy()

@@ -18,21 +18,24 @@ The loss head is one of three (`effective_xent_impl`): the materialized
 logits (default), the chunked `fused_linear_xent` or the fused-kernel
 `pallas_fused_xent` (`GPTConfig(fused_xent=True, fused_xent_impl=...)`).
 Dropout (`GPTConfig.dropout`) applies when `apply` is given an integer
-`rng` key, at the JAX package's three sites with its key tree.
+`rng` key, at the JAX package's three sites with its key tree, through
+`ops.dropout` (a Triton kernel on the card).  Its masks are
+counter-based: an element's bit is a function of the site's key and the
+element's index in the global (B, T, C) tensor, so they are the same on
+any number of ranks.
 
 Under the distributed engines `apply` takes the rank's
 `parallel.mesh.ParallelContext` (`pctx`).  With the sequence split over
 a seq group, the rank holds positions [s*Tl, (s+1)*Tl): it adds those
 rows of `wpe` (JAX slices the global `wpe[:T]` and shards it, :819-824),
-attention runs as ring attention (`ops.attention.sharded_attention`)
-and the loss is the mean over the rank's own tokens (the engine averages
-it).  The ring's autograd Function sits inside each block's
-`torch.utils.checkpoint`, so the backward's recompute re-runs the ring
-forward and its point-to-point rotations.  That is correct: every rank
-of the group recomputes the same layers in the same order, so the
-rotations pair up as they did in the forward.  Dropout on more than one
-rank raises: the port's masks are not JAX's (PERF.md), and keeping them
-invariant to the rank count is later work (ROADMAP.md).
+attention runs as ring attention or Ulysses (`pctx.seq_impl`,
+`ops.attention.sharded_attention`) and the loss is the mean over the
+rank's own tokens (the engine averages it).  The sequence-parallel
+autograd Functions sit inside each block's `torch.utils.checkpoint`, so
+the backward's recompute re-runs their forward collectives.  That is
+correct: every rank of the group recomputes the same layers in the same
+order, so the collectives pair up as they did in the forward.  Dropout
+draws each rank's block of the global mask (`_dropout_frame`).
 
 Serving: the `return_kv` prefill hook, the paged decode step, the
 speculative verify span (`paged_verify`, `head_span`; also the prefix
@@ -82,6 +85,7 @@ from torch.utils import checkpoint as ckpt
 from .. import rng as prng
 from ..ops.attention import ATTENTION, sharded_attention
 from ..ops.dispatch import resolve_device
+from ..ops.dropout import dropout, dropout_keep
 from ..ops.embedding import embedding, renorm_weight
 from ..ops.fused_xent import pallas_fused_xent
 from ..ops.layernorm import add_layernorm, layernorm
@@ -225,19 +229,38 @@ def effective_xent_impl(cfg, multi_device: bool = False,
     return cfg.fused_xent_impl
 
 
-def _dropout_keep(key: int, shape, keep: float, device) -> torch.Tensor:
-    """Bernoulli(keep) mask drawn on `device` from a generator seeded with
-    `key` at the moment of use: a remat recompute redraws it exactly."""
-    g = torch.Generator(device=device).manual_seed(key)
-    return torch.rand(shape, generator=g, device=device) < keep
+def _dropout_keep(key: int, shape, keep: float, device,
+                  frame=None) -> torch.Tensor:
+    """Bernoulli(keep) mask of the block at `frame` = (global shape,
+    this block's offsets) — default the whole tensor — drawn
+    counter-based from `key` (ops/dropout.dropout_keep): an element's bit
+    depends on the key and its global index only, so a remat recompute
+    redraws it exactly and every rank layout draws the same global mask.
+    The one place the CPU route draws a mask; the kernel on the card
+    computes the same bits."""
+    return dropout_keep(key, shape, keep, device, frame)
 
 
-def _dropout(x, key: int, rate: float):
+def _dropout_frame(shape, pctx):
+    """(global shape, offsets) of this rank's (B, T, ...) block under
+    `pctx`: rows [d*B, (d+1)*B) of the global batch, tokens [s*T,
+    (s+1)*T) of the global sequence; None (the tensor itself) on one
+    rank."""
+    if pctx is None or not pctx.is_multi_device:
+        return None
+    b, t, *rest = shape
+    return ((b * pctx.data_size, t * pctx.seq_size, *rest),
+            (pctx.data_rank * b, pctx.seq_rank * t) + (0,) * len(rest))
+
+
+def _dropout(x, key: int, rate: float, pctx=None):
     """Inverted dropout (JAX :228-234): zero with probability `rate`,
-    survivors scaled 1/(1-rate)."""
-    keep = 1.0 - rate
-    mask = _dropout_keep(key, x.shape, keep, x.device)
-    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+    survivors scaled 1/(1-rate), through `ops.dropout.dropout` (the
+    Triton kernel on the card) with the mask of x's place in the global
+    (B, T, C) tensor under `pctx`."""
+    return dropout(x, key, rate, _dropout_frame(x.shape, pctx),
+                   mask_fn=_dropout_keep)
+
 
 # remat policy -> the aten products whose outputs the checkpoint keeps
 # (None: recompute the whole block); "all" takes no checkpoint at all
@@ -472,7 +495,7 @@ class GPT2Model(nn.Module):
         h = self._norm(x, bp, "ln_1")
         y, kv = self._attn(h, bp, pctx)
         if dkey is not None:
-            y = _dropout(y, prng.fold_in(dkey, 0), c.dropout)
+            y = _dropout(y, prng.fold_in(dkey, 0), c.dropout, pctx)
         # the attention residual and ln_2 in one launch.  ln_1 stays
         # unfused: its residual is the previous block's output, across
         # the checkpoint boundary (fusing it would make each checkpoint
@@ -480,7 +503,7 @@ class GPT2Model(nn.Module):
         x, h = self._add_norm(x, y, bp, "ln_2")
         h = self._mlp(h, bp)
         if dkey is not None:
-            h = _dropout(h, prng.fold_in(dkey, 1), c.dropout)
+            h = _dropout(h, prng.fold_in(dkey, 1), c.dropout, pctx)
         x = x + h
         return (x, kv) if return_kv else x
 
@@ -574,8 +597,8 @@ class GPT2Model(nn.Module):
 
         The policy changes memory and recompute time, never the numbers:
         a recomputed block runs the same deterministic kernels on the
-        same inputs, and redraws the same dropout masks (each from a
-        generator seeded with its key when it is drawn)."""
+        same inputs, and redraws the same dropout masks (each a function
+        of its key and the global index)."""
         c = self.config
         if not c.remat or c.remat_policy == "all":
             return lambda x, bp, dkey=None, pctx=None: self._block(
@@ -591,8 +614,8 @@ class GPT2Model(nn.Module):
             if not torch.is_grad_enabled():
                 return self._block(x, bp, dkey=dkey, pctx=pctx)
             # the block draws no numbers from the global RNG state (its
-            # dropout masks come from generators seeded with dkey), so no
-            # RNG state needs restoring for the recompute
+            # dropout masks are hashes of dkey), so no RNG state needs
+            # restoring for the recompute
             return ckpt.checkpoint(self._block, x, bp, dkey=dkey, pctx=pctx,
                                    use_reentrant=False,
                                    preserve_rng_state=False, **kw)
@@ -637,12 +660,8 @@ class GPT2Model(nn.Module):
         x = self.embed(idx, pctx, params)
         dkeys = [None] * c.n_layer
         if rng is not None and c.dropout:
-            if pctx is not None and pctx.is_multi_device:
-                raise ValueError(
-                    "dropout on more than one rank is not ported yet: the "
-                    "masks would change with the rank count (ROADMAP.md)")
             keys = prng.split(rng, c.n_layer + 1)
-            x = _dropout(x, keys[0], c.dropout)
+            x = _dropout(x, keys[0], c.dropout, pctx)
             dkeys = keys[1:]
         x, extra = self._blocks(x, stacked, dkeys, pctx, sched)
         loss = self.head(x, params=params, targets=targets, pctx=pctx)

@@ -88,14 +88,41 @@ def rope_tables(positions: torch.Tensor, dh: int, theta: float):
     theta ** (-i / half), times the f32 position.  XLA's f32 `pow` is
     correctly rounded and torch's is not (an ulp apart on a few
     exponents, which a position of 2000 turns into 1e-4 of the angle):
-    the power is taken in f64 and rounded once, XLA's bits."""
+    the power is taken in f64 and rounded once, XLA's bits.  cos and
+    sin of the f32 angles come from `_cos_sin_f64`, rounded once."""
     half = dh // 2
     expo = -torch.arange(0, half, dtype=torch.float32,
                          device=positions.device) / half
     freqs = (theta ** expo.to(torch.float64)).to(torch.float32)
     ang = positions.to(torch.float32)[..., None] * freqs
-    cos, sin = torch.cos(ang), torch.sin(ang)
+    cos, sin = _cos_sin_f64(ang)
     return torch.cat([cos, cos], dim=-1), torch.cat([-sin, sin], dim=-1)
+
+
+# pi/2 as fdlibm splits it: 33 leading bits (k * _PIO2_HI is exact for
+# k < 2**20) and the rest
+_PIO2_HI = 1.57079632673412561417e+00
+_PIO2_LO = 6.07710050650619224932e-11
+
+
+def _cos_sin_f64(ang: torch.Tensor):
+    """(cos, sin) of f32 angles, each computed in f64 and rounded to f32
+    once.  The quadrant reduction is done here, in f64, so that the
+    library's cos / sin only ever see |r| <= pi/4: torch's CPU f32
+    cos / sin at arguments in the thousands came back up to 1.5e-4 off
+    in some processes, differently from call to call, and a table must
+    not change between calls."""
+    a = ang.to(torch.float64)
+    k = torch.round(a * (2.0 / math.pi))
+    r = (a - k * _PIO2_HI) - k * _PIO2_LO
+    c, s = torch.cos(r), torch.sin(r)
+    q = torch.remainder(k, 4.0)
+    # cos(r + q pi/2), sin(r + q pi/2) for q = 0, 1, 2, 3
+    cos = torch.where(q == 0, c, torch.where(
+        q == 1, -s, torch.where(q == 2, -c, s)))
+    sin = torch.where(q == 0, s, torch.where(
+        q == 1, c, torch.where(q == 2, -s, -c)))
+    return cos.to(torch.float32), sin.to(torch.float32)
 
 
 def rope_apply(x, cos2, sin2):

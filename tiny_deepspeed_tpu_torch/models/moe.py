@@ -402,11 +402,11 @@ class MoEGPT(GPT2Model):
         h = self._norm(x, bp, "ln_1")
         y, kv = self._attn(h, bp, pctx)
         if dkey is not None:
-            y = _dropout(y, prng.fold_in(dkey, 0), c.dropout)
+            y = _dropout(y, prng.fold_in(dkey, 0), c.dropout, pctx)
         x, h = self._add_norm(x, y, bp, "ln_2")
         y, aux = self._moe_mlp(h, bp, pctx)
         if dkey is not None:
-            y = _dropout(y, prng.fold_in(dkey, 1), c.dropout)
+            y = _dropout(y, prng.fold_in(dkey, 1), c.dropout, pctx)
         x = x + y
         return ((x, aux), kv) if return_kv else (x, aux)
 

@@ -10,14 +10,21 @@ Counterpart of `tiny_deepspeed_tpu/ops/attention.py`.  Both take
 there is no SDPA fallback.  `standard_attention` stays plain PyTorch and
 autograd differentiates it, as XLA does in the JAX package.
 
-`sharded_attention` is the counterpart of the JAX dispatch (:111-210)
+`sharded_attention` is the counterpart of the JAX dispatch (:162-222)
 for the paths the port runs: without a sequence split, `ATTENTION[impl]`
-on the rank's whole sequence; with one (`pctx.seq_size > 1`), ring
-attention over the seq group (parallel/ring_attention.py) — through the
-FA2 chunk kernels for "flash_attention", through their plain versions
-for "standard_attention" (JAX's ring likewise keeps the latter
-kernel-free).  K/V stay at KVH heads on the ring.  Ulysses is not ported
-(parallel/mesh.make_context refuses it).
+on the rank's whole sequence; with one (`pctx.seq_size > 1`), by
+`pctx.seq_impl`:
+
+- "ring": ring attention over the seq group (parallel/ring_attention.py)
+  — through the FA2 chunk kernels for "flash_attention", through their
+  plain versions for "standard_attention" (JAX's ring likewise keeps
+  the latter kernel-free).  K/V stay at KVH heads on the ring;
+- "ulysses": `parallel/ulysses.ulysses_attention` with `ATTENTION[impl]`
+  as its local attention — on the card the causal FA2 kernels on whole
+  sequences.  K/V cross the all-to-alls at KVH heads when the seq size
+  divides KVH and impl is "flash_attention" (JAX's `gqa_ulysses`,
+  :176-180); otherwise they are expanded to H heads first (JAX's
+  `_expand`, a repeat of each K/V head over its group).
 """
 
 from __future__ import annotations
@@ -42,10 +49,18 @@ ATTENTION = {"standard_attention": standard_attention,
 def sharded_attention(q, k, v, impl: str, pctx=None):
     """Causal attention of this rank's (B, H, T, Dh) queries and (B, KVH,
     T, Dh) keys/values under `pctx` (parallel/mesh.ParallelContext; None
-    for one device): the ring over the seq group when it splits the
-    sequence, else `ATTENTION[impl]`."""
+    for one device): the ring or Ulysses over the seq group when it
+    splits the sequence, else `ATTENTION[impl]`."""
     if pctx is None or pctx.seq_size == 1:
         return ATTENTION[impl](q, k, v)
+    if pctx.seq_impl == "ulysses":
+        from ..parallel.ulysses import ulysses_attention
+        rep = q.shape[1] // k.shape[1]
+        if rep > 1 and not (impl == "flash_attention"
+                            and k.shape[1] % pctx.seq_size == 0):
+            k = k.repeat_interleave(rep, dim=1)
+            v = v.repeat_interleave(rep, dim=1)
+        return ulysses_attention(q, k, v, pctx.seq_comm, ATTENTION[impl])
     from ..parallel.ring_attention import ring_attention
     return ring_attention(q, k, v, pctx.seq_comm,
                           kernels=impl == "flash_attention")

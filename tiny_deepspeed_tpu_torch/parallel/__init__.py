@@ -3,8 +3,8 @@
 
 """Training engines and their process groups (counterpart of
 `tiny_deepspeed_tpu/parallel/`): single device, DDP, ZeRO-1, ZeRO-2 and
-ZeRO-3, with ring attention over a sequence split, and the in-step
-collective schedule (`schedule.py`: the bucketed gradient release,
+ZeRO-3, with ring attention or Ulysses over a sequence split, and the
+in-step collective schedule (`schedule.py`: the bucketed gradient release,
 ZeRO-3's gather prefetch, 2-hop gather and hpZ) and its int8/fp8
 gradient codecs (`comm.py`)."""
 

@@ -28,7 +28,12 @@ from the key `fold_in(state.dropout_base, n)` (n = the optimizer's step
 counter before the update) and microbatch `i` from `fold_in(that, i)`,
 as the JAX step does (:1153-1156, :1265); `eval_loss` drops nothing.  A
 skipped dynamic-scale step leaves the counter, so its retry redraws the
-same masks.  Dropout needs one rank (see models/gpt2.py).
+same masks.  On more than one rank each rank draws its block of the
+global batch's masks (models/gpt2.py `_dropout_frame`), so a run's
+masks do not depend on the rank layout: every engine at any data and
+seq split drops what SingleDevice drops on the same global batch.  The
+schedule's explicit grad lowerings ("quant_mono", "bucket", "composed")
+run the model as on one device and refuse dropout on more than one rank.
 
 Distributed engines (`DDP`, `Zero1`, `Zero2`).  Each rank is a process
 of a `torch.distributed` group laid out as the JAX mesh (data, seq)
@@ -47,9 +52,12 @@ of a `torch.distributed` group laid out as the JAX mesh (data, seq)
   world the result is the average of the ranks' own gradients bit for
   bit.  The returned loss is the ranks' means averaged (`AVG`);
 - with the sequence split (seq_parallel > 1) params are replicated
-  across seq and attention runs as ring attention; grads are first
-  summed over the seq group, then the stage's collective runs over the
-  data group;
+  across seq and attention runs as ring attention or, with
+  `seq_impl="ulysses"`, as Ulysses (parallel/ulysses.py; it needs the
+  head count divisible by the seq size, JAX's check and message); grads
+  are first summed over the seq group, then the stage's collective runs
+  over the data group.  `seq_impl` changes no state layout: a
+  checkpoint taken under the ring resumes under Ulysses;
 - DDP (stage 0) all-reduces the grads over the data group (SUM).  Zero1 does
   the same all-reduce, then each rank updates its own shard of every
   leaf and its optimizer state, and all-gathers the params.  Zero2
@@ -233,6 +241,19 @@ def _sched_knobs(grad_buckets, gather_prefetch, gather_groups, hpz,
                 grad_comm_tail=grad_comm_tail, hpz_comm=hpz_comm)
 
 
+def _check_ulysses(model, pctx) -> None:
+    """JAX's check (engine.py:542-552): Ulysses splits the heads over the
+    seq group, so with a seq split the head count must divide by it."""
+    if pctx.seq_impl != "ulysses" or pctx.seq_size == 1:
+        return
+    nh, sp = model.config.n_head, pctx.seq_size
+    if nh % sp:
+        raise ValueError(
+            f"seq_impl='ulysses' needs local heads (n_head {nh} / tp 1) "
+            f"divisible by the seq axis size {sp} — use seq_impl='ring' "
+            "instead")
+
+
 class ZeroEngine:
     """Training engine of one ZeRO stage over the default process group
     (`init_distributed`), or over `pctx` when given."""
@@ -268,13 +289,16 @@ class ZeroEngine:
             raise ValueError(
                 f"{type(self).__name__} on the card needs an NCCL process "
                 f"group, got {dist.get_backend(self.pctx.data_group)!r}")
-        if model.config.dropout and self.pctx.is_multi_device:
-            raise ValueError(
-                "dropout on more than one rank is not ported yet: the masks "
-                "would change with the rank count (ROADMAP.md)")
+        _check_ulysses(model, self.pctx)
         self.n_dev = self.pctx.world
         self.n_shard = self.pctx.data_size
         self._build_schedule(knob, hpz_granule_of)
+        if model.config.dropout and self.pctx.is_multi_device and \
+                self._lowering in ("quant_mono", "bucket", "composed"):
+            raise ValueError(
+                f"dropout under the {self._lowering!r} lowering is not "
+                "ported: it runs the model as on one device, which would "
+                "draw rank-local masks (ROADMAP.md)")
         self._rank_map(evenness_priority)
         # flat shard of each leaf: (numel, shard size S, [lo, hi) owned)
         r = self.pctx.data_rank

@@ -14,14 +14,16 @@ is a set of `torch.distributed` process groups:
   the rank to `cuda:LOCAL_RANK` BEFORE the group exists and takes NCCL;
   with `device="cpu"` it takes gloo.  The port never stages the card's
   traffic through the host: gloo with CUDA tensors raises.
-- `make_context(seq_parallel)` lays the world out as the JAX engine's
-  mesh `(data, seq)` with seq fastest, `rank = d * SP + s`
+- `make_context(seq_parallel, seq_impl)` lays the world out as the JAX
+  engine's mesh `(data, seq)` with seq fastest, `rank = d * SP + s`
   (parallel/engine.py:469-477 there), and creates one seq group per data
   index and one data group per seq index.  `new_group` is collective:
   every rank creates every group, in the same order.
 - `ParallelContext` carries both groups, both sizes, this rank's
-  coordinates and the seq group's ring communicator — what the model's
-  forward and the engine's collectives need.
+  coordinates, the sequence split's implementation and the seq group's
+  communicator — a `GroupRing` for the ring, a `GroupAllToAll` for
+  Ulysses — what the model's forward and the engine's collectives
+  need.
 - `granule_map` / `granule_geometry` (JAX :224-251): the link hierarchy
   hpZ keys on.  On a TPU a granule is a DCN slice; here it is a host
   (ranks on one host share NVLink, hosts share the network): the map is
@@ -96,15 +98,37 @@ class GroupRing:
         return out
 
 
+class GroupAllToAll:
+    """All-to-all communicator over a process group (Ulysses):
+    `all_to_all(x)` takes x (n, ...) — slice j for group rank j — and
+    returns (n, ...) whose slice j came from group rank j, in one
+    `all_to_all_single` (gloo on the CPU, NCCL on the card).  Every rank
+    of the group must call it the same number of times, in the same
+    order, with the same shape."""
+
+    def __init__(self, group):
+        self.group = group
+        self.rank = dist.get_rank(group)
+        self.size = dist.get_world_size(group)
+
+    def all_to_all(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.contiguous()
+        out = torch.empty_like(x)
+        dist.all_to_all_single(out, x, group=self.group)
+        return out
+
+
 @dataclasses.dataclass(frozen=True)
 class ParallelContext:
     """This rank's place in the (data, seq) layout and its groups.
 
     `data_group` runs the ZeRO stage's collective, `seq_group` the
-    ring (None when seq_size == 1), `world_group` the loss and the
-    init broadcast.  `seq_comm` is the seq group's `GroupRing`.
-    `gather` is ZeRO-3's weight gather (parallel/zero3.py), which the
-    model's forward calls; None under the other engines."""
+    sequence split's collectives (None when seq_size == 1),
+    `world_group` the loss and the init broadcast.  `seq_impl` is "ring"
+    or "ulysses"; `seq_comm` is the seq group's `GroupRing` under the
+    ring, its `GroupAllToAll` under Ulysses.  `gather` is ZeRO-3's
+    weight gather (parallel/zero3.py), which the model's forward calls;
+    None under the other engines."""
 
     world: int
     rank: int
@@ -117,6 +141,7 @@ class ParallelContext:
     world_group: Any = None
     seq_comm: Any = None
     gather: Any = None
+    seq_impl: str = "ring"
 
     @property
     def is_multi_device(self) -> bool:
@@ -127,14 +152,14 @@ def make_context(seq_parallel: int = 1, seq_impl: str = "ring"
                  ) -> ParallelContext:
     """The (data, seq) context of this rank over the default group, which
     must exist (`init_distributed`).  seq_parallel must divide the world
-    size.  Collective: every rank calls it with the same arguments."""
+    size; seq_impl is "ring" or "ulysses" (inert without a seq split).
+    Collective: every rank calls it with the same arguments."""
+    if seq_impl not in ("ring", "ulysses"):
+        raise ValueError(f"seq_impl must be 'ring' or 'ulysses', "
+                         f"got {seq_impl!r}")
     if not dist.is_initialized():
         raise RuntimeError("no process group: call init_distributed() (or "
                            "torch.distributed.init_process_group) first")
-    if seq_impl != "ring":
-        raise ValueError(
-            f"seq_impl={seq_impl!r}: only the ring is ported; Ulysses is a "
-            "later slice of the port (ROADMAP.md)")
     world, rank = dist.get_world_size(), dist.get_rank()
     sp = int(seq_parallel)
     if sp < 1 or world % sp:
@@ -154,11 +179,14 @@ def make_context(seq_parallel: int = 1, seq_impl: str = "ring"
             g = dist.new_group([di * sp + si for si in range(sp)])
             if di == d:
                 seq_group = g
+    comm = None
+    if seq_group is not None:
+        comm = (GroupAllToAll if seq_impl == "ulysses" else GroupRing)(
+            seq_group)
     return ParallelContext(
         world=world, rank=rank, data_size=dp, seq_size=sp, data_rank=d,
         seq_rank=s, data_group=data_group, seq_group=seq_group,
-        world_group=dist.group.WORLD,
-        seq_comm=GroupRing(seq_group) if seq_group is not None else None)
+        world_group=dist.group.WORLD, seq_comm=comm, seq_impl=seq_impl)
 
 
 def granule_map(pctx: ParallelContext) -> Optional[Dict[int, int]]:

@@ -158,11 +158,12 @@ class _LockstepComm:
         return out
 
 
-def run_lockstep(n: int, fn):
-    """Run fn(rank, comm) on n threads of a `LockstepRing`; returns the
+def run_lockstep(n: int, fn, hub=None):
+    """Run fn(rank, comm) on n threads of `hub` (default a `LockstepRing`;
+    any lockstep hub with `comm(rank)` and a `_barrier`); returns the
     results in rank order and re-raises the first failure (after
     aborting the barrier, so no thread waits forever)."""
-    ring = LockstepRing(n)
+    ring = LockstepRing(n) if hub is None else hub
     out, errors = [None] * n, []
 
     def work(rank):

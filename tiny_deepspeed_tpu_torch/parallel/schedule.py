@@ -846,6 +846,7 @@ class ScanExecutor:
         self.new_residual: Optional[List[torch.Tensor]] = None
         self.tail_whole: Optional[Dict[str, torch.Tensor]] = None
         self.live = _Live()
+        self.bpctx = None  # the blocks' pctx, set by `blocks`
 
     # -- the model seam ---------------------------------------------------
 
@@ -858,6 +859,10 @@ class ScanExecutor:
         return params, model.stacked_compute_params(params)
 
     def blocks(self, model, x, stacked, dkeys, pctx=None):
+        # the blocks see the rank's layout (its dropout frame) but not
+        # the engine's gather: the executor gathers the layers itself
+        self.bpctx = (None if pctx is None
+                      else dataclasses.replace(pctx, gather=None))
         keys = list(stacked)
         vals = [stacked[k] for k in keys]
         grad_on = torch.is_grad_enabled() and any(
@@ -919,7 +924,7 @@ class ScanExecutor:
             w = self._finish(src, q.popleft())
             if grad_on:
                 stash.append(x)
-            x = self.model._block(x, w, dkey=dkeys[k], pctx=None)
+            x = self.model._block(x, w, dkey=dkeys[k], pctx=self.bpctx)
             del w
             self.live.sub(self._lb_bytes)
         return x, (stash, src, q) if grad_on else None
@@ -948,7 +953,8 @@ class ScanExecutor:
             with torch.enable_grad():
                 xk = stash[k].detach().requires_grad_()
                 wl = {n: t.detach().requires_grad_() for n, t in w.items()}
-                y = self.model._block(xk, wl, dkey=dkeys[k], pctx=None)
+                y = self.model._block(xk, wl, dkey=dkeys[k],
+                                      pctx=self.bpctx)
                 got = torch.autograd.grad(y, [xk, *wl.values()], dx)
             stash[k] = None
             del w, wl, y, xk

@@ -7,9 +7,12 @@ A key is a 64-bit Python int.  `split` and `fold_in` derive sub-keys by
 the splitmix64 finalizer, a deterministic integer mix with the same tree
 structure as `jax.random.split` / `jax.random.fold_in`; the bits differ
 from JAX's, so the tests hand both sides the same numbers where bits
-matter.  Random numbers come from a `torch.Generator` seeded with a key
-at the moment of use, on the device that needs them
-(models/gpt2.py::_dropout_keep).
+matter.  Dropout masks are counter-based: element g of a mask is
+`_mix(key + g * golden)`, the splitmix64 stream seeded with the key at
+the element's global index (ops/dropout.py, drawn through
+models/gpt2.py::_dropout_keep), so they do not depend on the rank
+layout.  Other random numbers (the int8 codec's dither, sampling) come
+from a `torch.Generator` seeded at the moment of use.
 """
 
 from __future__ import annotations

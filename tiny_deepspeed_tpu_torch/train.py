@@ -10,6 +10,8 @@
         [--moe-dispatch sort]                                 (one line)
     torchrun --standalone --nproc-per-node N -m tiny_deepspeed_tpu_torch.train
         --engine zero2 [--seq-parallel SP] [--device cpu]    (one line)
+    torchrun ... -m tiny_deepspeed_tpu_torch.train --engine ddp|zero1|zero2|zero3
+        --seq-parallel SP --seq-impl ulysses --dropout 0.1    (one line)
     torchrun ... -m tiny_deepspeed_tpu_torch.train --engine zero3
         --model gpt2-1.5b [--gather-quant fp8]                (one line)
     torchrun ... -m tiny_deepspeed_tpu_torch.train --engine zero3
@@ -22,7 +24,8 @@
 Counterpart of `examples/{single_device,ddp,zero1,zero2,zero3}/train.py`
 with the harness of `examples/common.py` (`parse_args` / `run`): the same
 flags, with the same names and defaults, for what the port supports
-(`--dropout`, `--fused-xent`, `--seq-parallel`, `--gather-quant`,
+(`--dropout`, `--fused-xent`, `--seq-parallel`, `--seq-impl`,
+`--gather-quant`,
 `--moe-dispatch`, the grad-comm codecs' `--grad-comm`,
 `--grad-comm-groups`, `--grad-comm-block`,
 `--no-grad-comm-error-feedback` and `--hpz-comm`, and the collective
@@ -111,7 +114,9 @@ def parse_args(argv=None):
     p.add_argument("--loss-scale", type=_loss_scale, default=None,
                    metavar="S", help="a number (static) or 'dynamic'")
     p.add_argument("--dropout", type=float, default=0.0, metavar="P",
-                   help="residual/embedding dropout rate")
+                   help="residual/embedding dropout rate, on any "
+                        "engine (each rank draws its block of the global "
+                        "batch's masks)")
     p.add_argument("--fused-xent", choices=("chunked", "pallas"),
                    default=None,
                    help="fused lm_head+cross-entropy head: 'chunked' "
@@ -188,10 +193,13 @@ def parse_args(argv=None):
                         "over the torchrun world")
     p.add_argument("--seq-parallel", type=int, default=1, metavar="SP",
                    help="sequence/context parallelism over a 'seq' group "
-                        "(ring attention); divides the world size")
+                        "(ring attention or Ulysses); divides the world "
+                        "size")
     p.add_argument("--seq-impl", default="ring", choices=("ring", "ulysses"),
-                   help="sequence-parallel attention (only the ring is "
-                        "ported)")
+                   help="sequence-parallel attention: 'ring' (K/V chunks "
+                        "rotate) or 'ulysses' (all-to-all head/sequence "
+                        "reshard; n_head must divide by SP).  Inert at "
+                        "--seq-parallel 1, as in JAX")
     p.add_argument("--save-every", type=int, default=0, metavar="N",
                    help="legacy alias of --checkpoint-every")
     p.add_argument("--save-dir", default="checkpoints", metavar="DIR",
