@@ -324,13 +324,30 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      f32 bit for bit its plain version, the whole mask = 4 row blocks
      = 2 token blocks at their offsets, timed and in turns against the
      parent's rand + where and F.dropout, host ms a call, bound in bytes;
+ 15. the telemetry knob and the optimizer-state offload (after 14, in
+     the same NCCL group): a. Zero3 at world 1 on gpt2-1.5b (phase 8d's
+     configuration, AdamW(fused=True)) with offload off, W=1 and W=2 in
+     turn from one seed, 3 steps each: params and moments bit for bit
+     the off arm, the moments pinned host tensors, #13 once a leaf a
+     step; resting device bytes after a step, peak, step ms, and one
+     profiled step's host<->device copies on the side streams; b. phase
+     4's configuration with telemetry off, on and layers, 10 steps each
+     in turns: losses bit for bit across the arms, the health's loss the
+     step's, the norms within 1e-4 of an f64 recomputation on the same
+     tensors, the launches unchanged, step ms, host ms and the device
+     records a step per arm, and an inf placed in layer 5 named by
+     `first_nonfinite_layer`; c. dropout through 13c's directly built
+     executors (DDP's bucketed release, Zero3's composed schedule, K=4):
+     loss and gradients bit for bit the plain path's under the rank-0
+     folded key;
   then the `kernels` JSON line (31 rows: the 22 kernels, rows 10kv, 1r
   and the decode append, the Triton LayerNorm forward pair and the v1
   writer, launched on no path, the four RMS rows and the dropout
   kernel; launches by path, the Llama paths `llama_*`, the MoE paths
   `moe_*` and the generate paths `gen`, `L-gen`, `M-gen`, phase 12's
-  `sched_*` / `exec_*`, phase 13's `codec_*` and phase 14's
-  `ulysses*` / `uly_drop_*` among them; row 10 timed at the grad
+  `sched_*` / `exec_*`, phase 13's `codec_*`, phase 14's
+  `ulysses*` / `uly_drop_*` and phase 15's `offload_*`, `telem_*` and
+  `drop_exec_*` among them; row 10 timed at the grad
   codec's shape, its earlier shapes beside it), then the result line
   {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -5628,7 +5645,7 @@ def sched_exec_phase(torch, port, counters, card):
     cd = cfg.compute_dtype
 
     def ddp_pass():
-        loss, g = ddp._loss_and_grads(dp, didx, dtg, None, None)
+        loss, g = ddp._loss_and_grads(dp, didx, dtg, None, None)[:2]
         return loss, ddp._reduce(g)
 
     def bucket_pass(k):
@@ -6300,6 +6317,453 @@ def dropout_phase(torch, F, D, card):
     return res
 
 
+# -- phase 15: telemetry and optimizer-state offload -----------------------
+
+OFFLOAD_ARMS = (("offload_off", {}),
+                ("offload_w1", dict(offload_opt_state=True,
+                                    offload_prefetch=1)),
+                ("offload_w2", dict(offload_opt_state=True,
+                                    offload_prefetch=2)))
+# the W=2 arm's engine steps at these windows in turns after its arm:
+# the window counts leaves, and in GPT-2's leaf order a bias sits
+# between two large matrices, so only W >= 3 lets one's inbound copy
+# run under the other's outbound one
+OFFLOAD_TURNS = (1, 2, 4, 4, 2, 1)
+TELEM_ARMS = ("telem_off", "telem_on", "telem_layers")
+
+
+def _count(counters):
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def _merge_spans(spans):
+    """(start, end) spans merged into a sorted list of disjoint ones."""
+    out = []
+    for a, b in sorted(spans):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _shared_us(xs, ys):
+    """The time two lists of merged spans cover together."""
+    i = j = 0
+    both = 0.0
+    while i < len(xs) and j < len(ys):
+        both += max(0.0, min(xs[i][1], ys[j][1]) - max(xs[i][0], ys[j][0]))
+        if xs[i][1] < ys[j][1]:
+            i += 1
+        else:
+            j += 1
+    return both
+
+
+def copy_overlap(torch, prof):
+    """From a profiled pass's device records (their start and end, us):
+    the time the HtoD copies cover, the DtoH copies, both directions at
+    once, and each direction under a kernel, in ms.  None when the pass
+    holds no copy of one direction."""
+    cuda = torch.autograd.DeviceType.CUDA
+    spans = {"htod": [], "dtoh": [], "kernel": []}
+    for e in prof.events():
+        if getattr(e, "device_type", None) != cuda:
+            continue
+        if e.name.startswith("Memcpy HtoD"):
+            k = "htod"
+        elif e.name.startswith("Memcpy DtoH"):
+            k = "dtoh"
+        elif e.name.startswith(("Memcpy", "Memset")):
+            continue
+        else:
+            k = "kernel"
+        spans[k].append((e.time_range.start, e.time_range.end))
+    if not spans["htod"] or not spans["dtoh"]:
+        return None
+    m = {k: _merge_spans(v) for k, v in spans.items()}
+    return {"htod_cover_ms": sum(b - a for a, b in m["htod"]) / 1e3,
+            "dtoh_cover_ms": sum(b - a for a, b in m["dtoh"]) / 1e3,
+            "both_ms": _shared_us(m["htod"], m["dtoh"]) / 1e3,
+            "htod_under_kernels_ms": _shared_us(m["htod"],
+                                                m["kernel"]) / 1e3,
+            "dtoh_under_kernels_ms": _shared_us(m["dtoh"],
+                                                m["kernel"]) / 1e3}
+
+
+def copy_directions(torch, nbytes=1 << 30, reps=3):
+    """Pinned host <-> device copies of `nbytes`: HtoD alone, DtoH alone
+    and both at once on two streams, in turns, CUDA events, median of
+    `reps` each: whether the card and its host move both directions at
+    once.  Returns {mode: ms} and {mode: GB/s of the bytes moved}."""
+    n = nbytes // 4
+    h_in = torch.ones(n, dtype=torch.float32, pin_memory=True)
+    h_out = torch.empty(n, dtype=torch.float32, pin_memory=True)
+    d_in = torch.empty(n, dtype=torch.float32, device="cuda")
+    d_out = torch.ones(n, dtype=torch.float32, device="cuda")
+    up, down = torch.cuda.Stream(), torch.cuda.Stream()
+
+    def run(ups, downs):
+        cur = torch.cuda.current_stream()
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record(cur)
+        up.wait_stream(cur)
+        down.wait_stream(cur)
+        if ups:
+            with torch.cuda.stream(up):
+                d_in.copy_(h_in, non_blocking=True)
+        if downs:
+            with torch.cuda.stream(down):
+                h_out.copy_(d_out, non_blocking=True)
+        cur.wait_stream(up)
+        cur.wait_stream(down)
+        b.record(cur)
+        torch.cuda.synchronize()
+        return a.elapsed_time(b)
+
+    modes = {"htod": (1, 0), "dtoh": (0, 1), "both": (1, 1)}
+    times = {m: [] for m in modes}
+    run(1, 1)
+    for _ in range(reps):
+        for m, (u, d) in modes.items():
+            times[m].append(run(u, d))
+    check(bool((d_in == 1).all()) and bool((h_out == 1).all()),
+          "15a: the copy probe moved other bytes")
+    ms = {m: statistics.median(t) for m, t in times.items()}
+    rate = {m: nbytes * (2 if m == "both" else 1) / (ms[m] * 1e6)
+            for m in modes}
+    return ms, rate
+
+
+def _offload_arm(torch, port, counters, card, cfg, batches, path, kw,
+                 ref, turns=()):
+    """One arm of 15a, its engine and state local to this call (so the
+    next arm's resting and peak bytes are its own): 3 steps, counts
+    zeroed just before and read just after, the resting and peak bytes,
+    the params and moments against `ref` (the off arm's, on the host;
+    None for the off arm itself), one profiled step, and how long its
+    copies ran in each direction, both at once and under kernels
+    (`copy_overlap`).  With `turns` (windows) one more step at each, in
+    that order, on this engine: the windows in turns on one state; then
+    one profiled step at the widest of them.
+    Returns (launches, its numbers, its losses / params / moments on the
+    host when `ref` is None)."""
+    torch.cuda.empty_cache()
+    eng = port.Zero3(port.build_model(cfg),
+                     port.AdamW(lr=1e-5, weight_decay=0.1, fused=True), **kw)
+    state = eng.init(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    losses, times = [], []
+    for batch in batches[:3]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, loss = eng.step(state, batch)
+        losses.append(float(loss))
+        times.append(time.perf_counter() - t0)
+    launches = _count(counters)
+    torch.cuda.synchronize()
+    resting = torch.cuda.memory_allocated()
+    peak = torch.cuda.max_memory_allocated()
+    n_leaves = len(state.params)
+    got = launches["adamw_update_fused"]
+    check(got == 3 * n_leaves, f"15a {path}: #13 launched {got} times, "
+          f"want 3 x {n_leaves} leaves")
+    for k in TRAIN_KERNELS:
+        check(launches[k] > 0, f"15a {path}: {k} never launched")
+    check(all(math.isfinite(x) for x in losses), f"15a {path}: {losses}")
+    slots = state.opt_state["state"]
+    if kw:
+        check(all(t.device.type == "cpu" and t.is_pinned()
+                  for s in slots.values() for t in s.values()),
+              f"15a {path}: a moment does not rest in pinned memory")
+        check(eng.describe().endswith("opt state offloaded=pinned_host)"),
+              f"15a {path}: {eng.describe()}")
+    params = {n: p.detach().cpu() for n, p in state.params.items()}
+    moments = {n: {k: t.cpu() for k, t in s.items()}
+               for n, s in slots.items()}
+    if ref is not None:
+        same = (losses == ref[0]
+                and all(torch.equal(t, ref[1][n]) for n, t in params.items())
+                and all(torch.equal(t, ref[2][n][k])
+                        for n, s in moments.items() for k, t in s.items()))
+        check(same, f"15a {path}: losses {losses} vs {ref[0]}, or the "
+              "params / moments differ from the off arm")
+    prof = profiled(torch, lambda: float(eng.step(state, batches[3])[1]))
+    check(prof is not None, f"15a {path}: the profiler recorded no device "
+          "time")
+    per, busy, _ = kernel_shares(
+        torch, prof, {"htod": "Memcpy HtoD", "dtoh": "Memcpy DtoH",
+                      "adamw_update_fused": PATTERNS["adamw_update_fused"]})
+    r = {"step_ms": [t * 1e3 for t in times],
+         "step_ms_median": statistics.median(times) * 1e3,
+         "resting_gib": resting / 2 ** 30, "peak_gib": peak / 2 ** 30,
+         "htod_ms": per.get("htod", 0.0) / 1e3,
+         "dtoh_ms": per.get("dtoh", 0.0) / 1e3,
+         "adamw_ms": per.get("adamw_update_fused", 0.0) / 1e3,
+         "busy_ms": busy / 1e3, "losses": losses,
+         "overlap": copy_overlap(torch, prof) if kw else None}
+    if kw:
+        check(r["overlap"] is not None,
+              f"15a {path}: no copy of one direction in the profiled step")
+    by_w = {}
+    for i, w in enumerate(turns):
+        eng._offload.window = w
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        float(eng.step(state, batches[i % len(batches)])[1])
+        by_w.setdefault(w, []).append((time.perf_counter() - t0) * 1e3)
+    if turns:
+        r["turns_ms"] = {f"W={w}": t for w, t in by_w.items()}
+        eng._offload.window = max(turns)
+        wide = profiled(torch, lambda: float(eng.step(state, batches[0])[1]))
+        check(wide is not None, f"15a {path}: the profiler recorded no "
+              "device time at the widest window")
+        r["overlap_widest"] = copy_overlap(torch, wide)
+        eng._offload.window = kw["offload_prefetch"]
+    print(f"  [{card}] 15a {eng.describe()}: losses {losses}; step ms "
+          f"{[round(x, 3) for x in r['step_ms']]} (median "
+          f"{r['step_ms_median']:.3f}); resting device "
+          f"{r['resting_gib']:.3f} GiB after a step, peak "
+          f"{r['peak_gib']:.3f} GiB; one profiled step: Memcpy HtoD "
+          f"{r['htod_ms']:.3f} ms, DtoH {r['dtoh_ms']:.3f} ms, #13 "
+          f"{r['adamw_ms']:.3f} ms, busy {r['busy_ms']:.3f} ms; #13 "
+          f"launches {got} = 3 x {n_leaves} leaves")
+    if r["overlap"] is not None:
+        print(f"  [{card}] 15a {path} copies in the profiled step (ms): "
+              + ", ".join(f"{k} {v:.3f}" for k, v in r["overlap"].items()))
+    if turns:
+        print(f"  [{card}] 15a windows in turns {list(turns)} on one "
+              f"state, step ms: " + "; ".join(
+                  f"{k} {[round(x, 3) for x in v]} (median "
+                  f"{statistics.median(v):.3f})"
+                  for k, v in r["turns_ms"].items())
+              + f"; copies at W={max(turns)} in one profiled step (ms): "
+              + ", ".join(f"{k} {v:.3f}"
+                          for k, v in r["overlap_widest"].items()))
+    return launches, r, ((losses, params, moments) if ref is None else None)
+
+
+def offload_phase(torch, port, counters, card, b):
+    """15a: Zero3 at world 1 on gpt2-1.5b, B=`b` (8d's) T=1024,
+    AdamW(lr=1e-5, wd=0.1, fused=True), offload off / W=1 / W=2 in turn
+    from seed 0, 3 steps each on the same batches, then one profiled
+    step (`_offload_arm`); the W=2 arm's engine then steps at W=1, 2
+    and 4 in turns, and `copy_directions` times 1 GiB copies each way
+    alone and both at once."""
+    cfg = port.GPT2_PRESETS["gpt2-1.5b"]
+    loader = port.TokenLoader(None, batch=b, seq=1024,
+                              vocab_size=cfg.vocab_size, seed=0)
+    batches = [loader.next() for _ in range(4)]
+    paths, res, ref = {}, {}, None
+    for path, kw in OFFLOAD_ARMS:
+        paths[path], res[path], off = _offload_arm(
+            torch, port, counters, card, cfg, batches, path, kw, ref,
+            turns=OFFLOAD_TURNS if path == "offload_w2" else ())
+        ref = ref or off
+    del ref
+    off = res["offload_off"]
+    for path in ("offload_w1", "offload_w2"):
+        check(res[path]["resting_gib"] < off["resting_gib"],
+              f"15a {path}: resting device memory did not fall")
+    print(f"  [{card}] 15a W=1 and W=2 bit for bit the off arm; resting "
+          f"device GiB off / W=1 / W=2: " + " / ".join(
+              f"{res[p]['resting_gib']:.3f}" for p, _ in OFFLOAD_ARMS)
+          + "; peak GiB " + " / ".join(
+              f"{res[p]['peak_gib']:.3f}" for p, _ in OFFLOAD_ARMS)
+          + "; step ms " + " / ".join(
+              f"{res[p]['step_ms_median']:.3f}" for p, _ in OFFLOAD_ARMS))
+    torch.cuda.empty_cache()
+    ms, rate = copy_directions(torch)
+    res["copy_directions"] = {"ms": ms, "gb_per_s": rate}
+    print(f"  [{card}] 15a 1 GiB pinned copies, median of 3 in turns: "
+          + "; ".join(f"{m} {ms[m]:.3f} ms ({rate[m]:.2f} GB/s)"
+                      for m in ms))
+    torch.cuda.empty_cache()
+    return paths, res
+
+
+def _f64_norm(tensors):
+    return math.sqrt(sum(float(t.double().square().sum()) for t in tensors))
+
+
+def telemetry_phase(torch, port, counters, card):
+    """15b: phase 4's configuration (gpt2-124m, SingleDevice,
+    AdamW(lr=1e-5, wd=0.1), B=8 T=1024, seed 0) with telemetry off, on
+    and layers, 10 steps each in turns over the same batches."""
+    from tiny_deepspeed_tpu_torch.telemetry import Telemetry
+    from tiny_deepspeed_tpu_torch.telemetry import health as H
+    cfg = port.GPT2_PRESETS["gpt2-124m"]
+    loader = port.TokenLoader(None, batch=8, seq=1024,
+                              vocab_size=cfg.vocab_size, seed=0)
+    batches = [loader.next() for _ in range(10)]
+    arms = {}
+    for path in TELEM_ARMS:
+        telem = (None if path == "telem_off" else Telemetry(
+            layers=path == "telem_layers", tracer=(lambda p: None,
+                                                   lambda: None)))
+        eng = port.SingleDevice(port.GPT2Model(cfg),
+                                port.AdamW(lr=1e-5, weight_decay=0.1),
+                                telemetry=telem)
+        arms[path] = {"eng": eng, "state": eng.init(0), "telem": telem,
+                      "losses": [], "step": [], "host": [],
+                      "launches": {k: 0 for k in counters}}
+    f64 = None
+    for i, batch in enumerate(batches):
+        for path, a in arms.items():
+            eng, telem = a["eng"], a["telem"]
+            check_now = path == "telem_on" and i == len(batches) - 1
+            if check_now:  # the same tensors, recomputed in f64
+                old = {n: p.detach().clone()
+                       for n, p in a["state"].params.items()}
+                _, grads = loss_and_grads(torch, eng.model, batch)
+            before = _count(counters)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            a["state"], loss = eng.step(a["state"], batch)
+            t1 = time.perf_counter()
+            loss = float(loss)
+            t2 = time.perf_counter()
+            after = _count(counters)
+            for k in counters:
+                a["launches"][k] += after[k] - before[k]
+            a["losses"].append(loss)
+            a["host"].append((t1 - t0) * 1e3)
+            a["step"].append((t2 - t0) * 1e3)
+            if telem is not None:
+                h = telem.poll()
+                check(h["loss"] == loss, f"15b {path} step {i}: health loss "
+                      f"{h['loss']} vs the step's {loss}")
+                check(h["nonfinite_grads"] == 0,
+                      f"15b {path}: non-finite gradients {h}")
+            if path == "telem_layers":
+                mat = telem.layer_health()
+                check(mat.shape == (cfg.n_layer, 6)
+                      and bool((mat == mat).all()),
+                      f"15b layers: matrix {mat.shape}")
+            if check_now:
+                new = a["state"].params
+                want = {"grad_norm": _f64_norm(grads.values()),
+                        "update_norm": _f64_norm(
+                            new[n].detach() - old[n] for n in new),
+                        "param_norm": _f64_norm(
+                            p.detach() for p in new.values())}
+                f64 = {k: (telem.poll()[k], w) for k, w in want.items()}
+                for k, (got, w) in f64.items():
+                    check(abs(got - w) <= 1e-4 * abs(w),
+                          f"15b {k}: {got} vs the f64 recomputation {w}")
+                del old, grads
+    want = arms["telem_off"]
+    for path, a in arms.items():
+        check(a["losses"] == want["losses"],
+              f"15b {path}: losses {a['losses']} vs {want['losses']}")
+        check(a["launches"] == want["launches"],
+              f"15b {path}: launches {a['launches']} vs telemetry off's")
+    for k in TRAIN_KERNELS:
+        check(want["launches"][k] > 0, f"15b: {k} never launched")
+    out = {}
+    for path, a in arms.items():
+        eng, state = a["eng"], a["state"]
+
+        def one_step():
+            float(eng.step(state, batches[0])[1])
+
+        prof = profiled(torch, one_step)
+        check(prof is not None, f"15b {path}: no device record")
+        recs = sum(e.count for e in _device_records(torch, prof))
+        out[path] = {"step_ms": statistics.median(a["step"][1:]),
+                     "host_ms": statistics.median(a["host"][1:]),
+                     "device_records": recs}
+    lay = arms["telem_layers"]
+    with torch.no_grad():
+        lay["state"].params["h.mlp.fc.w"][5, 0, 0] = float("inf")
+    lay["eng"].step(lay["state"], batches[1])
+    src = H.first_nonfinite_layer(lay["telem"].layer_health())
+    check(src == (5, "act_nonfinite"),
+          f"15b: an inf in layer 5's weight localized as {src}")
+    print(f"  [{card}] 15b telemetry off / on / layers, 10 steps each in "
+          f"turns: losses bit for bit ({want['losses'][-1]!r} last); the "
+          f"health's loss the step's; launches unchanged; the inf in layer "
+          f"5 localized {src}; f64 recomputation (got, want): {f64}")
+    for path, r in out.items():
+        print(f"  [{card}] 15b {path}: step {r['step_ms']:.3f} ms, host "
+              f"{r['host_ms']:.3f} ms (median of 9), {r['device_records']} "
+              f"device records a step")
+    paths = {p: a["launches"] for p, a in arms.items()}
+    del arms
+    torch.cuda.empty_cache()
+    return paths, dict(out, f64=f64, first_nonfinite=src)
+
+
+def drop_exec_phase(torch, port, counters, card):
+    """15c: dropout 0.1 through 13c's directly built executors at world
+    1 — DDP's bucketed release (K=4) and Zero3's composed schedule (K=4),
+    fp32 — one forward and backward of phase 4's batch with the rank-0
+    folded key `fold_in(fold_in(fold_in(0, 0xD0), 0), 0)`: loss and
+    gradients bit for bit the plain path's under that key (the DDP
+    tail equal to the plain tail through the compute dtype, as 12b)."""
+    from tiny_deepspeed_tpu_torch import rng as prng
+    from tiny_deepspeed_tpu_torch.parallel import comm
+    from tiny_deepspeed_tpu_torch.parallel import schedule as S
+    from tiny_deepspeed_tpu_torch.parallel.zero3 import LayerGather
+    cfg = dataclasses.replace(port.GPT2_PRESETS["gpt2-124m"], dropout=0.1)
+    L, K = cfg.n_layer, 4
+    key = prng.fold_in(prng.fold_in(prng.fold_in(0, 0xD0), 0), 0)
+    batch = port.TokenLoader(None, batch=8, seq=1024,
+                             vocab_size=cfg.vocab_size, seed=0).next()
+    paths = {}
+    ddp = port.DDP(port.build_model(cfg), port.AdamW(lr=1e-5))
+    ds = ddp.init(0)
+    idx, tg = (ddp._local(a) for a in batch)
+    tail = [n for n in ds.params if not n.startswith("h.")]
+    lay = comm.bucket_layout(ddp.model.param_shapes(), L, K, 1, 256)
+    ddp._schedule = S.Schedule(grad=S.GradSlot(buckets=K),
+                               lowering="bucket", layout=lay)
+    wl, wg = ddp._loss_and_grads(ds.params, idx, tg, None, key)[:2]
+    for fn in counters.values():
+        fn.launches = 0
+    loss, grads, _ = ddp._bucketed(ds.params, idx, tg, None, rng=key)
+    paths["drop_exec_bucket4"] = _count(counters)
+    cd = cfg.compute_dtype
+    check(torch.equal(loss, wl)
+          and all(torch.equal(grads[n], g) for n, g in wg.items()
+                  if n not in tail)
+          and all(torch.equal(grads[n], wg[n].to(cd).float()) for n in tail),
+          "15c bucket: loss or gradients differ from the plain path's")
+    del ddp, ds, wg, grads
+    torch.cuda.empty_cache()
+    z3 = port.Zero3(port.build_model(cfg), port.AdamW(lr=1e-5))
+    zs = z3.init(0)
+    zp = zs.params
+    loss = z3.model.apply(idx, tg, pctx=z3.pctx, params=zp, rng=key)
+    wg = dict(zip(zp, torch.autograd.grad(loss, list(zp.values()))))
+    wl = loss.detach()
+    z3._exec = S.ScanExecutor(z3, "composed", 0, L // K, LayerGather(z3._z3))
+    for fn in counters.values():
+        fn.launches = 0
+    zl, zg, _ = z3._composed(zp, idx, tg, None, rng=key)
+    paths["drop_exec_composed4"] = _count(counters)
+    check(torch.equal(zl, wl)
+          and all(torch.equal(zg[n], g) for n, g in wg.items()),
+          "15c composed: loss or gradients differ from the plain path's")
+    for path, launches in paths.items():
+        check(launches["dropout"] > 0, f"15c {path}: dropout never launched")
+        for k in TRAIN_KERNELS:
+            check(launches[k] > 0, f"15c {path}: {k} never launched")
+    print(f"  [{card}] 15c dropout 0.1 at world 1 under the rank-0 folded "
+          f"key {key}: DDP's bucketed release (K={K}) and Zero3's composed "
+          f"schedule (K={K}) bit for bit the plain path (the DDP tail "
+          f"through {cd}); dropout launches "
+          + ", ".join(f"{p} {v['dropout']}" for p, v in paths.items()))
+    del z3, zs, zp, wg, zg
+    torch.cuda.empty_cache()
+    return paths
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -6616,6 +7080,19 @@ def main():
         torch.cuda.empty_cache()
         print(f"phase 14: {time.perf_counter() - t14:.2f}s")
 
+        t15 = time.perf_counter()
+        print(f"phase 15: the telemetry knob and the optimizer-state "
+              f"offload [{card}]")
+        p15, off_res = offload_phase(torch, port, counters, card,
+                                     xl["batch"])
+        lap("15a, offload on gpt2-1.5b")
+        got, telem_res = telemetry_phase(torch, port, counters, card)
+        p15.update(got)
+        lap("15b, telemetry")
+        p15.update(drop_exec_phase(torch, port, counters, card))
+        lap("15c, dropout through the executors")
+        print(f"phase 15: {time.perf_counter() - t15:.2f}s")
+
     t9 = time.perf_counter()
     lap("phases 7-8")
     print("phase 9: the Llama family — RMSNorm on the LayerNorm entries' "
@@ -6679,7 +7156,8 @@ def main():
                    **{p: v[name] for p, v in gen_paths.items()},
                    **{p: v[name] for p, v in sched_paths.items()},
                    **{p: v[name] for p, v in codec_paths.items()},
-                   **{p: v[name] for p, v in uly_paths.items()}}
+                   **{p: v[name] for p, v in uly_paths.items()},
+                   **{p: v[name] for p, v in p15.items()}}
         row = {"name": name, "route": route, "source": source,
                "replaces": replaces, "launches": sum(by_path.values()),
                "launches_by_path": by_path,
@@ -6869,7 +7347,8 @@ def main():
     # the dropout kernel: on the dropout paths, exactly, and nowhere else
     by = kernels[30]["launches_by_path"]
     drop_paths = ("knobbed_training", "uly_drop_single",
-                  *(p for p, _ in ULY_ENGINES))
+                  *(p for p, _ in ULY_ENGINES), "drop_exec_bucket4",
+                  "drop_exec_composed4")
     check(all(by[p] > 0 for p in drop_paths)
           and not any(v for p, v in by.items() if p not in drop_paths),
           f"dropout launches by path {by}")
@@ -6917,7 +7396,8 @@ def main():
                                       if k != "launches"},
                    "moe_training": moe_train,
                    "generate": gen_res, "checkpoint": ckpt_res,
-                   "schedule": sched_res, "codecs": codec_res},
+                   "schedule": sched_res, "codecs": codec_res,
+                   "offload": off_res, "telemetry": telem_res},
                   f, indent=1, default=str)
     print(f"total {time.perf_counter() - t_all:.2f}s")
     print(json.dumps({"kernels": kernels}))

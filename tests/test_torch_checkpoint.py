@@ -20,7 +20,10 @@ Pinned here:
 - Zero1 and Zero3 at data 2 over gloo (one spawn of 2 ranks) resumed bit
   for bit; the data-2 checkpoint refused at world 1 (elastic resume is
   not ported); `load_params` joins ZeRO-3's shards into the gathered
-  params;
+  params.  In the same spawn each engine with `offload_opt_state=True`
+  (`offload_prefetch=2`): its 6 steps bit for bit the unoffloaded run
+  (losses, params, moments), its moments resting in host tensors, and
+  3 + save + load + 3 under offload bit for bit too;
 - `train.main(... --checkpoint-every 3)` then `--resume` prints the
   uninterrupted run's losses, and `generate.main(["--ckpt", ...])` gives
   `model.generate`'s tokens on the trained params.
@@ -251,10 +254,37 @@ def test_refuses_another_optimizer_layout(saved):
 ENGINES = ("Zero1", "Zero3")
 
 
-def _dist_engine(name):
+def _dist_engine(name, **kw):
     model = T.GPT2Model(T.GPT2_PRESETS["tiny"], device="cpu")
     return getattr(T, name)(model, T.AdamW(lr=LR, weight_decay=0.1),
-                            device="cpu")
+                            device="cpu", **kw)
+
+
+OFFLOAD = dict(offload_opt_state=True, offload_prefetch=2)
+
+
+def _offloaded_runs(name, batches, ref, want, out_dir):
+    """The engine under offload: straight, then 3 + save + load + 3, each
+    bit for bit the unoffloaded run; the moments rest in the host
+    tensors `init` made (updated in place)."""
+    eng = _dist_engine(name, **OFFLOAD)
+    state = eng.init(0)
+    rest = {n: dict(s) for n, s in state.opt_state["state"].items()}
+    got = [float(eng.step(state, b)[1]) for b in batches]
+    assert got == ref, (name, "offload", got, ref)
+    for n, slots in state.opt_state["state"].items():
+        assert all(t is rest[n][k] for k, t in slots.items()), n
+    _assert_same(_snapshot(eng, state), want)
+    eng = _dist_engine(name, **OFFLOAD)
+    state = eng.init(0)
+    got = [float(eng.step(state, b)[1]) for b in batches[:SPLIT]]
+    d = os.path.join(out_dir, name + "-offload")
+    ck.save_checkpoint(d, state, SPLIT)
+    eng = _dist_engine(name, **OFFLOAD)
+    state = ck.load_checkpoint(d, eng)
+    got += [float(eng.step(state, b)[1]) for b in batches[SPLIT:]]
+    assert got == ref, (name, "offload resume", got, ref)
+    _assert_same(_snapshot(eng, state), want)
 
 
 def _worker(rank, world, store, out_dir):
@@ -283,6 +313,7 @@ def _worker(rank, world, store, out_dir):
             _assert_same(back, want)
             assert got == ref, (name, got, ref)
             out[name] = {"losses": got, "at_split": at_split}
+            _offloaded_runs(name, batches, ref, want, out_dir)
         if rank == 0:
             torch.save(out, os.path.join(out_dir, "result.pt"))
     finally:

@@ -101,13 +101,25 @@ def multi_engine_worker(rank, world, store, out_dir, configs):
         dist.destroy_process_group()
 
 
+def _telemetry(mode, cls):
+    """`cls` (JAX's Telemetry or the port's) for a case's `telemetry`
+    ("on" / "layers"), with a tracer that never runs; None for None."""
+    if mode is None:
+        return None
+    return cls(layers=mode == "layers", tracer=(lambda p: None,
+                                                lambda: None))
+
+
 def _run_config(rank, out_dir, name, sp, kw, opt, accum, overflow,
                 model_kw=None, preset="tiny", tag="", hook=None,
-                steps=STEPS, params=None):
+                steps=STEPS, params=None, telemetry=None):
     done = hook[0](rank, out_dir, tag, *hook[1]) if hook else None
     model = T.build_model(dataclasses.replace(T.ALL_PRESETS[preset],
                                               **(model_kw or {})),
                           device="cpu")
+    telem = _telemetry(telemetry, T.Telemetry)
+    if telem is not None:
+        kw = dict(kw, telemetry=telem)
     engine = getattr(T, name)(model, _optimizer(opt), device="cpu",
                               seq_parallel=sp, accum_steps=accum, **kw)
     state = engine.init(0)
@@ -116,10 +128,14 @@ def _run_config(rank, out_dir, name, sp, kw, opt, accum, overflow,
     engine.load_params(state, T.params_from_numpy(dict(ref), "cpu"))
     if overflow:
         _overflow(state, state.params)
-    losses = []
+    losses, health = [], []
     for batch in _batches(steps if not overflow else 4, accum):
         state, loss = engine.step(state, batch)
         losses.append(float(loss))
+        if telem is not None:
+            mat = telem.layer_health()
+            health.append((telem.poll(), None if mat is None
+                           else torch.from_numpy(mat)))
     params = engine.gather_params(state)
     opt_state = engine.gather_opt_state(state)
     eval_loss = float(engine.eval_loss(state, _batches(1)[0]))
@@ -129,15 +145,18 @@ def _run_config(rank, out_dir, name, sp, kw, opt, accum, overflow,
         torch.save({"losses": losses, "params": params,
                     "opt": opt_state, "scaler": state.scaler,
                     "rank_map": engine.rank_map, "eval": eval_loss,
-                    "lowering": engine._schedule.lowering},
+                    "lowering": engine._schedule.lowering,
+                    "health": health},
                    os.path.join(out_dir, f"result{tag}.pt"))
 
 
 def _jax_run(name, dp, sp, kw, opt, accum, overflow, model_kw=None,
-             preset="tiny"):
+             preset="tiny", telemetry=None):
     """The JAX engine on a (data[, seq]) CPU mesh: (params at init,
     losses, final state, engine, eval loss, and under AdamW each
-    element's least bias-corrected gradient RMS over the steps)."""
+    element's least bias-corrected gradient RMS over the steps).  With
+    `telemetry` the engine's `health_log` holds each step's (health
+    dict, layer matrix or None)."""
     import jax
     import jax.numpy as jnp
     import tiny_deepspeed_tpu as J
@@ -149,8 +168,11 @@ def _jax_run(name, dp, sp, kw, opt, accum, overflow, model_kw=None,
     jopt = (J.SGD(lr=1e-2, momentum=0.9, weight_decay=0.1) if opt == "sgd"
             else J.AdamW(lr=LR, weight_decay=0.1))
     jcfg = dataclasses.replace(JP[preset], **(model_kw or {}))
+    from tiny_deepspeed_tpu.telemetry import Telemetry as JTelemetry
+    telem = _telemetry(telemetry, JTelemetry)
     jeng = getattr(J, name)(jbuild(jcfg), jopt, mesh=mesh,
-                            accum_steps=accum, **kw)
+                            accum_steps=accum, telemetry=telem, **kw)
+    jeng.health_log = []
     state = jeng.init(jax.random.PRNGKey(0))
     init = {n: np.asarray(p) for n, p in state.params.items()}
     if overflow:
@@ -163,6 +185,8 @@ def _jax_run(name, dp, sp, kw, opt, accum, overflow, model_kw=None,
     for x, y in _batches(STEPS if not overflow else 4, accum):
         state, loss = jeng.step(state, (jnp.asarray(x), jnp.asarray(y)))
         losses.append(float(loss))
+        if telem is not None:
+            jeng.health_log.append((telem.poll(), telem.layer_health()))
         if opt == "adamw" and not overflow:
             t = int(state.opt_state["step"])
             for n in rms:
@@ -192,35 +216,66 @@ def check_against_jax(tmp_path, name, dp, sp, kw=None, opt="adamw",
 
 def run_cases(tmp_path, cases):
     """Each case — {id: check_against_jax's arguments as a dict: name, dp,
-    sp and any of kw, opt, accum, overflow, model_kw, preset} — on JAX,
+    sp and any of kw, opt, accum, overflow, model_kw, preset, and
+    `telemetry` ("on" / "layers": each side's Telemetry, its per-step
+    health kept) } — on JAX,
     then every case of one world size in one gloo spawn
     (`multi_engine_worker`): {id: (the port's result, JAX's run, the
-    case)}.  A module-scoped fixture over it serves each case's test."""
+    case)}.  A module-scoped fixture over it serves each case's test.
+    A spawn that fails fails only its own cases: their entry holds the
+    error, which `check_case` raises."""
     runs, by_world = {}, {}
     for cid, c in cases.items():
         c = dict(dict(kw={}, opt="adamw", accum=1, overflow=False,
-                      model_kw=None, preset="tiny"), **c)
+                      model_kw=None, preset="tiny", telemetry=None), **c)
         out = _jax_run(c["name"], c["dp"], c["sp"], c["kw"], c["opt"],
                        c["accum"], c["overflow"], c["model_kw"],
-                       c["preset"])
+                       c["preset"], c["telemetry"])
         np.savez(tmp_path / f"params{cid}.npz", **out[0])
         by_world.setdefault(c["dp"] * c["sp"], []).append(dict(
             name=c["name"], sp=c["sp"], kw=c["kw"], opt=c["opt"],
             accum=c["accum"], overflow=c["overflow"],
-            model_kw=c["model_kw"], preset=c["preset"], tag=cid))
+            model_kw=c["model_kw"], preset=c["preset"], tag=cid,
+            telemetry=c["telemetry"]))
         runs[cid] = (out, c)
+    failed = {}
     for world, configs in by_world.items():
-        spawn(multi_engine_worker, world, tmp_path, configs,
-              timeout=120 + 60 * len(configs))
-    return {cid: (torch.load(tmp_path / f"result{cid}.pt"), out, c)
+        try:
+            spawn(multi_engine_worker, world, tmp_path, configs,
+                  timeout=120 + 60 * len(configs))
+        except AssertionError as e:
+            failed[world] = e
+    return {cid: (failed.get(c["dp"] * c["sp"])
+                  or torch.load(tmp_path / f"result{cid}.pt"), out, c)
             for cid, (out, c) in runs.items()}
 
 
 def check_case(runs, cid, atol=1e-5, progress=True):
     """`check_against_jax`'s comparison of case `cid` of `run_cases`."""
     res, out, c = runs[cid]
+    if isinstance(res, AssertionError):
+        raise res
     return compare_with_jax(res, out, c["dp"], c["opt"], c["overflow"],
                             atol, progress)
+
+
+def check_health(res, jeng, mode, n_layer, steps=STEPS):
+    """A telemetry case's health, each step's port dict (and, in layers
+    mode, its (n_layer, 6) matrix) within 1e-5 relative of JAX's engine's
+    (`_jax_run`'s `health_log`)."""
+    assert len(res["health"]) == len(jeng.health_log) == steps
+    for i, ((th, tm), (jh, jm)) in enumerate(zip(res["health"],
+                                                  jeng.health_log)):
+        assert set(th) == set(jh)
+        for k in jh:
+            np.testing.assert_allclose(th[k], jh[k], rtol=1e-5, atol=1e-7,
+                                       err_msg=f"step {i} {k}")
+        if mode == "on":
+            assert tm is None and jm is None
+            continue
+        assert tm.shape == jm.shape == (n_layer, 6)
+        np.testing.assert_allclose(tm.numpy(), jm, rtol=1e-5, atol=1e-7,
+                                   err_msg=f"step {i}")
 
 
 def compare_with_jax(res, jax_out, dp, opt="adamw", overflow=False,
@@ -357,8 +412,17 @@ def test_refused_engine_knobs_raise(knob):
     """The knobs still refused name ROADMAP.md; of the schedule's, Zero2 at
     data 2 builds the bucket lowering (and, with `grad_comm`, the
     quantized "quant_mono" one) and refuses the gather slot as JAX does
-    (it needs ZeRO-3)."""
+    (it needs ZeRO-3); the telemetry and the offload build, and
+    `describe()` names them."""
     pm = T.GPT2Model(T.GPT2_PRESETS["tiny"], device="cpu")
+    if "telemetry" in knob or "offload_opt_state" in knob:
+        eng = T.Zero2(pm, T.AdamW(), device="cpu", pctx=_fake_pctx(),
+                      **knob)
+        assert eng._schedule.lowering == "plain"
+        assert eng.describe().endswith(
+            ", telemetry=on)" if "telemetry" in knob
+            else ", opt state offloaded=pinned_host)")
+        return
     if "grad_comm" in knob:
         eng = T.Zero2(pm, T.AdamW(), device="cpu", pctx=_fake_pctx(),
                       **knob)

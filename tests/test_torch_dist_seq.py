@@ -4,7 +4,10 @@
 """The port's DDP, ZeRO-1 and ZeRO-2 at world 4 (data 2 x seq 2: ring
 attention over the seq groups) against the JAX engines on a (data, seq)
 CPU mesh, as tests/test_torch_dist.py compares them; `grad_clip` under
-ZeRO-2 there; and the torchrun entry point with a sequence split."""
+ZeRO-2 there; ZeRO-2 with the telemetry in layers mode there (SGD: each
+step's health and (n_layer, 6) matrix within 1e-5 relative of JAX's —
+the shards' partial sums over the data group, the probe's over the
+world); and the torchrun entry point with a sequence split."""
 
 import os
 import subprocess
@@ -12,7 +15,8 @@ import sys
 
 import pytest
 
-from test_torch_dist import check_case, run_cases
+import tiny_deepspeed_tpu_torch as T
+from test_torch_dist import check_case, check_health, run_cases
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -23,6 +27,8 @@ def seq2(tmp_path_factory):
     cases = {n: dict(name=n, dp=2, sp=2) for n in ("DDP", "Zero1", "Zero2")}
     cases["Zero2-clip"] = dict(name="Zero2", dp=2, sp=2,
                                kw=dict(grad_clip=0.5))
+    cases["Zero2-layers"] = dict(name="Zero2", dp=2, sp=2, opt="sgd",
+                                 telemetry="layers")
     return run_cases(tmp_path_factory.mktemp("seq2"), cases)
 
 
@@ -33,6 +39,12 @@ def test_engine_matches_jax_data2_seq2(seq2, name):
 
 def test_zero2_grad_clip_matches_jax_data2_seq2(seq2):
     check_case(seq2, "Zero2-clip")
+
+
+def test_zero2_layer_health_matches_jax_data2_seq2(seq2):
+    res, _, jeng, *_ = check_case(seq2, "Zero2-layers")
+    assert jeng._schedule.lowering == res["lowering"] == "probe"
+    check_health(res, jeng, "layers", T.GPT2_PRESETS["tiny"].n_layer)
 
 
 def test_torchrun_zero2_seq2_on_cpu():

@@ -11,8 +11,8 @@ Pinned here:
   layouts `models.gpt2._dropout_frame` gives; the wrapper and its
   autograd Function launch the kernel once forward and once backward
   when the tensor is on the card (`on_cuda` patched), never the plain
-  version; the schedule's explicit grad lowerings refuse dropout on more
-  than one rank;
+  version; the schedule's explicit grad lowerings build with dropout on
+  more than one rank;
 - DDP, Zero1, Zero2 and Zero3 at data 2 (one 2-rank gloo spawn) and
   Zero2 at data 2 x seq 2 under the ring and under Ulysses (one 4-rank
   spawn, run by tests/test_torch_dropout_seq.py), 10 steps, each run twice in its spawn (Zero3 with the
@@ -25,6 +25,24 @@ Pinned here:
     patched in at `_dropout_keep` as each rank's block: against the JAX
     engine of the layout, losses 1e-4, params and optimizer state 1e-5
     (tests/test_torch_dist.py's rule).
+- in the same 2-rank spawn, the explicit grad lowerings, which run each
+  rank's own batch as on one device and draw rank-local masks as JAX's
+  do (the step's key folded with the data rank, then with the
+  microbatch): DDP int8 ("quant_mono"), Zero2 `grad_buckets=2`
+  ("bucket"), each also at `accum_steps=2`, and Zero3
+  `gather_prefetch=2, grad_buckets=2` ("composed"):
+  - with the port's masks (one step): every mask a rank draws is the
+    one-device draw (no frame) under a key of the rank's key tree,
+    `fold_in(fold_in(fold_in(base, step), rank)[, microbatch])` split
+    into the embedding's and the layers' keys;
+  - with JAX's masks (each rank's `jax.random.bernoulli` over its own
+    (B/2, T, C) block from JAX's key tree) patched in: the bucket and
+    composed cases against the JAX engine with the same knobs at the
+    distributed rule (losses 1e-4, params and optimizer state 1e-5).
+    The int8 codec's free-running state drifts from JAX's (a code
+    flipped by roundoff; tests/test_torch_grad_comm_engines.py), so the
+    "quant_mono" cases are held there, in its spawn, by its rule (JAX's
+    dither and these masks patched in, each step teacher-forced).
 
 JAX is imported inside the tests: the spawned workers import this module
 and must not start JAX.
@@ -114,19 +132,16 @@ def test_cuda_tensors_route_to_the_kernel(monkeypatch):
 @pytest.mark.parametrize("knob,lowering", [
     (dict(grad_buckets=2), "bucket"), (dict(grad_comm="int8"), "quant_mono")])
 def test_explicit_lowerings_refuse_dropout_on_two_ranks(knob, lowering):
-    """The schedule's explicit grad lowerings run the model as on one
-    device: on more than one rank they refuse dropout, naming
-    ROADMAP.md; without dropout they build."""
+    """The schedule's explicit grad lowerings no longer refuse dropout on
+    more than one rank: with and without it they build the same
+    lowering (their masks are held in `check_spawn`)."""
     pctx = ParallelContext(world=2, rank=0, data_size=2, seq_size=1,
                            data_rank=0, seq_rank=0)
-    drop = T.GPT2Model(dataclasses.replace(T.GPT2_PRESETS["tiny"], **DROP),
-                       device="cpu")
-    with pytest.raises(ValueError, match=f"dropout under the "
-                                         f"'{lowering}' lowering.*ROADMAP"):
-        T.DDP(drop, T.AdamW(), device="cpu", pctx=pctx, **knob)
-    eng = T.DDP(T.GPT2Model(T.GPT2_PRESETS["tiny"], device="cpu"),
-                T.AdamW(), device="cpu", pctx=pctx, **knob)
-    assert eng._schedule.lowering == lowering
+    for cfg in (dataclasses.replace(T.GPT2_PRESETS["tiny"], **DROP),
+                T.GPT2_PRESETS["tiny"]):
+        eng = T.DDP(T.GPT2Model(cfg, device="cpu"), T.AdamW(),
+                    device="cpu", pctx=pctx, **knob)
+        assert eng._schedule.lowering == lowering
 
 
 def _record_hook(rank, out_dir, tag):
@@ -216,10 +231,101 @@ _SPAWNS = {
 }
 
 
+# the explicit grad lowerings at data 2: (engine, knobs, accum, lowering,
+# held to JAX's engine here)
+_EXPLICIT = {
+    "quant_mono": ("DDP", dict(grad_comm="int8"), 1, "quant_mono", False),
+    "quant_mono-accum2": ("DDP", dict(grad_comm="int8"), 2, "quant_mono",
+                          False),
+    "bucket": ("Zero2", dict(grad_buckets=2), 1, "bucket", True),
+    "bucket-accum2": ("Zero2", dict(grad_buckets=2), 2, "bucket", True),
+    "composed": ("Zero3", dict(gather_prefetch=2, grad_buckets=2), 1,
+                 "composed", True),
+}
+
+
+def _rank_keys(n, rank, mb, accum, n_layer, jbase=None):
+    """The places of rank `rank`'s microbatch `mb` at step n under an
+    explicit lowering: [(port key, JAX key or None)] — the embedding's,
+    then each layer's two sites (JAX schedule.py:1337-1356)."""
+    pk = prng.fold_in(prng.fold_in(PBASE, n), rank)
+    jk = None
+    if jbase is not None:
+        import jax
+        jk = jax.random.fold_in(jax.random.fold_in(jbase, n), rank)
+    if accum > 1:
+        pk = prng.fold_in(pk, mb)
+        if jk is not None:
+            jk = jax.random.fold_in(jk, mb)
+    pks = prng.split(pk, n_layer + 1)
+    jks = None if jk is None else jax.random.split(jk, n_layer + 1)
+    out = [(pks[0], None if jks is None else jks[0])]
+    for l in range(n_layer):
+        for site in (0, 1):
+            out.append((prng.fold_in(pks[l + 1], site),
+                        None if jks is None
+                        else jax.random.fold_in(jks[l + 1], site)))
+    return out
+
+
+def _jax_local_masks(jbase, n_layer, c, accum, dp=2):
+    """{str(port key): JAX's mask of that place over the rank's own
+    (B/dp, T, C) block}, every rank, microbatch and step."""
+    import jax
+    table = {}
+    for n in range(STEPS):
+        for r in range(dp):
+            for mb in range(accum):
+                for p, j in _rank_keys(n, r, mb, accum, n_layer, jbase):
+                    table[str(p)] = np.asarray(jax.random.bernoulli(
+                        j, 1 - RATE, (B // dp, SEQ, c)))
+    return table
+
+
 @pytest.mark.parametrize("spawn_id", ["data2"])
 def test_engines_drop_rank_invariant_masks(tmp_path, spawn_id):
     """(data2_seq2: tests/test_torch_dropout_seq.py)"""
     check_spawn(tmp_path, spawn_id)
+
+
+def _explicit_runs(tmp_path, c):
+    """JAX's engines of `_EXPLICIT` held here (their masks written) and
+    the port's configurations for the data-2 spawn: every case once with
+    the port's masks (one step, recorded), the held ones with JAX's:
+    (JAX runs, spawn configurations)."""
+    outs, runs = {}, []
+    for cid, (name, kw, accum, _, held) in _EXPLICIT.items():
+        base = dict(name=name, sp=1, kw=kw, opt="adamw", accum=accum,
+                    overflow=False, model_kw=DROP, params="")
+        runs.append(dict(base, tag=f"xp{cid}", hook=(_record_hook, ()),
+                         steps=1))
+        if not held:
+            continue
+        outs[cid] = _jax_run(name, 2, 1, kw, "adamw", accum, False, DROP)
+        np.savez(tmp_path / f"jmasks{cid}.npz", **_jax_local_masks(
+            outs[cid][2].dropout_base, c.n_layer, c.n_embd, accum))
+        runs.append(dict(base, tag=f"xj{cid}",
+                         hook=(_jax_mask_hook, (cid,))))
+    return outs, runs
+
+
+def _check_explicit(tmp_path, outs, c):
+    for cid, (name, kw, accum, lowering, held) in _EXPLICIT.items():
+        res = torch.load(tmp_path / f"resultxp{cid}.pt")
+        assert res["lowering"] == lowering
+        for r in range(2):
+            seen = torch.load(tmp_path / f"masksxp{cid}_{r}.pt")
+            keys = {p for mb in range(accum)
+                    for p, _ in _rank_keys(0, r, mb, accum, c.n_layer)}
+            assert {key for key, *_ in seen} == keys, (cid, r)
+            for key, shape, frame, m in seen:
+                assert frame is None and shape == (B // 2, SEQ, c.n_embd)
+                assert torch.equal(m, D.dropout_keep(key, shape, 1 - RATE,
+                                                     "cpu"))
+        if held:
+            assert outs[cid][3]._schedule.lowering == lowering
+            compare_with_jax(torch.load(tmp_path / f"resultxj{cid}.pt"),
+                             outs[cid], 2)
 
 
 def check_spawn(tmp_path, spawn_id):
@@ -236,7 +342,8 @@ def check_spawn(tmp_path, spawn_id):
     for k, out in outs.items():
         np.savez(tmp_path / f"jmasks{k}.npz",
                  **_jax_masks(out[2].dropout_base, c.n_layer, c.n_embd))
-    runs = []
+    explicit = world == 2
+    xouts, runs = _explicit_runs(tmp_path, c) if explicit else ({}, [])
     for i, (name, dp, sp, impl, knobs, ref) in enumerate(configs):
         modes = [(f"p{i}", (_record_hook, ()))]
         if ref is not None:
@@ -246,7 +353,8 @@ def check_spawn(tmp_path, spawn_id):
                              kw=dict(knobs, seq_impl=impl), opt="adamw",
                              accum=1, overflow=False, model_kw=DROP,
                              tag=tag, hook=hook, params=""))
-    spawn(multi_engine_worker, world, tmp_path, runs, timeout=240)
+    spawn(multi_engine_worker, world, tmp_path, runs,
+          timeout=240 + 60 * len(xouts))
     for i, (name, dp, sp, impl, knobs, ref) in enumerate(configs):
         # the port's masks: the one-rank masks' blocks, SingleDevice's run
         res = torch.load(tmp_path / f"resultp{i}.pt")
@@ -264,3 +372,5 @@ def check_spawn(tmp_path, spawn_id):
         if ref is not None:  # JAX's masks: JAX's engine
             compare_with_jax(torch.load(tmp_path / f"resultj{i}.pt"),
                              outs[ref], dp)
+    if explicit:
+        _check_explicit(tmp_path, xouts, c)

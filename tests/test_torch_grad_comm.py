@@ -140,12 +140,28 @@ def _load_jax_state(engine, state, npz, rank):
                         "good": int(npz["good"])}
 
 
+def _mask_lookup(path):
+    """A `models.gpt2._dropout_keep` that returns the masks of the table
+    at `path` ({str(port key): mask}, written by
+    tests/test_torch_dropout_dist.py's `_jax_local_masks`)."""
+    table = dict(np.load(path))
+
+    def keep_mask(key, shape, keep, device, frame=None):
+        assert frame is None  # the explicit lowerings draw rank-local
+        m = table[str(key)]
+        assert m.shape == tuple(shape), (m.shape, shape)
+        return torch.from_numpy(m).to(device)
+    return keep_mask
+
+
 def _codec_engine_worker(rank, world, store, base, cases):
     """One gloo rank running each case in turn (one spawn serving several
-    checks), case `cid`'s files under `base/cid`: `_codec_case`."""
+    checks), case `cid`'s files under `base/cid`: `_codec_case`, with
+    JAX's dither and, for a dropout case, JAX's masks patched in."""
     import torch.distributed as dist
+    from tiny_deepspeed_tpu_torch.models import gpt2 as gpt2_mod
     torch.set_num_threads(1)
-    draw = C.draw_dither
+    draw, keep = C.draw_dither, gpt2_mod._dropout_keep
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=world)
     try:
@@ -154,10 +170,14 @@ def _codec_engine_worker(rank, world, store, base, cases):
             table = os.path.join(out_dir, "dither.npz")
             C.draw_dither = (table_draw(table) if os.path.exists(table)
                              else draw)
+            masks = os.path.join(out_dir, "jmasks.npz")
+            gpt2_mod._dropout_keep = (_mask_lookup(masks)
+                                      if os.path.exists(masks) else keep)
             _codec_case(rank, world, out_dir, *args)
             dist.barrier()  # no rank tears its groups down before the rest
     finally:
         C.draw_dither = draw
+        gpt2_mod._dropout_keep = keep
         dist.destroy_process_group()
 
 
@@ -245,6 +265,8 @@ def _jax_codec_run(tmp_path, name, dp, kw, accum, overflow, model_kw,
         if st.scaler is not None:
             out["scale"] = np.asarray(st.scaler["scale"])
             out["good"] = np.asarray(st.scaler["good"])
+        if st.dropout_base is not None:
+            out["dropout_base"] = np.asarray(st.dropout_base)
         return out
 
     losses, states = [], []
@@ -338,6 +360,12 @@ def run_codec_cases(tmp_path, cases):
         sites = _dither_sites(jeng, c["dp"])
         if sites:
             jax_dither_table(d / "dither.npz", range(steps), c["dp"], sites)
+        if jeng.model.config.dropout:  # JAX's rank-local masks
+            from test_torch_dropout_dist import _jax_local_masks
+            cfg = jeng.model.config
+            np.savez(d / "jmasks.npz", **_jax_local_masks(
+                jstates[0]["dropout_base"], cfg.n_layer, cfg.n_embd,
+                c["accum"], c["dp"]))
         by_dp.setdefault(c["dp"], []).append((cid, (
             c["name"], kw, c["accum"], c["overflow"], c["model_kw"],
             c["preset"], steps)))

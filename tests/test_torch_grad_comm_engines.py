@@ -17,7 +17,12 @@ Adam's first step by up to lr.)  Cases:
 - DDP int8 and fp8, Zero1 int8 at data 2 ("quant_mono": each rank's own
   batch as on one device, one error-fed sync);
 - Zero2 int8 with `accum_steps=2` (the microbatches summed locally, one
-  sync, each rank keeping its shard).
+  sync, each rank keeping its shard);
+- DDP int8 with dropout 0.1, and at `accum_steps=2`: each rank's own
+  batch as on one device draws rank-local masks (the step's key folded
+  with the data rank, then the microbatch), JAX's masks of the same
+  places patched in (tests/test_torch_dropout_dist.py holds the port's
+  own masks).
 
 tests/test_torch_grad_comm_knobs.py holds the overflow, no error
 feedback, the 2-hop groups, MoE and the buckets;
@@ -38,12 +43,16 @@ CASES = {
     "ddp-fp8": dict(name="DDP", dp=2, kw=dict(grad_comm="fp8"), atol=2e-4),
     "zero1-int8": dict(name="Zero1", dp=2, kw=INT8),
     "zero2-int8-accum2": dict(name="Zero2", dp=2, kw=INT8, accum=2),
+    "ddp-int8-dropout": dict(name="DDP", dp=2, kw=INT8,
+                             model_kw=dict(dropout=0.1)),
+    "ddp-int8-dropout-accum2": dict(name="DDP", dp=2, kw=INT8, accum=2,
+                                    model_kw=dict(dropout=0.1)),
 }
 
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """The four cases in one 2-rank gloo spawn."""
+    """The six cases in one 2-rank gloo spawn."""
     return run_codec_cases(tmp_path_factory.mktemp("codec_engines"), CASES)
 
 

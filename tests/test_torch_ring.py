@@ -195,8 +195,11 @@ def spawn(worker, world, tmp_path, *args, timeout=120):
         for p in procs:
             p.join(max(0.0, deadline - time.monotonic()))
         hung = [r for r, p in enumerate(procs) if p.is_alive()]
-        assert not hung, f"ranks {hung} still running after {timeout}s"
         codes = [p.exitcode for p in procs]
+        # a rank that died leaves the others blocked in a collective: the
+        # exit codes say which happened first
+        assert not hung, (f"ranks {hung} still running after {timeout}s "
+                          f"(exit codes {codes})")
         assert codes == [0] * world, f"exit codes {codes}"
     finally:
         for p in procs:

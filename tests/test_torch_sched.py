@@ -20,7 +20,19 @@ each side picked is pinned too (`Schedule.lowering`).  Cases:
   each bucket reduce-scattered into the flat shard);
 - Zero3 `gather_prefetch=2` at data 2, and `gather_prefetch=3` under the
   fp8 gather ("prefetch": the on-demand numbers, gathered ahead);
-- Zero3 `gather_prefetch=2` on `llama-tiny` (2 layers) at data 2.
+- Zero3 `gather_prefetch=2` on `llama-tiny` (2 layers) at data 2;
+- the telemetry (SGD, so every health field is held at 1e-5:
+  tests/test_torch_telemetry.py), each step's health and, in layers
+  mode, (n_layer, 6) matrix within 1e-5 relative of JAX's: Zero2 in
+  layers mode (the "probe" lowering: the probe's sums over each rank's
+  tokens all-reduced with the shards' partial sums), Zero2
+  `grad_buckets=2` in layers mode ("composed": the executor's recompute
+  taps each layer; the dact column divided by n^2), DDP in layers mode
+  (stage 0: whole replicated leaves summed locally, the probe
+  all-reduced on its own), Zero1 with the telemetry on (the rank's
+  slices of the reduced whole gradients) and Zero3 in layers mode (the
+  (n_layer, ...) shards' per-layer sums, the probe through the
+  on-demand gather).
 
 tests/test_torch_sched_zero3.py holds the 2-hop gather, hpZ and the
 composed lowering; tests/test_torch_sched_build.py the lowering table
@@ -32,7 +44,7 @@ and must not start JAX.
 
 import pytest
 
-from test_torch_dist import check_case, run_cases
+from test_torch_dist import check_case, check_health, run_cases
 
 L4 = {"n_layer": 4}
 DATA2 = {
@@ -46,6 +58,15 @@ DATA2 = {
 }
 
 
+# the telemetry: (engine, knobs, mode, lowering)
+LAYERS = {"zero2-layers": ("Zero2", dict(), "layers", "probe"),
+          "zero2-buckets2-layers": ("Zero2", dict(grad_buckets=2), "layers",
+                                    "composed"),
+          "ddp-layers": ("DDP", dict(), "layers", "probe"),
+          "zero1-on": ("Zero1", dict(), "on", "plain"),
+          "zero3-layers": ("Zero3", dict(), "layers", "probe")}
+
+
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Every case of this file in one 2-rank gloo spawn."""
@@ -54,6 +75,9 @@ def runs(tmp_path_factory):
              for cid, (name, kw, accum, model_kw, _, _) in DATA2.items()}
     cases["llama"] = dict(name="Zero3", dp=2, sp=1,
                           kw=dict(gather_prefetch=2), preset="llama-tiny")
+    for cid, (name, kw, mode, _) in LAYERS.items():
+        cases[cid] = dict(name=name, dp=2, sp=1, kw=kw, opt="sgd",
+                          model_kw=L4, telemetry=mode)
     return run_cases(tmp_path_factory.mktemp("sched"), cases)
 
 
@@ -71,3 +95,11 @@ def test_llama_zero3_prefetch_matches_jax(runs):
     """llama-tiny's loss does not fall over 10 steps on JAX either."""
     res, _, jeng, *_ = check_case(runs, "llama", progress=False)
     assert jeng._schedule.lowering == res["lowering"] == "prefetch"
+
+
+@pytest.mark.parametrize("case", list(LAYERS))
+def test_layer_health_matches_jax_data2(runs, case):
+    res, _, jeng, *_ = check_case(runs, case, atol=1e-5)
+    _, _, mode, lowering = LAYERS[case]
+    assert jeng._schedule.lowering == res["lowering"] == lowering
+    check_health(res, jeng, mode, n_layer=4)

@@ -6,7 +6,7 @@ lowering each knob set picks, and each refusal — its exception type and
 its message, which names the conflicting slot (JAX tests/test_schedule.py
 `TestLoweringTable`, `TestRefusals`) — at data 8 over the models of both
 packages; the inert fallbacks on a 1-rank data axis; `parse_sched_spec`
-on JAX's vocabulary (`health` and `pipe` refused naming ROADMAP.md); the
+on JAX's vocabulary (`pipe` refused naming ROADMAP.md); the
 engines surfacing the schedule (`describe`, the codecs' refusals as
 JAX's); `evenness_priority` shaping
 `rank_map` as JAX's; and the training entry point at world 1 (inert, with
@@ -238,9 +238,9 @@ def test_granule_map_of_one_host(world1):
 
 
 def test_parse_sched_spec_ported_vocabulary():
-    """JAX's vocabulary, the codecs and "auto" included, parses as JAX's
-    does; only the telemetry probe slot and the pipe slot are refused,
-    naming ROADMAP.md."""
+    """JAX's vocabulary, the codecs, "auto" and the telemetry probe slot
+    (`health`) included, parses as JAX's does; only the pipe slot is
+    refused, naming ROADMAP.md."""
     from tiny_deepspeed_tpu.parallel.schedule import parse_sched_spec as jp
     spec = "gather_prefetch=2,grad_buckets=4,gather_groups=2,hpz"
     assert S.parse_sched_spec(spec) == jp(spec) == {
@@ -253,7 +253,9 @@ def test_parse_sched_spec_ported_vocabulary():
                  "gather_groups=auto", "grad_comm=auto",
                  "grad_comm_block=128", "grad_comm=fp8,grad_buckets=2,hpz"):
         assert S.parse_sched_spec(good) == jp(good), good
-    for bad in ("health", "pipe=interleaved:2"):
+    for good in ("health", "health,grad_buckets=2,hpz"):
+        assert S.parse_sched_spec(good) == jp(good), good
+    for bad in ("pipe=interleaved:2",):
         with pytest.raises(ValueError, match="ROADMAP.md"):
             S.parse_sched_spec(bad)
     for bad in ("grad_comm=int4", "hpz_comm=bf16", "grad_comm_tail=auto"):
@@ -293,14 +295,15 @@ def test_engine_describe_names_the_lowering(name, kw, want):
                                     gather_groups="auto"),
     dict(telemetry=object())])
 def test_engine_refuses_the_codecs_naming_roadmap(kw):
-    """Of these knobs only telemetry is still refused naming ROADMAP.md;
-    the codecs and "auto" build on Zero3 at data 2, or raise JAX's
-    message where JAX refuses them (a granule map of one host stands in
-    for the hosts' collective)."""
+    """None of these knobs is refused naming ROADMAP.md any more: the
+    telemetry builds (its `describe()` names it); the codecs and "auto"
+    build on Zero3 at data 2, or raise JAX's message where JAX refuses
+    them (a granule map of one host stands in for the hosts'
+    collective)."""
     pm = T.GPT2Model(T.GPT2_PRESETS["tiny"], device="cpu")
     if "telemetry" in kw:
-        with pytest.raises(ValueError, match="ROADMAP.md"):
-            T.Zero3(pm, T.AdamW(), device="cpu", pctx=_fake_pctx(), **kw)
+        eng = T.Zero3(pm, T.AdamW(), device="cpu", pctx=_fake_pctx(), **kw)
+        assert eng.describe().endswith(", telemetry=on)")
         return
     gmap = {0: 0, 1: 1} if kw.get("hpz") else {0: 0, 1: 0}
     want = {"grad_comm": "grad_buckets=1,grad_comm=int8@composed",
@@ -394,7 +397,9 @@ def test_train_module_runs_the_knobs_inert(flags):
 
 
 def test_train_refuses_an_unported_sched_key():
+    """`pipe` is the one slot still refused (`health` builds since the
+    telemetry's port)."""
     from tiny_deepspeed_tpu_torch import train
-    with pytest.raises(ValueError, match="health.*ROADMAP.md"):
+    with pytest.raises(ValueError, match="pipe.*ROADMAP.md"):
         train.main(["--device", "cpu", "--model", "tiny", "--iters", "1",
-                    "--sched", "gather_prefetch=2,grad_comm=int8,health"])
+                    "--sched", "gather_prefetch=2,grad_comm=int8,pipe=1f1b"])

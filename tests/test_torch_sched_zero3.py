@@ -54,13 +54,20 @@ CASES = {
 
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
-    """Every case of this file: one gloo spawn a world size (4 and 2)."""
+    """The two data-2 cases in one gloo spawn; each data-4 case in a spawn
+    of its own, so its process groups (hpZ's subgroups among them) and
+    its time limit are its own, and a failure fails only that case."""
     cases = {cid: dict(name="Zero3", dp=dp, sp=1, kw=kw, model_kw=model_kw)
              for cid, (dp, kw, model_kw, _, _) in CASES.items()}
     cases["loss-scale"] = dict(name="Zero3", dp=2, sp=1,
                                kw=dict(grad_buckets=2, loss_scale=2 ** 20),
                                model_kw=FP8)
-    return run_cases(tmp_path_factory.mktemp("sched_zero3"), cases)
+    out = run_cases(tmp_path_factory.mktemp("sched_zero3"),
+                    {k: c for k, c in cases.items() if c["dp"] == 2})
+    for cid, c in cases.items():
+        if c["dp"] == 4:
+            out.update(run_cases(tmp_path_factory.mktemp(cid), {cid: c}))
+    return out
 
 
 @pytest.mark.parametrize("case", list(CASES))

@@ -364,8 +364,17 @@ class TestRefusalsAndEntryPoints:
     def test_refused_engine_knobs_raise(self, knob):
         """The knobs still refused say so; the schedule's are inert on
         one device, with JAX's warning, and run the plain path bit for
-        bit."""
+        bit; the telemetry and the offload build, and `describe()` names
+        them (tests/test_torch_telemetry.py, tests/test_torch_offload.py
+        run them)."""
         pm = T.GPT2Model(T.GPT2_PRESETS["tiny"], device="cpu")
+        if "telemetry" in knob or "offload_opt_state" in knob:
+            eng = T.SingleDevice(pm, T.AdamW(), device="cpu", **knob)
+            assert eng._schedule.lowering == "plain"
+            assert eng.describe().endswith(
+                ", telemetry=on)" if "telemetry" in knob
+                else ", opt state offloaded=pinned_host)")
+            return
         if set(knob) & {"grad_buckets", "gather_prefetch", "hpz",
                         "grad_comm"}:
             batches = [T.TokenLoader(None, 2, 16, vocab_size=512,

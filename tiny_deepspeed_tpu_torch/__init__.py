@@ -47,6 +47,14 @@ easy to find.  Ported so far:
   `gather_prefetch`, the 2-hop `gather_groups` and `hpz`, validated and
   lowered by one `build_schedule` as JAX's (`parallel/schedule.py`;
   `train --grad-buckets K --gather-prefetch K --sched SPEC`).
+- slice 21: the engines' `telemetry=` knob (`telemetry/`: the health
+  vector and the per-layer health probe computed in the step, the
+  `Telemetry` registry with its flight recorder, JSONL metrics through
+  `utils/profiling.MetricsLogger`; `train --telemetry [layers]
+  --metrics FILE`), optimizer-state offload (`offload_opt_state`,
+  `offload_prefetch`: the moments rest in pinned host memory and stream
+  through the card leaf by leaf, `parallel/offload.py`), and dropout
+  under the explicit grad lowerings on more than one rank.
 
 Every Pallas kernel those paths run on a TPU is rewritten for Hopper:
 layernorm forward, dx and dw/db in Triton (ops/layernorm.py); the fused
@@ -76,12 +84,14 @@ from .parallel import (DDP, ScheduleConflictError, SingleDevice,
                        partition_tensors)
 from .serving import PrefixCache, SpecDecoder
 from .serving.engine import ServeConfig, ServingEngine
+from .telemetry import Telemetry
 
 __all__ = ["ALL_PRESETS", "AdamW", "DDP", "GPTConfig", "GPT2_PRESETS",
            "GPT2Model", "LLAMA_PRESETS", "LlamaConfig", "LlamaModel",
            "MOE_PRESETS", "MoEConfig", "MoEGPT", "PrefixCache", "SGD",
            "ScheduleConflictError", "ServeConfig", "ServingEngine",
-           "SingleDevice", "SpecDecoder", "TokenLoader", "TrainState",
+           "SingleDevice", "SpecDecoder", "Telemetry", "TokenLoader",
+           "TrainState",
            "Zero1", "Zero2", "Zero3", "ZeroEngine", "build_model",
            "build_schedule", "effective_xent_impl",
            "init_distributed", "opt_state_from_numpy", "opt_state_to_numpy",

@@ -68,6 +68,12 @@ sched=executor)` hands the step's stacking of the block weights to
 ZeRO-3 gather, the composed schedule).  With no executor the program is
 the one above.  `grad_bucket_capable` / `gather_prefetch_capable` say a
 family's loop may be handed over (JAX :255-257).
+
+The health probe (engine telemetry layers mode): a block called with a
+probe row passes its output through `parallel.schedule.layer_health_tap`
+inside its checkpoint (JAX `block_fn`, :912-926), so the remat
+recompute hands the tap the same output; `layer_health_capable` says a
+family's blocks take it (GPT-2 and Llama; MoE's do not).
 """
 
 from __future__ import annotations
@@ -289,6 +295,8 @@ class GPT2Model(nn.Module):
     # the bucketed grad-release tap and the scheduled weight gathers
     grad_bucket_capable = True
     gather_prefetch_capable = True
+    # a block called with a probe row taps its output (`_block_fn`)
+    layer_health_capable = True
 
     def __init__(self, config: GPTConfig,
                  device: Union[None, str, torch.device] = None):
@@ -598,11 +606,17 @@ class GPT2Model(nn.Module):
         The policy changes memory and recompute time, never the numbers:
         a recomputed block runs the same deterministic kernels on the
         same inputs, and redraws the same dropout masks (each a function
-        of its key and the global index)."""
+        of its key and the global index).
+
+        `probe` (the health probe's row of this layer) taps the block's
+        output inside the checkpoint (`_tapped_block`)."""
         c = self.config
         if not c.remat or c.remat_policy == "all":
-            return lambda x, bp, dkey=None, pctx=None: self._block(
-                x, bp, dkey=dkey, pctx=pctx)
+            def plain(x, bp, dkey=None, pctx=None, probe=None):
+                if probe is not None:
+                    return self._tapped_block(x, bp, dkey, pctx, probe)
+                return self._block(x, bp, dkey=dkey, pctx=pctx)
+            return plain
         save = _REMAT_SAVE[c.remat_policy]
         kw = {}
         if save:
@@ -610,7 +624,11 @@ class GPT2Model(nn.Module):
                 ckpt.create_selective_checkpoint_contexts,
                 _save_policy(save))
 
-        def block(x, bp, dkey=None, pctx=None):
+        def block(x, bp, dkey=None, pctx=None, probe=None):
+            if probe is not None:
+                return ckpt.checkpoint(self._tapped_block, x, bp, dkey,
+                                       pctx, probe, use_reentrant=False,
+                                       preserve_rng_state=False, **kw)
             if not torch.is_grad_enabled():
                 return self._block(x, bp, dkey=dkey, pctx=pctx)
             # the block draws no numbers from the global RNG state (its
@@ -620,6 +638,12 @@ class GPT2Model(nn.Module):
                                    use_reentrant=False,
                                    preserve_rng_state=False, **kw)
         return block
+
+    def _tapped_block(self, x, bp, dkey, pctx, probe):
+        """`_block`, its output through the health probe's tap."""
+        from ..parallel.schedule import layer_health_tap
+        return layer_health_tap(self._block(x, bp, dkey=dkey, pctx=pctx),
+                                probe)
 
     def apply(self, idx: torch.Tensor,
               targets: Optional[torch.Tensor] = None,

@@ -160,6 +160,8 @@ class MoEGPT(GPT2Model):
     # executors do not thread: the schedule refuses it (JAX :137-138)
     grad_bucket_capable = False
     gather_prefetch_capable = False
+    # the per-layer health probe rides no MoE block (JAX moe.py:139)
+    layer_health_capable = False
 
     def __init__(self, config: MoEConfig, device=None):
         if config.moe_dispatch not in _DISPATCHES:

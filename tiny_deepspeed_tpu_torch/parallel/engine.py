@@ -33,7 +33,11 @@ global batch's masks (models/gpt2.py `_dropout_frame`), so a run's
 masks do not depend on the rank layout: every engine at any data and
 seq split drops what SingleDevice drops on the same global batch.  The
 schedule's explicit grad lowerings ("quant_mono", "bucket", "composed")
-run the model as on one device and refuse dropout on more than one rank.
+run the model as on one device on each rank's own batch, and draw
+rank-local masks as JAX's do (JAX schedule.py:1337-1343, :1476-1481,
+:1813-1819): the step's key folded with the data rank, then under
+accumulation with the microbatch index; the model splits it into the
+embedding's and the layers' keys as on one device.
 
 Distributed engines (`DDP`, `Zero1`, `Zero2`).  Each rank is a process
 of a `torch.distributed` group laid out as the JAX mesh (data, seq)
@@ -124,6 +128,33 @@ rank's shard, as JAX's replay does), accumulated microbatches summed
 locally, unscaled, then one sync.  A step the dynamic scaler skips
 rolls the residual back with the rest of the state.
 
+Telemetry (JAX :290-311, :1158-1213, :1393-1421).  `telemetry=` a
+`telemetry.Telemetry` (or any object with `on_step_output(aux)`): the
+engine calls its `attach(self)` at construction, and every step pushes
+the (5,) health vector (telemetry/health.py: loss, grad / update /
+param global norms, non-finite grad count) into `on_step_output`
+WITHOUT syncing.  The norms run over the clipped gradients and the
+params after the update; the update runs in place, so its norm is
+summed leaf by leaf as the optimizer writes.  Under ZeRO-1/2/3 each
+rank sums the pieces it owns and one all-reduce of the packed partial
+sums over the data group makes them global.  A `Telemetry(layers=True)`
+also declares the schedule's probe slot: a zero (n_layer, 4) probe is
+differentiated with the params (the "probe" lowering's `ProbeScan`, or
+inside "composed" the executor's recompute), its gradient summed raw
+over microbatches and over the ranks, and the (n_layer, 6) layer-health
+matrix is pushed with the vector.  With `telemetry=None` the step runs
+exactly the code it runs without the knob.
+
+Optimizer-state offload (JAX :424-440, :843-875, :1070-1131).
+`offload_opt_state=True` keeps every per-leaf optimizer slot in host
+memory (pinned on the card; parallel/offload.py) and streams the slots
+through the device one leaf at a time for the update, at most
+`offload_prefetch` leaves in flight: stage 0 and ZeRO-1/2's owned flat
+shards and ZeRO-3's shards alike.  The step counter stays put; a skipped
+dynamic-scale step streams nothing.  The numbers are bit for bit the
+unoffloaded engine's.  An optimizer that overrides `update()` is
+refused, as JAX refuses it (the stream calls `update_one`).
+
 The explicit lowerings ("quant_mono", "bucket", "composed") unscale
 before their collectives, so the engine does not unscale again;
 `_reduce` is skipped for what they released.  On the card they need
@@ -135,8 +166,8 @@ by building the executors directly (chip_smoke.py phases 12 and 13).
 params ARE the model's parameters.  One difference from the JAX engine:
 the dynamic scaler's finiteness flag is read on the host (one sync per
 step) and the skip is a host branch, where the JAX engine selects on
-device.  The JAX engine's telemetry, offload, and tensor, expert and
-pipeline parallelism are refused with a ValueError (ROADMAP.md).
+device.  The JAX engine's tensor, expert and pipeline parallelism are
+refused with a ValueError (ROADMAP.md).
 `evenness_priority` shapes `rank_map` only, with JAX's warning.
 """
 
@@ -153,9 +184,12 @@ import torch.distributed as dist
 from .. import rng as prng
 from ..data.loader import rank_block
 from ..ops.dispatch import resolve_device
+from ..optim.base import Optimizer
+from ..telemetry import health as H
 from . import schedule as sched
 from .comm import GRAD_COMM_MODES, _hier_groups, new_groups
 from .mesh import granule_map, make_context
+from .offload import MomentStream
 from .partition import partition_tensors
 from .zero3 import LayerGather, Zero3Gather, gather_flat, scatter_flat
 
@@ -179,8 +213,7 @@ class TrainState:
 
 
 # knobs of the JAX engine the port refuses, with their off values
-_REFUSED = {"telemetry": None, "offload_opt_state": False,
-            "tensor_parallel": 1, "expert_parallel": 1,
+_REFUSED = {"tensor_parallel": 1, "expert_parallel": 1,
             "pipeline_parallel": 1}
 _AVG, _SUM, _MIN = dist.ReduceOp.AVG, dist.ReduceOp.SUM, dist.ReduceOp.MIN
 
@@ -273,16 +306,18 @@ class ZeroEngine:
                  grad_comm_block: int = 256,
                  grad_comm_error_feedback: bool = True,
                  grad_comm_tail: str = "fp32", hpz_comm: str = "fp32",
-                 evenness_priority: float = 0.0, **knobs):
+                 evenness_priority: float = 0.0,
+                 offload_opt_state: bool = False, offload_prefetch: int = 2,
+                 telemetry=None, **knobs):
         _refuse(type(self).__name__, _REFUSED, knobs,
-                "telemetry, offload and tensor/expert/pipeline "
-                "parallelism are")
+                "tensor/expert/pipeline parallelism are")
         knob = _sched_knobs(grad_buckets, gather_prefetch, gather_groups,
                             hpz, grad_comm, grad_comm_groups,
                             grad_comm_block, grad_comm_error_feedback,
                             grad_comm_tail, hpz_comm)
         self._setup(model, optimizer, device, accum_steps, grad_clip,
-                    loss_scale, loss_scale_growth_interval)
+                    loss_scale, loss_scale_growth_interval,
+                    offload_opt_state, offload_prefetch, telemetry)
         self.pctx = pctx or make_context(seq_parallel, seq_impl)
         if self.device.type == "cuda" and \
                 dist.get_backend(self.pctx.data_group) != "nccl":
@@ -293,12 +328,6 @@ class ZeroEngine:
         self.n_dev = self.pctx.world
         self.n_shard = self.pctx.data_size
         self._build_schedule(knob, hpz_granule_of)
-        if model.config.dropout and self.pctx.is_multi_device and \
-                self._lowering in ("quant_mono", "bucket", "composed"):
-            raise ValueError(
-                f"dropout under the {self._lowering!r} lowering is not "
-                "ported: it runs the model as on one device, which would "
-                "draw rank-local masks (ROADMAP.md)")
         self._rank_map(evenness_priority)
         # flat shard of each leaf: (numel, shard size S, [lo, hi) owned)
         r = self.pctx.data_rank
@@ -338,7 +367,8 @@ class ZeroEngine:
         self._schedule = sched.build_schedule(
             model=self.model, stage=self.stage, n_shard=self.n_shard,
             busy_axes=busy, accum_steps=self.accum_steps,
-            granule_of=granule_of, **knob)
+            granule_of=granule_of, telemetry_layers=self._layers_on,
+            **knob)
         self._lowering = self._schedule.lowering
         self._exec = None
         self._codec = self._tail_codec = None
@@ -357,7 +387,8 @@ class ZeroEngine:
                 self._tail_codec = sched.Codec(mode=g.tail_mode, **kw)
 
     def _setup(self, model, optimizer, device, accum_steps, grad_clip,
-               loss_scale, loss_scale_growth_interval):
+               loss_scale, loss_scale_growth_interval, offload_opt_state,
+               offload_prefetch, telemetry):
         self.device = resolve_device(device)
         if model.device != self.device:
             raise ValueError(f"model lives on {model.device}, engine on "
@@ -374,6 +405,30 @@ class ZeroEngine:
         self.grad_clip = grad_clip
         self.loss_scale = loss_scale
         self.loss_scale_growth_interval = loss_scale_growth_interval
+        # JAX :846-865: the window is validated whether or not offload is
+        # on; 1 streams the leaves one after another
+        self.offload_opt_state = bool(offload_opt_state)
+        self.offload_prefetch = int(offload_prefetch)
+        if self.offload_prefetch < 1:
+            raise ValueError(
+                f"offload_prefetch must be >= 1 (1 = serial streaming, "
+                f"no double buffer; default 2), got {offload_prefetch}")
+        self._offload = None
+        if self.offload_opt_state:
+            if type(optimizer).update is not Optimizer.update:
+                raise ValueError(
+                    f"offload_opt_state streams moments via the per-leaf "
+                    f"update_one contract, but {type(optimizer).__name__} "
+                    f"overrides update(); offload is unsupported for it")
+            self._offload = MomentStream(self.offload_prefetch, self.device)
+        # the telemetry settles before the schedule is built: layers mode
+        # declares the probe slot (JAX :655-662)
+        self.telemetry = telemetry
+        self._telemetry_on = telemetry is not None
+        if self._telemetry_on and hasattr(telemetry, "attach"):
+            telemetry.attach(self)
+        self._layers_on = bool(self._telemetry_on
+                               and getattr(telemetry, "layers", False))
 
     # -- state -------------------------------------------------------------
 
@@ -397,13 +452,13 @@ class ZeroEngine:
                                    group=self.pctx.world_group)
         if self.stage >= 3:
             params = self._shard_model(params)
-            opt_state = self.optimizer.init(
+            opt_state = self._init_opt(
                 {n: p.detach() for n, p in params.items()})
         elif self.stage >= 1:
-            opt_state = self.optimizer.init(
+            opt_state = self._init_opt(
                 {n: self._own(n, p.detach()) for n, p in params.items()})
         else:
-            opt_state = self.optimizer.init(params)
+            opt_state = self._init_opt(params)
         scaler = ({"scale": 2.0 ** 15, "good": 0}
                   if self.loss_scale == "dynamic" else None)
         base = (prng.fold_in(g.initial_seed(), 0xD0)
@@ -412,6 +467,16 @@ class ZeroEngine:
                           scaler=scaler, dropout_base=base,
                           layout=self.layout(),
                           grad_residual=self.zero_residual())
+
+    def _init_opt(self, slots) -> Dict[str, Any]:
+        """The optimizer's zero state of `slots`; under offload built as
+        `Optimizer.init` builds it, each leaf's slots moved to host memory
+        as they are made (never the whole moments on the device)."""
+        if self._offload is None:
+            return self.optimizer.init(slots)
+        return {"step": 0, "state": {
+            n: self._offload.host_slots(self.optimizer.init_one(n, p))
+            for n, p in slots.items()}}
 
     def zero_residual(self) -> Optional[torch.Tensor]:
         """This rank's error-feedback residual row at init: residual_len
@@ -466,14 +531,24 @@ class ZeroEngine:
         `init`: the params are copied into the model's own parameters
         (ZeRO-3 takes them as its shards).  Without a saved residual an
         engine that keeps one starts from zeros (JAX
-        utils/checkpoint.py:277-290)."""
+        utils/checkpoint.py:277-290).  Under offload the moments go back
+        to host memory."""
         state_params = self.model.param_dict()
         for n, p in state_params.items():
             p.copy_(params[n])
+        opt_state = self._rest_opt(opt_state)
         return TrainState(params=state_params, opt_state=opt_state,
                           scaler=scaler, dropout_base=dropout_base,
                           layout=self.layout(),
                           grad_residual=self._residual_of(grad_residual))
+
+    def _rest_opt(self, opt_state) -> Dict[str, Any]:
+        """A restored optimizer state where it rests: its slots in host
+        memory under offload, as they are otherwise."""
+        if self._offload is None:
+            return opt_state
+        return dict(opt_state,
+                    state=self._offload.host_state(opt_state["state"]))
 
     def _residual_of(self, saved) -> Optional[torch.Tensor]:
         """A checkpoint's residual row if it fits this engine's, else the
@@ -516,7 +591,9 @@ class ZeroEngine:
         lb = None
         if self._lowering == "composed" and s.grad is not None:
             lb = s.layout["layers_per_bucket"]
-        return sched.ScanExecutor(self, self._lowering, look, lb, gather)
+        exe = sched.ScanExecutor(self, self._lowering, look, lb, gather)
+        exe.probe_on = self._layers_on
+        return exe
 
     def _data_groups(self, lists):
         """Every rank list of data ranks as a process group (created in
@@ -540,16 +617,27 @@ class ZeroEngine:
         return (self._data_groups(intra), self._data_groups(inter), ici,
                 n_gran)
 
-    def _loss_and_grads(self, params, idx, targets, scale, rng):
+    def _loss_and_grads(self, params, idx, targets, scale, rng,
+                        probe=None):
+        """(loss, grads, the probe's gradient or None): the rank's share
+        of the global mean differentiated with respect to the params and,
+        in telemetry layers mode, the zero (n_layer, 4) `probe` (the
+        "probe" lowering, `ProbeScan`)."""
         kw = {"sched": self._exec} if self._lowering == "prefetch" else {}
+        wrt = list(params.values())
+        if probe is not None:
+            gather = self.pctx.gather if self.pctx is not None else None
+            kw["sched"] = sched.ProbeScan(probe, gather)
+            wrt.append(probe)
         loss = self.model.apply(idx, targets, rng=rng, pctx=self.pctx,
                                 params=params, **kw)
         if scale is not None:
             loss = loss * scale
         # the rank's share of the global mean (see the module docstring)
         share = loss if self.pctx is None else loss / self.pctx.world
-        grads = torch.autograd.grad(share, list(params.values()))
-        return loss.detach(), dict(zip(params, grads))
+        grads = torch.autograd.grad(share, wrt)
+        probe_grad = grads[-1] if probe is not None else None
+        return loss.detach(), dict(zip(params, grads)), probe_grad
 
     def _reduce(self, grads):
         """The stage's gradient collective over the ranks' shares: SUM
@@ -578,7 +666,9 @@ class ZeroEngine:
         (numpy or tensors) — or (accum, B, T) when accum_steps > 1; the
         GLOBAL batch on every rank of a distributed engine.  Returns
         (state, loss) with loss the global batch's mean, a 0-d f32 tensor
-        on the device."""
+        on the device.  With the telemetry knob the step's health vector
+        (and in layers mode the layer-health matrix) is pushed into the
+        telemetry object un-synced."""
         idx, targets = (self._local(a) for a in batch)
         params = state.params
         dynamic = self.loss_scale == "dynamic"
@@ -589,21 +679,34 @@ class ZeroEngine:
         sharded_grads = self.stage >= 2 and self.pctx is not None
 
         explicit = self._lowering in ("quant_mono", "bucket", "composed")
+        # the explicit lowerings run each rank's own batch as on one
+        # device: the rank-local mask stream (JAX :1337-1343)
+        lrng = (prng.fold_in(rng, self.pctx.data_rank)
+                if explicit and rng is not None else None)
+        probe0 = probe = None
+        if self._layers_on and self._lowering != "composed":
+            probe0 = torch.zeros(self.model.config.n_layer,
+                                 sched.LAYER_PROBE_WIDTH,
+                                 dtype=torch.float32, device=self.device,
+                                 requires_grad=True)
         residual = state.grad_residual
         new_residual = residual
         qstep = int(state.opt_state["step"])
         if self._lowering == "quant_mono":
             loss, grads, new_residual = self._quant_mono(
-                params, idx, targets, scale, residual, qstep)
+                params, idx, targets, scale, residual, qstep, rng=lrng)
         elif self._lowering == "bucket":
             loss, grads, new_residual = self._bucketed(
-                params, idx, targets, scale, residual, qstep)
+                params, idx, targets, scale, residual, qstep, rng=lrng)
         elif self._lowering == "composed":
             loss, grads, new_residual = self._composed(
-                params, idx, targets, scale, residual, qstep)
+                params, idx, targets, scale, residual, qstep, rng=lrng)
+            if self._layers_on:
+                probe = self._exec.probe_stats
+                self._exec.probe_stats = None
         elif self.accum_steps == 1:
-            loss, grads = self._loss_and_grads(params, idx, targets, scale,
-                                               rng)
+            loss, grads, probe = self._loss_and_grads(
+                params, idx, targets, scale, rng, probe0)
             grads = self._reduce(grads)
         else:
             if idx.dim() != 3 or idx.shape[0] != self.accum_steps:
@@ -613,9 +716,13 @@ class ZeroEngine:
             loss = torch.zeros((), dtype=torch.float32, device=self.device)
             acc = {}
             for i in range(self.accum_steps):
-                l, g = self._loss_and_grads(
+                l, g, pg = self._loss_and_grads(
                     params, idx[i], targets[i], scale,
-                    None if rng is None else prng.fold_in(rng, i))
+                    None if rng is None else prng.fold_in(rng, i), probe0)
+                if pg is not None:
+                    # raw sq-sums and counts: summed over microbatches
+                    # they keep the global batch's meaning
+                    probe = pg if i == 0 else probe + pg
                 if sharded_grads:  # every microbatch into the f32 shard
                     g = self._reduce(g)
                 loss = loss + l
@@ -655,11 +762,11 @@ class ZeroEngine:
             grads = {n: (g.float() * factor).to(g.dtype)
                      for n, g in grads.items()}
 
+        usq = None
         if finite:
-            if self.stage >= 1:
-                self._update_shards(params, grads, state.opt_state)
-            else:
-                self.optimizer.update(params, grads, state.opt_state)
+            usq = self._update(params, grads, state.opt_state)
+        if self._telemetry_on:
+            self._push_health(loss, grads, params, usq, probe, scale)
         # a skipped step's sync consumed the residual into a discarded
         # update: it rolls back with the rest of the state (JAX :1367)
         if finite:
@@ -676,6 +783,104 @@ class ZeroEngine:
             else:
                 state.scaler = {"scale": max(scale * 0.5, 1.0), "good": 0}
         return state, loss
+
+    # -- the update --------------------------------------------------------
+
+    def _slots(self, opt_state, names):
+        """(name, its optimizer slots on the device) in order: the
+        resting dicts, or under offload the slots streamed through the
+        device (parallel/offload.py)."""
+        if self._offload is None:
+            return ((n, opt_state["state"][n]) for n in names)
+        return self._offload.stream(opt_state["state"], names)
+
+    def _usq0(self) -> Optional[torch.Tensor]:
+        if not self._telemetry_on:
+            return None
+        return torch.zeros((), dtype=torch.float32, device=self.device)
+
+    def _update_one(self, n, p, g, slots, step, usq):
+        """`update_one` of p in place; with `usq` (the telemetry's
+        update sq-sum so far) the sum grown by this leaf's (new - old)^2."""
+        if usq is None:
+            self.optimizer.update_one(n, p, g, slots, step)
+            return None
+        old = p.detach().clone()
+        self.optimizer.update_one(n, p, g, slots, step)
+        return usq + (p.detach().float() - old.float()).square().sum()
+
+    # -- telemetry ---------------------------------------------------------
+
+    def _owned(self, params, grads):
+        """({name: the gradient piece}, {name: the param piece}) this rank
+        sums for the health vector: whole leaves without a process group
+        and at stage 0 (replicated), the rank's flat shards at stages 1-2
+        (stage 2's gradients already are), ZeRO-3's shards."""
+        pp = {n: p.detach() for n, p in params.items()}
+        if self.pctx is None or self.stage == 0:
+            return grads, pp
+        if self.stage == 1:
+            grads = {n: self._own(n, g) for n, g in grads.items()}
+        if self.stage < 3:
+            pp = {n: self._own(n, p) for n, p in pp.items()}
+        return grads, pp
+
+    def _layer_grad_partials(self, gp) -> torch.Tensor:
+        """(n_layer, 2) [grad sq-sum, non-finite] per layer over this
+        rank's pieces of the "h.*" gradients."""
+        L = self.model.config.n_layer
+        if self.pctx is None or self.stage == 0 or self.stage >= 3:
+            return H.layer_grad_stats(gp)
+        pieces = []
+        for n, g in gp.items():
+            if n.startswith("h."):
+                numel, _, lo, _ = self._shards[n]
+                pieces.append((g, lo, numel // L))
+        return H.flat_layer_grad_stats(pieces, L, self.device)
+
+    @torch.no_grad()
+    def _push_health(self, loss, grads, params, usq, probe, scale):
+        """The (5,) health vector (and the (n_layer, 6) matrix) after the
+        update, global, pushed into the telemetry un-synced.  Partial sums
+        of owned pieces are all-reduced once over the data group (with the
+        probe's sums when the data group spans the world); the probe's
+        sums are over each rank's own tokens: SUMmed over the world, the
+        composed lowering's dact column divided by n^2 (each rank
+        differentiated its own batch's mean, JAX :2325-2336), and the
+        dact column unscaled by 1/scale^2 (JAX :1320-1327)."""
+        pctx = self.pctx
+        gp, pp = self._owned(params, grads)
+        if usq is None:
+            usq = torch.zeros((), dtype=torch.float32, device=self.device)
+        parts = [H.health_partials(gp, pp, usq)]
+        if self._layers_on:
+            parts.append(self._layer_grad_partials(gp).reshape(-1))
+        # owned pieces need the data group's SUM; the probe the world's
+        owned = pctx is not None and self.stage >= 1
+        pack = owned and probe is not None and pctx.seq_size == 1
+        if pack:  # the data group is the world: one all-reduce
+            parts.append(probe.reshape(-1))
+        packed = torch.cat(parts)
+        if owned:
+            dist.all_reduce(packed, op=_SUM, group=pctx.data_group)
+        if pack:
+            probe = packed[-probe.numel():].view(probe.shape)
+        elif probe is not None and pctx is not None:
+            probe = probe.clone()
+            dist.all_reduce(probe, op=_SUM, group=pctx.world_group)
+        vec = H.health_vector(loss, partials=packed[:4])
+        if not self._layers_on:
+            self.telemetry.on_step_output(vec)
+            return
+        L = self.model.config.n_layer
+        gl = packed[4:4 + 2 * L].view(L, 2)
+        probe = probe.float().clone()
+        if self._lowering == "composed":
+            probe[:, 2] *= 1.0 / (self.n_shard * self.n_shard)
+        if scale is not None:
+            probe[:, 2] *= 1.0 / (scale * scale)
+        mat = H.layer_health_matrix(probe, grad_stats=gl)
+        self.telemetry.on_step_output(vec, layers=mat)
 
     # -- the explicit lowerings (JAX monolithic_quant_step, bucketed_step,
     #    composed_step) ------------------------------------------------------
@@ -733,25 +938,29 @@ class ZeroEngine:
             out[n] = (g / self.n_shard).to(grads[n].dtype)
         return out, None
 
-    def _local_loss_grads(self, params, idx, targets, scale):
+    def _local_loss_grads(self, params, idx, targets, scale, rng=None):
         """The rank's own batch as on one device (the model with no
-        pctx): its scaled loss and gradients."""
-        l = self.model.apply(idx, targets, params=params)
+        pctx; its dropout masks drawn from `rng`, the rank-local key):
+        its scaled loss and gradients."""
+        l = self.model.apply(idx, targets, params=params, rng=rng)
         if scale is not None:
             l = l * scale
         return l.detach(), torch.autograd.grad(l, list(params.values()))
 
-    def _quant_mono(self, params, idx, targets, scale, residual, step):
+    def _quant_mono(self, params, idx, targets, scale, residual, step,
+                    rng=None):
         """The "quant_mono" lowering's loss and grads (JAX
         `monolithic_quant_step`): each rank's own-batch gradient with the
-        model run as on one device, microbatches summed locally, unscaled,
-        then one quantized sync (`Codec.sync`, the step's stream).
+        model run as on one device, microbatches summed locally (their
+        masks from `fold_in(rng, i)`, JAX :1356), unscaled, then one
+        quantized sync (`Codec.sync`, the step's stream).
         Returns (the scaled loss averaged over the ranks, the mean
         gradients — whole leaves at stages 0-1, flat shards at stage 2 —,
         the new residual row or None)."""
         accum = self.accum_steps
         if accum == 1:
-            loss, got = self._local_loss_grads(params, idx, targets, scale)
+            loss, got = self._local_loss_grads(params, idx, targets, scale,
+                                               rng)
             g = dict(zip(params, got))
         else:
             if idx.dim() != 3 or idx.shape[0] != accum:
@@ -759,8 +968,9 @@ class ZeroEngine:
                                  f"(accum, B, T), got {tuple(idx.shape)}")
             loss, acc = None, {}
             for i in range(accum):
-                l, got = self._local_loss_grads(params, idx[i], targets[i],
-                                                scale)
+                l, got = self._local_loss_grads(
+                    params, idx[i], targets[i], scale,
+                    None if rng is None else prng.fold_in(rng, i))
                 loss = l if i == 0 else loss + l
                 for n, t in zip(params, got):
                     acc[n] = t.float() if i == 0 else acc[n] + t.float()
@@ -778,11 +988,12 @@ class ZeroEngine:
         return loss, grads, new_residual
 
     def _bucketed(self, params, idx, targets, scale, residual=None,
-                  step=0):
+                  step=0, rng=None):
         """The "bucket" lowering's loss and grads (JAX `bucketed_step`):
         (the scaled loss averaged over the ranks, the mean gradients
         unscaled — whole leaves at stages 0-1, flat shards at stage 2 —,
-        the new residual row or None)."""
+        the new residual row or None).  Microbatch i draws its masks from
+        `fold_in(rng, i)` (JAX :1581, :1610), a single batch from `rng`."""
         inv = None if scale is None else 1.0 / scale
         tail = [n for n in params if not n.startswith("h.")]
         accum = self.accum_steps
@@ -794,7 +1005,9 @@ class ZeroEngine:
                                  f"(accum, B, T), got {tuple(idx.shape)}")
             acc = {}
             for i in range(accum - 1):  # the prefix, summed locally
-                l = self.model.apply(idx[i], targets[i], params=params)
+                l = self.model.apply(
+                    idx[i], targets[i], params=params,
+                    rng=None if rng is None else prng.fold_in(rng, i))
                 if scale is not None:
                     l = l * scale
                 g = torch.autograd.grad(l, list(params.values()))
@@ -802,10 +1015,13 @@ class ZeroEngine:
                 for n, t in zip(params, g):
                     acc[n] = t.float() if i == 0 else acc[n] + t.float()
             idx, targets = idx[-1], targets[-1]
+            if rng is not None:
+                rng = prng.fold_in(rng, accum - 1)
         bres, tres = self._split_residual(residual)
         rel = sched.BucketRelease(self, acc, accum, inv, residual=bres,
                                   step=step)
-        l = self.model.apply(idx, targets, params=params, sched=rel)
+        l = self.model.apply(idx, targets, params=params, sched=rel,
+                             rng=rng)
         if scale is not None:
             l = l * scale
         got = torch.autograd.grad(l, [params[n] for n in tail]
@@ -824,14 +1040,15 @@ class ZeroEngine:
         return loss, {n: grads[n] for n in params}, new_residual
 
     def _composed(self, params, idx, targets, scale, residual=None,
-                  step=0):
+                  step=0, rng=None):
         """The "composed" lowering's loss and grads (JAX `composed_step`):
         the executor releases the block leaves; the tail — ZeRO-3: its
         gather's reduce-scatter SUM times 1/(scale * D), or with
         `grad_comm_tail` one quantized sync of the whole leaves'
         gradients (JAX `qtail`, :2188-2220), each rank keeping its shard;
-        stages 0-2: as `_release_tail`.  Returns (loss, grads, the new
-        residual row or None)."""
+        stages 0-2: as `_release_tail`.  The masks come from `rng` (the
+        embedding's and each layer's key split from it, JAX :1834-1838).
+        Returns (loss, grads, the new residual row or None)."""
         exe = self._exec
         inv = None if scale is None else 1.0 / scale
         exe.inv = inv
@@ -841,7 +1058,8 @@ class ZeroEngine:
         tail_q = self.stage >= 3 and self._tail_codec is not None
         exe.tail_whole = {} if tail_q else None
         try:
-            l = self.model.apply(idx, targets, params=params, sched=exe)
+            l = self.model.apply(idx, targets, params=params, sched=exe,
+                                 rng=rng)
             if scale is not None:
                 l = l * scale
             wrt = dict(params)
@@ -880,25 +1098,31 @@ class ZeroEngine:
         return loss, {n: grads[n] for n in params}, new_residual
 
     @torch.no_grad()
-    def _update_shards(self, params, grads, opt_state):
-        """ZeRO-1/2: each rank updates its flat shard of every leaf and
-        the shard's optimizer state (the optimizer's per-leaf
-        `update_one`, in place), then all-gathers the leaf.  ZeRO-3: the
-        params ARE the shards; nothing is gathered."""
+    def _update(self, params, grads, opt_state) -> Optional[torch.Tensor]:
+        """The optimizer's per-leaf `update_one`, in place, leaf by leaf
+        in the params' order (`Optimizer.update`'s loop); under offload
+        the state streamed through the device.  Stage 0 updates whole
+        leaves.  ZeRO-1/2: each rank updates its flat shard of every leaf
+        and the shard's state, then all-gathers the leaf.  ZeRO-3: the
+        params ARE the shards; nothing is gathered.  Returns the update's
+        sq-sum over what this rank updated when the telemetry is on, else
+        None."""
         step = opt_state["step"] + 1
-        for n, p in params.items():
-            if self.stage >= 3:
+        usq = self._usq0()
+        for n, slots in self._slots(opt_state, list(params)):
+            p = params[n]
+            if self.stage == 0 or self.stage >= 3:
                 own, flat = p.detach(), None
             else:
                 flat = p.detach().reshape(-1)
                 own = self._own(n, flat)
-            g = grads[n] if self.stage >= 2 else self._own(n, grads[n])
+            g = grads[n] if self.stage != 1 else self._own(n, grads[n])
             if own.numel():
-                self.optimizer.update_one(n, own, g,
-                                          opt_state["state"][n], step)
+                usq = self._update_one(n, own, g, slots, step, usq)
             if flat is not None:
                 flat.copy_(self._gather(n, own))
         opt_state["step"] = step
+        return usq
 
     @torch.no_grad()
     def eval_loss(self, state: TrainState, batch) -> torch.Tensor:
@@ -930,17 +1154,37 @@ class ZeroEngine:
     @torch.no_grad()
     def gather_opt_state(self, state: TrainState) -> Dict[str, Any]:
         """The optimizer state with whole leaves (all-gathered from the
-        data ranks' shards from stage 1 on), to compare with JAX's."""
-        opt = state.opt_state
+        data ranks' shards from stage 1 on), to compare with JAX's; on the
+        engine's device, offloaded or not."""
+        opt = self._resting_opt(state)
         if self.stage == 0:
             return {"step": opt["step"],
-                    "state": {n: {k: t.clone() for k, t in slots.items()}
+                    "state": {n: {k: t.to(self.device, copy=True)
+                                  for k, t in slots.items()}
                               for n, slots in opt["state"].items()}}
         shapes = self.model.param_shapes()
         return {"step": opt["step"],
-                "state": {n: {k: self._gather(n, t).reshape(shapes[n])
+                "state": {n: {k: self._gather(n, t.to(self.device))
+                              .reshape(shapes[n])
                               for k, t in slots.items()}
                           for n, slots in opt["state"].items()}}
+
+    def _resting_opt(self, state: TrainState) -> Dict[str, Any]:
+        """The state's optimizer state, once the offloaded moments' last
+        copies to the host have landed."""
+        if self._offload is not None:
+            self._offload.wait()
+        return state.opt_state
+
+    def _knob_extras(self) -> str:
+        """describe()'s offload and telemetry parts (JAX :1498-1502)."""
+        out = ""
+        if self.offload_opt_state:
+            out += ", opt state offloaded=pinned_host"
+        if self._telemetry_on:
+            out += (", telemetry=layers" if self._layers_on
+                    else ", telemetry=on")
+        return out
 
     def describe(self) -> str:
         extras = ""
@@ -948,6 +1192,7 @@ class ZeroEngine:
             extras += f", grad_clip={self.grad_clip}"
         if self.loss_scale is not None:
             extras += f", loss_scale={self.loss_scale}"
+        extras += self._knob_extras()
         s = self._schedule
         if s.grad is not None and s.grad.mode != "fp32":
             extras += f", grad_comm={s.grad.mode}"
@@ -994,15 +1239,18 @@ class SingleDevice(ZeroEngine):
                  grad_comm_block: int = 256,
                  grad_comm_error_feedback: bool = True,
                  grad_comm_tail: str = "fp32", hpz_comm: str = "fp32",
-                 evenness_priority: float = 0.0, **knobs):
+                 evenness_priority: float = 0.0,
+                 offload_opt_state: bool = False, offload_prefetch: int = 2,
+                 telemetry=None, **knobs):
         _refuse("SingleDevice", dict(_REFUSED, seq_parallel=1), knobs,
-                "multi-device, telemetry and offload knobs are")
+                "multi-device knobs are")
         knob = _sched_knobs(grad_buckets, gather_prefetch, gather_groups,
                             hpz, grad_comm, grad_comm_groups,
                             grad_comm_block, grad_comm_error_feedback,
                             grad_comm_tail, hpz_comm)
         self._setup(model, optimizer, device, accum_steps, grad_clip,
-                    loss_scale, loss_scale_growth_interval)
+                    loss_scale, loss_scale_growth_interval,
+                    offload_opt_state, offload_prefetch, telemetry)
         self.pctx = None
         self.n_shard = 1
         # one device: every slot is inert, with JAX's warning
@@ -1012,7 +1260,7 @@ class SingleDevice(ZeroEngine):
     def describe(self) -> str:
         return (f"SingleDevice(device={self.device}, "
                 f"accum={self.accum_steps}, grad_clip={self.grad_clip}, "
-                f"loss_scale={self.loss_scale})")
+                f"loss_scale={self.loss_scale}{self._knob_extras()})")
 
 
 class DDP(ZeroEngine):
@@ -1069,7 +1317,8 @@ class Zero3(ZeroEngine):
         self._release()
         return TrainState(
             params={n: t.detach().requires_grad_() for n, t in params.items()},
-            opt_state=opt_state, scaler=scaler, dropout_base=dropout_base,
+            opt_state=self._rest_opt(opt_state), scaler=scaler,
+            dropout_base=dropout_base,
             layout=self.layout(),
             grad_residual=self._residual_of(grad_residual))
 
@@ -1080,9 +1329,9 @@ class Zero3(ZeroEngine):
 
     @torch.no_grad()
     def gather_opt_state(self, state: TrainState) -> Dict[str, Any]:
-        opt = state.opt_state
+        opt = self._resting_opt(state)
         return {"step": opt["step"],
-                "state": {n: {k: self._z3.whole(n, t)
+                "state": {n: {k: self._z3.whole(n, t.to(self.device))
                               for k, t in slots.items()}
                           for n, slots in opt["state"].items()}}
 

@@ -2,7 +2,8 @@
 # SPDX-License-Identifier: Apache-2.0
 
 """The in-step collective schedule: ZeRO-3's gather prefetch, the 2-hop
-gather and hpZ, and the bucketed gradient release.
+gather and hpZ, the bucketed gradient release, and the per-layer health
+probe.
 
 Counterpart of `tiny_deepspeed_tpu/parallel/schedule.py`, its gather and
 fp32 grad slots.  Each engine knob becomes a slot declaration; ONE
@@ -30,6 +31,10 @@ order and with JAX's messages, and picks JAX's lowering:
   stashed input (remat of the whole block) while layer l-K+1's gather
   is in flight, and reduce-scatters each layer's dW as the on-demand
   gather's transpose does.  The numbers are the on-demand path's;
+- "probe" (the health probe alone, `telemetry=Telemetry(layers=True)`):
+  `ProbeScan`, JAX's (:396) — the model's own layer loop, each block's
+  output through `layer_health_tap` inside its checkpoint, the engine
+  differentiating a zero (n_layer, 4) probe with the params;
 - "composed" (any other mix: ZeRO-3 with a grad slot — the on-demand
   gather slot is declared implicitly —, hpZ, `grad_buckets` with the fp8
   gather): `ScanExecutor` in JAX's `composed_step` form (:1678).  Each
@@ -70,8 +75,14 @@ fp8 moves hpZ's once-a-step replica rebuild through the codec
 (`comm.hpz_rebuild`, JAX `build_sec`).  "auto" resolves `grad_comm`,
 `grad_buckets` and `gather_groups` by `auto_comm_plan` (JAX :249).
 
-Not ported yet (ROADMAP.md): the telemetry probe slot (`health`) and the
-pipeline slot (`pipe`).
+The probe slot (JAX `ProbeSlot`, `layer_health_tap`): the tap's
+gradient carries [act sq-sum, act non-finite, dact sq-sum, dact
+non-finite] of each layer's output; inside "composed" `ScanExecutor`
+takes them from its recompute and the engine sums them over the data
+group, the dact column divided by n^2 (each rank differentiated its own
+batch's mean, JAX :2325-2336).
+
+Not ported yet (ROADMAP.md): the pipeline slot (`pipe`).
 """
 
 from __future__ import annotations
@@ -85,6 +96,7 @@ import torch
 import torch.distributed as dist
 
 from ..models.gpt2 import e4m3_round
+from ..telemetry.health import nonfinite
 from . import comm as C
 from .comm import (DEFAULT_BLOCK, GRAD_COMM_MODES, bucket_layout,
                    f8_pmean_shard, f8_pmean_whole, f8_sum_mean, numel,
@@ -147,11 +159,21 @@ class GradSlot:
         return s
 
 
+@dataclasses.dataclass(frozen=True)
+class ProbeSlot:
+    """Per-layer health probe (engine telemetry layers mode, JAX :148)."""
+    kind: str = "layer_health"
+
+    def describe(self) -> str:
+        return "health"
+
+
 @dataclasses.dataclass
 class Schedule:
     """A validated slot composition and its lowering (JAX :857)."""
     gather: Optional[GatherSlot] = None
     grad: Optional[GradSlot] = None
+    probe: Optional[ProbeSlot] = None
     lowering: str = "plain"
     layout: Optional[dict] = None
     # the error-feedback residual row's length (0: no residual)
@@ -162,7 +184,8 @@ class Schedule:
 
     @property
     def slots(self):
-        return [s for s in (self.gather, self.grad) if s is not None]
+        return [s for s in (self.gather, self.grad, self.probe)
+                if s is not None]
 
     def describe(self) -> str:
         if not self.slots:
@@ -187,17 +210,18 @@ def parse_sched_spec(spec: str) -> Dict[str, Any]:
     {"gather_prefetch": 2, "grad_buckets": 4, "grad_comm": "int8",
     "hpz": True}.  JAX's vocabulary: `grad_buckets`, `gather_groups` and
     `grad_comm` also take "auto" (`auto_comm_plan`); `grad_comm_tail` and
-    `hpz_comm` take a codec.  `health` (the telemetry probe slot) and
-    `pipe` (the pipeline slot) are refused by name (ROADMAP.md), an
-    unknown key or mode as JAX refuses it."""
+    `hpz_comm` take a codec; `health` gives {"telemetry_layers": True},
+    which is not an engine kwarg: the caller upgrades its Telemetry to
+    layers mode (train.py does).  `pipe` (the pipeline slot) is refused
+    by name (ROADMAP.md), an unknown key or mode as JAX refuses it."""
     out: Dict[str, Any] = {}
     for part in (p.strip() for p in spec.split(",") if p.strip()):
         if part == "hpz":
             out["hpz"] = True
             continue
         if part == "health":
-            raise ValueError(f"--sched health (the telemetry probe slot): "
-                             f"{_LATER}")
+            out["telemetry_layers"] = True
+            continue
         if "=" not in part:
             raise ValueError(f"--sched element {part!r} is not "
                              "'key=value', 'health' or 'hpz'")
@@ -331,12 +355,13 @@ def build_schedule(*, model, stage: int, n_shard: int, busy_axes=(),
                    grad_buckets=1, grad_comm_tail: str = "fp32",
                    gather_prefetch: int = 0, gather_groups=None,
                    hpz: bool = False, hpz_comm: str = "fp32",
-                   granule_of=None) -> Schedule:
+                   granule_of=None,
+                   telemetry_layers: bool = False) -> Schedule:
     """Translate the knobs into slots, validate the composition once and
     pick the lowering, as JAX's does (:904-1296).  `granule_of` is a
     {rank: granule} map or a callable returning one (called only when
     hpZ's geometry or "auto" needs it: the port's map is a collective over
-    the hosts' names)."""
+    the hosts' names).  `telemetry_layers` declares the probe slot."""
     n_layer = int(getattr(getattr(model, "config", None), "n_layer", 0)
                   or 0)
     gq = bool(getattr(getattr(model, "config", None), "gather_quant", None))
@@ -401,10 +426,11 @@ def build_schedule(*, model, stage: int, n_shard: int, busy_axes=(),
                         block=int(grad_comm_block), groups=grad_comm_groups,
                         error_feedback=bool(grad_comm_error_feedback),
                         tail_mode=str(grad_comm_tail))
+    probe = ProbeSlot() if telemetry_layers else None
     # ZeRO-3 with a grad slot: the on-demand gather slot, implicitly
     if stage >= 3 and grad is not None and gather is None:
         gather = GatherSlot(prefetch=1)
-    if gather is None and grad is None:
+    if gather is None and grad is None and probe is None:
         return Schedule(lowering="plain")
 
     # ---- single-feature inert fallbacks (1-rank data axis) -----------------
@@ -414,14 +440,17 @@ def build_schedule(*, model, stage: int, n_shard: int, busy_axes=(),
                 f"grad slot ({grad.describe()}) is inert on a 1-device "
                 "data axis (there is no gradient collective); running "
                 "the exact unscheduled path", stacklevel=3)
+            grad = None
         if gather is not None:
             warnings.warn(
                 f"gather slot ({gather.describe()}) is inert on a "
                 "1-device data axis (there is no weight gather); running "
                 "the on-demand path", stacklevel=3)
-        return Schedule(lowering="plain")
+            gather = None
+        if probe is None:
+            return Schedule(lowering="plain")
 
-    slots = [s for s in (gather, grad) if s is not None]
+    slots = [s for s in (gather, grad, probe) if s is not None]
     multi = (len(slots) > 1
              or (gather is not None
                  and (gather.hpz or gather.prefetch == 1))
@@ -449,7 +478,8 @@ def build_schedule(*, model, stage: int, n_shard: int, busy_axes=(),
                 "keeps the buckets size-balanced and the scan body "
                 "uniform)")
         for s, flag in ((gather, "gather_prefetch_capable"),
-                        (grad, "grad_bucket_capable")):
+                        (grad, "grad_bucket_capable"),
+                        (probe, "layer_health_capable")):
             if s is not None and not getattr(model, flag, False):
                 raise ScheduleConflictError(
                     f"{type(model).__name__} cannot run the "
@@ -460,6 +490,15 @@ def build_schedule(*, model, stage: int, n_shard: int, busy_axes=(),
 
     # ---- slot-level validation ---------------------------------------------
     busy = [ax for ax in busy_axes if ax is not None]
+    if probe is not None:
+        if not getattr(model, "layer_health_capable", False):
+            raise ValueError(
+                f"{type(model).__name__} does not thread the per-layer "
+                "health probe through its layer scan "
+                "(layer_health_capable=False)")
+        if not n_layer:
+            raise ValueError("telemetry layers mode needs a layered model "
+                             "(config.n_layer)")
     if grad is not None:
         if grad.mode not in GRAD_COMM_MODES:
             raise ValueError(f"grad_comm must be one of {GRAD_COMM_MODES}, "
@@ -542,13 +581,83 @@ def build_schedule(*, model, stage: int, n_shard: int, busy_axes=(),
                 residual_len = padded_size(total, n_shard, grad.block)
     if multi:
         lowering = "composed"
+    elif probe is not None:
+        lowering = "probe"
     elif grad is not None:
         lowering = "bucket" if grad.buckets > 1 else "quant_mono"
     else:
         lowering = "prefetch"
-    return Schedule(gather=gather, grad=grad, lowering=lowering,
-                    layout=layout, residual_len=residual_len, hpz_geom=geom,
+    return Schedule(gather=gather, grad=grad, probe=probe,
+                    lowering=lowering, layout=layout,
+                    residual_len=residual_len, hpz_geom=geom,
                     auto_plan=auto_plan)
+
+
+# ---------------------------------------------------------------------------
+# the per-layer health probe (JAX :345-410)
+# ---------------------------------------------------------------------------
+
+# probe row width: [act_sq, act_nonfinite, dact_sq, dact_nonfinite]
+LAYER_PROBE_WIDTH = 4
+
+
+def _act_stats(x: torch.Tensor) -> torch.Tensor:
+    """(2,) f32 [sum of squares, non-finite element count] of one layer's
+    output (or its gradient), over the tensor this rank holds."""
+    xf = x.detach().float()
+    return torch.stack([xf.square().sum(), nonfinite(xf)])
+
+
+class _HealthTap(torch.autograd.Function):
+    """Identity on x; the probe row's gradient is [act stats, dact
+    stats], both taken in the backward: x is saved, which costs nothing
+    a checkpoint or the next block's input does not already keep (inside
+    a checkpoint the recompute hands the same x back)."""
+
+    @staticmethod
+    def forward(ctx, x, probe):
+        ctx.save_for_backward(x)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, = ctx.saved_tensors
+        return g, torch.cat([_act_stats(x), _act_stats(g)])
+
+
+def layer_health_tap(x: torch.Tensor, probe: torch.Tensor) -> torch.Tensor:
+    """Identity on `x` (a block's output); the (4,) f32 `probe` row's
+    GRADIENT comes back as [act sq-sum, act non-finite count, d(act)
+    sq-sum, d(act) non-finite count] (JAX :363): the engine
+    differentiates the loss with respect to a zero (n_layer, 4) probe
+    whose row l taps layer l, so the per-layer stats leave the backward
+    with no extra host transfer."""
+    return _HealthTap.apply(x, probe)
+
+
+class ProbeScan:
+    """The "probe" lowering's executor (JAX `ProbeScan`, :396): the
+    model's own layer loop, each block called with its probe row, which
+    the block taps inside its checkpoint (models/gpt2.py `_block_fn`).
+    `gather` is ZeRO-3's on-demand gather (`Zero3Gather`): the step's
+    stacking goes through its `prepare`, and each block gathers its own
+    layer as without the probe."""
+
+    def __init__(self, probe: torch.Tensor, gather=None):
+        self.probe = probe
+        self.gather = gather
+
+    def prepare(self, model, params):
+        if self.gather is not None:
+            return self.gather.prepare(params)
+        return params, model.stacked_compute_params(params)
+
+    def blocks(self, model, x, stacked, dkeys, pctx=None):
+        block = model._block_fn()
+        for bp, dkey, row in zip(model._layers(stacked), dkeys,
+                                 self.probe.unbind(0)):
+            x = block(x, bp, dkey, pctx, probe=row)
+        return x, None
 
 
 # ---------------------------------------------------------------------------
@@ -827,7 +936,13 @@ class ScanExecutor:
     `new_residual` holds the buckets' new slices after the backward.
 
     `live` counts the bytes of gathered layer weights it holds (issued
-    and not yet dropped): at most `look + 1` layers' worth."""
+    and not yet dropped): at most `look + 1` layers' worth.
+
+    With `probe_on` (the probe slot inside "composed", JAX
+    `composed_step`'s tapped blocks) the backward writes each layer's
+    [act sq-sum, act non-finite, dact sq-sum, dact non-finite] — of its
+    recomputed output and of that output's gradient, over this rank's
+    batch — into `probe_stats` (n_layer, 4) f32."""
 
     def __init__(self, engine, mode: str, look: int, lb: Optional[int],
                  gather=None, codec=None):
@@ -845,6 +960,8 @@ class ScanExecutor:
         self.step = 0
         self.new_residual: Optional[List[torch.Tensor]] = None
         self.tail_whole: Optional[Dict[str, torch.Tensor]] = None
+        self.probe_on = False
+        self.probe_stats: Optional[torch.Tensor] = None
         self.live = _Live()
         self.bpctx = None  # the blocks' pctx, set by `blocks`
 
@@ -939,6 +1056,10 @@ class ScanExecutor:
         lb = self.lb or 1
         if self.codec is not None:
             self.new_residual = [None] * (L // lb)
+        if self.probe_on:
+            self.probe_stats = torch.zeros(L, LAYER_PROBE_WIDTH,
+                                           dtype=torch.float32,
+                                           device=dy.device)
         bucket: Dict[int, Dict[str, torch.Tensor]] = {}
         inflight: Optional[tuple] = None
         dx = dy
@@ -955,6 +1076,9 @@ class ScanExecutor:
                 wl = {n: t.detach().requires_grad_() for n, t in w.items()}
                 y = self.model._block(xk, wl, dkey=dkeys[k],
                                       pctx=self.bpctx)
+                if self.probe_on:
+                    self.probe_stats[k] = torch.cat([_act_stats(y),
+                                                     _act_stats(dx)])
                 got = torch.autograd.grad(y, [xk, *wl.values()], dx)
             stash[k] = None
             del w, wl, y, xk

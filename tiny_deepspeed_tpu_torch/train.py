@@ -20,6 +20,10 @@
     torchrun ... -m tiny_deepspeed_tpu_torch.train --engine zero2
         --grad-comm int8 [--grad-comm-groups M] [--grad-buckets K]
         [--sched grad_comm=auto,grad_buckets=auto]            (one line)
+    python -m tiny_deepspeed_tpu_torch.train --telemetry [layers]
+        --metrics run.jsonl [--flight-steps N] [--telemetry-trace DIR]
+    python -m tiny_deepspeed_tpu_torch.train --model gpt2-1.5b
+        --offload-opt-state [--offload-prefetch W]            (one line)
 
 Counterpart of `examples/{single_device,ddp,zero1,zero2,zero3}/train.py`
 with the harness of `examples/common.py` (`parse_args` / `run`): the same
@@ -28,11 +32,15 @@ flags, with the same names and defaults, for what the port supports
 `--gather-quant`,
 `--moe-dispatch`, the grad-comm codecs' `--grad-comm`,
 `--grad-comm-groups`, `--grad-comm-block`,
-`--no-grad-comm-error-feedback` and `--hpz-comm`, and the collective
+`--no-grad-comm-error-feedback` and `--hpz-comm`, the collective
 schedule's `--grad-buckets`, `--gather-prefetch`, `--gather-groups` and
 `--sched` — the spec merges
-over those flags and wins, as examples/common.py:451-484 merges it —
-among them), plus `--device` (default the card) and
+over those flags and wins, as examples/common.py:451-484 merges it, and
+its `health` upgrades the telemetry to layers mode —, the optimizer-state
+offload's `--offload-opt-state` / `--offload-prefetch`, and the
+telemetry's `--telemetry [on|layers]`, `--flight-steps`,
+`--telemetry-trace` and `--metrics` among them), plus `--device`
+(default the card) and
 `--engine` (default `single`; `examples/zero3/train.py` defaults to
 gpt2-1.5b, here `--model` says so).  Seeded init, the JAX package's
 token stream (synthetic unless `--data`), `AdamW(lr, weight_decay,
@@ -53,7 +61,18 @@ place of init and seeks the data stream to its sample offset (the
 indexed stream when the global batch changed), so the run continues the
 uninterrupted one's losses; the lr schedule continues from the restored
 optimizer step.  JAX's async writer, SIGTERM drain and telemetry-driven
-checkpoints are not ported (ROADMAP.md).
+checkpoints are not ported (ROADMAP.md), nor are the harness's tensor,
+expert and pipeline parallelism flags: the engines refuse those knobs.
+
+Telemetry (`--telemetry`, examples/common.py:453-477, :671-720): rank 0
+runs each step inside `Telemetry.step` — the data wait as `data_s`, the
+health vector's sync closing the clock — prints the health's loss, and
+with `--metrics` logs a step record per iteration (loss, step_s,
+tokens_per_s and `Telemetry.step_record`), flushes the flight recorder
+at that cadence when an anomaly armed it, and after the loop a
+`straggler` record (the ranks' host data wait) and the registry's
+`telemetry_summary`.  `--metrics` alone logs loss, step_s and
+tokens_per_s.  The records validate under `telemetry/schema.py`.
 """
 
 from __future__ import annotations
@@ -72,7 +91,9 @@ from .optim import schedule as schedules
 from .parallel import (DDP, SingleDevice, Zero1, Zero2, Zero3,
                        init_distributed)
 from .parallel.schedule import parse_sched_spec
+from .telemetry import Telemetry
 from .utils import checkpoint as ckpt
+from .utils.profiling import MetricsLogger
 
 ENGINES = {"single": SingleDevice, "ddp": DDP, "zero1": Zero1,
            "zero2": Zero2, "zero3": Zero3}
@@ -179,6 +200,34 @@ def parse_args(argv=None):
                         "'gather_groups=auto' (sized from the hosts' "
                         "granule map, schedule.auto_comm_plan); merges "
                         "over the flags above and wins")
+    p.add_argument("--offload-opt-state", action="store_true",
+                   help="ZeRO-Offload-style placement: optimizer moments "
+                        "rest in host memory (pinned on the card) and stream "
+                        "through the device leaf by leaf for the update")
+    p.add_argument("--offload-prefetch", type=int, default=2, metavar="W",
+                   help="with --offload-opt-state: leaves of moments in "
+                        "flight (>= 1; 1 = serial streaming; default 2)")
+    p.add_argument("--metrics", default=None, metavar="FILE.jsonl",
+                   help="append per-iter structured metrics (loss, step "
+                        "seconds, tokens/s) as JSONL "
+                        "(utils/profiling.MetricsLogger)")
+    p.add_argument("--telemetry", nargs="?", const="on", default=None,
+                   choices=("on", "layers"),
+                   help="run telemetry (telemetry/): the health vector "
+                        "computed in the step (grad / update / param norms, "
+                        "non-finite count), the step-time breakdown, memory "
+                        "watermarks, a flight recorder flushed on anomalies "
+                        "and straggler gauges; 'layers' adds per-layer "
+                        "health (GPT-2 / Llama).  Pairs with --metrics")
+    p.add_argument("--telemetry-trace", default=None, metavar="DIR",
+                   help="with --telemetry: one torch.profiler trace of the "
+                        "step after the first step slower than 2.5x the "
+                        "rolling median, into DIR")
+    p.add_argument("--flight-steps", type=int, default=64, metavar="N",
+                   help="with --telemetry: flight-recorder ring size — the "
+                        "last N steps' health flushed as one JSONL 'flight' "
+                        "record when the anomaly detector fires (0 "
+                        "disables)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--data", default=None, metavar="TOKENS.bin",
                    help="uint16 token corpus; default synthetic tokens")
@@ -288,7 +337,20 @@ def _resume_stream(meta, start_iter: int, b: int, say):
     return int(seen), False
 
 
+def _telemetry(args, sched_kw):
+    """The run's Telemetry or None: --telemetry, upgraded to layers mode
+    by --sched's `health` (examples/common.py:453-466)."""
+    layers = (args.telemetry == "layers"
+              or sched_kw.pop("telemetry_layers", False))
+    if not (args.telemetry or layers):
+        return None
+    return Telemetry(trace_dir=args.telemetry_trace, layers=layers,
+                     flight_steps=args.flight_steps)
+
+
 def run(args):
+    sched_kw = parse_sched_spec(args.sched) if args.sched else {}
+    telem = _telemetry(args, sched_kw)
     kw = dict(grad_clip=args.grad_clip or None, loss_scale=args.loss_scale,
               grad_buckets=args.grad_buckets,
               gather_prefetch=args.gather_prefetch,
@@ -296,9 +358,10 @@ def run(args):
               grad_comm_groups=args.grad_comm_groups,
               grad_comm_block=args.grad_comm_block,
               grad_comm_error_feedback=not args.no_grad_comm_error_feedback,
-              hpz_comm=args.hpz_comm)
-    if args.sched:
-        kw.update(parse_sched_spec(args.sched))
+              hpz_comm=args.hpz_comm,
+              offload_opt_state=args.offload_opt_state,
+              offload_prefetch=args.offload_prefetch, telemetry=telem)
+    kw.update(sched_kw)
     device = args.device
     if args.engine == "single":
         if args.seq_parallel != 1:
@@ -341,11 +404,41 @@ def run(args):
     val_loader = (TokenLoader(args.val_data, batch=b, seq=args.seq_len,
                               vocab_size=vocab, seed=args.seed + 1)
                   if args.eval_every else None)
+    metrics = MetricsLogger(args.metrics, stdout=False) if args.metrics \
+        else None
     t0 = time.perf_counter()
+    data_s = 0.0  # this rank's host data wait: the straggler quantity
     for it in range(start_iter, args.iters):
-        state, loss = engine.step(state, loader.next())
-        loss = float(loss)  # syncs the step
+        it_t0 = time.perf_counter()
+        if telem is not None and lead:
+            # the health vector's sync closes the step clock: one
+            # transfer delivers the loss and the norms
+            with telem.step(index=it) as t:
+                batch = loader.next()
+                t.mark("data")
+                data_s += time.perf_counter() - it_t0
+                state, loss = engine.step(state, batch)
+            health = telem.last_health
+            loss = health["loss"] if health is not None else float(loss)
+            it_dt = telem.timer.times[-1]
+            rec = telem.step_record()
+        else:
+            batch = loader.next()
+            data_s += time.perf_counter() - it_t0
+            state, loss = engine.step(state, batch)
+            loss = float(loss)  # syncs the step
+            it_dt = time.perf_counter() - it_t0
+            rec = {}
         say(f"iter {it:3d} loss {loss:.4f}")
+        if metrics is not None:
+            metrics.log(it, loss=loss, step_s=it_dt,
+                        tokens_per_s=b * args.seq_len / max(it_dt, 1e-9),
+                        **rec)
+            if telem is not None and lead:
+                reason = telem.maybe_flush_flight(metrics)
+                if reason is not None:
+                    say(f"iter {it:3d} flight record flushed (reason: "
+                        f"{reason})")
         if args.eval_every and (it + 1) % args.eval_every == 0:
             vals = [float(engine.eval_loss(state, val_loader.next()))
                     for _ in range(args.eval_batches)]
@@ -361,9 +454,21 @@ def run(args):
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     n = args.iters - start_iter
+    if telem is not None and metrics is not None:
+        if n:  # every rank gathers (a collective); rank 0 writes
+            metrics.log_meta(kind="straggler", **telem.sample_stragglers(
+                step_s=data_s / n, quantity="host_prep_s"))
+        telem.flush(metrics)
+    if metrics is not None:
+        metrics.close()
     toks = n * b * args.seq_len
     say(f"done: {n} iters in {dt:.1f}s ({toks / max(dt, 1e-9):.0f} "
         "tokens/s)")
+    if telem is not None and lead and telem.timer.times:
+        tm = telem.timer
+        say(f"step time p50 {tm.p50_s * 1e3:.1f}ms p95 "
+            f"{tm.p95_s * 1e3:.1f}ms p99 {tm.p99_s * 1e3:.1f}ms max "
+            f"{tm.max_s * 1e3:.1f}ms")
     return state
 
 

@@ -159,7 +159,11 @@ def _commit(path: str, step: int) -> None:
 
 def _payload(state, layout) -> Dict:
     """What this rank writes: plain dicts of tensors and numbers, which
-    `torch.load(weights_only=True)` reads back."""
+    `torch.load(weights_only=True)` reads back.  On the card the device
+    is synced first: offloaded moments rest in pinned host memory, which
+    the step's last copies write asynchronously."""
+    if any(p.is_cuda for p in state.params.values()):
+        torch.cuda.synchronize()
     opt = state.opt_state
     return {"layout": dict(layout),
             "params": {n: p.detach() for n, p in state.params.items()},
