@@ -13,7 +13,8 @@ llama-160m served and trained; then the MoE family: moe-8x124m trained
 with both dispatches; then `generate` on all three families and a
 checkpoint's save and resume; the in-step collective schedule and the
 grad-comm codecs at world 1; Ulysses on the FA2 kernels and the
-counter-based dropout kernel.
+counter-based dropout kernel (csrc/dropout.cu; the Triton kernel it
+replaced as the parent's arm).
 
     python3 chip_smoke.py
 
@@ -136,7 +137,11 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      the fused and chunked heads against the default head, the kernel
      path against the plain path, one fused AdamW update against
      fused=False, dropout's determinism, remat invariance and eval, and
-     an 8-step fit;
+     an 8-step fit; then the step with the dropout kernel and with the
+     Triton kernel it replaced swapped in (`drop_step_ab`), two engines
+     from one init in turns (6 runs of 10 steps a side): losses bit for
+     bit across the swap, step and host medians, one profiled step a
+     side (busy, idle, the dropout kernels);
   6. serving variants: gpt2-124m bf16 at full depth, phase 3's 16
      requests under spec_draft="ngram" and "model:self" (spec_k=4) and
      under quant="int8" and "fp8", and a shared-prefix mix (16 requests
@@ -320,10 +325,13 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      world 1 with seq_impl="ulysses" and dropout 0.1 on phase 4's config,
      3 steps bit for bit SingleDevice with dropout, the dropout kernel's
      launches exact (`dropout_launches_per_step`; phase 5's too);
-     d. the dropout kernel (ops/dropout.py) at 8 x 1024 x 768 bf16 and
-     f32 bit for bit its plain version, the whole mask = 4 row blocks
-     = 2 token blocks at their offsets, timed and in turns against the
-     parent's rand + where and F.dropout, host ms a call, bound in bytes;
+     d. the dropout kernel (csrc/dropout.cu) at 8 x 1024 x 768 bf16 and
+     f32 bit for bit its plain version and the Triton kernel it
+     replaced, the whole mask = 4 row blocks = 2 token blocks at their
+     offsets; a ragged width (C = 771), a misaligned view and blocks
+     whose global indices pass 2**32 bit for bit the plain version;
+     timed and in turns against the Triton kernel (the parent) and
+     F.dropout, host ms a call, bound in bytes;
  15. the telemetry knob and the optimizer-state offload (after 14, in
      the same NCCL group): a. Zero3 at world 1 on gpt2-1.5b (phase 8d's
      configuration, AdamW(fused=True)) with offload off, W=1 and W=2 in
@@ -340,10 +348,11 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      executors (DDP's bucketed release, Zero3's composed schedule, K=4):
      loss and gradients bit for bit the plain path's under the rank-0
      folded key;
-  then the `kernels` JSON line (31 rows: the 22 kernels, rows 10kv, 1r
+  then the `kernels` JSON line (32 rows: the 22 kernels, rows 10kv, 1r
   and the decode append, the Triton LayerNorm forward pair and the v1
-  writer, launched on no path, the four RMS rows and the dropout
-  kernel; launches by path, the Llama paths `llama_*`, the MoE paths
+  writer, launched on no path, the four RMS rows, the dropout kernel
+  and the Triton dropout kernel it replaced, launched on no path;
+  launches by path, the Llama paths `llama_*`, the MoE paths
   `moe_*` and the generate paths `gen`, `L-gen`, `M-gen`, phase 12's
   `sched_*` / `exec_*`, phase 13's `codec_*`, phase 14's
   `ulysses*` / `uly_drop_*` and phase 15's `offload_*`, `telem_*` and
@@ -3154,6 +3163,97 @@ def ln_bwd_step_ab(torch, port, ln, runs=6, steps=10):
           f"losses of the {len(arms['fused']['losses'])} steps within "
           f"{diff:.3g} (tol 1e-2)")
     out["loss_diff"] = diff
+    del arms
+    return out
+
+
+def drop_step_ab(torch, port, D, card, runs=6, steps=10):
+    """Phase 5's step (gpt2-124m, the fused head, AdamW(fused=True),
+    dropout 0.1, B=8 T=1024) with the dropout kernel (csrc/dropout.cu)
+    and with the Triton kernel it replaced swapped in (`_dropout_cuda`
+    -> `_dropout_triton`), in turns in one process: two SingleDevice
+    engines from the same init step the same batches, `runs` runs of
+    `steps` steps a side, alternating.  The masks are the same bits, so
+    the losses must be bit for bit.  Medians of the step (host clock,
+    ending in the loss's sync) and of its host part (until `step`
+    returns); one profiled step a side: busy, idle and the dropout
+    kernels' device ms and records."""
+    cfg = dataclasses.replace(port.GPT2_PRESETS["gpt2-124m"],
+                              fused_xent=True, fused_xent_impl="pallas",
+                              dropout=0.1)
+    loader = port.TokenLoader(None, batch=8, seq=1024,
+                              vocab_size=cfg.vocab_size, seed=0)
+    batches = [loader.next() for _ in range(3 + runs * steps + 1)]
+    arms = {}
+    for name in ("cuda", "triton"):
+        eng = port.SingleDevice(port.GPT2Model(cfg), port.AdamW(
+            lr=1e-5, weight_decay=0.1, fused=True))
+        arms[name] = dict(eng=eng, state=eng.init(0), losses=[], step=[],
+                          host=[])
+
+    def ctx(name):
+        return (swapped((D, "_dropout_cuda", D._dropout_triton))
+                if name == "triton" else contextlib.nullcontext())
+
+    def run(name, chunk, timed):
+        arm = arms[name]
+        with ctx(name):
+            for batch in chunk:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                arm["state"], loss = arm["eng"].step(arm["state"], batch)
+                t1 = time.perf_counter()
+                arm["losses"].append(float(loss))
+                if timed:
+                    arm["host"].append((t1 - t0) * 1e3)
+                    arm["step"].append((time.perf_counter() - t0) * 1e3)
+
+    for name in arms:
+        run(name, batches[:3], False)  # warm-up (the Triton compile too)
+    for k in range(runs):
+        chunk = batches[3 + k * steps:3 + (k + 1) * steps]
+        for name in (("cuda", "triton") if k % 2 == 0
+                     else ("triton", "cuda")):
+            run(name, chunk, True)
+    check(arms["cuda"]["losses"] == arms["triton"]["losses"],
+          f"the dropout A/B: losses differ across the swap: "
+          f"{arms['cuda']['losses']} vs {arms['triton']['losses']}")
+    cuda_dev = torch.autograd.DeviceType.CUDA
+    out = {}
+    for name, arm in arms.items():
+        with ctx(name):
+            prof = profiled(torch, lambda: float(arm["eng"].step(
+                arm["state"], batches[-1])[1]))
+        check(prof is not None, "the profiler recorded no device time")
+        busy, per, rec = 0.0, {}, {}
+        for e in prof.key_averages():
+            if getattr(e, "device_type", None) != cuda_dev:
+                continue
+            us = _self_device_us(e)
+            busy += us
+            k = ("triton" if "_dropout_kernel" in e.key else
+                 "cuda" if "dropout_kernel" in e.key else None)
+            if k:
+                per[k] = per.get(k, 0.0) + us / 1e3
+                rec[k] = rec.get(k, 0) + e.count
+        step = statistics.median(arm["step"])
+        out[name] = dict(step_ms=step, host_ms=statistics.median(arm["host"]),
+                         step_min_ms=min(arm["step"]),
+                         step_max_ms=max(arm["step"]), busy_ms=busy / 1e3,
+                         idle=1 - busy / 1e3 / step, dropout_ms=per,
+                         dropout_records=rec)
+        print(f"  [{card}] dropout A/B, {name}: step median {step:.3f} ms "
+              f"[{min(arm['step']):.3f}, {max(arm['step']):.3f}], host "
+              f"{out[name]['host_ms']:.3f} ms, over {len(arm['step'])} steps "
+              f"({runs} runs of {steps}, in turns); one profiled step: busy "
+              f"{busy / 1e3:.3f} ms, idle {out[name]['idle']:.4f}; dropout "
+              f"kernels { {k: round(v, 4) for k, v in per.items()} } ms, "
+              f"records {rec}")
+    print(f"  dropout A/B: step cuda / triton "
+          f"{out['cuda']['step_ms'] / out['triton']['step_ms']:.4f}, host "
+          f"{out['cuda']['host_ms'] - out['triton']['host_ms']:+.3f} ms, busy "
+          f"{out['cuda']['busy_ms'] - out['triton']['busy_ms']:+.3f} ms; the "
+          f"{len(arms['cuda']['losses'])} losses bit for bit")
     del arms
     return out
 
@@ -6232,67 +6332,90 @@ def ulysses_engines_phase(torch, port, counters, card):
     return paths
 
 
-def parent_dropout(torch, x, key, keep):
-    """The parent's dropout: a mask from a generator seeded with the key
-    (`torch.rand < keep` over the rank's own shape), then where."""
-    g = torch.Generator(device=x.device).manual_seed(key)
-    mask = torch.rand(x.shape, generator=g, device=x.device) < keep
-    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+# 14d's further cases: (block shape, frame) — a ragged width (element
+# accesses) and blocks whose global indices pass 2**32, vectors and not
+DROP_FRAMES = (((8, 64, 771), None),
+               ((2, 40, 768), ((8, 2 ** 21, 1024), (5, 2 ** 21 - 40, 256))),
+               ((3, 40, 771), ((4, 2 ** 21, 1543), (1, 2 ** 21 - 40, 772))))
 
 
 def dropout_phase(torch, F, D, card):
-    """14d: the dropout kernel at phase 4's residual shape (8 x 1024 x
-    768), bf16 and f32: bit for bit its plain version, forward and
-    through DropoutFn's backward; the whole mask's output equal, bit for
-    bit, to the same tensor dropped as 4 row blocks and as 2 token blocks
-    at their offsets; timed (device ms, plain, F.dropout — not the same
-    bits, so time only) and in turns against the parent's rand + where
-    and F.dropout, host ms a call, its bound in bytes."""
+    """14d: the dropout kernel (csrc/dropout.cu) at phase 4's residual
+    shape (8 x 1024 x 768), bf16 and f32: bit for bit its plain version
+    and the Triton kernel it replaced, forward and through DropoutFn's
+    backward (the Triton kernel never launched there); the whole mask's
+    output equal, bit for bit, to the same tensor dropped as 4 row blocks
+    and as 2 token blocks at their offsets; a ragged width, a misaligned
+    view and blocks past 2**32 (`DROP_FRAMES`) bit for bit the plain
+    version; timed (device ms, plain, F.dropout — not the same bits, so
+    time only) and in turns against the Triton kernel (the parent) and
+    F.dropout, host ms a call, its bound in bytes.  Returns the kernel's
+    rows and the Triton kernel's, by dtype."""
     from tiny_deepspeed_tpu_torch import rng as prng
     key, rate = prng.fold_in(prng.fold_in(0, 0xD0), 14), 0.1
     keep = 1.0 - rate
     b, t, c = DROP_SHAPE
-    res = {}
+    res, tri = {}, {}
     for dtype in (torch.bfloat16, torch.float32):
         g = torch.Generator(device="cuda").manual_seed(14)
         x = torch.randn(DROP_SHAPE, generator=g, device="cuda").to(dtype)
         dname = str(dtype)[6:]
-        before = D.dropout.launches
-        y = D._dropout_triton(x, key, keep, None)
+        before, tb = D.dropout.launches, D._dropout_triton.launches
+        y = D._dropout_cuda(x, key, keep, None)
+        yt = D._dropout_triton(x, key, keep, None)
         torch.cuda.synchronize()
-        check(D.dropout.launches == before + 1, f"14d {dname}: not one launch")
+        check(D.dropout.launches == before + 1
+              and D._dropout_triton.launches == tb + 1,
+              f"14d {dname}: not one launch of each kernel")
         check(torch.equal(y, D._dropout_plain(x, key, keep, None)),
               f"14d {dname}: the kernel is not bit for bit its plain version")
+        check(torch.equal(y, yt),
+              f"14d {dname}: the kernel is not bit for bit the Triton kernel")
         kept = float((y != 0).float().mean())
         check(abs(kept - keep) < 1e-3, f"14d {dname}: kept share {kept}")
         blocks = [((2 * i, 0, 0), x[2 * i:2 * i + 2]) for i in range(4)]
         tokens = [((0, 512 * j, 0), x[:, 512 * j:512 * (j + 1)])
                   for j in range(2)]
         for (off, xb) in blocks + tokens:
-            yb = D._dropout_triton(xb.contiguous(), key, keep,
-                                   (DROP_SHAPE, off))
+            yb = D._dropout_cuda(xb.contiguous(), key, keep,
+                                 (DROP_SHAPE, off))
             sl = tuple(slice(o, o + n) for o, n in zip(off, xb.shape))
             check(torch.equal(yb, y[sl]),
                   f"14d {dname}: the block at {off} is not the whole "
                   "mask's block")
         xr = x.detach().requires_grad_()
         dy = torch.randn(DROP_SHAPE, generator=g, device="cuda").to(dtype)
-        before = D.dropout.launches
+        before, tb = D.dropout.launches, D._dropout_triton.launches
         yr = D.dropout(xr, key, rate)
         (dx,) = torch.autograd.grad(yr, xr, dy)
         torch.cuda.synchronize()
-        check(D.dropout.launches == before + 2 and torch.equal(yr, y)
+        check(D.dropout.launches == before + 2
+              and D._dropout_triton.launches == tb and torch.equal(yr, y)
               and torch.equal(dx, D._dropout_plain(dy, key, keep, None)),
               f"14d {dname}: DropoutFn's forward / backward")
+        cases = []
+        buf = torch.randn(1 + 64 * c, generator=g, device="cuda").to(dtype)
+        for shape, frame in DROP_FRAMES + (("misaligned", None),):
+            xc = (buf[1:].view(64, c) if shape == "misaligned" else
+                  torch.randn(shape, generator=g, device="cuda").to(dtype))
+            yc = D._dropout_cuda(xc, key, keep, frame)
+            gi = D.global_index(xc.shape, frame, "cpu")
+            check(torch.equal(yc, D._dropout_plain(xc, key, keep, frame)),
+                  f"14d {dname}: {shape} at {frame} is not bit for bit the "
+                  "plain version")
+            cases.append(f"{tuple(xc.shape)} (indices to "
+                         f"{int(gi.max())}, "
+                         f"{D.vector_width(xc, yc, xc.shape[-1])}-element "
+                         "accesses)")
 
         def kernel():
-            return D._dropout_triton(x, key, keep, None)
+            return D._dropout_cuda(x, key, keep, None)
 
         def plain():
             return D._dropout_plain(x, key, keep, None)
 
         def par():
-            return parent_dropout(torch, x, key, keep)
+            return D._dropout_triton(x, key, keep, None)
 
         def lib():
             return F.dropout(x, rate, training=True)
@@ -6306,15 +6429,19 @@ def dropout_phase(torch, F, D, card):
                  bound_by=by, max_abs_err=0.0,
                  shape=f"{b}x{t}x{c} {dname}")
         res[dname] = r
-        print(f"  [{card}] 14d dropout {b}x{t}x{c} {dname}: bit for bit the "
-              f"plain version (forward and DropoutFn's backward); whole = "
-              f"4 row blocks = 2 token blocks bit for bit; kept "
-              f"{kept:.5f}; "
+        tri[dname] = parent_row(torch, r, par, 0.0)
+        print(f"  [{card}] 14d dropout (csrc/dropout.cu) {b}x{t}x{c} "
+              f"{dname}: bit for bit the plain version and the Triton "
+              f"kernel (forward and DropoutFn's backward); whole = 4 row "
+              f"blocks = 2 token blocks bit for bit; bit for bit the plain "
+              f"version at {', '.join(cases)}; kept {kept:.5f}; "
               + " ".join(f"{k}={r[k]:.5g}" for k in
                          ("ms", "plain_ms", "library_ms", "call_ms",
                           "bound_ms"))
-              + f" (bound by {by}); " + sides_text(r))
-    return res
+              + f" (bound by {by}, {r['ms'] / bms:.4g}x); "
+              + sides_text(r) + f"; the Triton kernel ms="
+              f"{tri[dname]['ms']:.5g} call_ms={tri[dname]['call_ms']:.5g}")
+    return res, tri
 
 
 # -- phase 15: telemetry and optimizer-state offload -----------------------
@@ -6879,7 +7006,8 @@ def main():
                 "add_rmsnorm_fwd": rn.add_rmsnorm_fwd,
                 "rmsnorm_bwd": rn.rmsnorm_bwd,
                 "rmsnorm_bwd_gs": Attr(rn.rmsnorm_bwd, "launches_gs"),
-                "dropout": dr.dropout}
+                "dropout": dr.dropout,
+                "dropout_triton": dr._dropout_triton}
     serve_kernels = SERVE_BASE + ("paged_attention",
                                   "paged_attention_append")
     for fn in counters.values():
@@ -6994,6 +7122,9 @@ def main():
     knob = knobbed_phase(torch, port, counters, ln, fa, fx, af)
     torch.cuda.empty_cache()
     lap("phase 5")
+    knob["drop_ab"] = drop_step_ab(torch, port, dr, card)
+    torch.cuda.empty_cache()
+    lap("phase 5's dropout A/B")
 
     print("phase 6: serving variants of gpt2-124m (speculative decoding, "
           "prefix cache, int8/fp8 pools)")
@@ -7076,7 +7207,7 @@ def main():
         ulysses_group_phase(torch, card)
         uly_paths.update(ulysses_engines_phase(torch, port, counters, card))
         lap("14b / 14c, the NCCL group and the engines")
-        drop_res = dropout_phase(torch, F, dr, card)
+        drop_res, drop_tri = dropout_phase(torch, F, dr, card)
         torch.cuda.empty_cache()
         print(f"phase 14: {time.perf_counter() - t14:.2f}s")
 
@@ -7297,9 +7428,15 @@ def main():
               ("rmsnorm_bwd_gs", "ln_bwd.cu", 33))),
         # no TPU kernel stands behind it: JAX drops with
         # jax.random.bernoulli + where, two XLA ops
-        entry("dropout", "triton", "tiny_deepspeed_tpu_torch/ops/dropout.py",
+        entry("dropout", "cuda", "tiny_deepspeed_tpu_torch/csrc/dropout.cu",
               "tiny_deepspeed_tpu/models/gpt2.py:228 (no TPU kernel: "
               "jax.random.bernoulli + where, XLA ops)", drop_res["bfloat16"]),
+        # the Triton kernel the dropout row replaced: the parent's arm,
+        # off every path
+        entry("dropout_triton", "triton",
+              "tiny_deepspeed_tpu_torch/ops/dropout.py",
+              "tiny_deepspeed_tpu/models/gpt2.py:228 (no TPU kernel: "
+              "jax.random.bernoulli + where, XLA ops)", drop_tri["bfloat16"]),
     ]
     kernels[13]["per_step"] = bwd_res["adamw_update_fused"]["per_step"]
     extra = {"paged_attention": {"long_context": pa_res["long_context"]},
@@ -7328,7 +7465,8 @@ def main():
                                "n1600_add": lnb_res[1600, True]},
              **{k: {"decode": rms_res[k, 8, 768],
                     "n2048": rms_res[k, 8192, 2048]} for k in RMS_KERNELS},
-             "dropout": {"f32": drop_res["float32"]}}
+             "dropout": {"f32": drop_res["float32"]},
+             "dropout_triton": {"f32": drop_tri["float32"]}}
     for row in kernels:
         for k, v in extra.get(row["name"], {}).items():
             row[k + "_shape"] = {f: v[f] for f in timed + extra_keys
@@ -7343,7 +7481,7 @@ def main():
     print(f"clocks: {len(clocks) - len(events)} of {len(clocks)} device "
           f"times from the profiler, {len(events)} from CUDA events"
           + (f" ({', '.join(events)})" if events else ""))
-    check(len(kernels) == 31, f"{len(kernels)} kernel rows")
+    check(len(kernels) == 32, f"{len(kernels)} kernel rows")
     # the dropout kernel: on the dropout paths, exactly, and nowhere else
     by = kernels[30]["launches_by_path"]
     drop_paths = ("knobbed_training", "uly_drop_single",
@@ -7352,6 +7490,9 @@ def main():
     check(all(by[p] > 0 for p in drop_paths)
           and not any(v for p, v in by.items() if p not in drop_paths),
           f"dropout launches by path {by}")
+    check(not any(kernels[31]["launches_by_path"].values()),
+          f"the replaced Triton dropout kernel ran on a path: "
+          f"{kernels[31]['launches_by_path']}")
     gpt2_paths = [p for p in kernels[0]["launches_by_path"]
                   if not is_llama_path(p)]
     for row in kernels[26:30]:
@@ -7397,7 +7538,8 @@ def main():
                    "moe_training": moe_train,
                    "generate": gen_res, "checkpoint": ckpt_res,
                    "schedule": sched_res, "codecs": codec_res,
-                   "offload": off_res, "telemetry": telem_res},
+                   "offload": off_res, "telemetry": telem_res,
+                   "dropout_ab": knob["drop_ab"]},
                   f, indent=1, default=str)
     print(f"total {time.perf_counter() - t_all:.2f}s")
     print(json.dumps({"kernels": kernels}))

@@ -1833,3 +1833,137 @@ def test_moe_block_remat_bit_identical(dispatch):
         assert torch.equal(other[1], runs[0][1])
         for a, b in zip(other[2], runs[0][2]):
             assert torch.equal(a, b)
+
+
+# -- slice 22: the dropout kernel (csrc/dropout.cu) ------------------------
+
+DROP_KEY = 0xD0D0_1234_5678_9ABC
+
+
+def _drop_case(x, key, keep, frame=None):
+    """One launch of the kernel on x, bit for bit its plain version."""
+    from tiny_deepspeed_tpu_torch.ops import dropout as D
+    before = D.dropout.launches
+    y = D._dropout_cuda(x, key, keep, frame)
+    torch.cuda.synchronize()
+    assert D.dropout.launches == before + (1 if x.numel() else 0)
+    want = D._dropout_plain(x, key, keep, frame)
+    assert y.shape == x.shape and y.dtype == x.dtype
+    assert torch.equal(y, want)
+    return y
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("shape", [(8, 1024, 768), (2, 5, 771), (3, 771),
+                                   (1000,), (4099,), (2, 3, 1600),
+                                   (1, 1, 8), (1, 300000)])
+@pytest.mark.parametrize("keep", [0.9, 0.5])
+def test_dropout_kernel_bit_for_bit(dtype, shape, keep):
+    """16-byte vectors and element accesses (C = 771, odd lengths), 1-D
+    to 3-D, one to many column chunks a row."""
+    x = (torch.randn(shape, generator=_g(22), device="cuda") * 3).to(dtype)
+    y = _drop_case(x, DROP_KEY, keep)
+    if x.numel() > 100000:
+        assert abs(float((y != 0).float().mean()) - keep) < 5e-3
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dropout_kernel_misaligned_and_empty(dtype):
+    """A view 2 / 4 bytes off 16-byte alignment (element accesses), the
+    same values aligned (vectors): equal outputs; an empty tensor."""
+    from tiny_deepspeed_tpu_torch.ops import dropout as D
+    buf = torch.randn(1 + 64 * 768, generator=_g(3), device="cuda").to(dtype)
+    xm = buf[1:].view(64, 768)
+    assert xm.data_ptr() % 16 != 0
+    ym = _drop_case(xm, 7, 0.9)
+    ya = _drop_case(xm.clone(), 7, 0.9)
+    assert torch.equal(ym, ya)
+    assert D.vector_width(xm, ya, 768) == 1
+    e = torch.empty(0, 768, device="cuda", dtype=dtype)
+    assert _drop_case(e, 7, 0.9).shape == (0, 768)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,frame", [
+    ((2, 512, 768), ((8, 1024, 768), (6, 512, 0))),
+    ((1, 5, 96), ((4, 2 ** 20, 4097), (3, 2 ** 20 - 5, 4000))),
+    ((3, 40, 771), ((4, 2 ** 21, 1543), (1, 2 ** 21 - 40, 772))),
+    ((7, 32), ((2 ** 22, 2 ** 12), (2 ** 22 - 7, 4000))),
+    ((48,), ((2 ** 40,), (2 ** 40 - 48,)))])
+def test_dropout_kernel_frames_past_2_32(dtype, shape, frame):
+    """Blocks at offsets whose global indices pass 2**32 (all but the
+    first), bit for bit the plain version's draw of the same block."""
+    x = torch.randn(shape, generator=_g(5), device="cuda").to(dtype)
+    for key in (0, 2 ** 64 - 1, DROP_KEY):
+        _drop_case(x, key, 0.9, frame)
+
+
+def test_dropout_fn_on_card_is_the_kernel_both_ways():
+    """DropoutFn: one launch forward, one on the gradient, each bit for
+    bit the plain version; the Triton kernel is never launched."""
+    from tiny_deepspeed_tpu_torch.ops import dropout as D
+    x = torch.randn(4, 64, 768, generator=_g(9), device="cuda",
+                    dtype=torch.bfloat16, requires_grad=True)
+    dy = torch.randn(4, 64, 768, generator=_g(10), device="cuda",
+                     dtype=torch.bfloat16)
+    frame = ((8, 64, 768), (4, 0, 0))
+    before, tri = D.dropout.launches, D._dropout_triton.launches
+    y = D.dropout(x, 99, 0.1, frame)
+    (dx,) = torch.autograd.grad(y, x, dy)
+    torch.cuda.synchronize()
+    assert D.dropout.launches == before + 2
+    assert D._dropout_triton.launches == tri
+    assert torch.equal(y, D._dropout_plain(x.detach(), 99, 0.9, frame))
+    assert torch.equal(dx, D._dropout_plain(dy, 99, 0.9, frame))
+
+
+def test_dropout_kernel_refuses_bad_operands():
+    from tiny_deepspeed_tpu_torch.ops import dropout as D
+    with pytest.raises(ValueError, match="dtype"):
+        D._dropout_cuda(torch.zeros(4, 8, device="cuda",
+                                    dtype=torch.float64), 1, 0.9, None)
+    with pytest.raises(ValueError, match="4-D"):
+        D._dropout_cuda(torch.zeros(2, 2, 4, 8, device="cuda"), 1, 0.9,
+                        None)
+    with pytest.raises(ValueError, match="leaves"):
+        D._dropout_cuda(torch.zeros(4, 8, device="cuda"), 1, 0.9,
+                        ((4, 8), (1, 0)))
+    # a vector width the operands do not take: the C entry refuses it
+    x = torch.zeros(4, 12, device="cuda", dtype=torch.bfloat16)
+    err = _build.entry("dropout", "dropout_fwd", D._ARGS)(
+        x.data_ptr(), x.data_ptr(), 4, 4, 12, 4, 12, 0, 0, 0, 1,
+        D.keep_threshold(0.9), 0.9, 8, _build.DTYPE_CODES[x.dtype],
+        _build.stream_ptr(x))
+    assert err != 0
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16,
+                                   torch.float32])
+@pytest.mark.parametrize("keep", [0.9, 0.5, 0.999, 0.123456, 1 / 3,
+                                  2.0 ** -20, 2.0 ** -21])
+def test_dropout_kernel_quotient_every_pattern(dtype, keep):
+    """x / keep as the plain version rounds it for every bf16 / f16 bit
+    pattern (zeros, subnormals, inf and NaN included) and 2**22 random
+    f32 patterns, at keeps inside and outside the kernel's fast range;
+    NaN where the plain version has NaN."""
+    from tiny_deepspeed_tpu_torch.ops import dropout as D
+    if dtype == torch.float32:
+        bits = torch.randint(-2 ** 31, 2 ** 31, (4096, 1024),
+                             generator=torch.Generator().manual_seed(1),
+                             dtype=torch.int64).to(torch.int32)
+    else:
+        bits = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(
+            torch.int16).view(256, 256)
+    x = bits.view(dtype).cuda()
+    seen = torch.zeros(x.shape, dtype=torch.bool, device="cuda")
+    for key in range(12):
+        y = D._dropout_cuda(x, key, keep, None)
+        want = D._dropout_plain(x, key, keep, None)
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(y), nan)
+        assert torch.equal(y[~nan], want[~nan])
+        assert torch.equal(torch.signbit(y[~nan]), torch.signbit(want[~nan]))
+        seen |= D.dropout_keep(key, x.shape, keep, "cuda")
+    if keep >= 0.9:  # every pattern kept under some key
+        assert bool(seen.all())

@@ -118,7 +118,7 @@ def test_cuda_tensors_route_to_the_kernel(monkeypatch):
         raise AssertionError("the plain version ran")
 
     monkeypatch.setattr(D, "on_cuda", lambda *t: True)
-    monkeypatch.setattr(D, "_dropout_triton", kernel)
+    monkeypatch.setattr(D, "_dropout_cuda", kernel)
     monkeypatch.setattr(D, "_dropout_plain", refuse)
     frame = ((4, 6, 8), (2, 0, 0))
     x = torch.randn(2, 6, 8, requires_grad=True)

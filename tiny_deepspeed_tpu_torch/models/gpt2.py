@@ -19,7 +19,7 @@ logits (default), the chunked `fused_linear_xent` or the fused-kernel
 `pallas_fused_xent` (`GPTConfig(fused_xent=True, fused_xent_impl=...)`).
 Dropout (`GPTConfig.dropout`) applies when `apply` is given an integer
 `rng` key, at the JAX package's three sites with its key tree, through
-`ops.dropout` (a Triton kernel on the card).  Its masks are
+`ops.dropout` (csrc/dropout.cu's CUDA kernel on the card).  Its masks are
 counter-based: an element's bit is a function of the site's key and the
 element's index in the global (B, T, C) tensor, so they are the same on
 any number of ranks.
@@ -262,7 +262,7 @@ def _dropout_frame(shape, pctx):
 def _dropout(x, key: int, rate: float, pctx=None):
     """Inverted dropout (JAX :228-234): zero with probability `rate`,
     survivors scaled 1/(1-rate), through `ops.dropout.dropout` (the
-    Triton kernel on the card) with the mask of x's place in the global
+    CUDA kernel on the card) with the mask of x's place in the global
     (B, T, C) tensor under `pctx`."""
     return dropout(x, key, rate, _dropout_frame(x.shape, pctx),
                    mask_fn=_dropout_keep)

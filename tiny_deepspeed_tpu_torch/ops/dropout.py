@@ -1,7 +1,7 @@
 # Copyright 2026 tiny-deepspeed-tpu authors
 # SPDX-License-Identifier: Apache-2.0
 
-"""Inverted dropout with counter-based masks: a Triton kernel on the card.
+"""Inverted dropout with counter-based masks: a CUDA C++ kernel on the card.
 
 No TPU kernel stands behind it: the JAX package drops with
 `jax.random.bernoulli` + `jnp.where` (models/gpt2.py `_dropout`,
@@ -22,32 +22,37 @@ and under the ring or Ulysses.  The bits are the port's own, not JAX's.
 0) in f32, cast to x's dtype, and the same on the gradient.  It saves
 no mask: the backward recomputes the bits from the key, as a remat
 recompute of the forward redraws them.  CUDA tensors launch the kernel
-(or raise); CPU tensors take the plain version, whose mask is drawn by
-`mask_fn` (default `dropout_keep`: the same hash in int64 torch ops,
-with the logical shifts masked out of torch's arithmetic ones and the
-products wrapping mod 2**64).  Kernel and plain version agree bit for
-bit: the bits are integers, the divide is IEEE (`div_rn`) on both.
+of csrc/dropout.cu (or raise); CPU tensors take the plain version, whose
+mask is drawn by `mask_fn` (default `dropout_keep`: the same hash in
+int64 torch ops, with the logical shifts masked out of torch's
+arithmetic ones and the products wrapping mod 2**64).  Kernel and plain
+version agree bit for bit: the bits are integers, the divide is IEEE
+(`div_rn`) on both.
 
 Bound: one read of x and one write of y (2 x 2 bytes an element in
 bf16), no floating-point work beyond a compare and a divide, so the
-stated bound is those bytes.  The hash costs some thirty 32-bit integer
-instructions an element (three 64-bit products), which the integer
-pipes may not hide behind the bytes; the measured time says which.
-Design: a 2-D grid of (ROWS rows of C) x (BLOCK_C columns) tiles; the
-global row index is computed per row (one int64 divide a row, none an
-element), the column runs contiguous, x is read once and y written
-once, and nothing else touches memory.
+stated bound is those bytes.  The kernel hashes on 32-bit halves (the
+last xor-shift dropped, only the high word of the last product formed,
+the f32 compare an integer one against `keep_threshold(keep)`) and
+moves 16-byte vectors; csrc/dropout.cu's header gives the design.
 
-This module must import without triton: `triton` is imported, and the
-kernel defined, inside the function that first launches it.
+`_dropout_triton` is the first kernel (a Triton program, the hash in
+uint64), launched by no training, serving or generate path: it stays as
+the card check's parent arm.  This module must import without
+triton: `triton` is imported, and that kernel defined, inside the
+function that first launches it.
 """
 
 from __future__ import annotations
 
+import ctypes
+import math
+import struct
 from typing import Optional, Sequence, Tuple
 
 import torch
 
+from . import _build
 from .dispatch import acc_dtype, on_cuda, require
 
 _M64 = (1 << 64) - 1
@@ -164,7 +169,9 @@ def _triton_kernel():
     return _KERNEL
 
 
-def _dropout_triton(x, key: int, keep: float, frame: Frame):
+def _geometry(x, frame: Frame):
+    """x as the kernels see it: (a, t, c) its (rows / t, t, C) view,
+    (gt, gc) the global T and C, (oa, ot, oc) the block's offsets."""
     require(x.dtype in (torch.float32, torch.bfloat16, torch.float16),
             lambda: f"dropout: dtype {x.dtype} (f32, bf16 or f16)")
     require(1 <= x.dim() <= 3,
@@ -174,6 +181,52 @@ def _dropout_triton(x, key: int, keep: float, frame: Frame):
     a, t, c = (1,) * pad + tuple(x.shape)
     _, gt, gc = (1,) * pad + gshape
     oa, ot, oc = (0,) * pad + offs
+    return a, t, c, gt, gc, oa, ot, oc
+
+
+def keep_threshold(keep: float) -> int:
+    """The integer thr with (k < thr) == (k * 2**-24 < keep in f32) for
+    every 24-bit k: ceil(f32(keep) * 2**24), within [0, 2**24] (k * 2**-24
+    and f32(keep) * 2**24 are exact)."""
+    kf = struct.unpack("f", struct.pack("f", keep))[0]
+    return min(max(math.ceil(kf * (1 << 24)), 0), 1 << 24)
+
+
+def vector_width(x, y, c: int) -> int:
+    """Elements a kernel access moves: 16 bytes' worth when the row
+    length is a multiple and both operands are 16-byte aligned, else 1."""
+    v = 16 // x.element_size()
+    aligned = x.data_ptr() % 16 == 0 and y.data_ptr() % 16 == 0
+    return v if c % v == 0 and aligned else 1
+
+
+# x, y; rows, tl, C, T, GC, oa, ot, oc; key; thr; keep; vec, dtype; stream
+_ARGS = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 8
+         + [ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float]
+         + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+
+
+def _dropout_cuda(x, key: int, keep: float, frame: Frame):
+    """One launch of csrc/dropout.cu on the current stream."""
+    a, t, c, gt, gc, oa, ot, oc = _geometry(x, frame)
+    x = x.contiguous()
+    y = torch.empty_like(x)
+    if x.numel() == 0:
+        return y
+    require(a * t <= 0x7FFFFFFF, lambda: f"dropout: {a * t} rows (< 2**31)")
+    err = _build.entry("dropout", "dropout_fwd", _ARGS)(
+        x.data_ptr(), y.data_ptr(), a * t, t, c, gt, gc, oa, ot, oc,
+        key & _M64, keep_threshold(keep), keep, vector_width(x, y, c),
+        _build.DTYPE_CODES[x.dtype], _build.stream_ptr(x))
+    _build.check(err, "dropout")
+    dropout.launches += 1
+    return y
+
+
+def _dropout_triton(x, key: int, keep: float, frame: Frame):
+    """The first kernel (Triton, the hash in uint64), off every path:
+    the card check's parent arm.  Counts its own launches."""
+    a, t, c, gt, gc, oa, ot, oc = _geometry(x, frame)
     x = x.contiguous()
     y = torch.empty_like(x)
     if x.numel() == 0:
@@ -183,13 +236,16 @@ def _dropout_triton(x, key: int, keep: float, frame: Frame):
     _triton_kernel()[grid](
         x, y, a * t, t, c, gt, gc, oa, ot, oc, key & 0xFFFFFFFF, key >> 32,
         float(keep), ROWS=_ROWS, BLOCK_C=_BLOCK_C, num_warps=4)
-    dropout.launches += 1
+    _dropout_triton.launches += 1
     return y
+
+
+_dropout_triton.launches = 0
 
 
 def _apply(x, key: int, keep: float, frame: Frame, mask_fn=None):
     if on_cuda(x):
-        return _dropout_triton(x, key, keep, frame)
+        return _dropout_cuda(x, key, keep, frame)
     return _dropout_plain(x, key, keep, frame, mask_fn)
 
 
