@@ -348,6 +348,21 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      executors (DDP's bucketed release, Zero3's composed schedule, K=4):
      loss and gradients bit for bit the plain path's under the rank-0
      folded key;
+ 16. the runtime autotuner and the fp8 matmuls: a. phase 4's
+     configuration with `AdamW(fused="auto")` and the chunked head (every
+     tuner site live): a tuner installed, one probe step, `retune()`,
+     every decision printed (the site, each candidate's us, the winner),
+     0 candidate failures; the cache saved, reloaded into a fresh tuner
+     and its winners back with no timing; then 10 tuned and 10 untuned
+     steps in turns: host-clock step and host ms medians, the tuner's
+     lookups (calls and host us a step), device busy of one profiled
+     step, each kernel's launches over the tuned steps, losses within
+     1e-2; b. `fp8_matmul` at gpt2-124m's block shapes and a head chunk
+     against its plain version (2e-2 x max |y|) and in turns with bf16
+     `torch.matmul`, the quantization and the `_scaled_mm` apart; then
+     the same configuration under fp8 "off", "candidate" (through a
+     tuner) and "on", 10 steps each in turns; c. `python -m
+     tiny_deepspeed_tpu_torch.train --autotune CACHE.json` for 3 steps;
   then the `kernels` JSON line (32 rows: the 22 kernels, rows 10kv, 1r
   and the decode append, the Triton LayerNorm forward pair and the v1
   writer, launched on no path, the four RMS rows, the dropout kernel
@@ -355,8 +370,8 @@ non-zero, printing no result, without one.  Phases, each on its own line:
   launches by path, the Llama paths `llama_*`, the MoE paths
   `moe_*` and the generate paths `gen`, `L-gen`, `M-gen`, phase 12's
   `sched_*` / `exec_*`, phase 13's `codec_*`, phase 14's
-  `ulysses*` / `uly_drop_*` and phase 15's `offload_*`, `telem_*` and
-  `drop_exec_*` among them; row 10 timed at the grad
+  `ulysses*` / `uly_drop_*`, phase 15's `offload_*`, `telem_*` and
+  `drop_exec_*` and phase 16's `tune_*` and `fp8_*` among them; row 10 timed at the grad
   codec's shape, its earlier shapes beside it), then the result line
   {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -381,7 +396,8 @@ import warnings
 # H100 SXM published peaks (dense) by operand type, the bound's
 # denominators
 HBM_BPS = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12,
+              "float8_e4m3fn": 1979e12}
 ROOT = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(ROOT, "build", "chip_smoke")
 
@@ -6891,6 +6907,424 @@ def drop_exec_phase(torch, port, counters, card):
     return paths
 
 
+# -- phase 16: the runtime autotuner and the fp8 matmuls ----------------------
+
+TUNE_ARMS = ("tune_tuned", "tune_untuned")
+FP8_ARMS = ("fp8_off", "fp8_candidate", "fp8_on")
+# fp8_matmul at gpt2-124m's block products (B*T = 8192 rows) and one
+# chunk of the chunked head (B x 128 rows)
+FP8_SHAPES = (("qkv", (8192, 768), (768, 2304)),
+              ("mlp_fc", (8192, 768), (768, 3072)),
+              ("mlp_proj", (8192, 3072), (3072, 768)),
+              ("head_chunk", (8, 128, 768), (768, 50304)))
+# "on" against "off": the loss's tolerance, stated before the first run
+FP8_LOSS_TOL = 5e-2
+
+
+class MetaLog:
+    """A MetricsLogger stand-in that keeps the tuner's `run_meta`
+    records."""
+
+    def __init__(self):
+        self.records = []
+
+    def log_meta(self, kind="run_meta", **fields):
+        self.records.append({"kind": kind, **fields})
+
+
+def _tune_cfg(port):
+    """Phase 4's configuration with the chunked head, so that every
+    tuner site is live."""
+    return dataclasses.replace(port.GPT2_PRESETS["gpt2-124m"],
+                               fused_xent=True, fused_xent_impl="chunked")
+
+
+def _tune_arm(port, cfg, counters):
+    eng = port.SingleDevice(port.GPT2Model(cfg),
+                            port.AdamW(lr=1e-5, weight_decay=0.1,
+                                       fused="auto"))
+    return {"eng": eng, "state": eng.init(0), "losses": [], "step": [],
+            "host": [], "launches": {k: 0 for k in counters}}
+
+
+def _probe(torch, cfg, b=8, t=1024):
+    """The trainer's probe batch: a generator seeded 7."""
+    p = torch.randint(0, cfg.vocab_size, (b, t),
+                      generator=torch.Generator().manual_seed(7))
+    return p, p
+
+
+def _site(names):
+    """A site's label: the module of its candidate 0."""
+    return names[0].rsplit(".", 1)[0].replace("tiny_deepspeed_tpu_torch.",
+                                              "")
+
+
+def _decisions(tuner, log, card, what):
+    """Every timing decision of `tuner` (its cache filled by timing
+    alone, in order), printed: the site, its signature, each candidate's
+    us and the winner."""
+    dec = [r["autotune"] for r in log.records
+           if r["autotune"]["event"] == "decision"]
+    keys = list(tuner.cache)
+    check(len(dec) == len(keys), f"{what}: {len(dec)} decisions for "
+          f"{len(keys)} cached sites")
+    rows = []
+    for (names, sig), d in zip(keys, dec):
+        rank = ", ".join(f"{r['candidate']}={r['us']}us"
+                         for r in d["ranking"])
+        shapes = [None if e is None else e if isinstance(e, str)
+                  else list(e[0]) for e in sig]
+        print(f"  [{card}] {what} {_site(names)} {shapes} "
+              f"{sig[0][1] if sig and isinstance(sig[0], tuple) else ''}: "
+              f"{rank} -> {d['winner']}")
+        rows.append({"site": _site(names), "sig": [
+            e if e is None or isinstance(e, str) else [list(e[0]), e[1]]
+            for e in sig], "ranking": d["ranking"], "winner": d["winner"]})
+    return rows
+
+
+def _failures(tel):
+    c = tel.counters.get("autotune_candidate_failures")
+    return 0 if c is None else c.value
+
+
+def _arm_step(torch, a, batch, counters):
+    """One timed step of an arm: host ms (to the step's return), step ms
+    (to the loss's sync), launches, loss."""
+    before = _count(counters)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a["state"], loss = a["eng"].step(a["state"], batch)
+    t1 = time.perf_counter()
+    loss = float(loss)
+    t2 = time.perf_counter()
+    after = _count(counters)
+    for k in counters:
+        a["launches"][k] += after[k] - before[k]
+    a["losses"].append(loss)
+    a["host"].append((t1 - t0) * 1e3)
+    a["step"].append((t2 - t0) * 1e3)
+
+
+def _busy_ms(torch, a, batch):
+    """Device busy ms of one profiled step of an arm."""
+    def one_step():
+        float(a["eng"].step(a["state"], batch)[1])
+
+    prof = profiled(torch, one_step)
+    check(prof is not None, "16: the profiler recorded no device time")
+    return sum(_self_device_us(e) for e in _device_records(torch, prof)) / 1e3
+
+
+def autotune_phase(torch, port, counters, card):
+    """16a: tune, record, reload; then tuned and untuned steps in turns."""
+    from tiny_deepspeed_tpu_torch.autotuner import (RuntimeAutoTuner,
+                                                    set_default_tuner)
+    from tiny_deepspeed_tpu_torch.autotuner.runtime_tuner import qualname
+    cfg = _tune_cfg(port)
+    loader = port.TokenLoader(None, batch=8, seq=1024,
+                              vocab_size=cfg.vocab_size, seed=0)
+    batches = [loader.next() for _ in range(10)]
+    arms = {p: _tune_arm(port, cfg, counters) for p in TUNE_ARMS}
+    tuned = arms["tune_tuned"]
+    tel, log = port.Telemetry(), MetaLog()
+    tuner = RuntimeAutoTuner(telemetry=tel, logger=log)
+    probe = _probe(torch, cfg)
+    try:
+        set_default_tuner(tuner)
+        t0 = time.perf_counter()
+        float(tuned["eng"].step(tuned["state"], probe)[1])
+        recorded = len(tuner.pending)
+        t1 = time.perf_counter()
+        n = tuned["eng"].retune()
+        t2 = time.perf_counter()
+        fails = _failures(tel)
+        check(len(tuner.failures) == fails, f"16a: {tuner.failures}")
+        print(f"  [{card}] 16a probe step {(t1 - t0) * 1e3:.1f} ms recorded "
+              f"{recorded} requests; retune() tuned {n} site(s) in "
+              f"{(t2 - t1) * 1e3:.1f} ms; candidate failures {fails}")
+        check(fails == 0, f"16a: {fails} candidate failures "
+              f"{[r for r in log.records if r['autotune']['event'] != 'decision']}")
+        check(n == recorded == len(tuner.cache) and not tuner.pending,
+              f"16a: {n} tuned of {recorded} recorded")
+        decisions = _decisions(tuner, log, card, "16a")
+        sites = sorted({d["site"] for d in decisions})
+        check(sites == ["ops.layernorm", "ops.linear", "ops.softmax_xent",
+                        "optim.adamw"], f"16a: tuned sites {sites}")
+        path = os.path.join(OUT_DIR, "autotune16.json")
+        saved = tuner.save(path)
+        again = RuntimeAutoTuner()
+        check(again.load(path) == saved == n, f"16a: saved {saved}")
+
+        def no_timing(*a, **k):
+            raise SmokeFailure("16a: the reloaded cache timed a candidate")
+
+        again._pick = no_timing
+        set_default_tuner(again)
+        float(tuned["eng"].step(tuned["state"], probe)[1])
+        got = {k: qualname(f) for k, f in again.cache.items()}
+        want = {k: qualname(f) for k, f in tuner.cache.items()}
+        check(got == want and not again.pending and again.version == 0,
+              "16a: the reloaded cache's winners differ or were timed")
+        print(f"  [{card}] 16a the cache ({saved} winners) reloaded: the "
+              f"same winners, nothing timed")
+        tuned["state"] = tuned["eng"].init(0)  # drop the probes' updates
+        lookups = [0, 0.0]
+        inner = again.choose
+
+        def timed_choose(cands, args, **kw):
+            t = time.perf_counter()
+            try:
+                return inner(cands, args, **kw)
+            finally:
+                lookups[0] += 1
+                lookups[1] += time.perf_counter() - t
+
+        again.choose = timed_choose
+        for batch in batches:
+            for p, a in arms.items():
+                set_default_tuner(again if p == "tune_tuned" else None)
+                _arm_step(torch, a, batch, counters)
+        busy = {}
+        for p, a in arms.items():
+            set_default_tuner(again if p == "tune_tuned" else None)
+            busy[p] = _busy_ms(torch, a, batches[0])
+    finally:
+        set_default_tuner(None)
+    un = arms["tune_untuned"]
+    diff = max(abs(x - y) for x, y in zip(tuned["losses"], un["losses"]))
+    check(diff <= 1e-2, f"16a: tuned losses {tuned['losses']} vs untuned "
+          f"{un['losses']}")
+    for k in TRAIN_KERNELS:
+        check(un["launches"][k] > 0, f"16a untuned: {k} never launched")
+    res = {"recorded": recorded, "tuned_sites": n, "failures": fails,
+           "probe_ms": (t1 - t0) * 1e3, "retune_ms": (t2 - t1) * 1e3,
+           "decisions": decisions, "loss_max_diff": diff,
+           "lookups_per_step": lookups[0] / len(batches),
+           "lookup_us_per_step": lookups[1] / len(batches) * 1e6}
+    for p, a in arms.items():
+        res[p] = {"step_ms": statistics.median(a["step"]),
+                  "host_ms": statistics.median(a["host"]),
+                  "busy_ms": busy[p], "losses": a["losses"]}
+    print(f"  [{card}] 16a 10 tuned and 10 untuned steps in turns: losses "
+          f"within {diff:.3g} (tol 1e-2); step ms tuned "
+          f"{res['tune_tuned']['step_ms']:.3f} vs untuned "
+          f"{res['tune_untuned']['step_ms']:.3f}; host ms "
+          f"{res['tune_tuned']['host_ms']:.3f} vs "
+          f"{res['tune_untuned']['host_ms']:.3f}; busy ms (one profiled "
+          f"step) {busy['tune_tuned']:.3f} vs {busy['tune_untuned']:.3f}; "
+          f"the tuner's lookups {res['lookups_per_step']:.0f} a step, "
+          f"{res['lookup_us_per_step']:.1f} us a step on the host (timing "
+          f"wrapper included)")
+    for k in sorted(counters):
+        if tuned["launches"][k] or un["launches"][k]:
+            print(f"    launches over the 10 tuned / untuned steps: {k} "
+                  f"{tuned['launches'][k]} / {un['launches'][k]}")
+    paths = {p: a["launches"] for p, a in arms.items()}
+    del arms, tuned, un
+    torch.cuda.empty_cache()
+    return paths, res
+
+
+def fp8_products(torch, F8, card):
+    """16b: fp8_matmul against its plain version and bf16 matmul."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    out = {}
+    for name, xs, ws in FP8_SHAPES:
+        x = torch.randn(xs, generator=gen, device="cuda").bfloat16()
+        w = (torch.randn(ws, generator=gen, device="cuda") * 0.02).bfloat16()
+        y = F8.fp8_matmul(x, w)
+        qx, sx = F8._quantize(x, x.abs().amax(dim=-1, keepdim=True))
+        qw, sw = F8._quantize_cols(w)
+        plain = torch.matmul(qx.float(), qw.float()) * sx * sw
+        exact = torch.matmul(x.float(), w.float())
+        scale = float(plain.abs().max())
+        err = max_err(y, plain)
+        check(y.dtype == torch.float32 and y.shape == plain.shape
+              and bool(torch.isfinite(y).all()), f"16b {name}: {y.shape}")
+        check(err <= 2e-2 * scale, f"16b {name}: fp8_matmul vs its plain "
+              f"version max abs err {err} > 2e-2 x {scale}")
+        k, nn = ws
+        m = x.numel() // k
+        bound, by = bound_ms(2 * m * k + 2 * k * nn + 4 * m * nn,
+                             2 * m * k * nn, "float8_e4m3fn")
+        t = sides_in_turns(torch, {
+            "fp8": lambda: F8.fp8_matmul(x, w),
+            "bf16": lambda: torch.matmul(x, w),
+            "quantize": lambda: (F8._quantize(
+                x, x.abs().amax(dim=-1, keepdim=True)), F8._quantize_cols(w)),
+            "scaled_mm": lambda: F8._dot_f32(qx, qw),
+            "plain": lambda: torch.matmul(qx.float(), qw.float()) * sx * sw})
+        out[name] = {"x": list(xs), "w": list(ws), "max_abs_err": err,
+                     "max_abs_y": scale,
+                     "quant_err_vs_exact": max_err(y, exact),
+                     "bound_ms": bound, "bound_by": by,
+                     **{f"{k2}_turns_ms": v[0] for k2, v in t.items()},
+                     **{f"{k2}_turns_spread_ms": list(v[1:])
+                        for k2, v in t.items()}}
+        r = out[name]
+        print(f"  [{card}] 16b fp8_matmul {name} {list(xs)} x {list(ws)}: "
+              f"max abs err vs plain {err:.4g} ({err / scale:.3g} of max |y| "
+              f"{scale:.4g}; tol 2e-2), vs the exact bf16 operands "
+              f"{r['quant_err_vs_exact']:.4g}; in turns ms: fp8 "
+              f"{r['fp8_turns_ms']:.5g} (quantize {r['quantize_turns_ms']:.5g}"
+              f" + _scaled_mm {r['scaled_mm_turns_ms']:.5g}), bf16 matmul "
+              f"{r['bf16_turns_ms']:.5g} (fp8 / bf16 "
+              f"{r['fp8_turns_ms'] / r['bf16_turns_ms']:.4g}), plain "
+              f"{r['plain_turns_ms']:.5g}; bound {bound:.5g} ({by})")
+        del x, w, y, qx, qw, plain, exact
+    torch.cuda.empty_cache()
+    return out
+
+
+def fp8_refusals(torch, F8, card):
+    """16b: the shapes and layouts `_scaled_mm` takes on this card, by
+    trying them.  `fp8_matmul` must raise with K or N off a multiple of
+    16 (no fallback) and take M = 8 and 24; what `_scaled_mm` itself
+    says to such a K, a row-major w and row-wise scales with an f32
+    output is printed."""
+    def attempt(fn):
+        try:
+            y = fn()
+            torch.cuda.synchronize()
+            return "accepted" if bool(torch.isfinite(y).all()) else "nan"
+        except Exception as e:  # a refusal is what is recorded here
+            return f"refused ({type(e).__name__}: {str(e)[:100]})"
+
+    def rnd(*shape):
+        return torch.randn(shape, device="cuda")
+
+    out = {}
+    for name, k, n in (("K=760", 760, 768), ("N=760", 768, 760)):
+        x, w = rnd(64, k), rnd(k, n)
+        out[f"fp8_matmul {name}"] = r = attempt(lambda: F8.fp8_matmul(x, w))
+        check(r.startswith("refused"), f"16b: fp8_matmul {name}: {r}")
+    for m in (8, 24):
+        x, w = rnd(m, 768), rnd(768, 2304)
+        out[f"fp8_matmul M={m}"] = r = attempt(lambda: F8.fp8_matmul(x, w))
+        check(r == "accepted", f"16b: fp8_matmul M={m}: {r}")
+    one = torch.ones((), device="cuda")
+    for name, k, n in (("K=760", 760, 768), ("K=768", 768, 768)):
+        x, w = rnd(64, k), rnd(k, n)
+        qx, sx = F8._quantize(x, x.abs().amax(dim=-1, keepdim=True))
+        qw, sw = F8._quantize_cols(w)
+        if name == "K=760":
+            out[f"_scaled_mm {name}"] = attempt(lambda: torch._scaled_mm(
+                qx, qw.t().contiguous().t(), scale_a=one, scale_b=one,
+                out_dtype=torch.float32))
+            continue
+        out["_scaled_mm row-major w"] = attempt(lambda: torch._scaled_mm(
+            qx, qw.contiguous(), scale_a=one, scale_b=one,
+            out_dtype=torch.float32))
+        out["_scaled_mm row-wise scales, f32 out"] = attempt(
+            lambda: torch._scaled_mm(
+                qx, qw.t().contiguous().t(), scale_a=sx.float(),
+                scale_b=sw.float(), out_dtype=torch.float32))
+        out["_scaled_mm row-wise scales, bf16 out"] = attempt(
+            lambda: torch._scaled_mm(
+                qx, qw.t().contiguous().t(), scale_a=sx.float(),
+                scale_b=sw.float(), out_dtype=torch.bfloat16))
+    for k2, v in out.items():
+        print(f"  [{card}] 16b {k2}: {v}")
+    return out
+
+
+def fp8_phase(torch, port, F8, counters, card):
+    """16b: the products, then phase 4's configuration (chunked head,
+    AdamW(fused="auto")) under fp8 "off", "candidate" and "on"."""
+    from tiny_deepspeed_tpu_torch.autotuner import (RuntimeAutoTuner,
+                                                    set_default_tuner)
+    res = {"refusals": fp8_refusals(torch, F8, card),
+           "products": fp8_products(torch, F8, card)}
+    cfg = _tune_cfg(port)
+    loader = port.TokenLoader(None, batch=8, seq=1024,
+                              vocab_size=cfg.vocab_size, seed=0)
+    batches = [loader.next() for _ in range(10)]
+    arms = {p: _tune_arm(port, cfg, counters) for p in FP8_ARMS}
+    tel, log = port.Telemetry(), MetaLog()
+    tuner = RuntimeAutoTuner(telemetry=tel, logger=log)
+    cand = arms["fp8_candidate"]
+    try:
+        F8.set_fp8_matmul("candidate")
+        set_default_tuner(tuner)
+        float(cand["eng"].step(cand["state"], _probe(torch, cfg))[1])
+        n = cand["eng"].retune()
+        fails = _failures(tel)
+        check(fails == 0, f"16b: {fails} candidate failures under fp8 "
+              f"'candidate': {log.records}")
+        dec = [d for d in _decisions(tuner, log, card, "16b candidate")
+               if d["site"] == "ops.linear"]
+        check(dec and all(len(d["ranking"]) == 3 for d in dec),
+              f"16b: linear sites under 'candidate' {dec}")
+        cand["state"] = cand["eng"].init(0)
+        for batch in batches:
+            for p, a in arms.items():
+                F8.set_fp8_matmul(p[4:])
+                set_default_tuner(tuner if p == "fp8_candidate" else None)
+                _arm_step(torch, a, batch, counters)
+    finally:
+        F8.set_fp8_matmul("off")
+        set_default_tuner(None)
+    off = arms["fp8_off"]["losses"]
+    for p, a in arms.items():
+        check(10.5 <= a["losses"][0] <= 11.2,
+              f"16b {p}: first loss {a['losses'][0]}")
+        d = max(abs(x - y) for x, y in zip(a["losses"], off))
+        check(d <= FP8_LOSS_TOL, f"16b {p}: losses {a['losses']} vs off's "
+              f"{off} (tol {FP8_LOSS_TOL})")
+        res[p] = {"step_ms": statistics.median(a["step"]),
+                  "host_ms": statistics.median(a["host"]),
+                  "losses": a["losses"], "loss_max_diff_vs_off": d}
+    res["candidate_tuned_sites"] = n
+    res["candidate_winners"] = [d["winner"] for d in dec]
+    print(f"  [{card}] 16b 10 steps each in turns, step ms (host ms): " +
+          ", ".join(f"{p} {res[p]['step_ms']:.3f} ({res[p]['host_ms']:.3f})"
+                    for p in FP8_ARMS) +
+          "; losses vs off max |diff|: " +
+          ", ".join(f"{p} {res[p]['loss_max_diff_vs_off']:.4g}"
+                    for p in FP8_ARMS[1:]) +
+          f" (tol {FP8_LOSS_TOL}); first losses "
+          f"{[arms[p]['losses'][0] for p in FP8_ARMS]}; 'candidate' linear "
+          f"winners {res['candidate_winners']}")
+    paths = {p: a["launches"] for p, a in arms.items()}
+    del arms, cand
+    torch.cuda.empty_cache()
+    return paths, res
+
+
+def train_autotune_phase(card):
+    """16c: `python -m tiny_deepspeed_tpu_torch.train --autotune
+    CACHE.json` for 3 steps."""
+    path = os.path.join(OUT_DIR, "train_autotune.json")
+    if os.path.exists(path):
+        os.remove(path)
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "tiny_deepspeed_tpu_torch.train",
+         "--autotune", path, "--iters", "3"], cwd=ROOT,
+        capture_output=True, text=True, timeout=600)
+    dt = time.perf_counter() - t0
+    with open(os.path.join(OUT_DIR, "train_autotune.log"), "w") as f:
+        f.write(out.stdout + "\n" + out.stderr)
+    check(out.returncode == 0, f"16c: train --autotune exit "
+          f"{out.returncode}: {out.stderr[-2000:]}")
+    failed = [ln for ln in (out.stdout + out.stderr).splitlines()
+              if "failed" in ln]
+    check(not failed, f"16c: candidate failures {failed}")
+    tuned = [ln for ln in out.stdout.splitlines() if "autotuned" in ln]
+    check(len(tuned) == 1 and os.path.exists(path),
+          f"16c: {tuned}, cache written {os.path.exists(path)}")
+    with open(path) as f:
+        data = json.load(f)
+    check(data.get("version") == 2 and data["winners"],
+          f"16c: the cache file {data}")
+    print(f"  [{card}] 16c train --autotune: exit 0 in {dt:.1f}s, "
+          f"'{tuned[0].strip()}', {len(data['winners'])} winners written")
+    return {"seconds": dt, "winners": len(data["winners"]),
+            "line": tuned[0].strip()}
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7263,6 +7697,19 @@ def main():
     lap("11b, checkpoints")
     print(f"phase 11: {time.perf_counter() - t11:.2f}s")
 
+    t16 = time.perf_counter()
+    print(f"phase 16: the runtime autotuner and the fp8 matmuls [{card}]")
+    from tiny_deepspeed_tpu_torch.ops import matmul_fp8 as f8
+    torch.cuda.empty_cache()
+    p16, tune_res = autotune_phase(torch, port, counters, card)
+    lap("16a, the autotuner")
+    got, fp8_res = fp8_phase(torch, port, f8, counters, card)
+    p16.update(got)
+    lap("16b, fp8")
+    train_tune = train_autotune_phase(card)
+    lap("16c, train --autotune")
+    print(f"phase 16: {time.perf_counter() - t16:.2f}s")
+
     timed = ("shape", "ms", "plain_ms", "library_ms", "call_ms", "bound_ms",
              "bound_by")
     extra_keys = (TURN_KEYS + UNFUSED_KEYS + PARENT_KEYS + V1_KEYS
@@ -7288,7 +7735,8 @@ def main():
                    **{p: v[name] for p, v in sched_paths.items()},
                    **{p: v[name] for p, v in codec_paths.items()},
                    **{p: v[name] for p, v in uly_paths.items()},
-                   **{p: v[name] for p, v in p15.items()}}
+                   **{p: v[name] for p, v in p15.items()},
+                   **{p: v[name] for p, v in p16.items()}}
         row = {"name": name, "route": route, "source": source,
                "replaces": replaces, "launches": sum(by_path.values()),
                "launches_by_path": by_path,
@@ -7539,7 +7987,8 @@ def main():
                    "generate": gen_res, "checkpoint": ckpt_res,
                    "schedule": sched_res, "codecs": codec_res,
                    "offload": off_res, "telemetry": telem_res,
-                   "dropout_ab": knob["drop_ab"]},
+                   "dropout_ab": knob["drop_ab"], "autotune": tune_res,
+                   "fp8": fp8_res, "train_autotune": train_tune},
                   f, indent=1, default=str)
     print(f"total {time.perf_counter() - t_all:.2f}s")
     print(json.dumps({"kernels": kernels}))

@@ -55,6 +55,11 @@ easy to find.  Ported so far:
   `offload_prefetch`: the moments rest in pinned host memory and stream
   through the card leaf by leaf, `parallel/offload.py`), and dropout
   under the explicit grad lowerings on more than one rank.
+- slice 23: the runtime autotuner (`autotuner/`: `RuntimeAutoTuner`,
+  `engine.retune()` / `revert_tune()`, `train --autotune [CACHE.json]`)
+  and its dispatch sites — `linear`, LayerNorm, the chunked head's
+  chunk, the flash site and `AdamW(fused="auto")` — and the fp8 e4m3
+  matmuls (`ops/matmul_fp8.py`, `set_fp8_matmul`).
 
 Every Pallas kernel those paths run on a TPU is rewritten for Hopper:
 layernorm forward, dx and dw/db in Triton (ops/layernorm.py); the fused

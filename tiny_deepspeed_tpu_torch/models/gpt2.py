@@ -89,6 +89,7 @@ from torch import nn
 from torch.utils import checkpoint as ckpt
 
 from .. import rng as prng
+from ..autotuner import deferring
 from ..ops.attention import ATTENTION, sharded_attention
 from ..ops.dispatch import resolve_device
 from ..ops.dropout import dropout, dropout_keep
@@ -913,6 +914,7 @@ class GPT2Model(nn.Module):
         x, _ = self.paged_decode(stacked, x, cache.view, page)
         return self.head(x, params=head_params)[:, 0]
 
+    @deferring()
     @torch.no_grad()
     def generate(self, idx, max_new_tokens: int, *,
                  temperature: float = 1.0, top_k: Optional[int] = None,

@@ -29,6 +29,7 @@ on the rank's whole sequence; with one (`pctx.seq_size > 1`), by
 
 from __future__ import annotations
 
+from ..autotuner import runtime_tuner as _rt
 from .flash_fa2 import FA2Fn, _fa2_fwd_plain
 
 
@@ -37,9 +38,24 @@ def standard_attention(q, k, v):
     return _fa2_fwd_plain(q, k, v)[0]
 
 
+def _fa2_flash(q, k, v):
+    """The FA2 forward and backward kernels (#4-#6) through `FA2Fn`."""
+    return FA2Fn.apply(q, k, v)
+
+
+# JAX's flash site (`_tuned_pallas_flash`, :58-79) offers FLASH_VARIANTS:
+# the FA2 kernel and variants of its bundled TPU kernel, which is not in
+# the repo.  Here the site has one candidate, so `choose` returns it
+# untimed (JAX's single-candidate shortcut) and records no key.
+_FLASH_CANDIDATES = (_fa2_flash,)
+
+
 def flash_attention(q, k, v):
     """Blockwise causal attention: the FA2 kernels on the card."""
-    return FA2Fn.apply(q, k, v)
+    tuner = _rt._default_tuner
+    if tuner is None:
+        return _fa2_flash(q, k, v)
+    return tuner.choose(_FLASH_CANDIDATES, (q, k, v))(q, k, v)
 
 
 ATTENTION = {"standard_attention": standard_attention,

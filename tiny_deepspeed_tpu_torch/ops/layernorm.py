@@ -59,6 +59,16 @@ var = E[x^2] - mean^2; dx in x's dtype; dw/db emitted in x's dtype, then
 cast to the weight's dtype by the backward rule (:158-164; the port
 casts db to the bias's dtype).
 
+The public entries are the JAX package's autotuner sites (`layernorm_fwd`
+:51-68, `layernorm_dx` :82-99, `layernorm_dwdb` :113-125): with a
+`RuntimeAutoTuner` installed (autotuner/), a CUDA call takes the tuner's
+pick of [the kernel entry, the plain version] per (shape, dtype) —
+`layernorm_fwd`, `add_layernorm_fwd` (JAX adds, then calls its site) and
+ONE backward site, `layernorm_bwd`, where JAX has two: the port's
+backward is one kernel.  With no tuner the kernel runs, as before; the
+plain version runs on the card only when a user-installed tuner picks
+it, and the decision is then a `run_meta` record (or a printed ranking).
+
 This module must import without triton: `triton` is imported, and the
 kernels defined, inside the function that first launches one.  It also
 avoids `from __future__ import annotations`, so the kernels'
@@ -70,6 +80,7 @@ import types
 
 import torch
 
+from ..autotuner import runtime_tuner as _rt
 from . import _build
 from .dispatch import acc_dtype, on_cuda, require
 
@@ -546,20 +557,30 @@ def _add_ln_fwd_cuda(x, r, w, b, eps: float = 1e-5):
 def layernorm_fwd(x, w, b, eps: float = 1e-5):
     """Returns (y, mean, rstd); mean/rstd are f32 with shape x.shape[:-1].
 
-    CUDA tensors launch csrc/ln_fwd.cu (or raise); CPU tensors take
-    `_ln_fwd_plain`."""
+    CUDA tensors launch csrc/ln_fwd.cu (or raise) — or, with a tuner
+    installed, its pick of [that kernel, `_ln_fwd_plain`]; CPU tensors
+    take `_ln_fwd_plain`."""
     if on_cuda(x, w, b):
-        return _ln_fwd_cuda(x, w, b, eps)
+        tuner = _rt._default_tuner
+        if tuner is None:
+            return _ln_fwd_cuda(x, w, b, eps)
+        return tuner.choose(_FWD_CANDIDATES, (x, w, b), eps=eps)(
+            x, w, b, eps=eps)
     return _ln_fwd_plain(x, w, b, eps)
 
 
 def add_layernorm_fwd(x, r, w, b, eps: float = 1e-5):
     """s = x + r (rounded to x's dtype) and its (y, mean, rstd), as
     `layernorm_fwd(x + r, ...)` gives them.  CUDA tensors launch
-    csrc/ln_fwd.cu's add kernels (or raise); CPU tensors take
+    csrc/ln_fwd.cu's add kernels (or raise) — or, with a tuner installed,
+    its pick of [that kernel, `_add_ln_fwd_plain`]; CPU tensors take
     `_add_ln_fwd_plain`."""
     if on_cuda(x, r, w, b):
-        return _add_ln_fwd_cuda(x, r, w, b, eps)
+        tuner = _rt._default_tuner
+        if tuner is None:
+            return _add_ln_fwd_cuda(x, r, w, b, eps)
+        return tuner.choose(_ADD_FWD_CANDIDATES, (x, r, w, b), eps=eps)(
+            x, r, w, b, eps=eps)
     return _add_ln_fwd_plain(x, r, w, b, eps)
 
 
@@ -586,11 +607,28 @@ def layernorm_bwd(gy, x, w, mean, rstd, gs=None, w_dtype=None,
     """LayerNorm's whole backward from the saved row stats: (dx, dw, db),
     dx in x's dtype (plus `gs`, the upstream gradient of the norm's input,
     when given), dw in w_dtype (default w's), db in b_dtype (default
-    w_dtype).  CUDA tensors launch csrc/ln_bwd.cu (or raise); CPU tensors
-    take `_ln_bwd_plain`."""
+    w_dtype).  CUDA tensors launch csrc/ln_bwd.cu (or raise) — or, with a
+    tuner installed, its pick of [that kernel, `_ln_bwd_plain`]; CPU
+    tensors take `_ln_bwd_plain`."""
     if on_cuda(gy, x, w, mean, rstd, gs):
-        return _ln_bwd_cuda(gy, x, w, mean, rstd, gs, w_dtype, b_dtype)
+        tuner = _rt._default_tuner
+        if tuner is None:
+            return _ln_bwd_cuda(gy, x, w, mean, rstd, gs, w_dtype, b_dtype)
+        return tuner.choose(_BWD_CANDIDATES, (gy, x, w, mean, rstd, gs),
+                            w_dtype=w_dtype, b_dtype=b_dtype)(
+            gy, x, w, mean, rstd, gs, w_dtype=w_dtype, b_dtype=b_dtype)
     return _ln_bwd_plain(gy, x, w, mean, rstd, gs, w_dtype, b_dtype)
+
+
+# the autotuner sites' candidates (JAX ops/layernorm.py:51-125): the
+# kernel first, then the plain version, offered for CUDA tensors only —
+# JAX's `_pallas_ok` (:36-48) offers Pallas only on TPU, so on the CPU
+# each site has one candidate and no key.  JAX's two backward sites (dx,
+# dw/db) are one here: the port's backward is one kernel (row 2+3).  A
+# kernel that fails while timed raises (`hand_kernel`).
+_FWD_CANDIDATES = (_rt.hand_kernel(_ln_fwd_cuda), _ln_fwd_plain)
+_ADD_FWD_CANDIDATES = (_rt.hand_kernel(_add_ln_fwd_cuda), _add_ln_fwd_plain)
+_BWD_CANDIDATES = (_rt.hand_kernel(_ln_bwd_cuda), _ln_bwd_plain)
 
 
 # kernel launches (CUDA path only); layernorm_bwd.launches_gs counts the

@@ -13,10 +13,14 @@ Counterpart of `tiny_deepspeed_tpu/ops/softmax_xent.py`:
   an XLA scan with a `custom_vjp` and no Pallas kernel: forward and
   backward stream (B, chunk, V) f32 slabs, the backward recomputing them.
 
-The JAX entry picks its chunk through the runtime autotuner; the port has
-no autotuner yet, so the chunk is the tuner-less default (128, JAX's
-`cands[0]`, :203-209).  JAX's fp8 head arm (`_head_logits`, :71-80,
-env-gated off) waits for the port of `ops/matmul_fp8.py`.
+The chunk is JAX's autotuner site (:163-209): the module-level variants
+`fused_linear_xent_c64`, `_c128` and `_c256` (stable names, JAX's
+`_FLX_VARIANTS`), de-duplicated by effective chunk in JAX's order (128,
+64, 256), picked per (shape, dtype) by the installed tuner; 128 without
+one.  Under `ops/matmul_fp8` mode "on" the chunk logits are
+`fp8_matmul` (JAX `_head_logits`, :71-79), in the forward and in the
+backward's recompute — the same logits the forward saw; dx and dW stay
+at compute precision, as JAX's do.
 """
 
 from __future__ import annotations
@@ -24,6 +28,9 @@ from __future__ import annotations
 import warnings
 
 import torch
+
+from ..autotuner import runtime_tuner as _rt
+from . import matmul_fp8 as _fp8
 
 
 def softmax_cross_entropy(logits: torch.Tensor,
@@ -51,10 +58,13 @@ def _pick_chunk(t: int, want: int) -> int:
     return t
 
 
-def _chunk_logits(xc, wf):
+def _chunk_logits(xc, wf, qw=None):
     """One chunk's lm_head product with f32 results (JAX's einsum with
     preferred_element_type=f32: f32 products of the operands, f32 sums);
-    wf is w in f32."""
+    wf is w in f32.  With `qw` (w's e4m3 codes and column scales, fp8
+    mode "on") the chunk's `fp8_matmul` (JAX `_head_logits`)."""
+    if qw is not None:
+        return _fp8.fp8_matmul_q(xc, *qw)
     return torch.matmul(xc.float(), wf)
 
 
@@ -63,16 +73,18 @@ class _ChunkedXentFn(torch.autograd.Function):
     logz); backward recomputes each chunk's logits, dz = (softmax -
     onehot) * g/(B T) in f32, cast to x's dtype before the two products
     (:142), dx per chunk in x's dtype, dW summed in f32, then cast to w's
-    dtype."""
+    dtype.  `fp8` (the mode read once, at the forward) makes both passes'
+    logits the fp8 product."""
 
     @staticmethod
-    def forward(ctx, x, w, targets, chunk):
+    def forward(ctx, x, w, targets, chunk, fp8):
         b, t, _ = x.shape
         logz = torch.empty((b, t), dtype=torch.float32, device=x.device)
         loss_sum = torch.zeros((), dtype=torch.float32, device=x.device)
         wf = w.float()
+        qw = _fp8._quantize_cols(w) if fp8 else None
         for c0 in range(0, t, chunk):
-            logits = _chunk_logits(x[:, c0:c0 + chunk], wf)
+            logits = _chunk_logits(x[:, c0:c0 + chunk], wf, qw)
             lz = torch.logsumexp(logits, dim=-1)
             gold = logits.gather(
                 -1, targets[:, c0:c0 + chunk].long()[..., None]).squeeze(-1)
@@ -80,6 +92,7 @@ class _ChunkedXentFn(torch.autograd.Function):
             logz[:, c0:c0 + chunk] = lz
         ctx.save_for_backward(x, w, targets, logz)
         ctx.chunk = chunk
+        ctx.fp8 = fp8
         return loss_sum / (b * t)
 
     @staticmethod
@@ -91,9 +104,10 @@ class _ChunkedXentFn(torch.autograd.Function):
         dx = torch.empty_like(x)
         dw = torch.zeros(w.shape, dtype=torch.float32, device=x.device)
         wf = w.float()
+        qw = _fp8._quantize_cols(w) if ctx.fp8 else None
         for c0 in range(0, t, chunk):
             xc = x[:, c0:c0 + chunk]
-            logits = _chunk_logits(xc, wf)
+            logits = _chunk_logits(xc, wf, qw)
             p = torch.exp(logits - logz[:, c0:c0 + chunk, None])
             tc = targets[:, c0:c0 + chunk].long()[..., None]
             p = p.scatter_add(-1, tc, torch.full_like(tc, -1.0,
@@ -102,10 +116,49 @@ class _ChunkedXentFn(torch.autograd.Function):
             pc = (p * scale).to(x.dtype).float()
             dx[:, c0:c0 + chunk] = torch.matmul(pc, wf.t()).to(x.dtype)
             dw += torch.einsum("btd,btv->dv", xc.float(), pc)
-        return dx, dw.to(w.dtype), None, None
+        return dx, dw.to(w.dtype), None, None, None
 
 
-def fused_linear_xent(x, w, targets, chunk: int = 128):
+def _variant(want: int):
+    """One fixed-target-chunk head with a stable module-level name (the
+    tuner and its cache file know a winner by module + name)."""
+    def flx(x, w, targets):
+        return _ChunkedXentFn.apply(x, w, targets,
+                                    _pick_chunk(x.shape[1], want),
+                                    _fp8._MODE == "on")
+    flx.__name__ = flx.__qualname__ = f"fused_linear_xent_c{want}"
+    return flx
+
+
+fused_linear_xent_c64 = _variant(64)
+fused_linear_xent_c128 = _variant(128)
+fused_linear_xent_c256 = _variant(256)
+_FLX_VARIANTS = {64: fused_linear_xent_c64, 128: fused_linear_xent_c128,
+                 256: fused_linear_xent_c256}
+# (T, the candidate tuple) — de-duplicated by effective chunk, JAX's
+# order (128 first: the tuner-less default)
+_CANDS = {}
+
+
+def _candidates(t: int):
+    cands = _CANDS.get(t)
+    if cands is None:
+        out, seen = [], set()
+        for want in (128, 64, 256):
+            eff = _pick_chunk(t, want)
+            if eff not in seen:
+                seen.add(eff)
+                out.append(_FLX_VARIANTS[want])
+        cands = _CANDS[t] = tuple(out)
+    return cands
+
+
+def fused_linear_xent(x, w, targets):
     """Mean NLL of logits = x @ w without materializing the (B, T, V)
-    logits.  x (B, T, D); w (D, V); targets (B, T) int."""
-    return _ChunkedXentFn.apply(x, w, targets, _pick_chunk(x.shape[1], chunk))
+    logits.  x (B, T, D); w (D, V); targets (B, T) int.  The target chunk
+    is the installed tuner's pick among the variants; 128 without one."""
+    tuner = _rt._default_tuner
+    if tuner is None:
+        return fused_linear_xent_c128(x, w, targets)
+    cands = _candidates(x.shape[1])
+    return tuner.choose(cands, (x, w, targets))(x, w, targets)

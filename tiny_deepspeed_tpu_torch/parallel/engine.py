@@ -161,6 +161,16 @@ before their collectives, so the engine does not unscale again;
 world > 1 to differ from the plain step, so at world 1 they are driven
 by building the executors directly (chip_smoke.py phases 12 and 13).
 
+The autotuner's life cycle (JAX :986-1021).  `step` and `eval_loss`
+run inside `autotuner.deferring()`: with a `RuntimeAutoTuner` installed,
+the dispatch sites RECORD their requests there and time nothing (JAX
+records them while tracing); `retune()` times them and returns the
+number tuned, and the sites read the winners at their next call, so
+there is no program to rebuild; `revert_tune()` uninstalls the tuner.
+On more than one rank world rank 0 times and broadcasts its winner
+table, and every rank bakes those names against its own requests: the
+program is the same on every rank, as JAX's one SPMD program is.
+
 `SingleDevice` is the stage-0 engine without a process group, the JAX
 `SingleDevice`.  The update is in place (optim/base.py): the TrainState's
 params ARE the model's parameters.  One difference from the JAX engine:
@@ -182,6 +192,7 @@ import torch
 import torch.distributed as dist
 
 from .. import rng as prng
+from ..autotuner import deferring, get_default_tuner, set_default_tuner
 from ..data.loader import rank_block
 from ..ops.dispatch import resolve_device
 from ..optim.base import Optimizer
@@ -661,6 +672,7 @@ class ZeroEngine:
                                   self.n_shard)
         return out
 
+    @deferring()
     def step(self, state: TrainState, batch):
         """One optimizer step.  batch = (idx, targets), each (B, T) ints
         (numpy or tensors) — or (accum, B, T) when accum_steps > 1; the
@@ -1125,6 +1137,7 @@ class ZeroEngine:
         return usq
 
     @torch.no_grad()
+    @deferring()
     def eval_loss(self, state: TrainState, batch) -> torch.Tensor:
         """Mean loss on one global (B, T) batch — forward only, no state
         change."""
@@ -1134,6 +1147,64 @@ class ZeroEngine:
         if self.pctx is not None:
             dist.all_reduce(loss, op=_AVG, group=self.pctx.world_group)
         return loss
+
+    # -- the autotuner's life cycle (JAX :986-1021) ------------------------
+
+    def retune(self) -> int:
+        """Autotune life-cycle step: the dispatch sites consulted the
+        default RuntimeAutoTuner inside `step`, which RECORDS candidate
+        requests (`autotuner.deferring()`: nothing is timed inside a
+        step).  This times them on the device now; the sites read the
+        winners at their next call (there is no program to rebuild).
+        Returns the number of sites tuned; 0 without an installed tuner
+        or pending requests.
+
+        On more than one rank the tuned program must be the same on every
+        rank: world rank 0 times, its winner table is broadcast, and every
+        rank bakes those names against its own pending requests.  Rank 0's
+        candidate failures go with the table (every rank's `failures`),
+        and an error raised in its timing (a hand kernel that failed) is
+        raised on every rank.
+
+        Usage:  engine.step(state, batch)   # first step: record
+                engine.retune()             # time the candidates
+                engine.step(state, batch)   # tuned from here on
+        """
+        tuner = get_default_tuner()
+        if tuner is None:
+            return 0
+        group = None if self.pctx is None else self.pctx.world_group
+        if group is None or dist.get_world_size(group) == 1:
+            n = tuner.resolve_pending()
+        else:
+            lead = dist.get_rank(group) == 0
+            n, err = 0, None
+            if lead:
+                try:
+                    n = tuner.resolve_pending()
+                except Exception as e:  # raised on every rank below
+                    err = e
+            box = [tuner.winner_table() if lead else None, n,
+                   list(tuner.failures), None if err is None else repr(err)]
+            dist.broadcast_object_list(
+                box, src=dist.get_global_rank(group, 0), group=group)
+            if err is not None:
+                raise err
+            if box[3] is not None:
+                raise RuntimeError(f"retune: rank 0's timing raised {box[3]}")
+            if not lead:
+                tuner.adopt(box[0])
+                tuner.failures = box[2]
+            n = box[1]
+        self._tuner_version = tuner.version
+        return n
+
+    def revert_tune(self) -> None:
+        """Undo autotuning: uninstall the process-default tuner, so every
+        dispatch site takes its candidate[0] default again — the
+        guardrail counterpart to retune() for when the standalone-timed
+        winners lose end to end."""
+        set_default_tuner(None)
 
     # -- whole-state views and reporting -----------------------------------
 

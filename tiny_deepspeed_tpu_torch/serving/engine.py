@@ -44,6 +44,7 @@ from typing import Deque, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
+from ..autotuner import deferring
 from ..models.gpt2 import resolved_cache_dtype
 from ..models.sampling import (sample_logits_at, sample_logits_per_slot,
                                spec_prefill_commit)
@@ -273,6 +274,7 @@ class ServingEngine:
         self._queue.append(req)
         return req
 
+    @deferring()
     def tick(self) -> int:
         """One scheduler step: deadlines -> grow/preempt -> admit -> one
         decode step for every active slot -> quarantine/evict.  Returns

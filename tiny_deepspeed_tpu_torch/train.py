@@ -24,6 +24,7 @@
         --metrics run.jsonl [--flight-steps N] [--telemetry-trace DIR]
     python -m tiny_deepspeed_tpu_torch.train --model gpt2-1.5b
         --offload-opt-state [--offload-prefetch W]            (one line)
+    python -m tiny_deepspeed_tpu_torch.train --autotune [CACHE.json]
 
 Counterpart of `examples/{single_device,ddp,zero1,zero2,zero3}/train.py`
 with the harness of `examples/common.py` (`parse_args` / `run`): the same
@@ -64,6 +65,18 @@ optimizer step.  JAX's async writer, SIGTERM drain and telemetry-driven
 checkpoints are not ported (ROADMAP.md), nor are the harness's tensor,
 expert and pipeline parallelism flags: the engines refuse those knobs.
 
+Autotuning (`--autotune [CACHE.json]`, examples/common.py:274-280,
+:597-630): a `RuntimeAutoTuner` (autotuner/) is installed — loaded from
+CACHE.json when the file exists — one probe step on a synthetic batch
+(a generator seeded 7) records the dispatch sites' requests,
+`engine.retune()` times them (rank 0 on a multi-rank run, its winners
+broadcast) and rank 0 prints `autotuned N site(s)` and saves the cache;
+the probe state is dropped before the run's own init or resume.  A
+candidate that fails while timed ends the run with an error and saves
+nothing (a hand kernel's failure on the card is raised at once).  There
+is no fp8 flag, as JAX's trainer has none: `ops.matmul_fp8.
+set_fp8_matmul` is the API.
+
 Telemetry (`--telemetry`, examples/common.py:453-477, :671-720): rank 0
 runs each step inside `Telemetry.step` — the data wait as `data_s`, the
 health vector's sync closing the clock — prints the health's loss, and
@@ -79,11 +92,13 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import time
 
 import torch
 import torch.distributed as dist
 
+from .autotuner import RuntimeAutoTuner, set_default_tuner
 from .data import TokenLoader
 from .models import ALL_PRESETS, build_model
 from .optim import AdamW
@@ -228,6 +243,15 @@ def parse_args(argv=None):
                         "last N steps' health flushed as one JSONL 'flight' "
                         "record when the anomaly detector fires (0 "
                         "disables)")
+    p.add_argument("--autotune", nargs="?", const="", default=None,
+                   metavar="CACHE.json",
+                   help="runtime-autotune the dispatch sites' candidates "
+                        "(linear layouts and fp8, LayerNorm kernel vs "
+                        "plain, the chunked head's chunk, AdamW(fused="
+                        "'auto') kernel vs plain): one probe step records "
+                        "requests, they are timed on the device, and the "
+                        "sites take the winners.  With a path, winners "
+                        "persist across runs (ahead-of-time cache)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--data", default=None, metavar="TOKENS.bin",
                    help="uint16 token corpus; default synthetic tokens")
@@ -348,6 +372,28 @@ def _telemetry(args, sched_kw):
                      flight_steps=args.flight_steps)
 
 
+def _autotune(args, engine, b, vocab, say, lead):
+    """The --autotune life cycle (examples/common.py:597-630): install a
+    tuner (loaded from the cache file when it exists), one probe step on
+    a synthetic batch, `retune()`, save on rank 0.  The probe state is
+    dropped here, before the caller inits or resumes."""
+    tuner = RuntimeAutoTuner(verbose=lead)
+    if args.autotune and os.path.exists(args.autotune):
+        tuner.load(args.autotune)
+    set_default_tuner(tuner)
+    probe = torch.randint(0, vocab, (b, args.seq_len),
+                          generator=torch.Generator().manual_seed(7))
+    state = engine.init(args.seed)
+    engine.step(state, (probe, probe))
+    del state
+    say(f"autotuned {engine.retune()} site(s)")
+    if tuner.failures:  # nothing is saved: a failure is no winner to keep
+        raise SystemExit(f"autotune: {len(tuner.failures)} candidate(s) "
+                         f"failed: {tuner.failures}")
+    if args.autotune and lead:
+        tuner.save(args.autotune)
+
+
 def run(args):
     sched_kw = parse_sched_spec(args.sched) if args.sched else {}
     telem = _telemetry(args, sched_kw)
@@ -383,6 +429,9 @@ def run(args):
         f"global_batch={b} T={args.seq_len}")
     ckpt_dir = args.checkpoint_dir or args.save_dir
     ckpt_every = args.checkpoint_every or args.save_every
+    vocab = model.config.vocab_size
+    if args.autotune is not None:
+        _autotune(args, engine, b, vocab, say, lead)
     start_iter = 0
     resume_step = ckpt.latest_step(ckpt_dir) if args.resume else None
     seek, indexed = 0, False
@@ -396,7 +445,6 @@ def run(args):
                                        start_iter, b, say)
     else:
         state = engine.init(args.seed)
-    vocab = model.config.vocab_size
     loader = TokenLoader(args.data, batch=b, seq=args.seq_len,
                          vocab_size=vocab, seed=args.seed, indexed=indexed)
     if seek:
