@@ -14,7 +14,9 @@ with both dispatches; then `generate` on all three families and a
 checkpoint's save and resume; the in-step collective schedule and the
 grad-comm codecs at world 1; Ulysses on the FA2 kernels and the
 counter-based dropout kernel (csrc/dropout.cu; the Triton kernel it
-replaced as the parent's arm).
+replaced as the parent's arm); the telemetry and offload knobs; the
+autotuner and fp8 matmuls; tensor and expert parallelism at the
+per-shard shapes.
 
     python3 chip_smoke.py
 
@@ -363,6 +365,28 @@ non-zero, printing no result, without one.  Phases, each on its own line:
      the same configuration under fp8 "off", "candidate" (through a
      tuner) and "on", 10 steps each in turns; c. `python -m
      tiny_deepspeed_tpu_torch.train --autotune CACHE.json` for 3 steps;
+ 17. tensor and expert parallelism, every rank of one layout run in
+     turn in one process through `one_process.lockstep` (each group's
+     all-reduce its true SUM / MAX, forward, remat recompute and
+     backward alike): a. a gpt2-124m and a llama-160m block (the
+     model's own `_block_fn`, layer 0 with its biases drawn non-zero,
+     dropout 0.1, B=8 T=1024 bf16) at tp 2 and 4, every rank holding
+     its pieces and its own copies of the replicated leaves: each
+     rank's output and the gradients of its x and of every leaf within
+     2e-2 x max|ref| of the whole block's; in the final pass every
+     kernel launched tp times the whole block's count (#4-#6 at H/tp
+     and KVH/tp heads), no plain FA2; one shard's fwd+bwd in turns with
+     the whole block's; a layer's all-reduces and bytes counted on rank
+     0; b. the vocab-parallel chunked head at V=50304, tp 2 and 4, as
+     the model calls it (`copy_to`, then `vocab=`): every rank's loss
+     and dx, and dW, against the whole head, no kernel wrapper launched,
+     its all-reduces counted; c. moe-8x124m's block at ep 2, ep 4 and
+     ep 2 x tp 2 the same way (every kernel tp x ep times the whole's),
+     its ranks handed the whole block's expert choices (`moe_routing`;
+     their own agreeing on 90% of the tokens), then a step's all-reduces and bytes (a layer's x the layers + the
+     head's); d. every distributed engine at world 1 with a split of 2
+     raises JAX's device-count message, `pipeline_parallel=2` names
+     slice 25;
   then the `kernels` JSON line (32 rows: the 22 kernels, rows 10kv, 1r
   and the decode append, the Triton LayerNorm forward pair and the v1
   writer, launched on no path, the four RMS rows, the dropout kernel
@@ -371,7 +395,9 @@ non-zero, printing no result, without one.  Phases, each on its own line:
   `moe_*` and the generate paths `gen`, `L-gen`, `M-gen`, phase 12's
   `sched_*` / `exec_*`, phase 13's `codec_*`, phase 14's
   `ulysses*` / `uly_drop_*`, phase 15's `offload_*`, `telem_*` and
-  `drop_exec_*` and phase 16's `tune_*` and `fp8_*` among them; row 10 timed at the grad
+  `drop_exec_*`, phase 16's `tune_*` and `fp8_*` and phase 17's
+  `tp2`, `tp4`, `llama_tp2`, `llama_tp4`, `tp2_head`, `tp4_head`,
+  `ep2_moe`, `ep4_moe` and `ep2tp2_moe` among them; row 10 timed at the grad
   codec's shape, its earlier shapes beside it), then the result line
   {"ok": true, "device": {"platform": "gpu", ...}}.
 
@@ -538,10 +564,11 @@ def timings(torch, kernel, plain, library):
                 call_ms=time_ms(torch, kernel))
 
 
-def _queued_ms(torch, fn, n):
+def _queued_ms(torch, fn, n, sleep=20_000_000):
     """Device time per call of n back-to-back calls queued behind a
-    sleep kernel, so the host's launch cost stays off the clock."""
-    torch.cuda._sleep(20_000_000)
+    sleep kernel of `sleep` cycles, so the host's launch cost stays off
+    the clock (while the n calls' enqueue takes less than the sleep)."""
+    torch.cuda._sleep(sleep)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -552,18 +579,18 @@ def _queued_ms(torch, fn, n):
     return start.elapsed_time(end) / n
 
 
-def sides_in_turns(torch, fns, reps=5, n=20):
+def sides_in_turns(torch, fns, reps=5, n=20, sleep=20_000_000):
     """Device ms per call of each of `fns` (name -> fn) in turns: the
     names in order, then reversed (kernel, parent, library, library,
-    parent, kernel) x reps, each n calls queued behind a sleep (CUDA
-    events): {name: (median, min, max)}."""
+    parent, kernel) x reps, each n calls queued behind a sleep of
+    `sleep` cycles (CUDA events): {name: (median, min, max)}."""
     for _ in range(3):
         for fn in fns.values():
             fn()
     order, got = list(fns), {k: [] for k in fns}
     for _ in range(reps):
         for k in order + order[::-1]:
-            got[k].append(_queued_ms(torch, fns[k], n))
+            got[k].append(_queued_ms(torch, fns[k], n, sleep))
     return {k: (statistics.median(v), min(v), max(v)) for k, v in got.items()}
 
 
@@ -7325,6 +7352,410 @@ def train_autotune_phase(card):
             "line": tuned[0].strip()}
 
 
+# -- phase 17: tensor and expert parallelism at the per-shard shapes --------
+
+# (preset, tp) of 17a: one block at B=8 T=1024 bf16
+TP_BLOCKS = (("gpt2-124m", 2), ("gpt2-124m", 4), ("llama-160m", 2),
+             ("llama-160m", 4))
+TP_B, TP_T, TP_V = 8, 1024, 50304
+MOE_SPLITS = ((1, 2), (1, 4), (2, 2))  # (tp, ep) of 17c
+TP_TOL = 2e-2
+# the sleep 17a / 17c time behind: a block's fwd+bwd through autograd
+# takes the host ~2-4 ms to enqueue, so 5 of them outlast the default
+# 20M cycles and the host's time leaks onto the clock
+TP_SLEEP = 200_000_000
+TP_DROP = 0.1  # dropout in 17a / 17c's blocks: the masks after the reduces
+
+
+def shard_ctx(tp, ep, m, e, comm=None):
+    """Rank (m, e) of a (model, expert) split in one process, at world 1
+    (no process group is touched).  With `comm`, the rank's
+    `one_process.lockstep` communicator over the tp x ep ranks (numbered
+    m * ep + e, JAX's mesh order), each group's all-reduce is the group's
+    true SUM / MAX; without, each group's communicator is a `LocalReduce`
+    (the shard's own partial: one shard timed alone)."""
+    from tiny_deepspeed_tpu_torch.parallel.mesh import ParallelContext
+    from tiny_deepspeed_tpu_torch.parallel.one_process import LocalReduce
+
+    def group(members, i):
+        if len(members) == 1:
+            return None
+        return (LocalReduce(i, len(members)) if comm is None
+                else comm.group(members))
+
+    return ParallelContext(
+        world=1, rank=0, data_size=1, seq_size=1, data_rank=0, seq_rank=0,
+        model_size=tp, expert_size=ep, model_rank=m, expert_rank=e,
+        model_comm=group([k * ep + e for k in range(tp)], m),
+        expert_comm=group([m * ep + k for k in range(ep)], e),
+        mxe_comm=(group(range(tp * ep), m * ep + e) if tp > 1 and ep > 1
+                  else None))
+
+
+def layer0(torch, port, cfg, dev, seed):
+    """(model, its layer 0's compute-dtype block params as (1, ...)
+    tensors) of config `cfg`, initialised from `seed`, every bias then
+    drawn non-zero (a bias added once a rank, not once, shows)."""
+    model = port.build_model(cfg, device=dev).init(
+        torch.Generator(device=dev).manual_seed(seed))
+    g = torch.Generator(device=dev).manual_seed(seed + 1)
+    with torch.no_grad():
+        bp = {k: v[:1].clone()
+              for k, v in model.stacked_compute_params().items()}
+        for k, v in bp.items():
+            if k.endswith(".b"):
+                v += (0.1 * torch.randn(v.shape, generator=g, device=dev)
+                      ).to(v.dtype)
+    return model, bp
+
+
+def block_pass(torch, model, leaves, keys, pctx, gout, dkey):
+    """The model's own block (`_block_fn`: its remat policy, its dropout
+    sites) forward and backward on `leaves` ([x, *params in `keys`'
+    order]) under `pctx`: (its outputs detached, the leaves' gradients
+    for the cotangents `gout`)."""
+    out = model._block_fn()(leaves[0], dict(zip(keys, leaves[1:])),
+                            dkey=dkey, pctx=pctx)
+    outs = out if isinstance(out, tuple) else (out,)
+    gouts = gout if isinstance(gout, tuple) else (gout,)
+    grads = torch.autograd.grad(outs, leaves, gouts)
+    return tuple(o.detach() for o in outs), grads
+
+
+class ShardedLayer:
+    """Layer 0 and the block's input x whole, and as each rank (m, e) of
+    a (tp, ep) split holds them under the engines: a leaf the split cuts
+    (parallel/tensor.py) its piece, every other leaf a copy of its own
+    (the norms, the router, the row-parallel products' biases, which
+    each rank adds once after its reduce), and x a copy of its own; each
+    a leaf that requires grad."""
+
+    def __init__(self, model, bp, x, tp, ep):
+        from tiny_deepspeed_tpu_torch.parallel.tensor import TPLayout
+        self.lay = TPLayout(model, tp, ep)
+        self.tp, self.ep = tp, ep
+        self.keys = list(bp)
+
+        def leaves(cut):
+            return [x.detach().clone().requires_grad_()] + [
+                cut(k, bp[k][0]).clone().requires_grad_() for k in bp]
+
+        self.whole = leaves(lambda k, t: t)
+        self.ranks = {(m, e): leaves(lambda k, t, m=m, e=e:
+                                     self.piece(k, t, m, e))
+                      for m in range(tp) for e in range(ep)}
+
+    def piece(self, k, t, m, e):
+        return self.lay.shard("h." + k, t[None], {"model": m, "expert": e})[0]
+
+    def run(self, torch, model, gout, dkey, known, route=None):
+        """Every rank's `block_pass` through `one_process.lockstep`, its
+        all-reduces the groups' true results (`known` keeps them: a
+        second call runs one pass), each inside `route()` when given:
+        [(outputs, grads, all-reduces, their bytes)] in rank order."""
+        from tiny_deepspeed_tpu_torch.parallel.one_process import lockstep
+
+        def rank(comm):
+            m, e = divmod(comm.rank, self.ep)
+            with route() if route else contextlib.nullcontext():
+                outs, grads = block_pass(
+                    torch, model, self.ranks[m, e], self.keys,
+                    shard_ctx(self.tp, self.ep, m, e, comm), gout, dkey)
+            return outs, grads, comm.calls, comm.nbytes
+        return lockstep(self.tp * self.ep, rank, known)
+
+    def errors(self, got, want, names):
+        """{what[m,e]: (max abs err, / max|ref|)} of every rank's outputs,
+        its x gradient and its leaves' gradients against the whole
+        block's (`want` = (outputs, grads)), a piece's cut from the
+        whole's."""
+        errs = {}
+        for (m, e), (outs, grads, _, _) in zip(self.ranks, got):
+            for n, o, w in zip(names, outs, want[0]):
+                errs[f"{n}[{m},{e}]"] = _rel_err(o, w)
+            errs[f"dx[{m},{e}]"] = _rel_err(grads[0], want[1][0])
+            for k, gr, w in zip(self.keys, grads[1:], want[1][1:]):
+                errs[f"{k}[{m},{e}]"] = _rel_err(gr, self.piece(k, w, m, e))
+        return errs
+
+
+def _counts(counters):
+    got = {k: fn.launches for k, fn in counters.items()}
+    for fn in counters.values():
+        fn.launches = 0
+    return got
+
+
+def sharded_block_case(torch, fa, counters, model, bp, tp, ep, dev, seed,
+                       what, b=TP_B, t=TP_T):
+    """One split of 17a / 17c: the model's block on layer 0 at B x T,
+    whole and as every rank of the (tp, ep) split through
+    `one_process.lockstep` (true all-reduces, forward, remat recompute
+    and backward), dropout on at TP_DROP: every rank's outputs and
+    gradients within TP_TOL x max|ref| of the whole's.  An MoE block's
+    ranks are handed the whole block's expert choices (`moe_routing`:
+    under TP the attention's reduce rounds apart from the whole's, which
+    flips a token's choice where two probabilities nearly tie); their
+    own must agree on 90% of the tokens in every router call.  On the card
+    every kernel launched tp x ep times the whole block's count in the
+    final pass (FA2 at its local heads), FA2 and dropout at least once,
+    no plain FA2 version.  Returns (result, launches)."""
+    cfg = model.config
+    n = tp * ep
+    g = torch.Generator(device=dev).manual_seed(seed + n)
+    x = torch.randn(b, t, cfg.n_embd, generator=g, device=dev).to(
+        cfg.compute_dtype)
+    gout = torch.randn(b, t, cfg.n_embd, generator=g, device=dev).to(
+        cfg.compute_dtype)
+    moe = getattr(cfg, "n_expert", None) is not None
+    names = ("out", "aux") if moe else ("out",)
+    if moe:
+        gout = (gout, torch.ones((), device=dev))
+    dkey = seed
+    sl = ShardedLayer(model, bp, x, tp, ep)
+    picks, owns = [], []
+
+    def route():
+        owns.append([])
+        return moe_routing(model, picks, owns[-1])
+
+    _counts(counters)
+    with moe_routing(model, picks) if moe else contextlib.nullcontext():
+        want = block_pass(torch, model, sl.whole, sl.keys, None, gout, dkey)
+    whole_l = _counts(counters)
+    known = []
+    route = route if moe else None
+    sl.run(torch, model, gout, dkey, known, route)  # settles every reduce
+    _counts(counters)
+    owns.clear()
+    calls = []
+    with (counted_plain_fa2(fa, calls) if dev == "cuda"
+          else contextlib.nullcontext()):
+        got = sl.run(torch, model, gout, dkey, known, route)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+    launches = _counts(counters)
+    errs = sl.errors(got, want, names)
+    worst = max(errs, key=lambda k: errs[k][1])
+    check(all(r <= TP_TOL for _, r in errs.values()),
+          f"{what}: against the whole block, worst {worst} {errs[worst]}")
+    agree = min((float((a == b).all(-1).float().mean())
+                 for own in owns for a, b in zip(own, picks)), default=1.0)
+    check(all(len(own) == len(picks) for own in owns) and agree >= 0.9,
+          f"{what}: the ranks' own expert choices agree on {agree} of the "
+          f"tokens ({[len(o) for o in owns]} router calls, "
+          f"{len(picks)} whole)")
+    if dev == "cuda":
+        check(not calls, f"{what}: plain FA2 ran {calls}")
+        for k in FA2_KERNELS + ("dropout",):
+            check(whole_l[k] > 0, f"{what}: the whole block launched no {k}")
+        for k, c in whole_l.items():
+            check(launches[k] == n * c,
+                  f"{what}: {k} {launches[k]}, want {n} x {c}")
+    r = dict(errs={"out": errs["out[0,0]"], "dx": errs["dx[0,0]"],
+                   "worst": (worst, *errs[worst])},
+             layer_reduces=[got[0][2], got[0][3]], passes=len(known) + 1,
+             launches_whole=whole_l, agree=agree)
+    if dev == "cuda":
+        one = sl.ranks[0, 0]
+        ctx = shard_ctx(tp, ep, 0, 0)
+        tm = sides_in_turns(torch, {
+            "whole": lambda: block_pass(torch, model, sl.whole, sl.keys,
+                                        None, gout, dkey),
+            "shard": lambda: block_pass(torch, model, one, sl.keys, ctx,
+                                        gout, dkey)},
+            reps=3, n=5, sleep=TP_SLEEP)
+        r.update(whole_ms=tm["whole"], shard_ms=tm["shard"],
+                 ratio=tm["shard"][0] / tm["whole"][0])
+    return r, launches
+
+
+def tp_blocks_phase(torch, port, fa, counters, card, dev="cuda",
+                    cases=TP_BLOCKS, b=TP_B, t=TP_T, seed=17):
+    """17a: a gpt2-124m / llama-160m block (layer 0, bf16, its biases
+    drawn non-zero, dropout at TP_DROP) at B x T, whole and as the tp
+    model ranks of each split (`sharded_block_case`); one shard's
+    fwd+bwd device ms in turns with the whole block's, and the
+    all-reduces and bytes a layer, counted on rank 0's communicator."""
+    res, paths = {}, {}
+    for preset, tp in cases:
+        cfg = dataclasses.replace(port.ALL_PRESETS[preset], dropout=TP_DROP)
+        model, bp = layer0(torch, port, cfg, dev, seed)
+        r, launches = sharded_block_case(
+            torch, fa, counters, model, bp, tp, 1, dev, seed,
+            f"17a {preset} tp={tp}", b, t)
+        # a Llama path's name says so (`is_llama_path`: the RMS rows)
+        path = f"llama_tp{tp}" if preset.startswith("llama") else f"tp{tp}"
+        paths[path] = launches
+        if dev == "cuda":
+            e = r["errs"]
+            print(f"  [{card}] 17a {preset} tp={tp} (B={b} T={t} "
+                  f"H/tp={cfg.n_head // tp} "
+                  f"KVH/tp={getattr(cfg, 'kv_heads', cfg.n_head) // tp} "
+                  f"bf16, biases non-zero, dropout {TP_DROP}, the model's "
+                  f"block through lockstep, {r['passes']} passes): rank 0 "
+                  f"out {e['out'][1]:.3g}, dx {e['dx'][1]:.3g}, worst "
+                  f"{e['worst'][0]} {e['worst'][2]:.3g} of max|ref| (tol "
+                  f"{TP_TOL}); every kernel {tp} x the whole block's "
+                  f"launches ("
+                  + ", ".join(f"{k} {launches[k]}" for k in FA2_KERNELS)
+                  + f"); one shard fwd+bwd {r['shard_ms'][0]:.3f} ms vs "
+                  f"the whole block {r['whole_ms'][0]:.3f} ms (CUDA events,"
+                  f" medians in turns; x{r['ratio']:.3f}); a layer's "
+                  f"all-reduces (counted, rank 0): {r['layer_reduces'][0]} "
+                  f"of {r['layer_reduces'][1] / 1e6:.2f} MB")
+        res[preset, tp] = r
+        del model, bp
+    return res, paths
+
+
+def tp_head_phase(torch, port, counters, card, dev="cuda", sizes=(2, 4),
+                  b=TP_B, t=TP_T, v=TP_V, d=768, seed=18):
+    """17b: the vocab-parallel chunked head at V columns cut over n model
+    ranks, as the model runs it (`copy_to` on its input, then
+    `fused_linear_xent(..., vocab=)`), every rank's forward and backward
+    through `one_process.lockstep` (its max, its sums and its dx
+    all-reduced as the group would): every rank's loss and dx, and the
+    ranks' dW column blocks, within 2e-2 x max|ref| of the whole chunked
+    head's on bf16 inputs; no kernel wrapper launched (the head is plain
+    PyTorch, as JAX's multi-device head is XLA); the all-reduces and
+    bytes counted on rank 0; one rank's fwd+bwd in turns with the whole
+    head's."""
+    from tiny_deepspeed_tpu_torch.ops import softmax_xent as X
+    from tiny_deepspeed_tpu_torch.ops.collectives import copy_to
+    from tiny_deepspeed_tpu_torch.parallel.one_process import (LocalReduce,
+                                                               lockstep)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(b, t, d, generator=g, device=dev).bfloat16()
+    w = (torch.randn(d, v, generator=g, device=dev) * 0.02).bfloat16()
+    y = torch.randint(0, v, (b, t), generator=g, device=dev)
+
+    def head(ws, comm):
+        xl, wl = x.clone().requires_grad_(), ws.clone().requires_grad_()
+        vocab = None if comm is None else (comm, comm.rank * ws.shape[1])
+        loss = X.fused_linear_xent(copy_to(xl, comm), wl, y, vocab=vocab)
+        return (loss.detach(), *torch.autograd.grad(loss, [xl, wl]))
+
+    want = head(w, None)
+    res, paths = {}, {}
+    for n in sizes:
+        ws = [w[:, r * v // n:(r + 1) * v // n] for r in range(n)]
+        _counts(counters)
+        got = lockstep(n, lambda comm: (*head(ws[comm.rank], comm),
+                                        comm.calls, comm.nbytes))
+        launches = _counts(counters)
+        errs = {"loss": max((_rel_err(r[0], want[0]) for r in got),
+                            key=lambda e: e[1]),
+                "dx": max((_rel_err(r[1], want[1]) for r in got),
+                          key=lambda e: e[1]),
+                "dW": _rel_err(torch.cat([r[2] for r in got], 1), want[2])}
+        check(all(r <= TP_TOL for _, r in errs.values()),
+              f"17b tp={n}: against the whole head {errs}")
+        check(not any(launches.values()),
+              f"17b tp={n}: a kernel wrapper launched {launches}")
+        paths[f"tp{n}_head"] = launches
+        r = dict(errs=errs, reduces=[got[0][3], got[0][4]])
+        if dev == "cuda":
+            one = LocalReduce(0, n)
+            tm = sides_in_turns(torch, {"whole": lambda: head(w, None),
+                                        "shard": lambda: head(ws[0], one)},
+                                reps=3, n=3)
+            r.update(whole_ms=tm["whole"], shard_ms=tm["shard"],
+                     ratio=tm["shard"][0] / tm["whole"][0])
+            print(f"  [{card}] 17b the vocab-parallel chunked head, V={v} "
+                  f"over {n} ranks (B={b} T={t} D={d} bf16): loss "
+                  f"{errs['loss'][0]:.3g}, dx {errs['dx'][1]:.3g}, dW "
+                  f"{errs['dW'][1]:.3g} of max|ref| (tol {TP_TOL}); no "
+                  f"kernel wrapper launched; all-reduces (counted, rank "
+                  f"0): {r['reduces'][0]} of {r['reduces'][1] / 1e6:.2f} "
+                  f"MB; one rank fwd+bwd {tm['shard'][0]:.3f} ms vs the "
+                  f"whole head {tm['whole'][0]:.3f} ms (CUDA events, "
+                  f"medians in turns; x{r['ratio']:.3f})")
+        res[n] = r
+    return res, paths
+
+
+def ep_phase(torch, port, fa, counters, card, dev="cuda", preset=MOE,
+             splits=MOE_SPLITS, b=TP_B, t=TP_T, seed=19):
+    """17c: moe-8x124m's block (layer 0, bf16, its biases drawn non-zero,
+    dropout at TP_DROP) on a B x T panel, whole and as the (model,
+    expert) ranks of each split (`sharded_block_case`: the output, the
+    aux term and every gradient, each rank's own); one shard's fwd+bwd in
+    turns with the whole's."""
+    cfg = dataclasses.replace(port.ALL_PRESETS[preset], dropout=TP_DROP)
+    model, bp = layer0(torch, port, cfg, dev, seed)
+    res, paths = {}, {}
+    for tp, ep in splits:
+        r, launches = sharded_block_case(
+            torch, fa, counters, model, bp, tp, ep, dev, seed,
+            f"17c {preset} tp={tp} ep={ep}", b, t)
+        paths[f"ep{ep}" + (f"tp{tp}" if tp > 1 else "") + "_moe"] = launches
+        if dev == "cuda":
+            e = r["errs"]
+            print(f"  [{card}] 17c {preset} block at ep={ep} tp={tp} "
+                  f"(B={b} T={t}, {cfg.n_expert // ep} experts a rank, "
+                  f"bf16, biases non-zero, dropout {TP_DROP}, through "
+                  f"lockstep, {r['passes']} passes, routed as the whole "
+                  f"block; their own choices agree on {r['agree']:.4f} of "
+                  f"the tokens): rank 0 out "
+                  f"{e['out'][1]:.3g}, dx {e['dx'][1]:.3g}, worst "
+                  f"{e['worst'][0]} {e['worst'][2]:.3g} of max|ref| (tol "
+                  f"{TP_TOL}); every kernel {tp * ep} x the whole block's "
+                  f"launches; one shard fwd+bwd {r['shard_ms'][0]:.3f} ms "
+                  f"vs the whole {r['whole_ms'][0]:.3f} ms (x"
+                  f"{r['ratio']:.3f}); a layer's all-reduces (counted, "
+                  f"rank 0): {r['layer_reduces'][0]} of "
+                  f"{r['layer_reduces'][1] / 1e6:.2f} MB")
+        res[tp, ep] = r
+    return res, paths
+
+
+def step_reduces(port, blocks, head):
+    """{case: [all-reduces, bytes]} of one training step on rank 0: a
+    layer's count (17a / 17c) times the preset's layers, plus the
+    vocab-parallel head's (17b, at the same tp and D) where the model
+    axis is split."""
+    out = {}
+    for (preset, tp, ep), r in blocks.items():
+        n_l = port.ALL_PRESETS[preset].n_layer
+        h = head[tp]["reduces"] if tp > 1 else [0, 0]
+        out[preset, tp, ep] = [r["layer_reduces"][i] * n_l + h[i]
+                               for i in range(2)]
+    return out
+
+
+def tp_refusal_phase(torch, port, card, dev="cuda"):
+    """17d: every distributed engine at world 1 with a model or expert
+    split of 2 raises JAX's device-count message (its engine.py:462-467
+    at a device count of 1); pipeline parallelism names the next slice."""
+    model = port.build_model("tiny", device=dev)
+    seen = 0
+    for name in ("DDP", "Zero1", "Zero2", "Zero3"):
+        for tp, ep in ((2, 1), (1, 2), (2, 2)):
+            want = (f"seq_parallel=1 * tensor_parallel={tp} * "
+                    f"expert_parallel={ep} * pipeline_parallel=1 must "
+                    f"divide device count 1")
+            try:
+                getattr(port, name)(model, port.AdamW(), device=dev,
+                                    tensor_parallel=tp, expert_parallel=ep)
+            except ValueError as e:
+                check(str(e) == want, f"17d {name}: {e!r}, want {want!r}")
+                seen += 1
+                continue
+            raise SmokeFailure(f"17d {name} tp={tp} ep={ep} built at "
+                               "world 1")
+        try:
+            getattr(port, name)(model, port.AdamW(), device=dev,
+                                pipeline_parallel=2)
+            raise SmokeFailure(f"17d {name} pipeline_parallel=2 built")
+        except ValueError as e:
+            check("slice 25" in str(e), f"17d {name}: {e!r}")
+    print(f"  [{card}] 17d {seen} engines at world 1 with a split of 2 "
+          f"raised JAX's device-count message; pipeline_parallel=2 names "
+          f"slice 25")
+    return seen
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -7710,6 +8141,33 @@ def main():
     lap("16c, train --autotune")
     print(f"phase 16: {time.perf_counter() - t16:.2f}s")
 
+    t17 = time.perf_counter()
+    print(f"phase 17: tensor and expert parallelism, each rank layout's "
+          f"shards in one process [{card}]")
+    torch.cuda.empty_cache()
+    tp_res, p17 = tp_blocks_phase(torch, port, fa, counters, card)
+    lap("17a, the blocks")
+    head_res, got = tp_head_phase(torch, port, counters, card)
+    p17.update(got)
+    lap("17b, the vocab-parallel head")
+    ep_res, got = ep_phase(torch, port, fa, counters, card)
+    p17.update(got)
+    torch.cuda.empty_cache()
+    lap("17c, the expert shards")
+    steps = step_reduces(port, {
+        **{(p, n, 1): r for (p, n), r in tp_res.items()},
+        **{(MOE, a, b): r for (a, b), r in ep_res.items()}}, head_res)
+    for (p, n, e), (count, nbytes) in steps.items():
+        print(f"  [{card}] 17 {p} tp={n} ep={e}: a step's all-reduces "
+              f"(counted on rank 0: a layer x {port.ALL_PRESETS[p].n_layer}"
+              f" + the head; B={TP_B} T={TP_T}, remat "
+              f"{port.ALL_PRESETS[p].remat_policy}): {count} of "
+              f"{nbytes / 1e6:.2f} MB")
+    with nccl_world1(torch):
+        tp_refusal_phase(torch, port, card)
+    lap("17d, the refusals")
+    print(f"phase 17: {time.perf_counter() - t17:.2f}s")
+
     timed = ("shape", "ms", "plain_ms", "library_ms", "call_ms", "bound_ms",
              "bound_by")
     extra_keys = (TURN_KEYS + UNFUSED_KEYS + PARENT_KEYS + V1_KEYS
@@ -7736,7 +8194,8 @@ def main():
                    **{p: v[name] for p, v in codec_paths.items()},
                    **{p: v[name] for p, v in uly_paths.items()},
                    **{p: v[name] for p, v in p15.items()},
-                   **{p: v[name] for p, v in p16.items()}}
+                   **{p: v[name] for p, v in p16.items()},
+                   **{p: v[name] for p, v in p17.items()}}
         row = {"name": name, "route": route, "source": source,
                "replaces": replaces, "launches": sum(by_path.values()),
                "launches_by_path": by_path,
@@ -7934,7 +8393,8 @@ def main():
     by = kernels[30]["launches_by_path"]
     drop_paths = ("knobbed_training", "uly_drop_single",
                   *(p for p, _ in ULY_ENGINES), "drop_exec_bucket4",
-                  "drop_exec_composed4")
+                  "drop_exec_composed4",
+                  *(p for p in p17 if not p.endswith("_head")))
     check(all(by[p] > 0 for p in drop_paths)
           and not any(v for p, v in by.items() if p not in drop_paths),
           f"dropout launches by path {by}")
@@ -7988,7 +8448,15 @@ def main():
                    "schedule": sched_res, "codecs": codec_res,
                    "offload": off_res, "telemetry": telem_res,
                    "dropout_ab": knob["drop_ab"], "autotune": tune_res,
-                   "fp8": fp8_res, "train_autotune": train_tune},
+                   "fp8": fp8_res, "train_autotune": train_tune,
+                   "tensor_parallel": {
+                       "blocks": {f"{p} tp={n}": r
+                                  for (p, n), r in tp_res.items()},
+                       "head": {f"tp={n}": r for n, r in head_res.items()},
+                       "experts": {f"tp={a} ep={b}": r
+                                   for (a, b), r in ep_res.items()},
+                       "step_reduces": {f"{p} tp={n} ep={e}": v
+                                        for (p, n, e), v in steps.items()}}},
                   f, indent=1, default=str)
     print(f"total {time.perf_counter() - t_all:.2f}s")
     print(json.dumps({"kernels": kernels}))

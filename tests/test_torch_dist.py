@@ -162,9 +162,16 @@ def _jax_run(name, dp, sp, kw, opt, accum, overflow, model_kw=None,
     import tiny_deepspeed_tpu as J
     from tiny_deepspeed_tpu.models import ALL_PRESETS as JP
     from tiny_deepspeed_tpu.models import build_model as jbuild
-    shape, names = ((dp, sp), ("data", "seq")) if sp > 1 else ((dp,),
-                                                               ("data",))
-    mesh = J.make_mesh(shape, names, devices=jax.devices()[:dp * sp])
+    # the engine's own axis order, an axis of size 1 left out (JAX
+    # :468-476); a tensor / expert split comes in `kw`, as the port's
+    shape, names = [dp], ["data"]
+    for ax, n in (("seq", sp), ("model", kw.get("tensor_parallel", 1)),
+                  ("expert", kw.get("expert_parallel", 1))):
+        if n > 1:
+            shape.append(n)
+            names.append(ax)
+    mesh = J.make_mesh(tuple(shape), tuple(names),
+                       devices=jax.devices()[:int(np.prod(shape))])
     jopt = (J.SGD(lr=1e-2, momentum=0.9, weight_decay=0.1) if opt == "sgd"
             else J.AdamW(lr=LR, weight_decay=0.1))
     jcfg = dataclasses.replace(JP[preset], **(model_kw or {}))
@@ -232,7 +239,7 @@ def run_cases(tmp_path, cases):
                        c["accum"], c["overflow"], c["model_kw"],
                        c["preset"], c["telemetry"])
         np.savez(tmp_path / f"params{cid}.npz", **out[0])
-        by_world.setdefault(c["dp"] * c["sp"], []).append(dict(
+        by_world.setdefault(_world(c), []).append(dict(
             name=c["name"], sp=c["sp"], kw=c["kw"], opt=c["opt"],
             accum=c["accum"], overflow=c["overflow"],
             model_kw=c["model_kw"], preset=c["preset"], tag=cid,
@@ -245,9 +252,16 @@ def run_cases(tmp_path, cases):
                   timeout=120 + 60 * len(configs))
         except AssertionError as e:
             failed[world] = e
-    return {cid: (failed.get(c["dp"] * c["sp"])
+    return {cid: (failed.get(_world(c))
                   or torch.load(tmp_path / f"result{cid}.pt"), out, c)
             for cid, (out, c) in runs.items()}
+
+
+def _world(c):
+    """A case's rank count: data x seq x its tensor and expert splits."""
+    kw = c["kw"]
+    return (c["dp"] * c["sp"] * kw.get("tensor_parallel", 1)
+            * kw.get("expert_parallel", 1))
 
 
 def check_case(runs, cid, atol=1e-5, progress=True):
@@ -409,11 +423,12 @@ def _fake_pctx():
     dict(hpz=True), dict(tensor_parallel=2), dict(expert_parallel=2),
     dict(pipeline_parallel=2)])
 def test_refused_engine_knobs_raise(knob):
-    """The knobs still refused name ROADMAP.md; of the schedule's, Zero2 at
-    data 2 builds the bucket lowering (and, with `grad_comm`, the
-    quantized "quant_mono" one) and refuses the gather slot as JAX does
-    (it needs ZeRO-3); the telemetry and the offload build, and
-    `describe()` names them."""
+    """The knob still refused (pipeline parallelism) names ROADMAP.md; a
+    tensor or expert split that the given context does not carry is
+    refused; of the schedule's, Zero2 at data 2 builds the bucket
+    lowering (and, with `grad_comm`, the quantized "quant_mono" one) and
+    refuses the gather slot as JAX does (it needs ZeRO-3); the telemetry
+    and the offload build, and `describe()` names them."""
     pm = T.GPT2Model(T.GPT2_PRESETS["tiny"], device="cpu")
     if "telemetry" in knob or "offload_opt_state" in knob:
         eng = T.Zero2(pm, T.AdamW(), device="cpu", pctx=_fake_pctx(),
@@ -441,7 +456,11 @@ def test_refused_engine_knobs_raise(knob):
         with pytest.raises(ValueError, match="requires ZeRO-3"):
             T.Zero2(pm, T.AdamW(), device="cpu", pctx=_fake_pctx(), **knob)
         return
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    if "pipeline_parallel" not in knob:
+        with pytest.raises(ValueError, match="disagrees with the given pctx"):
+            T.Zero2(pm, T.AdamW(), device="cpu", pctx=_fake_pctx(), **knob)
+        return
+    with pytest.raises(ValueError, match="slice 25.*ROADMAP.md"):
         T.Zero2(pm, T.AdamW(), device="cpu", pctx=_fake_pctx(), **knob)
 
 

@@ -362,11 +362,12 @@ class TestRefusalsAndEntryPoints:
         dict(pipeline_parallel=2),
     ])
     def test_refused_engine_knobs_raise(self, knob):
-        """The knobs still refused say so; the schedule's are inert on
-        one device, with JAX's warning, and run the plain path bit for
-        bit; the telemetry and the offload build, and `describe()` names
-        them (tests/test_torch_telemetry.py, tests/test_torch_offload.py
-        run them)."""
+        """The knob still refused (pipeline parallelism) says so, and the
+        sequence, tensor and expert splits ask for a distributed engine;
+        the schedule's are inert on one device, with JAX's warning, and
+        run the plain path bit for bit; the telemetry and the offload
+        build, and `describe()` names them (tests/test_torch_telemetry.py,
+        tests/test_torch_offload.py run them)."""
         pm = T.GPT2Model(T.GPT2_PRESETS["tiny"], device="cpu")
         if "telemetry" in knob or "offload_opt_state" in knob:
             eng = T.SingleDevice(pm, T.AdamW(), device="cpu", **knob)
@@ -395,7 +396,9 @@ class TestRefusalsAndEntryPoints:
             for n, p in out[0][1].items():
                 assert torch.equal(out[1][1][n], p), n
             return
-        with pytest.raises(ValueError, match="not ported"):
+        why = ("not ported" if "pipeline_parallel" in knob
+               else "need a distributed engine")
+        with pytest.raises(ValueError, match=why):
             T.SingleDevice(pm, T.AdamW(), device="cpu", **knob)
 
     def test_without_cuda_entry_points_raise(self, monkeypatch):

@@ -69,6 +69,27 @@ ZeRO-3 gather, the composed schedule).  With no executor the program is
 the one above.  `grad_bucket_capable` / `gather_prefetch_capable` say a
 family's loop may be handed over (JAX :255-257).
 
+Tensor parallelism (`pctx.model_comm`, parallel/tensor.py; JAX
+`tp_rules`, :323-338): the params are the rank's pieces of the leaves
+`tp_rules()` names.  The attention's qkv product is column-parallel —
+the rank's H/tp heads, its q | k | v columns side by side (`tp_blocks`:
+the fused leaf's three blocks are cut apart) — and runs the attention
+kernels on those heads; its output projection is row-parallel, its
+partial sums reduced over the model group (`reduce_from`), the
+replicated bias added once after.  The MLP's fc is column-parallel, its
+proj row-parallel the same way.  `copy_to` before each column-parallel
+product sums the input's gradient over the group.  The untied lm_head is
+vocab-parallel (dim 1): the loss runs on the rank's vocab columns
+(ops/softmax_xent.py, `vocab=`).  Every dropout site sits after a
+reduce, at full width, so its masks are the same on every model rank.
+Under remat a block's recompute replays its reduces in the same order on
+every model rank, so they pair up.  The policies keep the products'
+outputs, not a reduce's (an all-reduce is no `aten.mm`), so the
+recompute all-reduces again — all but the block's last reduce, whose
+output only feeds the residual add: the checkpoint's recompute stops
+once the tensors the backward saved are rebuilt.  A GPT-2 or Llama
+layer runs 5 all-reduces a step (2 forward, 1 recompute, 2 backward).
+
 The health probe (engine telemetry layers mode): a block called with a
 probe row passes its output through `parallel.schedule.layer_health_tap`
 inside its checkpoint (JAX `block_fn`, :912-926), so the remat
@@ -90,6 +111,7 @@ from torch.utils import checkpoint as ckpt
 
 from .. import rng as prng
 from ..autotuner import deferring
+from ..ops.collectives import copy_to, reduce_from
 from ..ops.attention import ATTENTION, sharded_attention
 from ..ops.dispatch import resolve_device
 from ..ops.dropout import dropout, dropout_keep
@@ -269,6 +291,29 @@ def _dropout(x, key: int, rate: float, pctx=None):
                    mask_fn=_dropout_keep)
 
 
+def _model_comm(pctx):
+    """The model group's communicator under tensor parallelism, else
+    None."""
+    return None if pctx is None else pctx.model_comm
+
+
+def channel_amax(pctx, name: str, amax: torch.Tensor) -> torch.Tensor:
+    """A stacked block weight's per-(layer, out-channel) absmax over the
+    rank's piece -> over the whole logical leaf: the MAX over the group
+    of every axis that cuts a reduced dim (not the last, the channel's),
+    as JAX's scale is over the whole leaf.  As it is without `pctx.tp`
+    or such a cut."""
+    tp = None if pctx is None else pctx.tp
+    if tp is None:
+        return amax
+    ndim = len(tp.whole_shapes[name])
+    for c in tp.cuts[name]:
+        if c.dim != ndim - 1:
+            comm = pctx.model_comm if c.axis == "model" else pctx.expert_comm
+            amax = comm.all_reduce(amax, "max")
+    return amax
+
+
 # remat policy -> the aten products whose outputs the checkpoint keeps
 # (None: recompute the whole block); "all" takes no checkpoint at all
 _REMAT_SAVE = {
@@ -356,6 +401,19 @@ class GPT2Model(nn.Module):
             del shapes["lm_head.w"]
         return shapes
 
+    def tp_rules(self) -> Dict[str, int]:
+        """{leaf: dim} cut over the "model" axis (JAX :323-338):
+        column-parallel qkv / fc (the out dim), row-parallel attn / mlp
+        proj (the in dim), vocab-parallel lm_head."""
+        return {"h.attn.qkv.w": 2, "h.attn.qkv.b": 1, "h.attn.proj.w": 1,
+                "h.mlp.fc.w": 2, "h.mlp.fc.b": 1, "h.mlp.proj.w": 1,
+                "lm_head.w": 1}
+
+    def tp_blocks(self) -> Dict[str, int]:
+        """{leaf: blocks} of a model-axis cut whose dim holds equal blocks
+        cut apart (parallel/tensor.py `Cut`): the fused q | k | v."""
+        return {"h.attn.qkv.w": 3, "h.attn.qkv.b": 3}
+
     def param_dict(self) -> Params:
         """The flat {dotted name: tensor} view (JAX's params dict)."""
         return dict(self.named_parameters())
@@ -390,8 +448,8 @@ class GPT2Model(nn.Module):
         return (self.config.gather_quant == "fp8"
                 and name.endswith(".w") and len(shape) >= 3)
 
-    def stacked_compute_params(self, params: Optional[Params] = None
-                               ) -> Params:
+    def stacked_compute_params(self, params: Optional[Params] = None,
+                               pctx=None) -> Params:
         """The "h.*" tensors, keys without the "h." prefix, cast to the
         compute dtype ONCE per step (the serving engine keeps the result:
         params are frozen while serving).  Layer l is `{k: v[l]}`.
@@ -409,8 +467,9 @@ class GPT2Model(nn.Module):
             name = k[2:]
             if self._quant_eligible(name, v.shape):
                 vd = v.detach().float()
-                s = fp8_scale(vd.abs().amax(dim=tuple(range(1, v.dim() - 1)),
-                                            keepdim=True))
+                s = fp8_scale(channel_amax(
+                    pctx, k, vd.abs().amax(dim=tuple(range(1, v.dim() - 1)),
+                                           keepdim=True)))
                 out[name] = (vd / s).to(torch.float8_e4m3fn)
                 out[name + "#scale"] = s
                 out[name + "#master"] = v
@@ -510,7 +569,7 @@ class GPT2Model(nn.Module):
         # the checkpoint boundary (fusing it would make each checkpoint
         # keep x and h instead of their sum)
         x, h = self._add_norm(x, y, bp, "ln_2")
-        h = self._mlp(h, bp)
+        h = self._mlp(h, bp, pctx)
         if dkey is not None:
             h = _dropout(h, prng.fold_in(dkey, 1), c.dropout, pctx)
         x = x + h
@@ -528,26 +587,43 @@ class GPT2Model(nn.Module):
     def _attn(self, h, bp: Params, pctx=None):
         """The attention half of a block on ln_1's output h (B, T, D):
         (the projected attention output, before its residual, and the
-        layer's (k, v) head tensors)."""
+        layer's (k, v) head tensors).  Under tensor parallelism the
+        rank's H/tp heads (module docstring)."""
         c = self.config
         b, t, d = h.shape
+        tp = _model_comm(pctx)
+        nh = c.n_head // (1 if tp is None else tp.size)
+        h = copy_to(h, tp)
         qkv = linear(h, self._bw(bp, "attn.qkv.w"), bp.get("attn.qkv.b"))
-        q, k, v = qkv.split(d, dim=-1)
+        q, k, v = qkv.split(nh * c.head_dim, dim=-1)
 
         def heads(z):  # (B, T, D) -> (B, H, T, Dh)
-            return z.reshape(b, t, c.n_head, c.head_dim).transpose(1, 2)
+            return z.reshape(b, t, nh, c.head_dim).transpose(1, 2)
 
         kh, vh = heads(k), heads(v)
         y = sharded_attention(heads(q), kh, vh, c.attn_impl, pctx)
-        y = y.transpose(1, 2).reshape(b, t, d)
-        return (linear(y, self._bw(bp, "attn.proj.w"), bp.get("attn.proj.b")),
-                (kh, vh))
+        y = y.transpose(1, 2).reshape(b, t, nh * c.head_dim)
+        return self._row(y, bp, "attn.proj", tp), (kh, vh)
 
-    def _mlp(self, h, bp: Params):
-        """The MLP on ln_2's output h."""
-        h = linear(h, self._bw(bp, "mlp.fc.w"), bp.get("mlp.fc.b"))
+    def _row(self, y, bp: Params, name: str, tp=None):
+        """A row-parallel product (`name`.w, its bias `name`.b if any):
+        without a model group the plain linear; with one the rank's
+        partial sum reduced over the group, then the replicated bias
+        added once."""
+        if tp is None:
+            return linear(y, self._bw(bp, name + ".w"), bp.get(name + ".b"))
+        out = reduce_from(linear(y, self._bw(bp, name + ".w"), None), tp)
+        b = bp.get(name + ".b")
+        return out if b is None else out + b
+
+    def _mlp(self, h, bp: Params, pctx=None):
+        """The MLP on ln_2's output h: fc column-parallel and proj
+        row-parallel under tensor parallelism."""
+        tp = _model_comm(pctx)
+        h = linear(copy_to(h, tp), self._bw(bp, "mlp.fc.w"),
+                   bp.get("mlp.fc.b"))
         h = F.gelu(h, approximate="tanh")  # jax.nn.gelu(approximate=True)
-        return linear(h, self._bw(bp, "mlp.proj.w"), bp.get("mlp.proj.b"))
+        return self._row(h, bp, "mlp.proj", tp)
 
     def final_norm(self, x, params: Optional[Params] = None):
         cd = self.config.compute_dtype
@@ -579,6 +655,15 @@ class GPT2Model(nn.Module):
                 self.config,
                 multi_device=pctx is not None and pctx.is_multi_device,
                 seq_sharded=pctx is not None and pctx.seq_size > 1)
+            tp = _model_comm(pctx)
+            if tp is not None and not self.config.tie_weights:
+                # the vocab-parallel head: the rank's columns of lm_head
+                vocab = (tp, tp.rank * w.shape[1])
+                x = copy_to(x, tp)
+                if impl == "chunked":
+                    return fused_linear_xent(x, w, targets, vocab=vocab)
+                return softmax_cross_entropy(linear(x, w, None), targets,
+                                             vocab=vocab)
             if impl == "pallas":
                 return pallas_fused_xent(x, w, targets)
             if impl == "chunked":
@@ -681,7 +766,7 @@ class GPT2Model(nn.Module):
         elif pctx is not None and pctx.gather is not None:
             params, stacked = pctx.gather.prepare(params)
         else:
-            stacked = self.stacked_compute_params(params)
+            stacked = self.stacked_compute_params(params, pctx)
         x = self.embed(idx, pctx, params)
         dkeys = [None] * c.n_layer
         if rng is not None and c.dropout:

@@ -24,6 +24,14 @@ verify span, the prefix cache, quantized pools) run the GPT-2 machinery:
   hand on each rank (JAX's `_positions`, :201-207, offsets only under
   seq x pipe, because under GSPMD its arrays are global).
 
+Tensor parallelism (JAX `tp_rules`, :178-190): q / k / v / gate / up
+column-parallel, o / down row-parallel (`_row`, no biases), lm_head
+vocab-parallel, as GPT-2's.  A model rank runs H/tp query heads and
+KVH/tp K/V heads, so the group ratio stays; RoPE's positions do not
+change.  The port cuts whole K/V heads: a kv-head count the model axis
+does not divide is refused (`parallel.tensor.TPLayout`), where JAX
+shards k.w's columns whenever they divide.
+
 RoPE and SwiGLU stay plain PyTorch, as they are plain `jnp` in JAX.  The
 serving decode computes the rotation's cos/sin once a tick from the
 slots' positions and reuses them across the layers (`paged_decode`), and
@@ -39,10 +47,11 @@ from typing import Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..ops.collectives import copy_to
 from ..ops.linear import linear
 from ..ops.rmsnorm import add_rmsnorm, rmsnorm
 from . import gpt2
-from .gpt2 import GPT2Model, GPTConfig, Params
+from .gpt2 import GPT2Model, GPTConfig, Params, _model_comm
 
 
 def _round_up(x: int, mult: int) -> int:
@@ -188,6 +197,17 @@ class LlamaModel(GPT2Model):
             del shapes["lm_head.w"]
         return shapes
 
+    def tp_rules(self) -> Dict[str, int]:
+        """Column-parallel q / k / v / gate / up, row-parallel o / down,
+        vocab-parallel lm_head (JAX :178-190)."""
+        return {"h.attn.q.w": 2, "h.attn.k.w": 2, "h.attn.v.w": 2,
+                "h.attn.o.w": 1, "h.mlp.gate.w": 2, "h.mlp.up.w": 2,
+                "h.mlp.down.w": 1, "lm_head.w": 1}
+
+    def tp_blocks(self) -> Dict[str, int]:
+        """None: q, k and v are leaves of their own."""
+        return {}
+
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "LlamaModel":
         """Llama init from `generator` (JAX :135-161): N(0, 0.02), the
@@ -225,42 +245,53 @@ class LlamaModel(GPT2Model):
     def _add_norm(self, x, r, p: Params, name: str):
         return add_rmsnorm(x, r, p[name + ".w"])
 
-    def _qkv(self, h, bp: Params):
+    def _qkv(self, h, bp: Params, tp=None):
         """The separate q, k, v products of h (..., T, D), as (..., H, T,
-        Dh) and (..., KVH, T, Dh) head tensors (views)."""
+        Dh) and (..., KVH, T, Dh) head tensors (views); under the model
+        group `tp` the rank's H/tp and KVH/tp heads."""
         c = self.config
         *lead, t, _ = h.shape
+        n = 1 if tp is None else tp.size
+        h = copy_to(h, tp)
 
-        def heads(z, n):
-            return z.reshape(*lead, t, n, c.head_dim).transpose(-3, -2)
+        def heads(z, nh):
+            return z.reshape(*lead, t, nh, c.head_dim).transpose(-3, -2)
 
-        return (heads(linear(h, self._bw(bp, "attn.q.w"), None), c.n_head),
-                heads(linear(h, self._bw(bp, "attn.k.w"), None), c.kv_heads),
-                heads(linear(h, self._bw(bp, "attn.v.w"), None), c.kv_heads))
+        return (heads(linear(h, self._bw(bp, "attn.q.w"), None),
+                      c.n_head // n),
+                heads(linear(h, self._bw(bp, "attn.k.w"), None),
+                      c.kv_heads // n),
+                heads(linear(h, self._bw(bp, "attn.v.w"), None),
+                      c.kv_heads // n))
 
-    def _out(self, y, bp: Params):
-        """(..., H, T, Dh) attention output -> its projection (..., T, D)."""
+    def _out(self, y, bp: Params, tp=None):
+        """(..., H, T, Dh) attention output -> its projection (..., T, D)
+        (row-parallel under the model group `tp`)."""
         y = y.transpose(-3, -2)
-        return linear(y.reshape(*y.shape[:-2], self.config.n_embd),
-                      self._bw(bp, "attn.o.w"), None)
+        return self._row(y.reshape(*y.shape[:-2], y.shape[-2] * y.shape[-1]),
+                         bp, "attn.o", tp)
 
     def _attn(self, h, bp: Params, pctx=None):
         c = self.config
         t = h.shape[1]
-        q, k, v = self._qkv(h, bp)
+        tp = _model_comm(pctx)
+        q, k, v = self._qkv(h, bp, tp)
         off = 0 if pctx is None else pctx.seq_rank * t
         pos = torch.arange(off, off + t, device=h.device)
         cos2, sin2 = rope_tables(pos, c.head_dim, c.rope_theta)
         q, k = rope_apply(q, cos2, sin2), rope_apply(k, cos2, sin2)
         # K/V enter at kv_heads: FA2 and the ring take them grouped
         y = gpt2.sharded_attention(q, k, v, c.attn_impl, pctx)
-        return self._out(y, bp), (k, v)
+        return self._out(y, bp, tp), (k, v)
 
-    def _mlp(self, h, bp: Params):
-        """SwiGLU on ln_2's output h."""
+    def _mlp(self, h, bp: Params, pctx=None):
+        """SwiGLU on ln_2's output h: gate / up column-parallel and down
+        row-parallel under tensor parallelism."""
+        tp = _model_comm(pctx)
+        h = copy_to(h, tp)
         gate = F.silu(linear(h, self._bw(bp, "mlp.gate.w"), None))
         up = linear(h, self._bw(bp, "mlp.up.w"), None)
-        return linear(gate * up, self._bw(bp, "mlp.down.w"), None)
+        return self._row(gate * up, bp, "mlp.down", tp)
 
     # -- serving --------------------------------------------------------------
 

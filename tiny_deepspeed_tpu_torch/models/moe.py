@@ -50,8 +50,24 @@ engine sums the ranks' gradients of loss / world, so the ranks' terms
 average to JAX's value and their gradients sum to JAX's.  The "sort"
 path is shard-local under pure data parallelism (capacity from the local
 S, the term averaged over ranks: JAX's `shard_map` + `pmean`) and falls
-back to "einsum" under a sequence split (`effective_dispatch`).  Expert,
-tensor and pipeline parallelism stay refused by the engines.
+back to "einsum" under a sequence split (`effective_dispatch`).
+
+Expert and tensor parallelism (JAX `ep_rules` / `tp_rules`, :220-238):
+the experts' (E,) dim is cut over the expert group and their hidden F
+over the model group; the attention is GPT-2's tensor-parallel half.
+The token panel is the same on every expert and model rank (JAX's
+activations are P(data, seq, None)), and the routing is the global
+einsum routing above (`effective_dispatch` says "einsum"): every rank
+builds the whole (S, E, C) tables, its counts all-gathered over the
+batch ranks only.  An expert rank runs its E/ep experts' slots of the
+dispatched panel; under TP each expert's fc is column-parallel and its
+proj row-parallel, the partial (E/ep, C, D) outputs reduced over the
+model group before the replicated proj bias enters, once.  The combine
+of the rank's experts is a partial sum, reduced over the expert group.
+`copy_to` sums the panel's gradient over the (model x expert) ranks and
+the gates' over the expert ranks (each rank's combine reads only its
+experts' gates).  The aux term is computed whole on every rank.  Pipeline
+parallelism stays refused by the engines.
 
 Nothing here is a hand-written kernel: the router, the tables and the
 experts are plain `jnp` in JAX (XLA fusions and dots).  The block's
@@ -69,7 +85,8 @@ import torch.distributed as dist
 import torch.nn.functional as F
 
 from .. import rng as prng
-from .gpt2 import GPT2Model, GPTConfig, Params, _dropout
+from ..ops.collectives import copy_to, reduce_from
+from .gpt2 import GPT2Model, GPTConfig, Params, _dropout, _model_comm
 
 _DISPATCHES = ("einsum", "sort")
 
@@ -93,13 +110,13 @@ def effective_dispatch(cfg, pctx) -> str:
     """The dispatch a step with this config and rank layout runs (JAX
     :73-84): "einsum" stays "einsum"; "sort" runs on one device and
     shard-local under pure data parallelism, and falls back to "einsum"
-    under a sequence split.  `pctx` is the rank's ParallelContext, None
-    on one device."""
+    under a sequence split, expert or tensor parallelism.  `pctx` is the
+    rank's ParallelContext, None on one device."""
     if cfg.moe_dispatch != "sort":
         return cfg.moe_dispatch
     if pctx is None or not pctx.is_multi_device:
         return "sort"
-    if pctx.seq_size > 1:
+    if pctx.seq_size > 1 or pctx.model_size > 1 or pctx.expert_size > 1:
         return "einsum"
     return "sort"
 
@@ -199,6 +216,19 @@ class MoEGPT(GPT2Model):
             del shapes["lm_head.w"]
         return shapes
 
+    def tp_rules(self) -> Dict[str, int]:
+        """{leaf: dim} over "model" (JAX :220-229): GPT-2's attention, the
+        experts' F dim, vocab-parallel lm_head."""
+        return {"h.attn.qkv.w": 2, "h.attn.qkv.b": 1, "h.attn.proj.w": 1,
+                "h.moe.fc.w": 3, "h.moe.fc.b": 2, "h.moe.proj.w": 2,
+                "lm_head.w": 1}
+
+    def ep_rules(self) -> Dict[str, int]:
+        """{leaf: dim of the (E,) experts axis} over "expert" (JAX
+        :231-238)."""
+        return {"h.moe.fc.w": 1, "h.moe.fc.b": 1, "h.moe.proj.w": 1,
+                "h.moe.proj.b": 1}
+
     def _quant_eligible(self, name: str, shape) -> bool:
         """The router stays out of the fp8 gather (JAX :482-485)."""
         return super()._quant_eligible(name, shape) and "router" not in name
@@ -252,7 +282,8 @@ class MoEGPT(GPT2Model):
         row of the lower global rows and row b's lower seq chunks: their
         counts come from one all-gather of the rank's (rows, k, E) counts
         over the world, chunks ordered (data, row, seq) — the global
-        order.  Integer arithmetic throughout: JAX's f32 cumsum of ones is
+        order — each (d, s) block's taken once (a model or expert rank
+        repeats it).  Integer arithmetic throughout: JAX's f32 cumsum of ones is
         exact at these sizes."""
         c = self.config
         e, k = c.n_expert, c.expert_top_k
@@ -263,12 +294,13 @@ class MoEGPT(GPT2Model):
         mine = torch.arange(rows, device=expert_idx.device)
         world = 1
         if pctx is not None and pctx.is_multi_device:
-            world = pctx.world
-            got = chunks.new_empty(world * chunks.numel())
+            world = pctx.data_size * pctx.seq_size
+            got = chunks.new_empty(pctx.world * chunks.numel())
             dist.all_gather_into_tensor(got, chunks.view(-1),
                                         group=pctx.world_group)
-            chunks = got.view(pctx.data_size, pctx.seq_size, rows, k,
-                              e).transpose(1, 2).reshape(-1, k, e)
+            # a model / expert rank repeats its (d, s) block: the first
+            chunks = got.view(pctx.data_size, pctx.seq_size, -1, rows, k,
+                              e)[:, :, 0].transpose(1, 2).reshape(-1, k, e)
             mine = ((pctx.data_rank * rows + mine) * pctx.seq_size
                     + pctx.seq_rank)
         tokens = s * world
@@ -297,6 +329,9 @@ class MoEGPT(GPT2Model):
         gate_vals, expert_idx, probs = self._router(x, router_w)
         pos, keep, cap, first, tokens = self._slots(expert_idx, rows, pctx,
                                                     capacity)
+        # each expert rank's combine reads only its experts' gates
+        gate_vals = copy_to(gate_vals, None if pctx is None
+                            else pctx.expert_comm)
         tok = torch.arange(s, device=x.device)[:, None].expand(s, k)
         col = expert_idx * cap + torch.where(keep, pos, 0)
         dispatch = torch.zeros(s, e * cap, dtype=dtype, device=x.device)
@@ -345,14 +380,16 @@ class MoEGPT(GPT2Model):
 
     # -- forward ------------------------------------------------------------
 
-    def _expert_ffn(self, xe, bp: Params):
+    def _expert_ffn(self, xe, bp: Params, tp=None):
         """(E, C, D) -> (E, C, D): the experts' fc, tanh GELU and proj on
-        batched products, shared by both dispatches (JAX :399-410)."""
+        batched products, shared by both dispatches (JAX :399-410).
+        Under the model group `tp` fc is column-parallel and proj
+        row-parallel: the partial outputs reduced, then the bias."""
         h = torch.bmm(xe, self._bw(bp, "moe.fc.w"))
         if "moe.fc.b" in bp:
             h = h + bp["moe.fc.b"][:, None]
         h = F.gelu(h, approximate="tanh")
-        ye = torch.bmm(h, self._bw(bp, "moe.proj.w"))
+        ye = reduce_from(torch.bmm(h, self._bw(bp, "moe.proj.w")), tp)
         if "moe.proj.b" in bp:
             ye = ye + bp["moe.proj.b"][:, None]
         return ye
@@ -361,7 +398,9 @@ class MoEGPT(GPT2Model):
         """x (B, T, D) -> ((B, T, D), aux) (JAX :329-397).  The router
         reads x and its weight in f32; the einsum tables take x's dtype
         before the two contractions (in bf16 the gates round, as in
-        JAX).  `capacity` overrides the slots an expert holds."""
+        JAX).  `capacity` overrides the slots an expert holds.  Under
+        expert / tensor parallelism the rank's experts and hidden columns
+        (module docstring)."""
         b, t, d = x.shape
         xs = x.reshape(b * t, d)
         router_w = bp["moe.router.w"].float()
@@ -372,11 +411,20 @@ class MoEGPT(GPT2Model):
                                              pctx=pctx, dtype=x.dtype,
                                              capacity=capacity)
         s, e, cap = dispatch.shape
+        ec = None if pctx is None else pctx.expert_comm
+        if ec is not None:  # the rank's experts' slots
+            el = e // ec.size
+            dispatch = dispatch[:, ec.rank * el:(ec.rank + 1) * el]
+            combine = combine[:, ec.rank * el:(ec.rank + 1) * el]
+            e = el
+        xs = copy_to(xs, None if pctx is None else (
+            pctx.mxe_comm or pctx.model_comm or ec))
         # (S, E*C)^T (S, D) and (S, E*C) (E*C, D): the contractions over
         # the tokens
-        xe = dispatch.view(s, e * cap).t() @ xs
-        ye = self._expert_ffn(xe.view(e, cap, d), bp)
-        y = combine.view(s, e * cap) @ ye.view(e * cap, d)
+        xe = dispatch.reshape(s, e * cap).t() @ xs
+        ye = self._expert_ffn(xe.view(e, cap, d), bp, _model_comm(pctx))
+        y = reduce_from(combine.reshape(s, e * cap) @ ye.view(e * cap, d),
+                        ec)
         return y.view(b, t, d), aux
 
     def _moe_mlp_sort(self, xs, router_w, bp: Params, capacity=None):
@@ -437,7 +485,7 @@ class MoEGPT(GPT2Model):
         (x, _aux), kv = self._block(x, bp, return_kv=True)
         return x, kv
 
-    def _mlp(self, h, bp: Params):
+    def _mlp(self, h, bp: Params, pctx=None):
         """The decode step's MLP (`_serve_layers`' hook; the training block
         calls `_moe_mlp` itself): the step's S = B tokens routed together
         under either dispatch with the drop-free capacity S*k — the

@@ -92,6 +92,28 @@ of a `torch.distributed` group laid out as the JAX mesh (data, seq)
   schedule the collectives are per leaf, after the backward: no overlap
   with it.
 
+Tensor and expert parallelism (`tensor_parallel`, `expert_parallel`;
+JAX :455-478, :727-753; parallel/tensor.py).  The layout carves a
+"model" and an "expert" axis after (data, seq) (parallel/mesh.py), and
+the model's `tp_rules()` / `ep_rules()` name the leaves cut over each.
+A rank holds only its piece of every cut leaf — the parameter, its
+optimizer slots and, under ZeRO, its data shard of that piece: `init`
+still inits the whole model from the seed, broadcasts rank 0's, and
+cuts the rank's pieces, so the bits are JAX's init and shard; ZeRO's
+flat shards and Zero3's gathers work on the pieces' shapes over the data
+group.  The model's forward runs Megatron's collectives over the model
+and expert groups.  A model or expert rank repeats its (d, s) block of
+the batch, so each rank differentiates its loss over the data x seq
+ranks (not the world), and the collectives above SUM over the seq and
+data groups only.  The global sums over leaves (the grad clip's norm,
+the telemetry's norms and non-finite count) count a cut leaf's pieces
+across its groups and a replicated leaf once (`tensor.count_once`), one
+all-reduce over the (model x expert) ranks.  `gather_params`,
+`gather_opt_state` and `load_params` join and cut the pieces as well as
+the data shards, in JAX's logical layout.  With "model" or "expert"
+active the schedule's grad and gather slots are refused as JAX refuses
+them (busy axes).
+
 The in-step collective schedule (parallel/schedule.py; JAX :581-716).
 `grad_buckets`, `gather_prefetch`, `gather_groups` and `hpz` (with
 `hpz_granule_of`) become slot declarations; one `build_schedule` at
@@ -176,8 +198,9 @@ program is the same on every rank, as JAX's one SPMD program is.
 params ARE the model's parameters.  One difference from the JAX engine:
 the dynamic scaler's finiteness flag is read on the host (one sync per
 step) and the skip is a host branch, where the JAX engine selects on
-device.  The JAX engine's tensor, expert and pipeline parallelism are
-refused with a ValueError (ROADMAP.md).
+device.  `SingleDevice` refuses every multi-device knob; the
+distributed engines refuse the JAX engine's pipeline parallelism with a
+ValueError naming the next slice (ROADMAP.md).
 `evenness_priority` shapes `rank_map` only, with JAX's warning.
 """
 
@@ -202,6 +225,7 @@ from .comm import GRAD_COMM_MODES, _hier_groups, new_groups
 from .mesh import granule_map, make_context
 from .offload import MomentStream
 from .partition import partition_tensors
+from .tensor import TPLayout, count_once, sum_comm, unshard
 from .zero3 import LayerGather, Zero3Gather, gather_flat, scatter_flat
 
 
@@ -224,20 +248,22 @@ class TrainState:
 
 
 # knobs of the JAX engine the port refuses, with their off values
-_REFUSED = {"tensor_parallel": 1, "expert_parallel": 1,
-            "pipeline_parallel": 1}
+_REFUSED = {"pipeline_parallel": 1}
+_PIPELINE = ("pipeline parallelism is not ported yet (slice 25 of the "
+             "port, ROADMAP.md)")
+# the splits that SingleDevice refuses: they need a distributed engine
+_SPLITS = {"seq_parallel": 1, "tensor_parallel": 1, "expert_parallel": 1}
 _AVG, _SUM, _MIN = dist.ReduceOp.AVG, dist.ReduceOp.SUM, dist.ReduceOp.MIN
 
 
 def _refuse(name: str, refused: Dict[str, Any], knobs: Dict[str, Any],
-            what: str) -> None:
+            why: str) -> None:
     bad = sorted(set(knobs) - set(refused))
     if bad:
         raise TypeError(f"{name}: unknown argument(s) {bad}")
     on = sorted(k for k, v in knobs.items() if v != refused[k])
     if on:
-        raise ValueError(f"{name} {on}: {what} not ported yet (a later "
-                         "slice of the port, ROADMAP.md)")
+        raise ValueError(f"{name} {on}: {why}")
 
 
 def _sched_knobs(grad_buckets, gather_prefetch, gather_groups, hpz,
@@ -286,14 +312,15 @@ def _sched_knobs(grad_buckets, gather_prefetch, gather_groups, hpz,
 
 
 def _check_ulysses(model, pctx) -> None:
-    """JAX's check (engine.py:542-552): Ulysses splits the heads over the
-    seq group, so with a seq split the head count must divide by it."""
+    """JAX's check (engine.py:542-552): Ulysses splits the rank's heads
+    (n_head / tp) over the seq group, so with a seq split they must
+    divide by it."""
     if pctx.seq_impl != "ulysses" or pctx.seq_size == 1:
         return
-    nh, sp = model.config.n_head, pctx.seq_size
-    if nh % sp:
+    nh, sp, tp = model.config.n_head, pctx.seq_size, pctx.model_size
+    if (nh // tp) % sp:
         raise ValueError(
-            f"seq_impl='ulysses' needs local heads (n_head {nh} / tp 1) "
+            f"seq_impl='ulysses' needs local heads (n_head {nh} / tp {tp}) "
             f"divisible by the seq axis size {sp} — use seq_impl='ring' "
             "instead")
 
@@ -319,9 +346,9 @@ class ZeroEngine:
                  grad_comm_tail: str = "fp32", hpz_comm: str = "fp32",
                  evenness_priority: float = 0.0,
                  offload_opt_state: bool = False, offload_prefetch: int = 2,
-                 telemetry=None, **knobs):
-        _refuse(type(self).__name__, _REFUSED, knobs,
-                "tensor/expert/pipeline parallelism are")
+                 telemetry=None, tensor_parallel: int = 1,
+                 expert_parallel: int = 1, **knobs):
+        _refuse(type(self).__name__, _REFUSED, knobs, _PIPELINE)
         knob = _sched_knobs(grad_buckets, gather_prefetch, gather_groups,
                             hpz, grad_comm, grad_comm_groups,
                             grad_comm_block, grad_comm_error_feedback,
@@ -329,21 +356,42 @@ class ZeroEngine:
         self._setup(model, optimizer, device, accum_steps, grad_clip,
                     loss_scale, loss_scale_growth_interval,
                     offload_opt_state, offload_prefetch, telemetry)
-        self.pctx = pctx or make_context(seq_parallel, seq_impl)
-        if self.device.type == "cuda" and \
-                dist.get_backend(self.pctx.data_group) != "nccl":
+        if pctx is not None and (pctx.model_size, pctx.expert_size) != (
+                int(tensor_parallel), int(expert_parallel)) != (1, 1):
             raise ValueError(
-                f"{type(self).__name__} on the card needs an NCCL process "
-                f"group, got {dist.get_backend(self.pctx.data_group)!r}")
+                f"{type(self).__name__}(tensor_parallel={tensor_parallel}, "
+                f"expert_parallel={expert_parallel}) disagrees with the "
+                f"given pctx (model {pctx.model_size} x expert "
+                f"{pctx.expert_size}): a given context carries the layout "
+                "(make_context(..., tensor_parallel=, expert_parallel=))")
+        self.pctx = pctx or make_context(seq_parallel, seq_impl,
+                                         tensor_parallel, expert_parallel)
+        p = self.pctx
+        if self.device.type == "cuda":
+            for g in (p.data_group, p.seq_group, p.model_group,
+                      p.expert_group):
+                if g is not None and dist.get_backend(g) != "nccl":
+                    raise ValueError(
+                        f"{type(self).__name__} on the card needs an NCCL "
+                        f"process group, got {dist.get_backend(g)!r}")
         _check_ulysses(model, self.pctx)
         self.n_dev = self.pctx.world
         self.n_shard = self.pctx.data_size
         self._build_schedule(knob, hpz_granule_of)
+        # the rank's pieces of the leaves the model cuts over "model" /
+        # "expert" (JAX's checks and messages, after the schedule's)
+        self._tp = None
+        self._shapes = {n: tuple(s) for n, s in model.param_shapes().items()}
+        if p.model_size > 1 or p.expert_size > 1:
+            self._tp = TPLayout(model, p.model_size, p.expert_size,
+                                p.model_rank, p.expert_rank)
+            self._shapes = self._tp.shapes
+            self.pctx = dataclasses.replace(p, tp=self._tp)
         self._rank_map(evenness_priority)
         # flat shard of each leaf: (numel, shard size S, [lo, hi) owned)
         r = self.pctx.data_rank
         self._shards = {}
-        for name, shape in model.param_shapes().items():
+        for name, shape in self._shapes.items():
             n = math.prod(shape)
             s = -(-n // self.n_shard)
             self._shards[name] = (n, s, min(r * s, n), min((r + 1) * s, n))
@@ -374,7 +422,11 @@ class ZeroEngine:
         if granule_of is None and pctx is not None:
             def granule_of():
                 return granule_map(pctx)
-        busy = ["seq"] if pctx is not None and pctx.seq_size > 1 else []
+        busy = []
+        if pctx is not None:
+            busy = [ax for ax, n in (("seq", pctx.seq_size),
+                                     ("model", pctx.model_size),
+                                     ("expert", pctx.expert_size)) if n > 1]
         self._schedule = sched.build_schedule(
             model=self.model, stage=self.stage, n_shard=self.n_shard,
             busy_axes=busy, accum_steps=self.accum_steps,
@@ -454,6 +506,7 @@ class ZeroEngine:
         g = seed_or_generator
         if not isinstance(g, torch.Generator):
             g = torch.Generator(device=self.device).manual_seed(int(g))
+        self._fit_model(self.model.param_shapes())
         self.model.init(g)
         params = self.model.param_dict()
         if self.pctx is not None:
@@ -461,6 +514,11 @@ class ZeroEngine:
                 for p in params.values():
                     dist.broadcast(p.data, src=0,
                                    group=self.pctx.world_group)
+        if self._tp is not None:  # the rank's pieces of the cut leaves
+            with torch.no_grad():
+                for n, p in params.items():
+                    if self._tp.sharded(n):
+                        p.data = self._tp.shard(n, p.data).clone()
         if self.stage >= 3:
             params = self._shard_model(params)
             opt_state = self._init_opt(
@@ -478,6 +536,15 @@ class ZeroEngine:
                           scaler=scaler, dropout_base=base,
                           layout=self.layout(),
                           grad_residual=self.zero_residual())
+
+    @torch.no_grad()
+    def _fit_model(self, shapes) -> None:
+        """Give the model's own parameters `shapes` (fresh storage where a
+        shape differs: a released ZeRO-3 model, or TP pieces before a
+        whole init)."""
+        for n, p in self.model.named_parameters():
+            if tuple(p.shape) != tuple(shapes[n]):
+                p.data = p.data.new_empty(shapes[n])
 
     def _init_opt(self, slots) -> Dict[str, Any]:
         """The optimizer's zero state of `slots`; under offload built as
@@ -501,19 +568,23 @@ class ZeroEngine:
 
     def layout(self) -> Dict[str, Any]:
         """This engine and rank: the engine's name and ZeRO stage, the
-        world, data and seq sizes, the rank's coordinates and the model's
-        whole param shapes.  Two states share a shard layout iff engine,
-        stage and sizes agree."""
+        world, data, seq, model and expert sizes, the rank's coordinates,
+        the model's whole param shapes and, under TP / EP, the leaves'
+        cuts (`tensor.TPLayout.plan`).  Two states share a shard layout
+        iff engine, stage and sizes agree."""
         p = self.pctx
-        return {"engine": type(self).__name__, "stage": self.stage,
-                "shapes": {n: list(s) for n, s in
-                           self.model.param_shapes().items()},
-                "world": 1 if p is None else p.world,
-                "data_size": 1 if p is None else p.data_size,
-                "seq_size": 1 if p is None else p.seq_size,
-                "rank": 0 if p is None else p.rank,
-                "data_rank": 0 if p is None else p.data_rank,
-                "seq_rank": 0 if p is None else p.seq_rank}
+        out = {"engine": type(self).__name__, "stage": self.stage,
+               "shapes": {n: list(s) for n, s in
+                          self.model.param_shapes().items()}}
+        for k in ("world", "data_size", "seq_size", "model_size",
+                  "expert_size"):
+            out[k] = 1 if p is None else getattr(p, k)
+        for k in ("rank", "data_rank", "seq_rank", "model_rank",
+                  "expert_rank"):
+            out[k] = 0 if p is None else getattr(p, k)
+        if self._tp is not None:
+            out["tp_plan"] = self._tp.plan()
+        return out
 
     def state_target(self):
         """The rank's TrainState tensors as `init` would build them, on
@@ -523,7 +594,7 @@ class ZeroEngine:
         of the rank's flat shard (stages 1-2) or of its ZeRO-3 shard."""
         whole = {n: torch.empty(s, dtype=self.model.config.param_dtype,
                                 device="meta")
-                 for n, s in self.model.param_shapes().items()}
+                 for n, s in self._shapes.items()}
         if self.stage >= 3:
             params = {n: self._z3.shard(n, t) for n, t in whole.items()}
             slots = params
@@ -544,6 +615,7 @@ class ZeroEngine:
         engine that keeps one starts from zeros (JAX
         utils/checkpoint.py:277-290).  Under offload the moments go back
         to host memory."""
+        self._fit_model(self._shapes)
         state_params = self.model.param_dict()
         for n, p in state_params.items():
             p.copy_(params[n])
@@ -609,10 +681,9 @@ class ZeroEngine:
     def _data_groups(self, lists):
         """Every rank list of data ranks as a process group (created in
         order on every rank); this rank's."""
-        pctx = self.pctx
-        sp = pctx.seq_size
-        return new_groups(lists, pctx.data_rank,
-                          ranks_of=lambda d: d * sp + pctx.seq_rank)
+        p = self.pctx
+        return new_groups(lists, p.data_rank, ranks_of=lambda d: p.rank_of(
+            d, p.seq_rank, p.model_rank, p.expert_rank))
 
     def _hop_groups(self, gather):
         if gather is None or not gather.groups:
@@ -638,14 +709,15 @@ class ZeroEngine:
         wrt = list(params.values())
         if probe is not None:
             gather = self.pctx.gather if self.pctx is not None else None
-            kw["sched"] = sched.ProbeScan(probe, gather)
+            kw["sched"] = sched.ProbeScan(probe, gather, self.pctx)
             wrt.append(probe)
         loss = self.model.apply(idx, targets, rng=rng, pctx=self.pctx,
                                 params=params, **kw)
         if scale is not None:
             loss = loss * scale
-        # the rank's share of the global mean (see the module docstring)
-        share = loss if self.pctx is None else loss / self.pctx.world
+        # the rank's share of the global mean (see the module docstring):
+        # a model or expert rank repeats its (d, s) block's loss
+        share = loss if self.pctx is None else loss / self.pctx.batch_ranks
         grads = torch.autograd.grad(share, wrt)
         probe_grad = grads[-1] if probe is not None else None
         return loss.detach(), dict(zip(params, grads)), probe_grad
@@ -765,10 +837,10 @@ class ZeroEngine:
                 dist.all_reduce(flags, op=_MIN, group=self.pctx.world_group)
             finite = bool(flags)
         if self.grad_clip is not None:
-            gsq = torch.stack([g.float().square().sum()
-                               for g in grads.values()]).sum()
-            if sharded_grads:
-                dist.all_reduce(gsq, op=_SUM, group=self.pctx.data_group)
+            gsq = self._global_sum(
+                torch.stack([g.float().square().sum()
+                             for g in self._counted(grads).values()]).sum(),
+                owned=sharded_grads)
             factor = torch.clamp(self.grad_clip / (gsq.sqrt() + 1e-6),
                                  max=1.0)
             grads = {n: (g.float() * factor).to(g.dtype)
@@ -830,17 +902,39 @@ class ZeroEngine:
         (stage 2's gradients already are), ZeRO-3's shards."""
         pp = {n: p.detach() for n, p in params.items()}
         if self.pctx is None or self.stage == 0:
-            return grads, pp
+            return self._counted(grads), self._counted(pp)
         if self.stage == 1:
             grads = {n: self._own(n, g) for n, g in grads.items()}
         if self.stage < 3:
             pp = {n: self._own(n, p) for n, p in pp.items()}
-        return grads, pp
+        return self._counted(grads), self._counted(pp)
+
+    def _counted(self, pieces):
+        """The pieces this rank counts in a global sum over leaves
+        (`tensor.count_once`); under TP / EP a rank that counts none
+        gives one empty piece, so its partial sums are zeros."""
+        if self._tp is None:
+            return pieces
+        out = {n: t for n, t in pieces.items() if count_once(self.pctx, n)}
+        if not out:
+            out = {"": torch.zeros(0, device=self.device)}
+        return out
+
+    def _global_sum(self, t: torch.Tensor, owned: bool) -> torch.Tensor:
+        """Partial sums over leaves (of `_counted` pieces) -> global: SUM
+        over the data group when the pieces are data shards (`owned`),
+        and over the (model x expert) ranks under TP / EP."""
+        if owned:
+            dist.all_reduce(t, op=_SUM, group=self.pctx.data_group)
+        comm = sum_comm(self.pctx)
+        return t if comm is None else comm.all_reduce(t, "sum")
 
     def _layer_grad_partials(self, gp) -> torch.Tensor:
         """(n_layer, 2) [grad sq-sum, non-finite] per layer over this
         rank's pieces of the "h.*" gradients."""
         L = self.model.config.n_layer
+        if not any(n.startswith("h.") for n in gp):  # counts none here
+            return torch.zeros(L, 2, dtype=torch.float32, device=self.device)
         if self.pctx is None or self.stage == 0 or self.stage >= 3:
             return H.layer_grad_stats(gp)
         pieces = []
@@ -869,16 +963,19 @@ class ZeroEngine:
             parts.append(self._layer_grad_partials(gp).reshape(-1))
         # owned pieces need the data group's SUM; the probe the world's
         owned = pctx is not None and self.stage >= 1
-        pack = owned and probe is not None and pctx.seq_size == 1
+        pack = (owned and probe is not None
+                and pctx.data_size == pctx.world)
         if pack:  # the data group is the world: one all-reduce
             parts.append(probe.reshape(-1))
         packed = torch.cat(parts)
-        if owned:
-            dist.all_reduce(packed, op=_SUM, group=pctx.data_group)
+        if owned or self._tp is not None:
+            packed = self._global_sum(packed, owned)
         if pack:
             probe = packed[-probe.numel():].view(probe.shape)
         elif probe is not None and pctx is not None:
             probe = probe.clone()
+            if pctx.model_rank or pctx.expert_rank:
+                probe.zero_()  # a repeat of its (d, s) block's
             dist.all_reduce(probe, op=_SUM, group=pctx.world_group)
         vec = H.health_vector(loss, partials=packed[:4])
         if not self._layers_on:
@@ -1130,7 +1227,10 @@ class ZeroEngine:
                 own = self._own(n, flat)
             g = grads[n] if self.stage != 1 else self._own(n, grads[n])
             if own.numel():
-                usq = self._update_one(n, own, g, slots, step, usq)
+                counted = usq is not None and count_once(self.pctx, n)
+                u = self._update_one(n, own, g, slots, step,
+                                     usq if counted else None)
+                usq = u if counted else usq
             if flat is not None:
                 flat.copy_(self._gather(n, own))
         opt_state["step"] = step
@@ -1208,18 +1308,45 @@ class ZeroEngine:
 
     # -- whole-state views and reporting -----------------------------------
 
+    @torch.no_grad()
+    def _tp_whole(self, name: str, piece: torch.Tensor) -> torch.Tensor:
+        """The rank's TP / EP piece of leaf `name` (or of a slot of it) ->
+        the whole leaf in JAX's layout: all-gathered over each cut's
+        group, the last cut first (`tensor.unshard`).  Collective over
+        those groups; the piece itself without a cut."""
+        if self._tp is None or not self._tp.sharded(name):
+            return piece
+        p = self.pctx
+        t = piece.contiguous()
+        for c in reversed(self._tp.cuts[name]):
+            group = p.model_group if c.axis == "model" else p.expert_group
+            got = [torch.empty_like(t) for _ in range(c.size)]
+            dist.all_gather(got, t, group=group)
+            t = unshard({(i,): g for i, g in enumerate(got)}, [c])
+        return t
+
+    def _piece(self, name: str, whole: torch.Tensor) -> torch.Tensor:
+        """The rank's TP / EP piece of a whole leaf (the leaf itself
+        without a cut)."""
+        if self._tp is None:
+            return whole
+        return self._tp.shard(name, whole)
+
     def gather_params(self, state: TrainState) -> Dict[str, torch.Tensor]:
-        """A copy of the whole params (replicated in stages 0-2)."""
-        return {n: p.detach().clone() for n, p in state.params.items()}
+        """A copy of the whole params (replicated in stages 0-2; under TP
+        / EP the pieces joined)."""
+        return {n: self._tp_whole(n, p.detach()).clone()
+                for n, p in state.params.items()}
 
     @torch.no_grad()
     def load_params(self, state: TrainState,
                     params: Dict[str, torch.Tensor]) -> TrainState:
         """Overwrite the state's params with whole leaves (a checkpoint's,
         or the JAX package's through `convert.params_from_numpy`), in
-        place; ZeRO-3 keeps each rank's shards of them."""
+        place; ZeRO-3 keeps each rank's shards of them, TP / EP the
+        rank's pieces."""
         for n, p in state.params.items():
-            p.copy_(params[n])
+            p.copy_(self._piece(n, params[n]))
         return state
 
     @torch.no_grad()
@@ -1230,13 +1357,14 @@ class ZeroEngine:
         opt = self._resting_opt(state)
         if self.stage == 0:
             return {"step": opt["step"],
-                    "state": {n: {k: t.to(self.device, copy=True)
+                    "state": {n: {k: self._tp_whole(
+                        n, t.to(self.device, copy=True))
                                   for k, t in slots.items()}
                               for n, slots in opt["state"].items()}}
-        shapes = self.model.param_shapes()
+        shapes = self._shapes
         return {"step": opt["step"],
-                "state": {n: {k: self._gather(n, t.to(self.device))
-                              .reshape(shapes[n])
+                "state": {n: {k: self._tp_whole(n, self._gather(
+                    n, t.to(self.device)).reshape(shapes[n]))
                               for k, t in slots.items()}
                           for n, slots in opt["state"].items()}}
 
@@ -1313,8 +1441,11 @@ class SingleDevice(ZeroEngine):
                  evenness_priority: float = 0.0,
                  offload_opt_state: bool = False, offload_prefetch: int = 2,
                  telemetry=None, **knobs):
-        _refuse("SingleDevice", dict(_REFUSED, seq_parallel=1), knobs,
-                "multi-device knobs are")
+        splits = {k: knobs.pop(k) for k in list(knobs) if k in _SPLITS}
+        _refuse("SingleDevice", _REFUSED, knobs, _PIPELINE)
+        _refuse("SingleDevice", _SPLITS, splits,
+                "multi-device knobs need a distributed engine (DDP, Zero1, "
+                "Zero2, Zero3)")
         knob = _sched_knobs(grad_buckets, gather_prefetch, gather_groups,
                             hpz, grad_comm, grad_comm_groups,
                             grad_comm_block, grad_comm_error_feedback,
@@ -1323,6 +1454,8 @@ class SingleDevice(ZeroEngine):
                     loss_scale, loss_scale_growth_interval,
                     offload_opt_state, offload_prefetch, telemetry)
         self.pctx = None
+        self._tp = None
+        self._shapes = {n: tuple(s) for n, s in model.param_shapes().items()}
         self.n_shard = 1
         # one device: every slot is inert, with JAX's warning
         self._build_schedule(knob, hpz_granule_of)
@@ -1360,7 +1493,7 @@ class Zero3(ZeroEngine):
 
     def __init__(self, model, optimizer, *args, **kw):
         super().__init__(model, optimizer, *args, **kw)
-        self._z3 = Zero3Gather(model, self.pctx)
+        self._z3 = Zero3Gather(model, self.pctx, self._shapes)
         self.pctx = dataclasses.replace(self.pctx, gather=self._z3)
         self._exec = self._make_executor()
 
@@ -1394,15 +1527,17 @@ class Zero3(ZeroEngine):
             grad_residual=self._residual_of(grad_residual))
 
     def gather_params(self, state: TrainState) -> Dict[str, torch.Tensor]:
-        """The whole params, all-gathered from the data ranks' shards."""
-        return {n: self._z3.whole(n, p.detach())
+        """The whole params, all-gathered from the data ranks' shards
+        (and under TP / EP the pieces joined)."""
+        return {n: self._tp_whole(n, self._z3.whole(n, p.detach()))
                 for n, p in state.params.items()}
 
     @torch.no_grad()
     def gather_opt_state(self, state: TrainState) -> Dict[str, Any]:
         opt = self._resting_opt(state)
         return {"step": opt["step"],
-                "state": {n: {k: self._z3.whole(n, t.to(self.device))
+                "state": {n: {k: self._tp_whole(
+                    n, self._z3.whole(n, t.to(self.device)))
                               for k, t in slots.items()}
                           for n, slots in opt["state"].items()}}
 
@@ -1410,5 +1545,5 @@ class Zero3(ZeroEngine):
     def load_params(self, state: TrainState,
                     params: Dict[str, torch.Tensor]) -> TrainState:
         for n, p in state.params.items():
-            p.copy_(self._z3.shard(n, params[n].to(p)))
+            p.copy_(self._z3.shard(n, self._piece(n, params[n].to(p))))
         return state

@@ -643,14 +643,15 @@ class ProbeScan:
     stacking goes through its `prepare`, and each block gathers its own
     layer as without the probe."""
 
-    def __init__(self, probe: torch.Tensor, gather=None):
+    def __init__(self, probe: torch.Tensor, gather=None, pctx=None):
         self.probe = probe
         self.gather = gather
+        self.pctx = pctx
 
     def prepare(self, model, params):
         if self.gather is not None:
             return self.gather.prepare(params)
-        return params, model.stacked_compute_params(params)
+        return params, model.stacked_compute_params(params, self.pctx)
 
     def blocks(self, model, x, stacked, dkeys, pctx=None):
         block = model._block_fn()

@@ -53,6 +53,13 @@ gradients.  Here the same schedule is spelled out:
   `unperm`).  The gathered weights equal `GatherFn` / `GatherFp8Fn`'s
   bit for bit on every route: the pieces are moved, and the fp8 codes
   dequantized by the same elementwise product.
+
+Under tensor / expert parallelism (parallel/tensor.py) every leaf above
+is the rank's TP / EP piece (`Zero3Gather`'s `shapes`): the data shards,
+the gathers and the reduce-scatters work on the pieces over the data
+group.  The fp8 scale of a piece cut on a reduced axis (a row-parallel
+IN, an expert leaf's E) takes one more MAX, over that axis' group
+(`models.gpt2.channel_amax`): JAX's scale is over the whole leaf.
 """
 
 from __future__ import annotations
@@ -64,7 +71,7 @@ from typing import Dict, List, Tuple
 import torch
 import torch.distributed as dist
 
-from ..models.gpt2 import e4m3_round, fp8_scale
+from ..models.gpt2 import channel_amax, e4m3_round, fp8_scale
 
 _SUM, _MAX = dist.ReduceOp.SUM, dist.ReduceOp.MAX
 
@@ -163,14 +170,16 @@ class GatherFp8Fn(torch.autograd.Function):
 
 class Zero3Gather:
     """The rank's ZeRO-3 layout of `model`'s params under `pctx` and the
-    gathers the model's forward calls (`pctx.gather`)."""
+    gathers the model's forward calls (`pctx.gather`).  `shapes` are the
+    leaves the rank shards (default the model's whole ones; under TP /
+    EP the rank's pieces)."""
 
-    def __init__(self, model, pctx):
+    def __init__(self, model, pctx, shapes=None):
         self.model, self.pctx = model, pctx
         self.cd = model.config.compute_dtype
         d, r = pctx.data_size, pctx.data_rank
         self.leaves: Dict[str, Leaf] = {}
-        for name, shape in model.param_shapes().items():
+        for name, shape in (shapes or model.param_shapes()).items():
             shape = tuple(shape[1:]) if name.startswith("h.") else tuple(
                 shape)
             n = math.prod(shape)
@@ -220,7 +229,7 @@ class Zero3Gather:
         amax = v.new_zeros(self.n_layer, leaf.shape[-1]).scatter_reduce_(
             1, col, v.abs(), "amax")
         dist.all_reduce(amax, op=_MAX, group=self.pctx.data_group)
-        scale = fp8_scale(amax)
+        scale = fp8_scale(channel_amax(self.pctx, "h." + name, amax))
         codes = (v / torch.gather(scale, 1, col)).to(
             torch.float8_e4m3fn).view(torch.uint8)
         return codes, scale.view(self.n_layer, *[1] * (len(leaf.shape) - 1),

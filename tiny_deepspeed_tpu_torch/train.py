@@ -14,6 +14,10 @@
         --seq-parallel SP --seq-impl ulysses --dropout 0.1    (one line)
     torchrun ... -m tiny_deepspeed_tpu_torch.train --engine zero3
         --model gpt2-1.5b [--gather-quant fp8]                (one line)
+    torchrun ... -m tiny_deepspeed_tpu_torch.train --engine zero2
+        --tensor-parallel TP [--seq-parallel SP]              (one line)
+    torchrun ... -m tiny_deepspeed_tpu_torch.train --model moe-tiny
+        --engine ddp --expert-parallel EP [--tensor-parallel TP]
     torchrun ... -m tiny_deepspeed_tpu_torch.train --engine zero3
         --gather-prefetch 2 [--gather-groups M] [--grad-buckets K]
         [--sched gather_prefetch=2,grad_buckets=4,hpz]        (one line)
@@ -30,7 +34,7 @@ Counterpart of `examples/{single_device,ddp,zero1,zero2,zero3}/train.py`
 with the harness of `examples/common.py` (`parse_args` / `run`): the same
 flags, with the same names and defaults, for what the port supports
 (`--dropout`, `--fused-xent`, `--seq-parallel`, `--seq-impl`,
-`--gather-quant`,
+`--tensor-parallel`, `--expert-parallel`, `--gather-quant`,
 `--moe-dispatch`, the grad-comm codecs' `--grad-comm`,
 `--grad-comm-groups`, `--grad-comm-block`,
 `--no-grad-comm-error-feedback` and `--hpz-comm`, the collective
@@ -62,8 +66,9 @@ place of init and seeks the data stream to its sample offset (the
 indexed stream when the global batch changed), so the run continues the
 uninterrupted one's losses; the lr schedule continues from the restored
 optimizer step.  JAX's async writer, SIGTERM drain and telemetry-driven
-checkpoints are not ported (ROADMAP.md), nor are the harness's tensor,
-expert and pipeline parallelism flags: the engines refuse those knobs.
+checkpoints are not ported (ROADMAP.md).  `--pipeline-parallel` is
+accepted and handed to the engine, which refuses it by name (pipeline
+parallelism is the next slice of the port).
 
 Autotuning (`--autotune [CACHE.json]`, examples/common.py:274-280,
 :597-630): a `RuntimeAutoTuner` (autotuner/) is installed — loaded from
@@ -264,6 +269,9 @@ def parse_args(argv=None):
     p.add_argument("--engine", default="single", choices=sorted(ENGINES),
                    help="single device, or DDP / ZeRO-1 / ZeRO-2 / ZeRO-3 "
                         "over the torchrun world")
+    p.add_argument("--tensor-parallel", type=int, default=1, metavar="TP",
+                   help="Megatron-style intra-layer sharding over a 'model' "
+                        "mesh axis")
     p.add_argument("--seq-parallel", type=int, default=1, metavar="SP",
                    help="sequence/context parallelism over a 'seq' group "
                         "(ring attention or Ulysses); divides the world "
@@ -273,6 +281,12 @@ def parse_args(argv=None):
                         "rotate) or 'ulysses' (all-to-all head/sequence "
                         "reshard; n_head must divide by SP).  Inert at "
                         "--seq-parallel 1, as in JAX")
+    p.add_argument("--expert-parallel", type=int, default=1, metavar="EP",
+                   help="MoE expert sharding over an 'expert' mesh axis "
+                        "(use with the moe-* presets)")
+    p.add_argument("--pipeline-parallel", type=int, default=1, metavar="PP",
+                   help="GPipe microbatch pipeline over a 'pipe' mesh axis: "
+                        "not ported yet, the engines refuse PP > 1")
     p.add_argument("--save-every", type=int, default=0, metavar="N",
                    help="legacy alias of --checkpoint-every")
     p.add_argument("--save-dir", default="checkpoints", metavar="DIR",
@@ -409,12 +423,20 @@ def run(args):
               offload_prefetch=args.offload_prefetch, telemetry=telem)
     kw.update(sched_kw)
     device = args.device
+    splits = {"--seq-parallel": args.seq_parallel,
+              "--tensor-parallel": args.tensor_parallel,
+              "--expert-parallel": args.expert_parallel,
+              "--pipeline-parallel": args.pipeline_parallel}
     if args.engine == "single":
-        if args.seq_parallel != 1:
-            raise SystemExit("--seq-parallel needs a distributed --engine")
+        for flag, n in splits.items():
+            if n != 1:
+                raise SystemExit(f"{flag} needs a distributed --engine")
     else:
         device = init_distributed(args.device)
-        kw.update(seq_parallel=args.seq_parallel, seq_impl=args.seq_impl)
+        kw.update(seq_parallel=args.seq_parallel, seq_impl=args.seq_impl,
+                  tensor_parallel=args.tensor_parallel,
+                  expert_parallel=args.expert_parallel,
+                  pipeline_parallel=args.pipeline_parallel)
     model = build_model(_model_config(args), device=device)
     opt = AdamW(lr=_lr(args), weight_decay=args.weight_decay,
                 decay_exclude=tuple(

@@ -28,15 +28,22 @@ marker.
   a single process; across processes a rank retrying alone would leave
   the others in a barrier, so a multi-rank save fails fast (JAX
   :189-195) and the job's restart is the retry.
-- The sidecar holds the layout (engine, world, data and seq sizes) and
+- The sidecar holds the layout (engine, world, data, seq, model and
+  expert sizes) and
   whatever the caller adds (`train.py`: the model preset and the data
   offset — global batch, samples seen, indexed stream).
 - Load reads the rank's file with `torch.load(weights_only=True)` straight
   onto the engine's device, checks every name, shape and dtype against
   the engine's `state_target`, and builds the state with
   `engine.restore` — no init is drawn.  A checkpoint written at another
-  world size, by another engine or in another shard layout is refused:
-  elastic resume (JAX `resilience/elastic.py`) is not ported yet.
+  world size, by another engine or in another shard layout (another
+  data / seq / model / expert split) is refused: elastic resume (JAX
+  `resilience/elastic.py`) is not ported yet.
+- Under tensor / expert parallelism each rank saves its pieces of the
+  cut leaves (parallel/tensor.py) and the layout records the cuts
+  (`tp_plan`); `load_params` joins them back into JAX's logical layout,
+  GPT-2's fused qkv included, so serving and `generate` load a TP / EP
+  checkpoint whole.
 
 Fault injection: `set_io_hook(fn)` installs `fn(phase, path, attempt)`,
 called at "write" (before the payload) and "commit" (after it, before
@@ -56,10 +63,15 @@ from typing import Callable, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
+from ..parallel.tensor import cuts_from_plan, local_shape, unshard
+
 COMMIT_MARKER = "COMMITTED"
 META_FILE = "ckpt_meta.json"
 # the layout keys two states must share to load one into the other
-_LAYOUT_KEYS = ("engine", "stage", "world", "data_size", "seq_size")
+_LAYOUT_KEYS = ("engine", "stage", "world", "data_size", "seq_size",
+                "model_size", "expert_size")
+# keys a checkpoint from before the model and expert axes lacks: 1 there
+_SIZE_DEFAULTS = {"model_size": 1, "expert_size": 1}
 
 
 class CheckpointKilled(RuntimeError):
@@ -267,14 +279,19 @@ def _read(path: str, rank: int, device, retries: int, backoff: float,
         backoff=backoff)
 
 
+def _key(lay, k):
+    return lay.get(k, _SIZE_DEFAULTS.get(k))
+
+
 def _describe(lay) -> str:
     return (f"{lay['engine']} (ZeRO stage {lay['stage']}) at world "
             f"{lay['world']} (data {lay['data_size']} x seq "
-            f"{lay['seq_size']})")
+            f"{lay['seq_size']} x model {_key(lay, 'model_size')} x expert "
+            f"{_key(lay, 'expert_size')})")
 
 
 def _check_layout(path: str, saved, mine) -> None:
-    if any(saved.get(k) != mine[k] for k in _LAYOUT_KEYS):
+    if any(_key(saved, k) != mine[k] for k in _LAYOUT_KEYS):
         raise ValueError(
             f"checkpoint {path} was written by {_describe(saved)}; this "
             f"engine is {_describe(mine)}.  Loading into another world "
@@ -338,28 +355,52 @@ def load_checkpoint(directory: str, engine, step: Optional[int] = None, *,
 def load_params(directory: str, step: Optional[int] = None,
                 device="cpu") -> Dict[str, torch.Tensor]:
     """The whole params of a committed checkpoint written by any engine
-    (None: the latest step), on `device`: rank 0's under stages 0-2;
-    under ZeRO-3 every data rank's shards joined by the layout that wrote
-    them — block leaves `h.*` per layer, the others flat, data rank d
-    owning the d-th run of ceil(n / D) elements (parallel/zero3.py)."""
+    (None: the latest step), on `device`, in JAX's logical layout: rank
+    0's under stages 0-2; under ZeRO-3 every data rank's shards joined by
+    the layout that wrote them — block leaves `h.*` per layer, the others
+    flat, data rank d owning the d-th run of ceil(n / D) elements
+    (parallel/zero3.py).  Under tensor / expert parallelism the model and
+    expert ranks' pieces of each cut leaf are joined after (the layout's
+    `tp_plan`, `tensor.unshard`)."""
     step = _resolve_step(directory, step)
     path = _step_dir(directory, step)
     first = torch.load(_rank_file(path, 0), map_location=device,
                        weights_only=True)
     lay = first["layout"]
-    if lay["stage"] < 3:
-        return first["params"]
-    shapes = lay["shapes"]
-    # seq rank 0 of each data rank (rank = d * SP + s)
-    parts = [first["params"]] + [
-        torch.load(_rank_file(path, d * lay["seq_size"]),
-                   map_location=device, weights_only=True)["params"]
-        for d in range(1, lay["data_size"])]
+    sp, tp, ep = (lay["seq_size"], _key(lay, "model_size"),
+                  _key(lay, "expert_size"))
+    cuts = cuts_from_plan(lay.get("tp_plan"))
+    shapes = {n: tuple(s) for n, s in lay["shapes"].items()}
+    local = {n: local_shape(s, cuts.get(n, ())) for n, s in shapes.items()}
+    cache = {0: first["params"]}
+
+    def params_of(rank):
+        if rank not in cache:
+            cache[rank] = torch.load(_rank_file(path, rank),
+                                     map_location=device,
+                                     weights_only=True)["params"]
+        return cache[rank]
+
+    def piece(n, m, e):
+        """Leaf n's piece at model / expert rank (m, e), the data shards
+        joined: the seq-0 ranks (rank = ((d*SP + s)*TP + m)*EP + e)."""
+        ranks = [((d * sp) * tp + m) * ep + e
+                 for d in range(lay["data_size"] if lay["stage"] >= 3
+                                else 1)]
+        parts = [params_of(r)[n] for r in ranks]
+        if lay["stage"] < 3:
+            return parts[0]
+        flat = torch.cat(parts, dim=1 if n.startswith("h.") else 0)
+        return flat.reshape(local[n])
+
     out = {}
-    for n, shape in shapes.items():
-        if n.startswith("h."):
-            flat = torch.cat([p[n] for p in parts], dim=1)
-        else:
-            flat = torch.cat([p[n] for p in parts])
-        out[n] = flat.reshape(shape)
+    for n in shapes:
+        c = cuts.get(n, ())
+        if not c:
+            out[n] = piece(n, 0, 0)
+            continue
+        coords = [(m, e) for m in range(tp) for e in range(ep)]
+        out[n] = unshard({tuple({"model": m, "expert": e}[x.axis]
+                                for x in c): piece(n, m, e)
+                          for m, e in coords}, c)
     return out
